@@ -1,0 +1,46 @@
+"""Carry ``mxtpu`` weights into an ``mxtpu_torch`` model.
+
+``mxtpu`` gluon parameter names carry per-process counters
+(``dense0_weight``, ``fusedresiduallayernorm3_gamma``…), so names say
+nothing about which module a weight belongs to.  Weights are matched by
+order instead: ``mxtpu``'s ``collect_params()`` order (which is also
+the order of an exported ``.params`` file) against the model's
+``parameters()`` order, with every shape checked.  ``Dense`` weights
+are (out, in) on both sides, so nothing is transposed.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from .base import MXNetError
+
+__all__ = ["params_from_mxtpu"]
+
+
+def params_from_mxtpu(params: Dict[str, np.ndarray],
+                      model: nn.Module) -> nn.Module:
+    """Copy ``params`` (name → array in ``collect_params()`` order) into
+    ``model``'s parameters in place; raises on a count or shape
+    mismatch.  Returns the model."""
+    targets = list(model.named_parameters())
+    if len(params) != len(targets):
+        raise MXNetError(
+            f"params_from_mxtpu: {len(params)} mxtpu parameters for "
+            f"{len(targets)} model parameters")
+    staged = []
+    for (src_name, arr), (dst_name, p) in zip(params.items(), targets):
+        a = np.asarray(arr)
+        if tuple(a.shape) != tuple(p.shape):
+            raise MXNetError(
+                f"params_from_mxtpu: {src_name} has shape "
+                f"{tuple(a.shape)} but {dst_name} expects "
+                f"{tuple(p.shape)}")
+        staged.append((p, a))
+    with torch.no_grad():
+        for p, a in staged:
+            p.copy_(torch.tensor(a, dtype=p.dtype))
+    return model

@@ -1,0 +1,123 @@
+"""The gluon layers the BERT serving path needs, as ``nn.Module``s.
+
+Counterparts of ``mxtpu/gluon/nn/basic_layers.py``: same constructor
+arguments where they matter, same parameter shapes and the same
+registration order (what ``convert.params_from_mxtpu`` relies on).
+Shapes are explicit here — no deferred initialization — so each layer
+takes its input width.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...base import MXNetError
+from ...kernels import fused_residual_layer_norm, layer_norm
+
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm",
+           "FusedResidualLayerNorm", "HybridSequential", "gelu"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """gelu, tanh approximation (``ops_impl.py`` LeakyReLU
+    ``act_type="gelu"`` → ``jax.nn.gelu(approximate=True)``)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+class Dense(nn.Module):
+    """Fully connected layer on the last axis (``flatten=False``):
+    ``y = x @ W.T + b`` with ``W`` of shape (units, in_units)."""
+
+    def __init__(self, units: int, in_units: int, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(units, in_units))
+        nn.init.normal_(self.weight, std=0.02)
+        self.bias = nn.Parameter(torch.zeros(units)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.weight.t())
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+def _inference_only(layer: nn.Module, rate: float) -> None:
+    if layer.training and rate > 0.0:
+        raise MXNetError(
+            f"{type(layer).__name__}: dropout in training mode is not "
+            f"ported yet; call model.eval()")
+
+
+class Dropout(nn.Module):
+    """Dropout: the identity in eval mode, the only mode ported so
+    far."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self._rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _inference_only(self, self._rate)
+        return x
+
+
+class Embedding(nn.Module):
+    """Table lookup.  Token ids may arrive as floats (the serving wire
+    format) and are truncated to integers, as ``ops_impl.py``'s
+    ``Embedding`` does with ``astype(int32)``."""
+
+    def __init__(self, input_dim: int, output_dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(input_dim, output_dim))
+        nn.init.normal_(self.weight, std=0.02)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight[ids.to(torch.int64)]
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, on the LayerNorm kernel."""
+
+    def __init__(self, in_channels: int, epsilon: float = 1e-5):
+        super().__init__()
+        self._eps = epsilon
+        self.gamma = nn.Parameter(torch.ones(in_channels))
+        self.beta = nn.Parameter(torch.zeros(in_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.gamma, self.beta, self._eps)
+
+
+class FusedResidualLayerNorm(nn.Module):
+    """Transformer post-LN epilogue ``LN(residual + dropout(x + bias))``
+    on the fused kernel.  Owns the bias of the preceding projection
+    (build that ``Dense`` with ``use_bias=False``).  Call as
+    ``layer(x, residual)``.  Dropout is off in eval mode, the only
+    mode ported so far (the kernel itself takes a dropout key)."""
+
+    def __init__(self, in_channels: int, dropout: float = 0.1,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self._p = float(dropout)
+        self._eps = epsilon
+        self.bias = nn.Parameter(torch.zeros(in_channels))
+        self.gamma = nn.Parameter(torch.ones(in_channels))
+        self.beta = nn.Parameter(torch.zeros(in_channels))
+
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor) -> torch.Tensor:
+        _inference_only(self, self._p)
+        return fused_residual_layer_norm(
+            x, self.bias, residual, self.gamma, self.beta, None,
+            p=self._p, eps=self._eps, training=False)
+
+
+class HybridSequential(nn.Sequential):
+    """Sequential container (``HybridSequential``); ``add`` appends."""
+
+    def add(self, *blocks: nn.Module) -> None:
+        for b in blocks:
+            if not isinstance(b, nn.Module):
+                raise MXNetError(f"HybridSequential.add: {b!r} is not a "
+                                 f"module")
+            self.append(b)

@@ -1,0 +1,76 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Dispatch goes by tensor device, never by a knob: tensors on the CPU
+take the plain PyTorch version, tensors on a CUDA device launch the
+kernel, or the call raises (no fallback).  Each wrapper counts its
+launches in a plain integer beside it (``LAUNCHES`` of its module);
+:func:`launch_counts` reads them all and :func:`reset_launch_counts`
+sets them to 0.
+"""
+from __future__ import annotations
+
+import importlib
+import threading
+from typing import Dict
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["on_card", "bump", "launch_counts", "reset_launch_counts",
+           "flash_attention", "layer_norm", "fused_residual_layer_norm"]
+
+_count_lock = threading.Lock()
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """False when every tensor lies on the CPU, True when every one
+    lies on one CUDA device; anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise MXNetError(
+            f"kernel inputs on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors):
+            # the kernels are forward-only: a result with no gradient
+            # path would silently cut autograd
+            raise MXNetError("kernel inputs require grad, but the "
+                             "backward kernels are not ported yet")
+        return True
+    raise MXNetError(f"kernel inputs on unsupported device {dev}")
+
+
+def bump(module, attr: str = "LAUNCHES") -> None:
+    """Add one to the launch counter ``module.<attr>`` (server worker
+    threads launch concurrently, so the read-modify-write takes a
+    lock)."""
+    with _count_lock:
+        setattr(module, attr, getattr(module, attr) + 1)
+
+
+def _modules():
+    # by module path: the package re-exports functions of the same names
+    fa = importlib.import_module(__name__ + ".flash_attention")
+    ln = importlib.import_module(__name__ + ".layer_norm")
+    return {"flash_attention_fwd": (fa, "LAUNCHES"),
+            "layer_norm_fwd": (ln, "LAUNCHES"),
+            "fused_residual_ln_fwd": (ln, "FRLN_LAUNCHES")}
+
+
+def launch_counts() -> Dict[str, int]:
+    with _count_lock:
+        return {k: getattr(m, a) for k, (m, a) in _modules().items()}
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for m, a in _modules().values():
+            setattr(m, a, 0)
+
+
+from .flash_attention import flash_attention  # noqa: E402
+from .layer_norm import layer_norm, fused_residual_layer_norm  # noqa: E402

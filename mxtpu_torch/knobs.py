@@ -1,0 +1,84 @@
+"""Registry of the ``MXTPU_*`` environment knobs this package reads.
+
+Same names, types and defaults as ``mxtpu/knobs.py``, restricted to the
+knobs the ported serving path consumes.  :func:`get` reads
+``os.environ`` live, with the reference's ``MXNET_*`` spelling as a
+fallback.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, NamedTuple
+
+from .base import MXNetError
+
+__all__ = ["Knob", "register", "get"]
+
+_TRUTHY = {"1", "true", "yes", "on"}
+_FALSY = {"0", "false", "no", "off", ""}
+
+
+class Knob(NamedTuple):
+    name: str
+    default: Any
+    kind: str          # "bool" | "int" | "float" | "str"
+    doc: str
+    group: str
+
+
+_REGISTRY: Dict[str, Knob] = {}
+_MISSING = object()
+
+
+def register(name: str, default: Any, kind: str = "str", doc: str = "",
+             group: str = "misc") -> Knob:
+    if kind not in ("bool", "int", "float", "str"):
+        raise MXNetError(f"knob {name}: unknown kind {kind!r}")
+    if not name.startswith("MXTPU_"):
+        raise MXNetError(f"knob {name!r} must be MXTPU_-prefixed")
+    if name in _REGISTRY:
+        raise MXNetError(f"knob {name} registered twice")
+    knob = Knob(name, default, kind, doc, group)
+    _REGISTRY[name] = knob
+    return knob
+
+
+def _coerce(knob: Knob, raw: str) -> Any:
+    if knob.kind == "bool":
+        low = raw.strip().lower()
+        if low in _TRUTHY:
+            return True
+        if low in _FALSY:
+            return False
+        raise MXNetError(f"invalid boolean value {knob.name}={raw!r}")
+    if knob.kind == "int":
+        return int(raw)
+    if knob.kind == "float":
+        return float(raw)
+    return raw
+
+
+def get(name: str, default: Any = _MISSING) -> Any:
+    """Typed live read of a registered knob.  The environment always
+    wins; otherwise ``default`` (when given) overrides the registered
+    default."""
+    knob = _REGISTRY.get(name)
+    if knob is None:
+        raise MXNetError(f"unregistered knob {name!r}")
+    raw = os.environ.get(name)
+    if raw is None:
+        raw = os.environ.get("MXNET_" + name[len("MXTPU_"):])
+    if raw is None:
+        return knob.default if default is _MISSING else default
+    return _coerce(knob, raw)
+
+
+# -- serving -----------------------------------------------------------
+register("MXTPU_SERVING_MAX_BATCH", 32, "int",
+         "ModelRunner bucket-ladder cap (pow2 rungs up to this).",
+         "serving")
+register("MXTPU_SERVING_MAX_DELAY_US", 2000.0, "float",
+         "DynamicBatcher assembly window in microseconds.", "serving")
+register("MXTPU_SERVING_MAX_QUEUE", 0, "int",
+         "Bound on queued requests before ServerBusy shedding "
+         "(0/unset = 8x max batch).", "serving")

@@ -1,39 +1,59 @@
 """Drive mxtpu_torch on one NVIDIA GPU: build its kernels, hold each
-against its plain PyTorch version, and serve BERT-Large through
-InferenceServer → DynamicBatcher → ModelRunner.
+against its plain PyTorch version, serve BERT-Large through
+InferenceServer → DynamicBatcher → ModelRunner, and train BERT-Large
+with the ``bench_bert`` recipe (adam, bf16 compute, b32 x T128).
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each fatal on failure:
   1. build every kernel from ``mxtpu_torch/csrc`` (one nvcc per source,
      in parallel);
-  2. each kernel against its plain version on the card, at the serving
-     path's shapes (b=32, T=128, 16 heads of 64, C=1024), in f32 and
-     bf16; flash attention also causal at T=127 and Tq != Tk; the fused
-     epilogue at keep=0.9 with its dropout mask recovered from the
-     output and compared bit for bit; times of the kernel, the plain
-     version and one library call;
-  3. BERT-Large (24 layers, 1024 units, vocab 30522, f32 weights from a
-     numpy seed, carried in through ``params_from_mxtpu``) served to 4
-     client threads sending 128 requests of lengths 16-128; every
-     result checked, 0 requeues, launch counts read around the run;
-  4. one served batch of 8 x 128 against the same model and weights run
+  2. each forward kernel against its plain version on the card, at the
+     serving path's shapes (b=32, T=128, 16 heads of 64, C=1024), in
+     f32 and bf16; flash attention also causal at T=127 and Tq != Tk;
+     the fused epilogue at keep=0.9 with its dropout mask recovered
+     from the output and compared bit for bit; times of the kernel, the
+     plain version and one library call;
+  3. each backward kernel likewise (flash dq and dk/dv, LayerNorm, the
+     fused epilogue at keep=0.9 with dh's zeros equal to the dropped
+     set bit for bit), at the training shapes; times beside AD through
+     the plain attention; the raw forward wrappers must refuse inputs
+     that require grad;
+  4. a 2-layer full-width BERT (f32, dropout 0, b=4, T=128): the loss
+     and every parameter gradient on the card against the CPU plain
+     path, then three TrainStep steps on each side;
+  5. BERT-Large trained at full size: ``bert_large(max_length=128,
+     dropout=0.1)``, adam lr 1e-4, ``compute_dtype="bfloat16"``,
+     ``cast_batch=False``, (32, 128) token batches with y = x: 3
+     warm-up steps, then 3 timed windows of 10 steps (ms/step is their
+     median), the loss finite and falling, launch counts exactly
+     24/24/24/1/1/48/48 per step; tokens/s, ms/step, MFU, peak memory
+     and a per-family breakdown of one step;
+  6. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
+     through ``params_from_mxtpu``) served to 4 client threads sending
+     128 requests of lengths 16-128; every result checked, 0 requeues,
+     launch counts read around the run;
+  7. one served batch of 8 x 128 against the same model and weights run
      on the CPU (plain path).
 
-Tolerances: a result r passes against the plain p when
+Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
-order) and 2e-2 in bf16 (one bf16 rounding of the output); the served
-logits against the CPU: 1e-3 (24 layers of f32 GEMMs in another order).
+order) and 2e-2 in bf16 (one bf16 rounding of the output); the bf16
+flash gradients, whose typical size is about 0.1, are held at
+|r - p| <= 2e-2 * max(min(1, rms(p)), |p|) instead; the served
+logits against the CPU: 1e-3 (24 layers of f32 GEMMs in another order);
+the 2-layer train check: each gradient's relative L2 error 1e-4, the
+loss 1e-5 and the three step losses 1e-4 relative.
 
 Kernel times are device time per call (torch.profiler: the sum of the
 kernels a call launches), for the kernel, its plain version and the
 library call alike; the kernel's wall time per call (CUDA events over
 back-to-back calls, host launch cost included) is printed beside it.
 
-Output: the card's name and power limit, per-kernel lines, serving
-latency, a ``{"kernels": [...]}`` JSON line, and last the line
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-without CUDA or outside a checkout.  A full report goes to
+Output: the card's name and power limit, per-kernel lines, the training
+and serving numbers, a ``{"kernels": [...]}`` JSON line, and last the
+line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+result, without CUDA or outside a checkout.  A full report goes to
 ``mxtpu_torch/_build/chip_smoke_report.json``.
 """
 import json
@@ -48,9 +68,22 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+CARD = "cuda:0"   # every tensor and entry point of the run lives here
 VOCAB, UNITS, FFN, LAYERS, HEADS, MAXLEN = 30522, 1024, 4096, 24, 16, 512
 B, T, D = 32, 128, UNITS // HEADS
 N_REQUESTS, N_CLIENTS = 128, 4
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 3, 10, 3
+CHECK_LAYERS, CHECK_B = 2, 4
+GRAD_TOL, LOSS_TOL, STEP_TOL = 1e-4, 1e-5, 1e-4
+# kernel name in the profiler -> the launch counter it belongs to
+KERNEL_NAMES = {"flash_attention_fwd": "fa_fwd_kernel",
+                "flash_attention_bwd_dq": "fa_bwd_dq_kernel",
+                "flash_attention_bwd_dkv": "fa_bwd_dkv_kernel",
+                "layer_norm_fwd": "ln_fwd_kernel",
+                "layer_norm_bwd": "ln_bwd_kernel",
+                "fused_residual_ln_fwd": "frln_fwd_kernel",
+                "fused_residual_ln_bwd": "frln_bwd_kernel"}
+GEMM_WORDS = ("gemm", "cutlass", "sm90_xmma", "ampere", "nvjet", "cublas")
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -63,11 +96,20 @@ def fail(msg):
     sys.exit(1)
 
 
-def rel_err(got, want):
-    """max |got - want| / max(1, |want|) and max |got - want|."""
+def rel_err(got, want, floor=1.0):
+    """max |got - want| / max(floor, |want|) and max |got - want|."""
     g, w = got.double(), want.double()
     d = (g - w).abs()
-    return float((d / w.abs().clamp_min(1.0)).max()), float(d.max())
+    return float((d / w.abs().clamp_min(floor)).max()), float(d.max())
+
+
+def scale_floor(want, dtype):
+    """The floor of the relative error for a bf16 gradient whose typical
+    size is well under 1: its rms, so that the tolerance scales with
+    the tensor (never above 1, so never looser than max(1, |p|))."""
+    if dtype != "bfloat16":
+        return 1.0
+    return min(1.0, float(want.double().pow(2).mean().sqrt()))
 
 
 def time_ms(fn, iters=50, warmup=5):
@@ -90,24 +132,53 @@ def _device_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, iters=20, warmup=3, by_name=None):
     """Device time of one call of ``fn``: the sum of every kernel it
     launches, from torch.profiler over ``iters`` calls.  Unlike
     :func:`time_ms` it leaves out the host's launch cost, which for a
-    ~20 us kernel called from Python can exceed the kernel itself."""
+    ~20 us kernel called from Python can exceed the kernel itself.
+    With ``by_name`` (a list of kernel names) it returns the device ms
+    per call of each named kernel instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages())
+    # torch.profiler now and then returns a window without device
+    # events; take another window rather than fail the run on it
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = prof.key_averages()
+        total = sum(_device_us(e) for e in evts)
+        if total:
+            break
+        print(f"torch.profiler recorded no device time (window "
+              f"{attempt + 1} of 3)", file=sys.stderr, flush=True)
     if not total:
         fail("torch.profiler recorded no device time")
-    return total / iters / 1e3
+    if by_name is None:
+        return total / iters / 1e3
+    out = {n: sum(_device_us(e) for e in evts
+                  if re.search(rf"\b{n}\b", e.key)) / iters / 1e3
+           for n in by_name}
+    for n, ms in out.items():
+        if not ms:
+            fail(f"torch.profiler recorded no time for kernel {n}")
+    return out
+
+
+def family_of(key):
+    """The family of a profiled device kernel: one of the ported
+    kernels (whole-word match: "ln_fwd_kernel" is inside
+    "frln_fwd_kernel"), a GEMM, or other."""
+    for fam, name in KERNEL_NAMES.items():
+        if re.search(rf"\b{name}\b", key):
+            return fam
+    low = key.lower()
+    return "gemm" if any(w in low for w in GEMM_WORDS) else "other"
 
 
 def timed(kernel, plain, library=None):
@@ -130,14 +201,14 @@ class Checks:
         self.failed = []
         self.rows = []
 
-    def close(self, name, got, want, dtype):
-        rel, absmax = rel_err(got, want)
+    def close(self, name, got, want, dtype, floor=1.0):
+        rel, absmax = rel_err(got, want, floor)
         ok = rel <= TOL[dtype]
         self.rows.append({"check": name, "dtype": dtype,
                           "max_rel_err": rel, "max_abs_err": absmax,
-                          "tol": TOL[dtype], "ok": ok})
+                          "tol": TOL[dtype], "floor": floor, "ok": ok})
         print(f"check {name} [{dtype}]: max_abs_err={absmax:.3e} "
-              f"max_rel_err={rel:.3e} tol={TOL[dtype]} "
+              f"max_rel_err={rel:.3e} tol={TOL[dtype]} floor={floor:.3e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             self.failed.append(f"{name} [{dtype}]")
@@ -154,7 +225,7 @@ def kernel_phase(checks, gen):
     import importlib
     fa = importlib.import_module("mxtpu_torch.kernels.flash_attention")
     ln = importlib.import_module("mxtpu_torch.kernels.layer_norm")
-    dev = torch.device("cuda", 0)
+    dev = torch.device(CARD)
     R, C, BH = B * T, UNITS, B * HEADS
     scale = 1.0 / D ** 0.5
     out = {}
@@ -268,11 +339,465 @@ def kernel_phase(checks, gen):
 
 
 # ----------------------------------------------------------------------
-# phase 3/4: BERT-Large served
+# phase 3: backward kernels against their plain versions
 # ----------------------------------------------------------------------
 
-def mxtpu_params(seed):
-    """Random BERT-Large weights named and ordered as mxtpu's
+def backward_phase(checks, gen):
+    import torch
+    import torch.nn.functional as F
+    import importlib
+    fa = importlib.import_module("mxtpu_torch.kernels.flash_attention")
+    ln = importlib.import_module("mxtpu_torch.kernels.layer_norm")
+    dev = torch.device(CARD)
+    R, C, BH = B * T, UNITS, B * HEADS
+    scale = 1.0 / D ** 0.5
+    out = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def grads_of(fn, xs, dy):
+        """AD backward only: the forward runs once, the timed call is
+        torch.autograd.grad over the kept graph."""
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        y = fn(*xs)
+        return lambda: torch.autograd.grad(y, xs, dy, retain_graph=True)
+
+    # -- flash attention dq, dk/dv --------------------------------------
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        cases = ((False, T, T), (True, 127, 127), (True, 64, 127),
+                 (False, 127, 127))
+        for causal, tq, tk in cases:
+            q, do = (randn(BH, tq, D, dtype=dt) for _ in range(2))
+            k, v = (randn(BH, tk, D, dtype=dt) for _ in range(2))
+            o, lse = fa.flash_forward(q, k, v, causal, scale)
+            got = fa.flash_backward(q, k, v, do, o, lse, causal, scale)
+            want = fa.flash_backward_reference(q, k, v, do, o, lse,
+                                               causal, scale)
+            torch.cuda.synchronize()
+            tag = f"flash_backward causal={causal} Tq={tq} Tk={tk}"
+            errs = [checks.close(f"{tag} {g}", a, b, name,
+                                 scale_floor(b, name))
+                    for g, a, b in zip(("dq", "dk", "dv"), got, want)]
+            if not all(torch.isfinite(t).all() for t in got):
+                checks.failed.append(f"{tag} [{name}]: not finite")
+            if (causal, tq, tk) == (False, T, T):
+                full = (q, k, v, do, o, lse, errs)
+        q, k, v, do, o, lse, errs = full
+        q4, k4, v4, do4 = (t.reshape(B, HEADS, T, D) for t in (q, k, v, do))
+        el = q.element_size()
+        rows = 2 * BH * T * 4                       # lse and delta, f32
+        per = BH * T * D * el
+        kern = device_ms(lambda: fa.flash_backward(q, k, v, do, o, lse,
+                                                   False, scale),
+                         by_name=["fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"])
+        plain = device_ms(lambda: fa.flash_backward_reference(
+            q, k, v, do, o, lse, False, scale))
+        ad_plain = device_ms(grads_of(
+            lambda a, b_, c: fa.attention_reference(a, b_, c),
+            (q4, k4, v4), do4))
+        sdpa = device_ms(grads_of(F.scaled_dot_product_attention,
+                                  (q4, k4, v4), do4))
+        wall = time_ms(lambda: fa.flash_backward(q, k, v, do, o, lse, False,
+                                                 scale))
+        # dq reads q, k, v, dO and writes dq; dk/dv reads the four and
+        # writes dk, dv; both read lse and delta
+        for kname, pname, nt, ops, err in (
+                ("flash_attention_bwd_dq", "fa_bwd_dq_kernel", 5,
+                 6 * BH * T * T * D, errs[0]),
+                ("flash_attention_bwd_dkv", "fa_bwd_dkv_kernel", 6,
+                 8 * BH * T * T * D, max(errs[1:]))):
+            b_ms, b_by = bound(nt * per + rows, ops, name)
+            out[(kname, name)] = {
+                "max_abs_err": err, "ms": kern[pname], "plain_ms": plain,
+                "library_ms": sdpa, "ad_plain_ms": ad_plain,
+                "wall_ms": wall, "bound_ms": b_ms, "bound_by": b_by}
+
+    # -- LayerNorm ------------------------------------------------------
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        x, dy = randn(R, C, dtype=dt), randn(R, C, dtype=dt)
+        g = (1.0 + 0.1 * randn(C)).to(dt)
+        b = (0.1 * randn(C)).to(dt)
+        _, mean, rstd = ln.layer_norm_fwd(x, g, b)
+        got = ln.layer_norm_bwd(x, g, mean, rstd, dy)
+        want = ln.layer_norm_bwd_reference(x, g, mean, rstd, dy)
+        torch.cuda.synchronize()
+        errs = [checks.close(f"layer_norm_bwd R4096 C1024 {n}", a, w_, name)
+                for n, a, w_ in zip(("dx", "dgamma", "dbeta"), got, want)]
+        el = x.element_size()
+        nbytes = 3 * R * C * el + 3 * C * el + 2 * R * 4
+        b_ms, b_by = bound(nbytes, 12 * R * C, name)
+        out[("layer_norm_bwd", name)] = {
+            "max_abs_err": max(errs),
+            **timed(lambda: ln.layer_norm_bwd(x, g, mean, rstd, dy),
+                    lambda: ln.layer_norm_bwd_reference(x, g, mean, rstd,
+                                                        dy),
+                    grads_of(lambda a, c, d: F.layer_norm(a, (C,), c, d),
+                             (x, g, b), dy)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+    # -- fused residual LayerNorm, keep = 0.9 ----------------------------
+    key = (0x2545F491, 0x9E3779B9)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        h, res, dy = (randn(R, C, dtype=dt) for _ in range(3))
+        bias = (0.1 * randn(C)).to(dt)
+        g = (1.0 + 0.1 * randn(C)).to(dt)
+        b = (0.1 * randn(C)).to(dt)
+        _, mean, rstd = ln.fused_residual_ln_fwd(h, bias, res, g, b, key,
+                                                 0.1)
+        args = (h, bias, res, g, key, mean, rstd, dy, 0.9)
+        got = ln.fused_residual_ln_bwd(*args)
+        want = ln.fused_residual_ln_bwd_reference(*args)
+        torch.cuda.synchronize()
+        errs = [checks.close(f"fused_residual_ln_bwd keep=0.9 {n}", a, w_,
+                             name)
+                for n, a, w_ in zip(("dh", "dbias", "dres", "dgamma",
+                                     "dbeta"), got, want)]
+        el = h.element_size()
+        nbytes = 5 * R * C * el + 5 * C * el + 2 * R * 4
+        b_ms, b_by = bound(nbytes, 20 * R * C, name)
+        out[("fused_residual_ln_bwd", name)] = {
+            "max_abs_err": max(errs),
+            **timed(lambda: ln.fused_residual_ln_bwd(*args),
+                    lambda: ln.fused_residual_ln_bwd_reference(*args)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if dt == torch.float32:
+            dh_zero = got[0] == 0
+
+    # shapes the main path does not reach: other head dims (the kernels'
+    # column-count instantiations), an explicit diagonal offset, row
+    # counts off the 8-row blocks, C under 1024 (128 threads) and C past
+    # the 48 KB shared-memory opt-in
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for causal, tq, tk, d, delta in ((True, 100, 100, 32, None),
+                                         (False, 50, 77, 128, None),
+                                         (True, 65, 65, 96, 3),
+                                         (True, 40, 90, 64, -5)):
+            q, do = (randn(8, tq, d, dtype=dt) for _ in range(2))
+            k, v = (randn(8, tk, d, dtype=dt) for _ in range(2))
+            sc = 1.0 / d ** 0.5
+            o, lse = fa.flash_forward(q, k, v, causal, sc, delta)
+            got = fa.flash_backward(q, k, v, do, o, lse, causal, sc, delta)
+            want = fa.flash_backward_reference(q, k, v, do, o, lse, causal,
+                                               sc, delta)
+            torch.cuda.synchronize()
+            for g, a, b in zip(("dq", "dk", "dv"), got, want):
+                checks.close(f"flash_backward edge causal={causal} Tq={tq} "
+                             f"Tk={tk} D={d} delta={delta} {g}", a, b, name,
+                             scale_floor(b, name))
+        for r, c in ((1001, 768), (64, 4096), (3, 8192)):
+            x, dy, hh = (randn(r, c, dtype=dt) for _ in range(3))
+            g = (1.0 + 0.1 * randn(c)).to(dt)
+            b = (0.1 * randn(c)).to(dt)
+            _, mean, rstd = ln.layer_norm_fwd(x, g, b)
+            got = ln.layer_norm_bwd(x, g, mean, rstd, dy)
+            want = ln.layer_norm_bwd_reference(x, g, mean, rstd, dy)
+            _, fmean, frstd = ln.fused_residual_ln_fwd(hh, b, x, g, b, key,
+                                                       0.1)
+            args = (hh, b, x, g, key, fmean, frstd, dy, 0.9)
+            fgot = ln.fused_residual_ln_bwd(*args)
+            fwant = ln.fused_residual_ln_bwd_reference(*args)
+            torch.cuda.synchronize()
+            for g_, a, w_ in zip(("dx", "dgamma", "dbeta"), got, want):
+                checks.close(f"layer_norm_bwd edge R={r} C={c} {g_}", a, w_,
+                             name)
+            for g_, a, w_ in zip(("dh", "dbias", "dres", "dgamma", "dbeta"),
+                                 fgot, fwant):
+                checks.close(f"fused_residual_ln_bwd edge R={r} C={c} {g_}",
+                             a, w_, name)
+
+    # dh's zeros, bit for bit, against the dropped set of the forward
+    # kernel (recovered from its output as in phase 2) and the bits
+    ones = torch.ones(R, C, device=dev)
+    zc = torch.zeros(C, device=dev)
+    y, _, _ = ln.fused_residual_ln_fwd(ones, zc, torch.zeros_like(ones),
+                                       torch.ones(C, device=dev), zc, key,
+                                       0.1, 1e-5, True)
+    fwd_dropped = y <= 0
+    bits_dropped = ln.mask_bits(key[0], key[1], 0, R, C, device=dev) >= \
+        ln.keep_thresh(0.9)
+    mismatch = int((dh_zero != fwd_dropped).sum()) + \
+        int((dh_zero != bits_dropped).sum())
+    print(f"check fused_residual_ln_bwd keep=0.9 dh==0 vs the forward's "
+          f"dropped set: {mismatch} of {2 * R * C} bits differ (dropped "
+          f"share {float(bits_dropped.float().mean()):.4f}) "
+          f"{'ok' if mismatch == 0 else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "fused_residual_ln_bwd dh==0 mask bits",
+                        "mismatch": mismatch, "ok": mismatch == 0})
+    if mismatch:
+        checks.failed.append("fused_residual_ln_bwd dropout mask")
+    return out
+
+
+def refusal_phase(checks):
+    """The raw forward wrappers keep no graph: on the card they must
+    refuse inputs that require grad rather than cut autograd."""
+    import torch
+    import importlib
+    from mxtpu_torch import MXNetError
+    fa = importlib.import_module("mxtpu_torch.kernels.flash_attention")
+    ln = importlib.import_module("mxtpu_torch.kernels.layer_norm")
+    dev = torch.device(CARD)
+    q = torch.randn(2, 8, 16, device=dev, requires_grad=True)
+    x = torch.randn(4, 16, device=dev, requires_grad=True)
+    g = torch.ones(16, device=dev)
+    calls = {"flash_forward": lambda: fa.flash_forward(q, q, q, False, 0.25),
+             "layer_norm_fwd": lambda: ln.layer_norm_fwd(x, g, g),
+             "fused_residual_ln_fwd": lambda: ln.fused_residual_ln_fwd(
+                 x, g, x, g, g, (1, 2), 0.1)}
+    for name, call in calls.items():
+        try:
+            call()
+        except MXNetError as e:
+            ok = "require grad" in str(e)
+        else:
+            ok = False
+        print(f"check {name} refuses inputs that require grad: "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        checks.rows.append({"check": f"{name} refuses grad", "ok": ok})
+        if not ok:
+            checks.failed.append(f"{name} did not refuse grad inputs")
+
+
+# ----------------------------------------------------------------------
+# phases 4 and 5: training
+# ----------------------------------------------------------------------
+
+def mlm_loss(pred, y):
+    """``bench_bert``'s loss: softmax cross entropy over the vocabulary
+    at every position."""
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return SoftmaxCrossEntropyLoss()(pred.reshape(-1, VOCAB),
+                                     y.reshape(-1))
+
+
+def train_check_phase(checks):
+    """A 2-layer full-width BERT, f32, dropout 0: one forward and
+    backward, then three adam steps, on the card and on the CPU."""
+    from mxtpu_torch.convert import params_from_mxtpu
+    from mxtpu_torch.models import BERTModel
+    from mxtpu_torch.parallel import build_train_step
+
+    params = mxtpu_params(SEED + 3, CHECK_LAYERS, T)
+    toks = np.random.RandomState(SEED + 4).randint(
+        0, VOCAB, (CHECK_B, T)).astype(np.float32)
+
+    def step_on(device):
+        net = BERTModel(VOCAB, UNITS, FFN, CHECK_LAYERS, HEADS,
+                        max_length=T, dropout=0.0)
+        params_from_mxtpu(params, net)
+        return build_train_step(net, mlm_loss, "adam",
+                                {"learning_rate": 1e-4}, cast_batch=False,
+                                device=device)
+
+    t0 = time.perf_counter()
+    card, cpu = step_on(CARD), step_on("cpu")
+    lc, gc = card.forward_backward(toks, toks)
+    lp, gp = cpu.forward_backward(toks, toks)
+    worst = 0.0
+    for n, a, b in zip(card.param_names, gc, gp):
+        a, b = a.double().cpu(), b.double()
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-12))
+        worst = max(worst, rel)
+        if rel > GRAD_TOL:
+            checks.failed.append(f"train check: grad of {n} off by {rel:.3e}")
+    lrel = abs(float(lc) - float(lp)) / abs(float(lp))
+    ok = worst <= GRAD_TOL and lrel <= LOSS_TOL
+    print(f"check train 2-layer b{CHECK_B} T{T} f32 card vs CPU: loss "
+          f"{float(lc):.6f} vs {float(lp):.6f} (rel {lrel:.3e}, tol "
+          f"{LOSS_TOL}); worst gradient rel L2 {worst:.3e} over "
+          f"{len(gc)} parameters (tol {GRAD_TOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if lrel > LOSS_TOL:
+        checks.failed.append(f"train check: loss off by {lrel:.3e}")
+    card, cpu = step_on(CARD), step_on("cpu")
+    lcs = [float(card(toks, toks)) for _ in range(3)]
+    lps = [float(cpu(toks, toks)) for _ in range(3)]
+    srel = max(abs(a - b) / abs(b) for a, b in zip(lcs, lps))
+    sok = srel <= STEP_TOL
+    print(f"check train 2-layer three adam steps card vs CPU: {lcs} vs "
+          f"{lps} (max rel {srel:.3e}, tol {STEP_TOL}) "
+          f"{'ok' if sok else 'FAIL'}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not sok:
+        checks.failed.append(f"train check: step losses off by {srel:.3e}")
+    checks.rows.append({"check": "train 2-layer card vs CPU",
+                        "loss_rel": lrel, "worst_grad_rel": worst,
+                        "step_losses_card": lcs, "step_losses_cpu": lps,
+                        "step_rel": srel, "ok": ok and sok})
+
+
+def step_breakdown(step, x):
+    """One training step, ``step(x, x)``, run as its two public halves
+    in two profiled windows, forward and backward, then the optimizer
+    update: device ms by family (GEMM, each kernel, optimizer, other),
+    each window's wall and device-busy ms, and the device's idle share
+    of the two windows' wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    by = {k: 0.0 for k in (*KERNEL_NAMES, "gemm", "optimizer", "other")}
+    windows = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = step.forward_backward(x, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n = 0.0, 0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us:
+            by[family_of(evt.key)] += us / 1e3
+            busy += us / 1e3
+            n += evt.count
+    windows["forward_backward"] = {"wall_ms": wall * 1e3, "busy_ms": busy,
+                                   "kernels": n}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.update(grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evts = [e for e in prof.key_averages() if _device_us(e)]
+    by["optimizer"] = sum(_device_us(e) for e in evts) / 1e3
+    windows["optimizer"] = {"wall_ms": wall * 1e3,
+                            "busy_ms": by["optimizer"],
+                            "kernels": sum(e.count for e in evts)}
+    busy = sum(by.values())
+    wall_ms = sum(w["wall_ms"] for w in windows.values())
+    return {"device_ms_by_family": by, "device_busy_ms": busy,
+            "profiled_wall_ms": wall_ms, "windows": windows,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None}
+
+
+def train_phase(checks):
+    """BERT-Large trained with the bench_bert recipe; returns the launch
+    counts of the timed steps and the numbers."""
+    import torch
+    from mxtpu_torch import kernels, random as trandom
+    from mxtpu_torch.models import bert_large
+    from mxtpu_torch.parallel import build_train_step
+
+    def seeded_step():
+        """BERT-Large and its train step from fixed seeds: the weights,
+        and the dropout streams of ``mxtpu_torch.random``."""
+        torch.manual_seed(SEED)
+        trandom.seed(SEED)
+        with torch.device(CARD):
+            net = bert_large(vocab_size=VOCAB, max_length=T, dropout=0.1)
+        return build_train_step(net, mlm_loss, "adam",
+                                {"learning_rate": 1e-4},
+                                compute_dtype="bfloat16", cast_batch=False,
+                                device=CARD)
+
+    t0 = time.perf_counter()
+    step = seeded_step()
+    toks = torch.from_numpy(np.random.RandomState(SEED + 5).randint(
+        0, VOCAB, (B, T)).astype(np.float32)).to(CARD)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(toks, toks) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # TRAIN_WINDOWS timed windows of TRAIN_STEPS steps each: the host
+    # launches every kernel, so the step time varies with the host
+    kernels.reset_launch_counts()
+    window_ms = []
+    for _ in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        losses += [step(toks, toks) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    mem = step.memory_summary()
+    n_steps = TRAIN_STEPS * TRAIN_WINDOWS
+
+    ms_step = float(np.median(window_ms))
+    tokens = B * T
+    mm_params = LAYERS * (4 * UNITS * UNITS + 2 * UNITS * FFN) + \
+        VOCAB * UNITS
+    flops = 6 * mm_params * tokens + 12 * LAYERS * T * UNITS * tokens
+    mfu = flops / (ms_step / 1e3) / PEAK_OPS["bfloat16"]
+    for _ in range(3):  # another step when a window recorded nothing
+        breakdown = step_breakdown(step, toks)
+        if breakdown["device_idle_share"] is not None and \
+                breakdown["windows"]["optimizer"]["busy_ms"]:
+            break
+
+    # the same seeds again: every kernel sums in a fixed order, so the
+    # first steps' losses repeat bit for bit
+    del step
+    torch.cuda.empty_cache()
+    again = seeded_step()
+    repeat = [float(again(toks, toks)) for _ in range(TRAIN_WARMUP + 2)]
+    del again
+    torch.cuda.empty_cache()
+    same = repeat == losses[:len(repeat)]
+    print(f"check training repeats bit for bit from the same seeds over "
+          f"{len(repeat)} steps: {'ok' if same else 'FAIL'} ({repeat})",
+          flush=True)
+    if not same:
+        checks.failed.append("training does not repeat from the same seeds")
+
+    if not all(np.isfinite(losses)):
+        checks.failed.append(f"training losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        checks.failed.append(f"training loss did not fall: {losses}")
+    per_step = {"flash_attention_fwd": LAYERS,
+                "flash_attention_bwd_dq": LAYERS,
+                "flash_attention_bwd_dkv": LAYERS,
+                "layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                "fused_residual_ln_fwd": 2 * LAYERS,
+                "fused_residual_ln_bwd": 2 * LAYERS}
+    for name, per in per_step.items():
+        if counts[name] != per * n_steps:
+            checks.failed.append(
+                f"training: {name} launched {counts[name]} times in "
+                f"{n_steps} steps, want {per} per step")
+    by = breakdown["device_ms_by_family"]
+    print(f"training BERT-Large b{B} T{T} bf16 adam: losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    print(f"training: {ms_step:.3f} ms/step (median of {TRAIN_WINDOWS} "
+          f"windows of {TRAIN_STEPS} steps: "
+          f"{', '.join(f'{w:.3f}' for w in window_ms)}), "
+          f"{tokens / ms_step * 1e3:.1f} "
+          f"tokens/s, MFU {mfu:.4f} of {PEAK_OPS['bfloat16'] / 1e12:.0f} "
+          f"TFLOP/s bf16 ({flops / 1e12:.3f} TFLOP/step); peak memory "
+          f"{(mem['peak_bytes'] or 0) / 2**30:.3f} GiB; set-up and "
+          f"{TRAIN_WARMUP} warm-up steps {setup_s:.1f} s", flush=True)
+    print(f"training: launches in {n_steps} steps {json.dumps(counts)}",
+          flush=True)
+    if breakdown["device_idle_share"] is None:
+        checks.failed.append("torch.profiler recorded no device time in "
+                             "the training step")
+    else:
+        print("training step breakdown (device ms): " +
+              ", ".join(f"{k} {v:.3f}" for k, v in by.items()) +
+              f"; busy {breakdown['device_busy_ms']:.3f} of "
+              f"{breakdown['profiled_wall_ms']:.3f} ms wall, idle share "
+              f"{breakdown['device_idle_share']:.4f}; " +
+              "; ".join(f"{k}: {w['kernels']} kernels, busy "
+                        f"{w['busy_ms']:.3f} of {w['wall_ms']:.3f} ms wall"
+                        for k, w in breakdown["windows"].items()),
+              flush=True)
+    return counts, {"ms_per_step": ms_step, "window_ms_per_step": window_ms,
+                    "tokens_per_s": tokens / ms_step * 1e3,
+                    "flops_per_step": flops, "mfu": mfu,
+                    "memory": mem, "losses": losses, "steps": n_steps,
+                    "setup_s": setup_s, "breakdown": breakdown,
+                    "repeats_bit_for_bit": same}
+
+
+# ----------------------------------------------------------------------
+# phases 6 and 7: BERT-Large served
+# ----------------------------------------------------------------------
+
+def mxtpu_params(seed, layers=LAYERS, maxlen=MAXLEN):
+    """Random full-width BERT weights (``layers`` encoder layers, a
+    position table of ``maxlen``) named and ordered as mxtpu's
     ``collect_params()`` (and an exported ``.params`` file) has them."""
     rng = np.random.default_rng(seed)
     out = {}
@@ -286,12 +811,12 @@ def mxtpu_params(seed):
             a = 0.02 * rng.standard_normal(shape, dtype=np.float32)
         out[name] = a.astype(np.float32)
 
-    w("bertmodel0_pos_embed", (MAXLEN, UNITS), "weight")
+    w("bertmodel0_pos_embed", (maxlen, UNITS), "weight")
     w("embedding0_weight", (VOCAB, UNITS), "weight")
     w("embedding1_weight", (2, UNITS), "weight")
     w("layernorm0_gamma", (UNITS,), "gamma")
     w("layernorm0_beta", (UNITS,), "bias")
-    for i in range(LAYERS):
+    for i in range(layers):
         d, f = 4 * i, 2 * i
         w(f"dense{d}_weight", (3 * UNITS, UNITS), "weight")
         w(f"dense{d}_bias", (3 * UNITS,), "bias")
@@ -303,8 +828,8 @@ def mxtpu_params(seed):
             w(f"fusedresiduallayernorm{j}_bias", (UNITS,), "bias")
             w(f"fusedresiduallayernorm{j}_gamma", (UNITS,), "gamma")
             w(f"fusedresiduallayernorm{j}_beta", (UNITS,), "bias")
-    w(f"dense{4 * LAYERS}_weight", (VOCAB, UNITS), "weight")
-    w(f"dense{4 * LAYERS}_bias", (VOCAB,), "bias")
+    w(f"dense{4 * layers}_weight", (VOCAB, UNITS), "weight")
+    w(f"dense{4 * layers}_bias", (VOCAB,), "bias")
     return out
 
 
@@ -331,22 +856,13 @@ def forward_breakdown(runner):
         runner.run_raw(vals, bucket)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fams = {"flash_attention_fwd": "fa_fwd_kernel",
-            "layer_norm_fwd": "ln_fwd_kernel",
-            "fused_residual_ln_fwd": "frln_fwd_kernel"}
-    by = {k: 0.0 for k in (*fams, "gemm", "other")}
+    by = {k: 0.0 for k in ("flash_attention_fwd", "layer_norm_fwd",
+                           "fused_residual_ln_fwd", "gemm", "other")}
     for evt in prof.key_averages():
         us = _device_us(evt)
-        if not us:
-            continue
-        # whole-word match: "ln_fwd_kernel" is inside "frln_fwd_kernel"
-        key = next((f for f, k in fams.items()
-                    if re.search(rf"\b{k}\b", evt.key)), None)
-        if key is None:
-            low = evt.key.lower()
-            key = "gemm" if any(w in low for w in (
-                "gemm", "cutlass", "sm90_xmma", "ampere")) else "other"
-        by[key] += us / 1e3
+        if us:
+            fam = family_of(evt.key)
+            by[fam] = by.get(fam, 0.0) + us / 1e3
     busy = sum(by.values())
     out = {"forward_ms": fwd_ms, "logits_to_host_ms": d2h_ms,
            "profiled_wall_ms": wall_ms,
@@ -444,6 +960,11 @@ def serve_phase(checks, params):
         elif counts[name] != per * n_fwd:
             checks.failed.append(f"{name}: {counts[name]} launches for "
                                  f"{n_fwd} forwards, want {per} each")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "layer_norm_bwd", "fused_residual_ln_bwd"):
+        if counts[name]:
+            checks.failed.append(f"serving launched the backward kernel "
+                                 f"{name} {counts[name]} times")
     # one forward per batch: at least N/32 batches, at most N
     if not -(-N_REQUESTS // 32) <= n_fwd <= N_REQUESTS:
         checks.failed.append(f"{n_fwd} forwards for {N_REQUESTS} "
@@ -520,44 +1041,74 @@ def main():
           flush=True)
 
     checks = Checks()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
     timings = kernel_phase(checks, gen)
+    timings.update(backward_phase(checks, gen))
     for (name, dt), r in timings.items():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f}"
+        extra = f" ad_plain_ms={r['ad_plain_ms']:.4f} (AD through the " \
+            f"plain attention)" if "ad_plain_ms" in r else ""
         print(f"time {name} [{dt}] (device ms per call): "
               f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={lib} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']}); kernel wall_ms={r['wall_ms']:.4f} "
-              f"(events, host launch included)", flush=True)
+              f"({r['bound_by']}){extra}; kernel wall_ms="
+              f"{r['wall_ms']:.4f} (events, host launch included)",
+              flush=True)
+    refusal_phase(checks)
+
+    train_check_phase(checks)
+    train_counts, training = train_phase(checks)
 
     t0 = time.perf_counter()
     params = mxtpu_params(SEED)
     print(f"weights: {len(params)} arrays from numpy seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    counts, serving = serve_phase(checks, params)
+    serve_counts, serving = serve_phase(checks, params)
+    counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
 
+    # forward kernels at the serving path's type (f32), backward kernels
+    # at the training path's (bf16)
     meta = {
         "flash_attention_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
-                                "mxtpu/kernels/flash_attention.py:192"),
+                                "mxtpu/kernels/flash_attention.py:192",
+                                "float32"),
+        "flash_attention_bwd_dq": (
+            "mxtpu_torch/csrc/flash_attention_bwd.cu",
+            "mxtpu/kernels/flash_attention.py:347", "bfloat16"),
+        "flash_attention_bwd_dkv": (
+            "mxtpu_torch/csrc/flash_attention_bwd.cu",
+            "mxtpu/kernels/flash_attention.py:368", "bfloat16"),
         "layer_norm_fwd": ("mxtpu_torch/csrc/layer_norm.cu",
-                           "mxtpu/kernels/layer_norm.py:104"),
+                           "mxtpu/kernels/layer_norm.py:104", "float32"),
+        "layer_norm_bwd": ("mxtpu_torch/csrc/layer_norm_bwd.cu",
+                           "mxtpu/kernels/layer_norm.py:137", "bfloat16"),
         "fused_residual_ln_fwd": ("mxtpu_torch/csrc/fused_residual_ln.cu",
-                                  "mxtpu/kernels/layer_norm.py:355"),
+                                  "mxtpu/kernels/layer_norm.py:355",
+                                  "float32"),
+        "fused_residual_ln_bwd": (
+            "mxtpu_torch/csrc/fused_residual_ln_bwd.cu",
+            "mxtpu/kernels/layer_norm.py:384", "bfloat16"),
     }
+    for name in meta:
+        if counts[name] == 0:
+            checks.failed.append(f"kernel {name} never launched on a main "
+                                 f"path")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name],
-         **{k: timings[(name, "float32")][k]
+         "dtype": dt, "launches": counts[name],
+         **{k: timings[(name, dt)][k]
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")}}
-        for name, (src, rep) in meta.items()]}
+        for name, (src, rep, dt) in meta.items()]}
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
               "timings": {f"{n}[{d}]": r for (n, d), r in timings.items()},
-              "launches": counts, "serving": serving, "kernels": line,
+              "launches": {"training": train_counts,
+                           "serving": serve_counts},
+              "training": training, "serving": serving, "kernels": line,
               "failed": checks.failed}
     out_dir = ROOT / "mxtpu_torch" / "_build"
     out_dir.mkdir(exist_ok=True)

@@ -1,4 +1,4 @@
-"""Carry ``mxtpu`` weights into an ``mxtpu_torch`` model.
+"""Carry weights between ``mxtpu`` and an ``mxtpu_torch`` model.
 
 ``mxtpu`` gluon parameter names carry per-process counters
 (``dense0_weight``, ``fusedresiduallayernorm3_gamma``…), so names say
@@ -10,7 +10,7 @@ are (out, in) on both sides, so nothing is transposed.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,7 +18,7 @@ from torch import nn
 
 from .base import MXNetError
 
-__all__ = ["params_from_mxtpu"]
+__all__ = ["params_from_mxtpu", "params_to_mxtpu"]
 
 
 def params_from_mxtpu(params: Dict[str, np.ndarray],
@@ -44,3 +44,22 @@ def params_from_mxtpu(params: Dict[str, np.ndarray],
         for p, a in staged:
             p.copy_(torch.tensor(a, dtype=p.dtype))
     return model
+
+
+def params_to_mxtpu(model: nn.Module,
+                    names: Optional[Sequence[str]] = None
+                    ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_mxtpu`: ``model``'s parameters
+    as f32 numpy arrays in ``collect_params()`` order, keyed by
+    ``names`` (mxtpu's names, in that order) or else by the model's own
+    parameter names."""
+    targets = list(model.named_parameters())
+    if names is None:
+        names = [n for n, _ in targets]
+    names = list(names)
+    if len(names) != len(targets):
+        raise MXNetError(
+            f"params_to_mxtpu: {len(names)} names for {len(targets)} "
+            f"model parameters")
+    return {n: p.detach().float().cpu().numpy()
+            for n, (_, p) in zip(names, targets)}

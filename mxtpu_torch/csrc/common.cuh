@@ -1,5 +1,5 @@
-// Shared helpers of the mxtpu_torch kernels: dtype conversion and
-// warp/block reductions.  Each kernel source is compiled on its own
+// Shared helpers of the mxtpu_torch kernels: dtype conversion,
+// warp/block reductions and the dropout mask's threefry2x32.  Each kernel source is compiled on its own
 // with nvcc (plain C interface, loaded with ctypes).
 #pragma once
 
@@ -59,4 +59,30 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   const int nw = blockDim.x >> 5;
   for (int i = 0; i < nw; ++i) t += red[i];
   return t;
+}
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds, second counter word 0: returns the first
+// output word, as mxtpu's _mask_bits does.
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t ctr) {
+  const uint32_t ks[3] = {k0, k1, 0x1BD11BDAu ^ k0 ^ k1};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = ctr + ks[0];
+  uint32_t x1 = ks[1];
+#pragma unroll
+  for (int grp = 0; grp < 5; ++grp) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[grp & 1][i]);
+      x1 ^= x0;
+    }
+    x0 += ks[(grp + 1) % 3];
+    x1 += ks[(grp + 2) % 3] + (uint32_t)(grp + 1);
+  }
+  return x0;
 }

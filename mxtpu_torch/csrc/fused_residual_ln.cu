@@ -20,32 +20,6 @@
 // under the integer rate at these sizes.
 #include "common.cuh"
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds, second counter word 0: returns the first
-// output word, as mxtpu's _mask_bits does.
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t ctr) {
-  const uint32_t ks[3] = {k0, k1, 0x1BD11BDAu ^ k0 ^ k1};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = ctr + ks[0];
-  uint32_t x1 = ks[1];
-#pragma unroll
-  for (int grp = 0; grp < 5; ++grp) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[grp & 1][i]);
-      x1 ^= x0;
-    }
-    x0 += ks[(grp + 1) % 3];
-    x1 += ks[(grp + 2) % 3] + (uint32_t)(grp + 1);
-  }
-  return x0;
-}
-
 template <typename T>
 __global__ void frln_fwd_kernel(const T* __restrict__ h,
                                 const T* __restrict__ bias,

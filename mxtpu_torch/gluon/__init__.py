@@ -1,2 +1,3 @@
-"""Gluon layers on PyTorch modules (``mxtpu.gluon`` counterpart)."""
-from . import nn  # noqa: F401
+"""Gluon layers and losses on PyTorch modules (``mxtpu.gluon``
+counterpart)."""
+from . import loss, nn  # noqa: F401

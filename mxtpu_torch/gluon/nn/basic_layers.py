@@ -1,16 +1,19 @@
-"""The gluon layers the BERT serving path needs, as ``nn.Module``s.
+"""The gluon layers BERT needs, as ``nn.Module``s.
 
 Counterparts of ``mxtpu/gluon/nn/basic_layers.py``: same constructor
 arguments where they matter, same parameter shapes and the same
 registration order (what ``convert.params_from_mxtpu`` relies on).
 Shapes are explicit here — no deferred initialization — so each layer
-takes its input width.
+takes its input width.  Training mode is the module's ``training``
+flag (the JAX package's ``autograd.record(train_mode=True)``): dropout
+draws from the device's generator in :mod:`mxtpu_torch.random`.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ... import random as _random
 from ...base import MXNetError
 from ...kernels import fused_residual_layer_norm, layer_norm
 
@@ -41,24 +44,23 @@ class Dense(nn.Module):
         return y
 
 
-def _inference_only(layer: nn.Module, rate: float) -> None:
-    if layer.training and rate > 0.0:
-        raise MXNetError(
-            f"{type(layer).__name__}: dropout in training mode is not "
-            f"ported yet; call model.eval()")
-
-
 class Dropout(nn.Module):
-    """Dropout: the identity in eval mode, the only mode ported so
-    far."""
+    """Dropout: in training mode each element is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)`` (``ops_impl.py``
+    ``_dropout``), the mask drawn from ``random.generator(x.device)``;
+    the identity in eval mode."""
 
     def __init__(self, rate: float):
         super().__init__()
         self._rate = float(rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _inference_only(self, self._rate)
-        return x
+        if not self.training or self._rate <= 0.0:
+            return x
+        keep = 1.0 - self._rate
+        u = torch.rand(x.shape, generator=_random.generator(x.device),
+                       device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class Embedding(nn.Module):
@@ -92,8 +94,9 @@ class FusedResidualLayerNorm(nn.Module):
     """Transformer post-LN epilogue ``LN(residual + dropout(x + bias))``
     on the fused kernel.  Owns the bias of the preceding projection
     (build that ``Dense`` with ``use_bias=False``).  Call as
-    ``layer(x, residual)``.  Dropout is off in eval mode, the only
-    mode ported so far (the kernel itself takes a dropout key)."""
+    ``layer(x, residual)``.  In training mode each call draws two
+    threefry key words from ``random.key_words(x.device)``; in eval
+    mode dropout is off."""
 
     def __init__(self, in_channels: int, dropout: float = 0.1,
                  epsilon: float = 1e-5):
@@ -106,10 +109,11 @@ class FusedResidualLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 residual: torch.Tensor) -> torch.Tensor:
-        _inference_only(self, self._p)
+        training = self.training and self._p > 0.0
+        key = _random.key_words(x.device) if training else None
         return fused_residual_layer_norm(
-            x, self.bias, residual, self.gamma, self.beta, None,
-            p=self._p, eps=self._eps, training=False)
+            x, self.bias, residual, self.gamma, self.beta, key,
+            p=self._p, eps=self._eps, training=training)
 
 
 class HybridSequential(nn.Sequential):

@@ -3,9 +3,16 @@
 Dispatch goes by tensor device, never by a knob: tensors on the CPU
 take the plain PyTorch version, tensors on a CUDA device launch the
 kernel, or the call raises (no fallback).  Each wrapper counts its
-launches in a plain integer beside it (``LAUNCHES`` of its module);
-:func:`launch_counts` reads them all and :func:`reset_launch_counts`
-sets them to 0.
+launches in a plain integer beside it (``LAUNCHES`` and the like of its
+module); :func:`launch_counts` reads them all and
+:func:`reset_launch_counts` sets them to 0.
+
+The public functions (``flash_attention``, ``layer_norm``,
+``fused_residual_layer_norm``) run through ``torch.autograd.Function``s
+whose backward is the backward kernel.  The raw forward wrappers
+(``flash_forward``, ``layer_norm_fwd``, ``fused_residual_ln_fwd``) keep
+no graph, so on the card they refuse inputs that require grad
+(:func:`refuse_grad`) rather than cut autograd silently.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["on_card", "bump", "launch_counts", "reset_launch_counts",
+__all__ = ["on_card", "refuse_grad", "bump", "launch_counts",
+           "reset_launch_counts",
            "flash_attention", "layer_norm", "fused_residual_layer_norm"]
 
 _count_lock = threading.Lock()
@@ -34,14 +42,19 @@ def on_card(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     if dev.type == "cuda":
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in tensors):
-            # the kernels are forward-only: a result with no gradient
-            # path would silently cut autograd
-            raise MXNetError("kernel inputs require grad, but the "
-                             "backward kernels are not ported yet")
         return True
     raise MXNetError(f"kernel inputs on unsupported device {dev}")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad is on and an input of a raw forward wrapper
+    requires it: the launch records no graph, so its result would cut
+    autograd.  Inside an autograd Function's forward grad is off, so
+    the public functions pass."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise MXNetError(
+            f"{what}: inputs require grad; call the public function, "
+            f"whose autograd Function runs the backward kernel")
 
 
 def bump(module, attr: str = "LAUNCHES") -> None:
@@ -57,8 +70,12 @@ def _modules():
     fa = importlib.import_module(__name__ + ".flash_attention")
     ln = importlib.import_module(__name__ + ".layer_norm")
     return {"flash_attention_fwd": (fa, "LAUNCHES"),
+            "flash_attention_bwd_dq": (fa, "DQ_LAUNCHES"),
+            "flash_attention_bwd_dkv": (fa, "DKV_LAUNCHES"),
             "layer_norm_fwd": (ln, "LAUNCHES"),
-            "fused_residual_ln_fwd": (ln, "FRLN_LAUNCHES")}
+            "layer_norm_bwd": (ln, "BWD_LAUNCHES"),
+            "fused_residual_ln_fwd": (ln, "FRLN_LAUNCHES"),
+            "fused_residual_ln_bwd": (ln, "FRLN_BWD_LAUNCHES")}
 
 
 def launch_counts() -> Dict[str, int]:

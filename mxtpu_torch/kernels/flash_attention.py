@@ -1,21 +1,37 @@
-"""Flash attention forward: CUDA ``csrc/flash_attention.cu`` beside its
-plain PyTorch version and its launch counter.
+"""Flash attention, forward and backward: CUDA ``csrc/flash_attention.cu``
+(forward) and ``csrc/flash_attention_bwd.cu`` (dq and dk/dv), each
+beside its plain PyTorch version and its launch counter.
 
-Replaces ``mxtpu/kernels/flash_attention.py:_fa_kernel`` (launched by
-``_flash_forward``): blockwise attention with an online softmax whose
-running max, normalizer and accumulator stay f32, emitting O and the
-per-row logsumexp.  The TPU kernel carries those across a sequential
-grid axis in VMEM scratch; on Hopper one CTA owns a tile of query rows
-of one (batch, head) and loops over the kv tiles itself.  Keys past
-the sequence end are masked inside the kernel, so every length runs
-on the card without ``_padded_flash``'s pad-to-8.  A head dim above
-``MAX_HEAD_DIM`` raises on CUDA (the JAX package's D > 512 reference
-fallback has no counterpart on the card).
+Forward — replaces ``mxtpu/kernels/flash_attention.py:_fa_kernel``
+(launched by ``_flash_forward``): blockwise attention with an online
+softmax whose running max, normalizer and accumulator stay f32,
+emitting O and the per-row logsumexp.  The TPU kernel carries those
+across a sequential grid axis in VMEM scratch; on Hopper one CTA owns
+a tile of query rows of one (batch, head) and loops over the kv tiles
+itself.  Keys past the sequence end are masked inside the kernel, so
+every length runs on the card without ``_padded_flash``'s pad-to-8.  A
+head dim above ``MAX_HEAD_DIM`` raises on CUDA (the JAX package's
+D > 512 reference fallback has no counterpart on the card).
 
-Bound on the H100 at the serving shape (b*16 heads, T = 128, D = 64,
-f32): operations.  4*BH*T*T*D flops at the f32 CUDA-core rate (no TF32)
-outweigh 4*BH*T*D*4 bytes at 3.35 TB/s.  The first version does its
-products as scalar FMAs over shared-memory tiles.
+Backward — replaces ``_fa_dq_kernel`` and ``_fa_dkv_kernel`` (launched
+by ``_flash_backward``): p is recomputed from q, k and the saved lse,
+``ds = p * (dp - delta) * scale`` with ``delta = rowsum(dO * O)`` taken
+outside the kernels in f32, then dq (one CTA per query tile, kv loop
+inside) and dk/dv (one CTA per kv tile, q loop inside): two kernels,
+so neither needs atomics and both are deterministic.  All backward
+math is f32, for bf16 inputs too; outputs take the input type.  On the
+card the backward is always these kernels: the JAX package's ``auto``
+mode (AD through the reference below T = 1024, a threshold measured
+on a TPU) has no counterpart, and ``chip_smoke.py`` times AD through
+the plain version beside the kernels.
+
+Bounds on the H100.  Forward at the serving shape (b*16 heads, T = 128,
+D = 64, f32): operations — 4*BH*T*T*D flops at the f32 CUDA-core rate
+(no TF32) outweigh 4*BH*T*D*4 bytes at 3.35 TB/s.  Backward at the
+training shape (BH = 512, T = 128, D = 64): 14*BH*T*T*D flops bound it
+in f32; in bf16, against the tensor-core rate, the bytes of q, k, v,
+dO, dq, dk, dv, lse and delta do.  The first versions do their products
+as scalar FMAs over shared-memory tiles.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or the call raises.
@@ -29,22 +45,28 @@ from typing import Optional, Tuple
 import torch
 
 from ..base import MXNetError
-from . import _build, bump, on_card
+from . import _build, bump, on_card, refuse_grad
 
 __all__ = ["flash_attention", "flash_forward", "flash_forward_reference",
-           "attention_reference", "MAX_HEAD_DIM", "LAUNCHES"]
+           "flash_backward", "flash_backward_reference",
+           "attention_reference", "MAX_HEAD_DIM", "LAUNCHES",
+           "DQ_LAUNCHES", "DKV_LAUNCHES"]
 
-# launches of the kernel (kernels.launch_counts reads it)
+# launches of each kernel (kernels.launch_counts reads them)
 LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 _SELF = sys.modules[__name__]
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
-_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, _P]
+_I = ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I,
+         _P]
+_DQ_ARGS = [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
+_DKV_ARGS = [_P] * 8 + [_I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
 
 
 def flash_forward_reference(q3, k3, v3, causal: bool, sm_scale: float,
@@ -86,6 +108,28 @@ def attention_reference(q, k, v, causal=False, sm_scale=None):
     return o.reshape(B, H, Tq, D)
 
 
+def _check_qkv(q3, k3, v3, *more):
+    """What the kernels take: q (BH, Tq, D), k/v (BH, Tk, D), plus any
+    (BH, Tq, D) tensors in ``more``, all contiguous, float32 or
+    bfloat16 alike, D within MAX_HEAD_DIM."""
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
+    ts = (q3, k3, v3) + more
+    if q3.dtype not in _DTYPES or any(t.dtype != q3.dtype for t in ts):
+        raise MXNetError(f"flash_attention: inputs must share float32 or "
+                         f"bfloat16, got {[t.dtype for t in ts]}")
+    if D > MAX_HEAD_DIM:
+        raise MXNetError(f"flash_attention: head dim {D} exceeds the "
+                         f"kernel bound {MAX_HEAD_DIM}")
+    if k3.shape != (BH, Tk, D) or v3.shape != (BH, Tk, D) or \
+            any(t.shape != q3.shape for t in more):
+        raise MXNetError(f"flash_attention: shapes "
+                         f"{[tuple(t.shape) for t in ts]} do not match "
+                         f"q {tuple(q3.shape)}")
+    if not all(t.is_contiguous() for t in ts):
+        raise MXNetError("flash_attention: inputs must be contiguous")
+
+
 def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                   causal: bool, sm_scale: float,
                   delta: Optional[int] = None
@@ -94,22 +138,10 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     version on CPU tensors."""
     if not on_card(q3, k3, v3):
         return flash_forward_reference(q3, k3, v3, causal, sm_scale, delta)
+    refuse_grad("flash_forward", q3, k3, v3)
+    _check_qkv(q3, k3, v3)
     BH, Tq, D = q3.shape
     Tk = k3.shape[1]
-    if q3.dtype not in _DTYPES or k3.dtype != q3.dtype or \
-            v3.dtype != q3.dtype:
-        raise MXNetError(f"flash_attention: q/k/v must share float32 or "
-                         f"bfloat16, got {q3.dtype}/{k3.dtype}/{v3.dtype}")
-    if D > MAX_HEAD_DIM:
-        raise MXNetError(f"flash_attention: head dim {D} exceeds the "
-                         f"kernel bound {MAX_HEAD_DIM}")
-    if k3.shape != (BH, Tk, D) or v3.shape != (BH, Tk, D):
-        raise MXNetError(f"flash_attention: k/v shapes {tuple(k3.shape)}/"
-                         f"{tuple(v3.shape)} do not match q "
-                         f"{tuple(q3.shape)}")
-    if not (q3.is_contiguous() and k3.is_contiguous()
-            and v3.is_contiguous()):
-        raise MXNetError("flash_attention: q/k/v must be contiguous")
     o = torch.empty_like(q3)
     lse = torch.empty(BH, Tq, dtype=torch.float32, device=q3.device)
     if BH * Tq == 0:
@@ -125,11 +157,104 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     return o, lse
 
 
+def flash_backward_reference(q3, k3, v3, do3, o3, lse, causal: bool,
+                             sm_scale: float, delta: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain PyTorch backward over (BH, T, D) with the kernels'
+    conventions (``_recompute_p``, ``_fa_dq_kernel``,
+    ``_fa_dkv_kernel``): p = exp(s - lse) recomputed in f32 with the
+    causal mask j <= i + delta, ds = p * (dp - rowsum(dO * O)) * scale,
+    every product in f32; returns (dq, dk, dv) in the inputs' types."""
+    Tq, Tk = q3.shape[1], k3.shape[1]
+    d = Tk - Tq if delta is None else delta
+    qf, kf, vf, dof = (t.float() for t in (q3, k3, v3, do3))
+    s = torch.matmul(qf, kf.transpose(1, 2)) * sm_scale
+    if causal:
+        row = torch.arange(Tq, device=q3.device)[:, None] + d
+        col = torch.arange(Tk, device=q3.device)[None, :]
+        s = torch.where(col <= row, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.matmul(dof, vf.transpose(1, 2))
+    ds = p * (dp - _delta_rows(do3, o3)[..., None]) * sm_scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(1, 2), qf)
+    dv = torch.matmul(p.transpose(1, 2), dof)
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def _delta_rows(do3, o3) -> torch.Tensor:
+    # delta_i = rowsum(dO * O) in f32: the softmax Jacobian's diagonal
+    # term, outside the kernels as in the reference (:440-441)
+    return (do3.float() * o3.float()).sum(dim=-1)
+
+
+def flash_backward(q3, k3, v3, do3, o3, lse, causal: bool,
+                   sm_scale: float, delta: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention over (BH, T, D) from the forward's O
+    and lse: the dq and dk/dv kernels on CUDA tensors, the plain
+    version on CPU tensors."""
+    if not on_card(q3, k3, v3, do3, o3, lse):
+        return flash_backward_reference(q3, k3, v3, do3, o3, lse, causal,
+                                        sm_scale, delta)
+    _check_qkv(q3, k3, v3, do3, o3)
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
+    if lse.shape != (BH, Tq) or lse.dtype != torch.float32:
+        raise MXNetError(f"flash_backward: lse must be ({BH}, {Tq}) "
+                         f"float32, got {tuple(lse.shape)} {lse.dtype}")
+    lse = lse.contiguous()
+    rows = _delta_rows(do3, o3)
+    dq = torch.empty_like(q3)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    if BH * Tq == 0 or Tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    d = Tk - Tq if delta is None else int(delta)
+    common = (BH, Tq, Tk, D, float(sm_scale), int(bool(causal)), d,
+              _DTYPES[q3.dtype], _build.stream_of(q3))
+    ins = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+           lse.data_ptr(), rows.data_ptr())
+    fdq = _build.bind("flash_attention_bwd", "mxt_flash_attention_bwd_dq",
+                      _DQ_ARGS)
+    fdkv = _build.bind("flash_attention_bwd",
+                       "mxt_flash_attention_bwd_dkv", _DKV_ARGS)
+    with torch.cuda.device(q3.device):
+        err = fdq(*ins, dq.data_ptr(), *common)
+        _build.check(err, "flash_backward dq")
+        bump(_SELF, "DQ_LAUNCHES")
+        err = fdkv(*ins, dk.data_ptr(), dv.data_ptr(), *common)
+        _build.check(err, "flash_backward dk/dv")
+        bump(_SELF, "DKV_LAUNCHES")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel, backward kernels; saves q, k, v, O and lse."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, causal, sm_scale):
+        o, lse = flash_forward(q3, k3, v3, causal, sm_scale)
+        ctx.save_for_backward(q3, k3, v3, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q3, k3, v3, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q3, k3, v3, do.contiguous(), o, lse,
+                                    ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal=False, sm_scale=None):
-    """Fused attention.  q: (B, H, Tq, D); k, v: (B, H, Tk, D)."""
+    """Fused attention with its gradient.  q: (B, H, Tq, D); k, v:
+    (B, H, Tk, D)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     scale = float(sm_scale) if sm_scale is not None else 1.0 / (D ** 0.5)
-    o, _ = flash_forward(q.reshape(B * H, Tq, D), k.reshape(B * H, Tk, D),
-                         v.reshape(B * H, Tk, D), bool(causal), scale)
+    o = _FlashAttention.apply(q.reshape(B * H, Tq, D),
+                              k.reshape(B * H, Tk, D),
+                              v.reshape(B * H, Tk, D), bool(causal), scale)
     return o.reshape(B, H, Tq, D)

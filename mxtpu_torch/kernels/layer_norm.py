@@ -1,23 +1,39 @@
-"""LayerNorm forward and the fused residual LayerNorm forward.
+"""LayerNorm and the fused residual LayerNorm, forward and backward.
 
-Two kernels, each beside its plain PyTorch version and its launch
+Four kernels, each beside its plain PyTorch version and its launch
 counter:
 
-* ``layer_norm`` — CUDA ``csrc/layer_norm.cu``; replaces
+* ``layer_norm_fwd`` — CUDA ``csrc/layer_norm.cu``; replaces
   ``mxtpu/kernels/layer_norm.py:_ln_fwd_kernel`` (``_pallas_ln_fwd``).
-* ``fused_residual_layer_norm`` — CUDA ``csrc/fused_residual_ln.cu``;
+* ``layer_norm_bwd`` — CUDA ``csrc/layer_norm_bwd.cu``; replaces
+  ``_ln_bwd_kernel`` (``_pallas_ln_bwd``): dx, and per-CTA partial
+  dgamma/dbeta rows summed here, as the reference sums its row-block
+  tiles outside the kernel.
+* ``fused_residual_ln_fwd`` — CUDA ``csrc/fused_residual_ln.cu``;
   replaces ``_frln_fwd_kernel`` (``_pallas_frln_fwd``):
   ``y = LN(res + dropout(h + bias))`` with the reference's threefry2x32
   dropout mask over the global linear element index.
+* ``fused_residual_ln_bwd`` — CUDA ``csrc/fused_residual_ln_bwd.cu``;
+  replaces ``_frln_bwd_kernel`` (``_pallas_frln_bwd``): recomputes the
+  mask and ``u`` from h, bias and res (no saved activation), emits dh,
+  dres and partial dgamma/dbeta/dbias rows.
 
-Bound on the H100 (serving shape: rows = b*T, C = 1024): bytes.  Each
-is a row reduction with an elementwise prologue and epilogue at ~10
-flops per element, far under the card's flop/byte balance, so the floor
-is reading the inputs once and writing y once at 3.35 TB/s.  Both
-kernels stage one row in shared memory as f32 (one CTA per row), so
-every input byte is read once and the residual sum ``u`` never reaches
-device memory.  CUDA C++ rather than Triton: one build route (nvcc +
-ctypes) for every kernel of the serving path.
+Bound on the H100 (rows = b*T, C = 1024): bytes.  Each is a row
+reduction with an elementwise prologue and epilogue at ~10-20 flops per
+element, far under the card's flop/byte balance, so the floor is
+reading the inputs once and writing the outputs once at 3.35 TB/s.
+The forward kernels stage one row in shared memory as f32 (one CTA per
+row), so every input byte is read once and the residual sum ``u``
+never reaches device memory; the backward kernels take ``BWD_ROWS``
+rows per CTA, keep each row's intermediates on chip between its two
+passes, and write one partial row of the parameter gradients per CTA.
+CUDA C++ rather than Triton: one build route (nvcc + ctypes) for every
+kernel of the port.
+
+The public ``layer_norm`` and ``fused_residual_layer_norm`` run through
+``torch.autograd.Function``s (forward kernel, backward kernel); mean
+and rstd are saved from the forward, and the epilogue's two key words
+ride in ``ctx`` as Python ints.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or the call raises.
@@ -32,45 +48,68 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from . import _build, bump, on_card
+from . import _build, bump, on_card, refuse_grad
 
 __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_reference",
+           "layer_norm_bwd", "layer_norm_bwd_reference",
            "fused_residual_layer_norm", "fused_residual_ln_fwd",
-           "fused_residual_ln_reference", "mask_bits", "keep_thresh",
-           "LAUNCHES", "FRLN_LAUNCHES"]
+           "fused_residual_ln_reference", "fused_residual_ln_bwd",
+           "fused_residual_ln_bwd_reference", "mask_bits", "keep_thresh",
+           "LAUNCHES", "BWD_LAUNCHES", "FRLN_LAUNCHES",
+           "FRLN_BWD_LAUNCHES"]
 
 # launches of each kernel (kernels.launch_counts reads them)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 FRLN_LAUNCHES = 0
+FRLN_BWD_LAUNCHES = 0
 _SELF = sys.modules[__name__]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # one row of f32 plus the per-warp scratch must fit the default 48 KB
 # of dynamic shared memory
 MAX_C = 48 * 1024 // 4 - 32
+# the backward kernels stage up to six f32 rows of C in shared memory
+# (opted in past 48 KB, up to the 227 KB a block may use)
+BWD_MAX_C = 8192
+# rows per CTA of the backward kernels: one partial row of the
+# parameter gradients each
+BWD_ROWS = 8
 
 _P = ctypes.c_void_p
 _LN_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_float, ctypes.c_int, _P]
+_LN_BWD_ARGS = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, _P]
 _FRLN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
               ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
               ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
               ctypes.c_int, _P]
+_FRLN_BWD_ARGS = [_P] * 12 + [ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+                              ctypes.c_uint32, ctypes.c_uint32,
+                              ctypes.c_float, ctypes.c_int, _P]
 
 
 def _check_rows(what: str, x2: torch.Tensor,
-                vecs: Sequence[torch.Tensor]) -> None:
-    """What both kernels take: contiguous (R, C) f32/bf16 rows and
-    contiguous (C,) vectors of the same type, C within MAX_C."""
+                vecs: Sequence[torch.Tensor], rows=(),
+                max_c: int = MAX_C) -> None:
+    """What the kernels take: contiguous (R, C) f32/bf16 rows (``x2``
+    and ``rows``) and contiguous (C,) vectors of the same type, C within
+    ``max_c``."""
     if x2.dtype not in _DTYPES:
         raise MXNetError(f"{what}: dtype {x2.dtype} not supported "
                          f"(float32, bfloat16)")
     C = x2.shape[-1]
-    if C > MAX_C:
+    if C > max_c:
         raise MXNetError(f"{what}: {C} features exceed the kernel bound "
-                         f"{MAX_C}")
-    if not x2.is_contiguous():
-        raise MXNetError(f"{what}: input must be contiguous")
+                         f"{max_c}")
+    for t in (x2, *rows):
+        if t.shape != x2.shape or t.dtype != x2.dtype or \
+                not t.is_contiguous():
+            raise MXNetError(f"{what}: row inputs must be contiguous "
+                             f"{tuple(x2.shape)} {x2.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
     for v in vecs:
         if v.shape != (C,) or v.dtype != x2.dtype or \
                 not v.is_contiguous():
@@ -102,6 +141,7 @@ def layer_norm_fwd(x2: torch.Tensor, gamma: torch.Tensor,
     plain version on a CPU tensor."""
     if not on_card(x2, gamma, beta):
         return layer_norm_reference(x2, gamma, beta, eps)
+    refuse_grad("layer_norm_fwd", x2, gamma, beta)
     _check_rows("layer_norm", x2, (gamma, beta))
     R, C = x2.shape
     y = torch.empty_like(x2)
@@ -119,11 +159,77 @@ def layer_norm_fwd(x2: torch.Tensor, gamma: torch.Tensor,
     return y, mean, rstd
 
 
+def _stats(t: torch.Tensor, R: int) -> torch.Tensor:
+    if t.shape != (R,) or t.dtype != torch.float32:
+        raise MXNetError(f"mean/rstd must be ({R},) float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    return t.contiguous()
+
+
+def layer_norm_bwd_reference(x2, gamma, mean, rstd, dy2):
+    """Plain PyTorch backward of :func:`layer_norm_reference` from its
+    f32 statistics, as ``_ln_bwd_kernel`` computes it; returns (dx in
+    x's type, dgamma, dbeta in gamma's type)."""
+    xhat = (x2.float() - mean[:, None]) * rstd[:, None]
+    dy = dy2.float()
+    dyg = dy * gamma.float()
+    c1 = dyg.mean(dim=-1, keepdim=True)
+    c2 = (dyg * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd[:, None] * (dyg - c1 - xhat * c2)
+    return (dx.to(x2.dtype), (dy * xhat).sum(0).to(gamma.dtype),
+            dy.sum(0).to(gamma.dtype))
+
+
+def layer_norm_bwd(x2, gamma, mean, rstd, dy2):
+    """(R, C) rows → (dx, dgamma, dbeta): the kernel on CUDA tensors
+    (partial parameter-gradient rows summed here), the plain version on
+    CPU tensors."""
+    if not on_card(x2, gamma, mean, rstd, dy2):
+        return layer_norm_bwd_reference(x2, gamma, mean, rstd, dy2)
+    _check_rows("layer_norm_bwd", x2, (gamma,), (dy2,), BWD_MAX_C)
+    R, C = x2.shape
+    mean, rstd = _stats(mean, R), _stats(rstd, R)
+    dx = torch.empty_like(x2)
+    nblk = -(-R // BWD_ROWS)
+    parts = torch.empty(2, nblk, C, dtype=torch.float32, device=x2.device)
+    if R == 0:
+        return dx, torch.zeros_like(gamma), torch.zeros_like(gamma)
+    fn = _build.bind("layer_norm_bwd", "mxt_layer_norm_bwd", _LN_BWD_ARGS)
+    with torch.cuda.device(x2.device):
+        err = fn(x2.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+                 rstd.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+                 parts[0].data_ptr(), parts[1].data_ptr(), R, C, BWD_ROWS,
+                 _DTYPES[x2.dtype], _build.stream_of(x2))
+    _build.check(err, "layer_norm_bwd")
+    bump(_SELF, "BWD_LAUNCHES")
+    dg, db = parts.sum(1).to(gamma.dtype)
+    return dx, dg, db
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Forward kernel, backward kernel; mean and rstd are saved and
+    returned as non-differentiable outputs."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x2, gamma, beta, eps)
+        ctx.save_for_backward(x2, gamma, mean, rstd)
+        ctx.mark_non_differentiable(mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _drstd):
+        x2, gamma, mean, rstd = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x2, gamma, mean, rstd, dy.contiguous())
+        return dx, dg, db, None
+
+
 def layer_norm(x, gamma, beta, eps=1e-5):
-    """LayerNorm over the last axis of any-rank ``x``."""
+    """LayerNorm over the last axis of any-rank ``x``, with its
+    gradient."""
     C = x.shape[-1]
-    y, _, _ = layer_norm_fwd(x.reshape(-1, C), gamma.reshape(-1),
-                             beta.reshape(-1), eps)
+    y, _, _ = _LayerNorm.apply(x.reshape(-1, C), gamma.reshape(-1),
+                               beta.reshape(-1), float(eps))
     return y.reshape(x.shape)
 
 
@@ -183,23 +289,41 @@ def _keep(p: float, training: bool) -> float:
     return 1.0 if (not training or p <= 0.0) else float(1.0 - p)
 
 
+def _words(key_data, n: int, keep: float) -> Tuple[int, int]:
+    """The two key words for a dropout mask over ``n`` elements ((0, 0)
+    when ``keep`` is 1); raises where the uint32 element counter would
+    wrap."""
+    if keep >= 1.0:
+        return 0, 0
+    if n >= (1 << 32):
+        raise MXNetError("fused_residual_layer_norm: the dropout "
+                         "counter would wrap at 2^32 elements")
+    return _key_words(key_data)
+
+
+def _keep_mask(key_data, h: torch.Tensor, keep: float) -> torch.Tensor:
+    """Boolean keep mask of ``h``'s shape: threefry bits of the global
+    linear element index below round(keep * 2^32)."""
+    k0, k1 = _words(key_data, h.numel(), keep)
+    C = h.shape[-1]
+    bits = mask_bits(k0, k1, 0, h.numel() // C, C, device=h.device)
+    return (bits < keep_thresh(keep)).reshape(h.shape)
+
+
+def _inv_keep(keep: float) -> float:
+    # 1/keep as the f32 constant the kernels multiply by
+    return float(np.float32(1.0 / keep))
+
+
 def fused_residual_ln_reference(h, bias, res, gamma, beta, key_data=None,
                                 p=0.1, eps=1e-5, training=True):
     """Plain PyTorch version of the epilogue with the same threefry
     mask as the kernel; returns (y in h's type, mean, rstd)."""
-    C = h.shape[-1]
     hb = h.float() + bias.float().reshape(-1)
     keep = _keep(p, training)
     if keep < 1.0:
-        n = h.numel()
-        if n >= (1 << 32):
-            raise MXNetError("fused_residual_layer_norm: the dropout "
-                             "counter would wrap at 2^32 elements")
-        k0, k1 = _key_words(key_data)
-        bits = mask_bits(k0, k1, 0, n // C, C, device=h.device)
-        mask = (bits < keep_thresh(keep)).reshape(h.shape)
-        hb = torch.where(mask, hb * float(np.float32(1.0 / keep)),
-                         torch.zeros_like(hb))
+        mask = _keep_mask(key_data, h, keep)
+        hb = torch.where(mask, hb * _inv_keep(keep), torch.zeros_like(hb))
     y, mean, rstd = layer_norm_reference(res.float() + hb, gamma, beta, eps)
     return y.to(h.dtype), mean, rstd
 
@@ -211,19 +335,12 @@ def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
     if not on_card(h2, bias, res2, gamma, beta):
         return fused_residual_ln_reference(h2, bias, res2, gamma, beta,
                                            key_data, p, eps, training)
-    _check_rows("fused_residual_layer_norm", h2, (bias, gamma, beta))
-    if res2.shape != h2.shape or res2.dtype != h2.dtype or \
-            not res2.is_contiguous():
-        raise MXNetError("fused_residual_layer_norm: residual must be a "
-                         "contiguous tensor of h's shape and type")
+    refuse_grad("fused_residual_ln_fwd", h2, bias, res2, gamma, beta)
+    _check_rows("fused_residual_layer_norm", h2, (bias, gamma, beta),
+                (res2,))
     R, C = h2.shape
     keep = _keep(p, training)
-    k0 = k1 = 0
-    if keep < 1.0:
-        if R * C >= (1 << 32):
-            raise MXNetError("fused_residual_layer_norm: the dropout "
-                             "counter would wrap at 2^32 elements")
-        k0, k1 = _key_words(key_data)
+    k0, k1 = _words(key_data, R * C, keep)
     y = torch.empty_like(h2)
     mean = torch.empty(R, dtype=torch.float32, device=h2.device)
     rstd = torch.empty(R, dtype=torch.float32, device=h2.device)
@@ -236,11 +353,92 @@ def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
                  mean.data_ptr(), rstd.data_ptr(), R, C, float(eps),
                  int(keep < 1.0), k0, k1, keep_thresh(keep),
-                 float(np.float32(1.0 / keep)), _DTYPES[h2.dtype],
-                 _build.stream_of(h2))
+                 _inv_keep(keep), _DTYPES[h2.dtype], _build.stream_of(h2))
     _build.check(err, "fused_residual_layer_norm")
     bump(_SELF, "FRLN_LAUNCHES")
     return y, mean, rstd
+
+
+def fused_residual_ln_bwd_reference(h2, bias, res2, gamma, key_words,
+                                    mean, rstd, dy2, keep):
+    """Plain PyTorch backward of the epilogue as ``_frln_bwd_kernel``
+    computes it: the mask and u recomputed from the key words, then
+    du as LayerNorm's dx, dh = du/keep where kept (else 0), dres = du,
+    dbias = sum dh.  Returns (dh, dbias, dres, dgamma, dbeta)."""
+    hb = h2.float() + bias.float()
+    mask = None
+    if keep < 1.0:
+        mask = _keep_mask(key_words, h2, keep)
+        hb = torch.where(mask, hb * _inv_keep(keep), torch.zeros_like(hb))
+    u = res2.float() + hb
+    du, dg, db = layer_norm_bwd_reference(u, gamma, mean, rstd, dy2)
+    dh = du if mask is None else \
+        torch.where(mask, du * _inv_keep(keep), torch.zeros_like(du))
+    return (dh.to(h2.dtype), dh.sum(0).to(bias.dtype), du.to(res2.dtype),
+            dg, db)
+
+
+def fused_residual_ln_bwd(h2, bias, res2, gamma, key_words, mean, rstd,
+                          dy2, keep):
+    """(R, C) rows → (dh, dbias, dres, dgamma, dbeta): the kernel on
+    CUDA tensors (partial parameter-gradient rows summed here), the
+    plain version on CPU tensors.  ``keep`` is 1 - p (1.0: no mask);
+    ``key_words`` the forward's two uint32 words."""
+    if not on_card(h2, bias, res2, gamma, mean, rstd, dy2):
+        return fused_residual_ln_bwd_reference(
+            h2, bias, res2, gamma, key_words, mean, rstd, dy2, keep)
+    _check_rows("fused_residual_ln_bwd", h2, (bias, gamma), (res2, dy2),
+                BWD_MAX_C)
+    R, C = h2.shape
+    mean, rstd = _stats(mean, R), _stats(rstd, R)
+    k0, k1 = _words(key_words, R * C, keep)
+    dh = torch.empty_like(h2)
+    dres = torch.empty_like(h2)
+    nblk = -(-R // BWD_ROWS)
+    parts = torch.empty(3, nblk, C, dtype=torch.float32, device=h2.device)
+    if R == 0:
+        z = torch.zeros_like(gamma)
+        return dh, z, dres, z.clone(), z.clone()
+    fn = _build.bind("fused_residual_ln_bwd", "mxt_fused_residual_ln_bwd",
+                     _FRLN_BWD_ARGS)
+    with torch.cuda.device(h2.device):
+        err = fn(h2.data_ptr(), bias.data_ptr(), res2.data_ptr(),
+                 gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                 dy2.data_ptr(), dh.data_ptr(), dres.data_ptr(),
+                 parts[0].data_ptr(), parts[1].data_ptr(),
+                 parts[2].data_ptr(), R, C, BWD_ROWS, int(keep < 1.0), k0,
+                 k1, keep_thresh(keep), _inv_keep(keep), _DTYPES[h2.dtype],
+                 _build.stream_of(h2))
+    _build.check(err, "fused_residual_ln_bwd")
+    bump(_SELF, "FRLN_BWD_LAUNCHES")
+    dg, db, dbias = parts.sum(1)
+    return (dh, dbias.to(bias.dtype), dres, dg.to(gamma.dtype),
+            db.to(gamma.dtype))
+
+
+class _FusedResidualLN(torch.autograd.Function):
+    """Forward kernel, backward kernel.  Saves h, bias, res, gamma and
+    the f32 mean/rstd (returned as non-differentiable outputs); the two
+    key words and keep ride in ctx as Python values, so the backward
+    redraws exactly the forward's mask."""
+
+    @staticmethod
+    def forward(ctx, h2, bias, res2, gamma, beta, k0, k1, p, eps,
+                training):
+        y, mean, rstd = fused_residual_ln_fwd(
+            h2, bias, res2, gamma, beta, (k0, k1), p, eps, training)
+        ctx.save_for_backward(h2, bias, res2, gamma, mean, rstd)
+        ctx.mark_non_differentiable(mean, rstd)
+        ctx.key_words, ctx.keep = (k0, k1), _keep(p, training)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _drstd):
+        h2, bias, res2, gamma, mean, rstd = ctx.saved_tensors
+        dh, dbias, dres, dg, db = fused_residual_ln_bwd(
+            h2, bias, res2, gamma, ctx.key_words, mean, rstd,
+            dy.contiguous(), ctx.keep)
+        return dh, dbias, dres, dg, db, None, None, None, None, None
 
 
 def fused_residual_layer_norm(h, bias, res, gamma, beta,
@@ -251,7 +449,9 @@ def fused_residual_layer_norm(h, bias, res, gamma, beta,
     ``key_data`` is two uint32 threefry key words; it is read only when
     dropout is on (``training`` and ``p > 0``)."""
     C = h.shape[-1]
-    y, _, _ = fused_residual_ln_fwd(
+    k0, k1 = _words(key_data, h.numel(), _keep(p, training))
+    y, _, _ = _FusedResidualLN.apply(
         h.reshape(-1, C), bias.reshape(-1), res.reshape(-1, C),
-        gamma.reshape(-1), beta.reshape(-1), key_data, p, eps, training)
+        gamma.reshape(-1), beta.reshape(-1), k0, k1, float(p), float(eps),
+        bool(training))
     return y.reshape(h.shape)

@@ -1,12 +1,16 @@
 """BERT encoder family on PyTorch modules — the counterpart of
-``mxtpu/models/transformer.py`` (full-sequence forward only; the
-incremental ``(step, cache)`` decode mode is not ported yet).
+``mxtpu/models/transformer.py`` (full-sequence forward and its
+gradients, in eval or training mode; the incremental ``(step, cache)``
+decode mode is not ported yet).
 
-Attention runs on the flash-attention kernel, the post-LN epilogues on
-the fused residual-LayerNorm kernel and the embedding LayerNorm on the
-LayerNorm kernel; the dense products stay ``torch.matmul``, as the JAX
-package leaves them to XLA.  Parameter registration order matches
-``mxtpu``'s ``collect_params()`` order.
+Attention runs on the flash-attention kernels, the post-LN epilogues
+on the fused residual-LayerNorm kernels and the embedding LayerNorm on
+the LayerNorm kernels, forward and backward (autograd Functions); the
+dense products stay ``torch.matmul``, as the JAX package leaves them to
+XLA.  In training mode the epilogues drop out with fresh key words per
+call and ``embed_drop`` draws its mask from the device's generator.
+Parameter registration order matches ``mxtpu``'s ``collect_params()``
+order.
 """
 from __future__ import annotations
 

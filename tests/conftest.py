@@ -39,6 +39,10 @@ def pytest_configure(config):
         "markers",
         "mxrace_off: opt out of the MXTPU_RACE=1 sanitizer (tests "
         "that drive their own LocksetChecker, e.g. seeded races)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (mxtpu_torch's kernels run only "
+        "there); skips inside the test when torch sees none")
 
 
 @pytest.fixture(autouse=True)

@@ -200,11 +200,26 @@ def test_serving_knob_sets_the_ladder(monkeypatch):
 
 
 def test_training_mode_is_refused_not_silently_served():
+    # training mode is ported: a training forward drops out from the
+    # seeded generators, and serving never sees it — ModelRunner puts
+    # the model in eval mode, where dropout is off
+    from mxtpu_torch import random as trandom
     net = _torch_bert()          # dropout 0.1, still in training mode
-    with pytest.raises(MXNetError, match="not ported yet"):
-        net(torch.zeros(1, 4))
-    net.eval()
-    assert net(torch.zeros(1, 4)).shape == (1, 4, V)
+    toks = torch.from_numpy(_tokens(4, 2, 16))  # fills a bucket
+    trandom.seed(5)
+    a = net(toks)
+    trandom.seed(5)
+    b = net(toks)
+    c = net(toks)
+    assert torch.equal(a, b) and not torch.equal(b, c)
+    runner = ModelRunner(net, device="cpu", **SPEC)
+    assert not net.training
+    (served,) = runner.infer({"data": toks.numpy()})
+    (again,) = runner.infer({"data": toks.numpy()})
+    np.testing.assert_array_equal(served, again)
+    np.testing.assert_allclose(served, net(toks).detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert not np.allclose(served, a.detach().numpy(), atol=1e-3)
 
 
 # --------------------------------------------------- devices and imports

@@ -1,0 +1,282 @@
+"""A small BERT trained by mxtpu_torch on the CPU, held against mxtpu's
+per-parameter train step; also the port's loss, optimizers, dropout and
+weight carry-back.
+
+The weights start in mxtpu (xavier), cross with ``params_from_mxtpu``
+and come back with ``params_to_mxtpu``.  Dropout is 0 in the parity
+runs (the JAX package's dropout stream has no torch counterpart).
+Tolerances: f32 losses 1e-5 relative and parameters after five adam
+steps 1e-4 (another summation order in every product, amplified by
+adam's division by sqrt(v)); bf16 compute 2e-2 on the losses
+(``log_softmax`` and the GEMMs round to bf16 at other places in the two
+frameworks).  mxtpu's batched optimizer path misses its own parity bar
+on this tree, so the reference is its per-parameter path
+(``MXTPU_BATCHED_OPT=0``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from mxtpu import nd
+from mxtpu import optimizer as jopt
+from mxtpu import parallel as jpar
+from mxtpu.gluon import loss as jloss
+from mxtpu.models.transformer import BERTModel as JBERT
+
+from mxtpu_torch import MXNetError, random as trandom
+from mxtpu_torch.convert import params_from_mxtpu, params_to_mxtpu
+from mxtpu_torch.gluon import nn as tnn
+from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from mxtpu_torch.models import BERTModel
+from mxtpu_torch.optimizer import SGD, Adam, create, functional, register
+from mxtpu_torch.parallel import build_train_step
+
+torch.set_num_threads(2)
+
+V, U, H, L, T, MAXLEN = 128, 64, 4, 2, 16, 40
+
+
+def _tokens(seed, b=2):
+    return np.random.RandomState(seed).randint(0, V, (b, T)) \
+        .astype(np.float32)
+
+
+def _jax_bert():
+    net = JBERT(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.0)
+    net.initialize(init="xavier")
+    net(nd.array(_tokens(0)))
+    return net
+
+
+def _jax_params(net):
+    return {n: p.data().asnumpy() for n, p in net.collect_params().items()}
+
+
+def _torch_bert(params=None, dropout=0.0):
+    net = BERTModel(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=dropout)
+    return net if params is None else params_from_mxtpu(params, net)
+
+
+def _jmlm(pred, y):
+    return jloss.SoftmaxCrossEntropyLoss()(pred.reshape((-1, V)),
+                                           y.reshape((-1,)))
+
+
+_CE = SoftmaxCrossEntropyLoss()
+
+
+def _tmlm(pred, y):
+    return _CE(pred.reshape(-1, V), y.reshape(-1))
+
+
+# ------------------------------------------------------- the train step
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_adam_steps_match_mxtpu_per_parameter_step(monkeypatch,
+                                                   compute_dtype):
+    monkeypatch.setenv("MXTPU_BATCHED_OPT", "0")
+    jnet = _jax_bert()
+    tnet = _torch_bert(_jax_params(jnet))
+    x = _tokens(1)
+    kw = dict(cast_batch=False, compute_dtype=compute_dtype)
+    jstep = jpar.build_train_step(jnet, _jmlm, "adam",
+                                  {"learning_rate": 1e-3}, cache=None,
+                                  **kw)
+    tstep = build_train_step(tnet, _tmlm, "adam", {"learning_rate": 1e-3},
+                             device="cpu", **kw)
+    want = [float(jstep(nd.array(x), nd.array(x)).asnumpy())
+            for _ in range(5)]
+    got = [float(tstep(x, x)) for _ in range(5)]
+    if compute_dtype is None:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        jp = _jax_params(jnet)
+        tp = params_to_mxtpu(tnet, list(jp))
+        for n in jp:
+            np.testing.assert_allclose(tp[n], jp[n], rtol=1e-4, atol=1e-4,
+                                       err_msg=n)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-2)
+        # the masters stay f32 under a bf16 compute type
+        assert all(p.dtype == torch.float32 for p in tnet.parameters())
+
+
+def test_sgd_momentum_steps_match_mxtpu(monkeypatch):
+    monkeypatch.setenv("MXTPU_BATCHED_OPT", "0")
+    jnet = _jax_bert()
+    tnet = _torch_bert(_jax_params(jnet))
+    x = _tokens(2)
+    opt = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-3}
+    jstep = jpar.build_train_step(jnet, _jmlm, "sgd", opt,
+                                  cast_batch=False, cache=None)
+    tstep = build_train_step(tnet, _tmlm, "sgd", opt, cast_batch=False,
+                             device="cpu")
+    want = [float(jstep(nd.array(x), nd.array(x)).asnumpy())
+            for _ in range(3)]
+    got = [float(tstep(x, x)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_loss_falls_on_a_repeated_batch_with_dropout_on():
+    trandom.seed(3)
+    net = _torch_bert(dropout=0.1)
+    step = build_train_step(net, _tmlm, "adam", {"learning_rate": 1e-3},
+                            cast_batch=False, device="cpu")
+    x = _tokens(4, b=4)
+    losses = [float(step(x, x)) for _ in range(8)]
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < losses[0]
+    mem = step.memory_summary()
+    assert mem["peak_bytes"] is None and mem["device"] == "cpu"
+    assert mem["opt_state_bytes"] == 2 * mem["param_bytes"]
+
+
+def test_lr_mult_is_read_live():
+    net = _torch_bert()
+    step = build_train_step(net, _tmlm, "adam", {"learning_rate": 1e-3},
+                            cast_batch=False, device="cpu")
+    x = _tokens(5)
+    step.optimizer.set_lr_mult({"mlm.weight": 0.0})
+    before = net.mlm.weight.detach().clone()
+    step(x, x)
+    assert torch.equal(net.mlm.weight.detach(), before)
+    step.optimizer.set_lr_mult({})
+    step(x, x)
+    assert not torch.equal(net.mlm.weight.detach(), before)
+
+
+def test_build_train_step_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default would be cuda:0")
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        build_train_step(_torch_bert(), _tmlm, "adam")
+
+
+@pytest.mark.parametrize("option", [
+    {"mesh": object()}, {"param_spec_fn": lambda p: None}, {"zero": 1},
+    {"amp": True}, {"cache": "auto"}])
+def test_unported_options_raise(option):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_train_step(_torch_bert(), _tmlm, "adam", device="cpu",
+                         **option)
+
+
+@pytest.mark.parametrize("target,option", [
+    # the one-device step has no mesh axis and no buffer donation
+    *[("step", o) for o in ("dp_axis", "batch_axis", "donate")],
+    # the optimizers have no symbol, no row-sparse gradients and no
+    # eager parameter table
+    *[(n, o) for n in ("adam", "sgd")
+      for o in ("sym", "param_dict", "param_idx2name", "begin_num_update",
+                "lazy_update")]])
+def test_options_without_effect_are_refused(target, option):
+    with pytest.raises(TypeError, match=option):
+        if target == "step":
+            build_train_step(_torch_bert(), _tmlm, "adam", device="cpu",
+                             **{option: None})
+        else:
+            create(target, **{option: None})
+
+
+def test_run_steps_and_the_stacked_update_raise():
+    step = build_train_step(_torch_bert(), _tmlm, "adam", device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        step.run_steps(_tokens(0), _tokens(0), 2)
+    init, _ = functional.opt_rule(step.optimizer)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init(torch.zeros(2, 3), stacked=True)
+
+
+# ------------------------------------------------------------ the pieces
+
+@pytest.mark.parametrize("weight,batch_axis", [(None, 0), (0.5, 1)])
+def test_softmax_ce_matches_mxtpu(weight, batch_axis):
+    rng = np.random.RandomState(6)
+    pred = rng.randn(5, 7, 11).astype(np.float32)
+    label = rng.randint(0, 11, (5, 7)).astype(np.float32)
+    want = jloss.SoftmaxCrossEntropyLoss(weight=weight,
+                                         batch_axis=batch_axis)(
+        nd.array(pred), nd.array(label)).asnumpy()
+    got = SoftmaxCrossEntropyLoss(weight=weight, batch_axis=batch_axis)(
+        torch.from_numpy(pred), torch.from_numpy(label)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("adam", {"learning_rate": 0.01, "wd": 0.01}),
+    ("sgd", {"learning_rate": 0.1, "wd": 0.01, "clip_gradient": 0.5}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+             "rescale_grad": 0.5})])
+def test_eager_update_matches_mxtpu(name, kw):
+    rng = np.random.RandomState(7)
+    w = rng.randn(4, 6).astype(np.float32)
+    grads = [rng.randn(4, 6).astype(np.float32) for _ in range(3)]
+    jo, to = jopt.create(name, **kw), create(name, **kw)
+    jw, tw = nd.array(w), torch.from_numpy(w.copy())
+    js, ts = jo.create_state(0, jw), to.create_state(0, tw)
+    for g in grads:
+        jo.update(0, jw, nd.array(g), js)
+        to.update(0, tw, torch.from_numpy(g), ts)
+    np.testing.assert_allclose(tw.numpy(), jw.asnumpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_optimizer_registry_and_bias_correction():
+    assert isinstance(create("Adam"), Adam) and isinstance(create("sgd"),
+                                                           SGD)
+    with pytest.raises(MXNetError, match="unknown optimizer"):
+        create("nope")
+
+    @register
+    class Plain(SGD):
+        pass
+    assert isinstance(create("plain"), Plain)
+    from mxtpu.optimizer.functional import adam_bias_correction as jbc
+    for t in (1, 2, 10):
+        assert functional.adam_bias_correction(Adam(), t) == \
+            jbc(jopt.Adam(), t)
+    assert functional.adam_bias_correction(SGD(), 3) == 1.0
+    with pytest.raises(NotImplementedError, match="lr_scheduler"):
+        Adam(lr_scheduler=object())
+
+
+def test_multi_precision_rule_keeps_an_f32_master():
+    init, update = functional.opt_rule(Adam(learning_rate=0.1))
+    w = torch.randn(8).bfloat16()
+    st = init(w)
+    assert st[0].dtype == torch.float32 and len(st) == 3
+    w2, st2 = update(w, torch.ones(8), st, 0.1, 0.0)
+    assert w2.dtype == torch.bfloat16
+    assert torch.equal(w2, st2[0].bfloat16())
+
+
+def test_dropout_draws_from_the_seeded_generator():
+    x = torch.ones(64, 64)
+    drop = tnn.Dropout(0.25)
+    trandom.seed(11)
+    a = drop(x)
+    trandom.seed(11)
+    b = drop(x)
+    c = drop(x)
+    assert torch.equal(a, b) and not torch.equal(b, c)
+    kept = (a != 0).float().mean().item()
+    assert abs(kept - 0.75) < 0.03
+    assert torch.allclose(a[a != 0], torch.full_like(a[a != 0], 1 / 0.75))
+    drop.eval()
+    assert torch.equal(drop(x), x)
+    trandom.seed(11)
+    k1 = trandom.key_words()
+    trandom.seed(11)
+    assert trandom.key_words() == k1 and trandom.key_words() != k1
+    assert all(0 <= k < 1 << 32 for k in k1)
+
+
+def test_params_to_mxtpu_inverts_params_from_mxtpu():
+    params = _jax_params(_jax_bert())
+    back = params_to_mxtpu(_torch_bert(params), list(params))
+    assert list(back) == list(params)
+    for n in params:
+        np.testing.assert_array_equal(back[n], params[n])
+    own = params_to_mxtpu(_torch_bert(params))
+    assert list(own)[:2] == ["pos_embed", "word_embed.weight"]
+    with pytest.raises(MXNetError, match="names for"):
+        params_to_mxtpu(_torch_bert(), ["a", "b"])

@@ -190,12 +190,20 @@ def test_fused_epilogue_eval_ignores_key_and_p():
 
 def test_cpu_tensors_take_plain_path_and_count_nothing():
     tk.reset_launch_counts()
-    x = torch.randn(4, 16)
-    tk.layer_norm(x, torch.ones(16), torch.zeros(16))
-    tk.flash_attention(*(torch.randn(1, 2, 8, 4) for _ in range(3)))
+    x = torch.randn(4, 16, requires_grad=True)
+    tk.layer_norm(x, torch.ones(16), torch.zeros(16)).sum().backward()
+    qkv = [torch.randn(1, 2, 8, 4, requires_grad=True) for _ in range(3)]
+    tk.flash_attention(*qkv).sum().backward()
+    tk.fused_residual_layer_norm(x, torch.zeros(16), x, torch.ones(16),
+                                 torch.zeros(16), [1, 2]).sum().backward()
+    assert x.grad is not None and qkv[0].grad is not None
     assert tk.launch_counts() == {"flash_attention_fwd": 0,
+                                  "flash_attention_bwd_dq": 0,
+                                  "flash_attention_bwd_dkv": 0,
                                   "layer_norm_fwd": 0,
-                                  "fused_residual_ln_fwd": 0}
+                                  "layer_norm_bwd": 0,
+                                  "fused_residual_ln_fwd": 0,
+                                  "fused_residual_ln_bwd": 0}
 
 
 def test_dispatch_refuses_devices_it_has_no_path_for():

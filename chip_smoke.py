@@ -1,49 +1,78 @@
 """Drive mxtpu_torch on one NVIDIA GPU: build its kernels, hold each
-against its plain PyTorch version, serve BERT-Large through
-InferenceServer → DynamicBatcher → ModelRunner, and train BERT-Large
-with the ``bench_bert`` recipe (adam, bf16 compute, b32 x T128).
+against its plain PyTorch version, train BERT-Large with the
+``bench_bert`` recipe (adam, bf16 compute, b32 x T128), train ResNet-50
+v1 with the ``bench_resnet50`` recipe (SGD momentum, bf16 compute, b256
+x 224^2) in NCHW and NHWC, and serve BERT-Large through
+InferenceServer → DynamicBatcher → ModelRunner.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each fatal on failure:
   1. build every kernel from ``mxtpu_torch/csrc`` (one nvcc per source,
      in parallel);
-  2. each forward kernel against its plain version on the card, at the
-     serving path's shapes (b=32, T=128, 16 heads of 64, C=1024), in
-     f32 and bf16; flash attention also causal at T=127 and Tq != Tk;
-     the fused epilogue at keep=0.9 with its dropout mask recovered
+  2. each BERT forward kernel against its plain version on the card, at
+     the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
+     in f32 and bf16; flash attention also causal at T=127 and Tq !=
+     Tk; the fused epilogue at keep=0.9 with its dropout mask recovered
      from the output and compared bit for bit; times of the kernel, the
      plain version and one library call;
-  3. each backward kernel likewise (flash dq and dk/dv, LayerNorm, the
-     fused epilogue at keep=0.9 with dh's zeros equal to the dropped
-     set bit for bit), at the training shapes; times beside AD through
-     the plain attention; the raw forward wrappers must refuse inputs
-     that require grad;
-  4. a 2-layer full-width BERT (f32, dropout 0, b=4, T=128): the loss
+  3. each BERT backward kernel likewise (flash dq and dk/dv, LayerNorm,
+     the fused epilogue at keep=0.9 with dh's zeros equal to the
+     dropped set bit for bit), at the training shapes; times beside AD
+     through the plain attention;
+  4. the four BatchNorm kernels (channels-major and channels-minor,
+     forward and backward) against their plain version in f32 and bf16
+     at four of ResNet-50's shapes (N=256: the stem, a layer1 and a
+     layer4 ``bn_out``, a downsample), at edge shapes (C=3, 37, 100;
+     S=49, 196; N*S=1) and on a constant channel; the stem's statistics
+     against f64 sums; a rerun bit-equal; times of the kernel, the
+     plain version and cuDNN's BatchNorm with the add and ReLU; the raw
+     wrappers must refuse inputs that require grad;
+  5. a 2-layer full-width BERT (f32, dropout 0, b=4, T=128): the loss
      and every parameter gradient on the card against the CPU plain
      path, then three TrainStep steps on each side;
-  5. BERT-Large trained at full size: ``bert_large(max_length=128,
+  6. BERT-Large trained at full size: ``bert_large(max_length=128,
      dropout=0.1)``, adam lr 1e-4, ``compute_dtype="bfloat16"``,
      ``cast_batch=False``, (32, 128) token batches with y = x: 3
      warm-up steps, then 3 timed windows of 10 steps (ms/step is their
      median), the loss finite and falling, launch counts exactly
-     24/24/24/1/1/48/48 per step; tokens/s, ms/step, MFU, peak memory
-     and a per-family breakdown of one step;
-  6. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
+     24/24/24/1/1/48/48 and no BatchNorm per step; tokens/s, ms/step,
+     MFU, peak memory and a per-family breakdown of one profiled
+     ``step(x, y)``;
+  7. a full-width ResNet V1 of one bottleneck per stage (f32, b=4,
+     64x64), NCHW and NHWC: the loss, every gradient, three SGD
+     momentum steps (lr 1e-3) and the running statistics on the card
+     against the CPU plain path;
+  8. ResNet-50 v1 trained at full size, NCHW: Xavier weights from torch
+     seed 0, one (256, 3, 224, 224) batch and its labels from numpy
+     seed 0 reused every step, SGD lr 0.1 momentum 0.9 wd 1e-4, bf16
+     compute: 3 warm-up steps, 3 timed windows of 10 steps, the loss
+     finite and falling, launches exactly 53/53/0/0 BatchNorm
+     fwd/bwd/fwd_cm/bwd_cm and no BERT kernel per step; samples/s,
+     ms/step, MFU (FLOPs from the port's conv and dense shapes, 3x
+     forward; the reference's 22.49 GFLOP per sample beside it), peak
+     memory and a profiled breakdown of one step;
+  9. the same in NHWC (``layout="NHWC"``), launches exactly 0/0/53/53;
+ 10. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
      through ``params_from_mxtpu``) served to 4 client threads sending
      128 requests of lengths 16-128; every result checked, 0 requeues,
      launch counts read around the run;
-  7. one served batch of 8 x 128 against the same model and weights run
+ 11. one served batch of 8 x 128 against the same model and weights run
      on the CPU (plain path).
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
 order) and 2e-2 in bf16 (one bf16 rounding of the output); the bf16
 flash gradients, whose typical size is about 0.1, are held at
-|r - p| <= 2e-2 * max(min(1, rms(p)), |p|) instead; the served
-logits against the CPU: 1e-3 (24 layers of f32 GEMMs in another order);
-the 2-layer train check: each gradient's relative L2 error 1e-4, the
-loss 1e-5 and the three step losses 1e-4 relative.
+|r - p| <= 2e-2 * max(min(1, rms(p)), |p|) instead, and BatchNorm's f32
+dgamma and dbeta (sums over N*S elements) at 1e-4 * max(rms(p), |p|);
+the served logits against the CPU: 1e-3 (24 layers of f32 GEMMs in
+another order); the 2-layer BERT and the small ResNet train checks:
+each gradient's rms error 1e-4 of its rms (plus, for ResNet, 1e-6 of
+the largest gradient's rms: a convolution bias feeding a BatchNorm has
+a zero gradient in exact arithmetic), the loss 1e-5 and the three step
+losses 1e-4 relative (ResNet's of max(|p|, 0.01)), ResNet's running
+statistics 1e-5.
 
 Kernel times are device time per call (torch.profiler: the sum of the
 kernels a call launches), for the kernel, its plain version and the
@@ -75,15 +104,24 @@ N_REQUESTS, N_CLIENTS = 128, 4
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 3, 10, 3
 CHECK_LAYERS, CHECK_B = 2, 4
 GRAD_TOL, LOSS_TOL, STEP_TOL = 1e-4, 1e-5, 1e-4
-# kernel name in the profiler -> the launch counter it belongs to
-KERNEL_NAMES = {"flash_attention_fwd": "fa_fwd_kernel",
-                "flash_attention_bwd_dq": "fa_bwd_dq_kernel",
-                "flash_attention_bwd_dkv": "fa_bwd_dkv_kernel",
-                "layer_norm_fwd": "ln_fwd_kernel",
-                "layer_norm_bwd": "ln_bwd_kernel",
-                "fused_residual_ln_fwd": "frln_fwd_kernel",
-                "fused_residual_ln_bwd": "frln_bwd_kernel"}
+# launch counter -> the CUDA kernels (profiler names) one wrapper call
+# launches
+KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_kernel",),
+                "flash_attention_bwd_dq": ("fa_bwd_dq_kernel",),
+                "flash_attention_bwd_dkv": ("fa_bwd_dkv_kernel",),
+                "layer_norm_fwd": ("ln_fwd_kernel",),
+                "layer_norm_bwd": ("ln_bwd_kernel",),
+                "fused_residual_ln_fwd": ("frln_fwd_kernel",),
+                "fused_residual_ln_bwd": ("frln_bwd_kernel",),
+                **{f"batch_norm_{d}": tuple(f"bn_{d}_{k}_kernel"
+                                            for k in ("stats", "finalize",
+                                                      "apply"))
+                   for d in ("fwd", "bwd", "fwd_cm", "bwd_cm")}}
 GEMM_WORDS = ("gemm", "cutlass", "sm90_xmma", "ampere", "nvjet", "cublas")
+# cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
+# and its layout transposes); matched before GEMM_WORDS
+CONV_WORDS = ("conv", "cudnn", "fprop", "dgrad", "wgrad", "nchwtonhwc",
+              "nhwctonchw")
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -173,11 +211,13 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
 def family_of(key):
     """The family of a profiled device kernel: one of the ported
     kernels (whole-word match: "ln_fwd_kernel" is inside
-    "frln_fwd_kernel"), a GEMM, or other."""
-    for fam, name in KERNEL_NAMES.items():
-        if re.search(rf"\b{name}\b", key):
+    "frln_fwd_kernel"), a cuDNN convolution, a GEMM, or other."""
+    for fam, names in KERNEL_NAMES.items():
+        if any(re.search(rf"\b{n}\b", key) for n in names):
             return fam
     low = key.lower()
+    if any(w in low for w in CONV_WORDS):
+        return "conv"
     return "gemm" if any(w in low for w in GEMM_WORDS) else "other"
 
 
@@ -545,10 +585,16 @@ def refusal_phase(checks):
     q = torch.randn(2, 8, 16, device=dev, requires_grad=True)
     x = torch.randn(4, 16, device=dev, requires_grad=True)
     g = torch.ones(16, device=dev)
+    bn = importlib.import_module("mxtpu_torch.kernels.batch_norm")
     calls = {"flash_forward": lambda: fa.flash_forward(q, q, q, False, 0.25),
              "layer_norm_fwd": lambda: ln.layer_norm_fwd(x, g, g),
              "fused_residual_ln_fwd": lambda: ln.fused_residual_ln_fwd(
-                 x, g, x, g, g, (1, 2), 0.1)}
+                 x, g, x, g, g, (1, 2), 0.1),
+             "bn_fwd": lambda: bn.bn_fwd(q, g[:8], g[:8]),
+             "bn_bwd": lambda: bn.bn_bwd(q, None, q, g[:8], g[:8], g[:8],
+                                         g[:8]),
+             "bn_fwd_cm": lambda: bn.bn_fwd_cm(x, g, g),
+             "bn_bwd_cm": lambda: bn.bn_bwd_cm(x, None, x, g, g, g, g)}
     for name, call in calls.items():
         try:
             call()
@@ -561,6 +607,201 @@ def refusal_phase(checks):
         checks.rows.append({"check": f"{name} refuses grad", "ok": ok})
         if not ok:
             checks.failed.append(f"{name} did not refuse grad inputs")
+
+
+# ----------------------------------------------------------------------
+# BatchNorm kernels against their plain versions
+# ----------------------------------------------------------------------
+
+# (C, S, act, add) of ResNet-50's BatchNorms at N = 256: the stem, a
+# layer1 bn_out, a downsample and a layer4 bn_out
+BN_SHAPES = {"stem": (64, 12544, "relu", False),
+             "layer1_out": (256, 3136, "relu", True),
+             "downsample": (512, 784, "none", False),
+             "layer4_out": (2048, 49, "relu", True)}
+BN_N = 256
+# the shape whose times stand in the kernels line
+BN_LINE_SHAPE = "layer1_out"
+# edge shapes (N, C, S): odd S, C under and off the 32-lane tile, and
+# N*S = 1
+BN_EDGES = ((5, 3, 49), (7, 100, 196), (3, 37, 1), (1, 4, 1))
+# elementwise f32 operations per element (stats, then the apply pass)
+BN_OPS = {"fwd": 7, "bwd": 14}
+
+
+def bn_phase(checks, gen):
+    """The four BatchNorm kernels against their plain versions on the
+    card, forward (y, mean, var) and backward (dx, dr, dgamma, dbeta),
+    in f32 and bf16: at ResNet-50's shapes (N = 256) in both views, at
+    edge shapes, on a constant channel; the stem's statistics against
+    an f64 plain version; a repeat bit-equal.  Returns the timings of
+    ``BN_LINE_SHAPE`` keyed like the other kernels', and prints every
+    shape's."""
+    import torch
+    import torch.nn.functional as F
+    import importlib
+    bn = importlib.import_module("mxtpu_torch.kernels.batch_norm")
+    dev = torch.device(CARD)
+    out = {}
+
+    def randn(*shape, dtype=torch.float32, mean=0.0, std=1.0):
+        return (mean + std * torch.randn(*shape, generator=gen,
+                                         device=dev)).to(dtype)
+
+    def grads_of(fn, xs, dy):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        y = fn(*xs)
+        return lambda: torch.autograd.grad(y, xs, dy, retain_graph=True)
+
+    def run(x, r, dy, g, b, act, cm, tag, name):
+        """Kernel and plain version, forward then backward from the
+        kernel's statistics; returns the kernel's outputs."""
+        fwd = bn.bn_fwd_cm if cm else bn.bn_fwd
+        bwd = bn.bn_bwd_cm if cm else bn.bn_bwd
+        y, mean, var = fwd(x, g, b, r, 1e-5, act)
+        py, pmean, pvar = bn.bn_act_reference(x, g, b, 1e-5, act, r)
+        rstd = torch.rsqrt(var + 1e-5)
+        got = bwd(x, r, dy, g, b, mean, rstd, act)
+        want = bn.bn_bwd_reference(x, r, dy, g, b, mean, rstd, act)
+        torch.cuda.synchronize()
+        errs = [checks.close(f"{tag} y", y, py, name),
+                checks.close(f"{tag} mean", mean, pmean, "float32"),
+                checks.close(f"{tag} var", var, pvar, "float32")]
+        for gname, a, w in zip(("dx", "dr", "dgamma", "dbeta"), got, want):
+            if w is not None:
+                # dgamma/dbeta: f32 sums over N*S elements of size ~1,
+                # held relative to their rms
+                floor = 1.0 if gname in ("dx", "dr") else \
+                    max(1.0, float(w.double().pow(2).mean().sqrt()))
+                errs.append(checks.close(
+                    f"{tag} {gname}", a, w,
+                    name if gname in ("dx", "dr") else "float32", floor))
+        if not all(torch.isfinite(t).all() for t in (y, mean, var, *got)
+                   if t is not None):
+            checks.failed.append(f"{tag} [{name}]: not finite")
+        return (y, mean, var, *got), max(errs)
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        el = torch.tensor([], dtype=dt).element_size()
+        for key, (C, S, act, add) in BN_SHAPES.items():
+            x = randn(BN_N, C, S, dtype=dt, mean=0.5, std=2.0)
+            r = randn(BN_N, C, S, dtype=dt) if add else None
+            dy = randn(BN_N, C, S, dtype=dt)
+            g = randn(C, dtype=dt, mean=1.0, std=0.2)
+            b = randn(C, dtype=dt, std=0.1)
+            for cm in (False, True):
+                if cm:
+                    # the same data channels-minor: (N*S, C)
+                    xv, rv, dyv = (None if t is None else
+                                   t.transpose(1, 2).contiguous()
+                                   .reshape(BN_N * S, C)
+                                   for t in (x, r, dy))
+                else:
+                    xv, rv, dyv = x, r, dy
+                tag = f"bn {'cm' if cm else 'major'} {key} N{BN_N} C{C} " \
+                    f"S{S} {act}{' add' if add else ''}"
+                outs, err = run(xv, rv, dyv, g, b, act, cm, tag, name)
+                if key == "stem" and name == "float32" and not cm:
+                    # the stem's statistics against f64 sums
+                    xd = xv.double()
+                    m64 = xd.mean(dim=(0, 2))
+                    v64 = ((xd * xd).mean(dim=(0, 2)) - m64 * m64)
+                    checks.close(f"{tag} mean vs f64", outs[1], m64,
+                                 "float32")
+                    checks.close(f"{tag} var vs f64", outs[2], v64,
+                                 "float32")
+                    del xd
+                if key == "layer1_out":
+                    # every sum has a fixed order: a rerun is bit-equal
+                    again, _ = run(xv, rv, dyv, g, b, act, cm,
+                                   tag + " rerun", name)
+                    same = all(torch.equal(a, b_) for a, b_ in
+                               zip(outs, again) if a is not None)
+                    print(f"check {tag} [{name}] repeats bit for bit: "
+                          f"{'ok' if same else 'FAIL'}", flush=True)
+                    checks.rows.append({"check": f"{tag} [{name}] repeat",
+                                        "ok": same})
+                    if not same:
+                        checks.failed.append(f"{tag} [{name}] repeat")
+                # times: the kernel, its plain version, cuDNN's BN (4-D,
+                # in the view's memory layout) with the add and ReLU
+                fwd = bn.bn_fwd_cm if cm else bn.bn_fwd
+                bwd = bn.bn_bwd_cm if cm else bn.bn_bwd
+                mean, rstd = outs[1], torch.rsqrt(outs[2] + 1e-5)
+                x4 = (xv.reshape(BN_N, S, 1, C).permute(0, 3, 1, 2) if cm
+                      else xv.reshape(BN_N, C, S, 1))
+                r4 = None if rv is None else \
+                    (rv.reshape(BN_N, S, 1, C).permute(0, 3, 1, 2) if cm
+                     else rv.reshape(BN_N, C, S, 1))
+                dy4 = (dyv.reshape(BN_N, S, 1, C).permute(0, 3, 1, 2) if cm
+                       else dyv.reshape(BN_N, C, S, 1))
+
+                def lib(x_, g_, b_, r_=None):
+                    y_ = F.batch_norm(x_, None, None, g_, b_, True, 0.1,
+                                      1e-5)
+                    if r_ is not None:
+                        y_ = y_ + r_
+                    return torch.relu(y_) if act == "relu" else y_
+                lib_in = (x4, g, b) + ((r4,) if add else ())
+                n_big_f = 2 + int(add)             # x (r) read, y written
+                n_big_b = 3 + 2 * int(add)         # x dy (r) read, dx (dr)
+                numel = BN_N * C * S
+                for d, kern, plain, library, nbig in (
+                        ("fwd", lambda: fwd(xv, g, b, rv, 1e-5, act),
+                         lambda: bn.bn_act_reference(xv, g, b, 1e-5, act,
+                                                     rv),
+                         lambda: lib(*lib_in), n_big_f),
+                        ("bwd", lambda: bwd(xv, rv, dyv, g, b, mean, rstd,
+                                            act),
+                         lambda: bn.bn_bwd_reference(xv, rv, dyv, g, b,
+                                                     mean, rstd, act),
+                         grads_of(lib, lib_in, dy4), n_big_b)):
+                    kname = f"batch_norm_{d}{'_cm' if cm else ''}"
+                    t = timed(kern, plain, library)
+                    nbytes = nbig * numel * el + 4 * C * 4
+                    b_ms, b_by = bound(nbytes, BN_OPS[d] * numel, "float32")
+                    print(f"time {kname} [{name}] {key} C{C} S{S} "
+                          f"(device ms per call): kernel_ms={t['ms']:.4f} "
+                          f"plain_ms={t['plain_ms']:.4f} library_ms="
+                          f"{t['library_ms']:.4f} bound_ms={b_ms:.4f} "
+                          f"({b_by}); kernel wall_ms={t['wall_ms']:.4f}",
+                          flush=True)
+                    if key == BN_LINE_SHAPE:
+                        out[(kname, name)] = {"max_abs_err": err, **t,
+                                              "bound_ms": b_ms,
+                                              "bound_by": b_by,
+                                              "shape": [BN_N, C, S]}
+                del outs
+            del x, r, dy
+            torch.cuda.empty_cache()
+
+        # edge shapes, and a constant channel (E[x^2] - E[x]^2 may round
+        # below 0 before the clamp: var must be 0 or a rounding above)
+        for (n, C, S) in BN_EDGES:
+            for act, add in (("relu", True), ("none", False)):
+                x = randn(n, C, S, dtype=dt, mean=0.5, std=2.0)
+                if n * S > 1:
+                    x[:, 0] = 0.1
+                r = randn(n, C, S, dtype=dt) if add else None
+                dy = randn(n, C, S, dtype=dt)
+                g = randn(C, dtype=dt, mean=1.0, std=0.2)
+                b = randn(C, dtype=dt, std=0.1)
+                for cm in (False, True):
+                    xv, rv, dyv = (None if t is None else
+                                   (t.transpose(1, 2).contiguous()
+                                    .reshape(n * S, C) if cm else t)
+                                   for t in (x, r, dy))
+                    tag = f"bn edge {'cm' if cm else 'major'} N{n} C{C} " \
+                        f"S{S} {act}{' add' if add else ''}"
+                    outs, _ = run(xv, rv, dyv, g, b, act, cm, tag, name)
+                    var = outs[2]
+                    bad = bool((var < 0).any()) or \
+                        (n * S > 1 and float(var[0]) > 1e-6)
+                    if bad:
+                        checks.failed.append(f"{tag} [{name}]: constant "
+                                             f"channel var {float(var[0])}")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -631,46 +872,93 @@ def train_check_phase(checks):
                         "step_rel": srel, "ok": ok and sok})
 
 
-def step_breakdown(step, x):
-    """One training step, ``step(x, x)``, run as its two public halves
-    in two profiled windows, forward and backward, then the optimizer
-    update: device ms by family (GEMM, each kernel, optimizer, other),
-    each window's wall and device-busy ms, and the device's idle share
-    of the two windows' wall time."""
+RANGES = ("forward_backward", "update")
+
+
+def step_breakdown(step, x, y):
+    """One training step, ``step(x, y)``, under torch.profiler: device ms
+    by family (each ported kernel, cuDNN convolutions, GEMMs, the
+    optimizer, other), the host and device ms of TrainStep's two
+    ``record_function`` ranges, and the device's idle share of the
+    step's wall time.  The optimizer's device time is what the
+    ``update`` range launched; it leaves "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    by = {k: 0.0 for k in (*KERNEL_NAMES, "gemm", "optimizer", "other")}
-    windows = {}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, grads = step.forward_backward(x, x)
+        step(x, y)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, n = 0.0, 0
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us:
-            by[family_of(evt.key)] += us / 1e3
-            busy += us / 1e3
-            n += evt.count
-    windows["forward_backward"] = {"wall_ms": wall * 1e3, "busy_ms": busy,
-                                   "kernels": n}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step.update(grads)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    evts = [e for e in prof.key_averages() if _device_us(e)]
-    by["optimizer"] = sum(_device_us(e) for e in evts) / 1e3
-    windows["optimizer"] = {"wall_ms": wall * 1e3,
-                            "busy_ms": by["optimizer"],
-                            "kernels": sum(e.count for e in evts)}
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by = {k: 0.0 for k in (*KERNEL_NAMES, "conv", "gemm", "optimizer",
+                           "other")}
+    ranges = {r: {"host_ms": 0.0, "device_ms": 0.0} for r in RANGES}
+    n = 0
+    per_name = {}
+    for evt in prof.events():
+        on_device = "CPU" not in str(evt.device_type)
+        if evt.name in RANGES:
+            if not on_device:
+                ranges[evt.name] = {"host_ms": evt.cpu_time_total / 1e3,
+                                    "device_ms": evt.device_time_total / 1e3}
+            continue
+        if on_device:
+            ms = evt.device_time_total / 1e3
+            by[family_of(evt.name)] += ms
+            per_name[evt.name] = per_name.get(evt.name, 0.0) + ms
+            n += 1
+    by["optimizer"] = ranges["update"]["device_ms"]
+    by["other"] = max(0.0, by["other"] - by["optimizer"])
     busy = sum(by.values())
-    wall_ms = sum(w["wall_ms"] for w in windows.values())
+    top = {}
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1]):
+        fam = top.setdefault(family_of(name), [])
+        if len(fam) < 5:
+            fam.append([name[:120], ms])
     return {"device_ms_by_family": by, "device_busy_ms": busy,
-            "profiled_wall_ms": wall_ms, "windows": windows,
+            "profiled_wall_ms": wall_ms, "ranges": ranges, "kernels": n,
+            "top_kernels": top,
             "device_idle_share": 1.0 - busy / wall_ms if busy else None}
+
+
+def breakdown_line(tag, bd):
+    return (f"{tag} step breakdown (device ms): " +
+            ", ".join(f"{k} {v:.3f}" for k, v in
+                      bd["device_ms_by_family"].items() if v) +
+            f"; busy {bd['device_busy_ms']:.3f} of "
+            f"{bd['profiled_wall_ms']:.3f} ms wall ({bd['kernels']} device "
+            f"events), idle share {bd['device_idle_share']:.4f}; " +
+            "; ".join(f"{k}: host {r['host_ms']:.3f} ms, device "
+                      f"{r['device_ms']:.3f} ms launched from its thread"
+                      for k, r in bd["ranges"].items()))
+
+
+def profiled_step(checks, tag, step, x, y):
+    """:func:`step_breakdown`, with up to two more steps when the
+    profiler recorded no device time or none under ``update``."""
+    for _ in range(3):
+        bd = step_breakdown(step, x, y)
+        if bd["device_idle_share"] is not None and \
+                bd["ranges"]["update"]["device_ms"]:
+            break
+    if bd["device_idle_share"] is None:
+        checks.failed.append(f"torch.profiler recorded no device time in "
+                             f"the {tag} step")
+    else:
+        print(breakdown_line(tag, bd), flush=True)
+    return bd
+
+
+def check_launches(checks, tag, counts, per_step, n_steps):
+    """Every counter read after ``n_steps`` steps must be ``per_step``
+    (0 where not listed) times ``n_steps``."""
+    for name, got in counts.items():
+        want = per_step.get(name, 0) * n_steps
+        if got != want:
+            checks.failed.append(f"{tag}: {name} launched {got} times in "
+                                 f"{n_steps} steps, want "
+                                 f"{per_step.get(name, 0)} per step")
 
 
 def train_phase(checks):
@@ -721,11 +1009,7 @@ def train_phase(checks):
         VOCAB * UNITS
     flops = 6 * mm_params * tokens + 12 * LAYERS * T * UNITS * tokens
     mfu = flops / (ms_step / 1e3) / PEAK_OPS["bfloat16"]
-    for _ in range(3):  # another step when a window recorded nothing
-        breakdown = step_breakdown(step, toks)
-        if breakdown["device_idle_share"] is not None and \
-                breakdown["windows"]["optimizer"]["busy_ms"]:
-            break
+    breakdown = profiled_step(checks, "training", step, toks, toks)
 
     # the same seeds again: every kernel sums in a fixed order, so the
     # first steps' losses repeat bit for bit
@@ -746,18 +1030,13 @@ def train_phase(checks):
         checks.failed.append(f"training losses not finite: {losses}")
     if not np.mean(losses[-3:]) < losses[0]:
         checks.failed.append(f"training loss did not fall: {losses}")
-    per_step = {"flash_attention_fwd": LAYERS,
-                "flash_attention_bwd_dq": LAYERS,
-                "flash_attention_bwd_dkv": LAYERS,
-                "layer_norm_fwd": 1, "layer_norm_bwd": 1,
-                "fused_residual_ln_fwd": 2 * LAYERS,
-                "fused_residual_ln_bwd": 2 * LAYERS}
-    for name, per in per_step.items():
-        if counts[name] != per * n_steps:
-            checks.failed.append(
-                f"training: {name} launched {counts[name]} times in "
-                f"{n_steps} steps, want {per} per step")
-    by = breakdown["device_ms_by_family"]
+    check_launches(checks, "training", counts,
+                   {"flash_attention_fwd": LAYERS,
+                    "flash_attention_bwd_dq": LAYERS,
+                    "flash_attention_bwd_dkv": LAYERS,
+                    "layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                    "fused_residual_ln_fwd": 2 * LAYERS,
+                    "fused_residual_ln_bwd": 2 * LAYERS}, n_steps)
     print(f"training BERT-Large b{B} T{T} bf16 adam: losses "
           f"{[round(v, 4) for v in losses]}", flush=True)
     print(f"training: {ms_step:.3f} ms/step (median of {TRAIN_WINDOWS} "
@@ -770,25 +1049,262 @@ def train_phase(checks):
           f"{TRAIN_WARMUP} warm-up steps {setup_s:.1f} s", flush=True)
     print(f"training: launches in {n_steps} steps {json.dumps(counts)}",
           flush=True)
-    if breakdown["device_idle_share"] is None:
-        checks.failed.append("torch.profiler recorded no device time in "
-                             "the training step")
-    else:
-        print("training step breakdown (device ms): " +
-              ", ".join(f"{k} {v:.3f}" for k, v in by.items()) +
-              f"; busy {breakdown['device_busy_ms']:.3f} of "
-              f"{breakdown['profiled_wall_ms']:.3f} ms wall, idle share "
-              f"{breakdown['device_idle_share']:.4f}; " +
-              "; ".join(f"{k}: {w['kernels']} kernels, busy "
-                        f"{w['busy_ms']:.3f} of {w['wall_ms']:.3f} ms wall"
-                        for k, w in breakdown["windows"].items()),
-              flush=True)
     return counts, {"ms_per_step": ms_step, "window_ms_per_step": window_ms,
                     "tokens_per_s": tokens / ms_step * 1e3,
                     "flops_per_step": flops, "mfu": mfu,
                     "memory": mem, "losses": losses, "steps": n_steps,
                     "setup_s": setup_s, "breakdown": breakdown,
                     "repeats_bit_for_bit": same}
+
+
+# ----------------------------------------------------------------------
+# ResNet-50 trained
+# ----------------------------------------------------------------------
+
+RN_CHECK_LAYERS, RN_CHECK_B, RN_CHECK_HW = [1, 1, 1, 1], 4, 64
+RN_CHANNELS = [64, 256, 512, 1024, 2048]
+RN_B, RN_HW, RN_CLASSES = 256, 224, 1000
+RN_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# the card-vs-CPU check steps at lr 1e-3: at the recipe's 0.1 four
+# images are memorized in two steps (loss 7.0, 0.76, 0.27) and
+# gradients within 8e-6 of each other part the trajectories by 6e-3 at
+# the third step (measured on an H100), which tests the amplification,
+# not the arithmetic
+RN_CHECK_SGD = {**RN_SGD, "learning_rate": 1e-3}
+# a step loss near 0 (a memorized batch) is held to STEP_TOL of this
+# floor: there the loss is about exp(-margin), so its relative error is
+# the margin's absolute one (NHWC reads 2.7e-4 at step 3 on an H100)
+RN_LOSS_FLOOR = 1e-2
+RN_STATS_TOL = 1e-5
+# bench.py:129, the JAX package's count of one sample's training FLOPs
+RN_REF_FLOPS = 22.49e9
+RN_LAUNCHES = {"NCHW": {"batch_norm_fwd": 53, "batch_norm_bwd": 53},
+               "NHWC": {"batch_norm_fwd_cm": 53, "batch_norm_bwd_cm": 53}}
+
+
+def rn_batch(layout, b, hw, seed):
+    """``bench_resnet50``'s batch: images from ``RandomState(seed).randn``
+    and integer labels in [0, 1000) as floats, drawn in that order."""
+    rng = np.random.RandomState(seed)
+    shape = (b, 3, hw, hw) if layout == "NCHW" else (b, hw, hw, 3)
+    x = rng.randn(*shape).astype(np.float32)
+    y = rng.randint(0, RN_CLASSES, (b,)).astype(np.float32)
+    return x, y
+
+
+def rn_loss():
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return SoftmaxCrossEntropyLoss()
+
+
+def resnet_check_phase(checks):
+    """A full-width ResNet V1 of one bottleneck per stage, f32, b=4 at
+    64x64, the same weights on the card and on the CPU, in both
+    layouts: the loss, every gradient, three SGD-momentum steps and the
+    running statistics after them."""
+    import torch
+    from mxtpu_torch import initializer
+    from mxtpu_torch.convert import named_tensors
+    from mxtpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
+    from mxtpu_torch.parallel import build_train_step
+
+    for layout in ("NCHW", "NHWC"):
+        t0 = time.perf_counter()
+        x, y = rn_batch(layout, RN_CHECK_B, RN_CHECK_HW, SEED + 6)
+
+        def net_on(device):
+            net = ResNetV1(BottleneckV1, RN_CHECK_LAYERS, RN_CHANNELS,
+                           classes=RN_CLASSES, layout=layout)
+            initializer.initialize(
+                net, generator=torch.Generator().manual_seed(SEED + 7))
+            return net.to(device)
+
+        def step_on(device):
+            return build_train_step(net_on(device), rn_loss(), "sgd",
+                                    RN_CHECK_SGD, device=device)
+        card, cpu = step_on(CARD), step_on("cpu")
+        lc, gc = card.forward_backward(x, y)
+        lp, gp = cpu.forward_backward(x, y)
+        # a convolution bias that feeds a BatchNorm has a zero gradient
+        # in exact arithmetic: both sides hold rounding noise there,
+        # held to 1e-6 of the largest gradient's rms
+        rms = [float(b.double().pow(2).mean().sqrt()) for b in gp]
+        floor = 1e-6 * max(rms)
+        worst, worst_rel = 0.0, 0.0
+        for n, a, b, r in zip(card.param_names, gc, gp, rms):
+            d = float((a.double().cpu() - b.double()).pow(2).mean().sqrt())
+            worst = max(worst, d / max(r, 1e-30))
+            if r > 100 * floor:
+                worst_rel = max(worst_rel, d / r)
+            if d > GRAD_TOL * r + floor:
+                checks.failed.append(f"resnet check {layout}: grad of {n} "
+                                     f"off by {d:.3e} (rms {r:.3e})")
+        lrel = abs(float(lc) - float(lp)) / abs(float(lp))
+        if lrel > LOSS_TOL:
+            checks.failed.append(f"resnet check {layout}: loss off by "
+                                 f"{lrel:.3e}")
+        card, cpu = step_on(CARD), step_on("cpu")
+        lcs = [float(card(x, y)) for _ in range(3)]
+        lps = [float(cpu(x, y)) for _ in range(3)]
+        srel = max(abs(a - b) / max(abs(b), RN_LOSS_FLOOR)
+                   for a, b in zip(lcs, lps))
+        if srel > STEP_TOL:
+            checks.failed.append(f"resnet check {layout}: step losses off "
+                                 f"by {srel:.3e}")
+        srel_stats = 0.0
+        for (n, a), (_, b) in zip(named_tensors(card.net),
+                                  named_tensors(cpu.net)):
+            if n.endswith(("running_mean", "running_var")):
+                e, _ = rel_err(a.cpu(), b)
+                srel_stats = max(srel_stats, e)
+        if srel_stats > RN_STATS_TOL:
+            checks.failed.append(f"resnet check {layout}: running stats off "
+                                 f"by {srel_stats:.3e}")
+        ok = lrel <= LOSS_TOL and srel <= STEP_TOL and \
+            srel_stats <= RN_STATS_TOL and \
+            not any(f.startswith(f"resnet check {layout}")
+                    for f in checks.failed)
+        print(f"check resnet {layout} [1,1,1,1] full width b{RN_CHECK_B} "
+              f"{RN_CHECK_HW}x{RN_CHECK_HW} f32 card vs CPU: loss "
+              f"{float(lc):.6f} vs {float(lp):.6f} (rel {lrel:.3e}, tol "
+              f"{LOSS_TOL}); gradients over {len(gc)} tensors: worst rms "
+              f"error {worst_rel:.3e} of the tensor's rms where it is not "
+              f"a zero-gradient bias (tol {GRAD_TOL}; {worst:.3e} with "
+              f"them, floor {floor:.3e}); three SGD steps {lcs} vs {lps} "
+              f"(max err {srel:.3e} of max(|p|, {RN_LOSS_FLOOR}), tol "
+              f"{STEP_TOL}); running stats max "
+              f"rel {srel_stats:.3e} (tol {RN_STATS_TOL}) "
+              f"{'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        checks.rows.append({"check": f"resnet {layout} card vs CPU",
+                            "loss_rel": lrel, "worst_grad_rel": worst_rel,
+                            "step_losses_card": lcs,
+                            "step_losses_cpu": lps, "step_rel": srel,
+                            "stats_rel": srel_stats, "ok": ok})
+
+
+def model_counts(net, x1):
+    """From one eval-mode forward of ``net`` on the one-sample batch
+    ``x1`` (forward hooks on the port's own layers): the multiply-add
+    FLOPs (2 per MAC) of its convolutions and dense layers, and the
+    bytes the BatchNorm kernels must move per sample in bf16 — forward:
+    x (and the residual) read, y written; backward: x, dy (and the
+    residual) read, dx (and dr) written."""
+    import torch
+    from mxtpu_torch.gluon import nn as gnn
+    c = {"flops": 0, "bn_fwd_bytes": 0, "bn_bwd_bytes": 0}
+
+    def conv_hook(mod, inp, out):
+        w = mod.weight
+        k = w.numel() // w.shape[0]          # I/groups * kh * kw
+        c["flops"] += 2 * out.numel() * k
+
+    def dense_hook(mod, inp, out):
+        c["flops"] += 2 * out.numel() * mod.weight.shape[1]
+
+    def bn_hook(mod, inp, out):
+        add = int(len(inp) > 1 and inp[1] is not None)
+        c["bn_fwd_bytes"] += (2 + add) * inp[0].numel() * 2
+        c["bn_bwd_bytes"] += (3 + 2 * add) * inp[0].numel() * 2
+    hook_of = {gnn.Conv2D: conv_hook, gnn.Dense: dense_hook,
+               gnn.BatchNorm: bn_hook}
+    hooks = [m.register_forward_hook(hook_of[type(m)])
+             for m in net.modules() if type(m) in hook_of]
+    net.eval()
+    with torch.no_grad():
+        net(x1)
+    for h in hooks:
+        h.remove()
+    return c
+
+
+def resnet_train_phase(checks, layout):
+    """ResNet-50 v1 trained with the bench_resnet50 recipe in
+    ``layout``; returns the launch counts of the timed steps and the
+    numbers."""
+    import torch
+    from mxtpu_torch import initializer, kernels
+    from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxtpu_torch.models import resnet50
+    from mxtpu_torch.parallel import build_train_step
+
+    t0 = time.perf_counter()
+    with torch.device(CARD):
+        # bench_resnet50's model, and the model zoo's channels-last one
+        net = resnet50(classes=RN_CLASSES) if layout == "NCHW" else \
+            resnet50_v1(classes=RN_CLASSES, layout=layout)
+    initializer.initialize(net, initializer.Xavier(),
+                           torch.Generator(device=CARD).manual_seed(SEED))
+    xn, yn = rn_batch(layout, RN_B, RN_HW, SEED)
+    x = torch.from_numpy(xn).to(CARD)
+    y = torch.from_numpy(yn).to(CARD)
+    per_sample = model_counts(net, x[:1])
+    flops = 3 * per_sample["flops"] * RN_B
+    bn_bound_ms = {d: per_sample[f"bn_{d}_bytes"] * RN_B / PEAK_BYTES * 1e3
+                   for d in ("fwd", "bwd")}
+    step = build_train_step(net, rn_loss(), "sgd", RN_SGD,
+                            compute_dtype="bfloat16", device=CARD)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(x, y) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    window_ms = []
+    for _ in range(TRAIN_WINDOWS):
+        t1 = time.perf_counter()
+        losses += [step(x, y) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t1) / TRAIN_STEPS * 1e3)
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    mem = step.memory_summary()
+    n_steps = TRAIN_STEPS * TRAIN_WINDOWS
+    ms_step = float(np.median(window_ms))
+    mfu = flops / (ms_step / 1e3) / PEAK_OPS["bfloat16"]
+    ref_mfu = RN_REF_FLOPS * RN_B / (ms_step / 1e3) / PEAK_OPS["bfloat16"]
+    tag = f"resnet50 {layout}"
+    if not all(np.isfinite(losses)):
+        checks.failed.append(f"{tag}: losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        checks.failed.append(f"{tag}: loss did not fall: {losses}")
+    check_launches(checks, tag, counts, RN_LAUNCHES[layout], n_steps)
+    print(f"{tag} b{RN_B} {RN_HW}x{RN_HW} bf16 sgd momentum: losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    print(f"{tag}: {ms_step:.3f} ms/step (median of {TRAIN_WINDOWS} "
+          f"windows of {TRAIN_STEPS} steps: "
+          f"{', '.join(f'{w:.3f}' for w in window_ms)}), "
+          f"{RN_B / ms_step * 1e3:.1f} samples/s, MFU {mfu:.4f} of "
+          f"{PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 "
+          f"({flops / RN_B / 1e9:.3f} GFLOP per sample from the port's "
+          f"conv and dense shapes, 3x forward; the reference's count "
+          f"{RN_REF_FLOPS / 1e9:.2f} gives MFU {ref_mfu:.4f})"
+          f"; peak memory {(mem['peak_bytes'] or 0) / 2**30:.3f} GiB; set-up "
+          f"and {TRAIN_WARMUP} warm-up steps {setup_s:.1f} s", flush=True)
+    print(f"{tag}: launches in {n_steps} steps {json.dumps(counts)}",
+          flush=True)
+    breakdown = profiled_step(checks, tag, step, x, y)
+    sfx = "_cm" if layout == "NHWC" else ""
+    bn_ms = {d: breakdown["device_ms_by_family"][f"batch_norm_{d}{sfx}"]
+             for d in ("fwd", "bwd")}
+    print(f"{tag}: BatchNorm kernels per step {bn_ms['fwd']:.3f} ms fwd, "
+          f"{bn_ms['bwd']:.3f} ms bwd against byte bounds of "
+          f"{bn_bound_ms['fwd']:.3f} and {bn_bound_ms['bwd']:.3f} ms "
+          f"(53 BatchNorms, bf16, {PEAK_BYTES / 1e12:.2f} TB/s)", flush=True)
+    for fam in ("conv", "gemm", "other"):
+        print(f"{tag} top {fam} kernels (device ms): " + "; ".join(
+            f"{k[:70]} {ms:.3f}"
+            for k, ms in breakdown["top_kernels"].get(fam, [])[:4]),
+            flush=True)
+    del step, net
+    torch.cuda.empty_cache()
+    return counts, {"layout": layout, "ms_per_step": ms_step,
+                    "window_ms_per_step": window_ms,
+                    "samples_per_s": RN_B / ms_step * 1e3,
+                    "flops_per_step": flops, "mfu": mfu,
+                    "reference_flops_per_sample": RN_REF_FLOPS,
+                    "bn_bound_ms_per_step": bn_bound_ms,
+                    "memory": mem, "losses": losses, "steps": n_steps,
+                    "setup_s": setup_s, "breakdown": breakdown}
 
 
 # ----------------------------------------------------------------------
@@ -961,10 +1477,12 @@ def serve_phase(checks, params):
             checks.failed.append(f"{name}: {counts[name]} launches for "
                                  f"{n_fwd} forwards, want {per} each")
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                 "layer_norm_bwd", "fused_residual_ln_bwd"):
+                 "layer_norm_bwd", "fused_residual_ln_bwd",
+                 "batch_norm_fwd", "batch_norm_bwd", "batch_norm_fwd_cm",
+                 "batch_norm_bwd_cm"):
         if counts[name]:
-            checks.failed.append(f"serving launched the backward kernel "
-                                 f"{name} {counts[name]} times")
+            checks.failed.append(f"serving launched kernel {name} "
+                                 f"{counts[name]} times")
     # one forward per batch: at least N/32 batches, at most N
     if not -(-N_REQUESTS // 32) <= n_fwd <= N_REQUESTS:
         checks.failed.append(f"{n_fwd} forwards for {N_REQUESTS} "
@@ -1044,6 +1562,7 @@ def main():
     gen = torch.Generator(device=CARD).manual_seed(SEED)
     timings = kernel_phase(checks, gen)
     timings.update(backward_phase(checks, gen))
+    timings.update(bn_phase(checks, gen))
     for (name, dt), r in timings.items():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f}"
@@ -1059,16 +1578,23 @@ def main():
 
     train_check_phase(checks)
     train_counts, training = train_phase(checks)
+    resnet_check_phase(checks)
+    rn_counts, resnet = {}, {}
+    for layout in ("NCHW", "NHWC"):
+        rn_counts[layout], resnet[layout] = resnet_train_phase(checks,
+                                                               layout)
 
     t0 = time.perf_counter()
     params = mxtpu_params(SEED)
     print(f"weights: {len(params)} arrays from numpy seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve_counts, serving = serve_phase(checks, params)
-    counts = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    counts = {k: train_counts[k] + serve_counts[k] +
+              sum(c[k] for c in rn_counts.values()) for k in train_counts}
 
-    # forward kernels at the serving path's type (f32), backward kernels
-    # at the training path's (bf16)
+    # BERT's forward kernels at the serving path's type (f32), its
+    # backward kernels and the BatchNorm kernels at the training paths'
+    # (bf16); the BatchNorm rows at the BN_LINE_SHAPE
     meta = {
         "flash_attention_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
                                 "mxtpu/kernels/flash_attention.py:192",
@@ -1089,6 +1615,16 @@ def main():
         "fused_residual_ln_bwd": (
             "mxtpu_torch/csrc/fused_residual_ln_bwd.cu",
             "mxtpu/kernels/layer_norm.py:384", "bfloat16"),
+        "batch_norm_fwd": ("mxtpu_torch/csrc/batch_norm.cu",
+                           "mxtpu/kernels/batch_norm.py:319", "bfloat16"),
+        "batch_norm_bwd": ("mxtpu_torch/csrc/batch_norm_bwd.cu",
+                           "mxtpu/kernels/batch_norm.py:345", "bfloat16"),
+        "batch_norm_fwd_cm": ("mxtpu_torch/csrc/batch_norm.cu",
+                              "mxtpu/kernels/batch_norm.py:393",
+                              "bfloat16"),
+        "batch_norm_bwd_cm": ("mxtpu_torch/csrc/batch_norm_bwd.cu",
+                              "mxtpu/kernels/batch_norm.py:419",
+                              "bfloat16"),
     }
     for name in meta:
         if counts[name] == 0:
@@ -1107,8 +1643,11 @@ def main():
               "build_log": dict(_build.build_log), "checks": checks.rows,
               "timings": {f"{n}[{d}]": r for (n, d), r in timings.items()},
               "launches": {"training": train_counts,
-                           "serving": serve_counts},
-              "training": training, "serving": serving, "kernels": line,
+                           "serving": serve_counts,
+                           **{f"resnet50 {k}": c
+                              for k, c in rn_counts.items()}},
+              "training": training, "resnet50": resnet,
+              "serving": serving, "kernels": line,
               "failed": checks.failed}
     out_dir = ROOT / "mxtpu_torch" / "_build"
     out_dir.mkdir(exist_ok=True)

@@ -4,13 +4,17 @@
 (``dense0_weight``, ``fusedresiduallayernorm3_gamma``…), so names say
 nothing about which module a weight belongs to.  Weights are matched by
 order instead: ``mxtpu``'s ``collect_params()`` order (which is also
-the order of an exported ``.params`` file) against the model's
-``parameters()`` order, with every shape checked.  ``Dense`` weights
-are (out, in) on both sides, so nothing is transposed.
+the order of an exported ``.params`` file) against the model's own
+order: each module's parameters, then its buffers (BatchNorm's
+``running_mean`` and ``running_var``, mxtpu's aux parameters), module
+by module in registration order — for a model without buffers, its
+``parameters()`` order.  Every shape is checked.  ``Dense`` weights
+are (out, in) on both sides and convolution weights keep the
+reference's layout, so nothing is transposed.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,19 +22,33 @@ from torch import nn
 
 from .base import MXNetError
 
-__all__ = ["params_from_mxtpu", "params_to_mxtpu"]
+__all__ = ["params_from_mxtpu", "params_to_mxtpu", "named_tensors"]
+
+
+def named_tensors(model: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """``model``'s parameters and buffers in ``collect_params()`` order:
+    module by module, each module's own parameters, then its own
+    buffers; a tensor shared by two modules counts once."""
+    out, seen = [], set()
+    for mname, mod in model.named_modules():
+        for name, t in [*mod.named_parameters(recurse=False),
+                        *mod.named_buffers(recurse=False)]:
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append((f"{mname}.{name}" if mname else name, t))
+    return out
 
 
 def params_from_mxtpu(params: Dict[str, np.ndarray],
                       model: nn.Module) -> nn.Module:
     """Copy ``params`` (name → array in ``collect_params()`` order) into
-    ``model``'s parameters in place; raises on a count or shape
-    mismatch.  Returns the model."""
-    targets = list(model.named_parameters())
+    ``model``'s parameters and buffers in place; raises on a count or
+    shape mismatch.  Returns the model."""
+    targets = named_tensors(model)
     if len(params) != len(targets):
         raise MXNetError(
             f"params_from_mxtpu: {len(params)} mxtpu parameters for "
-            f"{len(targets)} model parameters")
+            f"{len(targets)} model parameters and buffers")
     staged = []
     for (src_name, arr), (dst_name, p) in zip(params.items(), targets):
         a = np.asarray(arr)
@@ -50,16 +68,16 @@ def params_to_mxtpu(model: nn.Module,
                     names: Optional[Sequence[str]] = None
                     ) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_mxtpu`: ``model``'s parameters
-    as f32 numpy arrays in ``collect_params()`` order, keyed by
-    ``names`` (mxtpu's names, in that order) or else by the model's own
-    parameter names."""
-    targets = list(model.named_parameters())
+    and buffers as f32 numpy arrays in ``collect_params()`` order, keyed
+    by ``names`` (mxtpu's names, in that order) or else by the model's
+    own names."""
+    targets = named_tensors(model)
     if names is None:
         names = [n for n, _ in targets]
     names = list(names)
     if len(names) != len(targets):
         raise MXNetError(
             f"params_to_mxtpu: {len(names)} names for {len(targets)} "
-            f"model parameters")
+            f"model parameters and buffers")
     return {n: p.detach().float().cpu().numpy()
             for n, (_, p) in zip(names, targets)}

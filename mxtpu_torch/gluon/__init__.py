@@ -1,3 +1,3 @@
-"""Gluon layers and losses on PyTorch modules (``mxtpu.gluon``
-counterpart)."""
-from . import loss, nn  # noqa: F401
+"""Gluon layers, losses and the model zoo on PyTorch modules
+(``mxtpu.gluon`` counterpart)."""
+from . import loss, model_zoo, nn  # noqa: F401

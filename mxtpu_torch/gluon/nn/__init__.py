@@ -1,4 +1,5 @@
 """Neural-network layers (``mxtpu.gluon.nn`` counterpart)."""
-from .basic_layers import (Dense, Dropout, Embedding,  # noqa: F401
-                           FusedResidualLayerNorm, HybridSequential,
-                           LayerNorm, gelu)
+from .basic_layers import (BatchNorm, Dense, Dropout,  # noqa: F401
+                           Embedding, FusedResidualLayerNorm,
+                           HybridSequential, LayerNorm, gelu)
+from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D  # noqa: F401

@@ -8,9 +8,10 @@ module); :func:`launch_counts` reads them all and
 :func:`reset_launch_counts` sets them to 0.
 
 The public functions (``flash_attention``, ``layer_norm``,
-``fused_residual_layer_norm``) run through ``torch.autograd.Function``s
-whose backward is the backward kernel.  The raw forward wrappers
-(``flash_forward``, ``layer_norm_fwd``, ``fused_residual_ln_fwd``) keep
+``fused_residual_layer_norm``, ``fused_bn_act``) run through
+``torch.autograd.Function``s whose backward is the backward kernel.
+The raw wrappers (``flash_forward``, ``layer_norm_fwd``,
+``fused_residual_ln_fwd``, ``bn_fwd``, ``bn_bwd`` and the like) keep
 no graph, so on the card they refuse inputs that require grad
 (:func:`refuse_grad`) rather than cut autograd silently.
 """
@@ -26,7 +27,8 @@ from ..base import MXNetError
 
 __all__ = ["on_card", "refuse_grad", "bump", "launch_counts",
            "reset_launch_counts",
-           "flash_attention", "layer_norm", "fused_residual_layer_norm"]
+           "flash_attention", "layer_norm", "fused_residual_layer_norm",
+           "fused_bn_act"]
 
 _count_lock = threading.Lock()
 
@@ -69,13 +71,18 @@ def _modules():
     # by module path: the package re-exports functions of the same names
     fa = importlib.import_module(__name__ + ".flash_attention")
     ln = importlib.import_module(__name__ + ".layer_norm")
+    bn = importlib.import_module(__name__ + ".batch_norm")
     return {"flash_attention_fwd": (fa, "LAUNCHES"),
             "flash_attention_bwd_dq": (fa, "DQ_LAUNCHES"),
             "flash_attention_bwd_dkv": (fa, "DKV_LAUNCHES"),
             "layer_norm_fwd": (ln, "LAUNCHES"),
             "layer_norm_bwd": (ln, "BWD_LAUNCHES"),
             "fused_residual_ln_fwd": (ln, "FRLN_LAUNCHES"),
-            "fused_residual_ln_bwd": (ln, "FRLN_BWD_LAUNCHES")}
+            "fused_residual_ln_bwd": (ln, "FRLN_BWD_LAUNCHES"),
+            "batch_norm_fwd": (bn, "FWD_LAUNCHES"),
+            "batch_norm_bwd": (bn, "BWD_LAUNCHES"),
+            "batch_norm_fwd_cm": (bn, "FWD_CM_LAUNCHES"),
+            "batch_norm_bwd_cm": (bn, "BWD_CM_LAUNCHES")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -91,3 +98,4 @@ def reset_launch_counts() -> None:
 
 from .flash_attention import flash_attention  # noqa: E402
 from .layer_norm import layer_norm, fused_residual_layer_norm  # noqa: E402
+from .batch_norm import fused_bn_act  # noqa: E402

@@ -38,10 +38,11 @@ class MultiHeadAttention(nn.Module):
         self._units = units
         self._heads = num_heads
         self._causal = causal
-        self.qkv = gnn.Dense(3 * units, units)
+        self.qkv = gnn.Dense(3 * units, units, flatten=False)
         # proj_bias=False when a FusedResidualLayerNorm epilogue folds
         # the output bias into its kernel
-        self.proj = gnn.Dense(units, units, use_bias=proj_bias)
+        self.proj = gnn.Dense(units, units, use_bias=proj_bias,
+                               flatten=False)
 
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
         # (N, T, u) -> (N, h, T, u/h), contiguous for the kernel
@@ -65,8 +66,9 @@ class PositionwiseFFN(nn.Module):
     def __init__(self, units: int, hidden_size: int,
                  out_bias: bool = True):
         super().__init__()
-        self.ffn1 = gnn.Dense(hidden_size, units)
-        self.ffn2 = gnn.Dense(units, hidden_size, use_bias=out_bias)
+        self.ffn1 = gnn.Dense(hidden_size, units, flatten=False)
+        self.ffn2 = gnn.Dense(units, hidden_size, use_bias=out_bias,
+                               flatten=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ffn2(gnn.gelu(self.ffn1(x)))
@@ -131,7 +133,7 @@ class BERTModel(nn.Module):
         self.embed_drop = gnn.Dropout(dropout) if dropout else None
         self.encoder = TransformerEncoder(num_layers, units, hidden_size,
                                           num_heads, dropout, causal)
-        self.mlm = gnn.Dense(vocab_size, units)
+        self.mlm = gnn.Dense(vocab_size, units, flatten=False)
 
     def forward(self, tokens: torch.Tensor,
                 token_types: torch.Tensor = None) -> torch.Tensor:

@@ -11,11 +11,19 @@ the backward of attention and the norms.
 
 Mixed precision (``compute_dtype``): the f32 master parameters are cast
 to ``compute_dtype`` for the forward (``torch.func.functional_call``
-substitutes the casts for the module's parameters), so the GEMMs run in
-bf16 on the tensor cores, and autograd through each cast hands an f32
-gradient back to its master.  The loss leaves the bf16 region in f32.
-``cast_batch=False`` keeps the batch in its own type: float token ids
-above 256 are not exact in bf16.
+substitutes the casts for the module's parameters), so the GEMMs and
+convolutions run in bf16 on the tensor cores, and autograd through each
+cast hands an f32 gradient back to its master.  Buffers are not cast:
+BatchNorm's running statistics stay f32 and the training-mode forward
+updates the module's own buffers, as the JAX step keeps its aux
+parameters f32.  The loss leaves the bf16 region in f32.
+``cast_batch=True`` casts a float batch (images) to ``compute_dtype``;
+``cast_batch=False`` keeps it in its own type (float token ids above
+256 are not exact in bf16).  Labels are never cast.
+
+A call runs inside two ``torch.profiler.record_function`` ranges,
+``forward_backward`` and ``update``, so a profile of one call splits
+the step without reaching into the class.
 
 Not ported, and refused with ``NotImplementedError`` rather than
 ignored: a device mesh (``mesh``), tensor parallelism
@@ -108,18 +116,20 @@ class TrainStep:
         """The loss (f32 mean) and the f32 gradient of every trainable
         parameter (in ``param_names`` order), from one training-mode
         forward and backward: the first half of a step."""
-        x = self._batch(x, self.cast_batch)
-        y = self._batch(y, False)
-        self.net.train()
-        if self.compute_dtype is None:
-            pred = self.net(x)
-        else:
-            cd = self.compute_dtype
-            cast = {n: (p.to(cd) if p.is_floating_point() else p)
-                    for n, p in self.net.named_parameters()}
-            pred = torch.func.functional_call(self.net, cast, (x,))
-        loss = self.loss_fn(pred, y).float().mean()
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        with torch.profiler.record_function("forward_backward"):
+            x = self._batch(x, self.cast_batch)
+            y = self._batch(y, False)
+            self.net.train()
+            if self.compute_dtype is None:
+                pred = self.net(x)
+            else:
+                cd = self.compute_dtype
+                cast = {n: (p.to(cd) if p.is_floating_point() else p)
+                        for n, p in self.net.named_parameters()}
+                pred = torch.func.functional_call(self.net, cast, (x,))
+            loss = self.loss_fn(pred, y).float().mean()
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=True)
         # a parameter the forward did not use (type_embed without token
         # types) has a zero gradient, as under JAX's AD
         return loss.detach(), [torch.zeros_like(p) if g is None else g
@@ -146,12 +156,13 @@ class TrainStep:
         """The second half of a step: one optimizer update of every
         trainable parameter, each rebound to the rule's new value, as
         the JAX step rebinds its buffers."""
-        self._t += 1
-        lrs, wds = self._lrs_wds()
-        for j, (p, g) in enumerate(zip(self._params, grads)):
-            w2, self._opt_state[j] = self._opt_update(
-                p.detach(), g, self._opt_state[j], lrs[j], wds[j])
-            p.data = w2
+        with torch.profiler.record_function("update"):
+            self._t += 1
+            lrs, wds = self._lrs_wds()
+            for j, (p, g) in enumerate(zip(self._params, grads)):
+                w2, self._opt_state[j] = self._opt_update(
+                    p.detach(), g, self._opt_state[j], lrs[j], wds[j])
+                p.data = w2
 
     def __call__(self, x, y) -> torch.Tensor:
         loss, grads = self.forward_backward(x, y)

@@ -199,10 +199,10 @@ def test_serving_knob_sets_the_ladder(monkeypatch):
     assert r.batch_buckets == (1, 2, 4, 6)
 
 
-def test_training_mode_is_refused_not_silently_served():
-    # training mode is ported: a training forward drops out from the
-    # seeded generators, and serving never sees it — ModelRunner puts
-    # the model in eval mode, where dropout is off
+def test_training_mode_draws_seeded_dropout_and_serving_runs_eval():
+    # a training forward drops out from the seeded generators, and
+    # serving never sees it: ModelRunner puts the model in eval mode,
+    # where dropout is off
     from mxtpu_torch import random as trandom
     net = _torch_bert()          # dropout 0.1, still in training mode
     toks = torch.from_numpy(_tokens(4, 2, 16))  # fills a bucket

@@ -196,14 +196,23 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
     tk.flash_attention(*qkv).sum().backward()
     tk.fused_residual_layer_norm(x, torch.zeros(16), x, torch.ones(16),
                                  torch.zeros(16), [1, 2]).sum().backward()
+    xb = torch.randn(2, 16, 3, 3, requires_grad=True)
+    tk.fused_bn_act(xb, torch.ones(16), torch.zeros(16), act="relu",
+                    residual=xb)[0].sum().backward()
+    tk.fused_bn_act(x, torch.ones(16), torch.zeros(16))[0].sum().backward()
     assert x.grad is not None and qkv[0].grad is not None
+    assert xb.grad is not None
     assert tk.launch_counts() == {"flash_attention_fwd": 0,
                                   "flash_attention_bwd_dq": 0,
                                   "flash_attention_bwd_dkv": 0,
                                   "layer_norm_fwd": 0,
                                   "layer_norm_bwd": 0,
                                   "fused_residual_ln_fwd": 0,
-                                  "fused_residual_ln_bwd": 0}
+                                  "fused_residual_ln_bwd": 0,
+                                  "batch_norm_fwd": 0,
+                                  "batch_norm_bwd": 0,
+                                  "batch_norm_fwd_cm": 0,
+                                  "batch_norm_bwd_cm": 0}
 
 
 def test_dispatch_refuses_devices_it_has_no_path_for():

@@ -2,8 +2,11 @@
 against its plain PyTorch version, train BERT-Large with the
 ``bench_bert`` recipe (adam, bf16 compute, b32 x T128), train ResNet-50
 v1 with the ``bench_resnet50`` recipe (SGD momentum, bf16 compute, b256
-x 224^2) in NCHW and NHWC, and serve BERT-Large through
-InferenceServer → DynamicBatcher → ModelRunner.
+x 224^2) in NCHW and NHWC, train examples/train_cifar10.py's resnet20
+through the symbolic API (sym → Module.fit), also with a CustomOp
+softmax head whose kernels are compiled at run time by rtc.CudaModule,
+and serve BERT-Large through InferenceServer → DynamicBatcher →
+ModelRunner.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -58,7 +61,33 @@ Phases, each fatal on failure:
      128 requests of lengths 16-128; every result checked, 0 requeues,
      launch counts read around the run;
  11. one served batch of 8 x 128 against the same model and weights run
-     on the CPU (plain path).
+     on the CPU (plain path);
+ 12. rtc: the user kernels of ``RTC_SOURCE`` (y = 2x, a row softmax
+     and its loss gradient p - onehot(label)) compiled by
+     ``rtc.CudaModule`` and launched through ``CudaKernel.launch``: y =
+     2x exact at 8x128 and 4096x4096, the softmax pair against its
+     plain version at the head's (128, 10) and at (4096, 30522), times
+     beside the byte bound, the plain version and the library call
+     (``torch.softmax``; autograd through ``F.cross_entropy``), the host
+     cost of one launch, and the refusals (a wrong dtype, an array on
+     the CPU, a CPU ctx, a float for an int, a source that does not
+     compile, a missing export);
+ 13. resnet20 at full width, b16, through the symbolic API: the card's
+     Module against the same Module on the CPU (outputs, every
+     gradient, three SGD steps at lr 1e-3), the rtc head (a Module
+     ending at the logits, the ``softmax_rtc`` CustomOp under
+     ``autograd.record``, ``backward(out_grads=[logits.grad])``)
+     against SoftmaxOutput on the card over three steps, and a
+     checkpoint round trip that predicts bit for bit;
+ 14. ``train_cifar10``'s recipe: one epoch of ``Module.fit`` over the
+     synthetic CIFAR-10 fallback (14 batches of 128; sgd lr 0.01,
+     momentum 0.9, wd 1e-4, rescale 1/128; Xavier; Accuracy,
+     Speedometer, do_checkpoint), launches exactly 19/19/0/0 BatchNorm
+     per batch, the moving statistics untouched, then ``score``; a
+     profiled batch; then the same epoch with the rtc head from the
+     same parameters and batch order: rtc launches 1/1 and BatchNorm
+     19/19 per batch, the per-batch losses within 1e-4 of max(|p|,
+     0.01) of the SoftmaxOutput run's.
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -67,7 +96,11 @@ flash gradients, whose typical size is about 0.1, are held at
 |r - p| <= 2e-2 * max(min(1, rms(p)), |p|) instead, and BatchNorm's f32
 dgamma and dbeta (sums over N*S elements) at 1e-4 * max(rms(p), |p|);
 the served logits against the CPU: 1e-3 (24 layers of f32 GEMMs in
-another order); the 2-layer BERT and the small ResNet train checks:
+another order); the rtc softmax: p 1e-6 relative, dx 1e-6 absolute;
+the symbolic resnet20 card vs CPU: outputs (probabilities) 1e-5, each
+gradient's rms error 1e-4 of its rms, three step losses 1e-4 of
+max(|p|, 0.01); the rtc head against SoftmaxOutput over three steps:
+logits gradients 1e-6, parameters 1e-6 relative; the 2-layer BERT and the small ResNet train checks:
 each gradient's rms error 1e-4 of its rms (plus, for ResNet, 1e-6 of
 the largest gradient's rms: a convolution bias feeding a BatchNorm has
 a zero gradient in exact arithmetic), the loss 1e-5 and the three step
@@ -625,6 +658,12 @@ BN_LINE_SHAPE = "layer1_out"
 # edge shapes (N, C, S): odd S, C under and off the 32-lane tile, and
 # N*S = 1
 BN_EDGES = ((5, 3, 49), (7, 100, 196), (3, 37, 1), (1, 4, 1))
+# (C, S, mean, std) of train_cifar10's resnet20 BatchNorms at N = 128,
+# act none, f32: its three stages; stage 0's input has conv0's
+# mean^2 ~13x its variance
+CIFAR_BN_N = 128
+CIFAR_BN_SHAPES = ((16, 1024, 2.0, 0.55), (32, 256, 0.5, 2.0),
+                   (64, 64, 0.5, 2.0))
 # elementwise f32 operations per element (stats, then the apply pass)
 BN_OPS = {"fwd": 7, "bwd": 14}
 
@@ -633,7 +672,7 @@ def bn_phase(checks, gen):
     """The four BatchNorm kernels against their plain versions on the
     card, forward (y, mean, var) and backward (dx, dr, dgamma, dbeta),
     in f32 and bf16: at ResNet-50's shapes (N = 256) in both views, at
-    edge shapes, on a constant channel; the stem's statistics against
+    edge shapes, at resnet20's (N = 128, f32, the symbolic path's), on a constant channel; the stem's statistics against
     an f64 plain version; a repeat bit-equal.  Returns the timings of
     ``BN_LINE_SHAPE`` keyed like the other kernels', and prints every
     shape's."""
@@ -801,6 +840,15 @@ def bn_phase(checks, gen):
                     if bad:
                         checks.failed.append(f"{tag} [{name}]: constant "
                                              f"channel var {float(var[0])}")
+
+    # the symbolic path's shapes (resnet20 at the recipe's batch)
+    for (C, S, mean, std) in CIFAR_BN_SHAPES:
+        x = randn(CIFAR_BN_N, C, S, mean=mean, std=std)
+        dy = randn(CIFAR_BN_N, C, S)
+        g = randn(C, mean=1.0, std=0.2)
+        b = randn(C, std=0.1)
+        run(x, None, dy, g, b, "none", False,
+            f"bn major resnet20 N{CIFAR_BN_N} C{C} S{S} none", "float32")
     return out
 
 
@@ -1308,6 +1356,851 @@ def resnet_train_phase(checks, layout):
 
 
 # ----------------------------------------------------------------------
+# rtc: user kernels compiled at run time, and a CustomOp softmax head
+# ----------------------------------------------------------------------
+
+# User code, as MXNet's example/numpy-ops/custom_softmax_rtc.py writes
+# its head: kernels kept as CUDA C++ source, compiled by
+# mxtpu_torch.rtc.CudaModule and launched from a CustomOp.  Each kernel
+# has its plain PyTorch version beside it (RTC_PLAIN).
+RTC_SOURCE = r"""
+// y = 2x (the JAX package's PallasKernel test body)
+extern "C" __global__ void double_kernel(const float *x, float *y,
+                                         long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x)
+    y[i] = 2.0f * x[i];
+}
+
+// the max (max = 1) or the sum (max = 0) of v over the block, in f32;
+// blockDim.x is a multiple of 32, at most 1024
+__device__ float block_reduce(float v, bool max) {
+  __shared__ float part[32];
+  for (int o = 16; o > 0; o >>= 1) {
+    float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = max ? fmaxf(v, w) : v + w;
+  }
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  int warps = blockDim.x >> 5;
+  v = lane < warps ? part[lane] : (max ? -INFINITY : 0.0f);
+  for (int o = 16; o > 0; o >>= 1) {
+    float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = max ? fmaxf(v, w) : v + w;
+  }
+  __syncthreads();  // part[] is reused by the next call
+  return v;
+}
+
+// p = softmax(x) over each row of a (rows, cols) f32 array: one CTA per
+// row, a block max, a block sum of exp(x - max), then the write
+extern "C" __global__ void __launch_bounds__(1024)
+softmax_fwd(const float *x, float *p, int rows, int cols) {
+  const float *xr = x + (long long)blockIdx.x * cols;
+  float *pr = p + (long long)blockIdx.x * cols;
+  float m = -INFINITY;
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) m = fmaxf(m, xr[j]);
+  m = block_reduce(m, true);
+  float s = 0.0f;
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) s += expf(xr[j] - m);
+  s = block_reduce(s, false);
+  for (int j = threadIdx.x; j < cols; j += blockDim.x)
+    pr[j] = expf(xr[j] - m) / s;
+}
+
+// dx = p - onehot(label): SoftmaxOutput's backward with grad_scale 1
+// and normalization "null"; the label is a float per row
+extern "C" __global__ void softmax_bwd(const float *p, const float *label,
+                                       float *dx, int rows, int cols) {
+  long long n = (long long)rows * cols;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    int r = (int)(i / cols), c = (int)(i - (long long)r * cols);
+    dx[i] = p[i] - (c == (int)label[r] ? 1.0f : 0.0f);
+  }
+}
+"""
+RTC_SIGNATURES = {
+    "double_kernel": "const float *x, float *y, long long n",
+    "softmax_fwd": "const float *x, float *p, int rows, int cols",
+    "softmax_bwd": "const float *p, const float *label, float *dx, "
+                   "int rows, int cols"}
+# the (rows, cols) the main path gives the head (the batch and the
+# classes) and a real softmax width on this card (BERT-Large's MLM
+# logits at b32 x T128)
+RTC_SHAPES = {"head": (128, 10), "mlm": (4096, 30522)}
+RTC_P_TOL, RTC_DX_TOL = 1e-6, 1e-6
+ELEMENTWISE_BLOCKS = 1056   # 8 CTAs per SM of 132, grid-stride loops
+
+
+def rtc_plain(name, *args):
+    """The plain PyTorch version of each user kernel."""
+    import torch
+    import torch.nn.functional as F
+    if name == "double_kernel":
+        return 2 * args[0]
+    if name == "softmax_fwd":
+        return torch.softmax(args[0], -1)
+    p, label = args
+    return p - F.one_hot(label.long(), p.shape[-1]).to(p.dtype)
+
+
+_RTC = {}
+
+
+def rtc_kernels():
+    """The user kernels, compiled once per process: name -> CudaKernel,
+    plus the build seconds under ``"build_s"``."""
+    if not _RTC:
+        from mxtpu_torch import rtc
+        t0 = time.perf_counter()
+        module = rtc.CudaModule(RTC_SOURCE, exports=list(RTC_SIGNATURES))
+        _RTC["build_s"] = time.perf_counter() - t0
+        _RTC["nvcc_s"] = module.build_seconds
+        for name, sig in RTC_SIGNATURES.items():
+            _RTC[name] = module.get_kernel(name, sig)
+    return _RTC
+
+
+def rtc_threads(cols):
+    """A softmax row's CTA: the row's width rounded up to a warp, at
+    most 1024 threads."""
+    return min(1024, max(32, -(-cols // 32) * 32))
+
+
+def rtc_launch(name, out, *args):
+    """Launch user kernel ``name`` writing ``out`` (NDArrays on the
+    card): one CTA per row for the softmax, a grid-stride grid for the
+    elementwise kernels."""
+    k = rtc_kernels()[name]
+    ctx = out.context
+    if name == "softmax_fwd":
+        rows, cols = out.shape
+        k.launch([args[0], out, rows, cols], ctx, (rows, 1, 1),
+                 (rtc_threads(cols), 1, 1))
+    elif name == "softmax_bwd":
+        rows, cols = out.shape
+        blocks = min(ELEMENTWISE_BLOCKS, -(-rows * cols // 256))
+        k.launch([args[0], args[1], out, rows, cols], ctx, (blocks, 1, 1),
+                 (256, 1, 1))
+    else:
+        n = out.size
+        k.launch([args[0], out, n], ctx,
+                 (min(ELEMENTWISE_BLOCKS, -(-n // 256)), 1, 1), (256, 1, 1))
+    return out
+
+
+def register_softmax_rtc():
+    """Register the CustomOp ``softmax_rtc``: a softmax output layer
+    whose forward and backward launch the rtc kernels for arrays on the
+    card and run their plain versions for arrays on the CPU.  Its
+    backward is ``p - onehot(label)`` and ignores the incoming gradient,
+    as SoftmaxOutput's does."""
+    from mxtpu_torch import MXNetError, operator
+    from mxtpu_torch.ndarray import NDArray
+    try:
+        return operator.get_custom_op("softmax_rtc")
+    except MXNetError:
+        pass   # not registered yet
+
+    def run(name, like, *ins):
+        if like.context.type == "cuda":
+            import torch
+            out = NDArray(torch.empty_like(like.data))
+            return rtc_launch(name, out, *ins)
+        return NDArray(rtc_plain(name, *[a.data for a in ins]))
+
+    class SoftmaxRtc(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        run("softmax_fwd", in_data[0], in_data[0]))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad,
+                     aux):
+            self.assign(in_grad[0], req[0],
+                        run("softmax_bwd", out_data[0], out_data[0],
+                            in_data[1]))
+            self.assign(in_grad[1], req[1], 0 * in_data[1])
+
+    @operator.register("softmax_rtc")
+    class SoftmaxRtcProp(operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return SoftmaxRtc()
+    return SoftmaxRtcProp
+
+
+def host_us(fn, n=2000):
+    """Host microseconds per call of ``fn`` (no sync inside the loop)."""
+    import torch
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def rtc_phase(checks):
+    """The user kernels through CudaModule: build, exactness of y = 2x,
+    the softmax kernels against their plain versions at the head's and
+    an MLM-width shape, device times beside the bound, the plain version
+    and the library call, the host cost of one launch, and the
+    refusals.  Returns the kernels line's timing rows."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch import MXNetError, rtc
+    from mxtpu_torch.ndarray import NDArray
+    ks = rtc_kernels()
+    print(f"rtc: CudaModule of {len(RTC_SIGNATURES)} kernels built in "
+          f"{ks['build_s']:.2f} s (nvcc {ks['nvcc_s']:.2f} s)", flush=True)
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 20)
+    for shape in ((8, 128), (4096, 4096)):
+        x = torch.randn(shape, device=CARD, generator=gen)
+        y = rtc_launch("double_kernel", NDArray(torch.empty_like(x)),
+                       NDArray(x)).data
+        torch.cuda.synchronize()
+        ok = torch.equal(y, rtc_plain("double_kernel", x))
+        print(f"check rtc double_kernel {shape}: exact "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        checks.rows.append({"check": f"rtc double_kernel {shape}",
+                            "ok": ok})
+        if not ok:
+            checks.failed.append(f"rtc double_kernel {shape} not exact")
+    timings = {}
+    for tag, (rows, cols) in RTC_SHAPES.items():
+        x = torch.randn(rows, cols, device=CARD, generator=gen) * 4
+        label = torch.randint(0, cols, (rows,), device=CARD,
+                              generator=gen).float()
+        xn, ln = NDArray(x), NDArray(label)
+        p = NDArray(torch.empty_like(x))
+        dx = NDArray(torch.empty_like(x))
+        rtc_launch("softmax_fwd", p, xn)
+        rtc_launch("softmax_bwd", dx, p, ln)
+        torch.cuda.synchronize()
+        pw = rtc_plain("softmax_fwd", x)
+        dw = rtc_plain("softmax_bwd", pw, label)
+        prel, pabs = rel_err(p.data, pw, floor=1e-30)
+        # dx from the same p the kernel read, so the check is the
+        # backward's own arithmetic
+        dabs = float((dx.data - rtc_plain("softmax_bwd", p.data, label))
+                     .abs().max())
+        dabs_e2e = float((dx.data - dw).abs().max())
+        ok = prel <= RTC_P_TOL and dabs <= RTC_DX_TOL and \
+            dabs_e2e <= RTC_DX_TOL
+        print(f"check rtc softmax {tag} ({rows}, {cols}) f32: p max rel "
+              f"{prel:.3e} (abs {pabs:.3e}, tol {RTC_P_TOL} rel); dx max "
+              f"abs {dabs:.3e} from the kernel's p, {dabs_e2e:.3e} from "
+              f"torch.softmax's (tol {RTC_DX_TOL}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        checks.rows.append({"check": f"rtc softmax {tag}", "p_rel": prel,
+                            "dx_abs": dabs, "dx_abs_e2e": dabs_e2e,
+                            "ok": ok})
+        if not ok:
+            checks.failed.append(f"rtc softmax {tag} off: p {prel:.3e}, "
+                                 f"dx {dabs:.3e}/{dabs_e2e:.3e}")
+        xg = x.clone().requires_grad_(True)
+        lg = label.long()
+
+        def ce_backward():
+            xg.grad = None
+            F.cross_entropy(xg, lg, reduction="sum").backward()
+        n = rows * cols * 4
+        fb, fby = bound(2 * n, 4 * rows * cols, "float32")
+        bb, bby = bound(2 * n + rows * 4, rows * cols, "float32")
+        timings[("rtc_softmax_fwd", tag)] = {
+            **timed(lambda: rtc_launch("softmax_fwd", p, xn),
+                    lambda: rtc_plain("softmax_fwd", x),
+                    lambda: torch.softmax(x, -1)),
+            "bound_ms": fb, "bound_by": fby, "max_abs_err": pabs}
+        timings[("rtc_softmax_bwd", tag)] = {
+            **timed(lambda: rtc_launch("softmax_bwd", dx, p, ln),
+                    lambda: rtc_plain("softmax_bwd", pw, label),
+                    ce_backward),
+            "bound_ms": bb, "bound_by": bby, "max_abs_err": dabs}
+    x = torch.randn(*RTC_SHAPES["head"], device=CARD, generator=gen)
+    xn, p = NDArray(x), NDArray(torch.empty_like(x))
+    k = ks["softmax_fwd"]
+    rows, cols = RTC_SHAPES["head"]
+    grid, block = (rows, 1, 1), (rtc_threads(cols), 1, 1)
+    launch_us = host_us(lambda: k.launch([xn, p, rows, cols], CARD, grid,
+                                         block))
+    softmax_us = host_us(lambda: torch.softmax(x, -1))
+    print(f"rtc: host cost per call at {RTC_SHAPES['head']}: "
+          f"CudaKernel.launch {launch_us:.2f} us, torch.softmax "
+          f"{softmax_us:.2f} us", flush=True)
+    # refusals: each must raise MXNetError
+    refusals = {
+        "a float64 array for float *": lambda: k.launch(
+            [NDArray(x.double()), p, rows, cols], CARD, grid, block),
+        "an array on the CPU": lambda: k.launch(
+            [NDArray(x.cpu()), p, rows, cols], CARD, grid, block),
+        "a CPU ctx": lambda: k.launch([xn, p, rows, cols], "cpu", grid,
+                                      block),
+        "a float for int cols": lambda: k.launch([xn, p, rows, 10.0], CARD,
+                                                 grid, block),
+        "a source that does not compile": lambda: rtc.CudaModule(
+            'extern "C" __global__ void broken(float *x) { x[0] = y; }'),
+        "an export that is not in the source": lambda: rtc.CudaModule(
+            RTC_SOURCE, exports=["softmax_fwd", "no_such_kernel"]),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except MXNetError:
+            ok = True
+        else:
+            ok = False
+        print(f"check rtc refuses {what}: {'ok' if ok else 'FAIL'}",
+              flush=True)
+        checks.rows.append({"check": f"rtc refuses {what}", "ok": ok})
+        if not ok:
+            checks.failed.append(f"rtc did not refuse {what}")
+    torch.cuda.synchronize()
+    for (name, tag), r in timings.items():
+        print(f"time {name} {tag} [float32] (device ms per call): "
+              f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}); kernel wall_ms="
+              f"{r['wall_ms']:.4f}", flush=True)
+    return timings, {"build_s": ks["build_s"], "nvcc_s": ks["nvcc_s"],
+                     "launch_host_us": launch_us,
+                     "softmax_host_us": softmax_us}
+
+
+# ----------------------------------------------------------------------
+# the symbolic API: train_cifar10's resnet20 through Module.fit
+# ----------------------------------------------------------------------
+
+CIFAR_B, CIFAR_CLASSES, CIFAR_LAYERS, CIFAR_SYNTH = 128, 10, 20, 2048
+# train_cifar10's defaults through common_fit.fit
+CIFAR_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4,
+             "rescale_grad": 1.0 / CIFAR_B}
+SYM_CHECK_B = 16
+# the check steps at lr 1e-3, as the ResNet check does
+SYM_CHECK_SGD = {**CIFAR_SGD, "learning_rate": 1e-3,
+                 "rescale_grad": 1.0 / SYM_CHECK_B}
+SYM_OUT_TOL, SYM_RTC_TOL = 1e-5, 1e-6
+# ReLU inputs per million whose sign may differ between the card and
+# the CPU (rounding within 1e-7 of 0; an H100 run measured 2 of 3.0 M)
+MAX_FLIPS_PER_M = 5
+SYM_WINDOW = 4   # batches per timing window (batches 2-13 of 14)
+SYM_LAUNCHES = {"batch_norm_fwd": 19, "batch_norm_bwd": 19}
+RTC_LAUNCHES = {"softmax_fwd": 1, "softmax_bwd": 1}
+
+
+def residual_unit(mx, data, num_filter, stride, dim_match, name):
+    """examples/train_cifar10.py's residual_unit, as written there."""
+    bn1 = mx.sym.BatchNorm(data, fix_gamma=False, name=name + "_bn1")
+    act1 = mx.sym.Activation(bn1, act_type="relu")
+    conv1 = mx.sym.Convolution(act1, num_filter=num_filter,
+                               kernel=(3, 3), stride=(stride, stride),
+                               pad=(1, 1), no_bias=True,
+                               name=name + "_conv1")
+    bn2 = mx.sym.BatchNorm(conv1, fix_gamma=False, name=name + "_bn2")
+    act2 = mx.sym.Activation(bn2, act_type="relu")
+    conv2 = mx.sym.Convolution(act2, num_filter=num_filter,
+                               kernel=(3, 3), stride=(1, 1),
+                               pad=(1, 1), no_bias=True,
+                               name=name + "_conv2")
+    if dim_match:
+        shortcut = data
+    else:
+        shortcut = mx.sym.Convolution(act1, num_filter=num_filter,
+                                      kernel=(1, 1),
+                                      stride=(stride, stride),
+                                      no_bias=True, name=name + "_sc")
+    return conv2 + shortcut
+
+
+def resnet_cifar(mx, num_classes=10, num_layers=20, head=True):
+    """examples/train_cifar10.py's resnet_cifar; ``head=False`` ends at
+    ``fc`` (the logits), for the rtc head."""
+    n = (num_layers - 2) // 6
+    data = mx.sym.Variable("data")
+    body = mx.sym.Convolution(data, num_filter=16, kernel=(3, 3),
+                              stride=(1, 1), pad=(1, 1), no_bias=True,
+                              name="conv0")
+    for stage, filters in enumerate((16, 32, 64)):
+        for unit in range(n):
+            stride = 2 if stage > 0 and unit == 0 else 1
+            body = residual_unit(mx, body, filters, stride,
+                                 dim_match=(stage == 0 or unit > 0),
+                                 name=f"stage{stage}_unit{unit}")
+    bn = mx.sym.BatchNorm(body, fix_gamma=False, name="bn_final")
+    act = mx.sym.Activation(bn, act_type="relu")
+    pool = mx.sym.Pooling(act, global_pool=True, pool_type="avg",
+                          kernel=(8, 8))
+    flat = mx.sym.Flatten(pool)
+    fc = mx.sym.FullyConnected(flat, num_hidden=num_classes, name="fc")
+    return mx.sym.SoftmaxOutput(fc, name="softmax") if head else fc
+
+
+def load_cifar(mx, batch_size, n_synth=CIFAR_SYNTH, seed=SEED):
+    """train_cifar10.load_cifar's synthetic fallback (numpy seed 0),
+    with the train iterator shuffling from RandomState(seed)."""
+    rng = np.random.RandomState(0)
+    X = rng.rand(n_synth, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 2, n_synth).astype(np.float32)
+    X[:, 0] += y[:, None, None] * 0.3
+    split = int(0.9 * len(X))
+    train = mx.io.NDArrayIter(X[:split], y[:split], batch_size=batch_size,
+                              shuffle=True, last_batch_handle="discard",
+                              rng=np.random.RandomState(seed))
+    val = mx.io.NDArrayIter(X[split:], y[split:], batch_size=batch_size,
+                            last_batch_handle="discard")
+    return train, val
+
+
+def ce_loss(probs, label):
+    """Mean cross entropy of softmax probabilities (host numpy)."""
+    p = probs[np.arange(len(label)), label.astype(int)]
+    return float(-np.mean(np.log(np.maximum(p, 1e-30))))
+
+
+def rtc_head_step(mx, mod, batch):
+    """One step of the rtc head on a Module ending at the logits:
+    forward, the softmax_rtc CustomOp under autograd.record, its
+    backward into the logits, the explicit-cotangent backward through
+    the Module, the update.  Returns (probabilities, logits gradient)."""
+    mod.forward(batch, is_train=True)
+    logits = mod.get_outputs()[0]
+    label = batch.label[0].as_in_context(logits.context)
+    logits.attach_grad()
+    with mx.autograd.record():
+        p = mx.operator.Custom(logits, label, op_type="softmax_rtc")
+    p.backward()
+    mod.backward(out_grads=[logits.grad])
+    mod.update()
+    return p, logits.grad
+
+
+def params_rel(a, b):
+    """The largest over tensors of max |a - b| / max |b|."""
+    worst = 0.0
+    for n in b:
+        d = float((a[n].data.double() - b[n].data.double().to(
+            a[n].data.device)).abs().max())
+        worst = max(worst, d / max(float(b[n].data.abs().max()), 1e-30))
+    return worst
+
+
+def relu_inputs(mx, sym, m):
+    """Module ``m``'s inputs to each ReLU of resnet20 (every BatchNorm's
+    output 0) at its last bound batch, by BatchNorm name, on the
+    CPU."""
+    ints = sym.get_internals()
+    names = [n for n in ints.list_outputs() if n.endswith("_output0")]
+    group = mx.sym.Group([ints[n] for n in names])
+    ex = group.bind(ctx=m.context, grad_req="null", args={
+        k: m._exec.arg_dict[k] for k in group.list_arguments()},
+        aux_states={k: m._exec.aux_dict[k]
+                    for k in group.list_auxiliary_states()})
+    return {n[:-len("_output0")]: o.data.cpu()
+            for n, o in zip(names, ex.forward())}
+
+
+def relu_flips(a, b):
+    """Elements where two runs' ReLU inputs differ in sign: where
+    rounding alone routes a gradient differently."""
+    return int(sum(int(((a[n] > 0) != (b[n] > 0)).sum()) for n in a))
+
+
+def masked_twin(mx, sym, relu_in):
+    """``sym`` with each ReLU of a BatchNorm output replaced by a
+    product with a mask variable ``<bn>_relu_mask``, and the masks
+    ``relu_in > 0``: a twin whose gradients follow the given ReLU masks
+    exactly, whatever the signs it computes itself."""
+    graph = json.loads(sym.tojson())
+    nodes, masks = graph["nodes"], {}
+    for node in list(nodes):
+        src = nodes[node["inputs"][0][0]] if node["inputs"] else None
+        if node["op"] == "Activation" and src is not None and \
+                src["name"] in relu_in:
+            mid = len(nodes)
+            name = f"{src['name']}_relu_mask"
+            nodes.append({"op": "null", "name": name, "inputs": [],
+                          "attrs": {"__shape__": str(tuple(
+                              relu_in[src["name"]].shape))}})
+            graph["arg_nodes"].append(mid)
+            node["op"], node["attrs"] = "broadcast_mul", {}
+            node["inputs"] = [node["inputs"][0], [mid, 0, 0]]
+            masks[name] = (relu_in[src["name"]] > 0).float()
+    return mx.sym.fromjson(json.dumps(graph)), masks
+
+
+def symbolic_check_phase(checks):
+    """resnet20 at full width, b16, through the symbolic API: the card's
+    Module against the same Module on the CPU from equal parameters
+    (outputs, every gradient, three SGD steps), the rtc head against
+    SoftmaxOutput on the card over three steps, and a checkpoint round
+    trip that must predict bit for bit."""
+    import torch
+    import mxtpu_torch as mx
+    register_softmax_rtc()
+    t0 = time.perf_counter()
+    sym = resnet_cifar(mx, CIFAR_CLASSES, CIFAR_LAYERS)
+    rng = np.random.RandomState(SEED + 30)
+    X = rng.rand(3 * SYM_CHECK_B, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, CIFAR_CLASSES, 3 * SYM_CHECK_B).astype(np.float32)
+    shapes = ([("data", (SYM_CHECK_B, 3, 32, 32))],
+              [("softmax_label", (SYM_CHECK_B,))])
+
+    def batch(i):
+        s = slice(i * SYM_CHECK_B, (i + 1) * SYM_CHECK_B)
+        return mx.io.DataBatch([mx.nd.array(X[s], ctx="cpu")],
+                               [mx.nd.array(y[s], ctx="cpu")])
+
+    def module(ctx, s=sym, params=None):
+        labels = [n for n in ("softmax_label",) if n in s.list_arguments()]
+        m = mx.mod.Module(s, context=ctx, label_names=labels)
+        m.bind(*shapes)
+        if params is None:
+            mx.random.seed(SEED + 31)
+            m.init_params(mx.init.Xavier())
+        else:
+            m.set_params(*params)
+        m.init_optimizer(optimizer="sgd", optimizer_params=SYM_CHECK_SGD)
+        return m
+    cpu = module("cpu")
+    params = cpu.get_params()
+    card = module(CARD, params=params)
+    out_err = 0.0
+    for is_train in (False, True):
+        for m in (card, cpu):
+            m.forward(batch(0), is_train=is_train)
+        out_err = max(out_err, float((card.get_outputs()[0].data.cpu() -
+                                      cpu.get_outputs()[0].data).abs()
+                                     .max()))
+    for m in (card, cpu):
+        m.backward()
+    errs, sq_d, sq_r = [], 0.0, 0.0
+    for n in cpu._param_names:
+        a = card._exec.grad_dict[n].data.double().cpu()
+        b = cpu._exec.grad_dict[n].data.double()
+        r = float(b.pow(2).mean().sqrt())
+        d = float((a - b).pow(2).mean().sqrt())
+        errs.append((d / max(r, 1e-30), n, r))
+        sq_d += float((a - b).pow(2).sum())
+        sq_r += float(b.pow(2).sum())
+    global_grad = (sq_d / sq_r) ** 0.5
+    card_relu = relu_inputs(mx, sym, card)
+    flips = relu_flips(card_relu, relu_inputs(mx, sym, cpu))
+    # the gradients are held against a CPU run whose ReLUs take the
+    # card's masks: an input within rounding of 0 may take either sign
+    # on either side (f32 sums in another order), and one such flip
+    # moves a BatchNorm's gradients by percents
+    twin, masks = masked_twin(mx, sym, card_relu)
+    tm = mx.mod.Module(twin, context="cpu", fixed_param_names=list(masks))
+    tm.bind(*shapes)
+    tm.set_params({**params[0], **{k: mx.nd.NDArray(v) for k, v in
+                                   masks.items()}}, params[1])
+    tm.forward_backward(batch(0))
+    worst_grad = 0.0
+    for n in cpu._param_names:
+        a = card._exec.grad_dict[n].data.double().cpu()
+        b = tm._exec.grad_dict[n].data.double()
+        r = float(b.pow(2).mean().sqrt())
+        d = float((a - b).pow(2).mean().sqrt())
+        worst_grad = max(worst_grad, d / max(r, 1e-30))
+    print(f"symbolic resnet20 card vs CPU gradients: against the CPU's "
+          f"own masks the worst tensors "
+          f"{[(n, round(e, 8)) for e, n, _ in sorted(errs)[-3:]]} and all "
+          f"together {global_grad:.3e} of their rms; against the CPU with "
+          f"the card's masks the worst {worst_grad:.3e}", flush=True)
+    losses = {"card": [], "cpu": []}
+    for tag, m in (("card", module(CARD, params=params)),
+                   ("cpu", module("cpu", params=params))):
+        for i in range(3):
+            m.forward_backward(batch(i))
+            losses[tag].append(ce_loss(m.get_outputs()[0].asnumpy(),
+                                       y[i * SYM_CHECK_B:
+                                         (i + 1) * SYM_CHECK_B]))
+            m.update()
+    step_err = max(abs(a - b) / max(abs(b), RN_LOSS_FLOOR)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    n_relu = sum(v.numel() for v in masks.values())
+    max_flips = MAX_FLIPS_PER_M * n_relu / 1e6
+    ok = out_err <= SYM_OUT_TOL and worst_grad <= GRAD_TOL and \
+        step_err <= STEP_TOL and flips <= max_flips
+    print(f"check symbolic resnet20 b{SYM_CHECK_B} f32 card vs CPU: "
+          f"outputs max abs {out_err:.3e} (tol {SYM_OUT_TOL}); ReLU "
+          f"inputs of different sign {flips} of {n_relu} (tol "
+          f"{MAX_FLIPS_PER_M} per million, {max_flips:.1f}); gradients "
+          f"over {len(cpu._param_names)} tensors (the CPU with the card's "
+          f"ReLU masks) worst rms error {worst_grad:.3e} of the tensor's "
+          f"rms (tol {GRAD_TOL}); three "
+          f"SGD steps (lr {SYM_CHECK_SGD['learning_rate']}) losses "
+          f"{losses['card']} vs {losses['cpu']} (max err {step_err:.3e} of "
+          f"max(|p|, {RN_LOSS_FLOOR}), tol {STEP_TOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "symbolic resnet20 card vs CPU",
+                        "out_abs": out_err, "worst_grad_rel": worst_grad,
+                        "relu_flips": flips,
+                        "worst_grad_rel_own_masks": max(errs)[0],
+                        "step_losses_card": losses["card"],
+                        "step_losses_cpu": losses["cpu"],
+                        "step_rel": step_err, "ok": ok})
+    if not ok:
+        checks.failed.append(f"symbolic card vs CPU: outputs {out_err:.3e}"
+                             f", ReLU sign flips {flips} of {n_relu}, "
+                             f"grads {worst_grad:.3e}, steps "
+                             f"{step_err:.3e}")
+
+    # the rtc head against SoftmaxOutput, on the card, from equal params,
+    # with cuDNN's deterministic algorithms: its default ones may sum in
+    # another order from run to run, which alone moves the parameters
+    # by up to 2.4e-3 (relative, a BatchNorm beta near 0) in three steps
+    # (16 ReLU inputs change sign; measured on an H100), so only the
+    # heads differ
+    torch.backends.cudnn.deterministic = True
+    so = module(CARD, params=params)
+    head = module(CARD, s=sym.get_internals()["fc_output"], params=params)
+    g_err = 0.0
+    for i in range(3):
+        b = batch(i)
+        so.forward_backward(b)
+        p_so = so.get_outputs()[0].data
+        so.update()
+        p_rtc, g_rtc = rtc_head_step(mx, head, b)
+        lab = b.label[0].data.to(CARD)
+        g_err = max(g_err, float((g_rtc.data - rtc_plain(
+            "softmax_bwd", p_so, lab)).abs().max()))
+    torch.backends.cudnn.deterministic = False
+    p_err = params_rel(head.get_params()[0], so.get_params()[0])
+    ok = g_err <= SYM_RTC_TOL and p_err <= SYM_RTC_TOL
+    print(f"check symbolic rtc head vs SoftmaxOutput on the card, three "
+          f"steps (cuDNN deterministic): logits gradient max abs "
+          f"{g_err:.3e}, parameters max rel {p_err:.3e} (tol "
+          f"{SYM_RTC_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "symbolic rtc head vs SoftmaxOutput",
+                        "logits_grad_abs": g_err, "params_rel": p_err,
+                        "ok": ok})
+    if not ok:
+        checks.failed.append(f"rtc head vs SoftmaxOutput: grad {g_err:.3e}"
+                             f", params {p_err:.3e}")
+
+    # checkpoint round trip: save, load, predict bit for bit
+    out_dir = ROOT / "mxtpu_torch" / "_build" / "chip_smoke_ckpt"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prefix = str(out_dir / "resnet20")
+    so.save_checkpoint(prefix, 1)
+    s2, a2, x2 = mx.model.load_checkpoint(prefix, 1, ctx=CARD)
+    re = mx.mod.Module(s2, context=CARD)
+    re.bind(*shapes, for_training=False)
+    re.set_params(a2, x2)
+    it = mx.io.NDArrayIter(X, y, batch_size=SYM_CHECK_B)
+    same = torch.equal(re.predict(it).data, so.predict(it).data) and \
+        s2.tojson() == sym.tojson()
+    print(f"check symbolic checkpoint round trip predicts bit for bit: "
+          f"{'ok' if same else 'FAIL'}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    checks.rows.append({"check": "symbolic checkpoint round trip",
+                        "ok": same})
+    if not same:
+        checks.failed.append("symbolic checkpoint round trip differs")
+
+
+def symbolic_train_phase(checks):
+    """train_cifar10's recipe on the card: resnet20 through Module.fit
+    for one epoch (14 batches of 128) with common_fit's arguments, then
+    score; then the same epoch with the rtc head from the same
+    parameters and batch order.  Returns the launch counts of both
+    epochs and the numbers."""
+    import torch
+    from torch.profiler import record_function
+    import mxtpu_torch as mx
+    from mxtpu_torch import kernels, rtc
+    register_softmax_rtc()
+    rtc_kernels()
+    t0 = time.perf_counter()
+    sym = resnet_cifar(mx, CIFAR_CLASSES, CIFAR_LAYERS)
+    train, val = load_cifar(mx, CIFAR_B)
+    n_batches = len(train)
+    mod = mx.mod.Module(sym, data_names=["data"],
+                        label_names=["softmax_label"])
+    shapes = (train.provide_data, train.provide_label)
+    # the initial parameters, shared with the rtc-head epoch
+    init = mx.mod.Module(sym)
+    init.bind(*shapes)
+    mx.random.seed(SEED)
+    init.init_params(mx.init.Xavier())
+    arg0, aux0 = init.get_params()
+    del init
+    speed = mx.callback.Speedometer(CIFAR_B, 20)
+    window_speed = mx.callback.Speedometer(CIFAR_B, SYM_WINDOW)
+    marks = []   # per batch: host clock, loss, launch counts
+
+    def mark(param):
+        m = param.locals["self"]
+        lab = param.locals["data_batch"].label[0].asnumpy()
+        marks.append((time.perf_counter(),
+                      ce_loss(m.get_outputs()[0].asnumpy(), lab),
+                      kernels.launch_counts(), rtc.launch_counts()))
+    prefix = str(ROOT / "mxtpu_torch" / "_build" / "chip_smoke_ckpt" /
+                 "cifar")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rtc.reset_launch_counts()
+    t_fit = time.perf_counter()
+    marks.append((t_fit, None, kernels.launch_counts(), rtc.launch_counts()))
+    mod.fit(train, eval_data=val, eval_metric=mx.metric.Accuracy(),
+            optimizer="sgd", optimizer_params=CIFAR_SGD,
+            initializer=mx.init.Xavier(), arg_params=arg0,
+            aux_params=aux0, begin_epoch=0, num_epoch=1, kvstore="local",
+            batch_end_callback=[speed, window_speed, mark],
+            epoch_end_callback=[mx.callback.do_checkpoint(prefix)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    fit_counts = kernels.launch_counts()
+    fit_rtc = rtc.launch_counts()
+    mem_peak = torch.cuda.max_memory_allocated()
+    score = mod.score(val, mx.metric.Accuracy())
+    times = [m[0] for m in marks]
+    batch_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    windows = [batch_ms[i:i + SYM_WINDOW]
+               for i in range(2, n_batches - SYM_WINDOW + 1, SYM_WINDOW)]
+    window_ms = [float(np.mean(w)) for w in windows]
+    ms_batch = float(np.median(window_ms))
+    losses = [m[1] for m in marks[1:]]
+    # launches per batch, from consecutive marks
+    for i, (a, b) in enumerate(zip(marks, marks[1:])):
+        got = {k: b[2][k] - a[2][k] for k in b[2]}
+        want = {k: SYM_LAUNCHES.get(k, 0) for k in got}
+        if got != want or any(b[3][k] - a[3].get(k, 0) for k in b[3]):
+            checks.failed.append(f"resnet20 fit batch {i}: launches {got}, "
+                                 f"rtc {b[3]}, want {want}")
+            break
+    aux_ok = all(float(v.data.abs().max()) == 0.0 if n.endswith("mean")
+                 else bool((v.data == 1).all())
+                 for n, v in mod.get_params()[1].items())
+    if not aux_ok:
+        checks.failed.append("resnet20 fit wrote the BatchNorm moving "
+                             "statistics")
+    if not all(np.isfinite(losses)):
+        checks.failed.append(f"resnet20 fit losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        checks.failed.append(f"resnet20 fit loss did not fall: {losses}")
+    sp = [h[2] for h in window_speed.history]
+    print(f"resnet20 Module.fit b{CIFAR_B} f32 sgd (lr 0.01, momentum "
+          f"0.9, wd 1e-4), one epoch of {n_batches} batches: {fit_s:.2f} s; "
+          f"{ms_batch:.3f} ms/batch (median of {len(window_ms)} windows of "
+          f"{SYM_WINDOW} batches: {', '.join(f'{w:.3f}' for w in window_ms)}"
+          f"), {CIFAR_B / ms_batch * 1e3:.1f} samples/s; Speedometer("
+          f"{CIFAR_B}, {SYM_WINDOW}) samples/s {[round(v, 1) for v in sp]} "
+          f"(the recipe's Speedometer({CIFAR_B}, 20) logs "
+          f"{len(speed.history)} times in {n_batches} batches); peak memory "
+          f"{mem_peak / 2**30:.3f} GiB; validation {score}; BN moving stats "
+          f"as initialized {'ok' if aux_ok else 'FAIL'}", flush=True)
+    print(f"resnet20 fit losses per batch {[round(v, 5) for v in losses]}; "
+          f"accuracy per window "
+          f"{[[round(v, 4) for _, v in h[3]] for h in window_speed.history]}",
+          flush=True)
+    print(f"resnet20 fit: launches in {n_batches} batches and 1 validation "
+          f"batch {json.dumps(fit_counts)}", flush=True)
+
+    # one profiled batch: forward_backward and update in their ranges
+    train.reset()
+    batch = next(iter(train))
+
+    def step(_x, _y):
+        with record_function("forward_backward"):
+            mod.forward_backward(batch)
+        with record_function("update"):
+            mod.update()
+    breakdown = profiled_step(checks, "resnet20 Module", step, None, None)
+
+    # the rtc head: the same epoch from the same parameters and order,
+    # held against the SoftmaxOutput epoch run again; both with cuDNN's
+    # deterministic algorithms, since its default ones alone part two
+    # runs of the same epoch by 1.6e-4 (relative loss, measured on an
+    # H100; printed below as the fit run's spread)
+    torch.backends.cudnn.deterministic = True
+
+    def epoch(m, step):
+        it, _ = load_cifar(mx, CIFAR_B)
+        it.reset()   # fit resets its iterator before the epoch
+        for b in it:
+            yield b, step(m, b)
+
+    def so_step(m, b):
+        m.forward_backward(b)
+        p = m.get_outputs()[0]
+        m.update()
+        return p
+
+    again = mx.mod.Module(sym)
+    again.bind(*shapes)
+    again.set_params(arg0, aux0)
+    again.init_optimizer(optimizer="sgd", optimizer_params=CIFAR_SGD)
+    rerun = [ce_loss(p.asnumpy(), b.label[0].asnumpy())
+             for b, p in epoch(again, so_step)]
+    head = mx.mod.Module(sym.get_internals()["fc_output"],
+                         data_names=["data"], label_names=[])
+    head.bind(*shapes)
+    head.set_params(arg0, aux0)
+    head.init_optimizer(optimizer="sgd", optimizer_params=CIFAR_SGD)
+    kernels.reset_launch_counts()
+    rtc.reset_launch_counts()
+    rtc_losses, rtc_times = [], [time.perf_counter()]
+    before = (kernels.launch_counts(), rtc.launch_counts())
+    for i, (b, (p, _)) in enumerate(epoch(
+            head, lambda m, b: rtc_head_step(mx, m, b))):
+        rtc_losses.append(ce_loss(p.asnumpy(), b.label[0].asnumpy()))
+        rtc_times.append(time.perf_counter())
+        now = (kernels.launch_counts(), rtc.launch_counts())
+        got = {k: v - before[0][k] for k, v in now[0].items()}
+        got_rtc = {k: v - before[1].get(k, 0) for k, v in now[1].items()}
+        if got != {k: SYM_LAUNCHES.get(k, 0) for k in got} or \
+                got_rtc != {k: RTC_LAUNCHES.get(k, 0) for k in got_rtc}:
+            checks.failed.append(f"rtc head batch {i}: launches {got}, "
+                                 f"rtc {got_rtc}")
+        before = now
+    torch.cuda.synchronize()
+    rtc_counts = kernels.launch_counts()
+    rtc_rtc = rtc.launch_counts()
+    torch.backends.cudnn.deterministic = False
+    rtc_ms = [(b - a) * 1e3 for a, b in zip(rtc_times, rtc_times[1:])]
+    traj = max(abs(a - b) / max(abs(b), RN_LOSS_FLOOR)
+               for a, b in zip(rtc_losses, rerun))
+    spread = max(abs(a - b) / max(abs(b), RN_LOSS_FLOOR)
+                 for a, b in zip(rerun, losses))
+    if traj > STEP_TOL:
+        checks.failed.append(f"rtc head losses off the SoftmaxOutput run by "
+                             f"{traj:.3e}")
+    print(f"resnet20 rtc head epoch (cuDNN deterministic): losses "
+          f"{[round(v, 5) for v in rtc_losses]} against the SoftmaxOutput "
+          f"epoch's {[round(v, 5) for v in rerun]}: max err {traj:.3e} of "
+          f"max(|p|, {RN_LOSS_FLOOR}) (tol {STEP_TOL}) "
+          f"{'ok' if traj <= STEP_TOL else 'FAIL'} (the fit run against "
+          f"the SoftmaxOutput epoch: {spread:.3e}); median "
+          f"{float(np.median(rtc_ms[2:])):.3f} ms/batch; launches "
+          f"{json.dumps(rtc_counts)}, rtc {json.dumps(rtc_rtc)}", flush=True)
+    return fit_counts, rtc_rtc, {
+        "batches": n_batches, "fit_s": fit_s, "ms_per_batch": ms_batch,
+        "window_ms_per_batch": window_ms,
+        "samples_per_s": CIFAR_B / ms_batch * 1e3,
+        "speedometer_samples_per_s": sp, "peak_bytes": mem_peak,
+        "losses": losses, "validation": score, "breakdown": breakdown,
+        "rtc_head": {"losses": rtc_losses, "ms_per_batch": rtc_ms,
+                     "softmax_output_losses": rerun,
+                     "max_loss_err": traj, "fit_spread": spread,
+                     "launches": rtc_counts, "rtc_launches": rtc_rtc}}
+
+
+# ----------------------------------------------------------------------
 # phases 6 and 7: BERT-Large served
 # ----------------------------------------------------------------------
 
@@ -1583,13 +2476,16 @@ def main():
     for layout in ("NCHW", "NHWC"):
         rn_counts[layout], resnet[layout] = resnet_train_phase(checks,
                                                                layout)
+    rtc_timings, rtc_info = rtc_phase(checks)
+    symbolic_check_phase(checks)
+    sym_counts, sym_rtc, symbolic = symbolic_train_phase(checks)
 
     t0 = time.perf_counter()
     params = mxtpu_params(SEED)
     print(f"weights: {len(params)} arrays from numpy seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve_counts, serving = serve_phase(checks, params)
-    counts = {k: train_counts[k] + serve_counts[k] +
+    counts = {k: train_counts[k] + serve_counts[k] + sym_counts[k] +
               sum(c[k] for c in rn_counts.values()) for k in train_counts}
 
     # BERT's forward kernels at the serving path's type (f32), its
@@ -1637,6 +2533,21 @@ def main():
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")}}
         for name, (src, rep, dt) in meta.items()]}
+    # the user kernels of the rtc head, at the head's shape; launches
+    # from the rtc-head epoch
+    for name, key in (("rtc_softmax_fwd", "softmax_fwd"),
+                      ("rtc_softmax_bwd", "softmax_bwd")):
+        if sym_rtc.get(key, 0) == 0:
+            checks.failed.append(f"kernel {name} never launched on a main "
+                                 f"path")
+        r = rtc_timings[(name, "head")]
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "chip_smoke.py (RTC_SOURCE) via mxtpu_torch/rtc.py",
+            "replaces": "mxtpu/rtc.py:45", "dtype": "float32",
+            "launches": sym_rtc.get(key, 0),
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}})
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
@@ -1645,9 +2556,14 @@ def main():
               "launches": {"training": train_counts,
                            "serving": serve_counts,
                            **{f"resnet50 {k}": c
-                              for k, c in rn_counts.items()}},
+                              for k, c in rn_counts.items()},
+                           "resnet20 fit": sym_counts,
+                           "resnet20 rtc head": sym_rtc},
               "training": training, "resnet50": resnet,
-              "serving": serving, "kernels": line,
+              "serving": serving, "symbolic": symbolic,
+              "rtc": {**rtc_info, "timings": {
+                  f"{n} {t}": r for (n, t), r in rtc_timings.items()}},
+              "kernels": line,
               "failed": checks.failed}
     out_dir = ROOT / "mxtpu_torch" / "_build"
     out_dir.mkdir(exist_ok=True)

@@ -11,6 +11,11 @@ by module in registration order — for a model without buffers, its
 ``parameters()`` order.  Every shape is checked.  ``Dense`` weights
 are (out, in) on both sides and convolution weights keep the
 reference's layout, so nothing is transposed.
+
+Symbolic models name their arrays in the graph, the same names in both
+packages, so :func:`symbol_params_from_mxtpu` and
+:func:`symbol_params_to_mxtpu` carry ``Module.get_params()`` dicts by
+name.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from torch import nn
 
 from .base import MXNetError
 
-__all__ = ["params_from_mxtpu", "params_to_mxtpu", "named_tensors"]
+__all__ = ["params_from_mxtpu", "params_to_mxtpu", "named_tensors",
+           "symbol_params_from_mxtpu", "symbol_params_to_mxtpu"]
 
 
 def named_tensors(model: nn.Module) -> List[Tuple[str, torch.Tensor]]:
@@ -81,3 +87,25 @@ def params_to_mxtpu(model: nn.Module,
             f"model parameters and buffers")
     return {n: p.detach().float().cpu().numpy()
             for n, (_, p) in zip(names, targets)}
+
+
+def symbol_params_from_mxtpu(arg_params: Dict[str, np.ndarray],
+                             aux_params: Dict[str, np.ndarray], ctx=None):
+    """mxtpu's ``Module.get_params()`` (its arg and aux dicts, as numpy)
+    as the port's ``Module.set_params`` input: two dicts of NDArrays on
+    ``ctx`` (default the card), by the same names."""
+    from .ndarray.ndarray import array
+    return ({k: array(np.asarray(v), ctx=ctx) for k, v in
+             arg_params.items()},
+            {k: array(np.asarray(v), ctx=ctx) for k, v in
+             aux_params.items()})
+
+
+def symbol_params_to_mxtpu(arg_params: Dict, aux_params: Dict
+                           ) -> Tuple[Dict[str, np.ndarray],
+                                      Dict[str, np.ndarray]]:
+    """The inverse of :func:`symbol_params_from_mxtpu`: the port's
+    ``Module.get_params()`` as two dicts of numpy arrays, which mxtpu's
+    ``Module.set_params`` takes after ``mxtpu.nd.array``."""
+    return ({k: v.asnumpy() for k, v in arg_params.items()},
+            {k: v.asnumpy() for k, v in aux_params.items()})

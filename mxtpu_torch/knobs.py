@@ -1,7 +1,7 @@
 """Registry of the ``MXTPU_*`` environment knobs this package reads.
 
 Same names, types and defaults as ``mxtpu/knobs.py``, restricted to the
-knobs the ported serving path consumes.  :func:`get` reads
+knobs the ported paths consume.  :func:`get` reads
 ``os.environ`` live, with the reference's ``MXNET_*`` spelling as a
 fallback.
 """

@@ -1,22 +1,35 @@
-"""Checkpoint loading: ``.params`` files written by ``mxtpu`` (or the
-reference) into name → numpy arrays, in file order.
+"""``mxtpu_torch.nd`` — the NDArray type, the eager op namespace and
+checkpoint files.
 
-``loads`` follows ``mxtpu/ndarray/ndarray.py:555-574`` (legacy dmlc
-stream, MXTPU01 npz or bare npz, detected by magic); ``load_params``
-adds the ``arg:``/``aux:`` prefix stripping of
+Every op of the registry (:mod:`.ops_impl`) becomes a module-level
+function taking and returning NDArrays, as ``mxtpu/ndarray/
+__init__.py`` generates its namespace; inside ``autograd.record()`` the
+ops run with torch's grad mode on, so torch autograd records them.
+
+``loads`` parses a checkpoint payload into numpy arrays and follows
+``mxtpu/ndarray/ndarray.py:555-574`` (legacy dmlc stream, MXTPU01 npz
+or bare npz, detected by magic); ``load_params`` adds the ``arg:``/``aux:`` prefix stripping of
 ``mxtpu/c_predict.py:32-46``.
 """
 from __future__ import annotations
 
 import io
+import sys
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
+from ..ops.registry import OP_REGISTRY, get_op
 from . import legacy_format
+from . import ops_impl  # noqa: F401  (populates the registry)
+from .ndarray import (NDArray, arange, array, concat, empty, full, load,
+                      ones, save, stack, waitall, zeros)
 
-__all__ = ["loads", "load_params", "legacy_format"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concat", "stack", "save", "load", "waitall", "loads",
+           "load_params", "legacy_format"]
 
 _SAVE_MAGIC = b"MXTPU01\n"
 
@@ -53,3 +66,47 @@ def load_params(path: str) -> Dict[str, np.ndarray]:
             if name.startswith(("arg:", "aux:")) else name
         out[key] = np.asarray(arr)
     return out
+
+
+# ----------------------------------------------------------------------
+# eager dispatch and the generated namespace
+# ----------------------------------------------------------------------
+def _invoke_op(name: str, *inputs, **kwargs):
+    """Run op ``name`` on NDArrays (python scalars become tensors on the
+    first array's device) — the role of ``MXImperativeInvokeEx``."""
+    from .. import autograd
+    op = get_op(name)
+    dev = next((x._data.device for x in inputs if isinstance(x, NDArray)),
+               None)
+    if dev is None:
+        raise MXNetError(f"nd.{name}: no NDArray among the inputs")
+    tensors = [x._data if isinstance(x, NDArray)
+               else torch.as_tensor(x, device=dev) for x in inputs]
+    resolved = op.resolve_params(kwargs)
+    with autograd._grad_mode():
+        out = op.fn(*tensors, **resolved)
+    if isinstance(out, tuple):
+        return tuple(NDArray(o) for o in out)
+    return NDArray(out)
+
+
+def _make_op_fn(opname: str):
+    op = get_op(opname)
+
+    def fn(*args, out=None, **kwargs):
+        res = _invoke_op(opname, *args, **kwargs)
+        if out is not None:
+            out._data = res._data if isinstance(res, NDArray) \
+                else res[0]._data
+            return out
+        return res
+    fn.__name__ = fn.__qualname__ = opname
+    fn.__doc__ = op.doc
+    return fn
+
+
+_THIS_MODULE = sys.modules[__name__]
+for _op in list(OP_REGISTRY._entries.values()):
+    for _n in (_op.name,) + _op.aliases:
+        if not hasattr(_THIS_MODULE, _n):
+            setattr(_THIS_MODULE, _n, _make_op_fn(_n))

@@ -1,0 +1,415 @@
+"""The registered ops of the symbolic slice, as torch rules (the
+counterpart of ``mxtpu/ndarray/ops_impl.py``).
+
+Names and parameters follow the JAX package (and the reference's
+``dmlc::Parameter`` fields), so a symbol written for one runs in the
+other.  Ported: the arithmetic that ``NDArray`` and ``Symbol``
+operators emit (the ``broadcast_*`` family, the ``_*_scalar`` family,
+negation, comparisons), a few unary ops and reductions, the shape ops
+``reshape``/``transpose``/``flatten``/``expand_dims``/``squeeze``/
+``concat``/``stack``/``cast``, and the network ops ResNet and the MLP
+recipes reach: ``Convolution`` (``ops_impl.py:733``), ``BatchNorm``
+(``:1071-1111``), ``Activation`` (``:847``), ``Pooling`` (``:828``),
+``FullyConnected`` (``:663``), ``softmax``/``log_softmax`` and
+``SoftmaxOutput`` (``:907-967``).  The rest of the registry waits.
+
+Convolution, pooling and the dense product are lax outside any Pallas
+kernel in the JAX package, so they stay torch calls here (cuDNN with
+TF32 off, see ``context.strict_f32``).  A batch-statistics
+``BatchNorm`` runs ``kernels.batch_norm.fused_bn_act``: its CUDA
+kernels on the card, its plain version on the CPU.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
+from ..kernels import batch_norm as _bn
+from ..ops.registry import Param, register_op
+from .ndarray import torch_dtype
+
+# ----------------------------------------------------------------------
+# helpers
+# ----------------------------------------------------------------------
+
+
+def _tuple(v, n):
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(int(x) for x in v)
+    return t * n if len(t) == 1 else t
+
+
+def _axes(axis, ndim):
+    if axis is None:
+        return tuple(range(ndim))
+    if isinstance(axis, (list, tuple)):
+        return tuple(int(a) % ndim for a in axis)
+    return (int(axis) % ndim,)
+
+
+def _flag(x, cond):
+    """A comparison's result in the reference's type: the input's float
+    type, else float32."""
+    return cond.to(x.dtype if x.is_floating_point() else torch.float32)
+
+
+# ----------------------------------------------------------------------
+# unary elementwise
+# ----------------------------------------------------------------------
+_UNARY = {
+    "abs": torch.abs, "negative": torch.neg, "sign": torch.sign,
+    "reciprocal": torch.reciprocal, "square": torch.square,
+    "sqrt": torch.sqrt, "rsqrt": torch.rsqrt, "exp": torch.exp,
+    "log": torch.log, "relu": torch.relu, "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh, "floor": torch.floor, "ceil": torch.ceil,
+    "identity": lambda x: x,
+}
+for _name, _fn in _UNARY.items():
+    register_op(_name, differentiable=_name not in ("sign", "floor",
+                                                    "ceil"),
+                doc=f"elementwise {_name}")((lambda f: lambda x: f(x))(_fn))
+
+register_op("_copy", aliases=("copy",))(lambda x: x.clone())
+register_op("BlockGrad", aliases=("stop_gradient",))(lambda x: x.detach())
+register_op("zeros_like")(lambda x: torch.zeros_like(x))
+register_op("ones_like")(lambda x: torch.ones_like(x))
+
+# ----------------------------------------------------------------------
+# binary broadcast and scalar families
+# ----------------------------------------------------------------------
+_BINARY = {
+    "broadcast_add": (torch.add, True, ("elemwise_add", "_plus")),
+    "broadcast_sub": (torch.sub, True, ("elemwise_sub", "_minus")),
+    "broadcast_mul": (torch.mul, True, ("elemwise_mul", "_mul")),
+    "broadcast_div": (torch.div, True, ("elemwise_div", "_div")),
+    "broadcast_mod": (torch.remainder, True, ("_mod",)),
+    "broadcast_power": (torch.pow, True, ("_power", "pow")),
+    "broadcast_maximum": (torch.maximum, True, ("maximum", "_maximum")),
+    "broadcast_minimum": (torch.minimum, True, ("minimum", "_minimum")),
+    "broadcast_equal": (lambda a, b: _flag(a, a == b), False, ("_equal",)),
+    "broadcast_not_equal": (lambda a, b: _flag(a, a != b), False,
+                            ("_not_equal",)),
+    "broadcast_greater": (lambda a, b: _flag(a, a > b), False,
+                          ("_greater",)),
+    "broadcast_greater_equal": (lambda a, b: _flag(a, a >= b), False,
+                                ("_greater_equal",)),
+    "broadcast_lesser": (lambda a, b: _flag(a, a < b), False,
+                         ("_lesser",)),
+    "broadcast_lesser_equal": (lambda a, b: _flag(a, a <= b), False,
+                               ("_lesser_equal",)),
+}
+for _name, (_fn, _diff, _aliases) in _BINARY.items():
+    register_op(_name, num_inputs=2, differentiable=_diff,
+                aliases=_aliases)((lambda f: lambda a, b: f(a, b))(_fn))
+
+# tensor∘scalar with the scalar a typed param, so Symbol graphs carry
+# scalar arithmetic the way the reference does
+_SCALAR = {
+    "_plus_scalar": (lambda x, s: x + s, True, ("_PlusScalar",)),
+    "_minus_scalar": (lambda x, s: x - s, True, ("_MinusScalar",)),
+    "_rminus_scalar": (lambda x, s: s - x, True, ("_RMinusScalar",)),
+    "_mul_scalar": (lambda x, s: x * s, True, ("_MulScalar",)),
+    "_div_scalar": (lambda x, s: x / s, True, ("_DivScalar",)),
+    "_rdiv_scalar": (lambda x, s: s / x, True, ("_RDivScalar",)),
+    "_mod_scalar": (lambda x, s: torch.remainder(x, s), True, ()),
+    "_rmod_scalar": (lambda x, s: torch.remainder(
+        torch.full_like(x, s), x), True, ()),
+    "_power_scalar": (lambda x, s: torch.pow(x, s), True,
+                      ("_PowerScalar",)),
+    "_rpower_scalar": (lambda x, s: torch.pow(s, x), True,
+                       ("_RPowerScalar",)),
+    "_maximum_scalar": (lambda x, s: torch.clamp_min(x, s), True,
+                        ("_MaximumScalar",)),
+    "_minimum_scalar": (lambda x, s: torch.clamp_max(x, s), True,
+                        ("_MinimumScalar",)),
+    "_equal_scalar": (lambda x, s: _flag(x, x == s), False, ()),
+    "_not_equal_scalar": (lambda x, s: _flag(x, x != s), False, ()),
+    "_greater_scalar": (lambda x, s: _flag(x, x > s), False, ()),
+    "_greater_equal_scalar": (lambda x, s: _flag(x, x >= s), False, ()),
+    "_lesser_scalar": (lambda x, s: _flag(x, x < s), False, ()),
+    "_lesser_equal_scalar": (lambda x, s: _flag(x, x <= s), False, ()),
+}
+for _name, (_fn, _diff, _aliases) in _SCALAR.items():
+    register_op(_name, params=[Param("scalar", float, 0.0)],
+                differentiable=_diff, aliases=_aliases)(
+        (lambda f: lambda x, scalar=0.0: f(x, scalar))(_fn))
+
+# ----------------------------------------------------------------------
+# reductions
+# ----------------------------------------------------------------------
+
+
+def _reduce(name, fn, diff=True):
+    def rule(x, axis=None, keepdims=False, exclude=False):
+        ax = _axes(axis, x.ndim)
+        if exclude and axis is not None:
+            ax = tuple(i for i in range(x.ndim) if i not in ax)
+        return fn(x, ax, bool(keepdims))
+    register_op(name, params=[Param("axis", tuple, None),
+                              Param("keepdims", bool, False),
+                              Param("exclude", bool, False)],
+                differentiable=diff)(rule)
+
+
+_reduce("sum", lambda x, ax, k: torch.sum(x, dim=ax, keepdim=k))
+_reduce("mean", lambda x, ax, k: torch.mean(x, dim=ax, keepdim=k))
+_reduce("max", lambda x, ax, k: torch.amax(x, dim=ax, keepdim=k))
+_reduce("min", lambda x, ax, k: torch.amin(x, dim=ax, keepdim=k))
+
+
+def _arg(fn):
+    def rule(x, axis=None, keepdims=False):
+        if axis is None:
+            return fn(x.reshape(-1)).to(torch.float32)
+        ax = int(axis[0]) if isinstance(axis, tuple) else int(axis)
+        return fn(x, dim=ax, keepdim=keepdims).to(torch.float32)
+    return rule
+
+
+for _name, _fn in (("argmax", torch.argmax), ("argmin", torch.argmin)):
+    register_op(_name, params=[Param("axis", tuple, None),
+                               Param("keepdims", bool, False)],
+                differentiable=False)(_arg(_fn))
+
+# ----------------------------------------------------------------------
+# shape and layout
+# ----------------------------------------------------------------------
+
+
+def _reshape(x, shape=None):
+    """The reference's special codes: 0 keeps a dim, -1 infers one."""
+    out = [x.shape[i] if s == 0 else int(s) for i, s in
+           enumerate(tuple(shape))]
+    return x.reshape(tuple(out))
+
+
+register_op("reshape", params=[Param("shape", tuple, None)],
+            aliases=("Reshape",))(_reshape)
+register_op("transpose", params=[Param("axes", tuple, None)])(
+    lambda x, axes=None: x.permute(
+        tuple(axes) if axes else tuple(reversed(range(x.ndim)))))
+register_op("expand_dims", params=[Param("axis", int, 0)])(
+    lambda x, axis=0: x.unsqueeze(axis))
+register_op("squeeze", params=[Param("axis", tuple, None)])(
+    lambda x, axis=None: x.squeeze() if axis is None
+    else x.squeeze(_axes(axis, x.ndim)))
+register_op("flatten", aliases=("Flatten",))(
+    lambda x: x.reshape(x.shape[0], -1))
+register_op("concat", num_inputs=-1, params=[Param("dim", int, 1)],
+            aliases=("Concat",))(lambda *xs, dim=1: torch.cat(xs, dim=dim))
+register_op("stack", num_inputs=-1, params=[Param("axis", int, 0)])(
+    lambda *xs, axis=0: torch.stack(xs, dim=axis))
+register_op("clip", params=[Param("a_min", float, None),
+                            Param("a_max", float, None)])(
+    lambda x, a_min=None, a_max=None: torch.clamp(x, a_min, a_max))
+register_op("cast", params=[Param("dtype", str, "float32")],
+            aliases=("Cast",))(
+    lambda x, dtype="float32": x.to(torch_dtype(dtype)))
+
+# ----------------------------------------------------------------------
+# neural-net ops
+# ----------------------------------------------------------------------
+
+
+def _fully_connected(data, weight, *maybe_bias, num_hidden=0,
+                     no_bias=False, flatten=True):
+    x = data.reshape(data.shape[0], -1) if flatten and data.ndim > 2 \
+        else data
+    y = torch.matmul(x, weight.t())
+    if maybe_bias and not no_bias:
+        y = y + maybe_bias[0]
+    return y
+
+
+register_op("FullyConnected", num_inputs=-1,
+            params=[Param("num_hidden", int, 0),
+                    Param("no_bias", bool, False),
+                    Param("flatten", bool, True)],
+            aliases=("fully_connected",))(_fully_connected)
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _convolution(data, weight, *maybe_bias, kernel=(), stride=None,
+                 dilate=None, pad=None, num_filter=0, num_group=1,
+                 no_bias=False, layout=None):
+    """N-d convolution in the reference's layouts: channels-first
+    (weights OI<spatial>) or channels-last (weights O<spatial>I, run on
+    permuted channels-first views)."""
+    nd = len(kernel)
+    layout = layout or {1: "NCW", 2: "NCHW", 3: "NCDHW"}[nd]
+    last = layout.endswith("C")
+    if last:
+        perm = (0, nd + 1) + tuple(range(1, nd + 1))
+        data, weight = data.permute(perm), weight.permute(perm)
+    out = _CONV[nd](data, weight, None, _tuple(stride, nd),
+                    _tuple(pad, nd) if pad is not None else 0,
+                    _tuple(dilate, nd), num_group)
+    if maybe_bias and not no_bias:
+        out = out + maybe_bias[0].reshape((1, -1) + (1,) * nd)
+    if last:
+        out = out.permute((0,) + tuple(range(2, nd + 2)) + (1,))
+    return out
+
+
+register_op("Convolution", num_inputs=-1,
+            params=[Param("kernel", tuple, ()),
+                    Param("stride", tuple, None),
+                    Param("dilate", tuple, None),
+                    Param("pad", tuple, None),
+                    Param("num_filter", int, 0),
+                    Param("num_group", int, 1),
+                    Param("no_bias", bool, False),
+                    Param("layout", str, None)],
+            aliases=("convolution", "Convolution_v1"))(_convolution)
+
+_AVG = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+_MAX = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _pooling(x, kernel=(), pool_type="max", global_pool=False, stride=None,
+             pad=None, count_include_pad=True, layout=None):
+    nd = len(kernel) if kernel else x.ndim - 2
+    layout = layout or {1: "NCW", 2: "NCHW", 3: "NCDHW"}[nd]
+    last = layout.endswith("C")
+    sp = tuple(range(1, 1 + nd)) if last else tuple(range(2, 2 + nd))
+    if global_pool:
+        if pool_type == "max":
+            return torch.amax(x, dim=sp, keepdim=True)
+        if pool_type == "sum":
+            return torch.sum(x, dim=sp, keepdim=True)
+        return torch.mean(x, dim=sp, keepdim=True)
+    if last:
+        x = x.permute((0, nd + 1) + tuple(range(1, nd + 1)))
+    k, s = _tuple(kernel, nd), _tuple(stride, nd)
+    p = _tuple(pad, nd) if pad is not None else (0,) * nd
+    if pool_type == "max":
+        out = _MAX[nd](x, k, s, p)
+    elif pool_type in ("avg", "sum"):
+        out = _AVG[nd](x, k, s, p, count_include_pad=count_include_pad)
+        if pool_type == "sum":
+            out = out * math.prod(k)
+    else:
+        raise MXNetError(f"pool_type {pool_type} unsupported")
+    if last:
+        out = out.permute((0,) + tuple(range(2, nd + 2)) + (1,))
+    return out
+
+
+register_op("Pooling",
+            params=[Param("kernel", tuple, ()),
+                    Param("pool_type", str, "max",
+                          enum=("max", "avg", "sum", "lp")),
+                    Param("global_pool", bool, False),
+                    Param("stride", tuple, None),
+                    Param("pad", tuple, None),
+                    Param("count_include_pad", bool, True),
+                    Param("layout", str, None)],
+            aliases=("pooling", "Pooling_v1"))(_pooling)
+
+_ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+         "softrelu": F.softplus, "softsign": F.softsign}
+register_op("Activation", params=[
+    Param("act_type", str, "relu",
+          enum=("relu", "sigmoid", "tanh", "softrelu", "softsign"))],
+    aliases=("activation",))(lambda x, act_type="relu": _ACTS[act_type](x))
+
+register_op("softmax", params=[Param("axis", int, -1),
+                               Param("temperature", tuple, None)])(
+    lambda x, axis=-1, temperature=None: torch.softmax(
+        x if temperature in (None, ()) or float(temperature[0]) == 1.0
+        else x / float(temperature[0]), dim=axis))
+register_op("log_softmax", params=[Param("axis", int, -1)])(
+    lambda x, axis=-1: torch.log_softmax(x, dim=axis))
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """The reference's loss head: softmax forward; backward
+    ``grad_scale * (softmax - onehot(label))``, normalized as asked,
+    ignoring the incoming cotangent (``ops_impl.py:907-935``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                normalization):
+        out = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_scale, ignore_label, use_ignore, normalization)
+        return out
+
+    @staticmethod
+    def backward(ctx, _g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, normalization = ctx.cfg
+        grad = (out - F.one_hot(label.long(), out.shape[-1]).to(out.dtype)) \
+            * grad_scale
+        valid = None
+        if use_ignore:
+            keep = label != ignore_label
+            grad = grad * keep.unsqueeze(-1).to(grad.dtype)
+            valid = keep.sum().clamp_min(1)
+        if normalization == "valid":
+            grad = grad / (valid if valid is not None else label.numel())
+        elif normalization == "batch":
+            grad = grad / label.shape[0]
+        return grad, None, None, None, None, None
+
+
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    use_ignore=False, multi_output=False,
+                    preserve_shape=False, normalization="null"):
+    if multi_output:
+        raise MXNetError("SoftmaxOutput multi_output=True (softmax over "
+                         "axis 1) is not implemented yet — reshape to "
+                         "(N*d, C) and use the default mode")
+    return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label,
+                                use_ignore, normalization)
+
+
+register_op("SoftmaxOutput", num_inputs=2,
+            params=[Param("grad_scale", float, 1.0),
+                    Param("ignore_label", float, -1.0),
+                    Param("use_ignore", bool, False),
+                    Param("multi_output", bool, False),
+                    Param("preserve_shape", bool, False),
+                    Param("normalization", str, "null")],
+            aliases=("Softmax",))(_softmax_output)
+
+
+def _batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1):
+    """Normalize over every axis but ``axis``; returns (out, mean, var).
+    As in the JAX package (``ops_impl.py:1074-1082``) the op never
+    updates ``moving_mean``/``moving_var``: with
+    ``use_global_stats=False`` it normalizes by the batch statistics in
+    training and inference alike and returns them, and with
+    ``use_global_stats=True`` it normalizes by the moving ones."""
+    axis %= x.ndim
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if use_global_stats:
+        sh = [1] * x.ndim
+        sh[axis] = -1
+        mean, var = moving_mean.float(), moving_var.float()
+        scale = g.float() * torch.rsqrt(var + eps)
+        out = (x.float() - mean.reshape(sh)) * scale.reshape(sh) + \
+            beta.float().reshape(sh)
+        return out.to(x.dtype), mean, var
+    if x.device.type == "meta":   # shape inference
+        return _bn.bn_act_reference(x, g, beta, eps, axis=axis)
+    return _bn.fused_bn_act(x, g, beta, eps=eps, axis=axis)
+
+
+register_op("BatchNorm", num_inputs=5, num_outputs=3,
+            params=[Param("eps", float, 1e-5),
+                    Param("momentum", float, 0.9),
+                    Param("fix_gamma", bool, True),
+                    Param("use_global_stats", bool, False),
+                    Param("output_mean_var", bool, False),
+                    Param("axis", int, 1)],
+            aliases=("batch_norm", "BatchNorm_v1"))(_batch_norm)

@@ -5,19 +5,24 @@ An optimizer holds the hyperparameters, the per-parameter lr/wd
 multipliers and the update count; the math is the update ops of
 :mod:`.functional` ("optimizers are ops").  The eager ``update`` works
 on torch tensors and rebinds ``weight.data`` and the state tensors to
-the functionally updated values.  Not ported yet: lr schedulers, the
-other optimizers (LAMB, RMSProp, ...), ``Updater``, the eager
-multi-precision update and row-sparse lazy updates.
+the functionally updated values.  :class:`Updater` (``get_updater``)
+applies an optimizer to NDArray weights with per-index states, as
+Module does.  Not ported yet: lr schedulers, the other optimizers
+(LAMB, RMSProp, ...), the eager multi-precision update and row-sparse
+lazy updates.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "register", "create", "SGD", "Adam"]
+__all__ = ["Optimizer", "register", "create", "SGD", "Adam", "Updater",
+           "get_updater"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -45,9 +50,11 @@ def create(name, **kwargs) -> "Optimizer":
 class Optimizer:
     """Base optimizer: the update count, ``lr_mult``/``wd_mult`` by
     index or name, gradient rescale and clip, and ``multi_precision``
-    (read by :func:`.functional.opt_rule`).  The options that take no
-    effect here (``sym``, ``param_dict``, ``param_idx2name``,
-    ``begin_num_update``, ``lazy_update``) are not accepted."""
+    (read by :func:`.functional.opt_rule`).  ``idx2name``, which Module
+    sets, lets ``lr_mult``/``wd_mult`` be keyed by name for an index.
+    The options that take no effect here (``sym``, ``param_dict``,
+    ``param_idx2name``, ``begin_num_update``, ``lazy_update``) are not
+    accepted."""
 
     def __init__(self, *, rescale_grad=1.0, wd=0.0, clip_gradient=None,
                  learning_rate=0.01, lr_scheduler=None,
@@ -63,6 +70,7 @@ class Optimizer:
         self.multi_precision = multi_precision
         self.lr_mult: Dict[Any, float] = {}
         self.wd_mult: Dict[Any, float] = {}
+        self.idx2name: Dict[int, str] = {}
 
     create_optimizer = staticmethod(create)
 
@@ -96,11 +104,16 @@ class Optimizer:
         self._index_update_count[index] = count
         self.num_update = max(count, self.num_update)
 
+    def _mult(self, mults, index):
+        if index in mults:
+            return mults[index]
+        return mults.get(self.idx2name.get(index), 1.0)
+
     def _get_lr(self, index):
-        return self.lr * self.lr_mult.get(index, 1.0)
+        return self.lr * self._mult(self.lr_mult, index)
 
     def _get_wd(self, index):
-        return self.wd * self.wd_mult.get(index, 1.0)
+        return self.wd * self._mult(self.wd_mult, index)
 
     def _clip(self):
         return self.clip_gradient if self.clip_gradient else -1.0
@@ -163,3 +176,58 @@ class Adam(Optimizer):
             weight.detach(), grad, mean, var, lr=lr, beta1=self.beta1,
             beta2=self.beta2, epsilon=self.epsilon, wd=wd,
             rescale_grad=self.rescale_grad, clip_gradient=self._clip())
+
+
+class Updater:
+    """Applies an optimizer to NDArray weights with per-index states
+    (reference ``optimizer.Updater``†, the object Module and a KVStore
+    call).  ``updater(index, grad, weight)`` updates ``weight`` in
+    place."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict[Any, Any] = {}
+
+    def __call__(self, index, grad, weight) -> None:
+        w, g = weight._data, grad._data
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, w)
+        self.optimizer.update(index, w, g, self.states[index])
+
+    def get_states(self, dump_optimizer: bool = False) -> bytes:
+        """The states as a pickle of numpy arrays (with the optimizer
+        when ``dump_optimizer``)."""
+        def to_np(s):
+            if isinstance(s, torch.Tensor):
+                return s.detach().cpu().numpy()
+            if isinstance(s, (tuple, list)):
+                return type(s)(to_np(x) for x in s)
+            return s
+        states = {k: to_np(v) for k, v in self.states.items()}
+        return pickle.dumps((states, self.optimizer) if dump_optimizer
+                            else states)
+
+    def set_states(self, states_bytes: bytes, device=None) -> None:
+        """Load :meth:`get_states` output; the arrays go to ``device``
+        (default the card)."""
+        from ..context import resolve_device
+        dev = resolve_device(device)
+        data = pickle.loads(states_bytes)  # the caller's own state blob
+        if isinstance(data, tuple) and len(data) == 2 and \
+                isinstance(data[1], Optimizer):
+            states, self.optimizer = data
+        else:
+            states = data
+
+        def to_t(s):
+            if isinstance(s, np.ndarray):
+                return torch.from_numpy(s).to(dev)
+            if isinstance(s, (tuple, list)):
+                return type(s)(to_t(x) for x in s)
+            return s
+        self.states = {k: to_t(v) for k, v in states.items()}
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    """Reference ``mx.optimizer.get_updater``†."""
+    return Updater(optimizer)

@@ -5,8 +5,10 @@ v1 with the ``bench_resnet50`` recipe (SGD momentum, bf16 compute, b256
 x 224^2) in NCHW and NHWC, train examples/train_cifar10.py's resnet20
 through the symbolic API (sym → Module.fit), also with a CustomOp
 softmax head whose kernels are compiled at run time by rtc.CudaModule,
-and serve BERT-Large through InferenceServer → DynamicBatcher →
-ModelRunner.
+serve BERT-Large through InferenceServer → DynamicBatcher →
+ModelRunner, and run the chained-measurement tools (the conv strategy
+probe on the NHWC conv kernel, bench_flash, probe_bn_fusion,
+microbench).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -16,25 +18,44 @@ Phases, each fatal on failure:
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
      in f32 and bf16; flash attention also causal at T=127 and Tq !=
-     Tk; the fused epilogue at keep=0.9 with its dropout mask recovered
+     Tk, and causal in bf16 at bench_flash's B4 H16 D64 T=4096; the
+     fused epilogue at keep=0.9 with its dropout mask recovered
      from the output and compared bit for bit; times of the kernel, the
      plain version and one library call;
   3. each BERT backward kernel likewise (flash dq and dk/dv, LayerNorm,
      the fused epilogue at keep=0.9 with dh's zeros equal to the
-     dropped set bit for bit), at the training shapes; times beside AD
-     through the plain attention;
+     dropped set bit for bit), at the training shapes, flash also causal
+     in bf16 at B4 H16 D64 T=4096; times beside AD through the plain
+     attention;
   4. the four BatchNorm kernels (channels-major and channels-minor,
      forward and backward) against their plain version in f32 and bf16
      at four of ResNet-50's shapes (N=256: the stem, a layer1 and a
-     layer4 ``bn_out``, a downsample), at edge shapes (C=3, 37, 100;
+     layer4 ``bn_out``, a downsample; timed) and at the other shapes
+     probe_bn_fusion runs (the 14^2 x 1024 stage, the bottlenecks'
+     inner widths), at edge shapes (C=3, 37, 100;
      S=49, 196; N*S=1) and on a constant channel; the stem's statistics
      against f64 sums; a rerun bit-equal; times of the kernel, the
      plain version and cuDNN's BatchNorm with the add and ReLU; the raw
      wrappers must refuse inputs that require grad;
-  5. a 2-layer full-width BERT (f32, dropout 0, b=4, T=128): the loss
+  5. the NHWC conv kernel (#13, the port of ``pallas_conv``) against its
+     plain version in f32 and bf16 at N=256 (the conv probe's 14^2 x 256,
+     28^2 x 128, 7^2 x 512 and microbench's 56^2 x 64, 14^2 x 512, 3x3,
+     C = O) and at edge shapes (N=1; H = W = 5; C != O; 1x1, 2x2, 5x5
+     kernels); times beside cuDNN (TF32 off), cuDNN's kernel names
+     printed; its refusals (grad, a
+     dtype, a non-contiguous x, C off its bounds);
+  6. the port's tools, each ``main`` on the card with launch counts read
+     around it: microbench (chained bf16 matmuls and cuDNN convs), the
+     conv strategy probe (cuDNN, shifted GEMM, kernel #13; its conv
+     launches are the kernels line's), bench_flash (causal flash
+     fwd+bwd against the plain attention and SDPA at T = 512, 2048 and
+     4096, the last with 2 chained steps) and probe_bn_fusion (BN+ReLU
+     chains, library vs kernels #8/#9, and conv+BN+ReLU, at ResNet-50's
+     stage shapes); a FAILED row or an exception fails the run;
+  7. a 2-layer full-width BERT (f32, dropout 0, b=4, T=128): the loss
      and every parameter gradient on the card against the CPU plain
      path, then three TrainStep steps on each side;
-  6. BERT-Large trained at full size: ``bert_large(max_length=128,
+  8. BERT-Large trained at full size: ``bert_large(max_length=128,
      dropout=0.1)``, adam lr 1e-4, ``compute_dtype="bfloat16"``,
      ``cast_batch=False``, (32, 128) token batches with y = x: 3
      warm-up steps, then 3 timed windows of 10 steps (ms/step is their
@@ -42,11 +63,11 @@ Phases, each fatal on failure:
      24/24/24/1/1/48/48 and no BatchNorm per step; tokens/s, ms/step,
      MFU, peak memory and a per-family breakdown of one profiled
      ``step(x, y)``;
-  7. a full-width ResNet V1 of one bottleneck per stage (f32, b=4,
+  9. a full-width ResNet V1 of one bottleneck per stage (f32, b=4,
      64x64), NCHW and NHWC: the loss, every gradient, three SGD
      momentum steps (lr 1e-3) and the running statistics on the card
      against the CPU plain path;
-  8. ResNet-50 v1 trained at full size, NCHW: Xavier weights from torch
+ 10. ResNet-50 v1 trained at full size, NCHW: Xavier weights from torch
      seed 0, one (256, 3, 224, 224) batch and its labels from numpy
      seed 0 reused every step, SGD lr 0.1 momentum 0.9 wd 1e-4, bf16
      compute: 3 warm-up steps, 3 timed windows of 10 steps, the loss
@@ -55,14 +76,14 @@ Phases, each fatal on failure:
      ms/step, MFU (FLOPs from the port's conv and dense shapes, 3x
      forward; the reference's 22.49 GFLOP per sample beside it), peak
      memory and a profiled breakdown of one step;
-  9. the same in NHWC (``layout="NHWC"``), launches exactly 0/0/53/53;
- 10. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
+ 11. the same in NHWC (``layout="NHWC"``), launches exactly 0/0/53/53;
+ 12. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
      through ``params_from_mxtpu``) served to 4 client threads sending
      128 requests of lengths 16-128; every result checked, 0 requeues,
      launch counts read around the run;
- 11. one served batch of 8 x 128 against the same model and weights run
+ 13. one served batch of 8 x 128 against the same model and weights run
      on the CPU (plain path);
- 12. rtc: the user kernels of ``RTC_SOURCE`` (y = 2x, a row softmax
+ 14. rtc: the user kernels of ``RTC_SOURCE`` (y = 2x, a row softmax
      and its loss gradient p - onehot(label)) compiled by
      ``rtc.CudaModule`` and launched through ``CudaKernel.launch``: y =
      2x exact at 8x128 and 4096x4096, the softmax pair against its
@@ -72,14 +93,14 @@ Phases, each fatal on failure:
      cost of one launch, and the refusals (a wrong dtype, an array on
      the CPU, a CPU ctx, a float for an int, a source that does not
      compile, a missing export);
- 13. resnet20 at full width, b16, through the symbolic API: the card's
+ 15. resnet20 at full width, b16, through the symbolic API: the card's
      Module against the same Module on the CPU (outputs, every
      gradient, three SGD steps at lr 1e-3), the rtc head (a Module
      ending at the logits, the ``softmax_rtc`` CustomOp under
      ``autograd.record``, ``backward(out_grads=[logits.grad])``)
      against SoftmaxOutput on the card over three steps, and a
      checkpoint round trip that predicts bit for bit;
- 14. ``train_cifar10``'s recipe: one epoch of ``Module.fit`` over the
+ 16. ``train_cifar10``'s recipe: one epoch of ``Module.fit`` over the
      synthetic CIFAR-10 fallback (14 batches of 128; sgd lr 0.01,
      momentum 0.9, wd 1e-4, rescale 1/128; Xavier; Accuracy,
      Speedometer, do_checkpoint), launches exactly 19/19/0/0 BatchNorm
@@ -149,7 +170,9 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_kernel",),
                 **{f"batch_norm_{d}": tuple(f"bn_{d}_{k}_kernel"
                                             for k in ("stats", "finalize",
                                                       "apply"))
-                   for d in ("fwd", "bwd", "fwd_cm", "bwd_cm")}}
+                   for d in ("fwd", "bwd", "fwd_cm", "bwd_cm")},
+                "conv_nhwc": ("conv_nhwc_bf16_kernel",
+                              "conv_nhwc_f32_kernel")}
 GEMM_WORDS = ("gemm", "cutlass", "sm90_xmma", "ampere", "nvjet", "cublas")
 # cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
 # and its layout transposes); matched before GEMM_WORDS
@@ -216,7 +239,11 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
         fn()
     torch.cuda.synchronize()
     # torch.profiler now and then returns a window without device
-    # events; take another window rather than fail the run on it
+    # events, or with only a few of them (a time far under the bound);
+    # every call launches at least one kernel, so a window with fewer
+    # device events than calls is taken again.  The rtc head's ~1 us
+    # kernels come short in every window: their time is then read per
+    # recorded event, one kernel a call
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -224,21 +251,40 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
             torch.cuda.synchronize()
         evts = prof.key_averages()
         total = sum(_device_us(e) for e in evts)
-        if total:
+        n_dev = sum(e.count for e in evts if _device_us(e) > 0)
+        if total and n_dev >= iters:
             break
-        print(f"torch.profiler recorded no device time (window "
-              f"{attempt + 1} of 3)", file=sys.stderr, flush=True)
+        print(f"torch.profiler recorded {n_dev} device events for {iters} "
+              f"calls (window {attempt + 1} of 3)", file=sys.stderr,
+              flush=True)
     if not total:
         fail("torch.profiler recorded no device time")
+    per = min(n_dev, iters)
     if by_name is None:
-        return total / iters / 1e3
+        return total / per / 1e3
     out = {n: sum(_device_us(e) for e in evts
-                  if re.search(rf"\b{n}\b", e.key)) / iters / 1e3
+                  if re.search(rf"\b{n}\b", e.key)) / per / 1e3
            for n in by_name}
     for n, ms in out.items():
         if not ms:
             fail(f"torch.profiler recorded no time for kernel {n}")
     return out
+
+
+def kernels_of(fn, iters=5):
+    """The device kernels that one call of ``fn`` launches, as [name,
+    device ms per call], longest first (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(([e.key[:160], _device_us(e) / iters / 1e3]
+                   for e in prof.key_averages() if _device_us(e) > 0),
+                  key=lambda kv: -kv[1])
 
 
 def family_of(key):
@@ -292,6 +338,12 @@ class Checks:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
+# bench_flash's shape at its longest T (B4 H16 D64, causal, bf16): 128
+# key tiles of 32 per query tile, most of them skipped past the
+# diagonal, where the T <= 128 cases reach 4; the plain version's f32
+# scores take 4.3 GB
+FLASH_LONG_BH, FLASH_LONG_T = 4 * HEADS, 4096
+
 def kernel_phase(checks, gen):
     import torch
     import torch.nn.functional as F
@@ -336,6 +388,16 @@ def kernel_phase(checks, gen):
                                                        scale),
                     lambda: F.scaled_dot_product_attention(q4, k4, v4)),
             "bound_ms": b_ms, "bound_by": b_by}
+    q, k, v = (randn(FLASH_LONG_BH, FLASH_LONG_T, D, dtype=torch.bfloat16)
+               for _ in range(3))
+    o, lse = fa.flash_forward(q, k, v, True, scale)
+    po, plse = fa.flash_forward_reference(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    tag = f"flash_attention causal=True BH{FLASH_LONG_BH} T{FLASH_LONG_T}"
+    checks.close(tag, o, po, "bfloat16")
+    checks.close(tag + " lse", lse, plse, "float32")
+    del q, k, v, o, lse, po, plse
+    torch.cuda.empty_cache()
 
     # -- LayerNorm ------------------------------------------------------
     for dt in (torch.float32, torch.bfloat16):
@@ -486,6 +548,20 @@ def backward_phase(checks, gen):
                 "max_abs_err": err, "ms": kern[pname], "plain_ms": plain,
                 "library_ms": sdpa, "ad_plain_ms": ad_plain,
                 "wall_ms": wall, "bound_ms": b_ms, "bound_by": b_by}
+    q, k, v, do = (randn(FLASH_LONG_BH, FLASH_LONG_T, D,
+                         dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, True, scale)
+    got = fa.flash_backward(q, k, v, do, o, lse, True, scale)
+    want = fa.flash_backward_reference(q, k, v, do, o, lse, True, scale)
+    torch.cuda.synchronize()
+    tag = f"flash_backward causal=True BH{FLASH_LONG_BH} T{FLASH_LONG_T}"
+    for g, a, b in zip(("dq", "dk", "dv"), got, want):
+        checks.close(f"{tag} {g}", a, b, "bfloat16",
+                     scale_floor(b, "bfloat16"))
+    if not all(torch.isfinite(t).all() for t in got):
+        checks.failed.append(f"{tag} [bfloat16]: not finite")
+    del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
 
     # -- LayerNorm ------------------------------------------------------
     for dt in (torch.float32, torch.bfloat16):
@@ -641,17 +717,59 @@ def refusal_phase(checks):
         if not ok:
             checks.failed.append(f"{name} did not refuse grad inputs")
 
+    # the conv kernel outside its bounds: raises before any launch
+    conv = importlib.import_module("mxtpu_torch.kernels.conv")
+    xc = torch.randn(2, 5, 5, 16, device=dev)
+    wc = torch.randn(3, 3, 16, 16, device=dev)
+    launched = conv.CONV_LAUNCHES
+    calls = {"inputs that require grad": (
+                 lambda: conv.conv_nhwc(xc.requires_grad_(True), wc),
+                 "require grad"),
+             "float16": (lambda: conv.conv_nhwc(xc.detach().half(),
+                                                wc.half()),
+                         "float32 or bfloat16"),
+             "a non-contiguous x": (
+                 lambda: conv.conv_nhwc(xc.detach().transpose(1, 2), wc),
+                 "contiguous"),
+             "C = 12 (not a multiple of 8)": (
+                 lambda: conv.conv_nhwc(xc.detach()[..., :12].contiguous(),
+                                        wc[:, :, :12].contiguous()),
+                 "multiples of 8")}
+    for what, (call, match) in calls.items():
+        try:
+            call()
+        except MXNetError as e:
+            ok = match in str(e)
+        else:
+            ok = False
+        print(f"check conv_nhwc refuses {what}: {'ok' if ok else 'FAIL'}",
+              flush=True)
+        checks.rows.append({"check": f"conv_nhwc refuses {what}",
+                            "ok": ok})
+        if not ok:
+            checks.failed.append(f"conv_nhwc did not refuse {what}")
+    if conv.CONV_LAUNCHES != launched:
+        checks.failed.append("conv_nhwc launched on a refused input")
+
 
 # ----------------------------------------------------------------------
 # BatchNorm kernels against their plain versions
 # ----------------------------------------------------------------------
 
 # (C, S, act, add) of ResNet-50's BatchNorms at N = 256: the stem, a
-# layer1 bn_out, a downsample and a layer4 bn_out
+# layer1 bn_out, a downsample and a layer4 bn_out (these four timed),
+# then the shapes that only probe_bn_fusion runs: its 14^2 x 1024
+# stage and the bottlenecks' inner widths of its conv+BN+ReLU chain
 BN_SHAPES = {"stem": (64, 12544, "relu", False),
              "layer1_out": (256, 3136, "relu", True),
              "downsample": (512, 784, "none", False),
-             "layer4_out": (2048, 49, "relu", True)}
+             "layer4_out": (2048, 49, "relu", True),
+             "s3_14": (1024, 196, "relu", False),
+             "s1_inner": (64, 3136, "relu", False),
+             "s2_inner": (128, 784, "relu", False),
+             "s3_inner": (256, 196, "relu", False),
+             "s4_inner": (512, 49, "relu", False)}
+BN_TIMED = ("stem", "layer1_out", "downsample", "layer4_out")
 BN_N = 256
 # the shape whose times stand in the kernels line
 BN_LINE_SHAPE = "layer1_out"
@@ -671,11 +789,12 @@ BN_OPS = {"fwd": 7, "bwd": 14}
 def bn_phase(checks, gen):
     """The four BatchNorm kernels against their plain versions on the
     card, forward (y, mean, var) and backward (dx, dr, dgamma, dbeta),
-    in f32 and bf16: at ResNet-50's shapes (N = 256) in both views, at
-    edge shapes, at resnet20's (N = 128, f32, the symbolic path's), on a constant channel; the stem's statistics against
-    an f64 plain version; a repeat bit-equal.  Returns the timings of
-    ``BN_LINE_SHAPE`` keyed like the other kernels', and prints every
-    shape's."""
+    in f32 and bf16: at ResNet-50's shapes (N = 256; ``BN_TIMED``
+    timed) in both views, at edge shapes, at resnet20's (N = 128, f32,
+    the symbolic path's), on a constant channel; the stem's statistics
+    against an f64 plain version; a repeat bit-equal.  Returns the
+    timings of ``BN_LINE_SHAPE`` keyed like the other kernels', and
+    prints every timed shape's."""
     import torch
     import torch.nn.functional as F
     import importlib
@@ -763,6 +882,9 @@ def bn_phase(checks, gen):
                                         "ok": same})
                     if not same:
                         checks.failed.append(f"{tag} [{name}] repeat")
+                if key not in BN_TIMED:
+                    del outs
+                    continue
                 # times: the kernel, its plain version, cuDNN's BN (4-D,
                 # in the view's memory layout) with the add and ReLU
                 fwd = bn.bn_fwd_cm if cm else bn.bn_fwd
@@ -850,6 +972,175 @@ def bn_phase(checks, gen):
         run(x, None, dy, g, b, "none", False,
             f"bn major resnet20 N{CIFAR_BN_N} C{C} S{S} none", "float32")
     return out
+
+
+# ----------------------------------------------------------------------
+# the NHWC conv kernel (#13) against its plain version
+# ----------------------------------------------------------------------
+
+# (H, C) at N = 256, 3x3, C = O: the conv probe's three shapes, then
+# microbench.bench_conv's other two
+CONV_N = 256
+CONV_SHAPES = ((14, 256), (28, 128), (7, 512), (56, 64), (14, 512))
+# the shape whose times stand in the kernels line
+CONV_LINE_SHAPE = (14, 256)
+# edge shapes (N, H, W, C, O, KH, KW): N = 1; H = W = 5 (no tile's
+# multiple); C != O, C off the 32-channel chunk, O off the 128-wide
+# tile; 1x1, 2x2 (the reference's even-kernel padding) and 5x5 kernels;
+# H != W
+CONV_EDGES = ((1, 14, 14, 256, 256, 3, 3), (2, 5, 5, 16, 32, 3, 3),
+              (3, 7, 7, 24, 40, 1, 1), (2, 6, 6, 32, 16, 2, 2),
+              (2, 9, 9, 16, 8, 5, 5), (4, 5, 5, 40, 72, 3, 3),
+              (2, 5, 11, 8, 136, 3, 3))
+
+
+def conv_phase(checks, gen):
+    """``conv_nhwc`` against ``conv_nhwc_reference`` on the card in f32
+    and bf16, at the N = 256 shapes (timed beside the bound, the plain
+    version and cuDNN, TF32 off, with the names of the kernels cuDNN
+    launches) and at ``CONV_EDGES``.  Returns the timings of
+    ``CONV_LINE_SHAPE`` keyed like the other kernels'."""
+    import torch
+    import importlib
+    from mxtpu_torch.tools.microbench import cudnn_conv
+    conv = importlib.import_module("mxtpu_torch.kernels.conv")
+    dev = torch.device(CARD)
+    out = {}
+
+    def inputs(N, H, W, C, O, KH, KW, dt):
+        x = torch.randn(N, H, W, C, generator=gen, device=dev).to(dt)
+        w = (torch.randn(KH, KW, C, O, generator=gen, device=dev) /
+             (KH * C ** 0.5)).to(dt)
+        return x, w
+
+    def check(x, w, tag, name):
+        y = conv.conv_nhwc(x, w)
+        p = conv.conv_nhwc_reference(x, w)
+        torch.cuda.synchronize()
+        err = checks.close(tag, y, p, name)
+        if y.shape != p.shape or not bool(torch.isfinite(y).all()):
+            checks.failed.append(f"{tag} [{name}]: shape {tuple(y.shape)} "
+                                 f"or not finite")
+        return y, err
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        el = torch.tensor([], dtype=dt).element_size()
+        for (H, C) in CONV_SHAPES:
+            x, w = inputs(CONV_N, H, H, C, C, 3, 3, dt)
+            tag = f"conv_nhwc N{CONV_N} {H}x{H} C{C} O{C} 3x3"
+            y, err = check(x, w, tag, name)
+            lib = cudnn_conv(w)
+            t = timed(lambda: conv.conv_nhwc(x, w),
+                      lambda: conv.conv_nhwc_reference(x, w),
+                      lambda: lib(x))
+            # which algorithm cuDNN took: a Winograd or FFT kernel does
+            # fewer multiplies than the direct conv the bound counts
+            lib_kernels = kernels_of(lambda: lib(x))
+            print(f"cuDNN kernels [{name}] N{CONV_N} {H}x{H} C{C} (device "
+                  f"ms per call): " + "; ".join(f"{k} {ms:.4f}"
+                                                for k, ms in lib_kernels),
+                  flush=True)
+            nbytes = (x.numel() + w.numel() + y.numel()) * el
+            ops = 2 * CONV_N * H * H * C * C * 9
+            b_ms, b_by = bound(nbytes, ops, name)
+            print(f"time conv_nhwc [{name}] N{CONV_N} {H}x{H} C{C} (device "
+                  f"ms per call): kernel_ms={t['ms']:.4f} plain_ms="
+                  f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}); kernel "
+                  f"{ops / t['ms'] / 1e9:.1f} TFLOP/s; kernel wall_ms="
+                  f"{t['wall_ms']:.4f}", flush=True)
+            if (H, C) == CONV_LINE_SHAPE:
+                out[("conv_nhwc", name)] = {"max_abs_err": err, **t,
+                                            "bound_ms": b_ms,
+                                            "bound_by": b_by,
+                                            "shape": [CONV_N, H, H, C, C],
+                                            "library_kernels": lib_kernels}
+            del x, w, y, lib
+        for (N, H, W, C, O, KH, KW) in CONV_EDGES:
+            x, w = inputs(N, H, W, C, O, KH, KW, dt)
+            check(x, w, f"conv_nhwc edge N{N} {H}x{W} C{C} O{O} "
+                        f"{KH}x{KW}", name)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
+# the port's chained-measurement tools
+# ----------------------------------------------------------------------
+
+# bench_flash's chained steps at T = 4096 (the tool's default is 8):
+# each step is 4 fused passes and the plain attention's take ~20 GB
+FLASH_LONG_N = 2
+# kernels each tool's run must launch
+TOOL_KERNELS = {"probe_conv_strategies": ("conv_nhwc",),
+                "bench_flash": ("flash_attention_fwd",
+                                "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkv"),
+                "probe_bn_fusion": ("batch_norm_fwd", "batch_norm_bwd")}
+
+
+def failed_rows(rows):
+    """The rows (or cells of a row) a tool printed as FAILED."""
+    bad = []
+    for r in rows if isinstance(rows, list) else [rows]:
+        if not isinstance(r, dict):
+            continue
+        if r.get("status") == "FAILED":
+            bad.append(r)
+        bad += [c for c in r.values()
+                if isinstance(c, dict) and c.get("status") == "FAILED"]
+    return bad
+
+
+def tools_phase(checks):
+    """Each tool's ``main`` on the card, its table printed: microbench
+    (matmul and conv), the conv strategy probe (cuDNN, shifted GEMM,
+    kernel #13), bench_flash (T = 512 and 2048, then 4096 with
+    ``FLASH_LONG_N`` steps) and probe_bn_fusion.  Launch counts are set
+    to 0 before each run and read after it; an exception or a FAILED
+    row fails the run.  Returns the counts and the rows by run."""
+    import traceback
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.tools import (bench_flash, microbench,
+                                   probe_bn_fusion, probe_conv_strategies)
+    runs = (("microbench", microbench, ["all"]),
+            ("probe_conv_strategies", probe_conv_strategies, []),
+            ("bench_flash", bench_flash, ["512", "2048"]),
+            ("bench_flash", bench_flash, ["4096", "--n",
+                                          str(FLASH_LONG_N)]),
+            ("probe_bn_fusion", probe_bn_fusion, []))
+    counts, tables = {}, {}
+    for name, tool, argv in runs:
+        key = " ".join([name, *argv])
+        print(f"== tool {key} ==", flush=True)
+        if name == "bench_flash" and "--n" in argv:
+            print(f"(T=4096 with n={FLASH_LONG_N} chained steps, not the "
+                  f"tool's 8, to keep this script's time)", flush=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rows = tool.main(argv)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — recorded, fails the run
+            traceback.print_exc()
+            checks.failed.append(f"tool {key}: {type(e).__name__}: {e}")
+            continue
+        finally:
+            sys.stdout.flush()
+            torch.cuda.empty_cache()
+        c = kernels.launch_counts()
+        counts[key], tables[key] = c, rows
+        print(f"tool {key}: {time.perf_counter() - t0:.1f} s; launches "
+              f"{ {k: v for k, v in c.items() if v} }", flush=True)
+        for r in failed_rows(rows):
+            checks.failed.append(f"tool {key}: FAILED row {r}")
+        for k in TOOL_KERNELS.get(name, ()):
+            if c[k] == 0:
+                checks.failed.append(f"tool {key}: kernel {k} never "
+                                     f"launched")
+    return counts, tables
 
 
 # ----------------------------------------------------------------------
@@ -2456,6 +2747,7 @@ def main():
     timings = kernel_phase(checks, gen)
     timings.update(backward_phase(checks, gen))
     timings.update(bn_phase(checks, gen))
+    timings.update(conv_phase(checks, gen))
     for (name, dt), r in timings.items():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f}"
@@ -2468,6 +2760,7 @@ def main():
               f"{r['wall_ms']:.4f} (events, host launch included)",
               flush=True)
     refusal_phase(checks)
+    tool_counts, tool_tables = tools_phase(checks)
 
     train_check_phase(checks)
     train_counts, training = train_phase(checks)
@@ -2549,6 +2842,22 @@ def main():
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}})
 
+    # kernel #13 at the probe's first shape, bf16 (the probe's type);
+    # launches from the conv probe's run
+    probe_key = "probe_conv_strategies"
+    conv_launches = tool_counts.get(probe_key, {}).get("conv_nhwc", 0)
+    if conv_launches == 0:
+        checks.failed.append("kernel conv_nhwc never launched on a main "
+                             "path")
+    line["kernels"].append({
+        "name": "conv_nhwc", "route": "cuda",
+        "source": "mxtpu_torch/csrc/conv_nhwc.cu",
+        "replaces": "tools/probe_conv_strategies.py:59",
+        "dtype": "bfloat16", "launches": conv_launches,
+        **{k: timings[("conv_nhwc", "bfloat16")][k]
+           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -2558,7 +2867,10 @@ def main():
                            **{f"resnet50 {k}": c
                               for k, c in rn_counts.items()},
                            "resnet20 fit": sym_counts,
-                           "resnet20 rtc head": sym_rtc},
+                           "resnet20 rtc head": sym_rtc,
+                           **{f"tool {k}": c
+                              for k, c in tool_counts.items()}},
+              "tools": tool_tables,
               "training": training, "resnet50": resnet,
               "serving": serving, "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {

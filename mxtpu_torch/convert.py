@@ -16,6 +16,12 @@ Symbolic models name their arrays in the graph, the same names in both
 packages, so :func:`symbol_params_from_mxtpu` and
 :func:`symbol_params_to_mxtpu` carry ``Module.get_params()`` dicts by
 name.
+
+The NHWC conv kernel (``kernels.conv_nhwc``) and the conv strategy
+probe take HWIO weights and NHWC activations, the layouts of the JAX
+tool ``tools/probe_conv_strategies.py``; their carry is
+``torch.from_numpy`` of the same seeded numpy arrays, so no function
+here is needed for them.
 """
 from __future__ import annotations
 

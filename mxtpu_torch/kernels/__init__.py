@@ -10,6 +10,8 @@ module); :func:`launch_counts` reads them all and
 The public functions (``flash_attention``, ``layer_norm``,
 ``fused_residual_layer_norm``, ``fused_bn_act``) run through
 ``torch.autograd.Function``s whose backward is the backward kernel.
+``conv_nhwc`` has no backward (nor has the TPU kernel it ports) and
+refuses inputs that require grad on every device.
 The raw wrappers (``flash_forward``, ``layer_norm_fwd``,
 ``fused_residual_ln_fwd``, ``bn_fwd``, ``bn_bwd`` and the like) keep
 no graph, so on the card they refuse inputs that require grad
@@ -28,7 +30,7 @@ from ..base import MXNetError
 __all__ = ["on_card", "refuse_grad", "bump", "launch_counts",
            "reset_launch_counts",
            "flash_attention", "layer_norm", "fused_residual_layer_norm",
-           "fused_bn_act"]
+           "fused_bn_act", "conv_nhwc"]
 
 _count_lock = threading.Lock()
 
@@ -48,15 +50,15 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise MXNetError(f"kernel inputs on unsupported device {dev}")
 
 
-def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+def refuse_grad(what: str, *tensors: torch.Tensor,
+                hint: str = "call the public function, whose autograd "
+                            "Function runs the backward kernel") -> None:
     """Raise when grad is on and an input of a raw forward wrapper
     requires it: the launch records no graph, so its result would cut
     autograd.  Inside an autograd Function's forward grad is off, so
     the public functions pass."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise MXNetError(
-            f"{what}: inputs require grad; call the public function, "
-            f"whose autograd Function runs the backward kernel")
+        raise MXNetError(f"{what}: inputs require grad; {hint}")
 
 
 def bump(module, attr: str = "LAUNCHES") -> None:
@@ -72,6 +74,7 @@ def _modules():
     fa = importlib.import_module(__name__ + ".flash_attention")
     ln = importlib.import_module(__name__ + ".layer_norm")
     bn = importlib.import_module(__name__ + ".batch_norm")
+    conv = importlib.import_module(__name__ + ".conv")
     return {"flash_attention_fwd": (fa, "LAUNCHES"),
             "flash_attention_bwd_dq": (fa, "DQ_LAUNCHES"),
             "flash_attention_bwd_dkv": (fa, "DKV_LAUNCHES"),
@@ -82,7 +85,8 @@ def _modules():
             "batch_norm_fwd": (bn, "FWD_LAUNCHES"),
             "batch_norm_bwd": (bn, "BWD_LAUNCHES"),
             "batch_norm_fwd_cm": (bn, "FWD_CM_LAUNCHES"),
-            "batch_norm_bwd_cm": (bn, "BWD_CM_LAUNCHES")}
+            "batch_norm_bwd_cm": (bn, "BWD_CM_LAUNCHES"),
+            "conv_nhwc": (conv, "CONV_LAUNCHES")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -99,3 +103,4 @@ def reset_launch_counts() -> None:
 from .flash_attention import flash_attention  # noqa: E402
 from .layer_norm import layer_norm, fused_residual_layer_norm  # noqa: E402
 from .batch_norm import fused_bn_act  # noqa: E402
+from .conv import conv_nhwc  # noqa: E402

@@ -1,0 +1,8 @@
+"""Chained-measurement tools of the port: the counterparts of the JAX
+package's ``tools/microbench.py``, ``tools/probe_conv_strategies.py``,
+``tools/bench_flash.py`` and ``tools/probe_bn_fusion.py``.
+
+Each runs on the card by default (``python -m mxtpu_torch.tools.<name>``)
+and on the CPU only when asked (``--device cpu``), where the kernels'
+plain versions stand in and no time means anything about the card.
+"""

@@ -200,6 +200,7 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
     tk.fused_bn_act(xb, torch.ones(16), torch.zeros(16), act="relu",
                     residual=xb)[0].sum().backward()
     tk.fused_bn_act(x, torch.ones(16), torch.zeros(16))[0].sum().backward()
+    tk.conv_nhwc(torch.randn(1, 3, 3, 8), torch.randn(3, 3, 8, 8))
     assert x.grad is not None and qkv[0].grad is not None
     assert xb.grad is not None
     assert tk.launch_counts() == {"flash_attention_fwd": 0,
@@ -212,7 +213,8 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
                                   "batch_norm_fwd": 0,
                                   "batch_norm_bwd": 0,
                                   "batch_norm_fwd_cm": 0,
-                                  "batch_norm_bwd_cm": 0}
+                                  "batch_norm_bwd_cm": 0,
+                                  "conv_nhwc": 0}
 
 
 def test_dispatch_refuses_devices_it_has_no_path_for():

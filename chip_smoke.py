@@ -14,7 +14,10 @@ microbench).
 
 Phases, each fatal on failure:
   1. build every kernel from ``mxtpu_torch/csrc`` (one nvcc per source,
-     in parallel);
+     in parallel); ``cuobjdump -sass`` of the bf16 flash forward and
+     dk/dv kernels (``fa_fwd_wgmma_kernel``,
+     ``fa_bwd_dkv_wgmma_kernel``) must show wgmma (HGMMA) and TMA loads
+     (UTMALDG) in every instantiation;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
      in f32 and bf16; flash attention also causal at T=127 and Tq !=
@@ -25,8 +28,10 @@ Phases, each fatal on failure:
   3. each BERT backward kernel likewise (flash dq and dk/dv, LayerNorm,
      the fused epilogue at keep=0.9 with dh's zeros equal to the
      dropped set bit for bit), at the training shapes, flash also causal
-     in bf16 at B4 H16 D64 T=4096; times beside AD through the plain
-     attention;
+     in bf16 at B4 H16 D64 T=4096 and, forward and backward, at edge
+     shapes (D = 32, 128, 96, 64 with diagonal offsets, and D = 42, off
+     the multiple of 8 that TMA needs); times beside AD through the
+     plain attention;
   4. the four BatchNorm kernels (channels-major and channels-minor,
      forward and backward) against their plain version in f32 and bf16
      at four of ResNet-50's shapes (N=256: the stem, a layer1 and a
@@ -134,8 +139,10 @@ library call alike; the kernel's wall time per call (CUDA events over
 back-to-back calls, host launch cost included) is printed beside it.
 
 Output: the card's name and power limit, per-kernel lines, the training
-and serving numbers, a ``{"kernels": [...]}`` JSON line, and last the
-line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+and serving numbers, a ``{"kernels": [...]}`` JSON line (flash forward
+and dk/dv in bf16 and f32, the bf16 rows with BERT-Large training's
+launches, the f32 rows with serving's and the 2-layer f32 training
+check's), and last the line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout.  A full report goes to
 ``mxtpu_torch/_build/chip_smoke_report.json``.
 """
@@ -160,9 +167,11 @@ CHECK_LAYERS, CHECK_B = 2, 4
 GRAD_TOL, LOSS_TOL, STEP_TOL = 1e-4, 1e-5, 1e-4
 # launch counter -> the CUDA kernels (profiler names) one wrapper call
 # launches
-KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_kernel",),
+KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_kernel",
+                                        "fa_fwd_wgmma_kernel"),
                 "flash_attention_bwd_dq": ("fa_bwd_dq_kernel",),
-                "flash_attention_bwd_dkv": ("fa_bwd_dkv_kernel",),
+                "flash_attention_bwd_dkv": ("fa_bwd_dkv_kernel",
+                                            "fa_bwd_dkv_wgmma_kernel"),
                 "layer_norm_fwd": ("ln_fwd_kernel",),
                 "layer_norm_bwd": ("ln_bwd_kernel",),
                 "fused_residual_ln_fwd": ("frln_fwd_kernel",),
@@ -173,6 +182,11 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_kernel",),
                    for d in ("fwd", "bwd", "fwd_cm", "bwd_cm")},
                 "conv_nhwc": ("conv_nhwc_bf16_kernel",
                               "conv_nhwc_f32_kernel")}
+# the bf16 kernels that must run on the tensor cores with TMA loads: the
+# library each is built into, and the instructions its SASS must hold
+TENSOR_CORE_KERNELS = {"fa_fwd_wgmma_kernel": "flash_attention",
+                       "fa_bwd_dkv_wgmma_kernel": "flash_attention_bwd"}
+SASS_NEEDS = ("HGMMA", "UTMALDG")
 GEMM_WORDS = ("gemm", "cutlass", "sm90_xmma", "ampere", "nvjet", "cublas")
 # cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
 # and its layout transposes); matched before GEMM_WORDS
@@ -332,6 +346,30 @@ class Checks:
         if not ok:
             self.failed.append(f"{name} [{dtype}]")
         return absmax
+
+
+def sass_phase(checks):
+    """``cuobjdump -sass`` of the built libraries: every instantiation
+    of each tensor-core kernel must hold wgmma (HGMMA) and TMA loads
+    (UTMALDG), so a kernel that silently lost either fails the run."""
+    import shutil
+    from mxtpu_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for kern, src in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(_build._target(src))],
+                              capture_output=True, text=True, timeout=300)
+        funcs = [f for f in re.split(r"\n\s*Function : ", sass.stdout)[1:]
+                 if kern in f.split("\n", 1)[0]]
+        counts = [{w: f.count(w) for w in SASS_NEEDS} for f in funcs]
+        ok = bool(funcs) and all(all(c.values()) for c in counts)
+        print(f"check SASS {kern} ({src}): {len(funcs)} instantiations, "
+              f"{counts} {'ok' if ok else 'FAIL'}", flush=True)
+        checks.rows.append({"check": f"SASS {kern}", "counts": counts,
+                            "ok": ok})
+        if not ok:
+            checks.failed.append(f"SASS of {kern} lacks "
+                                 f"{'/'.join(SASS_NEEDS)} "
+                                 f"({sass.stderr.strip()[:200]})")
 
 
 # ----------------------------------------------------------------------
@@ -524,9 +562,11 @@ def backward_phase(checks, gen):
         el = q.element_size()
         rows = 2 * BH * T * 4                       # lse and delta, f32
         per = BH * T * D * el
+        dkv_name = "fa_bwd_dkv_wgmma_kernel" if dt == torch.bfloat16 \
+            else "fa_bwd_dkv_kernel"
         kern = device_ms(lambda: fa.flash_backward(q, k, v, do, o, lse,
                                                    False, scale),
-                         by_name=["fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"])
+                         by_name=["fa_bwd_dq_kernel", dkv_name])
         plain = device_ms(lambda: fa.flash_backward_reference(
             q, k, v, do, o, lse, False, scale))
         ad_plain = device_ms(grads_of(
@@ -541,7 +581,7 @@ def backward_phase(checks, gen):
         for kname, pname, nt, ops, err in (
                 ("flash_attention_bwd_dq", "fa_bwd_dq_kernel", 5,
                  6 * BH * T * T * D, errs[0]),
-                ("flash_attention_bwd_dkv", "fa_bwd_dkv_kernel", 6,
+                ("flash_attention_bwd_dkv", dkv_name, 6,
                  8 * BH * T * T * D, max(errs[1:]))):
             b_ms, b_by = bound(nt * per + rows, ops, name)
             out[(kname, name)] = {
@@ -617,23 +657,31 @@ def backward_phase(checks, gen):
             dh_zero = got[0] == 0
 
     # shapes the main path does not reach: other head dims (the kernels'
-    # column-count instantiations), an explicit diagonal offset, row
-    # counts off the 8-row blocks, C under 1024 (128 threads) and C past
-    # the 48 KB shared-memory opt-in
+    # column-count instantiations; D = 42 runs the bf16 kernels on
+    # copies zero-padded to 48), an explicit diagonal offset, row counts
+    # off the 8-row blocks, C under 1024 (128 threads) and C past the
+    # 48 KB shared-memory opt-in
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         for causal, tq, tk, d, delta in ((True, 100, 100, 32, None),
                                          (False, 50, 77, 128, None),
                                          (True, 65, 65, 96, 3),
-                                         (True, 40, 90, 64, -5)):
+                                         (True, 40, 90, 64, -5),
+                                         (True, 70, 90, 42, None)):
             q, do = (randn(8, tq, d, dtype=dt) for _ in range(2))
             k, v = (randn(8, tk, d, dtype=dt) for _ in range(2))
             sc = 1.0 / d ** 0.5
             o, lse = fa.flash_forward(q, k, v, causal, sc, delta)
+            po, plse = fa.flash_forward_reference(q, k, v, causal, sc, delta)
             got = fa.flash_backward(q, k, v, do, o, lse, causal, sc, delta)
             want = fa.flash_backward_reference(q, k, v, do, o, lse, causal,
                                                sc, delta)
             torch.cuda.synchronize()
+            tag = f"Tq={tq} Tk={tk} D={d} delta={delta}"
+            checks.close(f"flash_attention edge causal={causal} {tag}", o,
+                         po, name)
+            checks.close(f"flash_attention edge causal={causal} {tag} lse",
+                         lse, plse, "float32")
             for g, a, b in zip(("dq", "dk", "dv"), got, want):
                 checks.close(f"flash_backward edge causal={causal} Tq={tq} "
                              f"Tk={tk} D={d} delta={delta} {g}", a, b, name,
@@ -1157,7 +1205,9 @@ def mlm_loss(pred, y):
 
 def train_check_phase(checks):
     """A 2-layer full-width BERT, f32, dropout 0: one forward and
-    backward, then three adam steps, on the card and on the CPU."""
+    backward, then three adam steps, on the card and on the CPU; returns
+    the launch counts of the card's side (the f32 training path)."""
+    from mxtpu_torch import kernels
     from mxtpu_torch.convert import params_from_mxtpu
     from mxtpu_torch.models import BERTModel
     from mxtpu_torch.parallel import build_train_step
@@ -1176,6 +1226,7 @@ def train_check_phase(checks):
 
     t0 = time.perf_counter()
     card, cpu = step_on(CARD), step_on("cpu")
+    kernels.reset_launch_counts()   # the CPU side launches nothing
     lc, gc = card.forward_backward(toks, toks)
     lp, gp = cpu.forward_backward(toks, toks)
     worst = 0.0
@@ -1209,6 +1260,7 @@ def train_check_phase(checks):
                         "loss_rel": lrel, "worst_grad_rel": worst,
                         "step_losses_card": lcs, "step_losses_cpu": lps,
                         "step_rel": srel, "ok": ok and sok})
+    return kernels.launch_counts()
 
 
 RANGES = ("forward_backward", "update")
@@ -2743,6 +2795,7 @@ def main():
           flush=True)
 
     checks = Checks()
+    sass_phase(checks)
     gen = torch.Generator(device=CARD).manual_seed(SEED)
     timings = kernel_phase(checks, gen)
     timings.update(backward_phase(checks, gen))
@@ -2762,7 +2815,7 @@ def main():
     refusal_phase(checks)
     tool_counts, tool_tables = tools_phase(checks)
 
-    train_check_phase(checks)
+    f32_train_counts = train_check_phase(checks)
     train_counts, training = train_phase(checks)
     resnet_check_phase(checks)
     rn_counts, resnet = {}, {}
@@ -2781,51 +2834,67 @@ def main():
     counts = {k: train_counts[k] + serve_counts[k] + sym_counts[k] +
               sum(c[k] for c in rn_counts.values()) for k in train_counts}
 
-    # BERT's forward kernels at the serving path's type (f32), its
-    # backward kernels and the BatchNorm kernels at the training paths'
-    # (bf16); the BatchNorm rows at the BN_LINE_SHAPE
-    meta = {
-        "flash_attention_fwd": ("mxtpu_torch/csrc/flash_attention.cu",
-                                "mxtpu/kernels/flash_attention.py:192",
-                                "float32"),
-        "flash_attention_bwd_dq": (
-            "mxtpu_torch/csrc/flash_attention_bwd.cu",
-            "mxtpu/kernels/flash_attention.py:347", "bfloat16"),
-        "flash_attention_bwd_dkv": (
-            "mxtpu_torch/csrc/flash_attention_bwd.cu",
-            "mxtpu/kernels/flash_attention.py:368", "bfloat16"),
-        "layer_norm_fwd": ("mxtpu_torch/csrc/layer_norm.cu",
-                           "mxtpu/kernels/layer_norm.py:104", "float32"),
-        "layer_norm_bwd": ("mxtpu_torch/csrc/layer_norm_bwd.cu",
-                           "mxtpu/kernels/layer_norm.py:137", "bfloat16"),
-        "fused_residual_ln_fwd": ("mxtpu_torch/csrc/fused_residual_ln.cu",
-                                  "mxtpu/kernels/layer_norm.py:355",
-                                  "float32"),
-        "fused_residual_ln_bwd": (
-            "mxtpu_torch/csrc/fused_residual_ln_bwd.cu",
-            "mxtpu/kernels/layer_norm.py:384", "bfloat16"),
-        "batch_norm_fwd": ("mxtpu_torch/csrc/batch_norm.cu",
-                           "mxtpu/kernels/batch_norm.py:319", "bfloat16"),
-        "batch_norm_bwd": ("mxtpu_torch/csrc/batch_norm_bwd.cu",
-                           "mxtpu/kernels/batch_norm.py:345", "bfloat16"),
-        "batch_norm_fwd_cm": ("mxtpu_torch/csrc/batch_norm.cu",
-                              "mxtpu/kernels/batch_norm.py:393",
-                              "bfloat16"),
-        "batch_norm_bwd_cm": ("mxtpu_torch/csrc/batch_norm_bwd.cu",
-                              "mxtpu/kernels/batch_norm.py:419",
-                              "bfloat16"),
-    }
-    for name in meta:
-        if counts[name] == 0:
-            checks.failed.append(f"kernel {name} never launched on a main "
-                                 f"path")
+    # BERT's flash forward and dk/dv in both types: bf16 (the training
+    # path; the tensor-core kernels) with the BERT-Large training run's
+    # launches, f32 (the scalar kernels) with the serving run's and the
+    # f32 2-layer training check's; dq and the backward LayerNorms in
+    # bf16, the forward LayerNorms at the serving type (f32); the
+    # BatchNorm rows at the BN_LINE_SHAPE, launches over every run
+    fa_src, fab_src = ("mxtpu_torch/csrc/flash_attention.cu",
+                       "mxtpu_torch/csrc/flash_attention_bwd.cu")
+    meta = [
+        ("flash_attention_fwd", fa_src,
+         "mxtpu/kernels/flash_attention.py:192", "bfloat16",
+         train_counts["flash_attention_fwd"]),
+        ("flash_attention_fwd", fa_src,
+         "mxtpu/kernels/flash_attention.py:192", "float32",
+         serve_counts["flash_attention_fwd"]),
+        ("flash_attention_bwd_dq", fab_src,
+         "mxtpu/kernels/flash_attention.py:347", "bfloat16",
+         train_counts["flash_attention_bwd_dq"]),
+        ("flash_attention_bwd_dkv", fab_src,
+         "mxtpu/kernels/flash_attention.py:368", "bfloat16",
+         train_counts["flash_attention_bwd_dkv"]),
+        ("flash_attention_bwd_dkv", fab_src,
+         "mxtpu/kernels/flash_attention.py:368", "float32",
+         f32_train_counts["flash_attention_bwd_dkv"]),
+        ("layer_norm_fwd", "mxtpu_torch/csrc/layer_norm.cu",
+         "mxtpu/kernels/layer_norm.py:104", "float32",
+         counts["layer_norm_fwd"]),
+        ("layer_norm_bwd", "mxtpu_torch/csrc/layer_norm_bwd.cu",
+         "mxtpu/kernels/layer_norm.py:137", "bfloat16",
+         counts["layer_norm_bwd"]),
+        ("fused_residual_ln_fwd", "mxtpu_torch/csrc/fused_residual_ln.cu",
+         "mxtpu/kernels/layer_norm.py:355", "float32",
+         counts["fused_residual_ln_fwd"]),
+        ("fused_residual_ln_bwd",
+         "mxtpu_torch/csrc/fused_residual_ln_bwd.cu",
+         "mxtpu/kernels/layer_norm.py:384", "bfloat16",
+         counts["fused_residual_ln_bwd"]),
+        ("batch_norm_fwd", "mxtpu_torch/csrc/batch_norm.cu",
+         "mxtpu/kernels/batch_norm.py:319", "bfloat16",
+         counts["batch_norm_fwd"]),
+        ("batch_norm_bwd", "mxtpu_torch/csrc/batch_norm_bwd.cu",
+         "mxtpu/kernels/batch_norm.py:345", "bfloat16",
+         counts["batch_norm_bwd"]),
+        ("batch_norm_fwd_cm", "mxtpu_torch/csrc/batch_norm.cu",
+         "mxtpu/kernels/batch_norm.py:393", "bfloat16",
+         counts["batch_norm_fwd_cm"]),
+        ("batch_norm_bwd_cm", "mxtpu_torch/csrc/batch_norm_bwd.cu",
+         "mxtpu/kernels/batch_norm.py:419", "bfloat16",
+         counts["batch_norm_bwd_cm"]),
+    ]
+    for name, _, _, dt, launches in meta:
+        if launches == 0:
+            checks.failed.append(f"kernel {name} [{dt}] never launched on "
+                                 f"a main path")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "dtype": dt, "launches": counts[name],
+         "dtype": dt, "launches": launches,
          **{k: timings[(name, dt)][k]
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")}}
-        for name, (src, rep, dt) in meta.items()]}
+        for name, src, rep, dt, launches in meta]}
     # the user kernels of the rtc head, at the head's shape; launches
     # from the rtc-head epoch
     for name, key in (("rtc_softmax_fwd", "softmax_fwd"),
@@ -2863,6 +2932,7 @@ def main():
               "build_log": dict(_build.build_log), "checks": checks.rows,
               "timings": {f"{n}[{d}]": r for (n, d), r in timings.items()},
               "launches": {"training": train_counts,
+                           "training f32 check": f32_train_counts,
                            "serving": serve_counts,
                            **{f"resnet50 {k}": c
                               for k, c in rn_counts.items()},

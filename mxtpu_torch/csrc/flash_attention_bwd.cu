@@ -24,6 +24,9 @@
 // can arise.  Tiles wholly above the diagonal are skipped with the
 // reference's test  j*bk <= i*bq + diag + bq - 1.
 //
+// bf16 dk/dv: fa_bwd_dkv_wgmma_kernel, on the tensor cores (below);
+// bf16 dq and both f32 kernels: the scalar kernels described here.
+//
 // Layout.  dq kernel: 4 warps of 8 query rows; lane j scores key j of
 // the tile against the warp's rows, then ds is broadcast by shuffle and
 // each lane accumulates its D/32 columns of dq.  dk/dv kernel: 4 warps
@@ -37,9 +40,9 @@
 // dq does 6*BH*T*T*D flops, dk/dv 8*BH*T*T*D; in f32 (67 TFLOP/s on the
 // CUDA cores) operations bound them, in bf16 (989 TFLOP/s on the tensor
 // cores) the bytes do (q, k, v, dO in, dq, dk, dv out, lse and delta).
-// This first version does its products as scalar f32 FMAs from shared
-// memory; mma/wgmma tiles are later work.
+// The scalar kernels do their products as f32 FMAs from shared memory.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #define BQ 32     // query rows per tile
 #define BK 32     // keys per tile
@@ -308,6 +311,220 @@ static int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 dk/dv: wgmma + TMA --------------------------------------------
+//
+// One warpgroup per CTA owns (bh, 64 keys).  TMA loads the K and V
+// tiles once, then the tiles of 64 query rows of Q and dO through a
+// 2-stage ring on mbarriers (hopper.cuh).  Keys are the rows of every
+// product, so lse and delta are per column and nothing goes back
+// through shared memory:
+//   S^T  = K.Q^T  and  dP^T = V.dO^T     SS wgmmas, Q and dO K-major;
+//   P^T  = exp(scale*S^T - lse_col)      0 where masked or past Tq;
+//   dS^T = P^T * (dP^T - delta_col) * scale            all f32;
+//   dV  += P^T.dO  and  dK += dS^T.Q     RS wgmmas, dO and Q MN-major.
+// The reference never rounds p or ds, and one bf16 rounding of P^T and
+// dS^T before the last two products costs up to 6e-2 at causal T =
+// 4096, past the 2e-2 gate; so each enters as a hi+lo pair of bf16
+// fragments, x = bf16(x) + bf16(x - bf16(x)), two wgmmas into one f32
+// accumulator, and the error is that of the output's one rounding.  Six
+// products a tile; at T = 128 the kernel stays bound by its bytes (q, k,
+// v, dO read, dk, dv written, lse and delta).  Each dk/dv element is
+// summed by one CTA in q-tile order: deterministic, no atomics.  Causal:
+// the loop starts at the first q tile that sees key k0.  CTAs are issued
+// longest first (the key tiles at the start of the sequence).
+
+// x as hi + lo, two bf16x2 fragments (the A operand of an RS wgmma)
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16(x0), h1 = __float2bfloat16(x1);
+  hi = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
+  lo = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(128)
+    fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dlt,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int BH, int Tq,
+                            int Tk, int D, float scale, int causal,
+                            int diag) {
+  extern __shared__ uint8_t fb_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, bar_q[2], bar_o[2];
+  uint8_t* Ks = align1024(fb_raw);          // NCH boxes
+  uint8_t* Vs = Ks + NCH * HOP_TILE_BYTES;  // NCH boxes
+  uint8_t* Qs = Vs + NCH * HOP_TILE_BYTES;  // 2 stages x NCH boxes
+  uint8_t* Os = Qs + 2 * NCH * HOP_TILE_BYTES;
+  const int bh = blockIdx.x % BH;
+  const int k0 = (int)(blockIdx.x / BH) * WG_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int nq = (Tq + WG_ROWS - 1) / WG_ROWS;
+  int t0 = 0;  // q tile t sees key k0 iff 64 t + 63 + diag >= k0
+  if (causal) {
+    const int first = k0 - diag - (WG_ROWS - 1);
+    t0 = first <= 0 ? 0 : (first + WG_ROWS - 1) / WG_ROWS;
+  }
+  const int n = nq - t0;
+
+  if (tid == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bar_q[s], 1);
+      mbar_init(&bar_o[s], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar_kv, 2 * NCH * HOP_TILE_BYTES);
+    for (int c = 0; c < NCH; ++c) {
+      tma_load_3d(Ks + c * HOP_TILE_BYTES, &tk, &bar_kv, 64 * c, k0, bh);
+      tma_load_3d(Vs + c * HOP_TILE_BYTES, &tv, &bar_kv, 64 * c, k0, bh);
+    }
+    for (int i = 0; i < min(n, 2); ++i)
+      tma_load_pair<NCH>(Qs, Os, &tq, &tdo, &bar_q[i], &bar_o[i], i, t0 + i,
+                         bh);
+  }
+
+  // this thread's two keys (accumulator rows, hopper.cuh)
+  const int key_a = k0 + warp * 16 + (lane >> 2), key_b = key_a + 8;
+  const int cq = 2 * (lane & 3);
+  float ak[32 * NCH], av[32 * NCH];
+#pragma unroll
+  for (int i = 0; i < 32 * NCH; ++i) ak[i] = av[i] = 0.f;
+  mbar_wait(&bar_kv, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    const uint32_t ph = (i >> 1) & 1;
+    const int q0 = (t0 + i) * WG_ROWS;
+    // lse and delta of this thread's 16 columns (query rows)
+    float L[16], E[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int row = q0 + 8 * (j >> 1) + cq + (j & 1);
+      const bool in = row < Tq;
+      L[j] = in ? lse[(size_t)bh * Tq + row] : 0.f;
+      E[j] = in ? dlt[(size_t)bh * Tq + row] : 0.f;
+    }
+    float st[32], dpt[32];
+    mbar_wait(&bar_q[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_m64n64k16(
+            st, kmajor_desc(Ks + c * HOP_TILE_BYTES, kk),
+            kmajor_desc(Qs + (s * NCH + c) * HOP_TILE_BYTES, kk),
+            (c | kk) != 0);
+    mbar_wait(&bar_o[s], ph);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_m64n64k16(
+            dpt, kmajor_desc(Vs + c * HOP_TILE_BYTES, kk),
+            kmajor_desc(Os + (s * NCH + c) * HOP_TILE_BYTES, kk),
+            (c | kk) != 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T in f32, then each as hi + lo bf16 fragments
+    uint32_t ph_[4][4], pl_[4][4], dh_[4][4], dl_[4][4];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int j = 2 * (r >> 2) + (r & 1);  // this thread's column index
+      const int row = q0 + 8 * (r >> 2) + cq + (r & 1);
+      const int key = (r & 2) ? key_b : key_a;
+      const bool ok = row < Tq && (!causal || key <= row + diag);
+      const float p = ok ? exp2f((st[r] * scale - L[j]) * LOG2E) : 0.f;
+      st[r] = p;
+      dpt[r] = p * (dpt[r] - E[j]) * scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 8 * kk + 2 * j;
+        split_pack(st[r], st[r + 1], ph_[kk][j], pl_[kk][j]);
+        split_pack(dpt[r], dpt[r + 1], dh_[kk][j], dl_[kk][j]);
+      }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bo = mnmajor_desc(Os + s * NCH * HOP_TILE_BYTES, kk);
+      wgmma_rs_mn<NCH>(av, ph_[kk], bo);
+      wgmma_rs_mn<NCH>(av, pl_[kk], bo);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bq = mnmajor_desc(Qs + s * NCH * HOP_TILE_BYTES, kk);
+      wgmma_rs_mn<NCH>(ak, dh_[kk], bq);
+      wgmma_rs_mn<NCH>(ak, dl_[kk], bq);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(av);
+    fence_regs(ak);
+    __syncthreads();  // every thread's wgmmas are done with stage s
+    if (tid == 0 && i + 2 < n)  // q tile t0 + i + 2 into the freed stage
+      tma_load_pair<NCH>(Qs, Os, &tq, &tdo, &bar_q[s], &bar_o[s], s,
+                         t0 + i + 2, bh);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = h ? key_b : key_a;
+    if (key >= Tk) continue;
+    __nv_bfloat16* ko = dk + ((size_t)bh * Tk + key) * D;
+    __nv_bfloat16* vo = dv + ((size_t)bh * Tk + key) * D;
+#pragma unroll
+    for (int j = 0; j < 8 * NCH; ++j) {
+      const int col = 8 * j + cq;
+      if (col < D) {
+        *reinterpret_cast<uint32_t*>(ko + col) =
+            pack_bf16(ak[4 * j + 2 * h], ak[4 * j + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(vo + col) =
+            pack_bf16(av[4 * j + 2 * h], av[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int NCH>
+static int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* dlt, void* dk, void* dv, int BH,
+                            int Tq, int Tk, int D, float scale, int causal,
+                            int diag, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  int e;
+  if ((e = hop_map_bf16(&mq, q, BH, Tq, D)) ||
+      (e = hop_map_bf16(&mk, k, BH, Tk, D)) ||
+      (e = hop_map_bf16(&mv, v, BH, Tk, D)) ||
+      (e = hop_map_bf16(&mo, dout, BH, Tq, D)))
+    return e;
+  const int nkt = (Tk + WG_ROWS - 1) / WG_ROWS;
+  const size_t smem = (size_t)6 * NCH * HOP_TILE_BYTES + 1024;
+  e = allow_smem(fa_bwd_dkv_wgmma_kernel<NCH>, smem);
+  if (e) return e;
+  fa_bwd_dkv_wgmma_kernel<NCH><<<(unsigned)((long long)BH * nkt), 128, smem,
+                                  stream>>>(
+      mq, mk, mv, mo, (const float*)lse, (const float*)dlt,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, BH, Tq, Tk, D, scale, causal,
+      diag);
+  return (int)cudaGetLastError();
+}
+
 // NC = columns per lane = ceil(D / 32), a template argument so that the
 // column loops unroll without dead iterations
 #define FA_DISPATCH(T, FN, ...)                                   \
@@ -347,8 +564,11 @@ extern "C" int mxt_flash_attention_bwd_dkv(
                 Tk, D, scale, causal, diag, s)
   }
   if (dtype == MXT_BF16) {
-    FA_DISPATCH(__nv_bfloat16, launch_dkv, q, k, v, dout, lse, dlt, dk, dv,
-                BH, Tq, Tk, D, scale, causal, diag, s)
+    if (D % 8) return (int)cudaErrorInvalidValue;  // the wrapper pads
+    return D <= 64 ? launch_dkv_wgmma<1>(q, k, v, dout, lse, dlt, dk, dv, BH,
+                                         Tq, Tk, D, scale, causal, diag, s)
+                   : launch_dkv_wgmma<2>(q, k, v, dout, lse, dlt, dk, dv, BH,
+                                         Tq, Tk, D, scale, causal, diag, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -30,8 +30,14 @@ D = 64, f32): operations — 4*BH*T*T*D flops at the f32 CUDA-core rate
 (no TF32) outweigh 4*BH*T*D*4 bytes at 3.35 TB/s.  Backward at the
 training shape (BH = 512, T = 128, D = 64): 14*BH*T*T*D flops bound it
 in f32; in bf16, against the tensor-core rate, the bytes of q, k, v,
-dO, dq, dk, dv, lse and delta do.  The first versions do their products
-as scalar FMAs over shared-memory tiles.
+dO, dq, dk, dv, lse and delta do.  By dtype: bf16 forward and dk/dv
+run on the tensor cores (wgmma, with TMA loads: ``fa_fwd_wgmma_kernel``,
+``fa_bwd_dkv_wgmma_kernel``); f32 (no TF32) and the dq kernel do their
+products as scalar FMAs over shared-memory tiles.  TMA needs a 16-byte
+row stride, so for a bf16 head dim off a multiple of 8 the wrappers
+run those two kernels on copies zero-padded along D and slice the
+results back (zero columns change no score; the scale is passed as
+given).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or the call raises.
@@ -130,6 +136,24 @@ def _check_qkv(q3, k3, v3, *more):
         raise MXNetError("flash_attention: inputs must be contiguous")
 
 
+def _aligned(*tensors):
+    """The bf16 kernels read through TMA, which needs 16-byte aligned
+    base addresses; the wrappers raise rather than copy."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise MXNetError("flash_attention: bfloat16 inputs must start on "
+                         "a 16-byte boundary")
+
+
+def _pad_d(*tensors):
+    """bf16 (BH, T, D) tensors zero-padded along D to a multiple of 8
+    (TMA's 16-byte row stride); as they are when D already is one."""
+    D = tensors[0].shape[-1]
+    if tensors[0].dtype != torch.bfloat16 or D % 8 == 0:
+        return tensors
+    pad = (0, 8 - D % 8)
+    return tuple(torch.nn.functional.pad(t, pad) for t in tensors)
+
+
 def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                   causal: bool, sm_scale: float,
                   delta: Optional[int] = None
@@ -142,18 +166,23 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     _check_qkv(q3, k3, v3)
     BH, Tq, D = q3.shape
     Tk = k3.shape[1]
-    o = torch.empty_like(q3)
     lse = torch.empty(BH, Tq, dtype=torch.float32, device=q3.device)
     if BH * Tq == 0:
-        return o, lse
+        return torch.empty_like(q3), lse
+    if q3.dtype == torch.bfloat16:
+        _aligned(q3, k3, v3)
+    q3, k3, v3 = _pad_d(q3, k3, v3)
+    o = torch.empty_like(q3)
     fn = _build.bind("flash_attention", "mxt_flash_attention_fwd", _ARGS)
     with torch.cuda.device(q3.device):
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), BH, Tq, Tk, D, float(sm_scale),
+                 lse.data_ptr(), BH, Tq, Tk, q3.shape[2], float(sm_scale),
                  int(bool(causal)), Tk - Tq if delta is None else int(delta),
                  _DTYPES[q3.dtype], _build.stream_of(q3))
     _build.check(err, "flash_attention")
     bump(_SELF)
+    if o.shape[2] != D:
+        o = o[..., :D].contiguous()
     return o, lse
 
 
@@ -207,26 +236,35 @@ def flash_backward(q3, k3, v3, do3, o3, lse, causal: bool,
     lse = lse.contiguous()
     rows = _delta_rows(do3, o3)
     dq = torch.empty_like(q3)
-    dk = torch.empty_like(k3)
-    dv = torch.empty_like(v3)
     if BH * Tq == 0 or Tk == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return dq.zero_(), torch.zeros_like(k3), torch.zeros_like(v3)
+    if q3.dtype == torch.bfloat16:
+        _aligned(q3, k3, v3, do3)
+    # dk/dv reads D-padded copies where TMA needs them; dq does not
+    pq, pk, pv, pdo = _pad_d(q3, k3, v3, do3)
+    dk = torch.empty_like(pk)
+    dv = torch.empty_like(pv)
     d = Tk - Tq if delta is None else int(delta)
-    common = (BH, Tq, Tk, D, float(sm_scale), int(bool(causal)), d,
-              _DTYPES[q3.dtype], _build.stream_of(q3))
-    ins = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
-           lse.data_ptr(), rows.data_ptr())
+    tail = (float(sm_scale), int(bool(causal)), d, _DTYPES[q3.dtype],
+            _build.stream_of(q3))
     fdq = _build.bind("flash_attention_bwd", "mxt_flash_attention_bwd_dq",
                       _DQ_ARGS)
     fdkv = _build.bind("flash_attention_bwd",
                        "mxt_flash_attention_bwd_dkv", _DKV_ARGS)
     with torch.cuda.device(q3.device):
-        err = fdq(*ins, dq.data_ptr(), *common)
+        err = fdq(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                  do3.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+                  dq.data_ptr(), BH, Tq, Tk, D, *tail)
         _build.check(err, "flash_backward dq")
         bump(_SELF, "DQ_LAUNCHES")
-        err = fdkv(*ins, dk.data_ptr(), dv.data_ptr(), *common)
+        err = fdkv(pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                   pdo.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), BH, Tq, Tk, pq.shape[2],
+                   *tail)
         _build.check(err, "flash_backward dk/dv")
         bump(_SELF, "DKV_LAUNCHES")
+    if dk.shape[2] != D:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dq, dk, dv
 
 

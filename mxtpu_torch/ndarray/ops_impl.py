@@ -273,8 +273,21 @@ _AVG = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 _MAX = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 
+def _window_sum(x, k, s, p):
+    """The sum over each window, zero padding (mxtpu's ``reduce_window``
+    with ``lax.add``): an average pool with divisor 1, 1-D as 2-D (the
+    1-D pool takes no divisor)."""
+    if len(k) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + k, (1,) + s, (0,) + p,
+                            divisor_override=1).squeeze(-2)
+    return _AVG[len(k)](x, k, s, p, divisor_override=1)
+
+
 def _pooling(x, kernel=(), pool_type="max", global_pool=False, stride=None,
              pad=None, count_include_pad=True, layout=None):
+    # case for case mxtpu's _pooling: a global pool other than max is the
+    # mean (sum and lp too); a windowed sum ignores count_include_pad;
+    # lp is sqrt of the windowed sum of squares
     nd = len(kernel) if kernel else x.ndim - 2
     layout = layout or {1: "NCW", 2: "NCHW", 3: "NCDHW"}[nd]
     last = layout.endswith("C")
@@ -282,21 +295,32 @@ def _pooling(x, kernel=(), pool_type="max", global_pool=False, stride=None,
     if global_pool:
         if pool_type == "max":
             return torch.amax(x, dim=sp, keepdim=True)
-        if pool_type == "sum":
-            return torch.sum(x, dim=sp, keepdim=True)
         return torch.mean(x, dim=sp, keepdim=True)
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"pool_type {pool_type} unsupported")
     if last:
         x = x.permute((0, nd + 1) + tuple(range(1, nd + 1)))
     k, s = _tuple(kernel, nd), _tuple(stride, nd)
     p = _tuple(pad, nd) if pad is not None else (0,) * nd
+    ones = None
+    if any(2 * pi > ki for pi, ki in zip(p, k)):
+        # torch pools refuse a pad above half the window: pad here
+        # (-inf for max, zeros otherwise) and pool without
+        pads = [v for pi in reversed(p) for v in (pi, pi)]
+        if pool_type == "avg" and not count_include_pad:
+            ones = F.pad(torch.ones_like(x), pads)
+        x = F.pad(x, pads, value=-math.inf if pool_type == "max" else 0.0)
+        p = (0,) * nd
     if pool_type == "max":
         out = _MAX[nd](x, k, s, p)
-    elif pool_type in ("avg", "sum"):
-        out = _AVG[nd](x, k, s, p, count_include_pad=count_include_pad)
-        if pool_type == "sum":
-            out = out * math.prod(k)
+    elif pool_type == "sum":
+        out = _window_sum(x, k, s, p)
+    elif pool_type == "lp":
+        out = torch.sqrt(_window_sum(x * x, k, s, p))
+    elif ones is not None:
+        out = _window_sum(x, k, s, p) / _window_sum(ones, k, s, p)
     else:
-        raise MXNetError(f"pool_type {pool_type} unsupported")
+        out = _AVG[nd](x, k, s, p, count_include_pad=count_include_pad)
     if last:
         out = out.permute((0,) + tuple(range(2, nd + 2)) + (1,))
     return out
@@ -346,8 +370,13 @@ class _SoftmaxOutput(torch.autograd.Function):
     def backward(ctx, _g):
         out, label = ctx.saved_tensors
         grad_scale, ignore_label, use_ignore, normalization = ctx.cfg
-        grad = (out - F.one_hot(label.long(), out.shape[-1]).to(out.dtype)) \
-            * grad_scale
+        # a label outside [0, C) (the ignored -1 or C) has a zero one-hot
+        # row, as jax.nn.one_hot gives mxtpu's _so_bwd
+        C = out.shape[-1]
+        lab = label.long()
+        onehot = F.one_hot(lab.clamp(0, C - 1), C).to(out.dtype) * \
+            ((lab >= 0) & (lab < C)).unsqueeze(-1).to(out.dtype)
+        grad = (out - onehot) * grad_scale
         valid = None
         if use_ignore:
             keep = label != ignore_label

@@ -14,10 +14,12 @@ microbench).
 
 Phases, each fatal on failure:
   1. build every kernel from ``mxtpu_torch/csrc`` (one nvcc per source,
-     in parallel); ``cuobjdump -sass`` of the bf16 flash forward and
-     dk/dv kernels (``fa_fwd_wgmma_kernel``,
-     ``fa_bwd_dkv_wgmma_kernel``) must show wgmma (HGMMA) and TMA loads
-     (UTMALDG) in every instantiation;
+     in parallel); ``cuobjdump -sass`` of the bf16 tensor-core kernels
+     (``fa_fwd_wgmma_kernel``, ``fa_bwd_dq_wgmma_kernel``,
+     ``fa_bwd_dkv_wgmma_kernel``, ``conv_nhwc_wgmma_kernel``) must show
+     wgmma (HGMMA) and TMA loads (UTMALDG; the conv's im2col loads are
+     UTMALDG too) in every instantiation, and their ptxas reports no
+     spills;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
      in f32 and bf16; flash attention also causal at T=127 and Tq !=
@@ -47,8 +49,9 @@ Phases, each fatal on failure:
      28^2 x 128, 7^2 x 512 and microbench's 56^2 x 64, 14^2 x 512, 3x3,
      C = O) and at edge shapes (N=1; H = W = 5; C != O; 1x1, 2x2, 5x5
      kernels); times beside cuDNN (TF32 off), cuDNN's kernel names
-     printed; its refusals (grad, a
-     dtype, a non-contiguous x, C off its bounds);
+     printed, and the bf16 kernel's time at each of its tiles; its
+     refusals (grad, a dtype, a non-contiguous x), and C = 12, O = 4
+     (zero-padded to 16 and 8 on copies) against the plain version;
   6. the port's tools, each ``main`` on the card with launch counts read
      around it: microbench (chained bf16 matmuls and cuDNN convs), the
      conv strategy probe (cuDNN, shifted GEMM, kernel #13; its conv
@@ -169,7 +172,8 @@ GRAD_TOL, LOSS_TOL, STEP_TOL = 1e-4, 1e-5, 1e-4
 # launches
 KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_kernel",
                                         "fa_fwd_wgmma_kernel"),
-                "flash_attention_bwd_dq": ("fa_bwd_dq_kernel",),
+                "flash_attention_bwd_dq": ("fa_bwd_dq_kernel",
+                                           "fa_bwd_dq_wgmma_kernel"),
                 "flash_attention_bwd_dkv": ("fa_bwd_dkv_kernel",
                                             "fa_bwd_dkv_wgmma_kernel"),
                 "layer_norm_fwd": ("ln_fwd_kernel",),
@@ -180,12 +184,14 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_kernel",
                                             for k in ("stats", "finalize",
                                                       "apply"))
                    for d in ("fwd", "bwd", "fwd_cm", "bwd_cm")},
-                "conv_nhwc": ("conv_nhwc_bf16_kernel",
+                "conv_nhwc": ("conv_nhwc_wgmma_kernel",
                               "conv_nhwc_f32_kernel")}
 # the bf16 kernels that must run on the tensor cores with TMA loads: the
 # library each is built into, and the instructions its SASS must hold
 TENSOR_CORE_KERNELS = {"fa_fwd_wgmma_kernel": "flash_attention",
-                       "fa_bwd_dkv_wgmma_kernel": "flash_attention_bwd"}
+                       "fa_bwd_dq_wgmma_kernel": "flash_attention_bwd",
+                       "fa_bwd_dkv_wgmma_kernel": "flash_attention_bwd",
+                       "conv_nhwc_wgmma_kernel": "conv_nhwc"}
 SASS_NEEDS = ("HGMMA", "UTMALDG")
 GEMM_WORDS = ("gemm", "cutlass", "sm90_xmma", "ampere", "nvjet", "cublas")
 # cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
@@ -255,9 +261,11 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
     # torch.profiler now and then returns a window without device
     # events, or with only a few of them (a time far under the bound);
     # every call launches at least one kernel, so a window with fewer
-    # device events than calls is taken again.  The rtc head's ~1 us
+    # device events than calls is taken again, and of three such windows
+    # the one with the most events is read.  The rtc head's ~1 us
     # kernels come short in every window: their time is then read per
     # recorded event, one kernel a call
+    best = None
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -266,11 +274,14 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
         evts = prof.key_averages()
         total = sum(_device_us(e) for e in evts)
         n_dev = sum(e.count for e in evts if _device_us(e) > 0)
+        if best is None or n_dev > best[2]:
+            best = (evts, total, n_dev)
         if total and n_dev >= iters:
             break
         print(f"torch.profiler recorded {n_dev} device events for {iters} "
               f"calls (window {attempt + 1} of 3)", file=sys.stderr,
               flush=True)
+    evts, total, n_dev = best
     if not total:
         fail("torch.profiler recorded no device time")
     per = min(n_dev, iters)
@@ -348,14 +359,38 @@ class Checks:
         return absmax
 
 
+def ptxas_of(log, kern):
+    """[registers, spill bytes] of each instantiation of ``kern`` in a
+    ptxas ``-v`` report."""
+    out = []
+    for m in re.finditer(r"Function properties for (\S+)\n(.*?)\n.*?Used "
+                         r"(\d+) registers", log, re.S):
+        if kern in m.group(1):
+            spill = sum(int(b) for b in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", m.group(2)))
+            out.append([int(m.group(3)), spill])
+    return out
+
+
 def sass_phase(checks):
     """``cuobjdump -sass`` of the built libraries: every instantiation
     of each tensor-core kernel must hold wgmma (HGMMA) and TMA loads
-    (UTMALDG), so a kernel that silently lost either fails the run."""
+    (UTMALDG), so a kernel that silently lost either fails the run;
+    where this run built the library, its ptxas report must show no
+    spills (registers printed)."""
     import shutil
     from mxtpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for kern, src in TENSOR_CORE_KERNELS.items():
+        regs = ptxas_of(_build.build_log.get(src, ""), kern)
+        ok = all(sp == 0 for _, sp in regs)
+        print(f"check ptxas {kern}: [registers, spill bytes] of each "
+              f"instantiation {regs or 'not built in this run'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        checks.rows.append({"check": f"ptxas {kern}", "regs_spills": regs,
+                            "ok": ok})
+        if not ok:
+            checks.failed.append(f"ptxas: {kern} spills ({regs})")
         sass = subprocess.run([tool, "-sass", str(_build._target(src))],
                               capture_output=True, text=True, timeout=300)
         funcs = [f for f in re.split(r"\n\s*Function : ", sass.stdout)[1:]
@@ -562,11 +597,11 @@ def backward_phase(checks, gen):
         el = q.element_size()
         rows = 2 * BH * T * 4                       # lse and delta, f32
         per = BH * T * D * el
-        dkv_name = "fa_bwd_dkv_wgmma_kernel" if dt == torch.bfloat16 \
-            else "fa_bwd_dkv_kernel"
+        wg = "_wgmma" if dt == torch.bfloat16 else ""
+        dq_name, dkv_name = f"fa_bwd_dq{wg}_kernel", f"fa_bwd_dkv{wg}_kernel"
         kern = device_ms(lambda: fa.flash_backward(q, k, v, do, o, lse,
                                                    False, scale),
-                         by_name=["fa_bwd_dq_kernel", dkv_name])
+                         by_name=[dq_name, dkv_name])
         plain = device_ms(lambda: fa.flash_backward_reference(
             q, k, v, do, o, lse, False, scale))
         ad_plain = device_ms(grads_of(
@@ -579,7 +614,7 @@ def backward_phase(checks, gen):
         # dq reads q, k, v, dO and writes dq; dk/dv reads the four and
         # writes dk, dv; both read lse and delta
         for kname, pname, nt, ops, err in (
-                ("flash_attention_bwd_dq", "fa_bwd_dq_kernel", 5,
+                ("flash_attention_bwd_dq", dq_name, 5,
                  6 * BH * T * T * D, errs[0]),
                 ("flash_attention_bwd_dkv", dkv_name, 6,
                  8 * BH * T * T * D, max(errs[1:]))):
@@ -600,6 +635,11 @@ def backward_phase(checks, gen):
                      scale_floor(b, "bfloat16"))
     if not all(torch.isfinite(t).all() for t in got):
         checks.failed.append(f"{tag} [bfloat16]: not finite")
+    # where bench_flash's long-context backward spends its time
+    print(f"kernels of {tag} [bfloat16] (device ms per call): " + "; ".join(
+        f"{name} {ms:.4f}" for name, ms in kernels_of(
+            lambda: fa.flash_backward(q, k, v, do, o, lse, True, scale))),
+        flush=True)
     del q, k, v, do, o, lse, got, want
     torch.cuda.empty_cache()
 
@@ -778,11 +818,7 @@ def refusal_phase(checks):
                          "float32 or bfloat16"),
              "a non-contiguous x": (
                  lambda: conv.conv_nhwc(xc.detach().transpose(1, 2), wc),
-                 "contiguous"),
-             "C = 12 (not a multiple of 8)": (
-                 lambda: conv.conv_nhwc(xc.detach()[..., :12].contiguous(),
-                                        wc[:, :, :12].contiguous()),
-                 "multiples of 8")}
+                 "contiguous")}
     for what, (call, match) in calls.items():
         try:
             call()
@@ -798,6 +834,23 @@ def refusal_phase(checks):
             checks.failed.append(f"conv_nhwc did not refuse {what}")
     if conv.CONV_LAUNCHES != launched:
         checks.failed.append("conv_nhwc launched on a refused input")
+    # C = 12 and O = 4, off the kernel's multiples of 8: the wrapper
+    # runs it on copies zero-padded to 16 and 8, as pallas_conv takes
+    # any C and O
+    xs = xc.detach()[..., :12].contiguous()
+    ws = wc[:, :, :12, :4].contiguous()
+    for dt, name in ((torch.float32, "float32"),
+                     (torch.bfloat16, "bfloat16")):
+        y = conv.conv_nhwc(xs.to(dt), ws.to(dt))
+        p = conv.conv_nhwc_reference(xs.to(dt), ws.to(dt))
+        torch.cuda.synchronize()
+        checks.close("conv_nhwc C=12 O=4 (padded copies)", y, p, name)
+        if y.shape != p.shape:
+            checks.failed.append(f"conv_nhwc C=12 O=4 [{name}]: shape "
+                                 f"{tuple(y.shape)}")
+    if conv.CONV_LAUNCHES != launched + 2:
+        checks.failed.append("conv_nhwc C=12 O=4 did not launch the "
+                             "kernel")
 
 
 # ----------------------------------------------------------------------
@@ -1042,12 +1095,37 @@ CONV_EDGES = ((1, 14, 14, 256, 256, 3, 3), (2, 5, 5, 16, 32, 3, 3),
               (2, 5, 11, 8, 136, 3, 3))
 
 
+def conv_tiles(checks, conv, x, w, p, tag):
+    """The bf16 kernel at each of its tiles (``conv.TILES``): checked
+    against the plain version ``p`` and timed, with its persistent
+    CTAs and its waves (output tiles over the card's SMs)."""
+    import torch
+    N, H, W, C = x.shape
+    O = w.shape[3]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for bn, mw in conv.TILES:
+        y = conv.conv_nhwc(x, w, tile=(bn, mw))
+        torch.cuda.synchronize()
+        checks.close(f"{tag} tile {128 * mw}x{bn}", y, p, "bfloat16")
+        tiles = -(-N * H * W // (128 * mw)) * -(-O // bn)
+        ms = device_ms(lambda: conv.conv_nhwc(x, w, tile=(bn, mw)))
+        rows.append({"tile": f"{128 * mw}x{bn}", "ms": ms,
+                     "ctas": min(tiles, sms), "waves": tiles / sms})
+    print(f"tiles conv_nhwc [bfloat16] {tag} (pixels x outputs: device "
+          f"ms, persistent CTAs, waves on {sms} SMs): " + "; ".join(
+              f"{r['tile']} {r['ms']:.4f} ({r['ctas']}, {r['waves']:.2f})"
+              for r in rows), flush=True)
+    return rows
+
+
 def conv_phase(checks, gen):
     """``conv_nhwc`` against ``conv_nhwc_reference`` on the card in f32
     and bf16, at the N = 256 shapes (timed beside the bound, the plain
     version and cuDNN, TF32 off, with the names of the kernels cuDNN
-    launches) and at ``CONV_EDGES``.  Returns the timings of
-    ``CONV_LINE_SHAPE`` keyed like the other kernels'."""
+    launches; the bf16 kernel at each of its tiles) and at
+    ``CONV_EDGES``.  Returns the timings of ``CONV_LINE_SHAPE`` keyed
+    like the other kernels'."""
     import torch
     import importlib
     from mxtpu_torch.tools.microbench import cudnn_conv
@@ -1098,12 +1176,18 @@ def conv_phase(checks, gen):
                   f"bound_ms={b_ms:.4f} ({b_by}); kernel "
                   f"{ops / t['ms'] / 1e9:.1f} TFLOP/s; kernel wall_ms="
                   f"{t['wall_ms']:.4f}", flush=True)
+            if dt == torch.bfloat16:
+                tiles = conv_tiles(checks, conv, x, w,
+                                   conv.conv_nhwc_reference(x, w),
+                                   f"N{CONV_N} {H}x{H} C{C}")
             if (H, C) == CONV_LINE_SHAPE:
                 out[("conv_nhwc", name)] = {"max_abs_err": err, **t,
                                             "bound_ms": b_ms,
                                             "bound_by": b_by,
                                             "shape": [CONV_N, H, H, C, C],
                                             "library_kernels": lib_kernels}
+                if dt == torch.bfloat16:
+                    out[("conv_nhwc", name)]["tiles"] = tiles
             del x, w, y, lib
         for (N, H, W, C, O, KH, KW) in CONV_EDGES:
             x, w = inputs(N, H, W, C, O, KH, KW, dt)

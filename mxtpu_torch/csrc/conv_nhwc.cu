@@ -10,43 +10,49 @@
 // (C, O) MXU products into an f32 VMEM scratch.  On the H100 it is an
 // implicit GEMM, M = N*H*W output pixels by O outputs over K = KH*KW*C:
 // each CTA owns an output tile and walks (kh, kw, C-chunk) in one loop.
-// The padding is predicated inside the loads (a load that falls off the
-// image fills zeros), so no padded copy of x is written to HBM.  For an
-// even kernel this keeps the reference's convention (pad KH/2 on both
-// sides, keep the top-left H x W), which is not XLA's SAME.
+// No padded copy of x is written to HBM.  For an even kernel the
+// padding keeps the reference's convention (pad KH/2 on both sides, keep
+// the top-left H x W), which is not XLA's SAME.
 //
-// bf16: 128 x 128 output tile per CTA of 8 warps (each 64 x 32), K in
-// chunks of 32; A (the gathered pixels) and B (w's rows) go through a
-// 3-stage cp.async ring in shared memory (16-byte loads, zero-fill past
-// the image, past C and past O), ldmatrix into mma.sync m16n8k16 with f32
-// accumulators, then one rounding to bf16.
-// f32: true f32 FMAs (no TF32), 64 x 64 tile per CTA of 256 threads
-// (4 x 4 outputs each), K in chunks of 16, double-buffered through
-// registers into shared memory.
+// bf16 (conv_nhwc_wgmma_kernel): wgmma + TMA, warp-specialized and
+// persistent (one CTA an SM walks its share of the output tiles).  A
+// tile is 128*MW output pixels of the flattened N*H*W (so it may span
+// rows and images) by BN outputs: 128 x 256, 256 x 128 or 256 x 64,
+// picked by O.  K is walked as (kh, kw, 64-channel chunk).  One producer
+// thread issues, per chunk, MW TMA im2col loads of A (128 pixels x 64
+// channels each, every pixel read at its tap's offset; the map's
+// bounding box makes the padding, TMA's zero fill the rest: off the
+// image, past C, past the last pixel) and BN/64 tiled loads of B from w
+// viewed as (KH*KW, C, O), so that a chunk past C comes as zeros and
+// never runs into the next tap's rows, into a ring of up to 8 stages on
+// full/empty mbarriers; it runs on into the next tile while the
+// consumers store.  Two consumer warpgroups each run MW 64 x BN SS
+// wgmmas over the stage (A K-major, B MN-major), keep one chunk's
+// products in flight, and release a stage when its products are done.
+// f32 accumulators, one rounding to bf16 into swizzled staging boxes in
+// shared memory, stored by TMA while the next tile's products run (4-byte
+// stores straight from the accumulators, scattered over 8 rows a warp,
+// stalled the consumers for a large share of the kernel's time).
+// f32 (conv_nhwc_f32_kernel): true f32 FMAs (no TF32), 64 x 64 tile per
+// CTA of 256 threads (4 x 4 outputs each), K in chunks of 16,
+// double-buffered through registers into shared memory.
 //
-// Bounds (the wrapper refuses the rest): C and O multiples of 8 (a
-// 16-byte load never straddles the end of a row), N*H*W < 2^30 (the
-// pixel index is 32-bit; offsets are 64-bit), 16-byte aligned x, w, y.
-// Any N, H, W, KH, KW.
+// Bounds (the wrapper pads C and O to multiples of 8 and refuses the
+// rest): C and O multiples of 8 (TMA's 16-byte strides; the f32
+// kernel's float4 loads), KH and KW at most 255 (the im2col offsets and
+// corners), N*H*W < 2^30 (the pixel index is 32-bit; offsets are
+// 64-bit), 16-byte aligned x, w, y.  Any N, H, W.
 //
 // Bound on the H100: operations.  At the probe's shapes (b256, 14^2 x 256
 // and the like) the work is 2*N*H*W*C*O*KH*KW = 59.2 GFLOP over ~40 MB,
-// ~1500 flop/byte.  This first version uses mma.sync, which reaches a
-// fraction of the wgmma peak; wgmma, TMA and a deeper pipeline are later
-// work.
+// ~1500 flop/byte.
 #include "common.cuh"
+#include "hopper.cuh"
 
 // ---------------------------------------------------------------- bf16
-#define BM 128
-#define BN 128
-#define BK 32
-#define STAGES 3
-#define NTHREADS 256
-#define A_LD (BK + 8)  // 80-byte rows: ldmatrix reads are conflict-free
-#define B_LD (BN + 8)  // 272-byte rows
-#define A_STAGE (BM * A_LD)
-#define B_STAGE (BK * B_LD)
-#define SMEM_BF16 (STAGES * (A_STAGE + B_STAGE) * 2)
+#define CBK 64                     // channels per K chunk
+#define PIX 128                    // pixels per im2col load
+#define A_LOAD (PIX * CBK * 2)     // 16 KB
 
 // ----------------------------------------------------------------- f32
 #define FBM 64
@@ -57,176 +63,169 @@ struct ConvShape {
   int H, W, C, KW, O, M, ph, pw, cchunks, iters;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+// The bf16 kernel's output tile: 128*MW pixels (two consumer warpgroups
+// of MW 64-row blocks) by BN outputs.  Shared memory: a ring whose stage
+// holds MW im2col loads of A and BN/64 boxes of B, as many stages as fit
+// beside the output staging (each warpgroup's MW x BN/64 boxes) in 216
+// KB, at most 8
+template <int BN, int MW>
+struct ConvTile {
+  static constexpr int BM = 128 * MW;
+  static constexpr int A_BYTES = MW * A_LOAD;
+  static constexpr int STAGE = A_BYTES + BN / 64 * HOP_TILE_BYTES;
+  static constexpr int STG = MW * BN / 64 * HOP_TILE_BYTES;
+  static constexpr int RING = 216 * 1024 - 2 * STG;
+  static constexpr int STAGES = RING / STAGE < 8 ? RING / STAGE : 8;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STG + 1024;
+};
 
-// 16 bytes global -> shared, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
-}
+template <int BN, int MW>
+__global__ void __launch_bounds__(384, 1)
+    conv_nhwc_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           const __grid_constant__ CUtensorMap ty,
+                           ConvShape s, int m_tiles, int tiles) {
+  using R = ConvTile<BN, MW>;
+  extern __shared__ uint8_t cv_raw[];
+  __shared__ __align__(8) uint64_t bar_full[R::STAGES];
+  __shared__ __align__(8) uint64_t bar_empty[R::STAGES];
+  uint8_t* ring = align1024(cv_raw);
+  const int tid = threadIdx.x, wg = tid >> 7;
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-    conv_nhwc_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ w,
-                          __nv_bfloat16* __restrict__ y, ConvShape s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + STAGES * A_STAGE;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
-
-  // A loader: pixel rows tid/4 and tid/4 + 64 of the tile, 8 channels
-  // at (tid % 4) * 8 of the chunk; the pixels are decoded once
-  const int a_row = tid >> 2, a_col = (tid & 3) * 8;
-  int a_n[2], a_h[2], a_w[2];
-  bool a_in[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + a_row + i * 64;
-    a_in[i] = m < s.M;
-    const int mm = a_in[i] ? m : 0;
-    const int t = mm / s.W;
-    a_w[i] = mm - t * s.W;
-    a_n[i] = t / s.H;
-    a_h[i] = t - a_n[i] * s.H;
-  }
-  // B loader: k rows tid/16 and tid/16 + 16 of the chunk, 8 outputs at
-  // (tid % 16) * 8 of the tile
-  const int b_row = tid >> 4, b_col = (tid & 15) * 8;
-  const bool b_in = o0 + b_col < s.O;
-
-  auto load = [&](int stage, int it) {
-    const int khw = it / s.cchunks;
-    const int c0 = (it - khw * s.cchunks) * BK;
-    const int kh = khw / s.KW, kw = khw - kh * s.KW;
-    __nv_bfloat16* as = As + stage * A_STAGE;
-    __nv_bfloat16* bs = Bs + stage * B_STAGE;
-    const int c = c0 + a_col;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ih = a_h[i] + kh - s.ph, iw = a_w[i] + kw - s.pw;
-      const bool ok = a_in[i] && c < s.C && (unsigned)ih < (unsigned)s.H &&
-                      (unsigned)iw < (unsigned)s.W;
-      const __nv_bfloat16* src =
-          ok ? x + ((((size_t)a_n[i] * s.H + ih) * s.W + iw) * s.C + c) : x;
-      cp_async16(as + (a_row + i * 64) * A_LD + a_col, src, ok);
+  if (tid == 0) {
+    for (int i = 0; i < R::STAGES; ++i) {
+      mbar_init(&bar_full[i], 1);
+      mbar_init(&bar_empty[i], 256);  // every consumer thread
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = b_row + i * 16;
-      const bool ok = b_in && c0 + r < s.C;
-      const __nv_bfloat16* src =
-          ok ? w + (((size_t)khw * s.C + c0 + r) * s.O + o0 + b_col) : w;
-      cp_async16(bs + r * B_LD + b_col, src, ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // warp tile: rows wm..wm+63, columns wn..wn+31 of the CTA tile
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < s.iters) load(st, st);
-    cp_async_commit();
+    mbar_init_fence();
   }
-  for (int it = 0; it < s.iters; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // chunk `it` landed; chunk it-1's readers are done
-    const int nxt = it + STAGES - 1;
-    if (nxt < s.iters) load(nxt % STAGES, nxt);
-    cp_async_commit();  // an empty group keeps the count in step
-    const __nv_bfloat16* as = As + (it % STAGES) * A_STAGE;
-    const __nv_bfloat16* bs = Bs + (it % STAGES) * B_STAGE;
+  __syncthreads();
+
+  // Persistent: CTA b takes tiles b, b + gridDim.x, ...; pixel tiles
+  // vary fastest, so the CTAs running at once share their B columns.
+  // The ring's chunk count `it` runs on across tiles.
+  if (wg == 2) {  // producer warpgroup: one thread issues every load
+    regs_dec<40>();
+    if (tid != 256) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * R::BM, o0 = (tile / m_tiles) * BN;
+      int ln[MW], lh[MW], lw[MW];  // each load's first pixel base
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], as + (wm + mi * 16 + (lane & 15)) * A_LD + kk +
-                                (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk + (lane & 15)) * B_LD + wn + nj * 16 +
-                                 (lane >> 4) * 8);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
+      for (int j = 0; j < MW; ++j) {
+        const int m = m0 + PIX * j, t = m / s.W;
+        ln[j] = t / s.H;
+        lh[j] = t - ln[j] * s.H - s.ph;
+        lw[j] = m - t * s.W - s.pw;
       }
+      for (int c = 0; c < s.iters; ++c, ++it) {
+        const int st = it % R::STAGES;
+        if (it >= R::STAGES)  // the chunk that last used the stage is done
+          mbar_wait(&bar_empty[st], ((it / R::STAGES) - 1) & 1);
+        const int khw = c / s.cchunks;
+        const int c0 = (c - khw * s.cchunks) * CBK;
+        const int kh = khw / s.KW, kw = khw - kh * s.KW;
+        uint8_t* a = ring + st * R::STAGE;
+        mbar_expect_tx(&bar_full[st], R::STAGE);
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+        for (int j = 0; j < MW; ++j)
+          tma_load_im2col(a + j * A_LOAD, &tx, &bar_full[st], c0, lw[j],
+                          lh[j], ln[j], kw, kh);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // accumulator (mi, ni): rows g and g + 8, columns 2t and 2t + 1
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = o0 + wn + ni * 8 + t4 * 2;
-      if (col >= s.O) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + mi * 16 + g + half * 8;
-        if (row < s.M)
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * s.O + col) =
-              __floats2bfloat162_rn(acc[mi][ni][2 * half],
-                                    acc[mi][ni][2 * half + 1]);
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_3d(a + R::A_BYTES + j * HOP_TILE_BYTES, &tw,
+                      &bar_full[st], o0 + 64 * j, c0, khw);
       }
     }
+  } else {  // consumer warpgroup wg: MW 64-row blocks from 64*MW*wg
+    regs_inc<232>();
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const bool lead = (tid & 127) == 0;
+    uint8_t* stg = ring + R::STAGES * R::STAGE + wg * R::STG;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * R::BM, o0 = (tile / m_tiles) * BN;
+      float acc[MW][BN / 2];
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) acc[i][e] = 0.f;
+      for (int c = 0; c < s.iters; ++c, ++it) {
+        const int st = it % R::STAGES;
+        mbar_wait(&bar_full[st], (it / R::STAGES) & 1);
+        const uint8_t* a =
+            ring + st * R::STAGE + wg * MW * HOP_TILE_BYTES;
+        const uint8_t* b = ring + st * R::STAGE + R::A_BYTES;
+#pragma unroll
+        for (int i = 0; i < MW; ++i) fence_regs(acc[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_tb<BN>(acc[i],
+                            kmajor_desc(a + i * HOP_TILE_BYTES, kk),
+                            mnmajor_desc(b, kk), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's products are done
+#pragma unroll
+        for (int i = 0; i < MW; ++i) fence_regs(acc[i]);
+        if (c > 0) mbar_arrive(&bar_empty[(it - 1) % R::STAGES]);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < MW; ++i) fence_regs(acc[i]);
+      mbar_arrive(&bar_empty[(it - 1) % R::STAGES]);
+
+      // y through shared memory: once the previous tile's stores have
+      // read the staging boxes, round the accumulators into them and let
+      // TMA store them (rows past N*H*W and columns past O are dropped)
+      // while the next tile's products run
+      if (lead) bulk_wait_read();
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+        stage_acc<BN / 64>(stg + i * (BN / 64) * HOP_TILE_BYTES, acc[i],
+                           warp, lane);
+      fence_async_smem();
+      named_sync(1 + wg, 128);
+      if (lead) {
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_store_3d(&ty,
+                         stg + (i * (BN / 64) + j) * HOP_TILE_BYTES,
+                         o0 + 64 * j, m0 + 64 * (MW * wg + i), 0);
+        bulk_commit();
+      }
+    }
+    if (lead) bulk_wait();
+  }
+}
+
+template <int BN, int MW>
+static int launch_wgmma(const void* x, const void* w, void* y, int N,
+                        const ConvShape& s, int KH, cudaStream_t stream) {
+  using R = ConvTile<BN, MW>;
+  CUtensorMap mx, mw, my;
+  int e, dev, sms;
+  if ((e = hop_map_im2col_bf16(&mx, x, N, s.H, s.W, s.C, s.ph, s.pw, PIX)) ||
+      (e = hop_map_bf16(&mw, w, KH * s.KW, s.C, s.O)) ||
+      (e = hop_map_bf16(&my, y, 1, s.M, s.O)) ||
+      (e = (int)cudaGetDevice(&dev)) ||
+      (e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev)) ||
+      (e = (int)cudaFuncSetAttribute(
+           conv_nhwc_wgmma_kernel<BN, MW>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM)))
+    return e;
+  const int m_tiles = (s.M + R::BM - 1) / R::BM;
+  const int tiles = m_tiles * ((s.O + BN - 1) / BN);
+  conv_nhwc_wgmma_kernel<BN, MW>
+      <<<tiles < sms ? tiles : sms, 384, R::SMEM, stream>>>(
+          mx, mw, my, s, m_tiles, tiles);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(256)
@@ -315,10 +314,25 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-extern "C" int mxt_conv_nhwc(const void* x, const void* w, void* y, int N,
-                             int H, int W, int C, int KH, int KW, int O,
-                             int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// the bf16 kernel at a tile of BN outputs by 128*MW pixels; bn = 0 picks
+// the tile by O (the widest of 256 x 128, 128 x 256, 64 x 256 that O
+// fills; chip_smoke.py times the others at the probe's shapes)
+static int conv_bf16(const void* x, const void* w, void* y, int N,
+                     const ConvShape& s, int KH, int bn, int mw,
+                     cudaStream_t st) {
+  if (bn == 0) {
+    bn = s.O <= 64 ? 64 : s.O % 256 == 0 ? 256 : 128;
+    mw = bn == 256 ? 1 : 2;
+  }
+  if (bn == 64 && mw == 2) return launch_wgmma<64, 2>(x, w, y, N, s, KH, st);
+  if (bn == 128 && mw == 1) return launch_wgmma<128, 1>(x, w, y, N, s, KH, st);
+  if (bn == 128 && mw == 2) return launch_wgmma<128, 2>(x, w, y, N, s, KH, st);
+  if (bn == 256 && mw == 1) return launch_wgmma<256, 1>(x, w, y, N, s, KH, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+static ConvShape shape_of(int N, int H, int W, int C, int KH, int KW, int O,
+                          int chunk) {
   ConvShape s;
   s.H = H;
   s.W = W;
@@ -328,22 +342,24 @@ extern "C" int mxt_conv_nhwc(const void* x, const void* w, void* y, int N,
   s.M = N * H * W;  // the wrapper holds N*H*W < 2^30
   s.ph = KH / 2;
   s.pw = KW / 2;
+  s.cchunks = (C + chunk - 1) / chunk;
+  s.iters = KH * KW * s.cchunks;
+  return s;
+}
+
+// bn, mw: the bf16 kernel's tile (0, 0: by O); f32 takes 0, 0
+extern "C" int mxt_conv_nhwc(const void* x, const void* w, void* y, int N,
+                             int H, int W, int C, int KH, int KW, int O,
+                             int dtype, int bn, int mw, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C % 8 || O % 8) return (int)cudaErrorInvalidValue;  // the wrapper pads
   if (dtype == MXT_BF16) {
-    s.cchunks = (C + BK - 1) / BK;
-    s.iters = KH * KW * s.cchunks;
-    cudaError_t e = cudaFuncSetAttribute(
-        conv_nhwc_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BF16);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((s.M + BM - 1) / BM, (O + BN - 1) / BN);
-    conv_nhwc_bf16_kernel<<<grid, NTHREADS, SMEM_BF16, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-        (__nv_bfloat16*)y, s);
-    return (int)cudaGetLastError();
+    if (KH > 255 || KW > 255) return (int)cudaErrorInvalidValue;
+    return conv_bf16(x, w, y, N, shape_of(N, H, W, C, KH, KW, O, CBK), KH,
+                     bn, mw, st);
   }
-  if (dtype == MXT_F32) {
-    s.cchunks = (C + FBK - 1) / FBK;
-    s.iters = KH * KW * s.cchunks;
+  if (dtype == MXT_F32 && bn == 0) {
+    const ConvShape s = shape_of(N, H, W, C, KH, KW, O, FBK);
     dim3 grid((s.M + FBM - 1) / FBM, (O + FBN - 1) / FBN);
     conv_nhwc_f32_kernel<<<grid, 256, 0, st>>>((const float*)x,
                                                (const float*)w, (float*)y, s);

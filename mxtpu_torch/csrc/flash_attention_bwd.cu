@@ -24,8 +24,8 @@
 // can arise.  Tiles wholly above the diagonal are skipped with the
 // reference's test  j*bk <= i*bq + diag + bq - 1.
 //
-// bf16 dk/dv: fa_bwd_dkv_wgmma_kernel, on the tensor cores (below);
-// bf16 dq and both f32 kernels: the scalar kernels described here.
+// bf16: fa_bwd_dq_wgmma_kernel and fa_bwd_dkv_wgmma_kernel, on the
+// tensor cores (below); f32: the scalar kernels described here.
 //
 // Layout.  dq kernel: 4 warps of 8 query rows; lane j scores key j of
 // the tile against the warp's rows, then ds is broadcast by shuffle and
@@ -40,7 +40,8 @@
 // dq does 6*BH*T*T*D flops, dk/dv 8*BH*T*T*D; in f32 (67 TFLOP/s on the
 // CUDA cores) operations bound them, in bf16 (989 TFLOP/s on the tensor
 // cores) the bytes do (q, k, v, dO in, dq, dk, dv out, lse and delta).
-// The scalar kernels do their products as f32 FMAs from shared memory.
+// The scalar (f32) kernels do their products as f32 FMAs from shared
+// memory.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -311,6 +312,202 @@ static int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 dq: wgmma + TMA -----------------------------------------------
+//
+// The dk/dv kernel below mirrored, queries on the rows.  One warpgroup
+// per CTA owns (bh, 64 query rows).  TMA loads the Q and dO tiles once,
+// then the tiles of 64 keys of K and V through a 2-stage ring on
+// mbarriers (hopper.cuh):
+//   S  = Q.K^T  and  dP = dO.V^T         SS wgmmas, K and V K-major;
+//   P  = exp(scale*S - lse_row)          0 where masked or past Tk;
+//   dS = P * (dP - delta_row) * scale    all f32, in the registers;
+//   dQ += dS.K                           RS wgmma, K MN-major.
+// lse and delta are per row: two rows a thread, read once.  The
+// reference never rounds ds, so dS enters as a hi+lo pair of bf16
+// fragments (split_pack), as P^T and dS^T are in dk/dv: four
+// products a tile.  At T = 128 the kernel is bound by its bytes (q, k,
+// v, dO read, dq written, lse and delta).  Each dq element is summed by
+// one CTA in key-tile order: deterministic, no atomics.  Causal: the
+// loop stops at the last key tile the query tile sees, and CTAs are
+// issued longest first (the query tiles at the end of the sequence).
+// dq leaves as 4-byte stores straight from the accumulator (a TMA store
+// staged through shared memory was tried and was no faster at BERT's
+// shape).
+
+// x as hi + lo, two bf16x2 fragments (the A operand of an RS wgmma)
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16(x0), h1 = __float2bfloat16(x1);
+  hi = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
+  lo = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(128)
+    fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dlt,
+                           __nv_bfloat16* __restrict__ dq, int BH, int Tq,
+                           int Tk, int D, float scale, int causal,
+                           int diag) {
+  extern __shared__ uint8_t fq_raw[];
+  __shared__ __align__(8) uint64_t bar_qo, bar_k[2], bar_v[2];
+  uint8_t* Qs = align1024(fq_raw);          // NCH boxes
+  uint8_t* Os = Qs + NCH * HOP_TILE_BYTES;  // NCH boxes: dO
+  uint8_t* Ks = Os + NCH * HOP_TILE_BYTES;  // 2 stages x NCH boxes
+  uint8_t* Vs = Ks + 2 * NCH * HOP_TILE_BYTES;
+  const int nq = (Tq + WG_ROWS - 1) / WG_ROWS;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / BH)) * WG_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  int nk = (Tk + WG_ROWS - 1) / WG_ROWS;
+  if (causal) {
+    const int last = q0 + WG_ROWS - 1 + diag;  // last key any row sees
+    nk = min(nk, last < 0 ? 0 : last / WG_ROWS + 1);
+  }
+
+  if (tid == 0) {
+    mbar_init(&bar_qo, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar_qo, 2 * NCH * HOP_TILE_BYTES);
+    for (int c = 0; c < NCH; ++c) {
+      tma_load_3d(Qs + c * HOP_TILE_BYTES, &tq, &bar_qo, 64 * c, q0, bh);
+      tma_load_3d(Os + c * HOP_TILE_BYTES, &tdo, &bar_qo, 64 * c, q0, bh);
+    }
+    for (int t = 0; t < min(nk, 2); ++t)
+      tma_load_pair<NCH>(Ks, Vs, &tk, &tv, &bar_k[t], &bar_v[t], t, t, bh);
+  }
+
+  // this thread's two rows (accumulator layout, hopper.cuh), their lse
+  // and delta
+  const int row_a = q0 + warp * 16 + (lane >> 2), row_b = row_a + 8;
+  const int cq = 2 * (lane & 3);
+  const size_t rbase = (size_t)bh * Tq;
+  const float L_a = row_a < Tq ? lse[rbase + row_a] : 0.f;
+  const float L_b = row_b < Tq ? lse[rbase + row_b] : 0.f;
+  const float E_a = row_a < Tq ? dlt[rbase + row_a] : 0.f;
+  const float E_b = row_b < Tq ? dlt[rbase + row_b] : 0.f;
+  float acc[32 * NCH];
+#pragma unroll
+  for (int i = 0; i < 32 * NCH; ++i) acc[i] = 0.f;
+  mbar_wait(&bar_qo, 0);
+
+  for (int t = 0; t < nk; ++t) {
+    const int s = t & 1;
+    const uint32_t ph = (t >> 1) & 1;
+    float sc[32], dp[32];
+    mbar_wait(&bar_k[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_m64n64k16(
+            sc, kmajor_desc(Qs + c * HOP_TILE_BYTES, kk),
+            kmajor_desc(Ks + (s * NCH + c) * HOP_TILE_BYTES, kk),
+            (c | kk) != 0);
+    mbar_wait(&bar_v[s], ph);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_m64n64k16(
+            dp, kmajor_desc(Os + c * HOP_TILE_BYTES, kk),
+            kmajor_desc(Vs + (s * NCH + c) * HOP_TILE_BYTES, kk),
+            (c | kk) != 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P and dS in f32, then dS as hi + lo bf16 fragments
+    const int k0 = t * WG_ROWS;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int key = k0 + 8 * (r >> 2) + cq + (r & 1);
+      const bool b = (r & 2) != 0;
+      const int row = b ? row_b : row_a;
+      const bool ok =
+          row < Tq && key < Tk && (!causal || key <= row + diag);
+      const float p =
+          ok ? exp2f((sc[r] * scale - (b ? L_b : L_a)) * LOG2E) : 0.f;
+      dp[r] = p * (dp[r] - (b ? E_b : E_a)) * scale;
+    }
+    uint32_t dh[4][4], dl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 8 * kk + 2 * j;
+        split_pack(dp[r], dp[r + 1], dh[kk][j], dl[kk][j]);
+      }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bk = mnmajor_desc(Ks + s * NCH * HOP_TILE_BYTES, kk);
+      wgmma_rs_mn<NCH>(acc, dh[kk], bk);
+      wgmma_rs_mn<NCH>(acc, dl[kk], bk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncthreads();  // every thread's wgmmas are done with stage s
+    if (tid == 0 && t + 2 < nk)  // kv tile t + 2 into the freed stage
+      tma_load_pair<NCH>(Ks, Vs, &tk, &tv, &bar_k[s], &bar_v[s], s, t + 2,
+                         bh);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row_b : row_a;
+    if (row >= Tq) continue;
+    __nv_bfloat16* out = dq + (rbase + row) * D;
+#pragma unroll
+    for (int j = 0; j < 8 * NCH; ++j) {
+      const int col = 8 * j + cq;
+      if (col < D)
+        *reinterpret_cast<uint32_t*>(out + col) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int NCH>
+static int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* dlt, void* dq, int BH, int Tq,
+                           int Tk, int D, float scale, int causal, int diag,
+                           cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  int e;
+  if ((e = hop_map_bf16(&mq, q, BH, Tq, D)) ||
+      (e = hop_map_bf16(&mk, k, BH, Tk, D)) ||
+      (e = hop_map_bf16(&mv, v, BH, Tk, D)) ||
+      (e = hop_map_bf16(&mo, dout, BH, Tq, D)))
+    return e;
+  const int nq = (Tq + WG_ROWS - 1) / WG_ROWS;
+  const size_t smem = (size_t)6 * NCH * HOP_TILE_BYTES + 1024;
+  e = allow_smem(fa_bwd_dq_wgmma_kernel<NCH>, smem);
+  if (e) return e;
+  fa_bwd_dq_wgmma_kernel<NCH><<<(unsigned)((long long)BH * nq), 128, smem,
+                                 stream>>>(
+      mq, mk, mv, mo, (const float*)lse, (const float*)dlt,
+      (__nv_bfloat16*)dq, BH, Tq, Tk, D, scale, causal, diag);
+  return (int)cudaGetLastError();
+}
+
 // ---- bf16 dk/dv: wgmma + TMA --------------------------------------------
 //
 // One warpgroup per CTA owns (bh, 64 keys).  TMA loads the K and V
@@ -332,14 +529,6 @@ static int launch_dkv(const void* q, const void* k, const void* v,
 // summed by one CTA in q-tile order: deterministic, no atomics.  Causal:
 // the loop starts at the first q tile that sees key k0.  CTAs are issued
 // longest first (the key tiles at the start of the sequence).
-
-// x as hi + lo, two bf16x2 fragments (the A operand of an RS wgmma)
-__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16(x0), h1 = __float2bfloat16(x1);
-  hi = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
-  lo = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
-}
 
 template <int NCH>
 __global__ void __launch_bounds__(128)
@@ -546,8 +735,11 @@ extern "C" int mxt_flash_attention_bwd_dq(
                 D, scale, causal, diag, s)
   }
   if (dtype == MXT_BF16) {
-    FA_DISPATCH(__nv_bfloat16, launch_dq, q, k, v, dout, lse, dlt, dq, BH,
-                Tq, Tk, D, scale, causal, diag, s)
+    if (D % 8) return (int)cudaErrorInvalidValue;  // the wrapper pads
+    return D <= 64 ? launch_dq_wgmma<1>(q, k, v, dout, lse, dlt, dq, BH, Tq,
+                                        Tk, D, scale, causal, diag, s)
+                   : launch_dq_wgmma<2>(q, k, v, dout, lse, dlt, dq, BH, Tq,
+                                        Tk, D, scale, causal, diag, s);
   }
   return (int)cudaErrorInvalidValue;
 }

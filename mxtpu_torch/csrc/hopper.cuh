@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks of the bf16 flash kernels: TMA tile
-// loads completed on mbarriers, wgmma matrix descriptors for tiles that
-// TMA wrote with the 128-byte swizzle, and the wgmma instructions the
-// kernels issue.  Host side: the 3-D tensor maps over (BH, T, D) arrays,
-// encoded each call by libcuda's cuTensorMapEncodeTiled, reached
-// through the runtime (cudaGetDriverEntryPointByVersion), so a library
-// needs no -lcuda.
+// Hopper (sm_90a) building blocks of the bf16 tensor-core kernels (flash
+// attention, the NHWC conv): TMA tile and im2col loads completed on
+// mbarriers, wgmma matrix descriptors for tiles that TMA wrote with the
+// 128-byte swizzle, and the wgmma instructions the kernels issue.  Host
+// side: the tensor maps, encoded each call by libcuda's
+// cuTensorMapEncodeTiled / cuTensorMapEncodeIm2col, reached through the
+// runtime (cudaGetDriverEntryPointByVersion), so a library needs no
+// -lcuda.
 //
 // Tiles.  Every tile is a TMA box of 64 rows x 64 bf16 columns (128
 // bytes a row, 8 KB), 1024-byte aligned, swizzled: the 16-byte chunk c
@@ -18,6 +19,8 @@
 //    P.V): the 8-row groups are the K steps (SBO 1024 bytes), the next
 //    64 columns of N are the next box (LBO 8 KB); a k-step of 16 rows
 //    moves the start 2048 bytes.
+// An im2col load writes the same layout: one 128-byte row of 64
+// channels per pixel, so 64 of its pixel rows are a K-major tile.
 #pragma once
 
 #include <cuda.h>
@@ -62,6 +65,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       : "memory");
 }
 
+// one arrival (of the count given to mbar_init)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // wait for the completion of the barrier's phase of this parity
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_u32(bar);
@@ -90,6 +100,59 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
       "r"(r), "r"(b)
       : "memory");
+}
+
+// im2col box of a map over NHWC x (hop_map_im2col_bf16): the map's
+// pixels-per-load consecutive pixels from (n, h, w) on, walked W first,
+// then H, then N, inside the map's bounding box, each shifted by the
+// filter tap (kh, kw); channels c .. c + 63 of each, zero past the
+// image and past C
+__device__ __forceinline__ void tma_load_im2col(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c, int w,
+                                                int h, int n, int kw,
+                                                int kh) {
+  const uint16_t ow = (uint16_t)kw, oh = (uint16_t)kh;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"(ow), "h"(oh)
+      : "memory");
+}
+
+// one swizzled box of smem to (column c, row r, batch b) of a 3-D
+// tensor map; rows and columns past the array are not written.  Runs
+// asynchronously: commit it (bulk_commit) and wait (bulk_wait_read)
+// before the box is written again
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c, int r,
+                                             int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c), "r"(r), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// the committed stores are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a barrier of the n threads (a multiple of 32) that name barrier id
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // rows 64*t .. 64*t + 63 of two (BH, T, D) arrays (K and V, or Q and dO)
@@ -144,6 +207,22 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// a warpgroup's register budget in a warp-specialized kernel (all four
+// warps execute it; the kernel's branches by role must not reconverge)
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
 
 // keeps the compiler from touching accumulator registers across the
 // asynchronous wgmma: every use after a wait depends on this
@@ -165,6 +244,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // wgmma over k-columns 16kk..16kk+15 is exactly d[8kk .. 8kk + 7] of
 // such an accumulator, packed in pairs: so an accumulator turns into
 // the next product's A operand without going through shared memory.
+
+// A 64 x 64*NB f32 accumulator of a warpgroup, rounded to bf16, into NB
+// swizzled 64 x 64 boxes at `boxes` (the layout TMA loads and stores):
+// element (r, c) sits in box c / 64, row r, 16-byte chunk (c % 64) / 8
+// ^ (r % 8).  The 8 rows a warp writes at once fall in 8 different
+// chunks, so the writes are free of bank conflicts.
+template <int NB>
+__device__ __forceinline__ void stage_acc(uint8_t* boxes,
+                                          const float (&d)[32 * NB],
+                                          int warp, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + (lane >> 2) + 8 * h;
+    uint8_t* row = boxes + r * 128 + 4 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 8 * NB; ++j)
+      *reinterpret_cast<uint32_t*>(row + (j >> 3) * HOP_TILE_BYTES +
+                                   (((j & 7) ^ (r & 7)) << 4)) =
+          pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+}
 
 // D(64x64, f32) (+)= A(64x16, smem) * B(16x64, smem), both K-major
 __device__ __forceinline__ void wgmma_ss_m64n64k16(
@@ -261,25 +361,150 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32 * NCH],
     wgmma_rs_m64n128k16_mn(d, a, db, 1);
 }
 
+// SS products with B MN-major (the transpose bit), N = 64, 128, 256:
+// B is N/64 boxes of 64 K-rows x 64 N-columns, 8 KB apart (mnmajor_desc)
+// D(64x64, f32) (+)= A(64x16, smem, K-major) * B(16x64, smem, MN-major)
+__device__ __forceinline__ void wgmma_ss_m64n64k16_tb(
+    float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D(64x128, f32) (+)= A(64x16, smem, K-major) * B(16x128, smem, MN-major)
+__device__ __forceinline__ void wgmma_ss_m64n128k16_tb(
+    float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D(64x256, f32) (+)= A(64x16, smem, K-major) * B(16x256, smem, MN-major)
+__device__ __forceinline__ void wgmma_ss_m64n256k16_tb(
+    float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[BN / 2], uint64_t da,
+                                            uint64_t db, int acc) {
+  if constexpr (BN == 64)
+    wgmma_ss_m64n64k16_tb(d, da, db, acc);
+  else if constexpr (BN == 128)
+    wgmma_ss_m64n128k16_tb(d, da, db, acc);
+  else
+    wgmma_ss_m64n256k16_tb(d, da, db, acc);
+}
+
 // ---- host: tensor maps ------------------------------------------------
 
-typedef CUresult (*hop_encode_fn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static hop_encode_fn hop_load_encode() {
+// a libcuda entry point by name, or nullptr
+static void* hop_libcuda_fn(const char* name) {
   void* fn = nullptr;
   cudaDriverEntryPointQueryResult q;
-  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                       cudaEnableDefault,
+  if (cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault,
                                        &q) != cudaSuccess ||
       q != cudaDriverEntryPointSuccess)
     return nullptr;
-  return reinterpret_cast<hop_encode_fn>(fn);
+  return fn;
 }
 
 // The tensor map of a contiguous bf16 (BH, T, D) array, D % 8 == 0 (a
@@ -287,7 +512,8 @@ static hop_encode_fn hop_load_encode() {
 // swizzle, zeros outside the array.  Returns 0 or a cudaError_t.
 static int hop_map_bf16(CUtensorMap* map, const void* ptr, int BH, int T,
                         int D) {
-  static const hop_encode_fn encode = hop_load_encode();
+  static const auto encode = reinterpret_cast<decltype(
+      &cuTensorMapEncodeTiled)>(hop_libcuda_fn("cuTensorMapEncodeTiled"));
   if (!encode) return (int)cudaErrorSymbolNotFound;
   if ((reinterpret_cast<uintptr_t>(ptr) & 15) || D % 8)
     return (int)cudaErrorInvalidValue;
@@ -301,5 +527,37 @@ static int hop_map_bf16(CUtensorMap* map, const void* ptr, int BH, int T,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The im2col tensor map of a contiguous bf16 NHWC array x (C % 8 == 0,
+// 16-byte aligned) for a stride-1 convolution that pads ph rows and pw
+// columns before the image and keeps H x W outputs.  A load
+// (tma_load_im2col) gives `pixels` rows of 64 channels, 128-byte
+// swizzled: the output pixels from (n, h, w) on in row-major order,
+// each read at (h - ph + kh, w - pw + kw) of its image for the tap
+// (kh, kw) the load names, zeros off the image.  The bounding box of
+// the walk (both corners -ph, -pw: the upper corner counts from the
+// image's last row and column) spans exactly H x W base pixels; the
+// load's coordinates are those of its first pixel's base, (h - ph,
+// w - pw).  Returns 0 or a cudaError_t.
+static int hop_map_im2col_bf16(CUtensorMap* map, const void* x, int N, int H,
+                               int W, int C, int ph, int pw, int pixels) {
+  static const auto encode = reinterpret_cast<decltype(
+      &cuTensorMapEncodeIm2col)>(hop_libcuda_fn("cuTensorMapEncodeIm2col"));
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  if ((reinterpret_cast<uintptr_t>(x) & 15) || C % 8)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const int lower[2] = {-pw, -ph}, upper[2] = {-pw, -ph};  // (w, h)
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, lower, upper, 64, (cuuint32_t)pixels, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,10 @@ and KW//2 columns on each side, output H x W: the port of TPU kernel
 #13, ``tools/probe_conv_strategies.py:pallas_conv`` (body
 ``_conv_kernel``).
 
-* ``conv_nhwc`` — CUDA ``csrc/conv_nhwc.cu`` (an implicit GEMM:
-  ``mma.sync`` tiles in bf16, true f32 FMAs in f32), counted in
-  ``CONV_LAUNCHES``.
+* ``conv_nhwc`` — CUDA ``csrc/conv_nhwc.cu``, an implicit GEMM: in bf16
+  on the tensor cores (``conv_nhwc_wgmma_kernel``: TMA im2col loads of
+  the pixels, wgmma), in f32 as true f32 FMAs (``conv_nhwc_f32_kernel``);
+  counted in ``CONV_LAUNCHES``.
 * :func:`conv_nhwc_reference` — the plain version, the port of
   ``shifted_gemm_conv`` (``:29-43``): pad, then KH*KW matmuls over
   shifted views of the inputs cast to f32, summed in f32, cast back to
@@ -21,13 +22,17 @@ no meaning on the card and is not taken; every image is computed.
 The TPU kernel has no backward, so this one has none either: inputs
 that require grad are refused on every device.  On the card the kernel
 runs or the call raises (no fallback to the plain version or to cuDNN);
-it takes float32 or bfloat16 x and w of one type, contiguous, with C and
-O multiples of 8 and N*H*W < 2^30.
+it takes float32 or bfloat16 x and w of one type, contiguous, 16-byte
+aligned, N*H*W < 2^30 and KH, KW <= 255.  Any C and O, as
+``pallas_conv`` takes: the kernel itself needs multiples of 8 (TMA's
+16-byte strides), so ``conv_nhwc`` runs it on copies of x and w
+zero-padded to them and slices y back; zero channels add nothing.
 """
 from __future__ import annotations
 
 import ctypes
 import sys
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,12 +47,16 @@ CONV_LAUNCHES = 0
 _SELF = sys.modules[__name__]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# channels per 16-byte vector load of the kernel's tiles (bf16)
+# channels per 16 bytes of bf16: TMA's stride unit
 CHANNEL_MULTIPLE = 8
 MAX_PIXELS = 2 ** 30
+# the im2col load's tap offsets and bounding-box corners
+MAX_KERNEL = 255
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w, y; N, H, W, C, KH, KW, O, dtype, stream
-_ARGS = [_P, _P, _P] + [_I] * 8 + [_P]
+# x, w, y; N, H, W, C, KH, KW, O, dtype, tile (BN, MW), stream
+_ARGS = [_P, _P, _P] + [_I] * 10 + [_P]
+# the bf16 kernel's tiles, (BN outputs, MW): 128*MW pixels by BN
+TILES = ((64, 2), (128, 1), (128, 2), (256, 1))
 
 
 def _shapes(x: torch.Tensor, w: torch.Tensor):
@@ -92,6 +101,9 @@ def _check(x: torch.Tensor, w: torch.Tensor):
         raise MXNetError(f"conv_nhwc: C={C} and O={O} must be multiples "
                          f"of {CHANNEL_MULTIPLE} (the kernel's 16-byte "
                          f"loads)")
+    if KH > MAX_KERNEL or KW > MAX_KERNEL:
+        raise MXNetError(f"conv_nhwc: a {KH}x{KW} kernel exceeds the "
+                         f"kernel's bound of {MAX_KERNEL}")
     if N * H * W == 0 or w.numel() == 0:
         raise MXNetError(f"conv_nhwc: empty input {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -103,20 +115,42 @@ def _check(x: torch.Tensor, w: torch.Tensor):
     return N, H, W, C, KH, KW, O
 
 
-def conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _pad_channels(x: torch.Tensor, w: torch.Tensor):
+    """x and w with C (x's last and w's third dim) and O (w's last)
+    zero-padded to multiples of ``CHANNEL_MULTIPLE``, on copies; as
+    they are when both already are."""
+    C, O = w.shape[2], w.shape[3]
+    pc, po = -C % CHANNEL_MULTIPLE, -O % CHANNEL_MULTIPLE
+    if pc:
+        x = F.pad(x, (0, pc))
+    if pc or po:
+        w = F.pad(w, (0, po, 0, pc))
+    return x, w
+
+
+def conv_nhwc(x: torch.Tensor, w: torch.Tensor,
+              tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """y (N, H, W, O) = the convolution of x (N, H, W, C) by w (KH, KW,
     C, O): the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors.  ``tile`` (bf16 only, one of ``TILES``) sets the kernel's
+    output tile; by default the kernel picks it by O."""
     refuse_grad("conv_nhwc", x, w,
                 hint="it has no backward, as the TPU kernel has none")
+    if tile is not None and (tile not in TILES or
+                             x.dtype != torch.bfloat16):
+        raise MXNetError(f"conv_nhwc: tile {tile} is not a bfloat16 tile "
+                         f"of {TILES}")
     if not on_card(x, w):
         return conv_nhwc_reference(x, w)
-    N, H, W, C, KH, KW, O = _check(x, w)
-    y = torch.empty(N, H, W, O, dtype=x.dtype, device=x.device)
+    O = _shapes(x, w)[6]
+    x, w = _pad_channels(x, w)
+    N, H, W, C, KH, KW, Op = _check(x, w)
+    y = torch.empty(N, H, W, Op, dtype=x.dtype, device=x.device)
     fn = _build.bind("conv_nhwc", "mxt_conv_nhwc", _ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, KH,
-                 KW, O, _DTYPES[x.dtype], _build.stream_of(x))
+                 KW, Op, _DTYPES[x.dtype], *(tile or (0, 0)),
+                 _build.stream_of(x))
     _build.check(err, "conv_nhwc")
     bump(_SELF, "CONV_LAUNCHES")
-    return y
+    return y if Op == O else y[..., :O].contiguous()

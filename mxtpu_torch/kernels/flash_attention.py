@@ -30,12 +30,12 @@ D = 64, f32): operations — 4*BH*T*T*D flops at the f32 CUDA-core rate
 (no TF32) outweigh 4*BH*T*D*4 bytes at 3.35 TB/s.  Backward at the
 training shape (BH = 512, T = 128, D = 64): 14*BH*T*T*D flops bound it
 in f32; in bf16, against the tensor-core rate, the bytes of q, k, v,
-dO, dq, dk, dv, lse and delta do.  By dtype: bf16 forward and dk/dv
-run on the tensor cores (wgmma, with TMA loads: ``fa_fwd_wgmma_kernel``,
-``fa_bwd_dkv_wgmma_kernel``); f32 (no TF32) and the dq kernel do their
-products as scalar FMAs over shared-memory tiles.  TMA needs a 16-byte
-row stride, so for a bf16 head dim off a multiple of 8 the wrappers
-run those two kernels on copies zero-padded along D and slice the
+dO, dq, dk, dv, lse and delta do.  By dtype: bf16 runs on the tensor
+cores (wgmma, with TMA loads: ``fa_fwd_wgmma_kernel``,
+``fa_bwd_dq_wgmma_kernel``, ``fa_bwd_dkv_wgmma_kernel``); f32 (no TF32)
+does its products as scalar FMAs over shared-memory tiles.  TMA needs a
+16-byte row stride, so for a bf16 head dim off a multiple of 8 the
+wrappers run the kernels on copies zero-padded along D and slice the
 results back (zero columns change no score; the scale is passed as
 given).
 
@@ -235,13 +235,14 @@ def flash_backward(q3, k3, v3, do3, o3, lse, causal: bool,
                          f"float32, got {tuple(lse.shape)} {lse.dtype}")
     lse = lse.contiguous()
     rows = _delta_rows(do3, o3)
-    dq = torch.empty_like(q3)
     if BH * Tq == 0 or Tk == 0:
-        return dq.zero_(), torch.zeros_like(k3), torch.zeros_like(v3)
+        return (torch.zeros_like(q3), torch.zeros_like(k3),
+                torch.zeros_like(v3))
     if q3.dtype == torch.bfloat16:
         _aligned(q3, k3, v3, do3)
-    # dk/dv reads D-padded copies where TMA needs them; dq does not
+    # both kernels read D-padded copies where TMA needs them
     pq, pk, pv, pdo = _pad_d(q3, k3, v3, do3)
+    dq = torch.empty_like(pq)
     dk = torch.empty_like(pk)
     dv = torch.empty_like(pv)
     d = Tk - Tq if delta is None else int(delta)
@@ -252,9 +253,9 @@ def flash_backward(q3, k3, v3, do3, o3, lse, causal: bool,
     fdkv = _build.bind("flash_attention_bwd",
                        "mxt_flash_attention_bwd_dkv", _DKV_ARGS)
     with torch.cuda.device(q3.device):
-        err = fdq(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                  do3.data_ptr(), lse.data_ptr(), rows.data_ptr(),
-                  dq.data_ptr(), BH, Tq, Tk, D, *tail)
+        err = fdq(pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                  pdo.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+                  dq.data_ptr(), BH, Tq, Tk, pq.shape[2], *tail)
         _build.check(err, "flash_backward dq")
         bump(_SELF, "DQ_LAUNCHES")
         err = fdkv(pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
@@ -264,7 +265,7 @@ def flash_backward(q3, k3, v3, do3, o3, lse, causal: bool,
         _build.check(err, "flash_backward dk/dv")
         bump(_SELF, "DKV_LAUNCHES")
     if dk.shape[2] != D:
-        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

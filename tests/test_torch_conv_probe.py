@@ -116,6 +116,132 @@ def test_every_image_is_computed_where_pallas_conv_leaves_rows(interpret):
     _close(got[:8], ref[:8], "float32")
 
 
+# ------------------------------- the bf16 kernel's tiling, emulated
+
+BM, BKC = 128, 64  # pixels per CTA, channels per K chunk (conv_nhwc.cu)
+
+
+def _walk(m0, N, H, W, ph, pw):
+    """The (n, h, w) bases of the 128 pixels an im2col load walks from
+    the flattened pixel m0: W first, then H, then N, inside the bounding
+    box whose corners are (-ph, -pw) at both ends (the upper corner
+    counts from the image's last row and column); past the last image
+    the n is N (zero fill)."""
+    t, w0 = divmod(m0, W)
+    n, h0 = divmod(t, H)
+    bh, bw = h0 - ph, w0 - pw
+    out = []
+    for _ in range(BM):
+        out.append((n, bh, bw))
+        bw += 1
+        if bw > W - 1 - pw:
+            bw, bh = -pw, bh + 1
+            if bh > H - 1 - ph:
+                bh, n = -ph, n + 1
+    return out
+
+
+def emulated_conv(x, w):
+    """y as ``conv_nhwc_wgmma_kernel`` computes it: 128-pixel tiles over
+    the flattened N*H*W; per tile an f32 sum over (kh, kw, 64-channel
+    chunk) of A (the im2col load: each pixel's base + (kh, kw), zero off
+    the image, past C and past the last image) times B (a 64-row chunk
+    of w viewed as (KH*KW, C, O), zero past C); one rounding to x's
+    type.  The O tiles are column slices and change nothing."""
+    N, H, W, C = x.shape
+    KH, KW, _, O = w.shape
+    ph, pw = KH // 2, KW // 2
+    xf = x.float()
+    w3 = w.float().reshape(KH * KW, C, O)
+    M = N * H * W
+    y = torch.zeros(M, O)
+    for m0 in range(0, M, BM):
+        base = torch.tensor(_walk(m0, N, H, W, ph, pw))
+        acc = torch.zeros(BM, O)
+        for kh in range(KH):
+            for kw in range(KW):
+                n, ih, iw = base[:, 0], base[:, 1] + kh, base[:, 2] + kw
+                inside = (n < N) & (ih >= 0) & (ih < H) & (iw >= 0) & \
+                    (iw < W)
+                rows = xf[n.clamp(max=N - 1), ih.clamp(0, H - 1),
+                          iw.clamp(0, W - 1)] * inside[:, None]
+                for c0 in range(0, C, BKC):
+                    a = torch.zeros(BM, BKC)
+                    b = torch.zeros(BKC, O)
+                    a[:, :min(BKC, C - c0)] = rows[:, c0:c0 + BKC]
+                    b[:min(BKC, C - c0)] = w3[kh * KW + kw, c0:c0 + BKC]
+                    acc += a @ b
+        y[m0:m0 + BM] = acc[:min(BM, M - m0)]
+    return y.reshape(N, H, W, O).to(x.dtype)
+
+
+# a pixel tile that spans images (81 pixels an image, O off 64), and
+# the 2x2 even kernel over a tile past the last pixel
+TILING_CASES = CASES + [(3, 9, 9, 16, 24, 3, 3), (5, 6, 6, 72, 8, 2, 2)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", TILING_CASES,
+                         ids=["x".join(map(str, c[:5])) + f"_k{c[5]}x{c[6]}"
+                              for c in TILING_CASES])
+def test_kernel_tiling_matches_pallas_conv(case, dtype, interpret):
+    x, w, jx, jw = _inputs(case, dtype)
+    got = emulated_conv(x, w)
+    assert got.dtype == x.dtype
+    _close(got, tconv.conv_nhwc_reference(x, w), dtype)
+    bn = 1 if case[0] % 2 else 2
+    _close(got, jpcs.pallas_conv(jx, jw, bn=bn), dtype)
+
+
+def test_the_walk_spans_images_and_pads():
+    # 7x7 images: a 128-pixel tile holds two whole images and 30 pixels
+    # of the third; the walk's bases run from -1 to 5 in each direction
+    walk = _walk(0, 4, 7, 7, 1, 1)
+    assert [n for n, _, _ in walk].count(0) == 49 and walk[98][0] == 2
+    assert walk[0] == (0, -1, -1) and walk[48] == (0, 5, 5)
+    assert walk[49] == (1, -1, -1) and walk[127] == (2, 3, 0)
+    # the even kernel's box is as wide: H x W bases from -1
+    walk = _walk(128, 5, 6, 6, 1, 1)
+    assert walk[0] == (3, 2, 1) and len({(h, w_) for _, h, w_ in walk}) \
+        == 36
+
+
+# ------------------------------------------------ channels off 8 (2a)
+
+@pytest.mark.parametrize("C,O", [(12, 4), (12, 16), (16, 4), (3, 5)])
+def test_channel_padding_changes_nothing(C, O):
+    # conv_nhwc runs the kernel on copies zero-padded to multiples of 8
+    # and slices y back; the padded conv, sliced, is the unpadded one
+    x, w, _, _ = _inputs((2, 5, 5, C, O, 3, 3), "bfloat16")
+    px, pw_ = tconv._pad_channels(x, w)
+    assert px.shape[-1] % 8 == 0 and pw_.shape[2:] == (px.shape[-1],
+                                                       -O % 8 + O)
+    assert not px[..., C:].any() and not pw_[:, :, C:].any() and \
+        not pw_[..., O:].any()
+    tconv._check(px, pw_)
+    want = tconv.conv_nhwc_reference(x, w)
+    assert torch.equal(tconv.conv_nhwc_reference(px, pw_)[..., :O], want)
+    assert torch.equal(emulated_conv(px, pw_)[..., :O], want)
+    assert torch.equal(tk.conv_nhwc(x, w), want)
+
+
+def test_a_tile_must_be_a_bf16_kernel_tile():
+    x, w, _, _ = _inputs(CASES[0], "bfloat16")
+    for tile in tconv.TILES:
+        assert torch.equal(tk.conv_nhwc(x, w, tile=tile),
+                           tconv.conv_nhwc_reference(x, w))
+    with pytest.raises(MXNetError, match="not a bfloat16 tile"):
+        tk.conv_nhwc(x, w, tile=(64, 1))
+    with pytest.raises(MXNetError, match="not a bfloat16 tile"):
+        tk.conv_nhwc(x.float(), w.float(), tile=(128, 2))
+
+
+def test_channels_on_8_are_not_copied():
+    x, w, _, _ = _inputs(CASES[1], "bfloat16")
+    px, pw_ = tconv._pad_channels(x, w)
+    assert px is x and pw_ is w
+
+
 # ------------------------------------------------------------- dispatch
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -169,12 +295,14 @@ def test_the_kernel_bounds_admit_the_probe_and_edge_shapes():
 def test_kernel_matches_its_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU path")
-    for case in CASES:
+    for case in TILING_CASES + [(2, 5, 5, 12, 4, 3, 3)]:
         for dtype in DTYPES:
             x, w, _, _ = _inputs(case, dtype)
             x, w = x.cuda(), w.cuda()
-            _close(tk.conv_nhwc(x, w).cpu(),
-                   tconv.conv_nhwc_reference(x, w).cpu(), dtype)
+            want = tconv.conv_nhwc_reference(x, w).cpu()
+            _close(tk.conv_nhwc(x, w).cpu(), want, dtype)
+            for tile in tconv.TILES if dtype == "bfloat16" else ():
+                _close(tk.conv_nhwc(x, w, tile=tile).cpu(), want, dtype)
 
 
 # ---------------------------------------------------------------- probe

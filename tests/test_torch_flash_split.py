@@ -1,19 +1,22 @@
-"""The arithmetic of the bf16 flash dk/dv kernel (``fa_bwd_dkv_wgmma_kernel``
-in ``mxtpu_torch/csrc/flash_attention_bwd.cu``), emulated in plain
-PyTorch on the CPU, and why it splits P^T and dS^T.
+"""The arithmetic of the bf16 flash backward kernels
+(``fa_bwd_dq_wgmma_kernel`` and ``fa_bwd_dkv_wgmma_kernel`` in
+``mxtpu_torch/csrc/flash_attention_bwd.cu``), emulated in plain PyTorch
+on the CPU, and why they split P and dS.
 
-The kernel runs on the card only; its products are bf16 tensor-core
-products with f32 accumulation.  S^T = K.Q^T and dP^T = V.dO^T take
-bf16 inputs exactly.  P^T and dS^T are f32 and the reference never
-rounds them, so before dV += P^T.dO and dK += dS^T.Q each is split
-into two bf16 parts, x = bf16(x) + bf16(x - bf16(x)), whose products
-go into one f32 accumulator, tile of 64 query rows by tile.  The
-emulation below does the same and is held, under the card's bf16 gate
-(``chip_smoke.py``: |r - p| <= 2e-2 * max(min(1, rms p), |p|)), against
-mxtpu's Pallas backward in interpret mode (T <= 256) and against the
-port's f32 plain version at causal T = 1024.  With one rounding
-instead of the split, the causal T = 1024 case misses that gate: the
-reason the kernel does six products a tile, not four.
+The kernels run on the card only; their products are bf16 tensor-core
+products with f32 accumulation.  S = Q.K^T and dP = dO.V^T (and their
+transposes) take bf16 inputs exactly.  P and dS are f32 and the
+reference never rounds them, so before the products that take them
+(dV += P^T.dO and dK += dS^T.Q, tile of 64 query rows by tile; dQ +=
+dS.K, tile of 64 keys by tile) each is split into two bf16 parts, x =
+bf16(x) + bf16(x - bf16(x)), whose products go into one f32
+accumulator.  The emulations below do the same and are held, under the
+card's bf16 gate (``chip_smoke.py``: |r - p| <= 2e-2 * max(min(1, rms
+p), |p|)), against mxtpu's Pallas backward in interpret mode (T <= 256)
+and against the port's f32 plain version at causal T = 1024.  With one
+rounding instead of the split, dk/dv's causal T = 1024 case misses that
+gate, and so does dq's: the reason the kernels take each of P and dS
+as two products a tile (dk/dv six products, dq four).
 """
 import importlib
 import os
@@ -72,6 +75,32 @@ def emulated_dkv(q, k, v, do, o, lse, causal, scale, split=True):
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
+def emulated_dq(q, k, v, do, o, lse, causal, scale, split=True):
+    """dq (bf16) as the kernel computes it from bf16 q, k, v, dO (BH, T,
+    D), the forward's O and lse: tiles of 64 keys, dS in f32 split hi +
+    lo, f32 accumulation, one rounding at the end."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1)
+    Tq, Tk = q.shape[1], k.shape[1]
+    diag = Tk - Tq
+    dq = torch.zeros_like(qf)
+    rows = torch.arange(Tq)[:, None]
+    for k0 in range(0, Tk, TILE):
+        keys = slice(k0, min(k0 + TILE, Tk))
+        s = torch.matmul(qf, kf[:, keys].transpose(1, 2))
+        p = torch.exp(s * scale - lse[..., None])
+        if causal:
+            seen = torch.arange(k0, keys.stop)[None, :] <= rows + diag
+            p = torch.where(seen, p, torch.zeros_like(p))
+        dp = torch.matmul(dof, vf[:, keys].transpose(1, 2))
+        ds = p * (dp - delta[..., None]) * scale
+        hi = _bf16(ds)
+        dq += torch.matmul(hi, kf[:, keys])
+        if split:
+            dq += torch.matmul(_bf16(ds - hi), kf[:, keys])
+    return dq.to(torch.bfloat16)
+
+
 def _inputs(seed, BH, T, D, causal):
     rng = np.random.RandomState(seed)
     q, k, v, do = (torch.from_numpy(rng.randn(BH, T, D).astype(np.float32))
@@ -103,6 +132,49 @@ def test_split_matches_pallas_backward(causal, T):
         want = torch.from_numpy(np.asarray(want, np.float32))
         assert torch.isfinite(got.float()).all()
         assert _gate(got, want) <= chip_smoke.TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("causal,Tq,Tk", [(False, 128, 128),
+                                          (True, 128, 128),
+                                          (True, 256, 256),
+                                          (False, 192, 192),
+                                          (True, 64, 192),
+                                          (False, 130, 70)])
+def test_dq_split_matches_pallas_backward(causal, Tq, Tk):
+    rng = np.random.RandomState(3)
+    q, do = (torch.from_numpy(rng.randn(2, Tq, 64).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(2, Tk, 64).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    scale = 1.0 / 8.0
+    o, lse = tfa.flash_forward_reference(q, k, v, causal, scale)
+    dq = emulated_dq(q, k, v, do, o, lse, causal, scale)
+    j = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+         for t in (q, k, v, do)]
+    rows = jnp.sum(j[3].astype(jnp.float32) *
+                   jnp.asarray(o.float().numpy()), -1)[..., None]
+    wq, _, _ = jfa._flash_backward(*j, jnp.asarray(lse.numpy())[..., None],
+                                   rows, causal, scale, True)
+    want = torch.from_numpy(np.asarray(wq, np.float32))
+    assert dq.shape == want.shape and torch.isfinite(dq.float()).all()
+    assert _gate(dq, want) <= chip_smoke.TOL["bfloat16"]
+
+
+def _long_causal_dq(split):
+    q, k, v, do, o, lse, scale = _inputs(1, 2, 1024, 64, True)
+    dq = emulated_dq(q, k, v, do, o, lse, True, scale, split)
+    wq, _, _ = tfa.flash_backward_reference(
+        *(t.float() for t in (q, k, v, do, o)), lse, True, scale)
+    return _gate(dq, wq)
+
+
+def test_dq_split_passes_gate_long_causal():
+    assert _long_causal_dq(split=True) <= chip_smoke.TOL["bfloat16"]
+
+
+def test_dq_one_rounding_misses_gate_long_causal():
+    # one bf16 rounding of dS costs dq 2.2e-2 here, the split 3.9e-3
+    assert _long_causal_dq(split=False) > chip_smoke.TOL["bfloat16"]
 
 
 def _long_causal(split):

@@ -49,9 +49,9 @@ Phases, each fatal on failure:
      28^2 x 128, 7^2 x 512 and microbench's 56^2 x 64, 14^2 x 512, 3x3,
      C = O) and at edge shapes (N=1; H = W = 5; C != O; 1x1, 2x2, 5x5
      kernels); times beside cuDNN (TF32 off), cuDNN's kernel names
-     printed, and the bf16 kernel's time at each of its tiles; its
-     refusals (grad, a dtype, a non-contiguous x), and C = 12, O = 4
-     (zero-padded to 16 and 8 on copies) against the plain version;
+     printed; its refusals (grad, a dtype, a non-contiguous x), and
+     C = 12, O = 4 (zero-padded to 16 and 8 on copies) against the plain
+     version;
   6. the port's tools, each ``main`` on the card with launch counts read
      around it: microbench (chained bf16 matmuls and cuDNN convs), the
      conv strategy probe (cuDNN, shifted GEMM, kernel #13; its conv
@@ -375,22 +375,14 @@ def ptxas_of(log, kern):
 def sass_phase(checks):
     """``cuobjdump -sass`` of the built libraries: every instantiation
     of each tensor-core kernel must hold wgmma (HGMMA) and TMA loads
-    (UTMALDG), so a kernel that silently lost either fails the run;
-    where this run built the library, its ptxas report must show no
-    spills (registers printed)."""
+    (UTMALDG), so a kernel that silently lost either fails the run; the
+    ptxas report of its library (this run's build, or the one kept
+    beside a library built earlier) must list every instantiation and
+    show no spills (registers printed)."""
     import shutil
     from mxtpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for kern, src in TENSOR_CORE_KERNELS.items():
-        regs = ptxas_of(_build.build_log.get(src, ""), kern)
-        ok = all(sp == 0 for _, sp in regs)
-        print(f"check ptxas {kern}: [registers, spill bytes] of each "
-              f"instantiation {regs or 'not built in this run'} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        checks.rows.append({"check": f"ptxas {kern}", "regs_spills": regs,
-                            "ok": ok})
-        if not ok:
-            checks.failed.append(f"ptxas: {kern} spills ({regs})")
         sass = subprocess.run([tool, "-sass", str(_build._target(src))],
                               capture_output=True, text=True, timeout=300)
         funcs = [f for f in re.split(r"\n\s*Function : ", sass.stdout)[1:]
@@ -405,6 +397,17 @@ def sass_phase(checks):
             checks.failed.append(f"SASS of {kern} lacks "
                                  f"{'/'.join(SASS_NEEDS)} "
                                  f"({sass.stderr.strip()[:200]})")
+        regs = ptxas_of(_build.ptxas_log(src), kern)
+        ok = len(regs) == len(funcs) > 0 and all(sp == 0 for _, sp in regs)
+        print(f"check ptxas {kern}: [registers, spill bytes] of each "
+              f"instantiation {regs or 'no ptxas report'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        checks.rows.append({"check": f"ptxas {kern}", "regs_spills": regs,
+                            "ok": ok})
+        if not ok:
+            checks.failed.append(f"ptxas: {kern} spills or lacks a report "
+                                 f"of its {len(funcs)} instantiations "
+                                 f"({regs})")
 
 
 # ----------------------------------------------------------------------
@@ -1095,37 +1098,14 @@ CONV_EDGES = ((1, 14, 14, 256, 256, 3, 3), (2, 5, 5, 16, 32, 3, 3),
               (2, 5, 11, 8, 136, 3, 3))
 
 
-def conv_tiles(checks, conv, x, w, p, tag):
-    """The bf16 kernel at each of its tiles (``conv.TILES``): checked
-    against the plain version ``p`` and timed, with its persistent
-    CTAs and its waves (output tiles over the card's SMs)."""
-    import torch
-    N, H, W, C = x.shape
-    O = w.shape[3]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = []
-    for bn, mw in conv.TILES:
-        y = conv.conv_nhwc(x, w, tile=(bn, mw))
-        torch.cuda.synchronize()
-        checks.close(f"{tag} tile {128 * mw}x{bn}", y, p, "bfloat16")
-        tiles = -(-N * H * W // (128 * mw)) * -(-O // bn)
-        ms = device_ms(lambda: conv.conv_nhwc(x, w, tile=(bn, mw)))
-        rows.append({"tile": f"{128 * mw}x{bn}", "ms": ms,
-                     "ctas": min(tiles, sms), "waves": tiles / sms})
-    print(f"tiles conv_nhwc [bfloat16] {tag} (pixels x outputs: device "
-          f"ms, persistent CTAs, waves on {sms} SMs): " + "; ".join(
-              f"{r['tile']} {r['ms']:.4f} ({r['ctas']}, {r['waves']:.2f})"
-              for r in rows), flush=True)
-    return rows
-
-
 def conv_phase(checks, gen):
     """``conv_nhwc`` against ``conv_nhwc_reference`` on the card in f32
     and bf16, at the N = 256 shapes (timed beside the bound, the plain
     version and cuDNN, TF32 off, with the names of the kernels cuDNN
-    launches; the bf16 kernel at each of its tiles) and at
-    ``CONV_EDGES``.  Returns the timings of ``CONV_LINE_SHAPE`` keyed
-    like the other kernels'."""
+    launches) and at ``CONV_EDGES``; between them they take each of
+    the bf16 kernel's three tiles (O <= 64, O % 256 == 0, other O).
+    Returns the timings of ``CONV_LINE_SHAPE`` keyed like the other
+    kernels'."""
     import torch
     import importlib
     from mxtpu_torch.tools.microbench import cudnn_conv
@@ -1176,18 +1156,12 @@ def conv_phase(checks, gen):
                   f"bound_ms={b_ms:.4f} ({b_by}); kernel "
                   f"{ops / t['ms'] / 1e9:.1f} TFLOP/s; kernel wall_ms="
                   f"{t['wall_ms']:.4f}", flush=True)
-            if dt == torch.bfloat16:
-                tiles = conv_tiles(checks, conv, x, w,
-                                   conv.conv_nhwc_reference(x, w),
-                                   f"N{CONV_N} {H}x{H} C{C}")
             if (H, C) == CONV_LINE_SHAPE:
                 out[("conv_nhwc", name)] = {"max_abs_err": err, **t,
                                             "bound_ms": b_ms,
                                             "bound_by": b_by,
                                             "shape": [CONV_N, H, H, C, C],
                                             "library_kernels": lib_kernels}
-                if dt == torch.bfloat16:
-                    out[("conv_nhwc", name)]["tiles"] = tiles
             del x, w, y, lib
         for (N, H, W, C, O, KH, KW) in CONV_EDGES:
             x, w = inputs(N, H, W, C, O, KH, KW, dt)

@@ -18,9 +18,9 @@
 // persistent (one CTA an SM walks its share of the output tiles).  A
 // tile is 128*MW output pixels of the flattened N*H*W (so it may span
 // rows and images) by BN outputs: 128 x 256, 256 x 128 or 256 x 64,
-// picked by O.  K is walked as (kh, kw, 64-channel chunk).  One producer
-// thread issues, per chunk, MW TMA im2col loads of A (128 pixels x 64
-// channels each, every pixel read at its tap's offset; the map's
+// the widest that O fills.  K is walked as (kh, kw, 64-channel chunk).
+// One producer thread issues, per chunk, MW TMA im2col loads of A (128
+// pixels x 64 channels each, every pixel read at its tap's offset; the map's
 // bounding box makes the padding, TMA's zero fill the rest: off the
 // image, past C, past the last pixel) and BN/64 tiled loads of B from w
 // viewed as (KH*KW, C, O), so that a chunk past C comes as zeros and
@@ -39,8 +39,8 @@
 //
 // Bounds (the wrapper pads C and O to multiples of 8 and refuses the
 // rest): C and O multiples of 8 (TMA's 16-byte strides; the f32
-// kernel's float4 loads), KH and KW at most 255 (the im2col offsets and
-// corners), N*H*W < 2^30 (the pixel index is 32-bit; offsets are
+// kernel's float4 loads), in bf16 KH and KW at most 255 (the im2col
+// offsets and corners), N*H*W < 2^30 (the pixel index is 32-bit; offsets are
 // 64-bit), 16-byte aligned x, w, y.  Any N, H, W.
 //
 // Bound on the H100: operations.  At the probe's shapes (b256, 14^2 x 256
@@ -314,21 +314,14 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// the bf16 kernel at a tile of BN outputs by 128*MW pixels; bn = 0 picks
-// the tile by O (the widest of 256 x 128, 128 x 256, 64 x 256 that O
-// fills; chip_smoke.py times the others at the probe's shapes)
+// the bf16 kernel at the widest of 256 x 128, 128 x 256 and 256 x 64
+// (pixels x outputs) that O fills (PERF.md records every tile's times
+// at the probe's shapes)
 static int conv_bf16(const void* x, const void* w, void* y, int N,
-                     const ConvShape& s, int KH, int bn, int mw,
-                     cudaStream_t st) {
-  if (bn == 0) {
-    bn = s.O <= 64 ? 64 : s.O % 256 == 0 ? 256 : 128;
-    mw = bn == 256 ? 1 : 2;
-  }
-  if (bn == 64 && mw == 2) return launch_wgmma<64, 2>(x, w, y, N, s, KH, st);
-  if (bn == 128 && mw == 1) return launch_wgmma<128, 1>(x, w, y, N, s, KH, st);
-  if (bn == 128 && mw == 2) return launch_wgmma<128, 2>(x, w, y, N, s, KH, st);
-  if (bn == 256 && mw == 1) return launch_wgmma<256, 1>(x, w, y, N, s, KH, st);
-  return (int)cudaErrorInvalidValue;
+                     const ConvShape& s, int KH, cudaStream_t st) {
+  if (s.O <= 64) return launch_wgmma<64, 2>(x, w, y, N, s, KH, st);
+  if (s.O % 256 == 0) return launch_wgmma<256, 1>(x, w, y, N, s, KH, st);
+  return launch_wgmma<128, 2>(x, w, y, N, s, KH, st);
 }
 
 static ConvShape shape_of(int N, int H, int W, int C, int KH, int KW, int O,
@@ -347,18 +340,17 @@ static ConvShape shape_of(int N, int H, int W, int C, int KH, int KW, int O,
   return s;
 }
 
-// bn, mw: the bf16 kernel's tile (0, 0: by O); f32 takes 0, 0
 extern "C" int mxt_conv_nhwc(const void* x, const void* w, void* y, int N,
                              int H, int W, int C, int KH, int KW, int O,
-                             int dtype, int bn, int mw, void* stream) {
+                             int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (C % 8 || O % 8) return (int)cudaErrorInvalidValue;  // the wrapper pads
   if (dtype == MXT_BF16) {
     if (KH > 255 || KW > 255) return (int)cudaErrorInvalidValue;
     return conv_bf16(x, w, y, N, shape_of(N, H, W, C, KH, KW, O, CBK), KH,
-                     bn, mw, st);
+                     st);
   }
-  if (dtype == MXT_F32 && bn == 0) {
+  if (dtype == MXT_F32) {
     const ConvShape s = shape_of(N, H, W, C, KH, KW, O, FBK);
     dim3 grid((s.M + FBM - 1) / FBM, (O + FBN - 1) / FBN);
     conv_nhwc_f32_kernel<<<grid, 256, 0, st>>>((const float*)x,

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Optional
 from ..base import MXNetError
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "load", "build_all",
-           "check", "bind", "stream_of", "build_seconds", "build_log"]
+           "check", "bind", "stream_of", "build_seconds", "build_log",
+           "ptxas_log"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -89,7 +90,24 @@ def _finish(name: str, job) -> None:
         tmp.unlink(missing_ok=True)
         raise MXNetError(f"nvcc failed for {name}.cu "
                          f"(exit {proc.returncode}):\n{log}")
+    _log_path(out).write_text(log)  # before the library, which marks done
     os.replace(tmp, out)
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".log")
+
+
+def ptxas_log(name: str) -> str:
+    """The nvcc/ptxas report of kernel source ``name``'s current
+    library: this process's build, else the one kept beside a library
+    built earlier; "" where neither exists."""
+    with _lock:
+        log = build_log.get(name)
+    if log is not None:
+        return log
+    path = _log_path(_target(name))
+    return path.read_text() if path.exists() else ""
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

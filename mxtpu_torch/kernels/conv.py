@@ -23,7 +23,7 @@ The TPU kernel has no backward, so this one has none either: inputs
 that require grad are refused on every device.  On the card the kernel
 runs or the call raises (no fallback to the plain version or to cuDNN);
 it takes float32 or bfloat16 x and w of one type, contiguous, 16-byte
-aligned, N*H*W < 2^30 and KH, KW <= 255.  Any C and O, as
+aligned, N*H*W < 2^30, and in bf16 KH, KW <= 255.  Any C and O, as
 ``pallas_conv`` takes: the kernel itself needs multiples of 8 (TMA's
 16-byte strides), so ``conv_nhwc`` runs it on copies of x and w
 zero-padded to them and slices y back; zero channels add nothing.
@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import ctypes
 import sys
-from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,13 +49,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # channels per 16 bytes of bf16: TMA's stride unit
 CHANNEL_MULTIPLE = 8
 MAX_PIXELS = 2 ** 30
-# the im2col load's tap offsets and bounding-box corners
+# the bf16 kernel's im2col tap offsets and bounding-box corners
 MAX_KERNEL = 255
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w, y; N, H, W, C, KH, KW, O, dtype, tile (BN, MW), stream
-_ARGS = [_P, _P, _P] + [_I] * 10 + [_P]
-# the bf16 kernel's tiles, (BN outputs, MW): 128*MW pixels by BN
-TILES = ((64, 2), (128, 1), (128, 2), (256, 1))
+# x, w, y; N, H, W, C, KH, KW, O, dtype, stream
+_ARGS = [_P, _P, _P] + [_I] * 8 + [_P]
 
 
 def _shapes(x: torch.Tensor, w: torch.Tensor):
@@ -101,8 +98,8 @@ def _check(x: torch.Tensor, w: torch.Tensor):
         raise MXNetError(f"conv_nhwc: C={C} and O={O} must be multiples "
                          f"of {CHANNEL_MULTIPLE} (the kernel's 16-byte "
                          f"loads)")
-    if KH > MAX_KERNEL or KW > MAX_KERNEL:
-        raise MXNetError(f"conv_nhwc: a {KH}x{KW} kernel exceeds the "
+    if x.dtype == torch.bfloat16 and (KH > MAX_KERNEL or KW > MAX_KERNEL):
+        raise MXNetError(f"conv_nhwc: a {KH}x{KW} kernel exceeds the bf16 "
                          f"kernel's bound of {MAX_KERNEL}")
     if N * H * W == 0 or w.numel() == 0:
         raise MXNetError(f"conv_nhwc: empty input {tuple(x.shape)}, "
@@ -128,18 +125,12 @@ def _pad_channels(x: torch.Tensor, w: torch.Tensor):
     return x, w
 
 
-def conv_nhwc(x: torch.Tensor, w: torch.Tensor,
-              tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+def conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y (N, H, W, O) = the convolution of x (N, H, W, C) by w (KH, KW,
     C, O): the kernel on CUDA tensors, the plain version on CPU
-    tensors.  ``tile`` (bf16 only, one of ``TILES``) sets the kernel's
-    output tile; by default the kernel picks it by O."""
+    tensors."""
     refuse_grad("conv_nhwc", x, w,
                 hint="it has no backward, as the TPU kernel has none")
-    if tile is not None and (tile not in TILES or
-                             x.dtype != torch.bfloat16):
-        raise MXNetError(f"conv_nhwc: tile {tile} is not a bfloat16 tile "
-                         f"of {TILES}")
     if not on_card(x, w):
         return conv_nhwc_reference(x, w)
     O = _shapes(x, w)[6]
@@ -149,8 +140,7 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor,
     fn = _build.bind("conv_nhwc", "mxt_conv_nhwc", _ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, KH,
-                 KW, Op, _DTYPES[x.dtype], *(tile or (0, 0)),
-                 _build.stream_of(x))
+                 KW, Op, _DTYPES[x.dtype], _build.stream_of(x))
     _build.check(err, "conv_nhwc")
     bump(_SELF, "CONV_LAUNCHES")
     return y if Op == O else y[..., :O].contiguous()

@@ -175,9 +175,11 @@ def emulated_conv(x, w):
     return y.reshape(N, H, W, O).to(x.dtype)
 
 
-# a pixel tile that spans images (81 pixels an image, O off 64), and
-# the 2x2 even kernel over a tile past the last pixel
-TILING_CASES = CASES + [(3, 9, 9, 16, 24, 3, 3), (5, 6, 6, 72, 8, 2, 2)]
+# a pixel tile that spans images (81 pixels an image, O off 64), the
+# 2x2 even kernel over a tile past the last pixel, and C and O off 8
+# (the wrapper's zero-padded copies)
+TILING_CASES = CASES + [(3, 9, 9, 16, 24, 3, 3), (5, 6, 6, 72, 8, 2, 2),
+                        (2, 5, 5, 12, 4, 3, 3)]
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -186,7 +188,7 @@ TILING_CASES = CASES + [(3, 9, 9, 16, 24, 3, 3), (5, 6, 6, 72, 8, 2, 2)]
                               for c in TILING_CASES])
 def test_kernel_tiling_matches_pallas_conv(case, dtype, interpret):
     x, w, jx, jw = _inputs(case, dtype)
-    got = emulated_conv(x, w)
+    got = emulated_conv(*tconv._pad_channels(x, w))[..., :case[4]]
     assert got.dtype == x.dtype
     _close(got, tconv.conv_nhwc_reference(x, w), dtype)
     bn = 1 if case[0] % 2 else 2
@@ -222,18 +224,22 @@ def test_channel_padding_changes_nothing(C, O):
     want = tconv.conv_nhwc_reference(x, w)
     assert torch.equal(tconv.conv_nhwc_reference(px, pw_)[..., :O], want)
     assert torch.equal(emulated_conv(px, pw_)[..., :O], want)
-    assert torch.equal(tk.conv_nhwc(x, w), want)
 
 
-def test_a_tile_must_be_a_bf16_kernel_tile():
-    x, w, _, _ = _inputs(CASES[0], "bfloat16")
-    for tile in tconv.TILES:
-        assert torch.equal(tk.conv_nhwc(x, w, tile=tile),
-                           tconv.conv_nhwc_reference(x, w))
-    with pytest.raises(MXNetError, match="not a bfloat16 tile"):
-        tk.conv_nhwc(x, w, tile=(64, 1))
-    with pytest.raises(MXNetError, match="not a bfloat16 tile"):
-        tk.conv_nhwc(x.float(), w.float(), tile=(128, 2))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_only_the_bf16_kernel_bounds_the_kernel_size(dtype):
+    # the im2col offsets bound KH and KW by 255 in bf16 (conv_nhwc.cu's
+    # entry point); the f32 kernel, like pallas_conv, takes any size
+    dt = getattr(torch, dtype)
+    x = torch.zeros(1, 4, 4, 8, dtype=dt)
+    for KH, KW in ((256, 1), (1, 300)):
+        w = torch.zeros(KH, KW, 8, 8, dtype=dt)
+        if dtype == "bfloat16":
+            with pytest.raises(MXNetError, match="bound of 255"):
+                tconv._check(x, w)
+        else:
+            assert tconv._check(x, w)[4:6] == (KH, KW)
+    tconv._check(x, torch.zeros(255, 3, 8, 8, dtype=dt))
 
 
 def test_channels_on_8_are_not_copied():
@@ -295,14 +301,26 @@ def test_the_kernel_bounds_admit_the_probe_and_edge_shapes():
 def test_kernel_matches_its_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU path")
-    for case in TILING_CASES + [(2, 5, 5, 12, 4, 3, 3)]:
+    for case in CASES:
         for dtype in DTYPES:
             x, w, _, _ = _inputs(case, dtype)
             x, w = x.cuda(), w.cuda()
-            want = tconv.conv_nhwc_reference(x, w).cpu()
-            _close(tk.conv_nhwc(x, w).cpu(), want, dtype)
-            for tile in tconv.TILES if dtype == "bfloat16" else ():
-                _close(tk.conv_nhwc(x, w, tile=tile).cpu(), want, dtype)
+            _close(tk.conv_nhwc(x, w).cpu(),
+                   tconv.conv_nhwc_reference(x, w).cpu(), dtype)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_its_plain_version_at_the_tiling_cases_on_the_card():
+    # pixel tiles across images, the 2x2 kernel past the last pixel, and
+    # C = 12, O = 4 through the wrapper's padded copies
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU path")
+    for case in TILING_CASES[len(CASES):]:
+        for dtype in DTYPES:
+            x, w, _, _ = _inputs(case, dtype)
+            x, w = x.cuda(), w.cuda()
+            _close(tk.conv_nhwc(x, w).cpu(),
+                   tconv.conv_nhwc_reference(x, w).cpu(), dtype)
 
 
 # ---------------------------------------------------------------- probe

@@ -33,41 +33,57 @@
 // shared memory, stored by TMA while the next tile's products run (4-byte
 // stores straight from the accumulators, scattered over 8 rows a warp,
 // stalled the consumers for a large share of the kernel's time).
-// f32 (conv_nhwc_f32_kernel): true f32 FMAs (no TF32), 64 x 64 tile per
-// CTA of 256 threads (4 x 4 outputs each), K in chunks of 16,
-// double-buffered through registers into shared memory.
+// f32 (conv_nhwc_f32_wgmma_kernel): the same kernel over operands split
+// exactly into three bf16 parts (hopper.cuh, split3), with no TF32: a
+// prepass (conv_split_f32_kernel) writes x as three bf16 NHWC arrays
+// stacked as 3N images and w as three (KH*KW, C, O) arrays stacked as
+// 3*KH*KW taps, and the loop walks (pair, kh, kw, chunk) over the six
+// (x part, w part) pairs that matter, smallest first, into the same f32
+// accumulators: six times the bf16 kernel's products, as the TPU does
+// f32 at Precision.HIGHEST.  A load that runs past the last image of a
+// part reads the next part's first pixels: they land only in rows past
+// N*H*W, which the store drops.  y is f32: the epilogue stages and
+// stores each tile in two halves of BN/2 columns (f32 boxes of 64 rows
+// x 32 columns, 128-byte swizzle) through the bf16 kernel's staging
+// room.  The prepass is compute-light (at 14^2 x 256: 51 MB read, 77 MB
+// written) beside the 6 x 59.2 GFLOP.  The scalar f32 kernel
+// (conv_nhwc_f32_kernel: 64 x 64 tile per CTA of 256 threads, 4 x 4
+// outputs each, true f32 FMAs) stays only for KH or KW above 255, which
+// the im2col loads cannot take.
 //
 // Bounds (the wrapper pads C and O to multiples of 8 and refuses the
-// rest): C and O multiples of 8 (TMA's 16-byte strides; the f32
-// kernel's float4 loads), in bf16 KH and KW at most 255 (the im2col
-// offsets and corners), N*H*W < 2^30 (the pixel index is 32-bit; offsets are
-// 64-bit), 16-byte aligned x, w, y.  Any N, H, W.
+// rest): C and O multiples of 8 (TMA's 16-byte strides; the scalar
+// kernel's float4 loads), KH and KW at most 255 on the tensor cores
+// (the im2col offsets and corners; bf16 refuses larger kernels, f32
+// takes the scalar kernel there), N*H*W < 2^30 (the pixel index is
+// 32-bit; offsets are 64-bit), 16-byte aligned x, w, y.  Any N, H, W.
 //
 // Bound on the H100: operations.  At the probe's shapes (b256, 14^2 x 256
 // and the like) the work is 2*N*H*W*C*O*KH*KW = 59.2 GFLOP over ~40 MB,
-// ~1500 flop/byte.
+// ~1500 flop/byte; six times that in f32.
 #include "common.cuh"
 #include "hopper.cuh"
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------------------- tensor cores
 #define CBK 64                     // channels per K chunk
 #define PIX 128                    // pixels per im2col load
 #define A_LOAD (PIX * CBK * 2)     // 16 KB
 
-// ----------------------------------------------------------------- f32
+// ------------------------------------------- scalar f32 (KH or KW > 255)
 #define FBM 64
 #define FBN 64
 #define FBK 16
 
 struct ConvShape {
-  int H, W, C, KW, O, M, ph, pw, cchunks, iters;
+  int N, H, W, C, KW, O, M, ph, pw, cchunks, iters, taps;
 };
 
-// The bf16 kernel's output tile: 128*MW pixels (two consumer warpgroups
-// of MW 64-row blocks) by BN outputs.  Shared memory: a ring whose stage
-// holds MW im2col loads of A and BN/64 boxes of B, as many stages as fit
-// beside the output staging (each warpgroup's MW x BN/64 boxes) in 216
-// KB, at most 8
+// The tensor-core kernels' output tile: 128*MW pixels (two consumer
+// warpgroups of MW 64-row blocks) by BN outputs.  Shared memory: a ring
+// whose stage holds MW im2col loads of A and BN/64 boxes of B (bf16 in
+// both kernels), as many stages as fit beside the output staging (each
+// warpgroup's MW x BN/64 boxes of 8 KB: its bf16 tile, or half its f32
+// tile) in 216 KB, at most 8
 template <int BN, int MW>
 struct ConvTile {
   static constexpr int BM = 128 * MW;
@@ -79,13 +95,16 @@ struct ConvTile {
   static constexpr int SMEM = STAGES * STAGE + 2 * STG + 1024;
 };
 
-template <int BN, int MW>
-__global__ void __launch_bounds__(384, 1)
-    conv_nhwc_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
-                           const __grid_constant__ CUtensorMap tw,
-                           const __grid_constant__ CUtensorMap ty,
-                           ConvShape s, int m_tiles, int tiles) {
+// The body of both kernels.  SPLIT: x and w are the stacked bf16 parts
+// of f32 operands, the loop runs over the six pairs, y is f32
+template <int BN, int MW, bool SPLIT>
+__device__ __forceinline__ void conv_body(const CUtensorMap& tx,
+                                          const CUtensorMap& tw,
+                                          const CUtensorMap& ty,
+                                          const ConvShape& s, int m_tiles,
+                                          int tiles) {
   using R = ConvTile<BN, MW>;
+  constexpr int PAIRS = SPLIT ? 6 : 1;
   extern __shared__ uint8_t cv_raw[];
   __shared__ __align__(8) uint64_t bar_full[R::STAGES];
   __shared__ __align__(8) uint64_t bar_empty[R::STAGES];
@@ -118,23 +137,32 @@ __global__ void __launch_bounds__(384, 1)
         lh[j] = t - ln[j] * s.H - s.ph;
         lw[j] = m - t * s.W - s.pw;
       }
-      for (int c = 0; c < s.iters; ++c, ++it) {
+      // chunk ci of pair `pair`, counted on without a division: the one
+      // thread that issues every load sits on the ring's critical path
+      for (int pair = 0, ci = 0; pair < PAIRS; ++it) {
         const int st = it % R::STAGES;
         if (it >= R::STAGES)  // the chunk that last used the stage is done
           mbar_wait(&bar_empty[st], ((it / R::STAGES) - 1) & 1);
-        const int khw = c / s.cchunks;
-        const int c0 = (c - khw * s.cchunks) * CBK;
+        const int khw = ci / s.cchunks;
+        const int c0 = (ci - khw * s.cchunks) * CBK;
         const int kh = khw / s.KW, kw = khw - kh * s.KW;
+        // x's part: images + part * N; w's part: taps + part * KH*KW
+        const int xn = SPLIT ? split_a(pair) * s.N : 0;
+        const int wt = SPLIT ? split_b(pair) * s.taps : 0;
         uint8_t* a = ring + st * R::STAGE;
         mbar_expect_tx(&bar_full[st], R::STAGE);
 #pragma unroll
         for (int j = 0; j < MW; ++j)
           tma_load_im2col(a + j * A_LOAD, &tx, &bar_full[st], c0, lw[j],
-                          lh[j], ln[j], kw, kh);
+                          lh[j], ln[j] + xn, kw, kh);
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j)
           tma_load_3d(a + R::A_BYTES + j * HOP_TILE_BYTES, &tw,
-                      &bar_full[st], o0 + 64 * j, c0, khw);
+                      &bar_full[st], o0 + 64 * j, c0, khw + wt);
+        if (++ci == s.iters) {
+          ci = 0;
+          ++pair;
+        }
       }
     }
   } else {  // consumer warpgroup wg: MW 64-row blocks from 64*MW*wg
@@ -150,7 +178,7 @@ __global__ void __launch_bounds__(384, 1)
       for (int i = 0; i < MW; ++i)
 #pragma unroll
         for (int e = 0; e < BN / 2; ++e) acc[i][e] = 0.f;
-      for (int c = 0; c < s.iters; ++c, ++it) {
+      for (int c = 0; c < PAIRS * s.iters; ++c, ++it) {
         const int st = it % R::STAGES;
         mbar_wait(&bar_full[st], (it / R::STAGES) & 1);
         const uint8_t* a =
@@ -177,27 +205,40 @@ __global__ void __launch_bounds__(384, 1)
       for (int i = 0; i < MW; ++i) fence_regs(acc[i]);
       mbar_arrive(&bar_empty[(it - 1) % R::STAGES]);
 
-      // y through shared memory: once the previous tile's stores have
-      // read the staging boxes, round the accumulators into them and let
-      // TMA store them (rows past N*H*W and columns past O are dropped)
-      // while the next tile's products run
-      if (lead) bulk_wait_read();
-      named_sync(1 + wg, 128);
+      // y through shared memory: once the previous stores have read the
+      // staging boxes, put the accumulators into them (bf16: rounded, in
+      // one pass; f32: half the columns a pass) and let TMA store them
+      // (rows past N*H*W and columns past O are dropped) while the next
+      // tile's products run
 #pragma unroll
-      for (int i = 0; i < MW; ++i)
-        stage_acc<BN / 64>(stg + i * (BN / 64) * HOP_TILE_BYTES, acc[i],
-                           warp, lane);
-      fence_async_smem();
-      named_sync(1 + wg, 128);
-      if (lead) {
+      for (int hf = 0; hf < (SPLIT ? 2 : 1); ++hf) {
+        if (lead) bulk_wait_read();
+        named_sync(1 + wg, 128);
 #pragma unroll
-        for (int i = 0; i < MW; ++i)
+        for (int i = 0; i < MW; ++i) {
+          uint8_t* boxes = stg + i * (BN / 64) * HOP_TILE_BYTES;
+          if constexpr (!SPLIT)
+            stage_acc<BN / 64>(boxes, acc[i], warp, lane);
+          else if (hf == 0)
+            stage_acc_f32<BN / 64, 0>(boxes, acc[i], warp, lane);
+          else
+            stage_acc_f32<BN / 64, 1>(boxes, acc[i], warp, lane);
+        }
+        fence_async_smem();
+        named_sync(1 + wg, 128);
+        if (lead) {
+          // a box is 64 columns of bf16 or 32 of f32
+          const int cols = SPLIT ? 32 : 64;
 #pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            tma_store_3d(&ty,
-                         stg + (i * (BN / 64) + j) * HOP_TILE_BYTES,
-                         o0 + 64 * j, m0 + 64 * (MW * wg + i), 0);
-        bulk_commit();
+          for (int i = 0; i < MW; ++i)
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j)
+              tma_store_3d(&ty,
+                           stg + (i * (BN / 64) + j) * HOP_TILE_BYTES,
+                           o0 + hf * (BN / 2) + cols * j,
+                           m0 + 64 * (MW * wg + i), 0);
+          bulk_commit();
+        }
       }
     }
     if (lead) bulk_wait();
@@ -205,26 +246,77 @@ __global__ void __launch_bounds__(384, 1)
 }
 
 template <int BN, int MW>
-static int launch_wgmma(const void* x, const void* w, void* y, int N,
-                        const ConvShape& s, int KH, cudaStream_t stream) {
+__global__ void __launch_bounds__(384, 1)
+    conv_nhwc_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           const __grid_constant__ CUtensorMap ty,
+                           ConvShape s, int m_tiles, int tiles) {
+  conv_body<BN, MW, false>(tx, tw, ty, s, m_tiles, tiles);
+}
+
+template <int BN, int MW>
+__global__ void __launch_bounds__(384, 1)
+    conv_nhwc_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                               const __grid_constant__ CUtensorMap tw,
+                               const __grid_constant__ CUtensorMap ty,
+                               ConvShape s, int m_tiles, int tiles) {
+  conv_body<BN, MW, true>(tx, tw, ty, s, m_tiles, tiles);
+}
+
+// x (na floats) and w (nb floats), each a multiple of 4, into their
+// three bf16 parts: part p of x at xs + p * na, of w at ws + p * nb
+__global__ void __launch_bounds__(256)
+    conv_split_f32_kernel(const float4* __restrict__ x,
+                          const float4* __restrict__ w,
+                          uint2* __restrict__ xs, uint2* __restrict__ ws,
+                          long long na4, long long nb4) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < na4 + nb4; i += (long long)gridDim.x * blockDim.x) {
+    const bool in_x = i < na4;
+    const long long k = in_x ? i : i - na4, n = in_x ? na4 : nb4;
+    const float4 v = in_x ? x[k] : w[k];
+    uint2* out = in_x ? xs : ws;
+    uint32_t h[4], m[4], l[4];
+    split3(v.x, h[0], m[0], l[0]);
+    split3(v.y, h[1], m[1], l[1]);
+    split3(v.z, h[2], m[2], l[2]);
+    split3(v.w, h[3], m[3], l[3]);
+    out[k] = make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+    out[n + k] = make_uint2(m[0] | (m[1] << 16), m[2] | (m[3] << 16));
+    out[2 * n + k] = make_uint2(l[0] | (l[1] << 16), l[2] | (l[3] << 16));
+  }
+}
+
+static int sm_count(int* sms) {
+  int dev, e;
+  if ((e = (int)cudaGetDevice(&dev))) return e;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+}
+
+// x and w: bf16 operands, or (SPLIT) the stacked bf16 parts of f32 ones
+template <int BN, int MW, bool SPLIT>
+static int launch_wgmma(const void* x, const void* w, void* y,
+                        const ConvShape& s, cudaStream_t stream) {
   using R = ConvTile<BN, MW>;
+  constexpr int PARTS = SPLIT ? 3 : 1;
+  const auto kern = SPLIT ? conv_nhwc_f32_wgmma_kernel<BN, MW>
+                          : conv_nhwc_wgmma_kernel<BN, MW>;
   CUtensorMap mx, mw, my;
-  int e, dev, sms;
-  if ((e = hop_map_im2col_bf16(&mx, x, N, s.H, s.W, s.C, s.ph, s.pw, PIX)) ||
-      (e = hop_map_bf16(&mw, w, KH * s.KW, s.C, s.O)) ||
-      (e = hop_map_bf16(&my, y, 1, s.M, s.O)) ||
-      (e = (int)cudaGetDevice(&dev)) ||
-      (e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev)) ||
+  int e, sms;
+  if ((e = hop_map_im2col_bf16(&mx, x, PARTS * s.N, s.H, s.W, s.C, s.ph,
+                               s.pw, PIX)) ||
+      (e = hop_map_bf16(&mw, w, PARTS * s.taps, s.C, s.O)) ||
+      (e = SPLIT ? hop_map_f32_out(&my, y, 1, s.M, s.O)
+                 : hop_map_bf16(&my, y, 1, s.M, s.O)) ||
+      (e = sm_count(&sms)) ||
       (e = (int)cudaFuncSetAttribute(
-           conv_nhwc_wgmma_kernel<BN, MW>,
-           cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM)))
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM)))
     return e;
   const int m_tiles = (s.M + R::BM - 1) / R::BM;
   const int tiles = m_tiles * ((s.O + BN - 1) / BN);
-  conv_nhwc_wgmma_kernel<BN, MW>
-      <<<tiles < sms ? tiles : sms, 384, R::SMEM, stream>>>(
-          mx, mw, my, s, m_tiles, tiles);
+  kern<<<tiles < sms ? tiles : sms, 384, R::SMEM, stream>>>(mx, mw, my, s,
+                                                           m_tiles, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -314,19 +406,37 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// the bf16 kernel at the widest of 256 x 128, 128 x 256 and 256 x 64
-// (pixels x outputs) that O fills (PERF.md records every tile's times
-// at the probe's shapes)
-static int conv_bf16(const void* x, const void* w, void* y, int N,
-                     const ConvShape& s, int KH, cudaStream_t st) {
-  if (s.O <= 64) return launch_wgmma<64, 2>(x, w, y, N, s, KH, st);
-  if (s.O % 256 == 0) return launch_wgmma<256, 1>(x, w, y, N, s, KH, st);
-  return launch_wgmma<128, 2>(x, w, y, N, s, KH, st);
+// the tensor-core kernel at the widest of 256 x 128, 128 x 256 and 256 x
+// 64 (pixels x outputs) that O fills (PERF.md records every tile's
+// times at the probe's shapes)
+template <bool SPLIT>
+static int conv_wgmma(const void* x, const void* w, void* y,
+                      const ConvShape& s, cudaStream_t st) {
+  if (s.O <= 64) return launch_wgmma<64, 2, SPLIT>(x, w, y, s, st);
+  if (s.O % 256 == 0) return launch_wgmma<256, 1, SPLIT>(x, w, y, s, st);
+  return launch_wgmma<128, 2, SPLIT>(x, w, y, s, st);
+}
+
+// f32 on the tensor cores: the split prepass into xs (3 x's numel) and
+// ws (3 w's numel), then the kernel over the six pairs
+static int conv_f32_split(const void* x, const void* w, void* y, void* xs,
+                          void* ws, const ConvShape& s, cudaStream_t st) {
+  int sms, e;
+  if ((e = sm_count(&sms))) return e;
+  const long long na4 = (long long)s.M * s.C / 4;
+  const long long nb4 = (long long)s.taps * s.C * s.O / 4;
+  const long long blocks = (na4 + nb4 + 255) / 256;
+  conv_split_f32_kernel<<<(unsigned)(blocks < 8LL * sms ? blocks : 8LL * sms),
+                          256, 0, st>>>((const float4*)x, (const float4*)w,
+                                        (uint2*)xs, (uint2*)ws, na4, nb4);
+  if ((e = (int)cudaGetLastError())) return e;
+  return conv_wgmma<true>(xs, ws, y, s, st);
 }
 
 static ConvShape shape_of(int N, int H, int W, int C, int KH, int KW, int O,
                           int chunk) {
   ConvShape s;
+  s.N = N;
   s.H = H;
   s.W = W;
   s.C = C;
@@ -337,18 +447,27 @@ static ConvShape shape_of(int N, int H, int W, int C, int KH, int KW, int O,
   s.pw = KW / 2;
   s.cchunks = (C + chunk - 1) / chunk;
   s.iters = KH * KW * s.cchunks;
+  s.taps = KH * KW;
   return s;
 }
 
-extern "C" int mxt_conv_nhwc(const void* x, const void* w, void* y, int N,
-                             int H, int W, int C, int KH, int KW, int O,
-                             int dtype, void* stream) {
+// xs, ws: scratch of 3 x.numel() and 3 w.numel() bf16 for f32 with KH,
+// KW <= 255 (the split's parts), else unused
+extern "C" int mxt_conv_nhwc(const void* x, const void* w, void* y, void* xs,
+                             void* ws, int N, int H, int W, int C, int KH,
+                             int KW, int O, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (C % 8 || O % 8) return (int)cudaErrorInvalidValue;  // the wrapper pads
+  const bool wide = KH > 255 || KW > 255;  // past the im2col loads
   if (dtype == MXT_BF16) {
-    if (KH > 255 || KW > 255) return (int)cudaErrorInvalidValue;
-    return conv_bf16(x, w, y, N, shape_of(N, H, W, C, KH, KW, O, CBK), KH,
-                     st);
+    if (wide) return (int)cudaErrorInvalidValue;
+    return conv_wgmma<false>(x, w, y, shape_of(N, H, W, C, KH, KW, O, CBK),
+                             st);
+  }
+  if (dtype == MXT_F32 && !wide) {
+    if (!xs || !ws) return (int)cudaErrorInvalidValue;
+    return conv_f32_split(x, w, y, xs, ws,
+                          shape_of(N, H, W, C, KH, KW, O, CBK), st);
   }
   if (dtype == MXT_F32) {
     const ConvShape s = shape_of(N, H, W, C, KH, KW, O, FBK);

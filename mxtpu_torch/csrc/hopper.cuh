@@ -21,6 +21,15 @@
 //    moves the start 2048 bytes.
 // An im2col load writes the same layout: one 128-byte row of 64
 // channels per pixel, so 64 of its pixel rows are a K-major tile.
+//
+// f32 on the tensor cores (split3, split_box, split_pack3): each f32
+// operand is split exactly into three bf16 parts, x = hi + mid + lo,
+// and a product a.b is the sum of the six part products that matter,
+// taken into one f32 accumulator smallest first: lo.hi, hi.lo, mid.mid,
+// mid.hi, hi.mid, hi.hi (the three dropped, mid.lo, lo.mid and lo.lo,
+// are below 2^-24 of the product).  That is what the TPU does for
+// Precision.HIGHEST (six bf16 passes); it is not TF32, which keeps 10
+// bits of each operand.
 #pragma once
 
 #include <cuda.h>
@@ -238,6 +247,88 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---- the exact three-way split of f32 --------------------------------
+
+// x = hi + mid + lo exactly, each part a bf16 (its 16 bits returned in
+// the low half of h, m, l).  By truncation: hi is x with its low 16 bits
+// cleared, mid the same of x - hi, lo the rest rounded to bf16, which is
+// exact: x has 24 significant bits, hi takes the first 8, mid the next
+// 8 of the rest and lo what remains (at most 8).  Truncation never
+// overflows (rounding hi to nearest would, near FLT_MAX).  Each rest has
+// x's sign or is zero; it takes x's sign bit, so that -0 splits as -0
+// parts.  Exact wherever x's lowest set bit is at least 2^-133, the
+// smallest bf16 subnormal: every normal |x| >= 2^-110; below that the
+// lost part is under 2^-133.  A non-finite x splits as (x, 0, 0) (a nan
+// stays a nan in hi), so inf and nan propagate as in f32.
+__device__ __forceinline__ void split3(float x, uint32_t& h, uint32_t& m,
+                                       uint32_t& l) {
+  const uint32_t b = __float_as_uint(x), sign = b & 0x80000000u;
+  const float hi = __uint_as_float(b & 0xFFFF0000u);
+  const uint32_t r1 = __float_as_uint(__fsub_rn(x, hi)) | sign;
+  const float mid = __uint_as_float(r1 & 0xFFFF0000u);
+  const float r2 =
+      __uint_as_float(__float_as_uint(__fsub_rn(__uint_as_float(r1), mid)) |
+                      sign);
+  const bool finite = (b & 0x7F800000u) != 0x7F800000u;
+  h = (b >> 16) | (!finite && (b & 0x007FFFFFu) ? 0x40u : 0u);
+  m = finite ? r1 >> 16 : 0u;
+  l = finite ? (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(r2)) : 0u;
+}
+
+// The part of pair i (0..5, smallest product first) that each side
+// takes: 0 hi, 1 mid, 2 lo.  A: lo hi mid mid hi hi; B: hi lo mid hi
+// mid hi.
+__host__ __device__ constexpr int split_a(int i) {
+  return i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
+}
+__host__ __device__ constexpr int split_b(int i) {
+  return i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
+}
+
+#define HOP_F32_BOX (64 * 64 * 4)  // one 64 x 64 f32 box, unswizzled
+
+// A 64 x 64 f32 box as TMA loads it with no swizzle (row-major, 256
+// bytes a row) into three 64 x 64 bf16 boxes hi, mid, lo in the
+// 128-byte swizzle that the descriptors read (see the top of this
+// file), by the NT threads t = 0 .. NT - 1.  Each thread takes 4
+// columns a step: a 16-byte read (consecutive threads, consecutive
+// addresses) and an 8-byte write into each part (16 threads fill one
+// 128-byte row), so neither side has bank conflicts.
+template <int NT>
+__device__ __forceinline__ void split_box(const float* src, uint8_t* hi,
+                                          uint8_t* mid, uint8_t* lo,
+                                          int t) {
+#pragma unroll
+  for (int e = t; e < 64 * 16; e += NT) {
+    const int r = e >> 4, q = e & 15;
+    const float4 v = reinterpret_cast<const float4*>(src)[e];
+    uint32_t h[4], m[4], l[4];
+    split3(v.x, h[0], m[0], l[0]);
+    split3(v.y, h[1], m[1], l[1]);
+    split3(v.z, h[2], m[2], l[2]);
+    split3(v.w, h[3], m[3], l[3]);
+    const int off = r * 128 + ((((q >> 1) ^ (r & 7))) << 4) + ((q & 1) << 3);
+    *reinterpret_cast<uint2*>(hi + off) =
+        make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+    *reinterpret_cast<uint2*>(mid + off) =
+        make_uint2(m[0] | (m[1] << 16), m[2] | (m[3] << 16));
+    *reinterpret_cast<uint2*>(lo + off) =
+        make_uint2(l[0] | (l[1] << 16), l[2] | (l[3] << 16));
+  }
+}
+
+// two f32 as three bf16x2 registers (x0 in the low halves): the parts
+// of an RS wgmma's A fragment (layout below)
+__device__ __forceinline__ void split_pack3(float x0, float x1, uint32_t& h,
+                                            uint32_t& m, uint32_t& l) {
+  uint32_t h0, m0, l0, h1, m1, l1;
+  split3(x0, h0, m0, l0);
+  split3(x1, h1, m1, l1);
+  h = h0 | (h1 << 16);
+  m = m0 | (m1 << 16);
+  l = l0 | (l1 << 16);
+}
+
 // Accumulator layout of m64nN (f32): thread (warp w, lane l) holds, for
 // each group j of 8 columns, d[4j + e] at row 16w + l/4 + 8*(e >> 1),
 // column 8j + 2*(l % 4) + (e & 1).  The A-register fragment of an RS
@@ -359,6 +450,31 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32 * NCH],
     wgmma_rs_m64n64k16_mn(d, a, db, 1);
   else
     wgmma_rs_m64n128k16_mn(d, a, db, 1);
+}
+
+// Columns [HALF * 32 NB, (HALF + 1) * 32 NB) of a 64 x 64*NB f32
+// accumulator of a warpgroup into NB swizzled boxes of 64 rows x 32 f32
+// (128 bytes a row, 8 KB; the f32 map's box, hop_map_3d): element (r, c)
+// of the half sits in box c / 32, row r, 16-byte chunk (c % 32) / 4 ^
+// (r % 8).  A warp's 8-byte writes of one instruction fall two to a
+// chunk over the 8 rows: no more than the two passes 256 bytes take.
+template <int NB, int HALF>
+__device__ __forceinline__ void stage_acc_f32(uint8_t* boxes,
+                                              const float (&d)[32 * NB],
+                                              int warp, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + (lane >> 2) + 8 * h;
+    uint8_t* row = boxes + r * 128 + 8 * (lane & 1);
+#pragma unroll
+    for (int jj = 0; jj < 4 * NB; ++jj) {
+      const int j = HALF * 4 * NB + jj;
+      const int chunk = 2 * (jj & 3) + ((lane >> 1) & 1);
+      *reinterpret_cast<float2*>(row + (jj >> 2) * HOP_TILE_BYTES +
+                                 ((chunk ^ (r & 7)) << 4)) =
+          make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    }
+  }
 }
 
 // SS products with B MN-major (the transpose bit), N = 64, 128, 256:
@@ -507,27 +623,51 @@ static void* hop_libcuda_fn(const char* name) {
   return fn;
 }
 
-// The tensor map of a contiguous bf16 (BH, T, D) array, D % 8 == 0 (a
-// 16-byte row stride), 16-byte aligned: boxes of 64 x 64, 128-byte
-// swizzle, zeros outside the array.  Returns 0 or a cudaError_t.
-static int hop_map_bf16(CUtensorMap* map, const void* ptr, int BH, int T,
-                        int D) {
+// The tensor map of a contiguous (BH, T, D) array of `type` (elements
+// of `esize` bytes), 16-byte aligned with a 16-byte row stride: boxes of
+// 64 rows x `cols` elements, zeros outside the array.  Returns 0 or a
+// cudaError_t.
+static int hop_map_3d(CUtensorMap* map, const void* ptr,
+                      CUtensorMapDataType type, int esize, int BH, int T,
+                      int D, int cols, CUtensorMapSwizzle swizzle) {
   static const auto encode = reinterpret_cast<decltype(
       &cuTensorMapEncodeTiled)>(hop_libcuda_fn("cuTensorMapEncodeTiled"));
   if (!encode) return (int)cudaErrorSymbolNotFound;
-  if ((reinterpret_cast<uintptr_t>(ptr) & 15) || D % 8)
+  if ((reinterpret_cast<uintptr_t>(ptr) & 15) || (D * esize) % 16)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * esize,
+                                 (cuuint64_t)T * D * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16 (BH, T, D), D % 8 == 0: boxes of 64 x 64, 128-byte swizzle
+static int hop_map_bf16(CUtensorMap* map, const void* ptr, int BH, int T,
+                        int D) {
+  return hop_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BH, T, D,
+                    64, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// f32 (BH, T, D), D % 4 == 0, read by split_box: boxes of 64 x 64, no
+// swizzle
+static int hop_map_f32(CUtensorMap* map, const void* ptr, int BH, int T,
+                       int D) {
+  return hop_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, BH, T, D,
+                    64, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// f32 (BH, T, D) written from stage_acc_f32's boxes: 64 x 32, 128-byte
+// swizzle
+static int hop_map_f32_out(CUtensorMap* map, const void* ptr, int BH, int T,
+                           int D) {
+  return hop_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, BH, T, D,
+                    32, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The im2col tensor map of a contiguous bf16 NHWC array x (C % 8 == 0,

@@ -3,10 +3,16 @@ and KW//2 columns on each side, output H x W: the port of TPU kernel
 #13, ``tools/probe_conv_strategies.py:pallas_conv`` (body
 ``_conv_kernel``).
 
-* ``conv_nhwc`` — CUDA ``csrc/conv_nhwc.cu``, an implicit GEMM: in bf16
-  on the tensor cores (``conv_nhwc_wgmma_kernel``: TMA im2col loads of
-  the pixels, wgmma), in f32 as true f32 FMAs (``conv_nhwc_f32_kernel``);
-  counted in ``CONV_LAUNCHES``.
+* ``conv_nhwc`` — CUDA ``csrc/conv_nhwc.cu``, an implicit GEMM on the
+  tensor cores: in bf16 ``conv_nhwc_wgmma_kernel`` (TMA im2col loads of
+  the pixels, wgmma); in f32, with no TF32, a prepass
+  (``conv_split_f32_kernel``) splits x and w exactly into three bf16
+  parts each, into scratch this wrapper allocates, and
+  ``conv_nhwc_f32_wgmma_kernel`` sums the six part products that matter
+  in f32 (the TPU's f32 at Precision.HIGHEST).  For KH or KW above 255,
+  past the im2col loads, f32 takes true f32 FMAs
+  (``conv_nhwc_f32_kernel``) and bf16 is refused.  One call counts one
+  launch in ``CONV_LAUNCHES``.
 * :func:`conv_nhwc_reference` — the plain version, the port of
   ``shifted_gemm_conv`` (``:29-43``): pad, then KH*KW matmuls over
   shifted views of the inputs cast to f32, summed in f32, cast back to
@@ -23,7 +29,8 @@ The TPU kernel has no backward, so this one has none either: inputs
 that require grad are refused on every device.  On the card the kernel
 runs or the call raises (no fallback to the plain version or to cuDNN);
 it takes float32 or bfloat16 x and w of one type, contiguous, 16-byte
-aligned, N*H*W < 2^30, and in bf16 KH, KW <= 255.  Any C and O, as
+aligned, N*H*W < 2^30, and in bf16 KH, KW <= 255 (f32 takes any size:
+the scalar kernel past 255).  Any C and O, as
 ``pallas_conv`` takes: the kernel itself needs multiples of 8 (TMA's
 16-byte strides), so ``conv_nhwc`` runs it on copies of x and w
 zero-padded to them and slices y back; zero channels add nothing.
@@ -52,8 +59,9 @@ MAX_PIXELS = 2 ** 30
 # the bf16 kernel's im2col tap offsets and bounding-box corners
 MAX_KERNEL = 255
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w, y; N, H, W, C, KH, KW, O, dtype, stream
-_ARGS = [_P, _P, _P] + [_I] * 8 + [_P]
+# x, w, y, the f32 split's scratch for x and w; N, H, W, C, KH, KW, O,
+# dtype, stream
+_ARGS = [_P] * 5 + [_I] * 8 + [_P]
 
 
 def _shapes(x: torch.Tensor, w: torch.Tensor):
@@ -137,9 +145,17 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x, w = _pad_channels(x, w)
     N, H, W, C, KH, KW, Op = _check(x, w)
     y = torch.empty(N, H, W, Op, dtype=x.dtype, device=x.device)
+    xs = ws = None  # the three bf16 parts of f32 x and w, stacked
+    if x.dtype == torch.float32 and max(KH, KW) <= MAX_KERNEL:
+        xs = torch.empty(3 * x.numel(), dtype=torch.bfloat16,
+                         device=x.device)
+        ws = torch.empty(3 * w.numel(), dtype=torch.bfloat16,
+                         device=x.device)
     fn = _build.bind("conv_nhwc", "mxt_conv_nhwc", _ARGS)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, KH,
+        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                 None if xs is None else xs.data_ptr(),
+                 None if ws is None else ws.data_ptr(), N, H, W, C, KH,
                  KW, Op, _DTYPES[x.dtype], _build.stream_of(x))
     _build.check(err, "conv_nhwc")
     bump(_SELF, "CONV_LAUNCHES")

@@ -193,17 +193,30 @@ def test_one_rounding_misses_gate_long_causal():
     assert _long_causal(split=False) > chip_smoke.TOL["bfloat16"]
 
 
-def test_zero_padding_along_d_changes_nothing():
-    """The wrappers run the bf16 kernels on copies zero-padded along D
-    to a multiple of 8 (TMA's row stride), with the scale of the true
-    D: the padded forward and backward, sliced back, are the unpadded
-    ones (up to one bf16 rounding of the output: the zero columns may
-    change the CPU's summation order)."""
+# one bf16 rounding of the output, in bf16; in f32 the zero columns may
+# change only the CPU's summation order
+PAD_TOL = {torch.bfloat16: dict(rtol=2 ** -8, atol=1e-6),
+           torch.float32: dict(rtol=1e-5, atol=1e-6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_zero_padding_along_d_changes_nothing(dtype):
+    """The wrappers run the TMA kernels (the forward in f32 and bf16,
+    the bf16 backward) on copies zero-padded along D to a multiple of 8
+    (TMA's row stride), with the scale of the true D: the padded
+    forward and backward, sliced back, are the unpadded ones (up to one
+    bf16 rounding of the output in bf16: the zero columns may change
+    the CPU's summation order)."""
     q, k, v, do, o, lse, scale = _inputs(2, 3, 70, 42, True)
+    q, k, v, do, o = (t.to(dtype) for t in (q, k, v, do, o))
+    if dtype == torch.float32:
+        o, lse = tfa.flash_forward_reference(q, k, v, True, scale)
     pq, pk, pv, pdo = tfa._pad_d(q, k, v, do)
     assert pq.shape[-1] == 48 and not pq[..., 42:].any()
+    assert pq.dtype == dtype
     po, plse = tfa.flash_forward_reference(pq, pk, pv, True, scale)
-    one = dict(rtol=2 ** -8, atol=1e-6)
+    one = PAD_TOL[dtype]
     torch.testing.assert_close(po[..., :42].float(), o.float(), **one)
     torch.testing.assert_close(plse, lse, rtol=1e-6, atol=1e-6)
     want = tfa.flash_backward_reference(q, k, v, do, o, lse, True, scale)
@@ -213,11 +226,14 @@ def test_zero_padding_along_d_changes_nothing():
         torch.testing.assert_close(g[..., :42].float(), w.float(), **one)
 
 
-def test_unaligned_bf16_inputs_are_refused():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_unaligned_bf16_inputs_are_refused(dtype):
     """TMA reads from 16-byte aligned addresses; the wrappers raise on
-    any other rather than copy."""
+    any other rather than copy (the forward in f32 and bf16, the bf16
+    backward)."""
     from mxtpu_torch import MXNetError
-    buf = torch.zeros(2 * 64 + 1, dtype=torch.bfloat16)
+    buf = torch.zeros(2 * 64 + 1, dtype=dtype)
     tfa._aligned(buf[:64])
     with pytest.raises(MXNetError, match="16-byte"):
         tfa._aligned(buf[:64], buf[1:65])

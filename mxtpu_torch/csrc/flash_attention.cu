@@ -48,13 +48,15 @@
 // registers into three RS A-fragments for O += P.V, six RS wgmmas with
 // V's parts MN-major.  Shared memory (1 KB alignment beside):
 //   NCH 1 (D <= 64):  NWG 2, 2 stages: Q parts 48 KB, K/V parts 48 KB,
-//                     f32 ring 64 KB = 160 KB, 256 threads;
+//                     f32 ring 64 KB = 160 KB, 256 threads, 144
+//                     registers (ptxas, no spills);
 //   NCH 2 (D <= 128): NWG 1, 1 stage:  Q parts 48 KB, K/V parts 96 KB,
-//                     f32 ring 64 KB = 208 KB, 128 threads.
+//                     f32 ring 64 KB = 208 KB, 128 threads, 180
+//                     registers.
 // With one stage the next tile's load still runs under this tile's
 // products: a stage is free as soon as its tile is split.  Q's f32 box
-// lands in the K/V parts' room, split before the first tile.  Registers
-// (ptxas) and times: PERF.md.
+// lands in the K/V parts' room, split before the first tile.  Times:
+// PERF.md.
 #include "common.cuh"
 #include "hopper.cuh"
 

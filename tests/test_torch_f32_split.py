@@ -17,17 +17,14 @@ Each is held to the card's f32 gate (``chip_smoke.py``: |r - p| <=
 1e-4 * max(1, |p|)); the same emulation with one bf16 product misses
 it, which is why the kernels split.
 """
-import functools
 import importlib
 import os
 import sys
-import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 import tools.probe_conv_strategies as jpcs
 
@@ -35,7 +32,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
 import chip_smoke  # noqa: E402
 from test_torch_conv_probe import (BKC, BM, TILING_CASES,  # noqa: E402
-                                   _walk)
+                                   _walk, interpret)  # noqa: F401
 
 tfa = importlib.import_module("mxtpu_torch.kernels.flash_attention")
 tconv = importlib.import_module("mxtpu_torch.kernels.conv")
@@ -230,11 +227,6 @@ def _qkv(seed, BH, Tq, Tk, D):
     return tuple(torch.from_numpy(t) for t in (q, k, v))
 
 
-@pytest.fixture(autouse=True)
-def _interpret(monkeypatch):
-    monkeypatch.setenv("MXTPU_PALLAS", "interpret")
-
-
 # (causal, Tq, Tk, D, delta): full and causal tiles, two CTAs of rows,
 # D = 128 (64-row CTAs, two column boxes), Tq != Tk, an explicit
 # diagonal, rows that see no key (Tq > Tk), D off 64
@@ -274,14 +266,6 @@ def test_flash_split_matches_the_ports_plain_version_at_long_causal_t():
 
 
 # ------------------------------------------------------- (c) the conv
-
-@pytest.fixture
-def interpret(monkeypatch):
-    """``pallas_conv`` through Pallas' interpreter."""
-    monkeypatch.setattr(jpcs, "pl", types.SimpleNamespace(
-        pallas_call=functools.partial(pl.pallas_call, interpret=True),
-        BlockSpec=pl.BlockSpec))
-
 
 def emulated_split_conv(x, w, one_product=False):
     """y as ``conv_nhwc_f32_wgmma_kernel`` computes it from f32 x (N, H,

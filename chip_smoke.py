@@ -1,6 +1,7 @@
 """Drive mxtpu_torch on one NVIDIA GPU: build its kernels, hold each
 against its plain PyTorch version, train BERT-Large with the
-``bench_bert`` recipe (adam, bf16 compute, b32 x T128), train ResNet-50
+``bench_bert`` recipe (adam, b32 x T128) in bf16 compute and in the
+API's default f32, train ResNet-50
 v1 with the ``bench_resnet50`` recipe (SGD momentum, bf16 compute, b256
 x 224^2) in NCHW and NHWC, train examples/train_cifar10.py's resnet20
 through the symbolic API (sym → Module.fit), also with a CustomOp
@@ -18,10 +19,11 @@ Phases, each fatal on failure:
      ``fa_fwd_wgmma_kernel``, ``fa_bwd_dq_wgmma_kernel``,
      ``fa_bwd_dkv_wgmma_kernel``, ``conv_nhwc_wgmma_kernel``; f32 as six
      bf16 products of an exact three-way split, no TF32:
-     ``fa_fwd_f32_wgmma_kernel``, ``conv_nhwc_f32_wgmma_kernel``) must
-     show wgmma (HGMMA) and TMA loads (UTMALDG; the conv's im2col loads
-     are UTMALDG too) in every instantiation, and their ptxas reports no
-     spills;
+     ``fa_fwd_f32_wgmma_kernel``, ``fa_bwd_dq_f32_wgmma_kernel``,
+     ``fa_bwd_dkv_f32_wgmma_kernel``, ``conv_nhwc_f32_wgmma_kernel``)
+     must show wgmma (HGMMA) and TMA loads (UTMALDG; the conv's im2col
+     loads are UTMALDG too) in every instantiation, the f32 ones no
+     TF32 HGMMA, and their ptxas reports no spills;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
      in f32 and bf16; flash attention also causal at T=127 and Tq !=
@@ -33,7 +35,7 @@ Phases, each fatal on failure:
   3. each BERT backward kernel likewise (flash dq and dk/dv, LayerNorm,
      the fused epilogue at keep=0.9 with dh's zeros equal to the
      dropped set bit for bit), at the training shapes, flash also causal
-     in bf16 at B4 H16 D64 T=4096 and, forward and backward, at edge
+     in f32 and bf16 at B4 H16 D64 T=4096 and, forward and backward, at edge
      shapes (D = 32, 128, 96, 64 with diagonal offsets, and D = 42, off
      the multiple of 8 that TMA needs); times beside AD through the
      plain attention;
@@ -74,7 +76,9 @@ Phases, each fatal on failure:
      median), the loss finite and falling, launch counts exactly
      24/24/24/1/1/48/48 and no BatchNorm per step; tokens/s, ms/step,
      MFU, peak memory and a per-family breakdown of one profiled
-     ``step(x, y)``;
+     ``step(x, y)``; then the same with ``compute_dtype`` left unset
+     (f32, the API's default: the f32 flash backward on the main path),
+     with the same gates;
   9. a full-width ResNet V1 of one bottleneck per stage (f32, b=4,
      64x64), NCHW and NHWC: the loss, every gradient, three SGD
      momentum steps (lr 1e-3) and the running statistics on the card
@@ -148,12 +152,13 @@ library call alike; the kernel's wall time per call (CUDA events over
 back-to-back calls, host launch cost included) is printed beside it.
 
 Output: the card's name and power limit, per-kernel lines, the training
-and serving numbers, a ``{"kernels": [...]}`` JSON line (flash forward
-and dk/dv in bf16 and f32, the bf16 rows with BERT-Large training's
-launches, the f32 rows with serving's and the 2-layer f32 training
-check's; an f32 row on the tensor cores takes the smaller of its FMA
-and split bounds), and last the line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
-result, without CUDA or outside a checkout.  A full report goes to
+and serving numbers, a ``{"kernels": [...]}`` JSON line (flash forward,
+dq and dk/dv in bf16 and f32, the bf16 rows with BERT-Large bf16
+training's launches, the f32 forward with serving's and the f32
+backward with BERT-Large f32 training's; an f32 row on the tensor cores
+takes the smaller of its FMA and split bounds), and last the line
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+without CUDA or outside a checkout.  A full report goes to
 ``mxtpu_torch/_build/chip_smoke_report.json``.
 """
 import json
@@ -179,9 +184,9 @@ GRAD_TOL, LOSS_TOL, STEP_TOL = 1e-4, 1e-5, 1e-4
 # launches
 KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                                         "fa_fwd_wgmma_kernel"),
-                "flash_attention_bwd_dq": ("fa_bwd_dq_kernel",
+                "flash_attention_bwd_dq": ("fa_bwd_dq_f32_wgmma_kernel",
                                            "fa_bwd_dq_wgmma_kernel"),
-                "flash_attention_bwd_dkv": ("fa_bwd_dkv_kernel",
+                "flash_attention_bwd_dkv": ("fa_bwd_dkv_f32_wgmma_kernel",
                                             "fa_bwd_dkv_wgmma_kernel"),
                 "layer_norm_fwd": ("ln_fwd_kernel",),
                 "layer_norm_bwd": ("ln_bwd_kernel",),
@@ -197,11 +202,14 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                               "conv_nhwc_f32_kernel")}
 # the kernels that must run on the tensor cores with TMA loads (bf16,
 # and f32 split into bf16 parts): the library each is built into, and
-# the instructions its SASS must hold
+# the instructions its SASS must hold; the f32 ones (named "_f32_")
+# must hold no TF32 product either
 TENSOR_CORE_KERNELS = {"fa_fwd_wgmma_kernel": "flash_attention",
                        "fa_fwd_f32_wgmma_kernel": "flash_attention",
                        "fa_bwd_dq_wgmma_kernel": "flash_attention_bwd",
                        "fa_bwd_dkv_wgmma_kernel": "flash_attention_bwd",
+                       "fa_bwd_dq_f32_wgmma_kernel": "flash_attention_bwd",
+                       "fa_bwd_dkv_f32_wgmma_kernel": "flash_attention_bwd",
                        "conv_nhwc_wgmma_kernel": "conv_nhwc",
                        "conv_nhwc_f32_wgmma_kernel": "conv_nhwc"}
 SASS_NEEDS = ("HGMMA", "UTMALDG")
@@ -404,7 +412,8 @@ def ptxas_of(log, kern):
 def sass_phase(checks):
     """``cuobjdump -sass`` of the built libraries: every instantiation
     of each tensor-core kernel must hold wgmma (HGMMA) and TMA loads
-    (UTMALDG), so a kernel that silently lost either fails the run; the
+    (UTMALDG), and an f32 one no TF32 HGMMA (its products are bf16
+    parts), so a kernel that silently lost either fails the run; the
     ptxas report of its library (this run's build, or the one kept
     beside a library built earlier) must list every instantiation and
     show no spills (registers printed)."""
@@ -418,14 +427,20 @@ def sass_phase(checks):
                  if kern in f.split("\n", 1)[0]]
         counts = [{w: f.count(w) for w in SASS_NEEDS} for f in funcs]
         ok = bool(funcs) and all(all(c.values()) for c in counts)
+        if "_f32_" in kern:
+            for c, f in zip(counts, funcs):
+                c["TF32 HGMMA"] = sum("HGMMA" in line and "TF32" in line
+                                      for line in f.splitlines())
+            ok = ok and not any(c["TF32 HGMMA"] for c in counts)
         print(f"check SASS {kern} ({src}): {len(funcs)} instantiations, "
               f"{counts} {'ok' if ok else 'FAIL'}", flush=True)
         checks.rows.append({"check": f"SASS {kern}", "counts": counts,
                             "ok": ok})
         if not ok:
             checks.failed.append(f"SASS of {kern} lacks "
-                                 f"{'/'.join(SASS_NEEDS)} "
-                                 f"({sass.stderr.strip()[:200]})")
+                                 f"{'/'.join(SASS_NEEDS)} or holds a TF32 "
+                                 f"product ({counts}; "
+                                 f"{sass.stderr.strip()[:200]})")
         regs = ptxas_of(_build.ptxas_log(src), kern)
         ok = len(regs) == len(funcs) > 0 and all(sp == 0 for _, sp in regs)
         print(f"check ptxas {kern}: [registers, spill bytes] of each "
@@ -651,7 +666,7 @@ def backward_phase(checks, gen):
         el = q.element_size()
         rows = 2 * BH * T * 4                       # lse and delta, f32
         per = BH * T * D * el
-        wg = "_wgmma" if dt == torch.bfloat16 else ""
+        wg = "_wgmma" if dt == torch.bfloat16 else "_f32_wgmma"
         dq_name, dkv_name = f"fa_bwd_dq{wg}_kernel", f"fa_bwd_dkv{wg}_kernel"
         kern = device_ms(lambda: fa.flash_backward(q, k, v, do, o, lse,
                                                    False, scale),
@@ -672,30 +687,42 @@ def backward_phase(checks, gen):
                  6 * BH * T * T * D, errs[0]),
                 ("flash_attention_bwd_dkv", dkv_name, 6,
                  8 * BH * T * T * D, max(errs[1:]))):
-            b_ms, b_by = bound(nt * per + rows, ops, name)
+            if dt == torch.float32:
+                bounds = f32_bounds(nt * per + rows, ops)
+            else:
+                b_ms, b_by = bound(nt * per + rows, ops, name)
+                bounds = {"bound_ms": b_ms, "bound_by": b_by}
             out[(kname, name)] = {
                 "max_abs_err": err, "ms": kern[pname], "plain_ms": plain,
                 "library_ms": sdpa, "ad_plain_ms": ad_plain,
-                "wall_ms": wall, "bound_ms": b_ms, "bound_by": b_by}
-    q, k, v, do = (randn(FLASH_LONG_BH, FLASH_LONG_T, D,
-                         dtype=torch.bfloat16) for _ in range(4))
-    o, lse = fa.flash_forward(q, k, v, True, scale)
-    got = fa.flash_backward(q, k, v, do, o, lse, True, scale)
-    want = fa.flash_backward_reference(q, k, v, do, o, lse, True, scale)
-    torch.cuda.synchronize()
-    tag = f"flash_backward causal=True BH{FLASH_LONG_BH} T{FLASH_LONG_T}"
-    for g, a, b in zip(("dq", "dk", "dv"), got, want):
-        checks.close(f"{tag} {g}", a, b, "bfloat16",
-                     scale_floor(b, "bfloat16"))
-    if not all(torch.isfinite(t).all() for t in got):
-        checks.failed.append(f"{tag} [bfloat16]: not finite")
-    # where bench_flash's long-context backward spends its time
-    print(f"kernels of {tag} [bfloat16] (device ms per call): " + "; ".join(
-        f"{name} {ms:.4f}" for name, ms in kernels_of(
-            lambda: fa.flash_backward(q, k, v, do, o, lse, True, scale))),
-        flush=True)
-    del q, k, v, do, o, lse, got, want
-    torch.cuda.empty_cache()
+                "wall_ms": wall, **bounds}
+    # causal at bench_flash's longest T: bf16 from the shared generator
+    # as before, f32 from one of its own, so that every later check's
+    # inputs stay as they were without it
+    lgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        q, k, v, do = (torch.randn(FLASH_LONG_BH, FLASH_LONG_T, D,
+                                   generator=gen if dt == torch.bfloat16
+                                   else lgen, device=dev).to(dt)
+                       for _ in range(4))
+        o, lse = fa.flash_forward(q, k, v, True, scale)
+        got = fa.flash_backward(q, k, v, do, o, lse, True, scale)
+        want = fa.flash_backward_reference(q, k, v, do, o, lse, True, scale)
+        torch.cuda.synchronize()
+        tag = f"flash_backward causal=True BH{FLASH_LONG_BH} T{FLASH_LONG_T}"
+        for g, a, b in zip(("dq", "dk", "dv"), got, want):
+            checks.close(f"{tag} {g}", a, b, name, scale_floor(b, name))
+        if not all(torch.isfinite(t).all() for t in got):
+            checks.failed.append(f"{tag} [{name}]: not finite")
+        del want
+        # where bench_flash's long-context backward spends its time
+        print(f"kernels of {tag} [{name}] (device ms per call): " +
+              "; ".join(f"{kn} {ms:.4f}" for kn, ms in kernels_of(
+                  lambda: fa.flash_backward(q, k, v, do, o, lse, True,
+                                            scale))), flush=True)
+        del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
 
     # -- LayerNorm ------------------------------------------------------
     for dt in (torch.float32, torch.bfloat16):
@@ -1481,13 +1508,16 @@ def check_launches(checks, tag, counts, per_step, n_steps):
                                  f"{per_step.get(name, 0)} per step")
 
 
-def train_phase(checks):
-    """BERT-Large trained with the bench_bert recipe; returns the launch
-    counts of the timed steps and the numbers."""
+def train_phase(checks, compute_dtype="bfloat16"):
+    """BERT-Large trained with the bench_bert recipe, in bf16 compute or,
+    with ``compute_dtype=None`` (the API's default), in f32; returns the
+    launch counts of the timed steps and the numbers."""
     import torch
     from mxtpu_torch import kernels, random as trandom
     from mxtpu_torch.models import bert_large
     from mxtpu_torch.parallel import build_train_step
+    prec = compute_dtype or "float32"
+    tag = f"training {prec}"
 
     def seeded_step():
         """BERT-Large and its train step from fixed seeds: the weights,
@@ -1498,8 +1528,8 @@ def train_phase(checks):
             net = bert_large(vocab_size=VOCAB, max_length=T, dropout=0.1)
         return build_train_step(net, mlm_loss, "adam",
                                 {"learning_rate": 1e-4},
-                                compute_dtype="bfloat16", cast_batch=False,
-                                device=CARD)
+                                compute_dtype=compute_dtype,
+                                cast_batch=False, device=CARD)
 
     t0 = time.perf_counter()
     step = seeded_step()
@@ -1528,8 +1558,10 @@ def train_phase(checks):
     mm_params = LAYERS * (4 * UNITS * UNITS + 2 * UNITS * FFN) + \
         VOCAB * UNITS
     flops = 6 * mm_params * tokens + 12 * LAYERS * T * UNITS * tokens
-    mfu = flops / (ms_step / 1e3) / PEAK_OPS["bfloat16"]
-    breakdown = profiled_step(checks, "training", step, toks, toks)
+    mfu = flops / (ms_step / 1e3) / PEAK_OPS[prec]
+    breakdown = profiled_step(checks, tag, step, toks, toks)
+    flash_ms = sum(v for k, v in breakdown["device_ms_by_family"].items()
+                   if k.startswith("flash_attention"))
 
     # the same seeds again: every kernel sums in a fixed order, so the
     # first steps' losses repeat bit for bit
@@ -1540,36 +1572,40 @@ def train_phase(checks):
     del again
     torch.cuda.empty_cache()
     same = repeat == losses[:len(repeat)]
-    print(f"check training repeats bit for bit from the same seeds over "
+    print(f"check {tag} repeats bit for bit from the same seeds over "
           f"{len(repeat)} steps: {'ok' if same else 'FAIL'} ({repeat})",
           flush=True)
     if not same:
-        checks.failed.append("training does not repeat from the same seeds")
+        checks.failed.append(f"{tag} does not repeat from the same seeds")
 
     if not all(np.isfinite(losses)):
-        checks.failed.append(f"training losses not finite: {losses}")
+        checks.failed.append(f"{tag} losses not finite: {losses}")
     if not np.mean(losses[-3:]) < losses[0]:
-        checks.failed.append(f"training loss did not fall: {losses}")
-    check_launches(checks, "training", counts,
+        checks.failed.append(f"{tag} loss did not fall: {losses}")
+    check_launches(checks, tag, counts,
                    {"flash_attention_fwd": LAYERS,
                     "flash_attention_bwd_dq": LAYERS,
                     "flash_attention_bwd_dkv": LAYERS,
                     "layer_norm_fwd": 1, "layer_norm_bwd": 1,
                     "fused_residual_ln_fwd": 2 * LAYERS,
                     "fused_residual_ln_bwd": 2 * LAYERS}, n_steps)
-    print(f"training BERT-Large b{B} T{T} bf16 adam: losses "
+    print(f"{tag} BERT-Large b{B} T{T} adam: losses "
           f"{[round(v, 4) for v in losses]}", flush=True)
-    print(f"training: {ms_step:.3f} ms/step (median of {TRAIN_WINDOWS} "
+    print(f"{tag}: {ms_step:.3f} ms/step (median of {TRAIN_WINDOWS} "
           f"windows of {TRAIN_STEPS} steps: "
           f"{', '.join(f'{w:.3f}' for w in window_ms)}), "
           f"{tokens / ms_step * 1e3:.1f} "
-          f"tokens/s, MFU {mfu:.4f} of {PEAK_OPS['bfloat16'] / 1e12:.0f} "
-          f"TFLOP/s bf16 ({flops / 1e12:.3f} TFLOP/step); peak memory "
-          f"{(mem['peak_bytes'] or 0) / 2**30:.3f} GiB; set-up and "
-          f"{TRAIN_WARMUP} warm-up steps {setup_s:.1f} s", flush=True)
-    print(f"training: launches in {n_steps} steps {json.dumps(counts)}",
+          f"tokens/s, MFU {mfu:.4f} of {PEAK_OPS[prec] / 1e12:.0f} "
+          f"TFLOP/s {prec} ({flops / 1e12:.3f} TFLOP/step); device "
+          f"{breakdown['device_busy_ms']:.3f} ms a step, flash family "
+          f"{flash_ms:.3f}, idle share "
+          f"{breakdown['device_idle_share'] or 0:.4f} (the profiled step); "
+          f"peak memory {(mem['peak_bytes'] or 0) / 2**30:.3f} GiB; set-up "
+          f"and {TRAIN_WARMUP} warm-up steps {setup_s:.1f} s", flush=True)
+    print(f"{tag}: launches in {n_steps} steps {json.dumps(counts)}",
           flush=True)
-    return counts, {"ms_per_step": ms_step, "window_ms_per_step": window_ms,
+    return counts, {"compute_dtype": prec, "ms_per_step": ms_step,
+                    "window_ms_per_step": window_ms,
                     "tokens_per_s": tokens / ms_step * 1e3,
                     "flops_per_step": flops, "mfu": mfu,
                     "memory": mem, "losses": losses, "steps": n_steps,
@@ -2998,6 +3034,7 @@ def main():
 
     f32_train_counts = train_check_phase(checks)
     train_counts, training = train_phase(checks)
+    f32_counts, training_f32 = train_phase(checks, None)
     resnet_check_phase(checks)
     rn_counts, resnet = {}, {}
     for layout in ("NCHW", "NHWC"):
@@ -3012,16 +3049,17 @@ def main():
     print(f"weights: {len(params)} arrays from numpy seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve_counts, serving = serve_phase(checks, params)
-    counts = {k: train_counts[k] + serve_counts[k] + sym_counts[k] +
-              sum(c[k] for c in rn_counts.values()) for k in train_counts}
+    counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
+              sym_counts[k] + sum(c[k] for c in rn_counts.values())
+              for k in train_counts}
 
-    # BERT's flash forward and dk/dv in both types: bf16 (the training
-    # path; the tensor-core kernels) with the BERT-Large training run's
-    # launches, f32 (the forward on the tensor cores as six bf16
-    # products, dk/dv the scalar kernel) with the serving run's and the
-    # f32 2-layer training check's; dq and the backward LayerNorms in
-    # bf16, the forward LayerNorms at the serving type (f32); the
-    # BatchNorm rows at the BN_LINE_SHAPE, launches over every run
+    # BERT's flash forward, dq and dk/dv in both types, every one on the
+    # tensor cores (f32 as six bf16 products): bf16 with the BERT-Large
+    # bf16 training run's launches, the f32 forward with the serving
+    # run's, the f32 dq and dk/dv with the BERT-Large f32 training run's;
+    # the backward LayerNorms in bf16, the forward LayerNorms at the
+    # serving type (f32); the BatchNorm rows at the BN_LINE_SHAPE,
+    # launches over every run
     fa_src, fab_src = ("mxtpu_torch/csrc/flash_attention.cu",
                        "mxtpu_torch/csrc/flash_attention_bwd.cu")
     meta = [
@@ -3034,12 +3072,15 @@ def main():
         ("flash_attention_bwd_dq", fab_src,
          "mxtpu/kernels/flash_attention.py:347", "bfloat16",
          train_counts["flash_attention_bwd_dq"]),
+        ("flash_attention_bwd_dq", fab_src,
+         "mxtpu/kernels/flash_attention.py:347", "float32",
+         f32_counts["flash_attention_bwd_dq"]),
         ("flash_attention_bwd_dkv", fab_src,
          "mxtpu/kernels/flash_attention.py:368", "bfloat16",
          train_counts["flash_attention_bwd_dkv"]),
         ("flash_attention_bwd_dkv", fab_src,
          "mxtpu/kernels/flash_attention.py:368", "float32",
-         f32_train_counts["flash_attention_bwd_dkv"]),
+         f32_counts["flash_attention_bwd_dkv"]),
         ("layer_norm_fwd", "mxtpu_torch/csrc/layer_norm.cu",
          "mxtpu/kernels/layer_norm.py:104", "float32",
          counts["layer_norm_fwd"]),
@@ -3114,6 +3155,7 @@ def main():
               "build_log": dict(_build.build_log), "checks": checks.rows,
               "timings": {f"{n}[{d}]": r for (n, d), r in timings.items()},
               "launches": {"training": train_counts,
+                           "training f32": f32_counts,
                            "training f32 check": f32_train_counts,
                            "serving": serve_counts,
                            **{f"resnet50 {k}": c
@@ -3123,7 +3165,8 @@ def main():
                            **{f"tool {k}": c
                               for k, c in tool_counts.items()}},
               "tools": tool_tables,
-              "training": training, "resnet50": resnet,
+              "training": training, "training_f32": training_f32,
+              "resnet50": resnet,
               "serving": serving, "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

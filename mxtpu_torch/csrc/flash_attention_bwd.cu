@@ -1,315 +1,55 @@
-// Flash attention backward: two kernels, dq and dk/dv.
-// q, dO: (BH, Tq, D); k, v: (BH, Tk, D) row-major, f32 or bf16; lse and
-// delta = rowsum(dO * O): (BH, Tq) f32.  Outputs dq (BH, Tq, D) and dk,
-// dv (BH, Tk, D) in the input type.
+// Flash attention backward: two kernels a dtype, dq and dk/dv, all on
+// Hopper's tensor cores (wgmma, with TMA loads).
+// q, dO: (BH, Tq, D); k, v: (BH, Tk, D) row-major, f32 or bf16, D <= 128
+// and D % 8 == 0 (TMA's 16-byte row stride in bf16; the wrapper zero-pads
+// D); lse and delta = rowsum(dO * O): (BH, Tq) f32.  Outputs dq (BH, Tq,
+// D) and dk, dv (BH, Tk, D) in the input type.
 //
 // Replaces mxtpu/kernels/flash_attention.py:_flash_backward, i.e.
 // _fa_dq_kernel (kv innermost) and _fa_dkv_kernel (q innermost).  The
 // TPU kernels carry their f32 sums in VMEM scratch across a sequential
 // grid axis; here one CTA owns a tile of rows and loops over the other
 // axis itself, with the sums in registers:
-//   dq kernel:   one CTA per (bh, 32 query rows), loop over 32-key tiles;
-//   dk/dv kernel: one CTA per (bh, 32 keys), loop over 32-row q tiles.
-// Each output element is summed by one thread in a fixed order, so both
-// kernels are deterministic and need no atomics.
+//   dq kernels:    a CTA per (bh, 64 query rows a warpgroup), loop over
+//                  64-key tiles;
+//   dk/dv kernels: a CTA per (bh, 64 keys a warpgroup), loop over 64-row
+//                  q tiles.
+// Each output element is summed by one thread in a fixed order, so every
+// kernel is deterministic and needs no atomics.
 //
-// Per (query i, key j), all in f32 (no TF32; the reference casts dO and
-// the inputs to f32 too, and unlike the forward never rounds p):
+// Per (query i, key j), all in f32 (the reference casts dO and the inputs
+// to f32 too, and unlike the forward never rounds p):
 //   s = (q_i . k_j) * scale,  p = exp(s - lse_i),
 //   dp = dO_i . v_j,          ds = p * (dp - delta_i) * scale,
 //   dq_i += ds * k_j,  dk_j += ds * q_i,  dv_j += p * dO_i.
 // A masked pair (key past Tk, or j > i + diag when causal) has p = 0,
 // which is what exp(-1e30 - lse) gives in the reference; a row with no
 // visible key (lse = +1e30) has p = 0 everywhere, so nothing NaN or inf
-// can arise.  Tiles wholly above the diagonal are skipped with the
-// reference's test  j*bk <= i*bq + diag + bq - 1.
+// can arise.  Tiles wholly above the diagonal are skipped, and CTAs are
+// issued longest first.
 //
-// bf16: fa_bwd_dq_wgmma_kernel and fa_bwd_dkv_wgmma_kernel, on the
-// tensor cores (below); f32: the scalar kernels described here.
-//
-// Layout.  dq kernel: 4 warps of 8 query rows; lane j scores key j of
-// the tile against the warp's rows, then ds is broadcast by shuffle and
-// each lane accumulates its D/32 columns of dq.  dk/dv kernel: 4 warps
-// of 8 keys; lane i scores query row i of the q tile against the warp's
-// keys, then p and ds are broadcast by shuffle and each lane
-// accumulates its columns of dk and dv.  The tile read along its rows
-// by lane (k, v in the dq kernel; q, dO in the dk/dv kernel) has an odd
-// shared-memory stride (D + 1), so the lanes hit 32 different banks.
+// bf16: fa_bwd_dq_wgmma_kernel and fa_bwd_dkv_wgmma_kernel, one bf16
+// product per product of the inputs, P and dS split hi + lo.  f32:
+// fa_bwd_dq_f32_wgmma_kernel and fa_bwd_dkv_f32_wgmma_kernel, every f32
+// operand split exactly into three bf16 parts and each product the six
+// part products that matter (hopper.cuh, split3), as the TPU computes
+// f32 at Precision.HIGHEST; no TF32.  Every D <= 128, Tq, Tk and diag
+// runs on these four kernels: no shape has another.
 //
 // Bound on the H100 at the training shape (BH = 512, T = 128, D = 64):
-// dq does 6*BH*T*T*D flops, dk/dv 8*BH*T*T*D; in f32 (67 TFLOP/s on the
-// CUDA cores) operations bound them, in bf16 (989 TFLOP/s on the tensor
-// cores) the bytes do (q, k, v, dO in, dq, dk, dv out, lse and delta).
-// The scalar (f32) kernels do their products as f32 FMAs from shared
-// memory.
+// dq does 6*BH*T*T*D flops, dk/dv 8*BH*T*T*D.  In bf16 (989 TFLOP/s) the
+// bytes bound both (q, k, v, dO read, dq or dk and dv written, lse and
+// delta); in f32 too, with six bf16 products a product: dq 84.4 MB
+// (0.025 ms) against 0.020 ms of tensor-core work, dk/dv 101.2 MB (0.030
+// ms) against 0.026 ms.  Times: PERF.md.
 #include "common.cuh"
 #include "hopper.cuh"
-
-#define BQ 32     // query rows per tile
-#define BK 32     // keys per tile
-#define NWARP 4
-#define RPW (BQ / NWARP)  // dq kernel: query rows per warp
-#define KPW (BK / NWARP)  // dk/dv kernel: keys per warp
-#define MAXNC 4           // columns per lane: D <= 128
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(NWARP * 32)
-    fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dlt, T* __restrict__ dq,
-                     int Tq, int Tk, int D, float scale, int causal,
-                     int diag, int nq) {
-  extern __shared__ float sm[];
-  float* Qs = sm;                 // BQ x D
-  float* Os = Qs + BQ * D;        // BQ x D: dO rows
-  float* Ks = Os + BQ * D;        // BK x (D + 1)
-  float* Vs = Ks + BK * (D + 1);  // BK x (D + 1)
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x - bh * nq) * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t qoff = (size_t)bh * Tq * D, koff = (size_t)bh * Tk * D;
-
-  for (int e = tid; e < BQ * D; e += NWARP * 32) {
-    const int r = e / D, c = e - r * D;
-    const bool in = q0 + r < Tq;
-    const size_t g = qoff + (size_t)(q0 + r) * D + c;
-    Qs[e] = in ? to_f<T>(q[g]) : 0.f;
-    Os[e] = in ? to_f<T>(dout[g]) : 0.f;
-  }
-
-  const int row0 = q0 + warp * RPW;
-  float L[RPW], E[RPW], acc[RPW][NC];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const bool in = row0 + r < Tq;
-    L[r] = in ? lse[(size_t)bh * Tq + row0 + r] : 0.f;
-    E[r] = in ? dlt[(size_t)bh * Tq + row0 + r] : 0.f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
-  }
-
-  const int nk = (Tk + BK - 1) / BK;
-  const int last_visible = q0 + BQ - 1 + diag;
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * BK;
-    if (causal && k0 > last_visible) break;
-    __syncthreads();  // Qs/Os written, or the previous tile consumed
-    for (int e = tid; e < BK * D; e += NWARP * 32) {
-      const int r = e / D, c = e - r * D;
-      const bool in = k0 + r < Tk;
-      const size_t g = koff + (size_t)(k0 + r) * D + c;
-      Ks[r * (D + 1) + c] = in ? to_f<T>(k[g]) : 0.f;
-      Vs[r * (D + 1) + c] = in ? to_f<T>(v[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RPW], dp[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) s[r] = dp[r] = 0.f;
-    const float* kr = Ks + lane * (D + 1);
-    const float* vr = Vs + lane * (D + 1);
-    const float* qw = Qs + warp * RPW * D;
-    const float* ow = Os + warp * RPW * D;
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d], vd = vr[d];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        s[r] = fmaf(qw[r * D + d], kd, s[r]);
-        dp[r] = fmaf(ow[r * D + d], vd, dp[r]);
-      }
-    }
-
-    const int key = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = row0 + r;
-      const bool ok = row < Tq && key < Tk && (!causal || key <= row + diag);
-      const float p = ok ? expf(s[r] * scale - L[r]) : 0.f;
-      const float ds = p * (dp[r] - E[r]) * scale;
-      for (int j = 0; j < BK; ++j) {
-        const float dsj = __shfl_sync(0xffffffffu, ds, j);
-        const float* kj = Ks + j * (D + 1);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) acc[r][i] = fmaf(dsj, kj[d], acc[r][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = row0 + r;
-    if (row >= Tq) continue;
-    T* out = dq + qoff + (size_t)row * D;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) out[d] = from_f<T>(acc[r][i]);
-    }
-  }
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(NWARP * 32)
-    fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ dlt, T* __restrict__ dk,
-                      T* __restrict__ dv, int Tq, int Tk, int D,
-                      float scale, int causal, int diag, int nkt) {
-  extern __shared__ float sm[];
-  float* Ks = sm;                 // BK x D
-  float* Vs = Ks + BK * D;        // BK x D
-  float* Qs = Vs + BK * D;        // BQ x (D + 1)
-  float* Os = Qs + BQ * (D + 1);  // BQ x (D + 1): dO rows
-  float* Ls = Os + BQ * (D + 1);  // BQ: lse of the tile's rows
-  float* Es = Ls + BQ;            // BQ: delta of the tile's rows
-  const int bh = blockIdx.x / nkt;
-  const int k0 = (blockIdx.x - bh * nkt) * BK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t qoff = (size_t)bh * Tq * D, koff = (size_t)bh * Tk * D;
-
-  for (int e = tid; e < BK * D; e += NWARP * 32) {
-    const int r = e / D, c = e - r * D;
-    const bool in = k0 + r < Tk;
-    const size_t g = koff + (size_t)(k0 + r) * D + c;
-    Ks[e] = in ? to_f<T>(k[g]) : 0.f;
-    Vs[e] = in ? to_f<T>(v[g]) : 0.f;
-  }
-
-  const int key0 = k0 + warp * KPW;
-  float ak[KPW][NC], av[KPW][NC];
-#pragma unroll
-  for (int r = 0; r < KPW; ++r)
-#pragma unroll
-    for (int i = 0; i < NC; ++i) ak[r][i] = av[r][i] = 0.f;
-
-  const int nq = (Tq + BQ - 1) / BQ;
-  for (int t = 0; t < nq; ++t) {
-    const int q0 = t * BQ;
-    if (causal && k0 > q0 + BQ - 1 + diag) continue;
-    __syncthreads();  // Ks/Vs written, or the previous tile consumed
-    for (int e = tid; e < BQ * D; e += NWARP * 32) {
-      const int r = e / D, c = e - r * D;
-      const bool in = q0 + r < Tq;
-      const size_t g = qoff + (size_t)(q0 + r) * D + c;
-      Qs[r * (D + 1) + c] = in ? to_f<T>(q[g]) : 0.f;
-      Os[r * (D + 1) + c] = in ? to_f<T>(dout[g]) : 0.f;
-    }
-    if (tid < BQ) {
-      const bool in = q0 + tid < Tq;
-      Ls[tid] = in ? lse[(size_t)bh * Tq + q0 + tid] : 0.f;
-      Es[tid] = in ? dlt[(size_t)bh * Tq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    float s[KPW], dp[KPW];
-#pragma unroll
-    for (int r = 0; r < KPW; ++r) s[r] = dp[r] = 0.f;
-    const float* qr = Qs + lane * (D + 1);
-    const float* orow = Os + lane * (D + 1);
-    const float* kw = Ks + warp * KPW * D;
-    const float* vw = Vs + warp * KPW * D;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d], od = orow[d];
-#pragma unroll
-      for (int r = 0; r < KPW; ++r) {
-        s[r] = fmaf(qd, kw[r * D + d], s[r]);
-        dp[r] = fmaf(od, vw[r * D + d], dp[r]);
-      }
-    }
-
-    const int row = q0 + lane;
-    const float Lr = Ls[lane], Er = Es[lane];
-    float p[KPW], ds[KPW];
-#pragma unroll
-    for (int r = 0; r < KPW; ++r) {
-      const int key = key0 + r;
-      const bool ok = row < Tq && key < Tk && (!causal || key <= row + diag);
-      p[r] = ok ? expf(s[r] * scale - Lr) : 0.f;
-      ds[r] = p[r] * (dp[r] - Er) * scale;
-    }
-    for (int i = 0; i < BQ; ++i) {
-      const float* qi = Qs + i * (D + 1);
-      const float* oi = Os + i * (D + 1);
-#pragma unroll
-      for (int r = 0; r < KPW; ++r) {
-        const float pi = __shfl_sync(0xffffffffu, p[r], i);
-        const float dsi = __shfl_sync(0xffffffffu, ds[r], i);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) {
-            av[r][c] = fmaf(pi, oi[d], av[r][c]);
-            ak[r][c] = fmaf(dsi, qi[d], ak[r][c]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < KPW; ++r) {
-    const int key = key0 + r;
-    if (key >= Tk) continue;
-    T* ko = dk + koff + (size_t)key * D;
-    T* vo = dv + koff + (size_t)key * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        ko[d] = from_f<T>(ak[r][c]);
-        vo[d] = from_f<T>(av[r][c]);
-      }
-    }
-  }
-}
 
 template <typename Kern>
 static int allow_smem(Kern kern, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <typename T, int NC>
-static int launch_dq(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* dlt,
-                     void* dq, int BH, int Tq, int Tk, int D, float scale,
-                     int causal, int diag, cudaStream_t stream) {
-  const int nq = (Tq + BQ - 1) / BQ;
-  const size_t smem =
-      (size_t)(2 * BQ * D + 2 * BK * (D + 1)) * sizeof(float);
-  const int e = allow_smem(fa_bwd_dq_kernel<T, NC>, smem);
-  if (e) return e;
-  fa_bwd_dq_kernel<T, NC><<<(unsigned)((long long)BH * nq), NWARP * 32,
-                            smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dlt, (T*)dq, Tq, Tk, D, scale,
-      causal, diag, nq);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int NC>
-static int launch_dkv(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* dlt,
-                      void* dk, void* dv, int BH, int Tq, int Tk, int D,
-                      float scale, int causal, int diag,
-                      cudaStream_t stream) {
-  const int nkt = (Tk + BK - 1) / BK;
-  const size_t smem =
-      (size_t)(2 * BK * D + 2 * BQ * (D + 1) + 2 * BQ) * sizeof(float);
-  const int e = allow_smem(fa_bwd_dkv_kernel<T, NC>, smem);
-  if (e) return e;
-  fa_bwd_dkv_kernel<T, NC><<<(unsigned)((long long)BH * nkt), NWARP * 32,
-                             smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dlt, (T*)dk, (T*)dv, Tq, Tk, D,
-      scale, causal, diag, nkt);
-  return (int)cudaGetLastError();
 }
 
 // ---- bf16 dq: wgmma + TMA -----------------------------------------------
@@ -714,33 +454,450 @@ static int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// NC = columns per lane = ceil(D / 32), a template argument so that the
-// column loops unroll without dead iterations
-#define FA_DISPATCH(T, FN, ...)                                   \
-  switch ((D + 31) / 32) {                                        \
-    case 1: return FN<T, 1>(__VA_ARGS__);                         \
-    case 2: return FN<T, 2>(__VA_ARGS__);                         \
-    case 3: return FN<T, 3>(__VA_ARGS__);                         \
-    default: return FN<T, 4>(__VA_ARGS__);                        \
+// ---- f32 dq and dk/dv: six bf16 products on wgmma + TMA -----------------
+//
+// The bf16 kernels above at f32 accuracy.  A CTA holds NWG consumer
+// warpgroups, each owning 64 rows: query rows in dq (its Q and dO), keys
+// in dk/dv (its K and V).  The other side streams through in 64-row
+// tiles shared by the warpgroups (K and V in dq, Q and dO in dk/dv).
+// Thread 0 issues every load as TMA f32 boxes (64 x 64, unswizzled) into
+// a ring of SLOTS one-operand slots, in the order the tiles are split
+// (F32Ring): the owned tiles, then each streamed tile's two operands.
+// All threads split each into three bf16 parts in the swizzled boxes the
+// descriptors read (split_box): the owned tiles once, each streamed tile
+// once for the CTA's rows.  The split is done in the kernel because both
+// kernels are bound by their bytes at the training shape, and a prepass
+// would write and read back 1.5x the f32 bytes of q, k, v and dO.
+//   dq:    S = Q.K^T and dP = dO.V^T, six SS wgmmas each a k-step, K and
+//          V K-major; P = exp(scale*S - lse) and dS = P*(dP - delta)*
+//          scale in f32 registers, never rounded; dS split in registers
+//          into three RS A-fragments (split_pack3); dQ += dS.K, six RS
+//          wgmmas a k-step, K's parts MN-major.
+//   dk/dv: S^T = K.Q^T and dP^T = V.dO^T the same way; P^T and dS^T
+//          each split three ways; dV += P^T.dO and dK += dS^T.Q, six RS
+//          wgmmas each a k-step, dO's and Q's parts MN-major.
+// The pairs go smallest first (split_a, split_b) into one f32
+// accumulator.  V's (dO's) split runs under the products of S (S^T).
+// Shared memory (1 KB alignment beside), alike in both kernels:
+//   NCH 1 (D <= 64):  NWG 2 (256 threads), owned parts 2 x 2 x 24 KB,
+//                     streamed parts 2 x 24 KB, 5 slots of 16 KB: 224 KB;
+//   NCH 2 (D <= 128): NWG 1 (128 threads), owned parts 2 x 48 KB,
+//                     streamed parts 2 x 48 KB, 1 slot of 32 KB: 224 KB;
+//                     each load runs under the products before its split.
+// Registers: dk/dv at NCH 2 holds dK and dV (128 a thread), so it waits
+// for dV's products before it splits dS^T: the fragments of P^T and of
+// dS^T are never live together.
+
+template <int NCH>
+struct F32Bwd {
+  static constexpr int NWG = NCH == 1 ? 2 : 1;  // consumer warpgroups
+  static constexpr int NT = 128 * NWG;
+  static constexpr int ROWS = 64 * NWG;         // owned rows of a CTA
+  static constexpr int PART = NCH * HOP_TILE_BYTES;  // a bf16 part, 64 rows
+  static constexpr int TILE = 3 * PART;              // its three parts
+  static constexpr int SLOT = NCH * HOP_F32_BOX;     // 64 rows in f32
+  static constexpr int SLOTS = NCH == 1 ? 5 : 1;
+  static constexpr int OWN = 2 * NWG;  // owned tiles: the first loads
+  static constexpr int SMEM = 2 * NWG * TILE + 2 * TILE + SLOTS * SLOT + 1024;
+};
+
+// The loads of an f32 backward CTA, in the order they are split.  Item
+// j < OWN is owned operand j / NWG (map a, then b) of warpgroup j % NWG,
+// rows own0 + 64 (j % NWG); item OWN + 2 i + e is operand e (map c, d)
+// of streamed tile t0 + i.  Item j lands in slot j % SLOTS, on its
+// barrier, whose phase j / SLOTS it completes.
+template <int NCH>
+struct F32Ring {
+  using F = F32Bwd<NCH>;
+  const CUtensorMap *a, *b, *c, *d;
+  uint8_t* ring;
+  uint64_t* bar;
+  int own0, t0, bh, items;
+
+  __device__ __forceinline__ void load(int j) const {
+    const int s = j % F::SLOTS;
+    const CUtensorMap* map;
+    int row;
+    if (j < F::OWN) {
+      map = j < F::NWG ? a : b;
+      row = own0 + WG_ROWS * (j % F::NWG);
+    } else {
+      map = (j & 1) ? d : c;  // OWN is even
+      row = WG_ROWS * (t0 + ((j - F::OWN) >> 1));
+    }
+    mbar_expect_tx(&bar[s], F::SLOT);
+    for (int cc = 0; cc < NCH; ++cc)
+      tma_load_3d(ring + s * F::SLOT + cc * HOP_F32_BOX, map, &bar[s],
+                  64 * cc, row, bh);
   }
 
+  // wait for item j and split it into the parts at `parts` (part p, box
+  // cc at p * PART + cc * 8 KB); once every thread has, item j + SLOTS
+  // goes into the freed slot
+  __device__ __forceinline__ void split(int j, uint8_t* parts,
+                                        int tid) const {
+    const int s = j % F::SLOTS;
+    mbar_wait(&bar[s], (j / F::SLOTS) & 1);
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc) {
+      uint8_t* dst = parts + cc * HOP_TILE_BYTES;
+      split_box<F::NT>(reinterpret_cast<const float*>(ring + s * F::SLOT +
+                                                      cc * HOP_F32_BOX),
+                       dst, dst + F::PART, dst + 2 * F::PART, tid);
+    }
+    fence_async_smem();  // the parts, visible to wgmma
+    __syncthreads();     // and the slot read by every thread
+    if (tid == 0 && j + F::SLOTS < items) load(j + F::SLOTS);
+  }
+};
+
+// D (+)= A.B^T over 64 * NCH columns as six SS products, both operands'
+// parts K-major (part p, box c at p * PART + c * 8 KB)
+template <int NCH>
+__device__ __forceinline__ void six_ss(float (&d)[32], const uint8_t* a,
+                                       const uint8_t* b) {
+  constexpr int PART = F32Bwd<NCH>::PART;
+#pragma unroll
+  for (int pp = 0; pp < 6; ++pp)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_m64n64k16(
+            d, kmajor_desc(a + split_a(pp) * PART + c * HOP_TILE_BYTES, kk),
+            kmajor_desc(b + split_b(pp) * PART + c * HOP_TILE_BYTES, kk),
+            (pp | c | kk) != 0);
+}
+
+// x (a 64 x 64 f32 accumulator) as three RS A-fragments per k-step
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&f)[3][4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split_pack3(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1], f[0][kk][j],
+                  f[1][kk][j], f[2][kk][j]);
+}
+
+// O (64 x 64*NCH) += X.B as six RS products: X's fragments, B's parts
+// MN-major (k-steps down its 64 rows)
+template <int NCH>
+__device__ __forceinline__ void six_rs(float (&o)[32 * NCH],
+                                       const uint32_t (&f)[3][4][4],
+                                       const uint8_t* b) {
+#pragma unroll
+  for (int pp = 0; pp < 6; ++pp)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn<NCH>(o, f[split_a(pp)][kk],
+                       mnmajor_desc(b + split_b(pp) * F32Bwd<NCH>::PART, kk));
+}
+
+// rows row_a and row_a + 8 of a 64 x 64*NCH f32 accumulator (hopper.cuh)
+// into out (rows of D floats), rows past `rows` and columns past D left
+template <int NCH>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&x)[32 * NCH],
+                                           int row_a, int rows, int D,
+                                           int cq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_a + 8 * h;
+    if (row >= rows) continue;
+    float* o = out + (size_t)row * D;
+#pragma unroll
+    for (int j = 0; j < 8 * NCH; ++j) {
+      const int col = 8 * j + cq;
+      if (col < D)
+        *reinterpret_cast<float2*>(o + col) =
+            make_float2(x[4 * j + 2 * h], x[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(128 * F32Bwd<NCH>::NWG)
+    fa_bwd_dq_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dlt,
+                               float* __restrict__ dq, int BH, int Tq,
+                               int Tk, int D, float scale, int causal,
+                               int diag) {
+  using F = F32Bwd<NCH>;
+  extern __shared__ uint8_t fq32_raw[];
+  __shared__ __align__(8) uint64_t bar[F::SLOTS];
+  uint8_t* qp = align1024(fq32_raw);    // Q's parts, TILE a warpgroup
+  uint8_t* op = qp + F::NWG * F::TILE;  // dO's parts
+  uint8_t* kp = op + F::NWG * F::TILE;  // the key tile's K parts
+  uint8_t* vp = kp + F::TILE;           // and V parts
+  const int nq = (Tq + F::ROWS - 1) / F::ROWS;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / BH)) * F::ROWS;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+
+  int nk = (Tk + WG_ROWS - 1) / WG_ROWS;
+  if (causal) {
+    const int last = q0 + F::ROWS - 1 + diag;  // last key any row sees
+    nk = min(nk, last < 0 ? 0 : last / WG_ROWS + 1);
+  }
+  const F32Ring<NCH> ring{&tq, &tdo, &tk, &tv, vp + F::TILE, bar,
+                          q0, 0, bh, F::OWN + 2 * nk};
+
+  // this thread's two rows (accumulator layout, hopper.cuh)
+  const int row_a = q0 + WG_ROWS * wg + warp * 16 + (lane >> 2);
+  const int row_b = row_a + 8;
+  const int cq = 2 * (lane & 3);
+  float acc[32 * NCH];
+#pragma unroll
+  for (int i = 0; i < 32 * NCH; ++i) acc[i] = 0.f;
+
+  if (nk > 0) {
+    if (tid == 0) {
+      for (int s = 0; s < F::SLOTS; ++s) mbar_init(&bar[s], 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int j = 0; j < min(F::SLOTS, ring.items); ++j) ring.load(j);
+    const size_t rbase = (size_t)bh * Tq;
+    const float L_a = row_a < Tq ? lse[rbase + row_a] : 0.f;
+    const float L_b = row_b < Tq ? lse[rbase + row_b] : 0.f;
+    const float E_a = row_a < Tq ? dlt[rbase + row_a] : 0.f;
+    const float E_b = row_b < Tq ? dlt[rbase + row_b] : 0.f;
+    for (int j = 0; j < F::OWN; ++j)
+      ring.split(j, (j < F::NWG ? qp : op) + (j % F::NWG) * F::TILE, tid);
+    const uint8_t* qw = qp + wg * F::TILE;
+    const uint8_t* ow = op + wg * F::TILE;
+
+    for (int t = 0; t < nk; ++t) {
+      float sc[32], dp[32];
+      ring.split(F::OWN + 2 * t, kp, tid);
+      wgmma_fence();
+      six_ss<NCH>(sc, qw, kp);  // S = Q.K^T
+      wgmma_commit();
+      ring.split(F::OWN + 2 * t + 1, vp, tid);  // under S's products
+      wgmma_fence();
+      six_ss<NCH>(dp, ow, vp);  // dP = dO.V^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P and dS in f32, never rounded
+      const int k0 = t * WG_ROWS;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int key = k0 + 8 * (r >> 2) + cq + (r & 1);
+        const bool b = (r & 2) != 0;
+        const int row = b ? row_b : row_a;
+        const bool ok =
+            row < Tq && key < Tk && (!causal || key <= row + diag);
+        const float p = ok ? expf(sc[r] * scale - (b ? L_b : L_a)) : 0.f;
+        dp[r] = p * (dp[r] - (b ? E_b : E_a)) * scale;
+      }
+      uint32_t df[3][4][4];
+      split_frags(dp, df);
+
+      wgmma_fence();
+      six_rs<NCH>(acc, df, kp);  // dQ += dS.K
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      __syncthreads();  // every warpgroup is done with K's and V's parts
+    }
+  }
+  store_rows<NCH>(dq + (size_t)bh * Tq * D, acc, row_a, Tq, D, cq);
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(128 * F32Bwd<NCH>::NWG)
+    fa_bwd_dkv_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dlt,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int BH, int Tq,
+                                int Tk, int D, float scale, int causal,
+                                int diag) {
+  using F = F32Bwd<NCH>;
+  extern __shared__ uint8_t fkv32_raw[];
+  __shared__ __align__(8) uint64_t bar[F::SLOTS];
+  uint8_t* kp = align1024(fkv32_raw);   // K's parts, TILE a warpgroup
+  uint8_t* vp = kp + F::NWG * F::TILE;  // V's parts
+  uint8_t* qp = vp + F::NWG * F::TILE;  // the q tile's Q parts
+  uint8_t* op = qp + F::TILE;           // and dO parts
+  const int bh = blockIdx.x % BH;
+  const int k0 = (int)(blockIdx.x / BH) * F::ROWS;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+
+  const int nq = (Tq + WG_ROWS - 1) / WG_ROWS;
+  int t0 = 0;  // q tile t sees key k0 iff 64 t + 63 + diag >= k0
+  if (causal) {
+    const int first = k0 - diag - (WG_ROWS - 1);
+    t0 = first <= 0 ? 0 : (first + WG_ROWS - 1) / WG_ROWS;
+  }
+  const int n = max(nq - t0, 0);
+  const F32Ring<NCH> ring{&tk, &tv, &tq, &tdo, op + F::TILE, bar,
+                          k0, t0, bh, F::OWN + 2 * n};
+
+  // this thread's two keys (accumulator rows, hopper.cuh)
+  const int key_a = k0 + WG_ROWS * wg + warp * 16 + (lane >> 2);
+  const int key_b = key_a + 8;
+  const int cq = 2 * (lane & 3);
+  float ak[32 * NCH], av[32 * NCH];
+#pragma unroll
+  for (int i = 0; i < 32 * NCH; ++i) ak[i] = av[i] = 0.f;
+
+  if (n > 0) {
+    if (tid == 0) {
+      for (int s = 0; s < F::SLOTS; ++s) mbar_init(&bar[s], 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int j = 0; j < min(F::SLOTS, ring.items); ++j) ring.load(j);
+    for (int j = 0; j < F::OWN; ++j)
+      ring.split(j, (j < F::NWG ? kp : vp) + (j % F::NWG) * F::TILE, tid);
+    const uint8_t* kw = kp + wg * F::TILE;
+    const uint8_t* vw = vp + wg * F::TILE;
+
+    for (int i = 0; i < n; ++i) {
+      const int q0 = (t0 + i) * WG_ROWS;
+      float st[32], dpt[32];
+      ring.split(F::OWN + 2 * i, qp, tid);
+      wgmma_fence();
+      six_ss<NCH>(st, kw, qp);  // S^T = K.Q^T
+      wgmma_commit();
+      ring.split(F::OWN + 2 * i + 1, op, tid);  // under S^T's products
+      wgmma_fence();
+      six_ss<NCH>(dpt, vw, op);  // dP^T = V.dO^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T in f32: this thread's 16 columns (query rows), each
+      // with its lse and delta read once, against its two keys
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int row = q0 + 8 * (j >> 1) + cq + (j & 1);
+        const bool in = row < Tq;
+        const float L = in ? lse[(size_t)bh * Tq + row] : 0.f;
+        const float E = in ? dlt[(size_t)bh * Tq + row] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 4 * (j >> 1) + 2 * h + (j & 1);
+          const int key = h ? key_b : key_a;
+          const bool ok = in && (!causal || key <= row + diag);
+          const float p = ok ? expf(st[r] * scale - L) : 0.f;
+          st[r] = p;
+          dpt[r] = p * (dpt[r] - E) * scale;
+        }
+      }
+      uint32_t pf[3][4][4];
+      split_frags(st, pf);
+      wgmma_fence();
+      six_rs<NCH>(av, pf, op);  // dV += P^T.dO
+      wgmma_commit();
+      if constexpr (NCH == 2) {  // P^T's fragments free before dS^T's
+        wgmma_wait_all();
+        fence_regs(av);
+      }
+      uint32_t df[3][4][4];
+      split_frags(dpt, df);
+      wgmma_fence();
+      six_rs<NCH>(ak, df, qp);  // dK += dS^T.Q
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(av);
+      fence_regs(ak);
+      __syncthreads();  // every warpgroup is done with Q's and dO's parts
+    }
+  }
+  const size_t kbase = (size_t)bh * Tk * D;
+  store_rows<NCH>(dk + kbase, ak, key_a, Tk, D, cq);
+  store_rows<NCH>(dv + kbase, av, key_a, Tk, D, cq);
+}
+
+// the tensor maps of f32 q, k, v and dO, and the kernel's shared memory
+template <typename Kern>
+static int f32_prepare(Kern kern, int smem, CUtensorMap (&m)[4],
+                       const void* q, const void* k, const void* v,
+                       const void* dout, int BH, int Tq, int Tk, int D) {
+  int e;
+  if ((e = hop_map_f32(&m[0], q, BH, Tq, D)) ||
+      (e = hop_map_f32(&m[1], k, BH, Tk, D)) ||
+      (e = hop_map_f32(&m[2], v, BH, Tk, D)) ||
+      (e = hop_map_f32(&m[3], dout, BH, Tq, D)))
+    return e;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int NCH>
+static int launch_dq_f32(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* dlt,
+                         void* dq, int BH, int Tq, int Tk, int D,
+                         float scale, int causal, int diag,
+                         cudaStream_t stream) {
+  using F = F32Bwd<NCH>;
+  CUtensorMap m[4];
+  const int e = f32_prepare(fa_bwd_dq_f32_wgmma_kernel<NCH>, F::SMEM, m, q,
+                            k, v, dout, BH, Tq, Tk, D);
+  if (e) return e;
+  const int nq = (Tq + F::ROWS - 1) / F::ROWS;
+  fa_bwd_dq_f32_wgmma_kernel<NCH>
+      <<<(unsigned)((long long)BH * nq), F::NT, F::SMEM, stream>>>(
+          m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dlt,
+          (float*)dq, BH, Tq, Tk, D, scale, causal, diag);
+  return (int)cudaGetLastError();
+}
+
+template <int NCH>
+static int launch_dkv_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* dlt, void* dk, void* dv, int BH,
+                          int Tq, int Tk, int D, float scale, int causal,
+                          int diag, cudaStream_t stream) {
+  using F = F32Bwd<NCH>;
+  CUtensorMap m[4];
+  const int e = f32_prepare(fa_bwd_dkv_f32_wgmma_kernel<NCH>, F::SMEM, m,
+                            q, k, v, dout, BH, Tq, Tk, D);
+  if (e) return e;
+  const int nkt = (Tk + F::ROWS - 1) / F::ROWS;
+  fa_bwd_dkv_f32_wgmma_kernel<NCH>
+      <<<(unsigned)((long long)BH * nkt), F::NT, F::SMEM, stream>>>(
+          m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dlt,
+          (float*)dk, (float*)dv, BH, Tq, Tk, D, scale, causal, diag);
+  return (int)cudaGetLastError();
+}
+
+// D % 8: TMA's 16-byte row stride in bf16 (the wrapper zero-pads D in
+// both dtypes); NCH boxes of 64 head-dim columns (D <= 64: 1, else 2)
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dlt, void* dq, int BH, int Tq, int Tk,
     int D, float scale, int causal, int diag, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D < 1 || D > 32 * MAXNC) return (int)cudaErrorInvalidValue;
-  if (dtype == MXT_F32) {
-    FA_DISPATCH(float, launch_dq, q, k, v, dout, lse, dlt, dq, BH, Tq, Tk,
-                D, scale, causal, diag, s)
-  }
-  if (dtype == MXT_BF16) {
-    if (D % 8) return (int)cudaErrorInvalidValue;  // the wrapper pads
+  if (D < 1 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+  if (dtype == MXT_F32)
+    return D <= 64 ? launch_dq_f32<1>(q, k, v, dout, lse, dlt, dq, BH, Tq,
+                                      Tk, D, scale, causal, diag, s)
+                   : launch_dq_f32<2>(q, k, v, dout, lse, dlt, dq, BH, Tq,
+                                      Tk, D, scale, causal, diag, s);
+  if (dtype == MXT_BF16)
     return D <= 64 ? launch_dq_wgmma<1>(q, k, v, dout, lse, dlt, dq, BH, Tq,
                                         Tk, D, scale, causal, diag, s)
                    : launch_dq_wgmma<2>(q, k, v, dout, lse, dlt, dq, BH, Tq,
                                         Tk, D, scale, causal, diag, s);
-  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -750,17 +907,16 @@ extern "C" int mxt_flash_attention_bwd_dkv(
     int Tk, int D, float scale, int causal, int diag, int dtype,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D < 1 || D > 32 * MAXNC) return (int)cudaErrorInvalidValue;
-  if (dtype == MXT_F32) {
-    FA_DISPATCH(float, launch_dkv, q, k, v, dout, lse, dlt, dk, dv, BH, Tq,
-                Tk, D, scale, causal, diag, s)
-  }
-  if (dtype == MXT_BF16) {
-    if (D % 8) return (int)cudaErrorInvalidValue;  // the wrapper pads
+  if (D < 1 || D > 128 || D % 8) return (int)cudaErrorInvalidValue;
+  if (dtype == MXT_F32)
+    return D <= 64 ? launch_dkv_f32<1>(q, k, v, dout, lse, dlt, dk, dv, BH,
+                                       Tq, Tk, D, scale, causal, diag, s)
+                   : launch_dkv_f32<2>(q, k, v, dout, lse, dlt, dk, dv, BH,
+                                       Tq, Tk, D, scale, causal, diag, s);
+  if (dtype == MXT_BF16)
     return D <= 64 ? launch_dkv_wgmma<1>(q, k, v, dout, lse, dlt, dk, dv, BH,
                                          Tq, Tk, D, scale, causal, diag, s)
                    : launch_dkv_wgmma<2>(q, k, v, dout, lse, dlt, dk, dv, BH,
                                          Tq, Tk, D, scale, causal, diag, s);
-  }
   return (int)cudaErrorInvalidValue;
 }

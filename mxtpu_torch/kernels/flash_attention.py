@@ -28,20 +28,18 @@ the plain version beside the kernels.
 Bounds on the H100.  Forward at the serving shape (b*16 heads, T = 128,
 D = 64, f32): the bytes — 4*BH*T*D*4 at 3.35 TB/s outweigh the six
 bf16 products of the f32 split, 6*4*BH*T*T*D flops at the tensor-core
-rate.  Backward at the training shape (BH = 512, T = 128, D = 64):
-14*BH*T*T*D flops bound it in f32; in bf16, against the tensor-core
-rate, the bytes of q, k, v, dO, dq, dk, dv, lse and delta do.  By
-dtype: bf16 runs on the tensor cores (wgmma, with TMA loads:
-``fa_fwd_wgmma_kernel``, ``fa_bwd_dq_wgmma_kernel``,
-``fa_bwd_dkv_wgmma_kernel``); the f32 forward too
-(``fa_fwd_f32_wgmma_kernel``), each f32 operand split exactly into
-three bf16 parts, six part products per product, with no TF32; the
-f32 backward does its products as scalar FMAs over shared-memory
-tiles.  TMA needs a 16-byte row stride and a 16-byte aligned base, so
-for a head dim off a multiple of 8 the wrappers run the TMA kernels
-(the forward, the bf16 backward) on copies zero-padded along D and
-slice the results back (zero columns change no score; the scale is
-passed as given), and raise on a misaligned input.
+rate.  Backward at the training shape (BH = 512, T = 128, D = 64): the
+bytes of q, k, v, dO, dq, dk, dv, lse and delta, in bf16 and in f32
+alike.  Every kernel runs on the tensor cores (wgmma, with TMA loads):
+bf16 as ``fa_fwd_wgmma_kernel``, ``fa_bwd_dq_wgmma_kernel`` and
+``fa_bwd_dkv_wgmma_kernel``; f32 as ``fa_fwd_f32_wgmma_kernel``,
+``fa_bwd_dq_f32_wgmma_kernel`` and ``fa_bwd_dkv_f32_wgmma_kernel``,
+each f32 operand split exactly into three bf16 parts, six part
+products per product, with no TF32.  TMA needs a 16-byte row stride
+and a 16-byte aligned base, so for a head dim off a multiple of 8 the
+wrappers run the kernels on copies zero-padded along D and slice the
+results back (zero columns change no score; the scale is passed as
+given), and raise on a misaligned input.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or the call raises.
@@ -141,9 +139,8 @@ def _check_qkv(q3, k3, v3, *more):
 
 
 def _aligned(*tensors):
-    """The TMA kernels (the forward in both dtypes, the bf16 backward)
-    need 16-byte aligned base addresses; the wrappers raise rather than
-    copy."""
+    """The kernels read through TMA, which needs 16-byte aligned base
+    addresses; the wrappers raise rather than copy."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise MXNetError(f"flash_attention: {tensors[0].dtype} inputs must "
                          f"start on a 16-byte boundary")
@@ -151,8 +148,8 @@ def _aligned(*tensors):
 
 def _pad_d(*tensors):
     """(BH, T, D) tensors zero-padded along D to a multiple of 8 (TMA's
-    16-byte row stride in bf16; the f32 forward takes the same); as
-    they are when D already is one."""
+    16-byte row stride in bf16; the f32 kernels take the same); as they
+    are when D already is one."""
     D = tensors[0].shape[-1]
     if D % 8 == 0:
         return tensors
@@ -243,12 +240,8 @@ def flash_backward(q3, k3, v3, do3, o3, lse, causal: bool,
     if BH * Tq == 0 or Tk == 0:
         return (torch.zeros_like(q3), torch.zeros_like(k3),
                 torch.zeros_like(v3))
-    # the bf16 kernels read through TMA: aligned, D-padded where needed;
-    # the f32 ones take any D
-    pq, pk, pv, pdo = q3, k3, v3, do3
-    if q3.dtype == torch.bfloat16:
-        _aligned(q3, k3, v3, do3)
-        pq, pk, pv, pdo = _pad_d(q3, k3, v3, do3)
+    _aligned(q3, k3, v3, do3)
+    pq, pk, pv, pdo = _pad_d(q3, k3, v3, do3)
     dq = torch.empty_like(pq)
     dk = torch.empty_like(pk)
     dv = torch.empty_like(pv)

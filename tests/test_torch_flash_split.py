@@ -202,9 +202,9 @@ PAD_TOL = {torch.bfloat16: dict(rtol=2 ** -8, atol=1e-6),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_zero_padding_along_d_changes_nothing(dtype):
-    """The wrappers run the TMA kernels (the forward in f32 and bf16,
-    the bf16 backward) on copies zero-padded along D to a multiple of 8
-    (TMA's row stride), with the scale of the true D: the padded
+    """The wrappers run the TMA kernels (forward and backward, f32 and
+    bf16) on copies zero-padded along D to a multiple of 8 (TMA's row
+    stride), with the scale of the true D: the padded
     forward and backward, sliced back, are the unpadded ones (up to one
     bf16 rounding of the output in bf16: the zero columns may change
     the CPU's summation order)."""
@@ -230,8 +230,7 @@ def test_zero_padding_along_d_changes_nothing(dtype):
                          ids=["float32", "bfloat16"])
 def test_unaligned_bf16_inputs_are_refused(dtype):
     """TMA reads from 16-byte aligned addresses; the wrappers raise on
-    any other rather than copy (the forward in f32 and bf16, the bf16
-    backward)."""
+    any other rather than copy (forward and backward, f32 and bf16)."""
     from mxtpu_torch import MXNetError
     buf = torch.zeros(2 * 64 + 1, dtype=dtype)
     tfa._aligned(buf[:64])

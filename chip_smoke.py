@@ -23,7 +23,10 @@ Phases, each fatal on failure:
      ``fa_bwd_dkv_f32_wgmma_kernel``, ``conv_nhwc_f32_wgmma_kernel``)
      must show wgmma (HGMMA) and TMA loads (UTMALDG; the conv's im2col
      loads are UTMALDG too) in every instantiation, the f32 ones no
-     TF32 HGMMA, and their ptxas reports no spills;
+     TF32 HGMMA, and their ptxas reports no spills; so must the ptxas
+     reports of the kernels rebuilt on 16-byte vector loads
+     (``VECTOR_KERNELS``: the LayerNorm backward, the channels-minor
+     BatchNorm backward), every instantiation listed;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
      in f32 and bf16; flash attention also causal at T=127 and Tq !=
@@ -34,7 +37,11 @@ Phases, each fatal on failure:
      plain version and one library call;
   3. each BERT backward kernel likewise (flash dq and dk/dv, LayerNorm,
      the fused epilogue at keep=0.9 with dh's zeros equal to the
-     dropped set bit for bit), at the training shapes, flash also causal
+     dropped set bit for bit), at the training shapes (the kernels each
+     LayerNorm backward call launches listed), the LayerNorm backward
+     also on its scalar path (C = 1030, and contiguous views off a
+     16-byte boundary: a row slice at C = 1031, one element into a
+     buffer at C = 1024), flash also causal
      in f32 and bf16 at B4 H16 D64 T=4096 and, forward and backward, at edge
      shapes (D = 32, 128, 96, 64 with diagonal offsets, and D = 42, off
      the multiple of 8 that TMA needs); times beside AD through the
@@ -45,9 +52,11 @@ Phases, each fatal on failure:
      layer4 ``bn_out``, a downsample; timed) and at the other shapes
      probe_bn_fusion runs (the 14^2 x 1024 stage, the bottlenecks'
      inner widths), at edge shapes (C=3, 37, 100;
-     S=49, 196; N*S=1) and on a constant channel; the stem's statistics
+     S=49, 196; N*S=1; a channels-minor view one element off a 16-byte
+     boundary) and on a constant channel; the stem's statistics
      against f64 sums; a rerun bit-equal; times of the kernel, the
-     plain version and cuDNN's BatchNorm with the add and ReLU; the raw
+     plain version and cuDNN's BatchNorm with the add and ReLU, and the
+     kernels each channels-minor backward call launches; the raw
      wrappers must refuse inputs that require grad;
   5. the NHWC conv kernel (#13, the port of ``pallas_conv``) against its
      plain version in f32 and bf16 at N=256 (the conv probe's 14^2 x 256,
@@ -189,7 +198,8 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                 "flash_attention_bwd_dkv": ("fa_bwd_dkv_f32_wgmma_kernel",
                                             "fa_bwd_dkv_wgmma_kernel"),
                 "layer_norm_fwd": ("ln_fwd_kernel",),
-                "layer_norm_bwd": ("ln_bwd_kernel",),
+                "layer_norm_bwd": ("ln_bwd_rows_kernel",
+                                   "ln_bwd_finalize_kernel"),
                 "fused_residual_ln_fwd": ("frln_fwd_kernel",),
                 "fused_residual_ln_bwd": ("frln_bwd_kernel",),
                 **{f"batch_norm_{d}": tuple(f"bn_{d}_{k}_kernel"
@@ -213,6 +223,14 @@ TENSOR_CORE_KERNELS = {"fa_fwd_wgmma_kernel": "flash_attention",
                        "conv_nhwc_wgmma_kernel": "conv_nhwc",
                        "conv_nhwc_f32_wgmma_kernel": "conv_nhwc"}
 SASS_NEEDS = ("HGMMA", "UTMALDG")
+# the kernels rebuilt for Hopper's memory system (16-byte vector loads,
+# registers in place of shared-memory staging): no wgmma, but every
+# instantiation listed by ptxas with no spill
+VECTOR_KERNELS = {"ln_bwd_rows_kernel": "layer_norm_bwd",
+                  "ln_bwd_finalize_kernel": "layer_norm_bwd",
+                  "bn_bwd_cm_stats_kernel": "batch_norm_bwd",
+                  "bn_bwd_cm_finalize_kernel": "batch_norm_bwd",
+                  "bn_bwd_cm_apply_kernel": "batch_norm_bwd"}
 GEMM_WORDS = ("gemm", "cutlass", "sm90_xmma", "ampere", "nvjet", "cublas")
 # cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
 # and its layout transposes); matched before GEMM_WORDS
@@ -409,22 +427,45 @@ def ptxas_of(log, kern):
     return out
 
 
+def sass_functions(tool, src, kern):
+    """The SASS of each instantiation of ``kern`` in ``src``'s library
+    (``cuobjdump -sass``), and cuobjdump's errors."""
+    from mxtpu_torch.kernels import _build
+    sass = subprocess.run([tool, "-sass", str(_build._target(src))],
+                          capture_output=True, text=True, timeout=300)
+    return [f for f in re.split(r"\n\s*Function : ", sass.stdout)[1:]
+            if kern in f.split("\n", 1)[0]], sass.stderr
+
+
+def ptxas_check(checks, kern, src, n_funcs):
+    """The ptxas report of ``src``'s library (this run's build, or the
+    one kept beside a library built earlier) must list each of the
+    ``n_funcs`` instantiations of ``kern`` and show no spills."""
+    from mxtpu_torch.kernels import _build
+    regs = ptxas_of(_build.ptxas_log(src), kern)
+    ok = len(regs) == n_funcs > 0 and all(sp == 0 for _, sp in regs)
+    print(f"check ptxas {kern}: [registers, spill bytes] of each "
+          f"instantiation {regs or 'no ptxas report'} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": f"ptxas {kern}", "regs_spills": regs,
+                        "ok": ok})
+    if not ok:
+        checks.failed.append(f"ptxas: {kern} spills or lacks a report "
+                             f"of its {n_funcs} instantiations ({regs})")
+
+
 def sass_phase(checks):
     """``cuobjdump -sass`` of the built libraries: every instantiation
     of each tensor-core kernel must hold wgmma (HGMMA) and TMA loads
     (UTMALDG), and an f32 one no TF32 HGMMA (its products are bf16
     parts), so a kernel that silently lost either fails the run; the
-    ptxas report of its library (this run's build, or the one kept
-    beside a library built earlier) must list every instantiation and
-    show no spills (registers printed)."""
+    ptxas report of its library must list every instantiation and show
+    no spills (registers printed).  The vector kernels
+    (``VECTOR_KERNELS``) are held to the ptxas check alone."""
     import shutil
-    from mxtpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for kern, src in TENSOR_CORE_KERNELS.items():
-        sass = subprocess.run([tool, "-sass", str(_build._target(src))],
-                              capture_output=True, text=True, timeout=300)
-        funcs = [f for f in re.split(r"\n\s*Function : ", sass.stdout)[1:]
-                 if kern in f.split("\n", 1)[0]]
+        funcs, err = sass_functions(tool, src, kern)
         counts = [{w: f.count(w) for w in SASS_NEEDS} for f in funcs]
         ok = bool(funcs) and all(all(c.values()) for c in counts)
         if "_f32_" in kern:
@@ -440,18 +481,11 @@ def sass_phase(checks):
             checks.failed.append(f"SASS of {kern} lacks "
                                  f"{'/'.join(SASS_NEEDS)} or holds a TF32 "
                                  f"product ({counts}; "
-                                 f"{sass.stderr.strip()[:200]})")
-        regs = ptxas_of(_build.ptxas_log(src), kern)
-        ok = len(regs) == len(funcs) > 0 and all(sp == 0 for _, sp in regs)
-        print(f"check ptxas {kern}: [registers, spill bytes] of each "
-              f"instantiation {regs or 'no ptxas report'} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        checks.rows.append({"check": f"ptxas {kern}", "regs_spills": regs,
-                            "ok": ok})
-        if not ok:
-            checks.failed.append(f"ptxas: {kern} spills or lacks a report "
-                                 f"of its {len(funcs)} instantiations "
-                                 f"({regs})")
+                                 f"{err.strip()[:200]})")
+        ptxas_check(checks, kern, src, len(funcs))
+    for kern, src in VECTOR_KERNELS.items():
+        ptxas_check(checks, kern, src,
+                    len(sass_functions(tool, src, kern)[0]))
 
 
 # ----------------------------------------------------------------------
@@ -747,6 +781,11 @@ def backward_phase(checks, gen):
                     grads_of(lambda a, c, d: F.layer_norm(a, (C,), c, d),
                              (x, g, b), dy)),
             "bound_ms": b_ms, "bound_by": b_by}
+        print(f"kernels of layer_norm_bwd R{R} C{C} [{name}] (device ms "
+              f"per call): " + "; ".join(
+                  f"{kn} {ms:.4f}" for kn, ms in kernels_of(
+                      lambda: ln.layer_norm_bwd(x, g, mean, rstd, dy))),
+              flush=True)
 
     # -- fused residual LayerNorm, keep = 0.9 ----------------------------
     key = (0x2545F491, 0x9E3779B9)
@@ -827,6 +866,33 @@ def backward_phase(checks, gen):
                                  fgot, fwant):
                 checks.close(f"fused_residual_ln_bwd edge R={r} C={c} {g_}",
                              a, w_, name)
+
+    # the LayerNorm backward's scalar path: a C off the 16-byte vector,
+    # and contiguous views whose data lies off a 16-byte boundary (a row
+    # slice of a larger buffer at an odd C, one element into a buffer at
+    # C = 1024); inputs from a generator of their own
+    egen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+
+        def erandn(*shape):
+            return torch.randn(*shape, generator=egen, device=dev)
+        for tag, r, c, off in (("C off the vector", 37, 1030, 0),
+                               ("row slice", 41, 1031, 1031),
+                               ("one element in", 64, 1024, 1)):
+            x, dy = (erandn(r * c + off).to(dt)[off:].view(r, c)
+                     for _ in range(2))
+            g = (1.0 + 0.1 * erandn(c)).to(dt)
+            b = (0.1 * erandn(c)).to(dt)
+            _, mean, rstd = ln.layer_norm_fwd(x, g, b)
+            got = ln.layer_norm_bwd(x, g, mean, rstd, dy)
+            want = ln.layer_norm_bwd_reference(x, g, mean, rstd, dy)
+            torch.cuda.synchronize()
+            at = "16-byte aligned" if all(
+                t.data_ptr() % 16 == 0 for t in (x, dy)) else "misaligned"
+            for g_, a, w_ in zip(("dx", "dgamma", "dbeta"), got, want):
+                checks.close(f"layer_norm_bwd edge {tag} R={r} C={c} ({at})"
+                             f" {g_}", a, w_, name)
 
     # dh's zeros, bit for bit, against the dropped set of the forward
     # kernel (recovered from its output as in phase 2) and the bits
@@ -1115,6 +1181,12 @@ def bn_phase(checks, gen):
                                               "bound_ms": b_ms,
                                               "bound_by": b_by,
                                               "shape": [BN_N, C, S]}
+                if cm:
+                    print(f"kernels of batch_norm_bwd_cm [{name}] {key} C{C} "
+                          f"S{S} (device ms per call): " + "; ".join(
+                              f"{kn} {ms:.4f}" for kn, ms in kernels_of(
+                                  lambda: bwd(xv, rv, dyv, g, b, mean, rstd,
+                                              act))), flush=True)
                 del outs
             del x, r, dy
             torch.cuda.empty_cache()
@@ -1144,6 +1216,19 @@ def bn_phase(checks, gen):
                     if bad:
                         checks.failed.append(f"{tag} [{name}]: constant "
                                              f"channel var {float(var[0])}")
+
+        # the channels-minor backward's scalar path: contiguous views one
+        # element off a 16-byte boundary, at layer1_out's C with the add
+        # and ReLU (N = 1); inputs from a generator of their own
+        mgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        R1, C1 = 3136, 256
+        x, r, dy = ((torch.randn(R1 * C1 + 1, generator=mgen, device=dev)
+                     * sd + mu).to(dt)[1:].view(R1, C1)
+                    for mu, sd in ((0.5, 2.0), (0.0, 1.0), (0.0, 1.0)))
+        g = (1.0 + 0.2 * torch.randn(C1, generator=mgen, device=dev)).to(dt)
+        b = (0.1 * torch.randn(C1, generator=mgen, device=dev)).to(dt)
+        run(x, r, dy, g, b, "relu", True, f"bn edge cm misaligned R{R1} "
+            f"C{C1} relu add", name)
 
     # the symbolic path's shapes (resnet20 at the recipe's batch)
     for (C, S, mean, std) in CIFAR_BN_SHAPES:

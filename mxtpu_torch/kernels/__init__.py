@@ -19,6 +19,7 @@ no graph, so on the card they refuse inputs that require grad
 """
 from __future__ import annotations
 
+import functools
 import importlib
 import threading
 from typing import Dict
@@ -28,7 +29,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["on_card", "refuse_grad", "bump", "launch_counts",
-           "reset_launch_counts",
+           "reset_launch_counts", "aligned16", "sm_count",
            "flash_attention", "layer_norm", "fused_residual_layer_norm",
            "fused_bn_act", "conv_nhwc"]
 
@@ -59,6 +60,24 @@ def refuse_grad(what: str, *tensors: torch.Tensor,
     the public functions pass."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise MXNetError(f"{what}: inputs require grad; {hint}")
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """True when every tensor's data starts on a 16-byte boundary: a
+    kernel may then read and write it with 16-byte vector accesses."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (a persistent grid's
+    size)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def bump(module, attr: str = "LAUNCHES") -> None:

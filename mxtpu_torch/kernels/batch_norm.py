@@ -31,8 +31,11 @@ over a (channel x chunk) grid into an f32 ``[chunks, C]`` workspace, a
 finalize that sums the chunks in a fixed order (no float atomics, so
 every result repeats bit for bit), and an elementwise pass.  A wrapper
 call counts once, not three times.  Bound: bytes — a handful of flops
-per element against reading x (dy, r) and writing y (dx, dr); the
-simple first version reads x twice in each direction.
+per element against reading x (dy, r) and writing y (dx, dr).  The
+forwards and the channels-major backward read x twice with scalar
+loads; the channels-minor backward (:func:`_cm_bwd_plan`) reads with
+16-byte vectors, several rows in flight a thread, and with the add
+its stats pass writes dr so that its apply pass reads x and dr only.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernels or the call raises.  :func:`fused_bn_act` picks the view from
@@ -46,12 +49,12 @@ from __future__ import annotations
 import ctypes
 import math
 import sys
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..base import MXNetError
-from . import _build, bump, on_card, refuse_grad
+from . import _build, aligned16, bump, on_card, refuse_grad, sm_count
 
 __all__ = ["fused_bn_act", "bn_act_reference", "bn_bwd_reference",
            "bn_fwd", "bn_bwd", "bn_fwd_cm", "bn_bwd_cm", "FWD_LAUNCHES",
@@ -69,11 +72,18 @@ _ACTS = ("none", "relu")
 # CTAs the partial-sum grid aims for: 8 per SM of the H100's 132
 TARGET_CTAS = 1056
 # least elements of one channel per channels-major chunk, and least
-# rows per channels-minor chunk (8 row lanes of 16 rows each)
+# rows per channels-minor forward chunk (8 row lanes of 16 rows each)
 MIN_CHUNK = 4096
 MIN_ROWS = 128
-# channels per channels-minor CTA (one warp's lanes)
+# channels per channels-minor forward CTA (one warp's lanes)
 CM_TILE = 32
+# the channels-minor backward (bn_bwd_cm_*): CTAs of 256 threads over
+# tiles of up to 256 channels, 2 CTAs an SM in one wave, and at least 4
+# rows a row lane
+CM_BWD_THREADS = 256
+CM_BWD_WIDTH = 256
+CM_BWD_CTAS_PER_SM = 2
+CM_BWD_MIN_ROWS = 4
 # blocks of 256 threads of the elementwise passes (grid-stride loops)
 APPLY_BLOCKS = 2112
 MAX_CHUNKS = 65535  # gridDim.y
@@ -86,6 +96,9 @@ _FWD_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _LL, _I, _F, _I, _I, _I, _P]
 # x, r, dy, gamma, beta, mean, rstd, dx, dr, dgamma, dbeta, work; A, C,
 # S, chunks, per_chunk, apply_blocks, relu, add, dtype, stream
 _BWD_ARGS = [_P] * 12 + [_LL, _I, _LL, _I, _LL, _I, _I, _I, _I, _P]
+# the same pointers; R, C, vec, tv, chunks, per_chunk, relu, add, dtype,
+# stream
+_BWD_CM_ARGS = [_P] * 12 + [_LL, _I, _I, _I, _I, _LL, _I, _I, _I, _P]
 
 
 # ----------------------------------------------------------------------
@@ -202,6 +215,46 @@ def _grid(x: torch.Tensor, cm: bool) -> Tuple[int, int, int, int, int]:
     return A, C, S, -(-extent // per_chunk), per_chunk
 
 
+class CmBwdPlan(NamedTuple):
+    """The launch of the channels-minor backward: ``vec`` channels per
+    access (16 bytes' worth, or 1), ``tv`` accesses a channel tile
+    spans, ``ly`` row lanes a CTA, a grid of ``tiles`` x ``chunks``
+    CTAs, each chunk ``per_chunk`` rows (the last may hold fewer)."""
+    vec: int
+    tv: int
+    ly: int
+    tiles: int
+    chunks: int
+    per_chunk: int
+
+    def work_floats(self, C: int) -> int:
+        """f32 workspace: partial sums per chunk, then 3 coefficients
+        per channel."""
+        return 2 * self.chunks * C + 3 * C
+
+
+def _cm_bwd_plan(R: int, C: int, itemsize: int, aligned: bool,
+                 sms: int) -> CmBwdPlan:
+    """Launch geometry of the channels-minor backward over (R, C):
+    vector accesses only where C is a multiple of 16 bytes' worth and
+    every pointer is 16-byte aligned; a channel tile of up to 256
+    channels a CTA; chunks of rows so that the grid is one wave of
+    ``CM_BWD_CTAS_PER_SM`` CTAs an SM, each row lane walking at least
+    ``CM_BWD_MIN_ROWS`` rows."""
+    if R < 1 or C < 1:
+        raise MXNetError(f"bn_bwd_cm: no launch for ({R}, {C})")
+    v = 16 // itemsize
+    vec = v if aligned and C % v == 0 else 1
+    vpr = -(-C // vec)
+    tv = min(vpr, CM_BWD_WIDTH // vec)
+    ly = CM_BWD_THREADS // tv
+    tiles = -(-vpr // tv)
+    want = max(1, min(-(-sms * CM_BWD_CTAS_PER_SM // tiles),
+                      -(-R // (ly * CM_BWD_MIN_ROWS)), MAX_CHUNKS))
+    per_chunk = -(-R // want)
+    return CmBwdPlan(vec, tv, ly, tiles, -(-R // per_chunk), per_chunk)
+
+
 def _apply_blocks(numel: int) -> int:
     return max(1, min(-(-numel // 256), APPLY_BLOCKS))
 
@@ -252,24 +305,34 @@ def _bwd(x, residual, dy, gamma, beta, mean, rstd, act, cm):
     relu = _act(act)
     if x.numel() == 0:
         raise MXNetError(f"{what}: empty input {tuple(x.shape)}")
-    A, C, S, chunks, per_chunk = _grid(x, cm)
     dx = torch.empty_like(x)
     dr = None if residual is None else torch.empty_like(dy)
+    C = x.shape[1]
     dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(C, dtype=torch.float32, device=x.device)
-    # partial sums per chunk, then g*rstd, sum(dy)/n, sum(dy*xhat)/n
-    work = torch.empty(2 * chunks * C + 3 * C, dtype=torch.float32,
-                       device=x.device)
-    sym = "mxt_bn_bwd_cm" if cm else "mxt_bn_bwd"
-    fn = _build.bind("batch_norm_bwd", sym, _BWD_ARGS)
+    if cm:
+        R = x.shape[0]
+        big = [t for t in (x, residual, dy, dx, dr) if t is not None]
+        plan = _cm_bwd_plan(R, C, x.element_size(), aligned16(*big),
+                            sm_count(x.device))
+        shape = (R, C, plan.vec, plan.tv, plan.chunks, plan.per_chunk)
+        work = torch.empty(plan.work_floats(C), dtype=torch.float32,
+                           device=x.device)
+        fn = _build.bind("batch_norm_bwd", "mxt_bn_bwd_cm", _BWD_CM_ARGS)
+    else:
+        A, C, S, chunks, per_chunk = _grid(x, cm)
+        shape = (A, C, S, chunks, per_chunk, _apply_blocks(x.numel()))
+        # partial sums per chunk, then g*rstd, sum(dy)/n, sum(dy*xhat)/n
+        work = torch.empty(2 * chunks * C + 3 * C, dtype=torch.float32,
+                           device=x.device)
+        fn = _build.bind("batch_norm_bwd", "mxt_bn_bwd", _BWD_ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(),
                  None if residual is None else residual.data_ptr(),
                  dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                  mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
                  None if dr is None else dr.data_ptr(), dgamma.data_ptr(),
-                 dbeta.data_ptr(), work.data_ptr(), A, C, S, chunks,
-                 per_chunk, _apply_blocks(x.numel()), relu,
+                 dbeta.data_ptr(), work.data_ptr(), *shape, relu,
                  int(residual is not None), _DTYPES[x.dtype],
                  _build.stream_of(x))
     _build.check(err, what)

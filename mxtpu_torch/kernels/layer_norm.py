@@ -6,9 +6,10 @@ counter:
 * ``layer_norm_fwd`` — CUDA ``csrc/layer_norm.cu``; replaces
   ``mxtpu/kernels/layer_norm.py:_ln_fwd_kernel`` (``_pallas_ln_fwd``).
 * ``layer_norm_bwd`` — CUDA ``csrc/layer_norm_bwd.cu``; replaces
-  ``_ln_bwd_kernel`` (``_pallas_ln_bwd``): dx, and per-CTA partial
-  dgamma/dbeta rows summed here, as the reference sums its row-block
-  tiles outside the kernel.
+  ``_ln_bwd_kernel`` (``_pallas_ln_bwd``): ``ln_bwd_rows_kernel``
+  writes dx and one partial dgamma/dbeta row per CTA of a persistent
+  grid (:func:`_ln_bwd_plan`), ``ln_bwd_finalize_kernel`` sums them in
+  a fixed order into gamma's type.
 * ``fused_residual_ln_fwd`` — CUDA ``csrc/fused_residual_ln.cu``;
   replaces ``_frln_fwd_kernel`` (``_pallas_frln_fwd``):
   ``y = LN(res + dropout(h + bias))`` with the reference's threefry2x32
@@ -24,9 +25,13 @@ element, far under the card's flop/byte balance, so the floor is
 reading the inputs once and writing the outputs once at 3.35 TB/s.
 The forward kernels stage one row in shared memory as f32 (one CTA per
 row), so every input byte is read once and the residual sum ``u``
-never reaches device memory; the backward kernels take ``BWD_ROWS``
-rows per CTA, keep each row's intermediates on chip between its two
-passes, and write one partial row of the parameter gradients per CTA.
+never reaches device memory.  The LayerNorm backward gives each row a
+group of 1-8 warps that holds the row in registers (16-byte vector
+accesses where C and the pointers allow) between its two shuffle
+reductions, over a persistent grid of a few CTAs per SM; the fused
+epilogue's backward takes ``BWD_ROWS`` rows per CTA and keeps each
+row's intermediates in shared memory.  Both write one partial row of
+the parameter gradients per CTA.
 CUDA C++ rather than Triton: one build route (nvcc + ctypes) for every
 kernel of the port.
 
@@ -42,13 +47,13 @@ from __future__ import annotations
 
 import ctypes
 import sys
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
-from . import _build, bump, on_card, refuse_grad
+from . import _build, aligned16, bump, on_card, refuse_grad, sm_count
 
 __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_reference",
            "layer_norm_bwd", "layer_norm_bwd_reference",
@@ -69,18 +74,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # one row of f32 plus the per-warp scratch must fit the default 48 KB
 # of dynamic shared memory
 MAX_C = 48 * 1024 // 4 - 32
-# the backward kernels stage up to six f32 rows of C in shared memory
-# (opted in past 48 KB, up to the 227 KB a block may use)
+# widest C of the backward kernels: the fused epilogue's stages up to six
+# f32 rows of C in shared memory (opted in past 48 KB, up to the 227 KB
+# a block may use); LayerNorm's holds a row in 8 warps' registers
 BWD_MAX_C = 8192
-# rows per CTA of the backward kernels: one partial row of the
+# rows per CTA of the fused epilogue's backward: one partial row of the
 # parameter gradients each
 BWD_ROWS = 8
+# the LayerNorm backward (csrc/layer_norm_bwd.cu): 8 warps a CTA, and
+# its template instances (its LN_SHAPES): (widest C, elements of a row
+# a thread holds, warps a row), the fewest elements that keep 2 CTAs an
+# SM (one warp a row at 32 elements, one CTA an SM, measured slower on
+# the H100 at C = 1024)
+LN_BWD_WARPS = 8
+LN_BWD_SHAPES = ((256, 8, 1), (512, 16, 1), (1024, 16, 2), (2048, 16, 4),
+                 (4096, 16, 8), (8192, 32, 8))
 
 _P = ctypes.c_void_p
 _LN_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_float, ctypes.c_int, _P]
-_LN_BWD_ARGS = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, _P]
+_LN_BWD_ARGS = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [_P]
 _FRLN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
               ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
               ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
@@ -180,29 +193,70 @@ def layer_norm_bwd_reference(x2, gamma, mean, rstd, dy2):
             dy.sum(0).to(gamma.dtype))
 
 
+class LnBwdPlan(NamedTuple):
+    """The launch of ``ln_bwd_rows_kernel``: ``vec`` elements per
+    access (16 bytes' worth, or 1), ``ept`` elements of a row per
+    thread, ``wpr`` warps per row, ``ctas`` CTAs in the persistent grid
+    (and partial rows)."""
+    vec: int
+    ept: int
+    wpr: int
+    ctas: int
+
+
+def _ln_min_blocks(ept: int, itemsize: int, vec: int) -> int:
+    """CTAs per SM the kernel's launch bounds are set for (its
+    ``ln_min_blocks``): from the registers a thread's two accumulators,
+    its raw x, dy and gamma (a register each on the scalar path) and
+    the scalar path's offsets take."""
+    eb = itemsize if vec > 1 else 4
+    regs = 2 * ept + 3 * ept * eb // 4 + (0 if vec > 1 else ept) + 24
+    return 2 if regs <= 112 else 1
+
+
+def _ln_bwd_plan(R: int, C: int, itemsize: int, aligned: bool,
+                 sms: int) -> LnBwdPlan:
+    """Launch geometry of the LayerNorm backward for (R, C) rows: vector
+    accesses only where C is a multiple of 16 bytes' worth and every
+    pointer is 16-byte aligned; the first of ``LN_BWD_SHAPES`` that
+    takes C; a persistent grid of as many CTAs as the SMs hold at once,
+    never more than the rows need."""
+    if not 1 <= C <= BWD_MAX_C or R < 1:
+        raise MXNetError(f"layer_norm_bwd: no launch for ({R}, {C})")
+    v = 16 // itemsize
+    vec = v if aligned and C % v == 0 else 1
+    _, ept, wpr = next(s for s in LN_BWD_SHAPES if C <= s[0])
+    groups = LN_BWD_WARPS // wpr
+    ctas = max(1, min(-(-R // groups),
+                      sms * _ln_min_blocks(ept, itemsize, vec)))
+    return LnBwdPlan(vec, ept, wpr, ctas)
+
+
 def layer_norm_bwd(x2, gamma, mean, rstd, dy2):
-    """(R, C) rows → (dx, dgamma, dbeta): the kernel on CUDA tensors
-    (partial parameter-gradient rows summed here), the plain version on
-    CPU tensors."""
+    """(R, C) rows → (dx, dgamma, dbeta): the kernels on CUDA tensors,
+    the plain version on CPU tensors."""
     if not on_card(x2, gamma, mean, rstd, dy2):
         return layer_norm_bwd_reference(x2, gamma, mean, rstd, dy2)
     _check_rows("layer_norm_bwd", x2, (gamma,), (dy2,), BWD_MAX_C)
     R, C = x2.shape
     mean, rstd = _stats(mean, R), _stats(rstd, R)
     dx = torch.empty_like(x2)
-    nblk = -(-R // BWD_ROWS)
-    parts = torch.empty(2, nblk, C, dtype=torch.float32, device=x2.device)
     if R == 0:
         return dx, torch.zeros_like(gamma), torch.zeros_like(gamma)
+    plan = _ln_bwd_plan(R, C, x2.element_size(),
+                        aligned16(x2, dy2, gamma, dx), sm_count(x2.device))
+    parts = torch.empty(2, plan.ctas, C, dtype=torch.float32,
+                        device=x2.device)
+    dg, db = torch.empty_like(gamma), torch.empty_like(gamma)
     fn = _build.bind("layer_norm_bwd", "mxt_layer_norm_bwd", _LN_BWD_ARGS)
     with torch.cuda.device(x2.device):
         err = fn(x2.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
                  rstd.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
-                 parts[0].data_ptr(), parts[1].data_ptr(), R, C, BWD_ROWS,
+                 dg.data_ptr(), db.data_ptr(), parts.data_ptr(), R, C,
+                 plan.vec, plan.ept, plan.wpr, plan.ctas,
                  _DTYPES[x2.dtype], _build.stream_of(x2))
     _build.check(err, "layer_norm_bwd")
     bump(_SELF, "BWD_LAUNCHES")
-    dg, db = parts.sum(1).to(gamma.dtype)
     return dx, dg, db
 
 

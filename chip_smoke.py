@@ -25,8 +25,9 @@ Phases, each fatal on failure:
      loads are UTMALDG too) in every instantiation, the f32 ones no
      TF32 HGMMA, and their ptxas reports no spills; so must the ptxas
      reports of the kernels rebuilt on 16-byte vector loads
-     (``VECTOR_KERNELS``: the LayerNorm backward, the channels-minor
-     BatchNorm backward), every instantiation listed;
+     (``VECTOR_KERNELS``: the LayerNorm forward and backward, row and
+     wide kernels, the channels-minor BatchNorm backward), every
+     instantiation listed;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
      in f32 and bf16; flash attention also causal at T=127 and Tq !=
@@ -45,7 +46,12 @@ Phases, each fatal on failure:
      in f32 and bf16 at B4 H16 D64 T=4096 and, forward and backward, at edge
      shapes (D = 32, 128, 96, 64 with diagonal offsets, and D = 42, off
      the multiple of 8 that TMA needs); times beside AD through the
-     plain attention;
+     plain attention; then LayerNorm forward and backward together at
+     ``LN_EDGES``: the row kernels' scalar path (C = 1030, a row slice
+     at C = 1031, a view one element into a buffer), one row and 1001
+     rows, and the wide kernels at C = 12257 (scalar), 32768 (300 rows,
+     more than the backward's CTAs) and 131072 (aligned and one element
+     in), the widest timed;
   4. the four BatchNorm kernels (channels-major and channels-minor,
      forward and backward) against their plain version in f32 and bf16
      at four of ResNet-50's shapes (N=256: the stem, a layer1 and a
@@ -112,11 +118,14 @@ Phases, each fatal on failure:
      and its loss gradient p - onehot(label)) compiled by
      ``rtc.CudaModule`` and launched through ``CudaKernel.launch``: y =
      2x exact at 8x128 and 4096x4096, the softmax pair against its
-     plain version at the head's (128, 10) and at (4096, 30522), times
-     beside the byte bound, the plain version and the library call
-     (``torch.softmax``; autograd through ``F.cross_entropy``), the host
-     cost of one launch, and the refusals (a wrong dtype, an array on
-     the CPU, a CPU ctx, a float for an int, a source that does not
+     plain version at the head's (128, 10), at (4096, 30522) and at an
+     odd width, (33, 30521), times beside the byte bound, the plain
+     version and the library call (``torch.softmax``; autograd through
+     ``F.cross_entropy``), the host cost of one launch beside
+     ``torch.softmax``'s, and, with the launch caches warm, the
+     refusals (a wrong dtype, an array on the CPU, a CPU ctx, a float or
+     a bool for an int, a non-contiguous array, a list for an array,
+     bad grid or block dims, too few arguments, a source that does not
      compile, a missing export);
  15. resnet20 at full width, b16, through the symbolic API: the card's
      Module against the same Module on the CPU (outputs, every
@@ -197,8 +206,10 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                                            "fa_bwd_dq_wgmma_kernel"),
                 "flash_attention_bwd_dkv": ("fa_bwd_dkv_f32_wgmma_kernel",
                                             "fa_bwd_dkv_wgmma_kernel"),
-                "layer_norm_fwd": ("ln_fwd_kernel",),
+                "layer_norm_fwd": ("ln_fwd_rows_kernel",
+                                   "ln_fwd_wide_kernel"),
                 "layer_norm_bwd": ("ln_bwd_rows_kernel",
+                                   "ln_bwd_wide_kernel",
                                    "ln_bwd_finalize_kernel"),
                 "fused_residual_ln_fwd": ("frln_fwd_kernel",),
                 "fused_residual_ln_bwd": ("frln_bwd_kernel",),
@@ -226,7 +237,10 @@ SASS_NEEDS = ("HGMMA", "UTMALDG")
 # the kernels rebuilt for Hopper's memory system (16-byte vector loads,
 # registers in place of shared-memory staging): no wgmma, but every
 # instantiation listed by ptxas with no spill
-VECTOR_KERNELS = {"ln_bwd_rows_kernel": "layer_norm_bwd",
+VECTOR_KERNELS = {"ln_fwd_rows_kernel": "layer_norm",
+                  "ln_fwd_wide_kernel": "layer_norm",
+                  "ln_bwd_rows_kernel": "layer_norm_bwd",
+                  "ln_bwd_wide_kernel": "layer_norm_bwd",
                   "ln_bwd_finalize_kernel": "layer_norm_bwd",
                   "bn_bwd_cm_stats_kernel": "batch_norm_bwd",
                   "bn_bwd_cm_finalize_kernel": "batch_norm_bwd",
@@ -352,8 +366,8 @@ def kernels_of(fn, iters=5):
 
 def family_of(key):
     """The family of a profiled device kernel: one of the ported
-    kernels (whole-word match: "ln_fwd_kernel" is inside
-    "frln_fwd_kernel"), a cuDNN convolution, a GEMM, or other."""
+    kernels (whole-word match, so that no name matches inside a longer
+    one), a cuDNN convolution, a GEMM, or other."""
     for fam, names in KERNEL_NAMES.items():
         if any(re.search(rf"\b{n}\b", key) for n in names):
             return fam
@@ -915,6 +929,65 @@ def backward_phase(checks, gen):
     if mismatch:
         checks.failed.append("fused_residual_ln_bwd dropout mask")
     return out
+
+
+# LayerNorm off BERT's shape, forward and backward: the row kernels'
+# scalar path (a C off the 16-byte vector; contiguous views off a
+# 16-byte boundary), one row and an odd row count, and the wide kernels
+# past C = 8192 up to mxtpu's widest (131072), with more rows than CTAs
+# in the backward's grid at 32768; (tag, R, C, offset into the buffer)
+LN_EDGES = (("C off the vector", 37, 1030, 0),
+            ("row slice", 41, 1031, 1031),
+            ("one element in", 64, 1024, 1),
+            ("one row", 1, 1024, 0),
+            ("odd rows", 1001, 1024, 0),
+            ("wide, scalar", 64, 12257, 0),
+            ("wide", 300, 32768, 0),
+            ("wide", 8, 131072, 0),
+            ("wide, one element in", 3, 131072, 1))
+
+
+def layer_norm_edge_phase(checks):
+    """:data:`LN_EDGES` against the plain version in f32 and bf16, the
+    forward's y, mean and rstd and the backward's dx, dgamma and dbeta,
+    from a generator of their own; the wide kernels' device ms at the
+    widest C printed."""
+    import torch
+    import importlib
+    ln = importlib.import_module("mxtpu_torch.kernels.layer_norm")
+    dev = torch.device(CARD)
+    egen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+
+        def erandn(*shape):
+            return torch.randn(*shape, generator=egen, device=dev)
+        for tag, r, c, off in LN_EDGES:
+            x, dy = ((erandn(r * c + off) * 2 + 0.5).to(dt)[off:].view(r, c)
+                     for _ in range(2))
+            g = (1.0 + 0.1 * erandn(c)).to(dt)
+            b = (0.1 * erandn(c)).to(dt)
+            y, mean, rstd = ln.layer_norm_fwd(x, g, b)
+            py, pmean, prstd = ln.layer_norm_reference(x, g, b)
+            got = ln.layer_norm_bwd(x, g, mean, rstd, dy)
+            want = ln.layer_norm_bwd_reference(x, g, mean, rstd, dy)
+            torch.cuda.synchronize()
+            at = "16-byte aligned" if all(
+                t.data_ptr() % 16 == 0 for t in (x, dy)) else "misaligned"
+            what = f"layer_norm edge {tag} R={r} C={c} ({at})"
+            checks.close(f"{what} y", y, py, name)
+            checks.close(f"{what} mean", mean, pmean, "float32")
+            checks.close(f"{what} rstd", rstd, prstd, "float32")
+            for g_, a, w_ in zip(("dx", "dgamma", "dbeta"), got, want):
+                checks.close(f"{what} {g_}", a, w_, name)
+            if c == 131072 and off == 0:
+                fwd = device_ms(lambda: ln.layer_norm_fwd(x, g, b))
+                bwd = device_ms(lambda: ln.layer_norm_bwd(x, g, mean, rstd,
+                                                          dy))
+                print(f"time layer_norm wide R{r} C{c} [{name}] (device ms "
+                      f"per call): fwd {fwd:.4f} bwd {bwd:.4f}", flush=True)
+            del x, dy, y, got, want
+    torch.cuda.empty_cache()
 
 
 def refusal_phase(checks):
@@ -2014,41 +2087,136 @@ extern "C" __global__ void double_kernel(const float *x, float *y,
     y[i] = 2.0f * x[i];
 }
 
-// the max (max = 1) or the sum (max = 0) of v over the block, in f32;
-// blockDim.x is a multiple of 32, at most 1024
-__device__ float block_reduce(float v, bool max) {
-  __shared__ float part[32];
+// the max (max = 1) or the sum (max = 0) of v over a warp
+__device__ float warp_reduce(float v, bool max) {
   for (int o = 16; o > 0; o >>= 1) {
     float w = __shfl_xor_sync(0xffffffffu, v, o);
     v = max ? fmaxf(v, w) : v + w;
   }
+  return v;
+}
+
+// the same over the block, in f32; blockDim.x is a multiple of 32, at
+// most 1024
+__device__ float block_reduce(float v, bool max) {
+  __shared__ float part[32];
+  v = warp_reduce(v, max);
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) part[warp] = v;
   __syncthreads();
   int warps = blockDim.x >> 5;
   v = lane < warps ? part[lane] : (max ? -INFINITY : 0.0f);
-  for (int o = 16; o > 0; o >>= 1) {
-    float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = max ? fmaxf(v, w) : v + w;
-  }
+  v = warp_reduce(v, max);
   __syncthreads();  // part[] is reused by the next call
   return v;
 }
 
-// p = softmax(x) over each row of a (rows, cols) f32 array: one CTA per
-// row, a block max, a block sum of exp(x - max), then the write
+// p = softmax(x) over each row of a (rows, cols) f32 array, x read once
+// from device memory (the launch geometry is rtc_softmax_geometry's):
+//  * cols <= SM_WARP_COLS: a warp a row, blockDim.x / 32 rows a CTA;
+//    lane l keeps x[l + 32 k] in registers between the warp's max and
+//    its sum of exp(x - max), then writes p;
+//  * wider, one CTA a row: its 16-byte aligned body as float4s, thread t
+//    holding float4s t + k * blockDim.x (k < SM_VEC), in registers, the
+//    elements before the first 16-byte boundary (the peel, 0-3: a row of
+//    30522 floats starts 8 bytes off one in every other row) and the
+//    last 0-3 after the body each held by one of threads 0-3; block
+//    reductions for the max and the sum, then 16-byte stores (p's rows
+//    must sit as x's do against 16 bytes);
+//  * a row past SM_VEC * 4 * blockDim.x floats, or p aligned unlike x:
+//    three passes over x (the max, the sum, the write), right for any
+//    cols.
+#define SM_WARP_COLS 1024
+#define SM_VEC 8
 extern "C" __global__ void __launch_bounds__(1024)
 softmax_fwd(const float *x, float *p, int rows, int cols) {
-  const float *xr = x + (long long)blockIdx.x * cols;
-  float *pr = p + (long long)blockIdx.x * cols;
+  if (cols <= SM_WARP_COLS) {
+    const int lane = threadIdx.x & 31;
+    const long long row =
+        (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    if (row >= rows) return;  // the whole warp: no block barrier here
+    const float *xr = x + row * cols;
+    float *pr = p + row * cols;
+    float v[32];
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (32 * k >= cols) break;
+      const int j = lane + 32 * k;
+      v[k] = j < cols ? xr[j] : -INFINITY;
+      m = fmaxf(m, v[k]);
+    }
+    m = warp_reduce(m, true);
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (32 * k >= cols) break;  // the same for the whole warp
+      if (lane + 32 * k < cols) {
+        v[k] = expf(v[k] - m);
+        s += v[k];
+      }
+    }
+    s = warp_reduce(s, false);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (32 * k >= cols) break;
+      const int j = lane + 32 * k;
+      if (j < cols) pr[j] = v[k] / s;
+    }
+    return;
+  }
+  const long long row = blockIdx.x;
+  if (row >= rows) return;  // the whole block
+  const float *xr = x + row * cols;
+  float *pr = p + row * cols;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int h = (int)(((16 - ((unsigned long long)xr & 15)) & 15) >> 2);
+  const int hp = (int)(((16 - ((unsigned long long)pr & 15)) & 15) >> 2);
+  const int nv = (cols - h) >> 2, tl = cols - h - 4 * nv;
+  if (h == hp && nv <= SM_VEC * nt) {
+    const float4 *x4 = reinterpret_cast<const float4 *>(xr + h);
+    float4 q[SM_VEC];
+    const float pe = t < h ? xr[t] : -INFINITY;
+    const float te = t < tl ? xr[h + 4 * nv + t] : -INFINITY;
+    float m = fmaxf(pe, te);
+#pragma unroll
+    for (int k = 0; k < SM_VEC; ++k) {
+      const int i = t + k * nt;
+      q[k] = i < nv ? x4[i]
+                    : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+      m = fmaxf(m, fmaxf(fmaxf(q[k].x, q[k].y), fmaxf(q[k].z, q[k].w)));
+    }
+    m = block_reduce(m, true);
+    const float ep = t < h ? expf(pe - m) : 0.0f;
+    const float et = t < tl ? expf(te - m) : 0.0f;
+    float s = ep + et;
+#pragma unroll
+    for (int k = 0; k < SM_VEC; ++k) {
+      if (t + k * nt < nv) {
+        q[k] = make_float4(expf(q[k].x - m), expf(q[k].y - m),
+                           expf(q[k].z - m), expf(q[k].w - m));
+        s += (q[k].x + q[k].y) + (q[k].z + q[k].w);
+      }
+    }
+    s = block_reduce(s, false);
+    float4 *p4 = reinterpret_cast<float4 *>(pr + h);
+    if (t < h) pr[t] = ep / s;
+    if (t < tl) pr[h + 4 * nv + t] = et / s;
+#pragma unroll
+    for (int k = 0; k < SM_VEC; ++k) {
+      const int i = t + k * nt;
+      if (i < nv)
+        p4[i] = make_float4(q[k].x / s, q[k].y / s, q[k].z / s, q[k].w / s);
+    }
+    return;
+  }
   float m = -INFINITY;
-  for (int j = threadIdx.x; j < cols; j += blockDim.x) m = fmaxf(m, xr[j]);
+  for (int j = t; j < cols; j += nt) m = fmaxf(m, xr[j]);
   m = block_reduce(m, true);
   float s = 0.0f;
-  for (int j = threadIdx.x; j < cols; j += blockDim.x) s += expf(xr[j] - m);
+  for (int j = t; j < cols; j += nt) s += expf(xr[j] - m);
   s = block_reduce(s, false);
-  for (int j = threadIdx.x; j < cols; j += blockDim.x)
-    pr[j] = expf(xr[j] - m) / s;
+  for (int j = t; j < cols; j += nt) pr[j] = expf(xr[j] - m) / s;
 }
 
 // dx = p - onehot(label): SoftmaxOutput's backward with grad_scale 1
@@ -2072,6 +2240,12 @@ RTC_SIGNATURES = {
 # classes) and a real softmax width on this card (BERT-Large's MLM
 # logits at b32 x T128)
 RTC_SHAPES = {"head": (128, 10), "mlm": (4096, 30522)}
+# softmax_fwd's geometry (its SM_WARP_COLS and SM_VEC): a warp a row up
+# to RTC_WARP_COLS columns, RTC_WARP_ROWS rows a CTA; past it a CTA of
+# RTC_ROW_THREADS a row, each thread holding RTC_VEC float4s of it
+RTC_WARP_COLS, RTC_WARP_ROWS, RTC_VEC, RTC_ROW_THREADS = 1024, 8, 8, 1024
+# an odd width past the vector path's multiple of 4, on the row path
+RTC_ODD = (33, 30521)
 RTC_P_TOL, RTC_DX_TOL = 1e-6, 1e-6
 ELEMENTWISE_BLOCKS = 1056   # 8 CTAs per SM of 132, grid-stride loops
 
@@ -2105,22 +2279,24 @@ def rtc_kernels():
     return _RTC
 
 
-def rtc_threads(cols):
-    """A softmax row's CTA: the row's width rounded up to a warp, at
-    most 1024 threads."""
-    return min(1024, max(32, -(-cols // 32) * 32))
+def rtc_softmax_geometry(rows, cols):
+    """softmax_fwd's (grid, block): RTC_WARP_ROWS rows a CTA of warps up
+    to RTC_WARP_COLS columns, a CTA of RTC_ROW_THREADS a row past it."""
+    if cols <= RTC_WARP_COLS:
+        return (-(-rows // RTC_WARP_ROWS), 1, 1), (32 * RTC_WARP_ROWS, 1, 1)
+    return (rows, 1, 1), (RTC_ROW_THREADS, 1, 1)
 
 
 def rtc_launch(name, out, *args):
     """Launch user kernel ``name`` writing ``out`` (NDArrays on the
-    card): one CTA per row for the softmax, a grid-stride grid for the
-    elementwise kernels."""
+    card): the softmax at :func:`rtc_softmax_geometry`, a grid-stride
+    grid for the elementwise kernels."""
     k = rtc_kernels()[name]
     ctx = out.context
     if name == "softmax_fwd":
         rows, cols = out.shape
-        k.launch([args[0], out, rows, cols], ctx, (rows, 1, 1),
-                 (rtc_threads(cols), 1, 1))
+        k.launch([args[0], out, rows, cols], ctx,
+                 *rtc_softmax_geometry(rows, cols))
     elif name == "softmax_bwd":
         rows, cols = out.shape
         blocks = min(ELEMENTWISE_BLOCKS, -(-rows * cols // 256))
@@ -2222,10 +2398,15 @@ def rtc_phase(checks):
         if not ok:
             checks.failed.append(f"rtc double_kernel {shape} not exact")
     timings = {}
-    for tag, (rows, cols) in RTC_SHAPES.items():
-        x = torch.randn(rows, cols, device=CARD, generator=gen) * 4
+    # the odd width from a generator of its own, after the timed shapes,
+    # so theirs draw what they drew before it
+    ogen = torch.Generator(device=CARD).manual_seed(SEED + 21)
+    for tag, (rows, cols) in (*RTC_SHAPES.items(), ("odd", RTC_ODD)):
+        x = torch.randn(rows, cols, device=CARD,
+                        generator=ogen if tag == "odd" else gen) * 4
         label = torch.randint(0, cols, (rows,), device=CARD,
-                              generator=gen).float()
+                              generator=ogen if tag == "odd" else gen
+                              ).float()
         xn, ln = NDArray(x), NDArray(label)
         p = NDArray(torch.empty_like(x))
         dx = NDArray(torch.empty_like(x))
@@ -2253,6 +2434,8 @@ def rtc_phase(checks):
         if not ok:
             checks.failed.append(f"rtc softmax {tag} off: p {prel:.3e}, "
                                  f"dx {dabs:.3e}/{dabs_e2e:.3e}")
+        if tag == "odd":
+            continue
         xg = x.clone().requires_grad_(True)
         lg = label.long()
 
@@ -2276,7 +2459,7 @@ def rtc_phase(checks):
     xn, p = NDArray(x), NDArray(torch.empty_like(x))
     k = ks["softmax_fwd"]
     rows, cols = RTC_SHAPES["head"]
-    grid, block = (rows, 1, 1), (rtc_threads(cols), 1, 1)
+    grid, block = rtc_softmax_geometry(rows, cols)
     launch_us = host_us(lambda: k.launch([xn, p, rows, cols], CARD, grid,
                                          block))
     softmax_us = host_us(lambda: torch.softmax(x, -1))
@@ -2293,6 +2476,18 @@ def rtc_phase(checks):
                                       block),
         "a float for int cols": lambda: k.launch([xn, p, rows, 10.0], CARD,
                                                  grid, block),
+        "a bool for int cols": lambda: k.launch([xn, p, rows, True], CARD,
+                                                grid, block),
+        "a non-contiguous array": lambda: k.launch(
+            [NDArray(x.t()), p, rows, cols], CARD, grid, block),
+        "an NDArray's place taken by a list": lambda: k.launch(
+            [[1.0], p, rows, cols], CARD, grid, block),
+        "zero grid dims": lambda: k.launch([xn, p, rows, cols], CARD,
+                                           (0, 1, 1), block),
+        "a float block dim": lambda: k.launch([xn, p, rows, cols], CARD,
+                                              grid, (32.0, 1, 1)),
+        "too few arguments": lambda: k.launch([xn, p, rows], CARD, grid,
+                                              block),
         "a source that does not compile": lambda: rtc.CudaModule(
             'extern "C" __global__ void broken(float *x) { x[0] = y; }'),
         "an export that is not in the source": lambda: rtc.CudaModule(
@@ -3098,6 +3293,7 @@ def main():
     gen = torch.Generator(device=CARD).manual_seed(SEED)
     timings = kernel_phase(checks, gen)
     timings.update(backward_phase(checks, gen))
+    layer_norm_edge_phase(checks)
     timings.update(bn_phase(checks, gen))
     timings.update(conv_phase(checks, gen))
     for (name, dt), r in timings.items():

@@ -38,12 +38,20 @@
 // ln_bwd_finalize_kernel then sums the partial rows in a fixed order
 // and writes dgamma and dbeta in gamma's type.  No float atomics: a
 // rerun is bit-equal.  The group layout takes C up to 8 * 32 * 32 =
-// 8192; a wider C would stage the row in shared memory (a CTA a row),
-// a path that can sit beside this one.
+// 8192.
+// ln_bwd_wide_kernel takes any C past that (mxtpu's kernels go to
+// 131072): a persistent grid of one CTA of 512 threads an SM, a row at
+// a time.  Two passes over the row: x, dy and gamma for the two row
+// sums (block reductions), then again (from L2 where it holds them) for
+// dx; each thread owns the same columns in every row and adds dy * xhat
+// and dy into the CTA's own partial row in device memory (written at
+// its first row, added to after), so the same finalize kernel sums the
+// partial rows.  Right first; its speed is open.
 #include "common.cuh"
 
 constexpr int LN_THREADS = 256;
 constexpr int LN_WARPS = LN_THREADS / 32;
+constexpr int LN_WIDE_THREADS = 512;
 
 // (E, WPR) by the widest C each takes, as kernels/layer_norm.py's
 // LN_BWD_SHAPES: the fewest elements a thread that keep 2 CTAs an SM
@@ -200,6 +208,83 @@ __global__ void __launch_bounds__(LN_THREADS, (ln_min_blocks<T, VEC, E>()))
   }
 }
 
+// p[0, VEC) = v (first) or p + v, in 16-byte accesses where VEC >= 4
+// (p is then 16-byte aligned: C is a multiple of VEC)
+template <int VEC>
+__device__ __forceinline__ void add_row(float* p, const float* v,
+                                        bool first) {
+  if constexpr (VEC >= 4) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      float4* q = reinterpret_cast<float4*>(p + j);
+      float4 a = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *q;
+      a.x += v[j];
+      a.y += v[j + 1];
+      a.z += v[j + 2];
+      a.w += v[j + 3];
+      *q = a;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = first ? v[j] : p[j] + v[j];
+  }
+}
+
+// part as for ln_bwd_rows_kernel; the grid is at most R CTAs, so every
+// CTA has a row and writes its partial row
+template <typename T, int VEC>
+__global__ void __launch_bounds__(LN_WIDE_THREADS)
+    ln_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                       const float* __restrict__ mean,
+                       const float* __restrict__ rstd,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ part, long long R, int C) {
+  using P = Pack<T, VEC>;
+  __shared__ float red[LN_WIDE_THREADS / 32];
+  const int step = LN_WIDE_THREADS * VEC;
+  float* pg = part + (size_t)blockIdx.x * C;
+  float* pb = part + ((size_t)gridDim.x + blockIdx.x) * C;
+  bool first = true;
+  for (long long row = blockIdx.x; row < R; row += gridDim.x) {
+    const size_t base = (size_t)row * C;
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = threadIdx.x * VEC; c < C; c += step) {
+      const P xp = ld_pack<T, VEC>(x + base + c);
+      const P dp = ld_pack<T, VEC>(dy + base + c);
+      const P gp = ld_pack<T, VEC>(gamma + c);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float h = (to_f<T>(xp.v[j]) - mu) * rs;
+        const float g = to_f<T>(dp.v[j]) * to_f<T>(gp.v[j]);
+        s1 += g;
+        s2 += g * h;
+      }
+    }
+    const float c1 = block_sum(s1, red) / (float)C;
+    const float c2 = block_sum(s2, red) / (float)C;
+    for (int c = threadIdx.x * VEC; c < C; c += step) {
+      const P xp = ld_pack<T, VEC>(x + base + c);
+      const P dp = ld_pack<T, VEC>(dy + base + c);
+      const P gp = ld_pack<T, VEC>(gamma + c);
+      P o;
+      float dh[VEC], dd[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float d = to_f<T>(dp.v[j]);
+        const float h = (to_f<T>(xp.v[j]) - mu) * rs;
+        o.v[j] = from_f<T>(rs * (d * to_f<T>(gp.v[j]) - c1 - h * c2));
+        dh[j] = d * h;
+        dd[j] = d;
+      }
+      st_pack<T, VEC>(dx + base + c, o);
+      add_row<VEC>(pg + c, dh, first);
+      add_row<VEC>(pb + c, dd, first);
+    }
+    first = false;
+  }
+}
+
 // blockDim (32, FIN_LANES): column blockIdx.x * 32 + x; row lane y sums
 // the partial rows y, y + FIN_LANES, ... in order, then lane 0 of each
 // column adds the lanes in order and writes gamma's type
@@ -259,7 +344,22 @@ static int launch(const LnBwdArgs& a, cudaStream_t st) {
 }
 
 template <typename T, int VEC>
+static int launch_wide(const LnBwdArgs& a, cudaStream_t st) {
+  if (a.ctas > a.rows) return (int)cudaErrorInvalidValue;
+  ln_bwd_wide_kernel<T, VEC><<<a.ctas, LN_WIDE_THREADS, 0, st>>>(
+      (const T*)a.x, (const T*)a.g, (const float*)a.mean,
+      (const float*)a.rstd, (const T*)a.dy, (T*)a.dx, (float*)a.part,
+      a.rows, a.C);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ln_bwd_finalize_kernel<T><<<(a.C + 31) / 32, dim3(32, FIN_LANES), 0, st>>>(
+      (const float*)a.part, a.ctas, a.C, (T*)a.dgamma, (T*)a.dbeta);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
 static int launch_e(int ept, int wpr, const LnBwdArgs& a, cudaStream_t st) {
+  if (ept == 0 && wpr == 0) return launch_wide<T, VEC>(a, st);
 #define LN_CASE(MAXC, E, WPR) \
   if (ept == E && wpr == WPR) return launch<T, VEC, E, WPR>(a, st);
   LN_SHAPES(LN_CASE)
@@ -283,8 +383,8 @@ static int launch_t(int vec, int ept, int wpr, const LnBwdArgs& a,
 
 // vec: elements per access (16 bytes' worth, or 1); ept, wpr: elements a
 // thread holds of a row and warps per row, a pair of LN_SHAPES with
-// 32 * wpr * ept >= C; ctas: the persistent grid, and the rows of part
-// ([2][ctas][C] f32)
+// 32 * wpr * ept >= C, or (0, 0) for the wide kernel; ctas: the
+// persistent grid, and the rows of part ([2][ctas][C] f32)
 extern "C" int mxt_layer_norm_bwd(const void* x, const void* g,
                                   const void* mean, const void* rstd,
                                   const void* dy, void* dx, void* dgamma,

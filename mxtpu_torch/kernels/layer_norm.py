@@ -4,12 +4,15 @@ Four kernels, each beside its plain PyTorch version and its launch
 counter:
 
 * ``layer_norm_fwd`` — CUDA ``csrc/layer_norm.cu``; replaces
-  ``mxtpu/kernels/layer_norm.py:_ln_fwd_kernel`` (``_pallas_ln_fwd``).
+  ``mxtpu/kernels/layer_norm.py:_ln_fwd_kernel`` (``_pallas_ln_fwd``):
+  ``ln_fwd_rows_kernel`` up to C = 8192, ``ln_fwd_wide_kernel`` past
+  it (:func:`_ln_fwd_plan`).
 * ``layer_norm_bwd`` — CUDA ``csrc/layer_norm_bwd.cu``; replaces
-  ``_ln_bwd_kernel`` (``_pallas_ln_bwd``): ``ln_bwd_rows_kernel``
-  writes dx and one partial dgamma/dbeta row per CTA of a persistent
-  grid (:func:`_ln_bwd_plan`), ``ln_bwd_finalize_kernel`` sums them in
-  a fixed order into gamma's type.
+  ``_ln_bwd_kernel`` (``_pallas_ln_bwd``): ``ln_bwd_rows_kernel`` (up
+  to C = 8192) or ``ln_bwd_wide_kernel`` (past it) writes dx and one
+  partial dgamma/dbeta row per CTA of a persistent grid
+  (:func:`_ln_bwd_plan`), ``ln_bwd_finalize_kernel`` sums them in a
+  fixed order into gamma's type.
 * ``fused_residual_ln_fwd`` — CUDA ``csrc/fused_residual_ln.cu``;
   replaces ``_frln_fwd_kernel`` (``_pallas_frln_fwd``):
   ``y = LN(res + dropout(h + bias))`` with the reference's threefry2x32
@@ -23,15 +26,19 @@ Bound on the H100 (rows = b*T, C = 1024): bytes.  Each is a row
 reduction with an elementwise prologue and epilogue at ~10-20 flops per
 element, far under the card's flop/byte balance, so the floor is
 reading the inputs once and writing the outputs once at 3.35 TB/s.
-The forward kernels stage one row in shared memory as f32 (one CTA per
+LayerNorm, both directions, gives each row a group of 1-8 warps that
+holds the row in registers (16-byte vector accesses where C and the
+pointers allow) between its two shuffle reductions (the forward: the
+mean, then the centred sum of squares, as mxtpu's kernel computes
+them); the forward's grid gives each group one row, the backward's is
+persistent, a few CTAs per SM.  Past C = 8192, which 8 warps' registers
+hold, a CTA of 512 threads takes a row and reads it again from L2 for
+each pass, for any C (mxtpu's kernels take C up to 131072).  The fused
+epilogue's forward stages one row in shared memory as f32 (one CTA per
 row), so every input byte is read once and the residual sum ``u``
-never reaches device memory.  The LayerNorm backward gives each row a
-group of 1-8 warps that holds the row in registers (16-byte vector
-accesses where C and the pointers allow) between its two shuffle
-reductions, over a persistent grid of a few CTAs per SM; the fused
-epilogue's backward takes ``BWD_ROWS`` rows per CTA and keeps each
-row's intermediates in shared memory.  Both write one partial row of
-the parameter gradients per CTA.
+never reaches device memory; its backward takes ``BWD_ROWS`` rows per
+CTA and keeps each row's intermediates in shared memory.  Every
+backward writes one partial row of the parameter gradients per CTA.
 CUDA C++ rather than Triton: one build route (nvcc + ctypes) for every
 kernel of the port.
 
@@ -71,28 +78,36 @@ FRLN_BWD_LAUNCHES = 0
 _SELF = sys.modules[__name__]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# one row of f32 plus the per-warp scratch must fit the default 48 KB
-# of dynamic shared memory
-MAX_C = 48 * 1024 // 4 - 32
-# widest C of the backward kernels: the fused epilogue's stages up to six
-# f32 rows of C in shared memory (opted in past 48 KB, up to the 227 KB
-# a block may use); LayerNorm's holds a row in 8 warps' registers
-BWD_MAX_C = 8192
+# widest C of the fused epilogue's forward: one row of f32 plus the
+# per-warp scratch must fit the default 48 KB of dynamic shared memory
+FRLN_MAX_C = 48 * 1024 // 4 - 32
+# widest C of the fused epilogue's backward: it stages up to six f32
+# rows of C in shared memory (opted in past 48 KB, up to the 227 KB a
+# block may use)
+FRLN_BWD_MAX_C = 8192
 # rows per CTA of the fused epilogue's backward: one partial row of the
 # parameter gradients each
 BWD_ROWS = 8
-# the LayerNorm backward (csrc/layer_norm_bwd.cu): 8 warps a CTA, and
-# its template instances (its LN_SHAPES): (widest C, elements of a row
-# a thread holds, warps a row), the fewest elements that keep 2 CTAs an
-# SM (one warp a row at 32 elements, one CTA an SM, measured slower on
-# the H100 at C = 1024)
+# the LayerNorm kernels (csrc/layer_norm.cu, csrc/layer_norm_bwd.cu): 8
+# warps a CTA, and the row kernels' template instances (their
+# LN_FWD_SHAPES and LN_SHAPES): (widest C, elements of a row a thread
+# holds, warps a row), the fewest elements that keep 2 CTAs an SM in
+# the backward (one warp a row at 32 elements, one CTA an SM, measured
+# slower on the H100 at C = 1024); past the last C, the wide kernels
 LN_BWD_WARPS = 8
 LN_BWD_SHAPES = ((256, 8, 1), (512, 16, 1), (1024, 16, 2), (2048, 16, 4),
                  (4096, 16, 8), (8192, 32, 8))
+LN_FWD_SHAPES = LN_BWD_SHAPES   # the same instances in both sources
+# widest C the row kernels hold in registers; the wide kernels take any
+# C past it, a CTA of LN_WIDE_THREADS a row
+LN_ROWS_MAX_C = LN_BWD_SHAPES[-1][0]
+LN_WIDE_THREADS = 512
+# largest grid of a launch (gridDim.x); the kernels stride past it
+_MAX_GRID = (1 << 31) - 1
 
 _P = ctypes.c_void_p
 _LN_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, _P]
+            ctypes.c_float] + [ctypes.c_int] * 5 + [_P]
 _LN_BWD_ARGS = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [_P]
 _FRLN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
               ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
@@ -106,15 +121,15 @@ _FRLN_BWD_ARGS = [_P] * 12 + [ctypes.c_longlong, ctypes.c_int,
 
 def _check_rows(what: str, x2: torch.Tensor,
                 vecs: Sequence[torch.Tensor], rows=(),
-                max_c: int = MAX_C) -> None:
+                max_c: Optional[int] = None) -> None:
     """What the kernels take: contiguous (R, C) f32/bf16 rows (``x2``
     and ``rows``) and contiguous (C,) vectors of the same type, C within
-    ``max_c``."""
+    ``max_c`` where the kernel has a bound."""
     if x2.dtype not in _DTYPES:
         raise MXNetError(f"{what}: dtype {x2.dtype} not supported "
                          f"(float32, bfloat16)")
     C = x2.shape[-1]
-    if C > max_c:
+    if max_c is not None and C > max_c:
         raise MXNetError(f"{what}: {C} features exceed the kernel bound "
                          f"{max_c}")
     for t in (x2, *rows):
@@ -147,6 +162,44 @@ def layer_norm_reference(x, gamma, beta, eps=1e-5):
     return y.to(x.dtype), mean.squeeze(-1), rstd.squeeze(-1)
 
 
+class LnPlan(NamedTuple):
+    """The launch of a LayerNorm kernel: ``vec`` elements per access
+    (16 bytes' worth, or 1), ``ept`` elements of a row per thread and
+    ``wpr`` warps per row of the row kernel (both 0: the wide kernel, a
+    CTA a row), ``ctas`` CTAs in the grid (in the backward, also its
+    partial rows)."""
+    vec: int
+    ept: int
+    wpr: int
+    ctas: int
+
+    @property
+    def wide(self) -> bool:
+        return self.ept == 0
+
+
+def _vec(C: int, itemsize: int, aligned: bool) -> int:
+    """16 bytes' worth of elements per access where C is a multiple of
+    it and every pointer is 16-byte aligned, else 1."""
+    v = 16 // itemsize
+    return v if aligned and C % v == 0 else 1
+
+
+def _ln_fwd_plan(R: int, C: int, itemsize: int, aligned: bool) -> LnPlan:
+    """Launch geometry of the LayerNorm forward for (R, C) rows: the row
+    kernel's first instance of ``LN_FWD_SHAPES`` that takes C, a grid
+    that gives each row group of a CTA one row; past
+    ``LN_ROWS_MAX_C``, the wide kernel, a CTA a row."""
+    if C < 1 or R < 1:
+        raise MXNetError(f"layer_norm: no launch for ({R}, {C})")
+    vec = _vec(C, itemsize, aligned)
+    if C > LN_ROWS_MAX_C:
+        return LnPlan(vec, 0, 0, min(R, _MAX_GRID))
+    _, ept, wpr = next(s for s in LN_FWD_SHAPES if C <= s[0])
+    groups = LN_BWD_WARPS // wpr
+    return LnPlan(vec, ept, wpr, min(-(-R // groups), _MAX_GRID))
+
+
 def layer_norm_fwd(x2: torch.Tensor, gamma: torch.Tensor,
                    beta: torch.Tensor, eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -162,11 +215,14 @@ def layer_norm_fwd(x2: torch.Tensor, gamma: torch.Tensor,
     rstd = torch.empty(R, dtype=torch.float32, device=x2.device)
     if R == 0:
         return y, mean, rstd
+    plan = _ln_fwd_plan(R, C, x2.element_size(),
+                        aligned16(x2, gamma, beta, y))
     fn = _build.bind("layer_norm", "mxt_layer_norm_fwd", _LN_ARGS)
     with torch.cuda.device(x2.device):
         err = fn(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                  y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), R, C,
-                 float(eps), _DTYPES[x2.dtype], _build.stream_of(x2))
+                 float(eps), plan.vec, plan.ept, plan.wpr, plan.ctas,
+                 _DTYPES[x2.dtype], _build.stream_of(x2))
     _build.check(err, "layer_norm")
     bump(_SELF)
     return y, mean, rstd
@@ -193,17 +249,6 @@ def layer_norm_bwd_reference(x2, gamma, mean, rstd, dy2):
             dy.sum(0).to(gamma.dtype))
 
 
-class LnBwdPlan(NamedTuple):
-    """The launch of ``ln_bwd_rows_kernel``: ``vec`` elements per
-    access (16 bytes' worth, or 1), ``ept`` elements of a row per
-    thread, ``wpr`` warps per row, ``ctas`` CTAs in the persistent grid
-    (and partial rows)."""
-    vec: int
-    ept: int
-    wpr: int
-    ctas: int
-
-
 def _ln_min_blocks(ept: int, itemsize: int, vec: int) -> int:
     """CTAs per SM the kernel's launch bounds are set for (its
     ``ln_min_blocks``): from the registers a thread's two accumulators,
@@ -215,21 +260,24 @@ def _ln_min_blocks(ept: int, itemsize: int, vec: int) -> int:
 
 
 def _ln_bwd_plan(R: int, C: int, itemsize: int, aligned: bool,
-                 sms: int) -> LnBwdPlan:
+                 sms: int) -> LnPlan:
     """Launch geometry of the LayerNorm backward for (R, C) rows: vector
     accesses only where C is a multiple of 16 bytes' worth and every
     pointer is 16-byte aligned; the first of ``LN_BWD_SHAPES`` that
     takes C; a persistent grid of as many CTAs as the SMs hold at once,
-    never more than the rows need."""
-    if not 1 <= C <= BWD_MAX_C or R < 1:
+    never more than the rows need.  Past ``LN_ROWS_MAX_C``, the wide
+    kernel: one CTA an SM, never more than the rows (each CTA's partial
+    row is C floats of scratch)."""
+    if C < 1 or R < 1:
         raise MXNetError(f"layer_norm_bwd: no launch for ({R}, {C})")
-    v = 16 // itemsize
-    vec = v if aligned and C % v == 0 else 1
+    vec = _vec(C, itemsize, aligned)
+    if C > LN_ROWS_MAX_C:
+        return LnPlan(vec, 0, 0, min(R, sms))
     _, ept, wpr = next(s for s in LN_BWD_SHAPES if C <= s[0])
     groups = LN_BWD_WARPS // wpr
     ctas = max(1, min(-(-R // groups),
                       sms * _ln_min_blocks(ept, itemsize, vec)))
-    return LnBwdPlan(vec, ept, wpr, ctas)
+    return LnPlan(vec, ept, wpr, ctas)
 
 
 def layer_norm_bwd(x2, gamma, mean, rstd, dy2):
@@ -237,7 +285,7 @@ def layer_norm_bwd(x2, gamma, mean, rstd, dy2):
     the plain version on CPU tensors."""
     if not on_card(x2, gamma, mean, rstd, dy2):
         return layer_norm_bwd_reference(x2, gamma, mean, rstd, dy2)
-    _check_rows("layer_norm_bwd", x2, (gamma,), (dy2,), BWD_MAX_C)
+    _check_rows("layer_norm_bwd", x2, (gamma,), (dy2,))
     R, C = x2.shape
     mean, rstd = _stats(mean, R), _stats(rstd, R)
     dx = torch.empty_like(x2)
@@ -391,7 +439,7 @@ def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
                                            key_data, p, eps, training)
     refuse_grad("fused_residual_ln_fwd", h2, bias, res2, gamma, beta)
     _check_rows("fused_residual_layer_norm", h2, (bias, gamma, beta),
-                (res2,))
+                (res2,), FRLN_MAX_C)
     R, C = h2.shape
     keep = _keep(p, training)
     k0, k1 = _words(key_data, R * C, keep)
@@ -442,7 +490,7 @@ def fused_residual_ln_bwd(h2, bias, res2, gamma, key_words, mean, rstd,
         return fused_residual_ln_bwd_reference(
             h2, bias, res2, gamma, key_words, mean, rstd, dy2, keep)
     _check_rows("fused_residual_ln_bwd", h2, (bias, gamma), (res2, dy2),
-                BWD_MAX_C)
+                FRLN_BWD_MAX_C)
     R, C = h2.shape
     mean, rstd = _stats(mean, R), _stats(rstd, R)
     k0, k1 = _words(key_words, R * C, keep)

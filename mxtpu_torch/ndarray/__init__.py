@@ -83,7 +83,10 @@ def _invoke_op(name: str, *inputs, **kwargs):
     tensors = [x._data if isinstance(x, NDArray)
                else torch.as_tensor(x, device=dev) for x in inputs]
     resolved = op.resolve_params(kwargs)
-    with autograd._grad_mode():
+    # a non-differentiable op is not recorded, as in mxtpu's
+    # _invoke_op_inner: its output is a constant, and a backward from it
+    # finds no graph
+    with autograd._grad_mode() if op.differentiable else torch.no_grad():
         out = op.fn(*tensors, **resolved)
     if isinstance(out, tuple):
         return tuple(NDArray(o) for o in out)

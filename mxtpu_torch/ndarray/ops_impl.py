@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from ..kernels import batch_norm as _bn
 from ..ops.registry import Param, register_op
-from .ndarray import torch_dtype
+from .ndarray import _NARROW, torch_dtype
 
 # ----------------------------------------------------------------------
 # helpers
@@ -45,25 +45,125 @@ def _tuple(v, n):
     return t * n if len(t) == 1 else t
 
 
-def _axes(axis, ndim):
+def _norm_axis(axis):
+    """mxtpu's ``_norm_axis``: None, an int or a tuple of ints, taken as
+    written (a negative axis is not reduced modulo the rank)."""
     if axis is None:
-        return tuple(range(ndim))
+        return None
     if isinstance(axis, (list, tuple)):
-        return tuple(int(a) % ndim for a in axis)
-    return (int(axis) % ndim,)
+        return tuple(int(a) for a in axis)
+    return int(axis)
 
 
 def _flag(x, cond):
-    """A comparison's result in the reference's type: the input's float
-    type, else float32."""
+    """A binary comparison's result in the reference's type: the input's
+    float type, else float32."""
     return cond.to(x.dtype if x.is_floating_point() else torch.float32)
+
+
+def _scalar_flag(x, cond):
+    """A scalar comparison's result: the input's own type, integer or
+    float (``astype(x.dtype)`` in the reference)."""
+    return cond.to(x.dtype)
+
+
+def _scalar(x, s):
+    """The python scalar ``s`` as a 0-d tensor of the type ``x`` op
+    ``s`` takes: x's float type, float32 beside an integer x (a weak
+    float, as in jax)."""
+    return torch.tensor(s, dtype=torch.result_type(x, s), device=x.device)
+
+
+def _float_of(x):
+    """x, or x as float32 where it holds integers (jnp.mean and
+    jax.nn.softmax compute integers in float32)."""
+    return x if x.is_floating_point() else x.float()
+
+
+class _Abs(torch.autograd.Function):
+    """|x| with jnp.abs's gradient: the head where x >= 0 (at +0 and -0
+    too), its negation elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _sign(x):
+    """sign(x), NaN where x is NaN (jnp.sign; torch.sign gives 0)."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+class _Pow(torch.autograd.Function):
+    """x ** y with jax's gradients (lax.pow): d/dx = y * x^(y-1), not
+    masked where y is 0 (NaN at x = y = 0), and d/dy = x^y * log(x)
+    with log(1) where x is 0 (NaN where x^y is infinite there)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        z = torch.pow(x, y)
+        ctx.save_for_backward(x, y, z)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, z = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (g * (y * torch.pow(x, y - 1))).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            logx = torch.log(torch.where(x == 0, torch.ones_like(x), x))
+            gy = (g * (z * logx)).sum_to_size(y.shape)
+        return gx, gy
+
+
+def _mod(a, b):
+    """jnp.mod: the remainder with the divisor's sign; an integer
+    remainder by 0 is 0 (torch raises on the CPU)."""
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.remainder(a, b)
+    zero = b == 0
+    return torch.where(zero, 0, torch.remainder(
+        a, torch.where(zero, torch.ones_like(b), b)))
+
+
+class _NoPath(torch.autograd.Function):
+    """``value`` as an output of ``x`` whose gradient is zero: what jax's
+    vjp gives for stop_gradient, zeros_like and ones_like, so a
+    backward from such an output writes zeros into x's gradient, as in
+    mxtpu, instead of finding no graph."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g), None
+
+
+def _no_path(fn):
+    def rule(x):
+        value = fn(x)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _NoPath.apply(x, value)
+        return value
+    return rule
 
 
 # ----------------------------------------------------------------------
 # unary elementwise
 # ----------------------------------------------------------------------
 _UNARY = {
-    "abs": torch.abs, "negative": torch.neg, "sign": torch.sign,
+    "abs": _Abs.apply, "negative": torch.neg, "sign": _sign,
     "reciprocal": torch.reciprocal, "square": torch.square,
     "sqrt": torch.sqrt, "rsqrt": torch.rsqrt, "exp": torch.exp,
     "log": torch.log, "relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -76,9 +176,10 @@ for _name, _fn in _UNARY.items():
                 doc=f"elementwise {_name}")((lambda f: lambda x: f(x))(_fn))
 
 register_op("_copy", aliases=("copy",))(lambda x: x.clone())
-register_op("BlockGrad", aliases=("stop_gradient",))(lambda x: x.detach())
-register_op("zeros_like")(lambda x: torch.zeros_like(x))
-register_op("ones_like")(lambda x: torch.ones_like(x))
+register_op("BlockGrad", aliases=("stop_gradient",))(
+    _no_path(lambda x: x.detach()))
+register_op("zeros_like")(_no_path(torch.zeros_like))
+register_op("ones_like")(_no_path(torch.ones_like))
 
 # ----------------------------------------------------------------------
 # binary broadcast and scalar families
@@ -88,8 +189,8 @@ _BINARY = {
     "broadcast_sub": (torch.sub, True, ("elemwise_sub", "_minus")),
     "broadcast_mul": (torch.mul, True, ("elemwise_mul", "_mul")),
     "broadcast_div": (torch.div, True, ("elemwise_div", "_div")),
-    "broadcast_mod": (torch.remainder, True, ("_mod",)),
-    "broadcast_power": (torch.pow, True, ("_power", "pow")),
+    "broadcast_mod": (_mod, True, ("_mod",)),
+    "broadcast_power": (_Pow.apply, True, ("_power", "pow")),
     "broadcast_maximum": (torch.maximum, True, ("maximum", "_maximum")),
     "broadcast_minimum": (torch.minimum, True, ("minimum", "_minimum")),
     "broadcast_equal": (lambda a, b: _flag(a, a == b), False, ("_equal",)),
@@ -118,22 +219,25 @@ _SCALAR = {
     "_div_scalar": (lambda x, s: x / s, True, ("_DivScalar",)),
     "_rdiv_scalar": (lambda x, s: s / x, True, ("_RDivScalar",)),
     "_mod_scalar": (lambda x, s: torch.remainder(x, s), True, ()),
-    "_rmod_scalar": (lambda x, s: torch.remainder(
-        torch.full_like(x, s), x), True, ()),
-    "_power_scalar": (lambda x, s: torch.pow(x, s), True,
+    "_rmod_scalar": (lambda x, s: torch.remainder(s, x), True, ()),
+    "_power_scalar": (lambda x, s: _Pow.apply(x, _scalar(x, s)), True,
                       ("_PowerScalar",)),
-    "_rpower_scalar": (lambda x, s: torch.pow(s, x), True,
+    "_rpower_scalar": (lambda x, s: _Pow.apply(_scalar(x, s), x), True,
                        ("_RPowerScalar",)),
-    "_maximum_scalar": (lambda x, s: torch.clamp_min(x, s), True,
-                        ("_MaximumScalar",)),
-    "_minimum_scalar": (lambda x, s: torch.clamp_max(x, s), True,
-                        ("_MinimumScalar",)),
-    "_equal_scalar": (lambda x, s: _flag(x, x == s), False, ()),
-    "_not_equal_scalar": (lambda x, s: _flag(x, x != s), False, ()),
-    "_greater_scalar": (lambda x, s: _flag(x, x > s), False, ()),
-    "_greater_equal_scalar": (lambda x, s: _flag(x, x >= s), False, ()),
-    "_lesser_scalar": (lambda x, s: _flag(x, x < s), False, ()),
-    "_lesser_equal_scalar": (lambda x, s: _flag(x, x <= s), False, ()),
+    # torch.maximum/minimum pass half the gradient to each side of a
+    # tie, as jnp.maximum/minimum do (clamp_min/clamp_max pass it all)
+    "_maximum_scalar": (lambda x, s: torch.maximum(x, _scalar(x, s)),
+                        True, ("_MaximumScalar",)),
+    "_minimum_scalar": (lambda x, s: torch.minimum(x, _scalar(x, s)),
+                        True, ("_MinimumScalar",)),
+    "_equal_scalar": (lambda x, s: _scalar_flag(x, x == s), False, ()),
+    "_not_equal_scalar": (lambda x, s: _scalar_flag(x, x != s), False, ()),
+    "_greater_scalar": (lambda x, s: _scalar_flag(x, x > s), False, ()),
+    "_greater_equal_scalar": (lambda x, s: _scalar_flag(x, x >= s), False,
+                              ()),
+    "_lesser_scalar": (lambda x, s: _scalar_flag(x, x < s), False, ()),
+    "_lesser_equal_scalar": (lambda x, s: _scalar_flag(x, x <= s), False,
+                             ()),
 }
 for _name, (_fn, _diff, _aliases) in _SCALAR.items():
     register_op(_name, params=[Param("scalar", float, 0.0)],
@@ -147,9 +251,19 @@ for _name, (_fn, _diff, _aliases) in _SCALAR.items():
 
 def _reduce(name, fn, diff=True):
     def rule(x, axis=None, keepdims=False, exclude=False):
-        ax = _axes(axis, x.ndim)
-        if exclude and axis is not None:
-            ax = tuple(i for i in range(x.ndim) if i not in ax)
+        # mxtpu's axis arithmetic: ``exclude`` keeps the axes as written,
+        # so a negative one matches no index and every axis goes; an
+        # empty tuple reduces nothing (torch would reduce every axis)
+        ax = _norm_axis(axis)
+        if exclude and ax is not None:
+            kept = (ax,) if isinstance(ax, int) else ax
+            ax = tuple(i for i in range(x.ndim) if i not in kept)
+        if ax is None:
+            ax = tuple(range(x.ndim))
+        elif isinstance(ax, int):
+            ax = (ax,)
+        if not ax:
+            return fn(x, None, False)
         return fn(x, ax, bool(keepdims))
     register_op(name, params=[Param("axis", tuple, None),
                               Param("keepdims", bool, False),
@@ -157,16 +271,35 @@ def _reduce(name, fn, diff=True):
                 differentiable=diff)(rule)
 
 
-_reduce("sum", lambda x, ax, k: torch.sum(x, dim=ax, keepdim=k))
-_reduce("mean", lambda x, ax, k: torch.mean(x, dim=ax, keepdim=k))
-_reduce("max", lambda x, ax, k: torch.amax(x, dim=ax, keepdim=k))
-_reduce("min", lambda x, ax, k: torch.amin(x, dim=ax, keepdim=k))
+def _sum(x, ax, k):
+    # jnp.sum of an integer or bool array of at most 32 bits is int32
+    dt = torch.int32 if not x.is_floating_point() and \
+        x.dtype != torch.uint8 and x.element_size() <= 4 else None
+    if ax is None:
+        return x.to(dt or x.dtype, copy=True)
+    return torch.sum(x, dim=ax, keepdim=k, dtype=dt)
+
+
+def _mean(x, ax, k):
+    x = _float_of(x)
+    return x.clone() if ax is None else torch.mean(x, dim=ax, keepdim=k)
+
+
+_reduce("sum", _sum)
+_reduce("mean", _mean)
+_reduce("max", lambda x, ax, k: x.clone() if ax is None
+        else torch.amax(x, dim=ax, keepdim=k))
+_reduce("min", lambda x, ax, k: x.clone() if ax is None
+        else torch.amin(x, dim=ax, keepdim=k))
 
 
 def _arg(fn):
     def rule(x, axis=None, keepdims=False):
         if axis is None:
-            return fn(x.reshape(-1)).to(torch.float32)
+            out = fn(x.reshape(-1))
+            if keepdims:
+                out = out.reshape((1,) * x.ndim)
+            return out.to(torch.float32)
         ax = int(axis[0]) if isinstance(axis, tuple) else int(axis)
         return fn(x, dim=ax, keepdim=keepdims).to(torch.float32)
     return rule
@@ -196,9 +329,50 @@ register_op("transpose", params=[Param("axes", tuple, None)])(
         tuple(axes) if axes else tuple(reversed(range(x.ndim)))))
 register_op("expand_dims", params=[Param("axis", int, 0)])(
     lambda x, axis=0: x.unsqueeze(axis))
-register_op("squeeze", params=[Param("axis", tuple, None)])(
-    lambda x, axis=None: x.squeeze() if axis is None
-    else x.squeeze(_axes(axis, x.ndim)))
+
+
+def _squeeze(x, axis=None):
+    """jnp.squeeze: an axis given must have size 1 (ValueError
+    otherwise; torch would leave it)."""
+    ax = _norm_axis(axis)
+    if ax is None:
+        return x.squeeze()
+    ax = (ax,) if isinstance(ax, int) else ax
+    for a in ax:
+        if not -x.ndim <= a < x.ndim or x.shape[a] != 1:
+            raise ValueError(
+                f"cannot squeeze axis {a} of shape {tuple(x.shape)}: its "
+                f"size is not one")
+    return x.squeeze(tuple(a % x.ndim for a in ax))
+
+
+register_op("squeeze", params=[Param("axis", tuple, None)])(_squeeze)
+
+
+def _clip(x, a_min=None, a_max=None):
+    """jnp.clip as maximum, then minimum: half the gradient at a tie with
+    a bound, as jnp.clip passes (torch.clamp passes all of it)."""
+    if a_min is not None:
+        x = torch.maximum(x, _scalar(x, a_min))
+    if a_max is not None:
+        x = torch.minimum(x, _scalar(x, a_max))
+    return x
+
+
+def _cast(x, dtype="float32"):
+    """``astype`` as in mxtpu, which runs with jax's 64-bit types off:
+    float64 and int64 give float32 and int32.  A float to an integer
+    saturates at the target's range and takes NaN to 0, as XLA's convert
+    does (torch wraps)."""
+    td = torch_dtype(dtype)
+    td = _NARROW.get(td, td)
+    if x.is_floating_point() and not td.is_floating_point and \
+            td != torch.bool:
+        info = torch.iinfo(td)
+        x = torch.nan_to_num(x.double(), nan=0.0).clamp(info.min, info.max)
+    return x.to(td)
+
+
 register_op("flatten", aliases=("Flatten",))(
     lambda x: x.reshape(x.shape[0], -1))
 register_op("concat", num_inputs=-1, params=[Param("dim", int, 1)],
@@ -206,11 +380,9 @@ register_op("concat", num_inputs=-1, params=[Param("dim", int, 1)],
 register_op("stack", num_inputs=-1, params=[Param("axis", int, 0)])(
     lambda *xs, axis=0: torch.stack(xs, dim=axis))
 register_op("clip", params=[Param("a_min", float, None),
-                            Param("a_max", float, None)])(
-    lambda x, a_min=None, a_max=None: torch.clamp(x, a_min, a_max))
+                            Param("a_max", float, None)])(_clip)
 register_op("cast", params=[Param("dtype", str, "float32")],
-            aliases=("Cast",))(
-    lambda x, dtype="float32": x.to(torch_dtype(dtype)))
+            aliases=("Cast",))(_cast)
 
 # ----------------------------------------------------------------------
 # neural-net ops
@@ -289,6 +461,12 @@ def _pooling(x, kernel=(), pool_type="max", global_pool=False, stride=None,
     # mean (sum and lp too); a windowed sum ignores count_include_pad;
     # lp is sqrt of the windowed sum of squares
     nd = len(kernel) if kernel else x.ndim - 2
+    if nd == 3 and x.dtype == torch.bfloat16 and x.device.type == "cpu" \
+            and pool_type != "max":
+        # torch's 3-D average pool has no bf16 kernel on the CPU: pool in
+        # f32 and round once (the card's takes bf16 as it is)
+        return _pooling(x.float(), kernel, pool_type, global_pool, stride,
+                        pad, count_include_pad, layout).to(x.dtype)
     layout = layout or {1: "NCW", 2: "NCHW", 3: "NCDHW"}[nd]
     last = layout.endswith("C")
     sp = tuple(range(1, 1 + nd)) if last else tuple(range(2, 2 + nd))
@@ -347,10 +525,11 @@ register_op("Activation", params=[
 register_op("softmax", params=[Param("axis", int, -1),
                                Param("temperature", tuple, None)])(
     lambda x, axis=-1, temperature=None: torch.softmax(
-        x if temperature in (None, ()) or float(temperature[0]) == 1.0
-        else x / float(temperature[0]), dim=axis))
+        _float_of(x) if temperature in (None, ()) or
+        float(temperature[0]) == 1.0
+        else _float_of(x) / float(temperature[0]), dim=axis))
 register_op("log_softmax", params=[Param("axis", int, -1)])(
-    lambda x, axis=-1: torch.log_softmax(x, dim=axis))
+    lambda x, axis=-1: torch.log_softmax(_float_of(x), dim=axis))
 
 
 class _SoftmaxOutput(torch.autograd.Function):

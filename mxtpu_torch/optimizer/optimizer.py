@@ -7,8 +7,11 @@ multipliers and the update count; the math is the update ops of
 on torch tensors and rebinds ``weight.data`` and the state tensors to
 the functionally updated values.  :class:`Updater` (``get_updater``)
 applies an optimizer to NDArray weights with per-index states, as
-Module does.  Not ported yet: lr schedulers, the other optimizers
-(LAMB, RMSProp, ...), the eager multi-precision update and row-sparse
+Module does, through the multi-precision pair
+(``create_state_multi_precision`` / ``update_multi_precision``): a
+bf16 or f16 weight gets an f32 master, updated in f32 and cast back
+once a step, unless ``multi_precision=False``.  Not ported yet: lr
+schedulers, the other optimizers (LAMB, RMSProp, ...) and row-sparse
 lazy updates.
 """
 from __future__ import annotations
@@ -80,6 +83,33 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def _wants_master(self, weight) -> bool:
+        """The f32-master recipe applies: ``multi_precision`` is not
+        False (None, the default, means on) and ``weight`` is a sub-f32
+        float, as :func:`.functional.opt_rule` decides for the train
+        step."""
+        from .functional import _needs_master
+        return self.multi_precision is not False and _needs_master(weight)
+
+    def create_state_multi_precision(self, index, weight):
+        """``(f32 master, the base state of the master)`` for a weight
+        that wants a master, else the base state."""
+        if not self._wants_master(weight):
+            return self.create_state(index, weight)
+        master = weight.detach().float()
+        return (master, self.create_state(index, master))
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """The update on the f32 master with an f32 gradient; the weight
+        becomes the master cast to its type, the only narrowing of the
+        step."""
+        if not self._wants_master(weight):
+            self.update(index, weight, grad, state)
+            return
+        master, base = state
+        self.update(index, master, grad.float(), base)
+        weight.data = master.to(weight.dtype)
 
     # -- hyperparameters -------------------------------------------------
     def set_learning_rate(self, lr):
@@ -182,7 +212,8 @@ class Updater:
     """Applies an optimizer to NDArray weights with per-index states
     (reference ``optimizer.Updater``†, the object Module and a KVStore
     call).  ``updater(index, grad, weight)`` updates ``weight`` in
-    place."""
+    place, through the optimizer's multi-precision pair (an f32 master
+    for a bf16/f16 weight, as mxtpu's ``Updater.__call__``)."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
@@ -191,8 +222,10 @@ class Updater:
     def __call__(self, index, grad, weight) -> None:
         w, g = weight._data, grad._data
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, w)
-        self.optimizer.update(index, w, g, self.states[index])
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, w)
+        self.optimizer.update_multi_precision(index, w, g,
+                                              self.states[index])
 
     def get_states(self, dump_optimizer: bool = False) -> bytes:
         """The states as a pickle of numpy arrays (with the optimizer

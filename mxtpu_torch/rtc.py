@@ -25,14 +25,15 @@ Design.  The source is compiled by ``nvcc -cubin`` for ``sm_90a`` into
 the options and the flags, so a cubin is built once per machine) and
 loaded with the driver API through ctypes (``cuModuleLoadData``) into
 PyTorch's context: the device's primary context, made current on the
-calling thread before each driver call.  Kernels are found by name, so
+calling thread before its first driver call there and checked current
+(one ``cuCtxGetCurrent``) at each launch.  Kernels are found by name, so
 an exported kernel is declared ``extern "C"``; a name the cubin lacks
 raises.  ``launch`` checks every argument against the signature the
 caller gave (pointer or scalar, and its C type, which alone decides the
 width of the value passed), checks that ``ctx`` is a GPU and every
 array lies on it, contiguous, and launches with ``cuLaunchKernel`` on
-``torch.cuda.current_stream()``, so the kernel is ordered with the
-cuDNN and PyTorch work around it; a non-zero result raises.  Nothing
+PyTorch's current stream, so the kernel is ordered with the cuDNN and
+PyTorch work around it; a non-zero result raises.  Nothing
 falls back to the CPU: without CUDA, ``CudaModule`` raises when it is
 made.  Each kernel counts its launches (:func:`launch_counts`).
 
@@ -307,7 +308,14 @@ class CudaModule:
 
 class CudaKernel:
     """One kernel of a :class:`CudaModule`; :meth:`launch` runs it
-    (reference ``mx.rtc.CudaKernel``†)."""
+    (reference ``mx.rtc.CudaKernel``†).
+
+    What repeats per launch is cut to the checks themselves: each
+    argument's converter is built once from the signature, a context
+    resolves once to its device index, and each calling thread keeps one
+    ctypes block of the kernel's parameters per device, made the first
+    time the thread launches there (the function handle and the pointer
+    array to the parameters with it)."""
 
     def __init__(self, module: CudaModule, name: str, args: List[Arg]):
         self.module = module
@@ -315,6 +323,14 @@ class CudaKernel:
         self.args = args
         self._fns: Dict[int, int] = {}
         self._function(torch.cuda.current_device())
+        self._convert = [self._converter(i, s) for i, s in enumerate(args)]
+        fields = [(f"a{i}", _P if s.is_ptr else s.ctype)
+                  for i, s in enumerate(args)]
+        self._struct = type(f"_{name}_params", (ctypes.Structure,),
+                            {"_fields_": fields})
+        self._index_of: Dict[object, int] = {}
+        self._shared_set: Dict[int, int] = {}
+        self._local = threading.local()
         with _count_lock:
             LAUNCHES.setdefault(name, 0)
 
@@ -324,68 +340,146 @@ class CudaKernel:
             fn = self._fns[index] = self.module._function(index, self.name)
         return fn
 
-    def _value(self, spec: Arg, a, dev: torch.device, i: int):
+    def _converter(self, i: int, spec: Arg):
+        """The check and conversion of argument ``i``: a tensor's data
+        pointer, or the python scalar itself (ctypes narrows it to the C
+        type when it is stored)."""
         what = f"{self.name} argument {i} ({spec.name or spec.cname})"
         if spec.is_ptr:
-            t = a._data if isinstance(a, NDArray) else a
-            if not isinstance(t, torch.Tensor):
-                raise MXNetError(f"{what}: a {spec.cname} pointer takes an "
-                                 f"NDArray, got {type(a).__name__}")
-            if t.dtype != spec.dtype:
-                raise MXNetError(f"{what}: {spec.cname} * needs "
-                                 f"{spec.dtype}, got {t.dtype}")
-            if t.device != dev:
-                raise MXNetError(f"{what}: the array is on {t.device}, the "
-                                 f"launch on {dev}")
-            if not t.is_contiguous():
-                raise MXNetError(f"{what}: the array is not contiguous")
-            return _P(t.data_ptr())
-        if spec.kind == "bool":
-            ok = isinstance(a, (bool, np.bool_))
-        else:
-            ok = isinstance(a, numbers.Integral if spec.kind == "int"
-                            else numbers.Real) and \
-                not isinstance(a, (bool, np.bool_))
-        if not ok:
-            raise MXNetError(f"{what}: a {spec.cname} scalar cannot take "
-                             f"{type(a).__name__} {a!r}")
-        return spec.ctype(a)
+            def ptr(a, index):
+                t = a._data if isinstance(a, NDArray) else a
+                if not isinstance(t, torch.Tensor):
+                    raise MXNetError(f"{what}: a {spec.cname} pointer takes "
+                                     f"an NDArray, got {type(a).__name__}")
+                if t.dtype != spec.dtype:
+                    raise MXNetError(f"{what}: {spec.cname} * needs "
+                                     f"{spec.dtype}, got {t.dtype}")
+                if not t.is_cuda or t.get_device() != index:
+                    raise MXNetError(f"{what}: the array is on {t.device}, "
+                                     f"the launch on cuda:{index}")
+                if not t.is_contiguous():
+                    raise MXNetError(f"{what}: the array is not contiguous")
+                return t.data_ptr()
+            return ptr
+        fast = {"bool": (bool,), "int": (int,), "float": (float, int)}[
+            spec.kind]
+        cast = {"bool": bool, "int": int, "float": float}[spec.kind]
+
+        def scalar(a, index):
+            if type(a) in fast:
+                return a
+            if spec.kind == "bool":
+                ok = isinstance(a, (bool, np.bool_))
+            else:
+                ok = isinstance(a, numbers.Integral if spec.kind == "int"
+                                else numbers.Real) and \
+                    not isinstance(a, (bool, np.bool_))
+            if not ok:
+                raise MXNetError(f"{what}: a {spec.cname} scalar cannot "
+                                 f"take {type(a).__name__} {a!r}")
+            return cast(a)
+        return scalar
+
+    def _device_index(self, ctx) -> int:
+        try:
+            return self._index_of[ctx]
+        except (KeyError, TypeError):
+            pass
+        dev = torch.device(ctx)
+        if dev.type != "cuda":
+            raise MXNetError(f"{self.name}: launch needs a GPU context, "
+                             f"got {dev}")
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        if isinstance(ctx, (str, torch.device)) and dev.index is not None:
+            self._index_of[ctx] = index
+        return index
+
+    def _params(self, index: int):
+        """This thread's parameter block on device ``index``: (the
+        ctypes structure, the pointer array to its fields, the
+        function handle, the driver library, the device's primary
+        context), made on first use, which makes the context current."""
+        blocks = getattr(self._local, "blocks", None)
+        if blocks is None:
+            blocks = self._local.blocks = {}
+        block = blocks.get(index)
+        if block is None:
+            lib = _use_context(index)
+            with _driver_lock:
+                ctx = _primary[index]
+            st = self._struct()
+            base = ctypes.addressof(st)
+            ptrs = (_P * max(1, len(self.args)))(*[
+                base + getattr(self._struct, f).offset
+                for f, _ in self._struct._fields_])
+            block = blocks[index] = (st, ptrs, self._function(index), lib,
+                                     ctx)
+        return block
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch on ``ctx`` (a GPU) with the grid and block dims (up to
         three each) and ``shared_mem`` bytes of dynamic shared memory,
         on PyTorch's current stream of that device."""
-        dev = torch.device(ctx)
-        if dev.type != "cuda":
-            raise MXNetError(f"{self.name}: launch needs a GPU context, "
-                             f"got {dev}")
-        dev = torch.device("cuda", dev.index if dev.index is not None
-                           else torch.cuda.current_device())
+        index = self._device_index(ctx)
         if len(args) != len(self.args):
             raise MXNetError(f"{self.name}: {len(args)} arguments for a "
                              f"signature of {len(self.args)}")
-        dims = []
-        for what, d in (("grid", grid_dims), ("block", block_dims)):
-            d = tuple(d) + (1,) * (3 - len(tuple(d)))
-            if len(d) != 3 or not all(isinstance(v, numbers.Integral)
-                                      and v > 0 for v in d):
-                raise MXNetError(f"{self.name}: bad {what} dims {d}")
-            dims += [int(v) for v in d]
-        vals = [self._value(s, a, dev, i)
-                for i, (s, a) in enumerate(zip(self.args, args))]
-        lib = _use_context(dev.index)
-        fn = self._function(dev.index)
-        if shared_mem > _MAX_STATIC_SHARED:
+        dims = _dims(self.name, grid_dims, block_dims)
+        st, ptrs, fn, lib, ctx_ptr = self._params(index)
+        vals = [conv(a, index) for conv, a in zip(self._convert, args)]
+        for (f, _), v in zip(self._struct._fields_, vals):
+            setattr(st, f, v)
+        _current(lib, index, ctx_ptr)
+        if shared_mem > _MAX_STATIC_SHARED and \
+                self._shared_set.get(index, 0) < shared_mem:
             _check(lib.cuFuncSetAttribute(_P(fn), _ATTR_MAX_DYNAMIC_SHARED,
                                           int(shared_mem)),
                    f"{self.name}: cuFuncSetAttribute")
-        params = (_P * len(vals))(*[ctypes.addressof(v) for v in vals])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib.cuLaunchKernel(_P(fn), *dims, int(shared_mem),
-                                  _P(stream), params, None),
+            self._shared_set[index] = int(shared_mem)
+        _check(lib.cuLaunchKernel(fn, *dims, int(shared_mem),
+                                  _raw_stream(index), ptrs, None),
                f"{self.name}: cuLaunchKernel")
         with _count_lock:
-            LAUNCHES[self.name] = LAUNCHES.get(self.name, 0) + 1
+            LAUNCHES[self.name] += 1
+
+
+def _dims(name: str, grid_dims, block_dims) -> tuple:
+    """The six launch dims, each a positive integer (three a side, 1
+    where fewer are given)."""
+    if type(grid_dims) is tuple and type(block_dims) is tuple:
+        dims = grid_dims + block_dims
+        if len(dims) == 6 and all(type(v) is int and v > 0 for v in dims):
+            return dims
+    dims = []
+    for what, d in (("grid", grid_dims), ("block", block_dims)):
+        d = tuple(d) + (1,) * (3 - len(tuple(d)))
+        if len(d) != 3 or not all(isinstance(v, numbers.Integral) and v > 0
+                                  for v in d):
+            raise MXNetError(f"{name}: bad {what} dims {d}")
+        dims += d
+    return tuple(int(v) for v in dims)
+
+
+# PyTorch's current stream of a device as a raw handle, without making a
+# Stream object (what torch's own generated launchers call)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def _current(lib, index: int, ctx: int) -> None:
+    """Device ``index``'s primary context ``ctx`` (made current by this
+    thread's first launch there) checked current again, one driver call:
+    PyTorch may have moved the thread to another device since."""
+    cur = getattr(_tls, "cur", None)
+    if cur is None:
+        cur = _tls.cur = _P()
+    _check(lib.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
+    if cur.value != ctx:
+        _use_context(index)
+
+
+_tls = threading.local()
 
 
 class PallasKernel:

@@ -1,14 +1,22 @@
-"""Two ops where the port once parted from mxtpu, held against it on the
-CPU: ``Pooling`` (a global "sum" is mxtpu's mean; a windowed "sum" is
-the plain zero-padded window sum whatever ``count_include_pad`` says;
+"""Where the port once parted from mxtpu, held against it on the CPU
+(ROADMAP queue 3): ``Pooling`` (a global "sum" is mxtpu's mean; a
+windowed "sum" is the plain zero-padded window sum whatever
+``count_include_pad`` says;
 "lp" is sqrt of the windowed sum of squares; a pad above half the
 window pads and reduces) and ``SoftmaxOutput``'s gradient with
 ``use_ignore`` and labels outside [0, C) (the ignored row is zero, not
-an error).
+an error); then the eager ``Updater``'s f32 masters for bf16 weights,
+``cast``, the reductions' axes, ``argmax`` keepdims, ties, ``abs`` and
+``sign`` at 0 and NaN, integer inputs, backward from heads without a
+gradient path, the power ops' gradients at 0, ``squeeze`` and bf16 3-D
+pooling, one parametrised test each.
 
 The same numpy inputs (seed 0) go to both packages; outputs and
-gradients agree to 1e-6 (f32, the same sums in another order).
+gradients agree to 1e-6 (f32, the same sums in another order) and
+integers bit for bit; the bf16 cases state their bounds.
 """
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -110,3 +118,331 @@ def test_softmax_output_ignored_labels_match_mxtpu(ignore_label, use_ignore,
     np.testing.assert_allclose(grad, jx.grad.asnumpy(), rtol=0, atol=TOL)
     if use_ignore:
         assert not grad[lv == ignore_label].any()
+
+
+# ----------------------------------------------------------------------
+# ROADMAP queue 3, items 3-16: each case feeds the same numpy inputs
+# (seed 0, or the values given) to both packages on the CPU and compares
+# values, dtypes, shapes and gradients.  Integer results are bit-exact;
+# f32 agrees to 1e-6; bf16 to the rounding bound stated at its case.
+# ----------------------------------------------------------------------
+PKGS = {"mxtpu": (jmx, {}), "port": (tmx, {"ctx": CPU})}
+
+
+def _both(fn):
+    """``fn(nd, autograd, ctx_kwargs)`` run in each package: its result
+    as numpy arrays, or the type of the exception it raised."""
+    out = {}
+    for name, (m, kw) in PKGS.items():
+        try:
+            r = fn(m.nd, m.autograd, kw)
+        except Exception as e:  # noqa: BLE001 - the type is compared
+            out[name] = type(e)
+            continue
+        r = r if isinstance(r, tuple) else (r,)
+        out[name] = tuple(np.asarray(a.asnumpy()) if hasattr(a, "asnumpy")
+                          else np.asarray(a) for a in r)
+    return out["mxtpu"], out["port"]
+
+
+def _same(want, got, tol=TOL, exact=False):
+    if isinstance(want, type):
+        # the same exception: ValueError in both, or each package's own
+        # MXNetError
+        assert isinstance(got, type) and got.__name__ == want.__name__, \
+            (want, got)
+        return
+    assert not isinstance(got, type), (want, got)
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        assert g.shape == w.shape, (g.shape, w.shape)
+        assert g.dtype == w.dtype, (g.dtype, w.dtype)
+        if exact or not np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+
+
+def _grad_of(op, xv, head, **kw):
+    def fn(nd, ag, ctx):
+        x = nd.array(xv, **ctx)
+        x.attach_grad()
+        with ag.record():
+            y = getattr(nd, op)(x, **kw)
+        y.backward(nd.array(head, **ctx))
+        return y, x.grad
+    return fn
+
+
+# item 3: the eager Updater keeps an f32 master for a bf16 weight.  The
+# master's arithmetic is the same f32 ops in both packages, so the bf16
+# weights agree bit for bit after 200 steps for sgd; adam's master is
+# held to 1e-6 relative and the weight to one bf16 ulp of its value
+UPDATER_CASES = [("sgd", {"learning_rate": 1e-3}, 0.1994),
+                 ("sgd", {"learning_rate": 1e-3, "momentum": 0.9}, 1.908),
+                 ("adam", {"learning_rate": 1e-3}, None),
+                 ("sgd", {"learning_rate": 1e-3,
+                          "multi_precision": False}, None)]
+
+
+def _updater_run(m, kw, name, opt_kw, steps=200):
+    w0 = (4 + 0.01 * np.random.RandomState(0).randn(4, 5)).astype(
+        np.float32)
+    w = m.nd.array(w0, **kw).astype("bfloat16")
+    g = m.nd.array(np.ones((4, 5), np.float32), **kw).astype("bfloat16")
+    up = m.optimizer.get_updater(m.optimizer.create(name, **opt_kw))
+    traj = []
+    for _ in range(steps):
+        up(0, g, w)
+        traj.append(w.astype("float32").asnumpy())
+    return w0, np.stack(traj), up
+
+
+@pytest.mark.parametrize("name,opt_kw,moved", UPDATER_CASES,
+                         ids=["sgd", "sgd-momentum", "adam", "sgd-no-master"])
+def test_updater_bf16_master_matches_mxtpu(name, opt_kw, moved):
+    w0, want, jup = _updater_run(jmx, {}, name, opt_kw)
+    _, got, tup = _updater_run(tmx, {"ctx": CPU}, name, opt_kw)
+    bf16_start = tmx.nd.array(w0, ctx=CPU).astype("bfloat16").astype(
+        "float32").asnumpy()
+    if name == "adam":
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+        assert (np.abs(got - want) <= ulp).all()
+    else:
+        np.testing.assert_array_equal(got, want)
+    if moved is not None:
+        # mxtpu's numbers: 200 steps of lr 1e-3 move the weight by
+        # 0.1994 (1.908 with momentum), within a bf16 ulp of 4
+        np.testing.assert_allclose(bf16_start - got[-1], moved,
+                                   atol=2.0 ** -6)
+    # the master (f32) round-trips through get_states / set_states
+    js, ts = (pickle.loads(u.get_states()) for u in (jup, tup))
+    if opt_kw.get("multi_precision") is False:
+        assert js[0] is None and ts[0] is None   # no master, no state
+        return
+    jm, tm = js[0][0], ts[0][0]
+    assert tm.dtype == np.float32 and tm.shape == (4, 5)
+    np.testing.assert_allclose(tm, jm, rtol=1e-6, atol=0)
+    again = tmx.optimizer.get_updater(tup.optimizer)
+    again.set_states(tup.get_states(), device="cpu")
+    np.testing.assert_array_equal(again.states[0][0].numpy(), tm)
+
+
+def test_updater_f32_weights_unchanged_by_the_master():
+    # f32 weights take no master: the Updater's trajectory is the plain
+    # optimizer's, bit for bit with mxtpu, for sgd (+ momentum) and adam
+    rng = np.random.RandomState(0)
+    w0, g0 = rng.randn(3, 4).astype(np.float32), \
+        rng.randn(3, 4).astype(np.float32)
+    for name, kw in (("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                              "wd": 1e-3}),
+                     ("adam", {"learning_rate": 0.01})):
+        out = []
+        for m, ctx in PKGS.values():
+            w, g = m.nd.array(w0, **ctx), m.nd.array(g0, **ctx)
+            up = m.optimizer.get_updater(m.optimizer.create(name, **kw))
+            for _ in range(6):
+                up(0, g, w)
+            out.append(w.asnumpy())
+        np.testing.assert_array_equal(out[1], out[0])
+
+
+# item 4 (saturating cast) and item 12 (64-bit targets narrow to 32)
+CAST_CASES = [
+    ([-1.5, 300.7, -2.5], "uint8"), ([3e9], "int32"),
+    ([np.nan, np.inf, -np.inf, -3e9, 2.5], "int32"),
+    ([np.nan, np.inf, -np.inf, 1e5, -1e5, -0.5], "int8"),
+    ([np.nan, np.inf, -np.inf, 255.9, 256.0], "uint8"),
+    ([np.nan, 1e30, -1e30, 7.9], "int16"),
+    ([1.5, -2.25], "float64"), ([1.5, -2.25], "int64"),
+]
+
+
+@pytest.mark.parametrize("vals,dtype", CAST_CASES,
+                         ids=[f"{d}-{i}" for i, (_, d) in
+                              enumerate(CAST_CASES)])
+def test_cast_saturates_and_narrows_like_mxtpu(vals, dtype):
+    xv = np.asarray(vals, np.float32)
+    want, got = _both(lambda nd, ag, ctx: nd.cast(nd.array(xv, **ctx),
+                                                  dtype=dtype))
+    _same(want, got, exact=True)
+    # the same through NDArray.astype, which runs the cast op
+    want, got = _both(lambda nd, ag, ctx: nd.array(xv, **ctx).astype(dtype))
+    _same(want, got, exact=True)
+
+
+# item 5: reductions with axis=() and with exclude and a negative axis
+REDUCE_CASES = [dict(axis=()), dict(axis=(), keepdims=True),
+                dict(axis=(), exclude=True),
+                dict(axis=-1, exclude=True, keepdims=True),
+                dict(axis=(0, -1), exclude=True), dict(axis=1, exclude=True),
+                dict(axis=-1), dict(axis=(0, 2), keepdims=True)]
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max", "min"])
+@pytest.mark.parametrize("kw", REDUCE_CASES,
+                         ids=[str(i) for i in range(len(REDUCE_CASES))])
+def test_reduce_axes_match_mxtpu(op, kw):
+    xv = np.random.RandomState(0).randn(2, 3, 4).astype(np.float32)
+    _same(*_both(lambda nd, ag, ctx: getattr(nd, op)(nd.array(xv, **ctx),
+                                                    **kw)))
+
+
+# item 6: argmax/argmin with no axis and keepdims
+@pytest.mark.parametrize("op", ["argmax", "argmin"])
+@pytest.mark.parametrize("keepdims", [True, False])
+def test_arg_reduce_keepdims_matches_mxtpu(op, keepdims):
+    xv = np.random.RandomState(0).randn(2, 3, 4).astype(np.float32)
+    _same(*_both(lambda nd, ag, ctx: getattr(nd, op)(
+        nd.array(xv, **ctx), keepdims=keepdims)), exact=True)
+
+
+# item 7: ties pass half the head gradient, as jnp.maximum/minimum/clip;
+# relu at 0 and the binary maximum/minimum ties stay as they were
+TIE_X = np.array([1.0, 2.0, 3.0, 0.5], np.float32)
+TIE_HEAD = np.full(4, 1.69, np.float32)
+TIE_CASES = [("_maximum_scalar", dict(scalar=2.0)),
+             ("_minimum_scalar", dict(scalar=2.0)),
+             ("_MaximumScalar", dict(scalar=1.0)),
+             ("_MinimumScalar", dict(scalar=3.0)),
+             ("clip", dict(a_min=1.0, a_max=3.0)),
+             ("clip", dict(a_min=2.0, a_max=2.0)),
+             ("relu", {})]
+
+
+@pytest.mark.parametrize("op,kw", TIE_CASES,
+                         ids=[f"{o}-{i}" for i, (o, _) in
+                              enumerate(TIE_CASES)])
+def test_ties_split_the_gradient_like_mxtpu(op, kw):
+    xv = TIE_X if op != "relu" else np.array([0.0, -1.0, 1.0, 0.0],
+                                             np.float32)
+    _same(*_both(_grad_of(op, xv, TIE_HEAD, **kw)))
+
+
+@pytest.mark.parametrize("op", ["maximum", "minimum"])
+def test_binary_ties_split_the_gradient_like_mxtpu(op):
+    av, bv = np.array([1.0, 2.0, 4.0]), np.array([1.0, 3.0, 4.0])
+
+    def fn(nd, ag, ctx):
+        a, b = nd.array(av, **ctx), nd.array(bv, **ctx)
+        a.attach_grad()
+        b.attach_grad()
+        with ag.record():
+            y = getattr(nd, op)(a, b)
+        y.backward()
+        return y, a.grad, b.grad
+    _same(*_both(fn))
+
+
+# items 8 and 9: abs's gradient at +-0 is the head; sign(NaN) is NaN
+def test_abs_gradient_at_zero_matches_mxtpu():
+    xv = np.array([0.0, -0.0, 1.0, -2.0], np.float32)
+    _same(*_both(_grad_of("abs", xv, TIE_HEAD)), exact=True)
+
+
+def test_sign_of_nan_matches_mxtpu():
+    xv = np.array([np.nan, -1.0, 0.0, 2.0, -0.0], np.float32)
+    _same(*_both(lambda nd, ag, ctx: nd.sign(nd.array(xv, **ctx))),
+          exact=True)
+
+
+# item 10 (and 16, found beside it): integer inputs
+INT_X = np.array([[1, -2, 3], [4, 0, -6]], np.int32)
+INT_Y = np.array([[0, 2, 0], [3, 0, 4]], np.int32)
+INT_CASES = {
+    **{op: (lambda op: lambda nd, x, y: getattr(nd, op)(x, scalar=1.0))(op)
+       for op in ("_equal_scalar", "_not_equal_scalar", "_greater_scalar",
+                  "_greater_equal_scalar", "_lesser_scalar",
+                  "_lesser_equal_scalar")},
+    "sum": lambda nd, x, y: nd.sum(x),
+    "sum-axis": lambda nd, x, y: nd.sum(x, axis=1),
+    "mean": lambda nd, x, y: nd.mean(x),
+    "mean-axis": lambda nd, x, y: nd.mean(x, axis=0, keepdims=True),
+    "softmax": lambda nd, x, y: nd.softmax(x),
+    "log_softmax": lambda nd, x, y: nd.log_softmax(x),
+    "_mod-by-0": lambda nd, x, y: nd._mod(x, y),
+    "_rmod_scalar-by-0": lambda nd, x, y: nd._rmod_scalar(x, scalar=5.0),
+    "_mod_scalar-by-0": lambda nd, x, y: nd._mod_scalar(x, scalar=0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(INT_CASES))
+def test_integer_inputs_match_mxtpu(case):
+    fn = INT_CASES[case]
+    _same(*_both(lambda nd, ag, ctx: fn(
+        nd, nd.array(INT_X, dtype="int32", **ctx),
+        nd.array(INT_Y, dtype="int32", **ctx))))
+
+
+# item 11: a head with no gradient path gives zero gradients; a head of
+# a non-differentiable op is no head at all (both raise)
+@pytest.mark.parametrize("op", ["BlockGrad", "stop_gradient", "zeros_like",
+                                "ones_like", "ceil", "floor", "sign"])
+def test_backward_from_a_head_without_a_path_matches_mxtpu(op):
+    def fn(nd, ag, ctx):
+        x = nd.array(np.array([1.5, -2.0, 0.25], np.float32), **ctx)
+        x.attach_grad()
+        with ag.record():
+            y = getattr(nd, op)(x)
+        y.backward()
+        return x.grad
+    want, got = _both(fn)
+    _same(want, got, exact=True)
+
+
+# item 13: the power ops' gradients at 0 (NaN, not 0 or -inf)
+POW_CASES = [("_power_scalar", [0.0, 2.0, -1.0], dict(scalar=0.0)),
+             ("_power_scalar", [0.0, 2.0, 1.0], dict(scalar=0.5)),
+             ("_rpower_scalar", [-2.0, 0.0, 1.0], dict(scalar=0.0)),
+             ("_rpower_scalar", [-2.0, 0.0, 1.0], dict(scalar=2.0))]
+
+
+@pytest.mark.parametrize("op,xs,kw", POW_CASES,
+                         ids=[f"{o}-{i}" for i, (o, _, _) in
+                              enumerate(POW_CASES)])
+def test_power_gradients_at_zero_match_mxtpu(op, xs, kw):
+    xv = np.asarray(xs, np.float32)
+    _same(*_both(_grad_of(op, xv, np.ones(3, np.float32), **kw)))
+
+
+@pytest.mark.parametrize("op", ["_power", "broadcast_power"])
+def test_binary_power_gradients_at_zero_match_mxtpu(op):
+    av = np.array([0.0, 2.0, 0.0, 3.0], np.float32)
+    bv = np.array([0.0, 3.0, 2.0, 0.0], np.float32)
+
+    def fn(nd, ag, ctx):
+        a, b = nd.array(av, **ctx), nd.array(bv, **ctx)
+        a.attach_grad()
+        b.attach_grad()
+        with ag.record():
+            y = getattr(nd, op)(a, b)
+        y.backward()
+        return y, a.grad, b.grad
+    _same(*_both(fn))
+
+
+# item 14: squeeze of an axis whose size is not 1 raises ValueError
+@pytest.mark.parametrize("shape,axis", [((2, 3), (0,)), ((1, 3, 2), (-1,)),
+                                        ((1, 3, 1), (0, -1)),
+                                        ((1, 3, 1), (0,))])
+def test_squeeze_matches_mxtpu(shape, axis):
+    xv = np.ones(shape, np.float32)
+    _same(*_both(lambda nd, ag, ctx: nd.squeeze(nd.array(xv, **ctx),
+                                                axis=axis)))
+
+
+# item 15: bf16 3-D average (and sum) pooling on the CPU.  mxtpu adds
+# each window of 8 in bf16 (7 roundings of a partial sum at most
+# 8 max|x|, each within 2^-9 of it), the port in f32 with one rounding
+# of the result: they agree to 8 * 2^-9 * max|x| (2^-6 max|x|)
+@pytest.mark.parametrize("kw", [dict(kernel=(2, 2, 2), pool_type="avg"),
+                                dict(kernel=(2, 2, 2), pool_type="avg",
+                                     stride=(2, 2, 2)),
+                                dict(kernel=(2, 2, 2), pool_type="sum",
+                                     stride=(2, 2, 2)),
+                                dict(kernel=(2, 2, 2), pool_type="max")])
+def test_bf16_pool3d_matches_mxtpu(kw):
+    xv = np.random.RandomState(0).randn(1, 2, 4, 4, 4).astype(np.float32)
+    want, got = _both(lambda nd, ag, ctx: nd.Pooling(
+        nd.array(xv, **ctx).astype("bfloat16"), **kw).astype("float32"))
+    _same(want, got, tol=2.0 ** -6 * float(np.abs(xv).max()))

@@ -26,7 +26,8 @@ Phases, each fatal on failure:
      TF32 HGMMA, and their ptxas reports no spills; so must the ptxas
      reports of the kernels rebuilt on 16-byte vector loads
      (``VECTOR_KERNELS``: the LayerNorm forward and backward, row and
-     wide kernels, the channels-minor BatchNorm backward), every
+     wide kernels, the channels-minor BatchNorm backward, the
+     channels-major BatchNorm forward and backward), every
      instantiation listed;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
@@ -58,11 +59,13 @@ Phases, each fatal on failure:
      layer4 ``bn_out``, a downsample; timed) and at the other shapes
      probe_bn_fusion runs (the 14^2 x 1024 stage, the bottlenecks'
      inner widths), at edge shapes (C=3, 37, 100;
-     S=49, 196; N*S=1; a channels-minor view one element off a 16-byte
-     boundary) and on a constant channel; the stem's statistics
-     against f64 sums; a rerun bit-equal; times of the kernel, the
-     plain version and cuDNN's BatchNorm with the add and ReLU, and the
-     kernels each channels-minor backward call launches; the raw
+     S=49, 196; N*S=1; a channels-minor view and a channels-major view
+     at layer1_out's C and S one element off a 16-byte boundary; S=49
+     and 196 at N=3 and ResNet-50's widths) and on a constant channel;
+     the stem's statistics against f64 sums; a rerun bit-equal; times
+     of the kernel, the plain version and cuDNN's BatchNorm with the
+     add and ReLU, and the kernels each channels-major forward and
+     backward and channels-minor backward call launches; the raw
      wrappers must refuse inputs that require grad;
   5. the NHWC conv kernel (#13, the port of ``pallas_conv``) against its
      plain version in f32 and bf16 at N=256 (the conv probe's 14^2 x 256,
@@ -213,10 +216,14 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                                    "ln_bwd_finalize_kernel"),
                 "fused_residual_ln_fwd": ("frln_fwd_kernel",),
                 "fused_residual_ln_bwd": ("frln_bwd_kernel",),
+                **{f"batch_norm_{d}": (f"bn_{d}_major_stats_kernel",
+                                       f"bn_{d}_finalize_kernel",
+                                       f"bn_{d}_major_apply_kernel")
+                   for d in ("fwd", "bwd")},
                 **{f"batch_norm_{d}": tuple(f"bn_{d}_{k}_kernel"
                                             for k in ("stats", "finalize",
                                                       "apply"))
-                   for d in ("fwd", "bwd", "fwd_cm", "bwd_cm")},
+                   for d in ("fwd_cm", "bwd_cm")},
                 "conv_nhwc": ("conv_nhwc_wgmma_kernel",
                               "conv_nhwc_f32_wgmma_kernel",
                               "conv_split_f32_kernel",
@@ -244,7 +251,11 @@ VECTOR_KERNELS = {"ln_fwd_rows_kernel": "layer_norm",
                   "ln_bwd_finalize_kernel": "layer_norm_bwd",
                   "bn_bwd_cm_stats_kernel": "batch_norm_bwd",
                   "bn_bwd_cm_finalize_kernel": "batch_norm_bwd",
-                  "bn_bwd_cm_apply_kernel": "batch_norm_bwd"}
+                  "bn_bwd_cm_apply_kernel": "batch_norm_bwd",
+                  "bn_fwd_major_stats_kernel": "batch_norm",
+                  "bn_fwd_major_apply_kernel": "batch_norm",
+                  "bn_bwd_major_stats_kernel": "batch_norm_bwd",
+                  "bn_bwd_major_apply_kernel": "batch_norm_bwd"}
 GEMM_WORDS = ("gemm", "cutlass", "sm90_xmma", "ampere", "nvjet", "cublas")
 # cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
 # and its layout transposes); matched before GEMM_WORDS
@@ -1097,6 +1108,10 @@ BN_LINE_SHAPE = "layer1_out"
 # edge shapes (N, C, S): odd S, C under and off the 32-lane tile, and
 # N*S = 1
 BN_EDGES = ((5, 3, 49), (7, 100, 196), (3, 37, 1), (1, 4, 1))
+# channels-major edges (N, C, S): runs off 16-byte boundaries at N = 3,
+# at the widths ResNet-50 gives S = 49 and 196
+BN_MAJOR_EDGES = ((3, 2048, 49), (3, 512, 49), (3, 1024, 196),
+                  (3, 256, 196))
 # (C, S, mean, std) of train_cifar10's resnet20 BatchNorms at N = 128,
 # act none, f32: its three stages; stage 0's input has conv0's
 # mean^2 ~13x its variance
@@ -1254,12 +1269,17 @@ def bn_phase(checks, gen):
                                               "bound_ms": b_ms,
                                               "bound_by": b_by,
                                               "shape": [BN_N, C, S]}
-                if cm:
-                    print(f"kernels of batch_norm_bwd_cm [{name}] {key} C{C} "
-                          f"S{S} (device ms per call): " + "; ".join(
-                              f"{kn} {ms:.4f}" for kn, ms in kernels_of(
-                                  lambda: bwd(xv, rv, dyv, g, b, mean, rstd,
-                                              act))), flush=True)
+                for d, call in (
+                        ("fwd", lambda: fwd(xv, g, b, rv, 1e-5, act)),
+                        ("bwd", lambda: bwd(xv, rv, dyv, g, b, mean, rstd,
+                                            act))):
+                    if cm and d == "fwd":
+                        continue
+                    print(f"kernels of batch_norm_{d}{'_cm' if cm else ''} "
+                          f"[{name}] {key} C{C} S{S} (device ms per call): "
+                          + "; ".join(f"{kn} {ms:.4f}"
+                                      for kn, ms in kernels_of(call)),
+                          flush=True)
                 del outs
             del x, r, dy
             torch.cuda.empty_cache()
@@ -1302,6 +1322,31 @@ def bn_phase(checks, gen):
         b = (0.1 * torch.randn(C1, generator=mgen, device=dev)).to(dt)
         run(x, r, dy, g, b, "relu", True, f"bn edge cm misaligned R{R1} "
             f"C{C1} relu add", name)
+
+        # the channels-major kernels: a view one element off a 16-byte
+        # boundary at layer1_out's C and S (N = 1, ReLU + add: the walk
+        # over single elements), and runs off word boundaries (S = 49,
+        # and 196 in bf16: peeled heads and tails) at N = 3 and at
+        # ResNet-50's widths there; inputs from a generator of their own
+        jgen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+        def jrandn(numel, mu=0.0, sd=1.0):
+            return (torch.randn(numel, generator=jgen, device=dev) * sd
+                    + mu).to(dt)
+        C1, S1 = BN_SHAPES["layer1_out"][:2]
+        x, r, dy = (jrandn(C1 * S1 + 1, mu, sd)[1:].view(1, C1, S1)
+                    for mu, sd in ((0.5, 2.0), (0.0, 1.0), (0.0, 1.0)))
+        g, b = jrandn(C1, 1.0, 0.2), jrandn(C1, 0.0, 0.1)
+        run(x, r, dy, g, b, "relu", False, f"bn edge major misaligned N1 "
+            f"C{C1} S{S1} relu add", name)
+        for (n, C, S) in BN_MAJOR_EDGES:
+            for act, add in (("relu", True), ("none", False)):
+                x = jrandn(n * C * S, 0.5, 2.0).view(n, C, S)
+                r = jrandn(n * C * S).view(n, C, S) if add else None
+                dy = jrandn(n * C * S).view(n, C, S)
+                g, b = jrandn(C, 1.0, 0.2), jrandn(C, 0.0, 0.1)
+                run(x, r, dy, g, b, act, False, f"bn edge major N{n} C{C} "
+                    f"S{S} {act}{' add' if add else ''}", name)
 
     # the symbolic path's shapes (resnet20 at the recipe's batch)
     for (C, S, mean, std) in CIFAR_BN_SHAPES:

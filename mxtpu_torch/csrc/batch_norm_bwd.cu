@@ -14,84 +14,130 @@
 // kernels: stats (partial sums per (channel, chunk) into an f32
 // workspace), finalize (chunks summed in a fixed order in double; the
 // per-channel g * rstd, dbeta / n and dgamma / n), and an elementwise
-// pass for dx (and dr).  No float atomics: bit-for-bit repeatable.  The
+// pass for dx.  No float atomics: bit-for-bit repeatable.  The
 // elementwise ops round one at a time in the plain version's order, so
 // the recomputed mask is the plain version's exactly and only the sums
 // can differ from it.
 //
-// Bound on the H100: bytes — x and dy (and r) read, dx (and dr)
-// written, 5 tensor passes with the add.  The channels-major kernels
-// (bn_bwd_stats_kernel, bn_bwd_finalize_kernel, bn_bwd_apply_kernel)
-// read x and dy twice with scalar loads.  The channels-minor ones
-// (below: bn_bwd_cm_*) use 16-byte vector loads with several rows in
-// flight a thread, and with the add the stats pass writes dr, so the
-// apply pass reads x and dr only: 7 passes where the bound has 5 (a
-// ResNet-50 layer's x, dy and r exceed the 50 MB L2 many times over, so
-// no two-pass design reads them once).
+// Bound on the H100: bytes -- x and dy (and r) read, dx (and dr)
+// written, 5 tensor passes with the add.  Both views use 16-byte vector
+// accesses where the pointers allow, several words in flight a thread,
+// the per-channel values in registers, and with the add the stats pass
+// writes dr, so the apply pass reads x and dr only: 7 passes where the
+// bound has 5 (3 without the add: 5 passes).  A ResNet-50 layer's x, dy
+// and r exceed the 50 MB L2 many times over, so no two-pass design
+// reads them once; each apply pass walks its data in the reverse of the
+// stats pass's order, so what the stats pass read last comes from L2.
+//
+// Channels-major (bn_bwd_major_stats_kernel, bn_bwd_finalize_kernel,
+// bn_bwd_major_apply_kernel): the runs of S contiguous elements of one
+// channel, a CTA a channel and a chunk of runs (common.cuh, "The
+// channels-major BatchNorm walk"; kernels/batch_norm.py:_major_plan).
+// Channels-minor (bn_bwd_cm_*, below): a thread a channel group of 16
+// bytes, rows in lanes (kernels/batch_norm.py:_cm_bwd_plan).
 #include "common.cuh"
 
-// dy' of one element: dy, masked by the recomputed pre-activation sign
-template <typename T, bool RELU, bool ADD>
-__device__ __forceinline__ float masked_dy(float xh, float g, float b,
-                                           const T* __restrict__ r,
-                                           long long off, float d) {
+// dy masked by the recomputed pre-activation sign, rounded one step at
+// a time as the plain version does
+template <bool RELU, bool ADD>
+__device__ __forceinline__ float masked(float xh, float g, float b, float r,
+                                        float d) {
   if (RELU) {
     float a = __fadd_rn(__fmul_rn(xh, g), b);
-    if (ADD) a = __fadd_rn(a, to_f<T>(r[off]));
+    if (ADD) a = __fadd_rn(a, r);
     if (!(a > 0.f)) d = 0.f;
   }
   return d;
 }
 
-template <typename T, bool RELU, bool ADD>
-__global__ void bn_bwd_stats_kernel(
-    const T* __restrict__ x, const T* __restrict__ r,
-    const T* __restrict__ dy, const T* __restrict__ gamma,
-    const T* __restrict__ beta, const float* __restrict__ mean,
-    const float* __restrict__ rstd, float* __restrict__ part, long long S,
-    int C, long long M, long long per_chunk, int chunks) {
-  const int c = blockIdx.x, chunk = blockIdx.y;
-  const float mu = mean[c], rs = rstd[c];
-  const float g = to_f<T>(gamma[c]), b = to_f<T>(beta[c]);
-  const long long i0 = (long long)chunk * per_chunk;
-  const long long i1 = i0 + per_chunk < M ? i0 + per_chunk : M;
-  const long long CS = (long long)C * S;
+// Pass 1 (channels-major): per (chunk, channel) partial sums of dy' and
+// dy' * xhat, each thread over its slots in order, then major_sums'
+// fixed order over the channel's threads; with the add it also writes
+// dr = dy' (exact: masking rounds nothing), so pass 3 reads x and dr
+// and neither dy nor r.
+template <typename T, int VEC, bool PEEL, bool RELU, bool ADD>
+__global__ void __launch_bounds__(MAJOR_THREADS, 2)
+    bn_bwd_major_stats_kernel(const T* __restrict__ x,
+                              const T* __restrict__ r,
+                              const T* __restrict__ dy,
+                              const T* __restrict__ gamma,
+                              const T* __restrict__ beta,
+                              const float* __restrict__ mean,
+                              const float* __restrict__ rstd,
+                              T* __restrict__ dr, float* __restrict__ part,
+                              long long N, int C, long long S, int words,
+                              long long per_chunk, int tc) {
+  using P = Pack<T, VEC>;
+  // three tensors a slot with the add: 8-element words keep 3 slots in
+  // flight, 4 spill (ptxas) under the 128 registers of 2 CTAs an SM
+  constexpr int U = ADD && VEC >= 8 && !PEEL ? 3 : major_unroll<VEC, PEEL>();
+  const int gi = threadIdx.x / tc, tid = threadIdx.x - gi * tc;
+  const int c = blockIdx.x * (MAJOR_THREADS / tc) + gi, chunk = blockIdx.y;
+  const long long n0 = (long long)chunk * per_chunk;
+  const long long runs = N - n0 < per_chunk ? N - n0 : per_chunk;
+  const long long items = c < C ? runs * words : 0, total = N * C * S;
+  const int cl = c < C ? c : C - 1;  // a channel to read for idle threads
+  const float mu = mean[cl], rs = rstd[cl];
+  const float g = RELU ? to_f<T>(gamma[cl]) : 0.f;
+  const float b = RELU ? to_f<T>(beta[cl]) : 0.f;
   float s1 = 0.f, s2 = 0.f;
-  long long i = i0 + threadIdx.x;
-  if (i < i1) {
-    long long n = i / S, s = i - n * S;
-    long long off = n * CS + (long long)c * S + s;
-    const long long ds = blockDim.x % S, dn = blockDim.x / S;
-    for (; i < i1; i += blockDim.x) {
-      const float xh = __fmul_rn(__fsub_rn(to_f<T>(x[off]), mu), rs);
-      const float d =
-          masked_dy<T, RELU, ADD>(xh, g, b, r, off, to_f<T>(dy[off]));
-      s1 += d;
-      s2 = fmaf(d, xh, s2);
-      s += ds;
-      off += dn * CS + ds;
-      if (s >= S) {
-        s -= S;
-        off += CS - S;
+  MajorWalk<VEC, PEEL> wk(tid, tc, (n0 * C + c) * S, (long long)C * S, S,
+                          words);
+  for (long long t = tid; t < items; t += U * tc) {
+    MajorWord wd[U];
+    bool ok[U];
+    P xv[U], dv[U], rv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      wd[u] = wk.word();
+      ok[u] = t + u * tc < items && wd[u].lo < wd[u].hi;
+      if (ok[u]) {
+        xv[u] = ld_word<T, VEC, PEEL>(x, wd[u], total);
+        dv[u] = ld_word<T, VEC, PEEL>(dy, wd[u], total);
+        if (ADD) rv[u] = ld_word<T, VEC, PEEL>(r, wd[u], total);
+      }
+      wk.next();
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (ok[u]) {
+        P o;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh =
+              __fmul_rn(__fsub_rn(to_f<T>(xv[u].v[j]), mu), rs);
+          const float d = masked<RELU, ADD>(
+              xh, g, b, ADD ? to_f<T>(rv[u].v[j]) : 0.f,
+              to_f<T>(dv[u].v[j]));
+          if (!PEEL || (j >= wd[u].lo && j < wd[u].hi)) {
+            s1 += d;
+            s2 = fmaf(d, xh, s2);
+          }
+          if (ADD) o.v[j] = from_f<T>(d);
+        }
+        if (ADD) st_word<T, VEC, PEEL>(dr, wd[u], o);
       }
     }
   }
-  __shared__ float red[32];
-  s1 = block_sum(s1, red);
-  s2 = block_sum(s2, red);
-  if (threadIdx.x == 0) {
-    part[(size_t)chunk * C + c] = s1;
-    part[(size_t)(chunks + chunk) * C + c] = s2;
+  __shared__ float red[2][MAJOR_THREADS / 32];
+  major_sums(s1, s2, tc, red);
+  const int cc = blockIdx.x * (MAJOR_THREADS / tc) + threadIdx.x;
+  if (threadIdx.x < MAJOR_THREADS / tc && cc < C) {
+    part[(size_t)chunk * C + cc] = s1;
+    part[(size_t)(gridDim.y + chunk) * C + cc] = s2;
   }
 }
 
-// coef: [3][C] = g * rstd, dbeta / n, dgamma / n
+// coef: [3][C] = g * rstd, dbeta / n, dgamma / n; one thread a channel
+// adds its chunks in order in double
 template <typename T>
-__device__ __forceinline__ void finalize_body(
-    const float* __restrict__ part, int chunks, int C, float n,
-    const T* __restrict__ gamma, const float* __restrict__ rstd,
-    float* __restrict__ dgamma, float* __restrict__ dbeta,
-    float* __restrict__ coef) {
+__global__ void bn_bwd_finalize_kernel(const float* __restrict__ part,
+                                       int chunks, int C, float n,
+                                       const T* __restrict__ gamma,
+                                       const float* __restrict__ rstd,
+                                       float* __restrict__ dgamma,
+                                       float* __restrict__ dbeta,
+                                       float* __restrict__ coef) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   double a = 0.0, b = 0.0;
@@ -107,121 +153,153 @@ __device__ __forceinline__ void finalize_body(
   coef[2 * C + c] = __fdiv_rn(dg, n);
 }
 
-template <typename T>
-__global__ void bn_bwd_finalize_kernel(const float* part, int chunks, int C,
-                                       float n, const T* gamma,
-                                       const float* rstd, float* dgamma,
-                                       float* dbeta, float* coef) {
-  finalize_body<T>(part, chunks, C, n, gamma, rstd, dgamma, dbeta, coef);
-}
-
-// dx (and dr) over all A*C*S elements of the channels-major view;
-// channel (i / S) % C kept by increments.
-template <typename T, bool RELU, bool ADD>
-__device__ __forceinline__ void apply_body(
-    const T* __restrict__ x, const T* __restrict__ r,
-    const T* __restrict__ dy, const T* __restrict__ gamma,
-    const T* __restrict__ beta, const float* __restrict__ mean,
-    const float* __restrict__ rstd, const float* __restrict__ coef,
-    T* __restrict__ dx, T* __restrict__ dr, long long total, int C,
-    long long S) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long q = i / S;
-  long long s = i - q * S;
-  int c = (int)(q % C);
-  const long long ds = stride % S;
-  const int dc = (int)((stride / S) % C);
-  for (; i < total; i += stride) {
-    const float xh = __fmul_rn(__fsub_rn(to_f<T>(x[i]), mean[c]), rstd[c]);
-    const float d = masked_dy<T, RELU, ADD>(xh, to_f<T>(gamma[c]),
-                                            to_f<T>(beta[c]), r, i,
-                                            to_f<T>(dy[i]));
-    if (ADD) dr[i] = from_f<T>(d);
-    const float t = __fsub_rn(__fsub_rn(d, coef[C + c]),
-                              __fmul_rn(xh, coef[2 * C + c]));
-    dx[i] = from_f<T>(__fmul_rn(coef[c], t));
-    s += ds;
-    if (s >= S) {
-      s -= S;
-      ++c;
+// Pass 3 (channels-major): dx over the same walk, the channel's values
+// in registers; d is dr (with the add) or dy masked again from x.  The
+// CTAs in the reverse of pass 1's order, each thread's slots backwards
+// from its last.
+template <typename T, int VEC, bool PEEL, bool RELU, bool ADD>
+__global__ void __launch_bounds__(MAJOR_THREADS, 2)
+    bn_bwd_major_apply_kernel(const T* __restrict__ x,
+                              const T* __restrict__ d_in,
+                              const T* __restrict__ gamma,
+                              const T* __restrict__ beta,
+                              const float* __restrict__ mean,
+                              const float* __restrict__ rstd,
+                              const float* __restrict__ coef,
+                              T* __restrict__ dx, long long N, int C,
+                              long long S, int words, long long per_chunk,
+                              int tc) {
+  using P = Pack<T, VEC>;
+  constexpr int U = major_unroll<VEC, PEEL>();
+  const long long bl = (long long)gridDim.x * gridDim.y - 1 -
+                       ((long long)blockIdx.y * gridDim.x + blockIdx.x);
+  const int gi = threadIdx.x / tc, tid = threadIdx.x - gi * tc;
+  const int c = (int)(bl % gridDim.x) * (MAJOR_THREADS / tc) + gi;
+  const long long n0 = bl / gridDim.x * per_chunk;
+  const long long runs = N - n0 < per_chunk ? N - n0 : per_chunk;
+  const long long items = runs * words, total = N * C * S;
+  if (c >= C || tid >= items) return;
+  const long long last = tid + (items - 1 - tid) / tc * tc;
+  const float mu = mean[c], rs = rstd[c];
+  const float g = RELU && !ADD ? to_f<T>(gamma[c]) : 0.f;
+  const float b = RELU && !ADD ? to_f<T>(beta[c]) : 0.f;
+  const float k0 = coef[c], k1 = coef[C + c], k2 = coef[2 * C + c];
+  MajorWalk<VEC, PEEL> wk(last, tc, (n0 * C + c) * S, (long long)C * S, S,
+                          words);
+  for (long long t = last; t >= 0; t -= U * tc) {
+    MajorWord wd[U];
+    bool ok[U];
+    P xv[U], dv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      wd[u] = wk.word();
+      ok[u] = t - u * tc >= 0 && wd[u].lo < wd[u].hi;
+      if (ok[u]) {
+        xv[u] = ld_word<T, VEC, PEEL>(x, wd[u], total);
+        dv[u] = ld_word<T, VEC, PEEL>(d_in, wd[u], total);
+      }
+      wk.prev();
     }
-    c += dc;
-    if (c >= C) c -= C;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (ok[u]) {
+        P o;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh =
+              __fmul_rn(__fsub_rn(to_f<T>(xv[u].v[j]), mu), rs);
+          const float d = ADD ? to_f<T>(dv[u].v[j])
+                              : masked<RELU, false>(xh, g, b, 0.f,
+                                                    to_f<T>(dv[u].v[j]));
+          const float t3 = __fsub_rn(__fsub_rn(d, k1), __fmul_rn(xh, k2));
+          o.v[j] = from_f<T>(__fmul_rn(k0, t3));
+        }
+        st_word<T, VEC, PEEL>(dx, wd[u], o);
+      }
+    }
   }
-}
-
-template <typename T, bool RELU, bool ADD>
-__global__ void bn_bwd_apply_kernel(const T* x, const T* r, const T* dy,
-                                    const T* gamma, const T* beta,
-                                    const float* mean, const float* rstd,
-                                    const float* coef, T* dx, T* dr,
-                                    long long total, int C, long long S) {
-  apply_body<T, RELU, ADD>(x, r, dy, gamma, beta, mean, rstd, coef, dx, dr,
-                           total, C, S);
 }
 
 struct BwdArgs {
   const void *x, *r, *dy, *g, *b, *mean, *rstd;
   void *dx, *dr, *dgamma, *dbeta, *work;
-  long long A, S, per_chunk;
-  int C, chunks, apply_blocks;
+  long long N, S, per_chunk;
+  int C, chunks, words, tc;
 };
 
-template <typename T, bool RELU, bool ADD>
+template <typename T, int VEC, bool PEEL, bool RELU, bool ADD>
 static int launch(const BwdArgs& a, cudaStream_t st) {
   float* part = (float*)a.work;
   float* coef = part + (size_t)2 * a.chunks * a.C;
-  const long long M = a.A * a.S;
-  const long long total = M * a.C;
-  const T *x = (const T*)a.x, *r = (const T*)a.r, *dy = (const T*)a.dy;
-  const T *g = (const T*)a.g, *b = (const T*)a.b;
+  const T *x = (const T*)a.x, *g = (const T*)a.g, *b = (const T*)a.b;
   const float *mean = (const float*)a.mean, *rstd = (const float*)a.rstd;
-  bn_bwd_stats_kernel<T, RELU, ADD><<<dim3(a.C, a.chunks), 256, 0, st>>>(
-      x, r, dy, g, b, mean, rstd, part, a.S, a.C, M, a.per_chunk, a.chunks);
+  const int per_cta = MAJOR_THREADS / a.tc;  // channels a CTA
+  const dim3 grid((a.C + per_cta - 1) / per_cta, a.chunks);
+  bn_bwd_major_stats_kernel<T, VEC, PEEL, RELU, ADD>
+      <<<grid, MAJOR_THREADS, 0, st>>>(x, (const T*)a.r, (const T*)a.dy, g,
+                                       b, mean, rstd, (T*)a.dr, part, a.N,
+                                       a.C, a.S, a.words, a.per_chunk, a.tc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int fb = (a.C + 127) / 128;
   // the reference divides by n = float(N * S), an f32 constant
-  const float n = (float)M;
-  bn_bwd_finalize_kernel<T><<<fb, 128, 0, st>>>(
-      part, a.chunks, a.C, n, g, rstd, (float*)a.dgamma, (float*)a.dbeta,
-      coef);
+  bn_bwd_finalize_kernel<T><<<(a.C + 127) / 128, 128, 0, st>>>(
+      part, a.chunks, a.C, (float)(a.N * a.S), g, rstd, (float*)a.dgamma,
+      (float*)a.dbeta, coef);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bn_bwd_apply_kernel<T, RELU, ADD><<<a.apply_blocks, 256, 0, st>>>(
-      x, r, dy, g, b, mean, rstd, coef, (T*)a.dx, (T*)a.dr, total, a.C,
-      a.S);
+  bn_bwd_major_apply_kernel<T, VEC, PEEL, RELU, ADD>
+      <<<grid, MAJOR_THREADS, 0, st>>>(
+          x, ADD ? (const T*)a.dr : (const T*)a.dy, g, b, mean, rstd, coef,
+          (T*)a.dx, a.N, a.C, a.S, a.words, a.per_chunk, a.tc);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_t(int relu, int add, const BwdArgs& a, cudaStream_t st) {
-  if (relu && add) return launch<T, true, true>(a, st);
-  if (relu) return launch<T, true, false>(a, st);
-  if (add) return launch<T, false, true>(a, st);
-  return launch<T, false, false>(a, st);
+template <typename T, int VEC, bool PEEL>
+static int launch_v(int relu, int add, const BwdArgs& a, cudaStream_t st) {
+  if (relu && add) return launch<T, VEC, PEEL, true, true>(a, st);
+  if (relu) return launch<T, VEC, PEEL, true, false>(a, st);
+  if (add) return launch<T, VEC, PEEL, false, true>(a, st);
+  return launch<T, VEC, PEEL, false, false>(a, st);
 }
 
-// work: f32, 2 * chunks * C partial sums then 3 * C coefficients
+// vec: elements a word (16 bytes' worth where every pointer is 16-byte
+// aligned, else 1), its runs peeled where S is not a multiple of it
+template <typename T>
+static int launch_t(int vec, int relu, int add, const BwdArgs& a,
+                    cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec == 1) return launch_v<T, 1, false>(relu, add, a, st);
+  const uintptr_t ptrs = (uintptr_t)a.x | (uintptr_t)a.r | (uintptr_t)a.dy |
+                         (uintptr_t)a.dx | (uintptr_t)a.dr;
+  if (vec != V || (ptrs & 15) != 0) return (int)cudaErrorInvalidValue;
+  if (a.S % V != 0) return launch_v<T, V, true>(relu, add, a, st);
+  return launch_v<T, V, false>(relu, add, a, st);
+}
+
+// (N, C, S) channels-major.  vec: elements a word (16 bytes' worth, or
+// 1); words: word slots a run (major_words(S, vec)); tc: threads a
+// channel (32, 64, 128 or 256); chunks of per_chunk runs.  work: f32,
+// 2 * chunks * C partial sums then 3 * C coefficients
 extern "C" int mxt_bn_bwd(const void* x, const void* r, const void* dy,
                           const void* g, const void* b, const void* mean,
                           const void* rstd, void* dx, void* dr, void* dgamma,
-                          void* dbeta, void* work, long long A, int C,
-                          long long S, int chunks, long long per_chunk,
-                          int apply_blocks, int relu, int add, int dtype,
-                          void* stream) {
+                          void* dbeta, void* work, long long N, int C,
+                          long long S, int vec, int words, int tc,
+                          int chunks, long long per_chunk, int relu, int add,
+                          int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const BwdArgs a{x,  r,  dy,     g,     b,    mean, rstd,      dx,
-                  dr, dgamma, dbeta, work, A,    S,    per_chunk, C,
-                  chunks, apply_blocks};
-  if (a.A < 1 || a.C < 1 || a.S < 1 || a.chunks < 1 || a.chunks > 65535 ||
-      a.per_chunk < 1 || a.apply_blocks < 1 ||
-      (add && (a.r == nullptr || a.dr == nullptr)))
+  if (N < 1 || C < 1 || S < 1 || S > 0x7fffffffLL || vec < 1 ||
+      chunks < 1 || chunks > 65535 || per_chunk < 1 ||
+      per_chunk * chunks < N || per_chunk * (chunks - 1) >= N ||
+      words != major_words(S, vec) ||
+      (tc != 32 && tc != 64 && tc != 128 && tc != 256) ||
+      (add && (r == nullptr || dr == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == MXT_F32) return launch_t<float>(relu, add, a, st);
-  if (dtype == MXT_BF16) return launch_t<__nv_bfloat16>(relu, add, a, st);
+  const BwdArgs a{x,    r,     dy,   g, b, mean,      rstd,   dx,    dr,
+                  dgamma, dbeta, work, N, S, per_chunk, C,      chunks,
+                  words, tc};
+  if (dtype == MXT_F32) return launch_t<float>(vec, relu, add, a, st);
+  if (dtype == MXT_BF16) return launch_t<__nv_bfloat16>(vec, relu, add, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -246,19 +324,6 @@ constexpr int CM_THREADS = 256;
 template <int VEC>
 __host__ __device__ constexpr int cm_unroll() {
   return VEC >= 8 ? 2 : 4;
-}
-
-// dy masked by the recomputed pre-activation sign, rounded one step at
-// a time as the plain version (and masked_dy) does
-template <bool RELU, bool ADD>
-__device__ __forceinline__ float mask_cm(float xh, float g, float b,
-                                         float r, float d) {
-  if (RELU) {
-    float a = __fadd_rn(__fmul_rn(xh, g), b);
-    if (ADD) a = __fadd_rn(a, r);
-    if (!(a > 0.f)) d = 0.f;
-  }
-  return d;
 }
 
 // Pass 1: per (chunk, channel) partial sums of d and d * xhat; with the
@@ -316,7 +381,7 @@ __global__ void __launch_bounds__(CM_THREADS, 2)
           for (int j = 0; j < VEC; ++j) {
             const float xh =
                 __fmul_rn(__fsub_rn(to_f<T>(xv[u].v[j]), mu[j]), rs[j]);
-            const float d = mask_cm<RELU, ADD>(
+            const float d = masked<RELU, ADD>(
                 xh, g[j], b[j], ADD ? to_f<T>(rv[u].v[j]) : 0.f,
                 to_f<T>(dv[u].v[j]));
             s1[j] += d;
@@ -351,7 +416,8 @@ __global__ void __launch_bounds__(CM_THREADS, 2)
 }
 
 // One warp a channel: lane l adds chunks l, l + 32, ... in double,
-// then the lanes meet in a fixed butterfly; coef as finalize_body.
+// then the lanes meet in a fixed butterfly; coef as
+// bn_bwd_finalize_kernel.
 template <typename T>
 __global__ void bn_bwd_cm_finalize_kernel(const float* __restrict__ part,
                                           int chunks, int C, float n,
@@ -441,7 +507,7 @@ __global__ void __launch_bounds__(CM_THREADS, 2)
           const float xh =
               __fmul_rn(__fsub_rn(to_f<T>(xv[u].v[j]), mu[j]), rs[j]);
           const float d = ADD ? to_f<T>(dv[u].v[j])
-                              : mask_cm<RELU, false>(xh, g[j], b[j], 0.f,
+                              : masked<RELU, false>(xh, g[j], b[j], 0.f,
                                                      to_f<T>(dv[u].v[j]));
           const float t = __fsub_rn(__fsub_rn(d, k1[j]), __fmul_rn(xh, k2[j]));
           o.v[j] = from_f<T>(__fmul_rn(k0[j], t));

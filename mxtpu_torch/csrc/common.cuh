@@ -79,6 +79,146 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
+// ---------------------------------------------------------------------
+// The channels-major BatchNorm walk (csrc/batch_norm.cu and
+// csrc/batch_norm_bwd.cu, bn_*_major_*_kernel).  x is viewed as (N, C,
+// S); run (n, c) is the S contiguous elements from (n * C + c) * S.  A
+// CTA of MAJOR_THREADS owns 256 / tc channels, tc threads each (tc a
+// power of two from 32 to 256), and a chunk of runs.  A channel's
+// threads read its runs as words of VEC elements on VEC-aligned
+// addresses: `words` slots a run (the most words any run of the tensor
+// touches), thread t taking slots t, t + tc, ... of the chunk's runs in
+// order.  Where S is a multiple of VEC every run starts on a word and
+// every word is full.  Where it is not (PEEL) runs start on multiples
+// of gcd(S, VEC) elements: a word the run covers only in part (its head
+// or its tail) is loaded whole where it lies inside the tensor and used
+// element by element, and stored element by element, and a slot past a
+// run's last word is empty.  kernels/batch_norm.py:_major_plan mirrors
+// it.
+constexpr int MAJOR_THREADS = 256;
+
+// words of vec elements that a run of S elements touches at most: runs
+// start on multiples of gcd(S, vec) elements past a vec boundary
+inline long long major_words(long long S, int vec) {
+  long long a = S, b = vec;
+  while (b) {
+    const long long t = a % b;
+    a = b;
+    b = t;
+  }
+  return (vec - a + S - 1) / vec + 1;
+}
+
+// slots a thread issues together: one 16-byte word a tensor and slot
+// (two on the peeled 8-element path, whose masks take registers),
+// eight elements on the scalar path
+template <int VEC, bool PEEL>
+__host__ __device__ constexpr int major_unroll() {
+  return VEC == 1 ? 8 : PEEL && VEC >= 8 ? 2 : 4;
+}
+
+// one word of a run: its first element e0 and the run's part of it,
+// elements [lo, hi) (empty where hi <= lo)
+struct MajorWord {
+  long long e0;
+  int lo, hi;
+};
+
+// A thread's slot (run i, word w) of its channel's chunk, kept as the
+// run's first element and w, and the slot tc after (next) or before
+// (prev) it, by increments.
+template <int VEC, bool PEEL>
+struct MajorWalk {
+  long long start;  // first element of the slot's run
+  int w;            // the slot's word in its run
+  const int words, dw;
+  const long long dstart, CS, S;
+
+  __device__ __forceinline__ MajorWalk(long long t, int tc, long long start0,
+                                       long long CS_, long long S_,
+                                       int words_)
+      : words(words_), dw(tc % words_), dstart((long long)(tc / words_) * CS_),
+        CS(CS_), S(S_) {
+    const long long i = t / words_;
+    w = (int)(t - i * words_);
+    start = start0 + i * CS_;
+  }
+  __device__ __forceinline__ MajorWord word() const {
+    if (!PEEL) return {start + (long long)w * VEC, 0, VEC};
+    const long long e0 =
+        ((long long)((unsigned long long)start / VEC) + w) * VEC;
+    const long long d = start - e0;  // > 0 only in a run's first word
+    return {e0, d > 0 ? (int)d : 0, d + S < VEC ? (int)(d + S) : VEC};
+  }
+  __device__ __forceinline__ void next() {
+    w += dw;
+    start += dstart;
+    if (w >= words) {
+      w -= words;
+      start += CS;
+    }
+  }
+  __device__ __forceinline__ void prev() {
+    w -= dw;
+    start -= dstart;
+    if (w < 0) {
+      w += words;
+      start -= CS;
+    }
+  }
+};
+
+// the word's VEC elements: one 16-byte load where the word lies inside
+// the tensor's `total` elements, else the run's elements one by one
+template <typename T, int VEC, bool PEEL>
+__device__ __forceinline__ Pack<T, VEC> ld_word(const T* __restrict__ p,
+                                                const MajorWord& wd,
+                                                long long total) {
+  if (!PEEL || wd.e0 + VEC <= total) return ld_pack<T, VEC>(p + wd.e0);
+  Pack<T, VEC> v;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    v.v[j] = j >= wd.lo && j < wd.hi ? p[wd.e0 + j] : from_f<T>(0.f);
+  return v;
+}
+
+// the run's elements of the word: one 16-byte store where it covers
+// the whole word, else one store an element
+template <typename T, int VEC, bool PEEL>
+__device__ __forceinline__ void st_word(T* __restrict__ p,
+                                        const MajorWord& wd,
+                                        const Pack<T, VEC>& v) {
+  if (!PEEL || (wd.lo == 0 && wd.hi == VEC)) {
+    st_pack<T, VEC>(p + wd.e0, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    if (j >= wd.lo && j < wd.hi) p[wd.e0 + j] = v.v[j];
+}
+
+// The channel sums of a CTA of the walk: each warp's xor butterfly,
+// then the channel's tc / 32 warps added in order (block_sum's order
+// where tc = 256); thread g < 256 / tc gets channel g's two sums.
+__device__ __forceinline__ void major_sums(float& s1, float& s2, int tc,
+                                           float (*red)[MAJOR_THREADS / 32]) {
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if ((threadIdx.x & 31) == 0) {
+    red[0][threadIdx.x >> 5] = s1;
+    red[1][threadIdx.x >> 5] = s2;
+  }
+  __syncthreads();
+  const int wpc = tc >> 5;
+  s1 = s2 = 0.f;
+  if (threadIdx.x < MAJOR_THREADS / tc) {
+    for (int k = 0; k < wpc; ++k) {
+      s1 += red[0][threadIdx.x * wpc + k];
+      s2 += red[1][threadIdx.x * wpc + k];
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }

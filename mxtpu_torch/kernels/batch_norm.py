@@ -32,10 +32,15 @@ finalize that sums the chunks in a fixed order (no float atomics, so
 every result repeats bit for bit), and an elementwise pass.  A wrapper
 call counts once, not three times.  Bound: bytes — a handful of flops
 per element against reading x (dy, r) and writing y (dx, dr).  The
-forwards and the channels-major backward read x twice with scalar
-loads; the channels-minor backward (:func:`_cm_bwd_plan`) reads with
-16-byte vectors, several rows in flight a thread, and with the add
-its stats pass writes dr so that its apply pass reads x and dr only.
+channels-major kernels (:func:`_major_plan`) walk a channel's runs of
+S contiguous elements with 16-byte words, several in flight a thread,
+the channel's values in registers; the channels-minor backward
+(:func:`_cm_bwd_plan`) reads 16-byte vectors of neighbouring channels,
+several rows in flight a thread.  With the add both backwards' stats
+passes write dr, so their apply passes read x and dr only, and every
+apply pass walks its data in the reverse of the stats pass's order, so
+that what the stats pass read last comes from L2.  The channels-minor
+forward still reads x twice with scalar loads.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernels or the call raises.  :func:`fused_bn_act` picks the view from
@@ -69,14 +74,14 @@ _SELF = sys.modules[__name__]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = ("none", "relu")
-# CTAs the partial-sum grid aims for: 8 per SM of the H100's 132
+# the channels-minor forward's partial-sum grid: the CTAs it aims for
+# (8 per SM of the H100's 132), at least MIN_ROWS rows a chunk (8 row
+# lanes of 16 rows each), CM_TILE channels a CTA (one warp's lanes),
+# and APPLY_BLOCKS blocks of 256 threads in its grid-stride apply pass
 TARGET_CTAS = 1056
-# least elements of one channel per channels-major chunk, and least
-# rows per channels-minor forward chunk (8 row lanes of 16 rows each)
-MIN_CHUNK = 4096
 MIN_ROWS = 128
-# channels per channels-minor forward CTA (one warp's lanes)
 CM_TILE = 32
+APPLY_BLOCKS = 2112
 # the channels-minor backward (bn_bwd_cm_*): CTAs of 256 threads over
 # tiles of up to 256 channels, 2 CTAs an SM in one wave, and at least 4
 # rows a row lane
@@ -84,18 +89,26 @@ CM_BWD_THREADS = 256
 CM_BWD_WIDTH = 256
 CM_BWD_CTAS_PER_SM = 2
 CM_BWD_MIN_ROWS = 4
-# blocks of 256 threads of the elementwise passes (grid-stride loops)
-APPLY_BLOCKS = 2112
+# the channels-major kernels (bn_*_major_*): CTAs of 256 threads, 256 /
+# tc channels (tc threads each) and a chunk of runs each, the grid one
+# wave of 2 CTAs an SM where C allows, and at least 12 word slots a
+# thread
+MAJOR_THREADS = 256
+MAJOR_CTAS_PER_SM = 2
+MAJOR_MIN_SLOTS = 12
 MAX_CHUNKS = 65535  # gridDim.y
 
 _P = ctypes.c_void_p
 _LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# x, r, gamma, beta, y, mean, var, work; A, C, S, chunks, per_chunk,
-# apply_blocks, eps, relu, add, dtype, stream
-_FWD_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _LL, _I, _F, _I, _I, _I, _P]
-# x, r, dy, gamma, beta, mean, rstd, dx, dr, dgamma, dbeta, work; A, C,
-# S, chunks, per_chunk, apply_blocks, relu, add, dtype, stream
-_BWD_ARGS = [_P] * 12 + [_LL, _I, _LL, _I, _LL, _I, _I, _I, _I, _P]
+# x, r, gamma, beta, y, mean, var, work; then channels-major: N, C, S,
+# vec, words, tc, chunks, per_chunk, eps; channels-minor: R, C, S,
+# chunks, per_chunk, apply_blocks, eps; then relu, add, dtype, stream
+_FWD_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _I, _I, _I, _LL, _F, _I, _I, _I,
+                        _P]
+_FWD_CM_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _LL, _I, _F, _I, _I, _I, _P]
+# x, r, dy, gamma, beta, mean, rstd, dx, dr, dgamma, dbeta, work; N, C,
+# S, vec, words, tc, chunks, per_chunk, relu, add, dtype, stream
+_BWD_ARGS = [_P] * 12 + [_LL, _I, _LL, _I, _I, _I, _I, _LL, _I, _I, _I, _P]
 # the same pointers; R, C, vec, tv, chunks, per_chunk, relu, add, dtype,
 # stream
 _BWD_CM_ARGS = [_P] * 12 + [_LL, _I, _I, _I, _I, _LL, _I, _I, _I, _P]
@@ -196,23 +209,76 @@ def _act(act: str) -> int:
     return int(act == "relu")
 
 
-def _grid(x: torch.Tensor, cm: bool) -> Tuple[int, int, int, int, int]:
-    """(A, C, S, chunks, per_chunk) of a launch: the partial-sum grid
-    is C channels (channels-major) or ceil(C / 32) channel tiles
-    (channels-minor) by ``chunks``, each chunk ``per_chunk`` elements
-    of a channel (channels-major) or rows (channels-minor)."""
-    if cm:
-        A, C = x.shape
-        S = 1
-        tiles = -(-C // CM_TILE)
-        want = max(1, min(-(-TARGET_CTAS // tiles), -(-A // MIN_ROWS)))
-        extent = A
-    else:
-        A, C, S = x.shape
-        want = max(1, min(-(-TARGET_CTAS // C), -(-A * S // MIN_CHUNK)))
-        extent = A * S
-    per_chunk = -(-extent // min(want, MAX_CHUNKS))
-    return A, C, S, -(-extent // per_chunk), per_chunk
+def _cm_fwd_grid(R: int, C: int) -> Tuple[int, int]:
+    """(chunks, per_chunk) of the channels-minor forward: a grid of
+    ceil(C / 32) channel tiles by ``chunks`` chunks of ``per_chunk``
+    rows."""
+    tiles = -(-C // CM_TILE)
+    want = max(1, min(-(-TARGET_CTAS // tiles), -(-R // MIN_ROWS)))
+    per_chunk = -(-R // min(want, MAX_CHUNKS))
+    return -(-R // per_chunk), per_chunk
+
+
+class MajorPlan(NamedTuple):
+    """The launch of the channels-major kernels over (N, C, S): ``vec``
+    elements a word (16 bytes' worth, or 1), runs peeled (``peel``:
+    S not a multiple of ``vec``), ``words`` word slots a run, ``tc``
+    threads a channel, a grid of ceil(C / (256 / tc)) x ``chunks``
+    CTAs of ``MAJOR_THREADS``, each chunk ``per_chunk`` runs (the last
+    may hold fewer)."""
+    vec: int
+    peel: bool
+    words: int
+    tc: int
+    chunks: int
+    per_chunk: int
+
+
+def _major_plan(N: int, C: int, S: int, itemsize: int, aligned: bool,
+                sms: int) -> MajorPlan:
+    """Launch geometry of the channels-major kernels.  A run is the S
+    contiguous elements of one (n, c), from element ``(n*C + c)*S``.
+
+    Words: 16 bytes of T where every pointer is 16-byte aligned and a
+    run is at least a word long, else single elements (S = 1 and the
+    other short runs, and data off a 16-byte boundary).  Where
+    ``S * itemsize`` is not a multiple of 16 (S = 49 in both types, 196
+    in bf16) runs start off word boundaries, on multiples of gcd(S,
+    vec) elements; each run then peels its partial head and tail words:
+    they are loaded whole (the bytes are in the same 32-byte sectors
+    either way) and used, and stored, element by element, so the body
+    moves as 16-byte words whatever S is, in the same kernel (an
+    instance of its own, whose per-element masks the others skip).
+    ``words`` is the most words a run touches: a slot past a run's last
+    word is empty.
+
+    A channel's ``tc`` threads take its chunk's word slots in turn, so
+    a run gets as many threads as it has words (up to tc), several runs
+    are in flight at small S and several words a thread at large S.  tc
+    is 256 (a CTA a channel) unless a thread would get fewer than
+    ``MAJOR_MIN_SLOTS`` slots of the whole channel: then it halves, down
+    to a warp, and a CTA takes 256 / tc neighbouring channels, as long
+    as every SM still gets a CTA (fewer CTAs measured slower: half the
+    warps to hide the loads' latency).  The
+    chunks make the grid one wave of ``MAJOR_CTAS_PER_SM`` CTAs an SM
+    where the channels' CTAs are fewer (more take one chunk each), each
+    thread keeping ``MAJOR_MIN_SLOTS`` slots."""
+    if N < 1 or C < 1 or S < 1:
+        raise MXNetError(f"bn major: no launch for ({N}, {C}, {S})")
+    v = 16 // itemsize
+    vec = v if aligned and S >= v else 1
+    words = (vec - math.gcd(S, vec) + S - 1) // vec + 1
+    tc = MAJOR_THREADS
+    while tc > 32 and N * words < MAJOR_MIN_SLOTS * tc and \
+            -(-C // (2 * MAJOR_THREADS // tc)) >= sms:
+        tc //= 2
+    ctas = -(-C // (MAJOR_THREADS // tc))
+    min_runs = -(-MAJOR_MIN_SLOTS * tc // words)
+    want = max(1, min(sms * MAJOR_CTAS_PER_SM // ctas, N // min_runs,
+                      MAX_CHUNKS))
+    per_chunk = -(-N // want)
+    return MajorPlan(vec, S % vec != 0, words, tc, -(-N // per_chunk),
+                     per_chunk)
 
 
 class CmBwdPlan(NamedTuple):
@@ -270,23 +336,33 @@ def _fwd(x, gamma, beta, residual, eps, act, cm):
     relu = _act(act)
     if x.numel() == 0:
         raise MXNetError(f"{what}: empty input {tuple(x.shape)}")
-    A, C, S, chunks, per_chunk = _grid(x, cm)
     y = torch.empty_like(x)
+    A, C = x.shape[:2]
+    if cm:
+        chunks, per_chunk = _cm_fwd_grid(A, C)
+        shape = (A, C, 1, chunks, per_chunk, _apply_blocks(x.numel()))
+        fn = _build.bind("batch_norm", "mxt_bn_fwd_cm", _FWD_CM_ARGS)
+    else:
+        S = x.shape[2]
+        big = [t for t in (x, residual, y) if t is not None]
+        plan = _major_plan(A, C, S, x.element_size(), aligned16(*big),
+                           sm_count(x.device))
+        chunks = plan.chunks
+        shape = (A, C, S, plan.vec, plan.words, plan.tc, chunks,
+                 plan.per_chunk)
+        fn = _build.bind("batch_norm", "mxt_bn_fwd", _FWD_ARGS)
     mean = torch.empty(C, dtype=torch.float32, device=x.device)
     var = torch.empty(C, dtype=torch.float32, device=x.device)
     # partial s1, s2 per chunk, then scale and shift per channel
     work = torch.empty(2 * chunks * C + 2 * C, dtype=torch.float32,
                        device=x.device)
-    sym = "mxt_bn_fwd_cm" if cm else "mxt_bn_fwd"
-    fn = _build.bind("batch_norm", sym, _FWD_ARGS)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(),
                  None if residual is None else residual.data_ptr(),
                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                 mean.data_ptr(), var.data_ptr(), work.data_ptr(), A, C, S,
-                 chunks, per_chunk, _apply_blocks(x.numel()), float(eps),
-                 relu, int(residual is not None), _DTYPES[x.dtype],
-                 _build.stream_of(x))
+                 mean.data_ptr(), var.data_ptr(), work.data_ptr(), *shape,
+                 float(eps), relu, int(residual is not None),
+                 _DTYPES[x.dtype], _build.stream_of(x))
     _build.check(err, what)
     bump(_SELF, "FWD_CM_LAUNCHES" if cm else "FWD_LAUNCHES")
     return y, mean, var
@@ -307,23 +383,25 @@ def _bwd(x, residual, dy, gamma, beta, mean, rstd, act, cm):
         raise MXNetError(f"{what}: empty input {tuple(x.shape)}")
     dx = torch.empty_like(x)
     dr = None if residual is None else torch.empty_like(dy)
-    C = x.shape[1]
+    A, C = x.shape[:2]
     dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(C, dtype=torch.float32, device=x.device)
+    big = [t for t in (x, residual, dy, dx, dr) if t is not None]
     if cm:
-        R = x.shape[0]
-        big = [t for t in (x, residual, dy, dx, dr) if t is not None]
-        plan = _cm_bwd_plan(R, C, x.element_size(), aligned16(*big),
+        plan = _cm_bwd_plan(A, C, x.element_size(), aligned16(*big),
                             sm_count(x.device))
-        shape = (R, C, plan.vec, plan.tv, plan.chunks, plan.per_chunk)
+        shape = (A, C, plan.vec, plan.tv, plan.chunks, plan.per_chunk)
         work = torch.empty(plan.work_floats(C), dtype=torch.float32,
                            device=x.device)
         fn = _build.bind("batch_norm_bwd", "mxt_bn_bwd_cm", _BWD_CM_ARGS)
     else:
-        A, C, S, chunks, per_chunk = _grid(x, cm)
-        shape = (A, C, S, chunks, per_chunk, _apply_blocks(x.numel()))
+        S = x.shape[2]
+        plan = _major_plan(A, C, S, x.element_size(), aligned16(*big),
+                           sm_count(x.device))
+        shape = (A, C, S, plan.vec, plan.words, plan.tc, plan.chunks,
+                 plan.per_chunk)
         # partial sums per chunk, then g*rstd, sum(dy)/n, sum(dy*xhat)/n
-        work = torch.empty(2 * chunks * C + 3 * C, dtype=torch.float32,
+        work = torch.empty(2 * plan.chunks * C + 3 * C, dtype=torch.float32,
                            device=x.device)
         fn = _build.bind("batch_norm_bwd", "mxt_bn_bwd", _BWD_ARGS)
     with torch.cuda.device(x.device):

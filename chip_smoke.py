@@ -26,8 +26,8 @@ Phases, each fatal on failure:
      TF32 HGMMA, and their ptxas reports no spills; so must the ptxas
      reports of the kernels rebuilt on 16-byte vector loads
      (``VECTOR_KERNELS``: the LayerNorm forward and backward, row and
-     wide kernels, the channels-minor BatchNorm backward, the
-     channels-major BatchNorm forward and backward), every
+     wide kernels, the fused epilogue's wide forward and its backward,
+     the BatchNorm forward and backward in both views), every
      instantiation listed;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
@@ -36,11 +36,15 @@ Phases, each fatal on failure:
      in bf16 at bench_flash's B4 H16 D64 T=4096; the
      fused epilogue at keep=0.9 with its dropout mask recovered
      from the output and compared bit for bit; times of the kernel, the
-     plain version and one library call;
+     plain version and one library call (the fused epilogue at keep=1
+     and 0.9, its bound with the mask's integer work, whose instruction
+     mix an element is read from the SASS of a probe kernel built from
+     csrc/common.cuh's threefry, the probe timed against that floor);
   3. each BERT backward kernel likewise (flash dq and dk/dv, LayerNorm,
      the fused epilogue at keep=0.9 with dh's zeros equal to the
-     dropped set bit for bit), at the training shapes (the kernels each
-     LayerNorm backward call launches listed), the LayerNorm backward
+     dropped set bit for bit, timed also at keep=1), at the training
+     shapes (the kernels each LayerNorm and fused epilogue backward call
+     launches listed), the LayerNorm backward
      also on its scalar path (C = 1030, and contiguous views off a
      16-byte boundary: a row slice at C = 1031, one element into a
      buffer at C = 1024), flash also causal
@@ -52,7 +56,12 @@ Phases, each fatal on failure:
      at C = 1031, a view one element into a buffer), one row and 1001
      rows, and the wide kernels at C = 12257 (scalar), 32768 (300 rows,
      more than the backward's CTAs) and 131072 (aligned and one element
-     in), the widest timed;
+     in), the widest timed; then the fused epilogue at ``FRLN_EDGES``,
+     keep=0.9, the raw forward and the public function's forward and
+     backward: the backward's scalar path (C = 1030, a view one element
+     in) and the wide kernels at C = 12257, 32768 (timed), 131072
+     (timed), 393216 (48 KB of keep bits a row) and 400000, dh's zeros
+     at 32768 against the forward's dropped set bit for bit;
   4. the four BatchNorm kernels (channels-major and channels-minor,
      forward and backward) against their plain version in f32 and bf16
      at four of ResNet-50's shapes (N=256: the stem, a layer1 and a
@@ -64,8 +73,7 @@ Phases, each fatal on failure:
      and 196 at N=3 and ResNet-50's widths) and on a constant channel;
      the stem's statistics against f64 sums; a rerun bit-equal; times
      of the kernel, the plain version and cuDNN's BatchNorm with the
-     add and ReLU, and the kernels each channels-major forward and
-     backward and channels-minor backward call launches; the raw
+     add and ReLU, and the kernels each call launches; the raw
      wrappers must refuse inputs that require grad;
   5. the NHWC conv kernel (#13, the port of ``pallas_conv``) against its
      plain version in f32 and bf16 at N=256 (the conv probe's 14^2 x 256,
@@ -214,8 +222,11 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                 "layer_norm_bwd": ("ln_bwd_rows_kernel",
                                    "ln_bwd_wide_kernel",
                                    "ln_bwd_finalize_kernel"),
-                "fused_residual_ln_fwd": ("frln_fwd_kernel",),
-                "fused_residual_ln_bwd": ("frln_bwd_kernel",),
+                "fused_residual_ln_fwd": ("frln_fwd_kernel",
+                                          "frln_fwd_wide_kernel"),
+                "fused_residual_ln_bwd": ("frln_bwd_rows_kernel",
+                                          "frln_bwd_wide_kernel",
+                                          "frln_bwd_finalize_kernel"),
                 **{f"batch_norm_{d}": (f"bn_{d}_major_stats_kernel",
                                        f"bn_{d}_finalize_kernel",
                                        f"bn_{d}_major_apply_kernel")
@@ -249,6 +260,13 @@ VECTOR_KERNELS = {"ln_fwd_rows_kernel": "layer_norm",
                   "ln_bwd_rows_kernel": "layer_norm_bwd",
                   "ln_bwd_wide_kernel": "layer_norm_bwd",
                   "ln_bwd_finalize_kernel": "layer_norm_bwd",
+                  "frln_fwd_wide_kernel": "fused_residual_ln",
+                  "frln_bwd_rows_kernel": "fused_residual_ln_bwd",
+                  "frln_bwd_wide_kernel": "fused_residual_ln_bwd",
+                  "frln_bwd_finalize_kernel": "fused_residual_ln_bwd",
+                  "bn_fwd_cm_stats_kernel": "batch_norm",
+                  "bn_fwd_cm_finalize_kernel": "batch_norm",
+                  "bn_fwd_cm_apply_kernel": "batch_norm",
                   "bn_bwd_cm_stats_kernel": "batch_norm_bwd",
                   "bn_bwd_cm_finalize_kernel": "batch_norm_bwd",
                   "bn_bwd_cm_apply_kernel": "batch_norm_bwd",
@@ -264,6 +282,49 @@ CONV_WORDS = ("conv", "cudnn", "fprop", "dgrad", "wgrad", "nchwtonhwc",
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+# The dropout mask's integer work an element, read from the SASS nvcc
+# gives threefry_bits (csrc/common.cuh): MASK_PROBE_SOURCE draws E keep
+# bits a thread as E chains, built at E = 4 and 8, and the difference of
+# the two kernels' instructions over 4 is one element's mix.  An SM
+# issues one warp instruction a clock in each of its 4 sub-partitions
+# (128 thread instructions a clock) to two 32-bit integer pipes of 64
+# lanes an SM each: the FMA pipe takes IMAD and IMUL (IMAD.IADD,
+# IMAD.MOV and IMAD.SHL are the compiler's adds, moves and shifts moved
+# there), the ALU pipe ALU_OPS; an instruction of neither list (VIADD,
+# ...) is counted only where it issues.  An element takes at least
+# max(alu / 64, fma / 64, all / 128) clocks of an SM.
+INT_PIPE_LANES = 64
+ISSUE_LANES = 128
+FMA_OPS = ("IMAD", "IMUL")
+ALU_OPS = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "MOV"}
+MASK_PROBE_E = (4, 8)
+MASK_PROBE_SOURCE = r'''
+#include "common.cuh"
+template <int E>
+__device__ __forceinline__ void draw(uint32_t k0, uint32_t k1,
+                                     uint32_t thresh, uint32_t n, int* out) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t * E >= n) return;
+  int kept = 0;
+#pragma unroll
+  for (int j = 0; j < E; ++j)
+    kept += threefry_bits(k0, k1, t * E + (uint32_t)j) < thresh;
+  out[t] = kept;
+}
+extern "C" __global__ void mask_probe_4(uint32_t k0, uint32_t k1,
+    uint32_t thresh, uint32_t n, int* out) { draw<4>(k0, k1, thresh, n, out); }
+extern "C" __global__ void mask_probe_8(uint32_t k0, uint32_t k1,
+    uint32_t thresh, uint32_t n, int* out) { draw<8>(k0, k1, thresh, n, out); }
+'''
+MASK_PROBE_SIG = "uint32_t k0, uint32_t k1, uint32_t thresh, uint32_t n, " \
+    "int *out"
+# SASS that neither pipe counts: control, memory, and the uniform
+# datapath's per-warp instructions (opcodes from U)
+SASS_NOT_INT = {"NOP", "EXIT", "BRA", "RET", "BSSY", "BSYNC", "S2R", "S2UR",
+                "CS2R", "LDC", "LDG", "STG", "LDS", "STS", "BAR", "WARPSYNC"}
+# set in main from the card (its SMs, nvidia-smi's clocks.max.sm) and
+# the mask probe's SASS (clocks of an SM an element)
+INT_PEAK = {"sms": 0, "clock_hz": 0.0, "mask_clk": 0.0}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE_TOL = 1e-3
 
@@ -397,10 +458,98 @@ def timed(kernel, plain, library=None):
             "wall_ms": time_ms(kernel)}
 
 
-def bound(nbytes, ops, dtype):
+def bound(nbytes, ops, dtype, mask_elems=0):
+    """The least ms the card could take: the larger of the bytes over
+    3.35 TB/s, the float operations over the type's peak and the dropout
+    mask's integer work over ``mask_elems`` elements (:func:`mask_ms`)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = max(ops / PEAK_OPS[dtype] * 1e3, mask_ms(mask_elems))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mask_ms(elems):
+    """The least ms of drawing the dropout mask of ``elems`` elements:
+    the clocks of an SM an element (``INT_PEAK["mask_clk"]``, from
+    :func:`mask_probe_phase`) over every SM at clocks.max.sm."""
+    if not elems:
+        return 0.0
+    rate = INT_PEAK["sms"] * INT_PEAK["clock_hz"]
+    if rate <= 0 or INT_PEAK["mask_clk"] <= 0:
+        fail("the card's integer rate is unknown (INT_PEAK unset)")
+    return elems * INT_PEAK["mask_clk"] / rate * 1e3
+
+
+def sass_opcodes(func):
+    """Count of each opcode (its first word, predicate dropped) in one
+    function of ``cuobjdump -sass``."""
+    ops = {}
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", func):
+        op = m.group(1)
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def mask_probe_phase(checks):
+    """Build ``MASK_PROBE_SOURCE`` (nvcc -cubin, as rtc.CudaModule
+    does), read one element's integer mix from its SASS (the E = 8
+    kernel's count less the E = 4 kernel's, over 4) and set
+    ``INT_PEAK["mask_clk"]``; then time the E = 8 kernel over BERT's
+    R x C elements against that floor, which it cannot beat."""
+    import shutil
+    import torch
+    from mxtpu_torch import rtc
+    from mxtpu_torch.kernels import _build
+    module = rtc.CudaModule(MASK_PROBE_SOURCE,
+                            options=(f"-I{_build.CSRC}",),
+                            exports=[f"mask_probe_{e}" for e in
+                                     MASK_PROBE_E])
+    cubin = _build.BUILD_DIR / "mask_probe.cubin"
+    cubin.write_bytes(module._cubin)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=300)
+    funcs = {f.split("\n", 1)[0].strip(): f
+             for f in re.split(r"\n\s*Function : ", sass.stdout)[1:]}
+    lo, hi = (sass_opcodes(funcs.get(f"mask_probe_{e}", ""))
+              for e in MASK_PROBE_E)
+    per = (MASK_PROBE_E[1] - MASK_PROBE_E[0])
+    mix = {op: (hi.get(op, 0) - lo.get(op, 0)) / per
+           for op in sorted(set(lo) | set(hi))
+           if op.split(".")[0] not in SASS_NOT_INT and op[0] != "U"
+           and hi.get(op, 0) != lo.get(op, 0)}
+    fma = sum(n for op, n in mix.items() if op.startswith(FMA_OPS))
+    alu = sum(n for op, n in mix.items() if op.split(".")[0] in ALU_OPS)
+    every = sum(mix.values())
+    clk = max(alu / INT_PIPE_LANES, fma / INT_PIPE_LANES,
+              every / ISSUE_LANES)
+    ok = len(funcs) == len(MASK_PROBE_E) and alu > 0 and \
+        all(n > 0 for n in mix.values())
+    INT_PEAK["mask_clk"] = clk
+    R, C = B * T, UNITS
+    out = torch.empty(R * C // MASK_PROBE_E[1], dtype=torch.int32,
+                      device=CARD)
+    k = module.get_kernel(f"mask_probe_{MASK_PROBE_E[1]}", MASK_PROBE_SIG)
+    args = [0x2545F491, 0x9E3779B9, 3865470566, R * C, out]   # keep 0.9
+    probe_ms = device_ms(lambda: k.launch(
+        args, CARD, (out.numel() // 256, 1, 1), (256, 1, 1)))
+    floor = mask_ms(R * C)
+    ok = ok and probe_ms >= floor
+    print(f"check mask probe: one element's integer SASS {mix}: ALU pipe "
+          f"{alu:g}, FMA pipe {fma:g}, all {every:g} -> {clk:.4f} clocks "
+          f"of an SM an element (max(alu/{INT_PIPE_LANES}, "
+          f"fma/{INT_PIPE_LANES}, all/{ISSUE_LANES})); R{R} x C{C} "
+          f"elements: floor "
+          f"{floor:.4f} ms, the probe's E={MASK_PROBE_E[1]} kernel "
+          f"{probe_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "mask probe", "mix": mix, "alu": alu,
+                        "fma": fma, "all": every, "clk_per_elem": clk,
+                        "floor_ms": floor, "probe_ms": probe_ms, "ok": ok})
+    if not ok:
+        checks.failed.append(f"mask probe: SASS mix {mix} of "
+                             f"{sorted(funcs)}, {probe_ms:.4f} ms against "
+                             f"a {floor:.4f} ms floor "
+                             f"({sass.stderr.strip()[:200]})")
 
 
 # an f32 product taken on the tensor cores as six bf16 products of the
@@ -645,11 +794,17 @@ def kernel_phase(checks, gen):
         nbytes = 3 * R * C * h.element_size() + 3 * C * h.element_size() \
             + 2 * R * 4
         b_ms, b_by = bound(nbytes, 10 * R * C, name)
+        # with dropout (training): the same bytes, and the mask's integer
+        # operations
+        d_ms, d_by = bound(nbytes, 10 * R * C, name, R * C)
+        keep09 = device_ms(lambda: ln.fused_residual_ln_fwd(*dargs))
         out[("fused_residual_ln_fwd", name)] = {
             "max_abs_err": err,
             **timed(lambda: ln.fused_residual_ln_fwd(*args),
                     lambda: ln.fused_residual_ln_reference(*args)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "ms_keep09": keep09,
+            "bound_keep09_ms": d_ms, "bound_keep09_by": d_by,
+            "bound_int_ms": mask_ms(R * C)}
 
     # dropout mask, bit for bit: with h = 1, bias = res = beta = 0 and
     # gamma = 1, u is 1/keep where kept and 0 where dropped, so y > 0
@@ -832,12 +987,22 @@ def backward_phase(checks, gen):
                                      "dbeta"), got, want)]
         el = h.element_size()
         nbytes = 5 * R * C * el + 5 * C * el + 2 * R * 4
-        b_ms, b_by = bound(nbytes, 20 * R * C, name)
+        b_ms, b_by = bound(nbytes, 20 * R * C, name, R * C)
         out[("fused_residual_ln_bwd", name)] = {
             "max_abs_err": max(errs),
             **timed(lambda: ln.fused_residual_ln_bwd(*args),
                     lambda: ln.fused_residual_ln_bwd_reference(*args)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_bytes_ms": nbytes / PEAK_BYTES * 1e3,
+            "bound_int_ms": mask_ms(R * C),
+            # without the mask: what the mask's integer work adds
+            "ms_keep1": device_ms(lambda: ln.fused_residual_ln_bwd(
+                h, bias, res, g, key, mean, rstd, dy, 1.0))}
+        print(f"kernels of fused_residual_ln_bwd R{R} C{C} keep=0.9 "
+              f"[{name}] (device ms per call): " + "; ".join(
+                  f"{kn} {ms:.4f}" for kn, ms in kernels_of(
+                      lambda: ln.fused_residual_ln_bwd(*args))),
+              flush=True)
         if dt == torch.float32:
             dh_zero = got[0] == 0
 
@@ -998,6 +1163,111 @@ def layer_norm_edge_phase(checks):
                 print(f"time layer_norm wide R{r} C{c} [{name}] (device ms "
                       f"per call): fwd {fwd:.4f} bwd {bwd:.4f}", flush=True)
             del x, dy, y, got, want
+    torch.cuda.empty_cache()
+
+
+# the fused residual LayerNorm off BERT's shape, both directions at
+# keep = 0.9: the backward's row kernel on its scalar path (C off the
+# 16-byte vector; a view one element into a buffer), and the wide kernels
+# past the row kernels (the forward's from C = 12257, the backward's from
+# 4097) up to mxtpu's 32768 and past it, with more rows than either
+# direction's CTAs at 32768 and a row's keep bits 48 KB (C = 393216) and
+# more; (tag, R, C, offset into the buffer)
+FRLN_EDGES = (("C off the vector", 37, 1030, 0),
+              ("one element in", 64, 1024, 1),
+              ("wide, scalar", 64, 12257, 0),
+              ("wide", 300, 32768, 0),
+              ("wide", 8, 131072, 0),
+              ("wide, 48 KB of keep bits", 2, 393216, 0),
+              ("wide", 2, 400000, 0))
+# the wide edges timed
+FRLN_TIMED = ((300, 32768), (8, 131072))
+# the edge whose dh must be 0 exactly where the forward dropped
+FRLN_MASK_EDGE = (300, 32768)
+
+
+def fused_ln_edge_phase(checks):
+    """:data:`FRLN_EDGES` in f32 and bf16, from a generator of their
+    own: the raw forward's y, mean and rstd against the plain version,
+    and the public ``fused_residual_layer_norm`` forward and backward
+    (autograd) against the plain forward and backward; at
+    ``FRLN_MASK_EDGE`` in f32, dh's zeros against the dropped set of the
+    forward (recovered from its output) and the bits; the wide kernels'
+    device ms at ``FRLN_TIMED`` printed."""
+    import torch
+    import importlib
+    ln = importlib.import_module("mxtpu_torch.kernels.layer_norm")
+    dev = torch.device(CARD)
+    egen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    key = (0x2545F491, 0x9E3779B9)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+
+        def erandn(*shape):
+            return torch.randn(*shape, generator=egen, device=dev)
+        for tag, r, c, off in FRLN_EDGES:
+            h, res, dy = (erandn(r * c + off).to(dt)[off:].view(r, c)
+                          for _ in range(3))
+            bias = (0.1 * erandn(c)).to(dt)
+            g = (1.0 + 0.1 * erandn(c)).to(dt)
+            b = (0.1 * erandn(c)).to(dt)
+            y, mean, rstd = ln.fused_residual_ln_fwd(h, bias, res, g, b, key,
+                                                     0.1)
+            py, pmean, prstd = ln.fused_residual_ln_reference(
+                h, bias, res, g, b, key, 0.1)
+            want = ln.fused_residual_ln_bwd_reference(
+                h, bias, res, g, key, pmean, prstd, dy, 0.9)
+            ins = [t.detach().clone().requires_grad_(True)
+                   for t in (h, bias, res, g, b)]
+            ya = ln.fused_residual_layer_norm(*ins, key, p=0.1)
+            ya.backward(dy)
+            got = [t.grad for t in (ins[0], ins[1], ins[2], ins[3], ins[4])]
+            torch.cuda.synchronize()
+            at = "16-byte aligned" if all(
+                t.data_ptr() % 16 == 0 for t in (h, res, dy)) else \
+                "misaligned"
+            what = f"fused_residual_ln edge {tag} R={r} C={c} keep=0.9 " \
+                f"({at})"
+            checks.close(f"{what} y", y, py, name)
+            checks.close(f"{what} mean", mean, pmean, "float32")
+            checks.close(f"{what} rstd", rstd, prstd, "float32")
+            checks.close(f"{what} public y", ya.detach(), py, name)
+            # autograd's order: dh, dbias, dres, dgamma, dbeta
+            for g_, a, w_ in zip(("dh", "dbias", "dres", "dgamma",
+                                  "dbeta"), got, want):
+                checks.close(f"{what} {g_}", a, w_, name)
+            if not all(torch.isfinite(t).all() for t in (y, *got)):
+                checks.failed.append(f"{what} [{name}]: not finite")
+            if (r, c) == FRLN_MASK_EDGE and dt == torch.float32:
+                ones = torch.ones(r, c, device=dev)
+                zc = torch.zeros(c, device=dev)
+                yo, _, _ = ln.fused_residual_ln_fwd(
+                    ones, zc, torch.zeros_like(ones),
+                    torch.ones(c, device=dev), zc, key, 0.1, 1e-5, True)
+                bits_dropped = ln.mask_bits(key[0], key[1], 0, r, c,
+                                            device=dev) >= \
+                    ln.keep_thresh(0.9)
+                dh_zero = got[0] == 0
+                mismatch = int((dh_zero != (yo <= 0)).sum()) + \
+                    int((dh_zero != bits_dropped).sum())
+                print(f"check {what} dh==0 vs the forward's dropped set: "
+                      f"{mismatch} of {2 * r * c} bits differ (dropped "
+                      f"share {float(bits_dropped.float().mean()):.4f}) "
+                      f"{'ok' if mismatch == 0 else 'FAIL'}", flush=True)
+                checks.rows.append({"check": f"{what} dh==0 mask bits",
+                                    "mismatch": mismatch,
+                                    "ok": mismatch == 0})
+                if mismatch:
+                    checks.failed.append(f"{what}: dropout mask")
+            if (r, c) in FRLN_TIMED:
+                fwd = device_ms(lambda: ln.fused_residual_ln_fwd(
+                    h, bias, res, g, b, key, 0.1))
+                bwd = device_ms(lambda: ln.fused_residual_ln_bwd(
+                    h, bias, res, g, key, mean, rstd, dy, 0.9))
+                print(f"time fused_residual_ln wide R{r} C{c} keep=0.9 "
+                      f"[{name}] (device ms per call): fwd {fwd:.4f} bwd "
+                      f"{bwd:.4f}", flush=True)
+            del h, res, dy, y, ya, got, want, ins
     torch.cuda.empty_cache()
 
 
@@ -1273,8 +1543,6 @@ def bn_phase(checks, gen):
                         ("fwd", lambda: fwd(xv, g, b, rv, 1e-5, act)),
                         ("bwd", lambda: bwd(xv, rv, dyv, g, b, mean, rstd,
                                             act))):
-                    if cm and d == "fwd":
-                        continue
                     print(f"kernels of batch_norm_{d}{'_cm' if cm else ''} "
                           f"[{name}] {key} C{C} S{S} (device ms per call): "
                           + "; ".join(f"{kn} {ms:.4f}"
@@ -3325,6 +3593,20 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        INT_PEAK["clock_hz"] = float(clk.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi clocks.max.sm: {clk.stdout!r} {clk.stderr!r}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_PEAK["sms"] = sms
+    print(f"integer pipes: {sms} SMs x {INT_PIPE_LANES} ALU + "
+          f"{INT_PIPE_LANES} FMA lanes, {ISSUE_LANES} issued a clock, x "
+          f"{INT_PEAK['clock_hz'] / 1e6:.0f} MHz (clocks.max.sm)",
+          flush=True)
 
     t0 = time.perf_counter()
     per_src = _build.build_all()
@@ -3335,10 +3617,12 @@ def main():
 
     checks = Checks()
     sass_phase(checks)
+    mask_probe_phase(checks)
     gen = torch.Generator(device=CARD).manual_seed(SEED)
     timings = kernel_phase(checks, gen)
     timings.update(backward_phase(checks, gen))
     layer_norm_edge_phase(checks)
+    fused_ln_edge_phase(checks)
     timings.update(bn_phase(checks, gen))
     timings.update(conv_phase(checks, gen))
     for (name, dt), r in timings.items():
@@ -3349,6 +3633,15 @@ def main():
         if "bound_split_ms" in r:
             extra += f" bound_fma_ms={r['bound_fma_ms']:.4f} " \
                 f"bound_split_ms={r['bound_split_ms']:.4f}"
+        if "bound_bytes_ms" in r:
+            extra += f" bound_bytes_ms={r['bound_bytes_ms']:.4f} " \
+                f"bound_int_ms={r['bound_int_ms']:.4f} (keep=0.9); " \
+                f"kernel_ms_keep1={r['ms_keep1']:.4f}"
+        if "ms_keep09" in r:
+            extra += f" kernel_ms_keep0.9={r['ms_keep09']:.4f} " \
+                f"bound_keep0.9_ms={r['bound_keep09_ms']:.4f} " \
+                f"({r['bound_keep09_by']}; integer " \
+                f"{r['bound_int_ms']:.4f})"
         print(f"time {name} [{dt}] (device ms per call): "
               f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={lib} bound_ms={r['bound_ms']:.4f} "

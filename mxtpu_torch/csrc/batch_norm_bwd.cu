@@ -34,7 +34,7 @@
 // channel, a CTA a channel and a chunk of runs (common.cuh, "The
 // channels-major BatchNorm walk"; kernels/batch_norm.py:_major_plan).
 // Channels-minor (bn_bwd_cm_*, below): a thread a channel group of 16
-// bytes, rows in lanes (kernels/batch_norm.py:_cm_bwd_plan).
+// bytes, rows in lanes (kernels/batch_norm.py:_cm_plan).
 #include "common.cuh"
 
 // dy masked by the recomputed pre-activation sign, rounded one step at
@@ -305,26 +305,9 @@ extern "C" int mxt_bn_bwd(const void* x, const void* r, const void* dy,
 
 // ---------------------------------------------------------------------
 // channels-minor (R, C): bn_bwd_cm_stats_kernel, bn_bwd_cm_finalize_kernel,
-// bn_bwd_cm_apply_kernel
+// bn_bwd_cm_apply_kernel, over the geometry of common.cuh ("The
+// channels-minor BatchNorm geometry")
 // ---------------------------------------------------------------------
-//
-// Geometry, the same in the stats and the apply pass: a grid of
-// (channel tiles, row chunks), CTAs of CM_THREADS.  Thread t owns the
-// VEC consecutive channels c0 = (tile * tv + t % tv) * VEC and row lane
-// t / tv of ly = CM_THREADS / tv, and walks rows r0 + lane, r0 + lane +
-// ly, ... of its chunk.  VEC is 16 bytes of T (8 bf16, 4 f32) where C
-// and every pointer allow it, else 1; a tile is up to 256 channels, so
-// a warp reads 32 * 16 contiguous bytes of a row, or several whole rows
-// where C is narrow.  kernels/batch_norm.py:_cm_bwd_plan picks tv and
-// the chunks.
-constexpr int CM_THREADS = 256;
-
-// rows whose loads one thread issues together: 16 bytes a tensor and
-// row (at VEC = 8 two rows already keep 96 bytes a thread in flight)
-template <int VEC>
-__host__ __device__ constexpr int cm_unroll() {
-  return VEC >= 8 ? 2 : 4;
-}
 
 // Pass 1: per (chunk, channel) partial sums of d and d * xhat; with the
 // add it also writes dr = d (exact: masking rounds nothing), so pass 2

@@ -79,6 +79,58 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
+// bar.sync on named barrier `id` (1-15; 0 is __syncthreads) for
+// `threads` threads, a multiple of 32: a row group's own exchange
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// p[0, VEC) = v (first) or p + v, in 16-byte accesses where VEC >= 4
+// (p is then 16-byte aligned: C is a multiple of VEC); a CTA's partial
+// row of parameter gradients in device memory (the wide LayerNorm
+// backwards)
+template <int VEC>
+__device__ __forceinline__ void add_row(float* p, const float* v,
+                                        bool first) {
+  if constexpr (VEC >= 4) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      float4* q = reinterpret_cast<float4*>(p + j);
+      float4 a = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *q;
+      a.x += v[j];
+      a.y += v[j + 1];
+      a.z += v[j + 2];
+      a.w += v[j + 3];
+      *q = a;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = first ? v[j] : p[j] + v[j];
+  }
+}
+
+// ---------------------------------------------------------------------
+// The channels-minor BatchNorm geometry (csrc/batch_norm.cu and
+// csrc/batch_norm_bwd.cu, bn_*_cm_*_kernel), the same in every pass: a
+// grid of (channel tiles, row chunks), CTAs of CM_THREADS.  Thread t
+// owns the VEC consecutive channels c0 = (tile * tv + t % tv) * VEC and
+// row lane t / tv of ly = CM_THREADS / tv, and walks rows r0 + lane,
+// r0 + lane + ly, ... of its chunk (a stats pass in that order, an
+// apply pass backwards).  VEC is 16 bytes of T (8 bf16, 4 f32) where C
+// and every pointer allow it, else 1; a tile is up to 256 channels, so
+// a warp reads 32 * 16 contiguous bytes of a row, or several whole rows
+// where C is narrow.  kernels/batch_norm.py:_cm_plan picks tv and the
+// chunks.
+constexpr int CM_THREADS = 256;
+
+// rows whose loads one thread of the backward issues together: 16
+// bytes a tensor and row (at VEC = 8 two rows already keep 96 bytes a
+// thread in flight)
+template <int VEC>
+__host__ __device__ constexpr int cm_unroll() {
+  return VEC >= 8 ? 2 : 4;
+}
+
 // ---------------------------------------------------------------------
 // The channels-major BatchNorm walk (csrc/batch_norm.cu and
 // csrc/batch_norm_bwd.cu, bn_*_major_*_kernel).  x is viewed as (N, C,
@@ -243,4 +295,44 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
     x1 += ks[(grp + 2) % 3] + (uint32_t)(grp + 1);
   }
   return x0;
+}
+
+// ---------------------------------------------------------------------
+// The keep bits of the wide fused residual LayerNorm kernels
+// (frln_fwd_wide_kernel, frln_bwd_wide_kernel): a CTA of
+// FRLN_WIDE_THREADS takes a row, thread t the VEC columns
+// (k * FRLN_WIDE_THREADS + t) * VEC + j of it, k = 0, 1, ...  The first
+// pass draws the mask once; the keep bits of slot k, warp w and element
+// j are the 32 lanes' bits of word (k * FRLN_WIDE_WARPS + w) * VEC + j,
+// kept in a row of device memory a CTA (C / 8 bytes, 16 KB at
+// C = 131072, which L1 and L2 hold).  kernels/layer_norm.py:_frln_words
+// and _mask_scratch mirror it.
+constexpr int FRLN_WIDE_THREADS = 512;
+constexpr int FRLN_WIDE_WARPS = FRLN_WIDE_THREADS / 32;
+
+// words of keep bits a row: VEC words a warp and slot
+template <int VEC>
+inline int frln_words(int C) {
+  const int step = FRLN_WIDE_THREADS * VEC;
+  return (C + step - 1) / step * FRLN_WIDE_WARPS * VEC;
+}
+
+// Draw the keep bits of a lane's VEC elements from counter ctr0 (its
+// first element's) with one ballot an element into w[0, VEC) (every
+// lane's registers, which the drawing pass reads) and its warp's words
+// kw[0, VEC) (lane j stores word j, which the later passes read after a
+// __syncthreads); `in` is false for a lane past the row, whose bits are
+// 0.  Every lane of the warp calls it.
+template <int VEC>
+__device__ __forceinline__ void frln_draw_bits(uint32_t* kw, uint32_t* w,
+                                               bool in, uint32_t ctr0,
+                                               int lane, uint32_t k0,
+                                               uint32_t k1, uint32_t thresh) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const bool kept =
+        in && threefry_bits(k0, k1, ctr0 + (uint32_t)j) < thresh;
+    w[j] = __ballot_sync(0xffffffffu, kept);
+    if (lane == j) kw[j] = w[j];
+  }
 }

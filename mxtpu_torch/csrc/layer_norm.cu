@@ -53,10 +53,6 @@ constexpr int LN_WIDE_THREADS = 512;
   X(256, 8, 1) X(512, 16, 1) X(1024, 16, 2) X(2048, 16, 4) X(4096, 16, 8) \
   X(8192, 32, 8)
 
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 // the sum of v over the WPR warps of a row group: warp shuffles, then
 // (WPR > 1) one exchange through red[parity] under the group's own
 // named barrier; parity flips with each exchange, so a warp that runs

@@ -73,10 +73,6 @@ constexpr int ln_min_blocks() {
   return regs <= 112 ? 2 : 1;
 }
 
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 // part: [2][gridDim.x][C] f32, this CTA's dgamma then dbeta row
 template <typename T, int VEC, int E, int WPR>
 __global__ void __launch_bounds__(LN_THREADS, (ln_min_blocks<T, VEC, E>()))
@@ -205,28 +201,6 @@ __global__ void __launch_bounds__(LN_THREADS, (ln_min_blocks<T, VEC, E>()))
       pg[c] = stage[c];
       pb[c] = stage[C + c];
     }
-  }
-}
-
-// p[0, VEC) = v (first) or p + v, in 16-byte accesses where VEC >= 4
-// (p is then 16-byte aligned: C is a multiple of VEC)
-template <int VEC>
-__device__ __forceinline__ void add_row(float* p, const float* v,
-                                        bool first) {
-  if constexpr (VEC >= 4) {
-#pragma unroll
-    for (int j = 0; j < VEC; j += 4) {
-      float4* q = reinterpret_cast<float4*>(p + j);
-      float4 a = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *q;
-      a.x += v[j];
-      a.y += v[j + 1];
-      a.z += v[j + 2];
-      a.w += v[j + 3];
-      *q = a;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) p[j] = first ? v[j] : p[j] + v[j];
   }
 }
 

@@ -34,13 +34,12 @@ call counts once, not three times.  Bound: bytes — a handful of flops
 per element against reading x (dy, r) and writing y (dx, dr).  The
 channels-major kernels (:func:`_major_plan`) walk a channel's runs of
 S contiguous elements with 16-byte words, several in flight a thread,
-the channel's values in registers; the channels-minor backward
-(:func:`_cm_bwd_plan`) reads 16-byte vectors of neighbouring channels,
+the channel's values in registers; the channels-minor pair
+(:func:`_cm_plan`) reads 16-byte vectors of neighbouring channels,
 several rows in flight a thread.  With the add both backwards' stats
 passes write dr, so their apply passes read x and dr only, and every
 apply pass walks its data in the reverse of the stats pass's order, so
-that what the stats pass read last comes from L2.  The channels-minor
-forward still reads x twice with scalar loads.
+that what the stats pass read last comes from L2.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernels or the call raises.  :func:`fused_bn_act` picks the view from
@@ -74,21 +73,13 @@ _SELF = sys.modules[__name__]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = ("none", "relu")
-# the channels-minor forward's partial-sum grid: the CTAs it aims for
-# (8 per SM of the H100's 132), at least MIN_ROWS rows a chunk (8 row
-# lanes of 16 rows each), CM_TILE channels a CTA (one warp's lanes),
-# and APPLY_BLOCKS blocks of 256 threads in its grid-stride apply pass
-TARGET_CTAS = 1056
-MIN_ROWS = 128
-CM_TILE = 32
-APPLY_BLOCKS = 2112
-# the channels-minor backward (bn_bwd_cm_*): CTAs of 256 threads over
-# tiles of up to 256 channels, 2 CTAs an SM in one wave, and at least 4
-# rows a row lane
-CM_BWD_THREADS = 256
-CM_BWD_WIDTH = 256
-CM_BWD_CTAS_PER_SM = 2
-CM_BWD_MIN_ROWS = 4
+# the channels-minor kernels (bn_*_cm_*, both directions): CTAs of 256
+# threads over tiles of up to 256 channels, 2 CTAs an SM in one wave,
+# and at least 4 rows a row lane
+CM_THREADS = 256
+CM_WIDTH = 256
+CM_CTAS_PER_SM = 2
+CM_MIN_ROWS = 4
 # the channels-major kernels (bn_*_major_*): CTAs of 256 threads, 256 /
 # tc channels (tc threads each) and a chunk of runs each, the grid one
 # wave of 2 CTAs an SM where C allows, and at least 12 word slots a
@@ -101,11 +92,11 @@ MAX_CHUNKS = 65535  # gridDim.y
 _P = ctypes.c_void_p
 _LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # x, r, gamma, beta, y, mean, var, work; then channels-major: N, C, S,
-# vec, words, tc, chunks, per_chunk, eps; channels-minor: R, C, S,
-# chunks, per_chunk, apply_blocks, eps; then relu, add, dtype, stream
+# vec, words, tc, chunks, per_chunk, eps; channels-minor: R, C, vec, tv,
+# chunks, per_chunk, eps; then relu, add, dtype, stream
 _FWD_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _I, _I, _I, _LL, _F, _I, _I, _I,
                         _P]
-_FWD_CM_ARGS = [_P] * 8 + [_LL, _I, _LL, _I, _LL, _I, _F, _I, _I, _I, _P]
+_FWD_CM_ARGS = [_P] * 8 + [_LL, _I, _I, _I, _I, _LL, _F, _I, _I, _I, _P]
 # x, r, dy, gamma, beta, mean, rstd, dx, dr, dgamma, dbeta, work; N, C,
 # S, vec, words, tc, chunks, per_chunk, relu, add, dtype, stream
 _BWD_ARGS = [_P] * 12 + [_LL, _I, _LL, _I, _I, _I, _I, _LL, _I, _I, _I, _P]
@@ -209,16 +200,6 @@ def _act(act: str) -> int:
     return int(act == "relu")
 
 
-def _cm_fwd_grid(R: int, C: int) -> Tuple[int, int]:
-    """(chunks, per_chunk) of the channels-minor forward: a grid of
-    ceil(C / 32) channel tiles by ``chunks`` chunks of ``per_chunk``
-    rows."""
-    tiles = -(-C // CM_TILE)
-    want = max(1, min(-(-TARGET_CTAS // tiles), -(-R // MIN_ROWS)))
-    per_chunk = -(-R // min(want, MAX_CHUNKS))
-    return -(-R // per_chunk), per_chunk
-
-
 class MajorPlan(NamedTuple):
     """The launch of the channels-major kernels over (N, C, S): ``vec``
     elements a word (16 bytes' worth, or 1), runs peeled (``peel``:
@@ -281,11 +262,12 @@ def _major_plan(N: int, C: int, S: int, itemsize: int, aligned: bool,
                      per_chunk)
 
 
-class CmBwdPlan(NamedTuple):
-    """The launch of the channels-minor backward: ``vec`` channels per
-    access (16 bytes' worth, or 1), ``tv`` accesses a channel tile
-    spans, ``ly`` row lanes a CTA, a grid of ``tiles`` x ``chunks``
-    CTAs, each chunk ``per_chunk`` rows (the last may hold fewer)."""
+class CmPlan(NamedTuple):
+    """The launch of the channels-minor kernels, either direction:
+    ``vec`` channels per access (16 bytes' worth, or 1), ``tv`` accesses
+    a channel tile spans, ``ly`` row lanes a CTA, a grid of ``tiles`` x
+    ``chunks`` CTAs, each chunk ``per_chunk`` rows (the last may hold
+    fewer)."""
     vec: int
     tv: int
     ly: int
@@ -293,36 +275,34 @@ class CmBwdPlan(NamedTuple):
     chunks: int
     per_chunk: int
 
-    def work_floats(self, C: int) -> int:
-        """f32 workspace: partial sums per chunk, then 3 coefficients
-        per channel."""
-        return 2 * self.chunks * C + 3 * C
+
+def _work_floats(chunks: int, C: int, coefs: int) -> int:
+    """f32 workspace of either view's kernels: partial sums s1, s2 per
+    (chunk, channel), then ``coefs`` coefficients per channel (2 forward:
+    scale, shift; 3 backward: g*rstd, sum(dy)/n, sum(dy*xhat)/n)."""
+    return 2 * chunks * C + coefs * C
 
 
-def _cm_bwd_plan(R: int, C: int, itemsize: int, aligned: bool,
-                 sms: int) -> CmBwdPlan:
-    """Launch geometry of the channels-minor backward over (R, C):
-    vector accesses only where C is a multiple of 16 bytes' worth and
-    every pointer is 16-byte aligned; a channel tile of up to 256
-    channels a CTA; chunks of rows so that the grid is one wave of
-    ``CM_BWD_CTAS_PER_SM`` CTAs an SM, each row lane walking at least
-    ``CM_BWD_MIN_ROWS`` rows."""
+def _cm_plan(R: int, C: int, itemsize: int, aligned: bool,
+             sms: int) -> CmPlan:
+    """Launch geometry of the channels-minor kernels over (R, C), the
+    same in both directions and in every pass: vector accesses only
+    where C is a multiple of 16 bytes' worth and every pointer is
+    16-byte aligned; a channel tile of up to 256 channels a CTA; chunks
+    of rows so that the grid is one wave of ``CM_CTAS_PER_SM`` CTAs an
+    SM, each row lane walking at least ``CM_MIN_ROWS`` rows."""
     if R < 1 or C < 1:
-        raise MXNetError(f"bn_bwd_cm: no launch for ({R}, {C})")
+        raise MXNetError(f"bn cm: no launch for ({R}, {C})")
     v = 16 // itemsize
     vec = v if aligned and C % v == 0 else 1
     vpr = -(-C // vec)
-    tv = min(vpr, CM_BWD_WIDTH // vec)
-    ly = CM_BWD_THREADS // tv
+    tv = min(vpr, CM_WIDTH // vec)
+    ly = CM_THREADS // tv
     tiles = -(-vpr // tv)
-    want = max(1, min(-(-sms * CM_BWD_CTAS_PER_SM // tiles),
-                      -(-R // (ly * CM_BWD_MIN_ROWS)), MAX_CHUNKS))
+    want = max(1, min(-(-sms * CM_CTAS_PER_SM // tiles),
+                      -(-R // (ly * CM_MIN_ROWS)), MAX_CHUNKS))
     per_chunk = -(-R // want)
-    return CmBwdPlan(vec, tv, ly, tiles, -(-R // per_chunk), per_chunk)
-
-
-def _apply_blocks(numel: int) -> int:
-    return max(1, min(-(-numel // 256), APPLY_BLOCKS))
+    return CmPlan(vec, tv, ly, tiles, -(-R // per_chunk), per_chunk)
 
 
 def _fwd(x, gamma, beta, residual, eps, act, cm):
@@ -338,23 +318,22 @@ def _fwd(x, gamma, beta, residual, eps, act, cm):
         raise MXNetError(f"{what}: empty input {tuple(x.shape)}")
     y = torch.empty_like(x)
     A, C = x.shape[:2]
+    big = [t for t in (x, residual, y) if t is not None]
     if cm:
-        chunks, per_chunk = _cm_fwd_grid(A, C)
-        shape = (A, C, 1, chunks, per_chunk, _apply_blocks(x.numel()))
+        plan = _cm_plan(A, C, x.element_size(), aligned16(*big),
+                        sm_count(x.device))
+        shape = (A, C, plan.vec, plan.tv, plan.chunks, plan.per_chunk)
         fn = _build.bind("batch_norm", "mxt_bn_fwd_cm", _FWD_CM_ARGS)
     else:
         S = x.shape[2]
-        big = [t for t in (x, residual, y) if t is not None]
         plan = _major_plan(A, C, S, x.element_size(), aligned16(*big),
                            sm_count(x.device))
-        chunks = plan.chunks
-        shape = (A, C, S, plan.vec, plan.words, plan.tc, chunks,
+        shape = (A, C, S, plan.vec, plan.words, plan.tc, plan.chunks,
                  plan.per_chunk)
         fn = _build.bind("batch_norm", "mxt_bn_fwd", _FWD_ARGS)
     mean = torch.empty(C, dtype=torch.float32, device=x.device)
     var = torch.empty(C, dtype=torch.float32, device=x.device)
-    # partial s1, s2 per chunk, then scale and shift per channel
-    work = torch.empty(2 * chunks * C + 2 * C, dtype=torch.float32,
+    work = torch.empty(_work_floats(plan.chunks, C, 2), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(),
@@ -388,11 +367,9 @@ def _bwd(x, residual, dy, gamma, beta, mean, rstd, act, cm):
     dbeta = torch.empty(C, dtype=torch.float32, device=x.device)
     big = [t for t in (x, residual, dy, dx, dr) if t is not None]
     if cm:
-        plan = _cm_bwd_plan(A, C, x.element_size(), aligned16(*big),
-                            sm_count(x.device))
+        plan = _cm_plan(A, C, x.element_size(), aligned16(*big),
+                        sm_count(x.device))
         shape = (A, C, plan.vec, plan.tv, plan.chunks, plan.per_chunk)
-        work = torch.empty(plan.work_floats(C), dtype=torch.float32,
-                           device=x.device)
         fn = _build.bind("batch_norm_bwd", "mxt_bn_bwd_cm", _BWD_CM_ARGS)
     else:
         S = x.shape[2]
@@ -400,10 +377,9 @@ def _bwd(x, residual, dy, gamma, beta, mean, rstd, act, cm):
                            sm_count(x.device))
         shape = (A, C, S, plan.vec, plan.words, plan.tc, plan.chunks,
                  plan.per_chunk)
-        # partial sums per chunk, then g*rstd, sum(dy)/n, sum(dy*xhat)/n
-        work = torch.empty(2 * plan.chunks * C + 3 * C, dtype=torch.float32,
-                           device=x.device)
         fn = _build.bind("batch_norm_bwd", "mxt_bn_bwd", _BWD_ARGS)
+    work = torch.empty(_work_floats(plan.chunks, C, 3), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(),
                  None if residual is None else residual.data_ptr(),

@@ -16,11 +16,17 @@ counter:
 * ``fused_residual_ln_fwd`` — CUDA ``csrc/fused_residual_ln.cu``;
   replaces ``_frln_fwd_kernel`` (``_pallas_frln_fwd``):
   ``y = LN(res + dropout(h + bias))`` with the reference's threefry2x32
-  dropout mask over the global linear element index.
+  dropout mask over the global linear element index;
+  ``frln_fwd_kernel`` up to C = 12256, ``frln_fwd_wide_kernel`` past it
+  (:func:`_frln_fwd_plan`).
 * ``fused_residual_ln_bwd`` — CUDA ``csrc/fused_residual_ln_bwd.cu``;
   replaces ``_frln_bwd_kernel`` (``_pallas_frln_bwd``): recomputes the
-  mask and ``u`` from h, bias and res (no saved activation), emits dh,
-  dres and partial dgamma/dbeta/dbias rows.
+  mask and ``u`` from h, bias and res (no saved activation);
+  ``frln_bwd_rows_kernel`` (up to C = 4096) or ``frln_bwd_wide_kernel``
+  (past it) writes dh, dres and one partial dgamma/dbeta/dbias row per
+  CTA of a persistent grid (:func:`_frln_bwd_plan`),
+  ``frln_bwd_finalize_kernel`` sums them in a fixed order into the
+  parameters' types.
 
 Bound on the H100 (rows = b*T, C = 1024): bytes.  Each is a row
 reduction with an elementwise prologue and epilogue at ~10-20 flops per
@@ -36,9 +42,14 @@ hold, a CTA of 512 threads takes a row and reads it again from L2 for
 each pass, for any C (mxtpu's kernels take C up to 131072).  The fused
 epilogue's forward stages one row in shared memory as f32 (one CTA per
 row), so every input byte is read once and the residual sum ``u``
-never reaches device memory; its backward takes ``BWD_ROWS`` rows per
-CTA and keeps each row's intermediates in shared memory.  Every
-backward writes one partial row of the parameter gradients per CTA.
+never reaches device memory; its backward is LayerNorm's, each thread
+also drawing the dropout mask of its columns (independent threefry
+chains, the integer pipe's work under the loads).  Past the row
+kernels' widths both directions take a CTA a row that reads the row
+again from L2 for each pass and draws the mask once, keeping its keep
+bits (C / 8 bytes) in a row of device memory a CTA: any C, as mxtpu's
+lax reference takes.  Every backward writes one partial row of the parameter
+gradients per CTA.
 CUDA C++ rather than Triton: one build route (nvcc + ctypes) for every
 kernel of the port.
 
@@ -78,16 +89,6 @@ FRLN_BWD_LAUNCHES = 0
 _SELF = sys.modules[__name__]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# widest C of the fused epilogue's forward: one row of f32 plus the
-# per-warp scratch must fit the default 48 KB of dynamic shared memory
-FRLN_MAX_C = 48 * 1024 // 4 - 32
-# widest C of the fused epilogue's backward: it stages up to six f32
-# rows of C in shared memory (opted in past 48 KB, up to the 227 KB a
-# block may use)
-FRLN_BWD_MAX_C = 8192
-# rows per CTA of the fused epilogue's backward: one partial row of the
-# parameter gradients each
-BWD_ROWS = 8
 # the LayerNorm kernels (csrc/layer_norm.cu, csrc/layer_norm_bwd.cu): 8
 # warps a CTA, and the row kernels' template instances (their
 # LN_FWD_SHAPES and LN_SHAPES): (widest C, elements of a row a thread
@@ -102,6 +103,23 @@ LN_FWD_SHAPES = LN_BWD_SHAPES   # the same instances in both sources
 # C past it, a CTA of LN_WIDE_THREADS a row
 LN_ROWS_MAX_C = LN_BWD_SHAPES[-1][0]
 LN_WIDE_THREADS = 512
+# the fused epilogue (csrc/fused_residual_ln{,_bwd}.cu).  Its forward's
+# row kernel stages a row of f32 plus the per-warp scratch in the
+# default 48 KB of dynamic shared memory, so it takes C up to
+# FRLN_FWD_ROW_MAX_C; its backward's row kernel instances (FRLN_SHAPES)
+# hold three parameter-gradient accumulators besides the row, so fewer
+# elements a thread than LayerNorm's; past either, the wide kernels (a
+# CTA of FRLN_WIDE_THREADS a row), any C: the forward's a persistent
+# grid of as many CTAs as an SM's 2048 threads take, the backward's of
+# one an SM.
+# The wide kernels keep a row's keep bits, one uint32 word a warp, slot
+# and element of an access, in a row of device memory a CTA
+FRLN_FWD_ROW_MAX_C = 48 * 1024 // 4 - 32
+FRLN_BWD_SHAPES = ((256, 8, 1), (512, 8, 2), (1024, 8, 4), (2048, 8, 8),
+                   (4096, 16, 8))
+FRLN_ROWS_MAX_C = FRLN_BWD_SHAPES[-1][0]
+FRLN_WIDE_THREADS = 512
+FRLN_FWD_WIDE_CTAS_PER_SM = 2048 // FRLN_WIDE_THREADS
 # largest grid of a launch (gridDim.x); the kernels stride past it
 _MAX_GRID = (1 << 31) - 1
 
@@ -109,29 +127,27 @@ _P = ctypes.c_void_p
 _LN_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_float] + [ctypes.c_int] * 5 + [_P]
 _LN_BWD_ARGS = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [_P]
-_FRLN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-              ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-              ctypes.c_int, _P]
-_FRLN_BWD_ARGS = [_P] * 12 + [ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                              ctypes.c_uint32, ctypes.c_uint32,
-                              ctypes.c_float, ctypes.c_int, _P]
+# the mask's arguments: use_mask, k0, k1, thresh, inv_keep
+_MASK_ARGS = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+              ctypes.c_uint32, ctypes.c_float]
+# h, bias, res, gamma, beta, y, mean, rstd, bits; R, C, eps, wide, vec,
+# ctas; the mask; dtype, stream
+_FRLN_ARGS = [_P] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float] \
+    + [ctypes.c_int] * 3 + _MASK_ARGS + [ctypes.c_int, _P]
+# h, bias, res, gamma, mean, rstd, dy, dh, dres, dgamma, dbeta, dbias,
+# part, bits; R, C, vec, ept, wpr, ctas; the mask; dtype, stream
+_FRLN_BWD_ARGS = [_P] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
+    + _MASK_ARGS + [ctypes.c_int, _P]
 
 
 def _check_rows(what: str, x2: torch.Tensor,
-                vecs: Sequence[torch.Tensor], rows=(),
-                max_c: Optional[int] = None) -> None:
+                vecs: Sequence[torch.Tensor], rows=()) -> None:
     """What the kernels take: contiguous (R, C) f32/bf16 rows (``x2``
-    and ``rows``) and contiguous (C,) vectors of the same type, C within
-    ``max_c`` where the kernel has a bound."""
+    and ``rows``) and contiguous (C,) vectors of the same type."""
     if x2.dtype not in _DTYPES:
         raise MXNetError(f"{what}: dtype {x2.dtype} not supported "
                          f"(float32, bfloat16)")
     C = x2.shape[-1]
-    if max_c is not None and C > max_c:
-        raise MXNetError(f"{what}: {C} features exceed the kernel bound "
-                         f"{max_c}")
     for t in (x2, *rows):
         if t.shape != x2.shape or t.dtype != x2.dtype or \
                 not t.is_contiguous():
@@ -430,6 +446,51 @@ def fused_residual_ln_reference(h, bias, res, gamma, beta, key_data=None,
     return y.to(h.dtype), mean, rstd
 
 
+def _frln_words(C: int, vec: int) -> int:
+    """uint32 words of a row's keep bits in the wide kernels: ``vec``
+    words (one an element of an access) for each warp and each slot of
+    ``FRLN_WIDE_THREADS * vec`` columns, a lane's bit in each."""
+    slots = -(-C // (FRLN_WIDE_THREADS * vec))
+    return slots * (FRLN_WIDE_THREADS // 32) * vec
+
+
+def _mask_scratch(plan, C: int, keep: float,
+                  device) -> Optional[torch.Tensor]:
+    """Device memory for a wide kernel's keep bits ([ctas][words]
+    uint32 as int32); None where the plan is a row kernel's or there is
+    no mask."""
+    if not plan.wide or keep >= 1.0:
+        return None
+    return torch.empty(plan.ctas, _frln_words(C, plan.vec),
+                       dtype=torch.int32, device=device)
+
+
+class FrlnFwdPlan(NamedTuple):
+    """The launch of the fused epilogue's forward: ``wide`` picks
+    ``frln_fwd_wide_kernel`` (``vec`` elements an access, a grid of
+    ``ctas``) over ``frln_fwd_kernel`` (a CTA a row: ``vec`` 1, ``ctas``
+    the rows; the C side sizes its CTAs)."""
+    wide: bool
+    vec: int
+    ctas: int
+
+
+def _frln_fwd_plan(R: int, C: int, itemsize: int, aligned: bool,
+                   sms: int) -> FrlnFwdPlan:
+    """Launch geometry of the fused epilogue's forward for (R, C) rows:
+    up to ``FRLN_FWD_ROW_MAX_C`` its row kernel; past it the wide kernel,
+    16-byte accesses where C and every pointer allow, a persistent grid
+    of ``FRLN_FWD_WIDE_CTAS_PER_SM`` CTAs an SM, never more than the
+    rows."""
+    if C < 1 or R < 1:
+        raise MXNetError(f"fused_residual_layer_norm: no launch for "
+                         f"({R}, {C})")
+    if C > FRLN_FWD_ROW_MAX_C:
+        return FrlnFwdPlan(True, _vec(C, itemsize, aligned),
+                           min(R, FRLN_FWD_WIDE_CTAS_PER_SM * sms))
+    return FrlnFwdPlan(False, 1, R)
+
+
 def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
                           p=0.1, eps=1e-5, training=True):
     """(R, C) rows → (y, mean, rstd): the kernel on CUDA tensors, the
@@ -439,7 +500,7 @@ def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
                                            key_data, p, eps, training)
     refuse_grad("fused_residual_ln_fwd", h2, bias, res2, gamma, beta)
     _check_rows("fused_residual_layer_norm", h2, (bias, gamma, beta),
-                (res2,), FRLN_MAX_C)
+                (res2,))
     R, C = h2.shape
     keep = _keep(p, training)
     k0, k1 = _words(key_data, R * C, keep)
@@ -448,12 +509,18 @@ def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
     rstd = torch.empty(R, dtype=torch.float32, device=h2.device)
     if R == 0:
         return y, mean, rstd
+    plan = _frln_fwd_plan(R, C, h2.element_size(),
+                          aligned16(h2, bias, res2, gamma, beta, y),
+                          sm_count(h2.device))
+    bits = _mask_scratch(plan, C, keep, h2.device)
+    bits_ptr = None if bits is None else bits.data_ptr()
     fn = _build.bind("fused_residual_ln", "mxt_fused_residual_ln_fwd",
                      _FRLN_ARGS)
     with torch.cuda.device(h2.device):
         err = fn(h2.data_ptr(), bias.data_ptr(), res2.data_ptr(),
                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                 mean.data_ptr(), rstd.data_ptr(), R, C, float(eps),
+                 mean.data_ptr(), rstd.data_ptr(), bits_ptr, R, C,
+                 float(eps), int(plan.wide), plan.vec, plan.ctas,
                  int(keep < 1.0), k0, k1, keep_thresh(keep),
                  _inv_keep(keep), _DTYPES[h2.dtype], _build.stream_of(h2))
     _build.check(err, "fused_residual_layer_norm")
@@ -480,42 +547,80 @@ def fused_residual_ln_bwd_reference(h2, bias, res2, gamma, key_words,
             dg, db)
 
 
+def _frln_min_blocks(ept: int, itemsize: int, vec: int) -> int:
+    """CTAs per SM the fused backward's launch bounds are set for (its
+    ``frln_min_blocks``): from the registers of a thread's three
+    accumulators, its row's xhat and dy * gamma, its raw h, res and dy
+    (a register each on the scalar path), the scalar path's offsets and
+    the threefry chains."""
+    eb = itemsize if vec > 1 else 4
+    regs = 5 * ept + 3 * ept * eb // 4 + (0 if vec > 1 else ept) + 32
+    return 2 if regs <= 128 else 1
+
+
+def _frln_bwd_plan(R: int, C: int, itemsize: int, aligned: bool,
+                   sms: int) -> LnPlan:
+    """Launch geometry of the fused epilogue's backward for (R, C) rows,
+    as :func:`_ln_bwd_plan`'s with ``FRLN_BWD_SHAPES``: vector accesses
+    only where C is a multiple of 16 bytes' worth and every pointer is
+    16-byte aligned; the first instance that takes C; a persistent grid
+    of as many CTAs as the SMs hold at once, never more than the rows
+    need.  Past ``FRLN_ROWS_MAX_C``, the wide kernel: one CTA an SM,
+    never more than the rows."""
+    if C < 1 or R < 1:
+        raise MXNetError(f"fused_residual_ln_bwd: no launch for ({R}, {C})")
+    vec = _vec(C, itemsize, aligned)
+    if C > FRLN_ROWS_MAX_C:
+        return LnPlan(vec, 0, 0, min(R, sms))
+    _, ept, wpr = next(s for s in FRLN_BWD_SHAPES if C <= s[0])
+    groups = LN_BWD_WARPS // wpr
+    ctas = max(1, min(-(-R // groups),
+                      sms * _frln_min_blocks(ept, itemsize, vec)))
+    return LnPlan(vec, ept, wpr, ctas)
+
+
 def fused_residual_ln_bwd(h2, bias, res2, gamma, key_words, mean, rstd,
                           dy2, keep):
-    """(R, C) rows → (dh, dbias, dres, dgamma, dbeta): the kernel on
-    CUDA tensors (partial parameter-gradient rows summed here), the
-    plain version on CPU tensors.  ``keep`` is 1 - p (1.0: no mask);
-    ``key_words`` the forward's two uint32 words."""
+    """(R, C) rows → (dh, dbias, dres, dgamma, dbeta): the kernels on
+    CUDA tensors (the parameter gradients in their own types, from the
+    finalize kernel), the plain version on CPU tensors.  ``keep`` is
+    1 - p (1.0: no mask); ``key_words`` the forward's two uint32
+    words."""
     if not on_card(h2, bias, res2, gamma, mean, rstd, dy2):
         return fused_residual_ln_bwd_reference(
             h2, bias, res2, gamma, key_words, mean, rstd, dy2, keep)
-    _check_rows("fused_residual_ln_bwd", h2, (bias, gamma), (res2, dy2),
-                FRLN_BWD_MAX_C)
+    _check_rows("fused_residual_ln_bwd", h2, (bias, gamma), (res2, dy2))
     R, C = h2.shape
     mean, rstd = _stats(mean, R), _stats(rstd, R)
     k0, k1 = _words(key_words, R * C, keep)
     dh = torch.empty_like(h2)
     dres = torch.empty_like(h2)
-    nblk = -(-R // BWD_ROWS)
-    parts = torch.empty(3, nblk, C, dtype=torch.float32, device=h2.device)
     if R == 0:
         z = torch.zeros_like(gamma)
         return dh, z, dres, z.clone(), z.clone()
+    plan = _frln_bwd_plan(R, C, h2.element_size(),
+                          aligned16(h2, bias, res2, gamma, dy2, dh, dres),
+                          sm_count(h2.device))
+    parts = torch.empty(3, plan.ctas, C, dtype=torch.float32,
+                        device=h2.device)
+    bits = _mask_scratch(plan, C, keep, h2.device)
+    bits_ptr = None if bits is None else bits.data_ptr()
+    dg, db = torch.empty_like(gamma), torch.empty_like(gamma)
+    dbias = torch.empty_like(bias)
     fn = _build.bind("fused_residual_ln_bwd", "mxt_fused_residual_ln_bwd",
                      _FRLN_BWD_ARGS)
     with torch.cuda.device(h2.device):
         err = fn(h2.data_ptr(), bias.data_ptr(), res2.data_ptr(),
                  gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                  dy2.data_ptr(), dh.data_ptr(), dres.data_ptr(),
-                 parts[0].data_ptr(), parts[1].data_ptr(),
-                 parts[2].data_ptr(), R, C, BWD_ROWS, int(keep < 1.0), k0,
-                 k1, keep_thresh(keep), _inv_keep(keep), _DTYPES[h2.dtype],
+                 dg.data_ptr(), db.data_ptr(), dbias.data_ptr(),
+                 parts.data_ptr(), bits_ptr, R, C, plan.vec, plan.ept,
+                 plan.wpr, plan.ctas, int(keep < 1.0), k0, k1,
+                 keep_thresh(keep), _inv_keep(keep), _DTYPES[h2.dtype],
                  _build.stream_of(h2))
     _build.check(err, "fused_residual_ln_bwd")
     bump(_SELF, "FRLN_BWD_LAUNCHES")
-    dg, db, dbias = parts.sum(1)
-    return (dh, dbias.to(bias.dtype), dres, dg.to(gamma.dtype),
-            db.to(gamma.dtype))
+    return dh, dbias, dres, dg, db
 
 
 class _FusedResidualLN(torch.autograd.Function):

@@ -153,14 +153,17 @@ def test_fwd_plan_follows_alignment_of_the_data():
 
 def test_no_layer_norm_bound_left():
     # mxtpu's kernels take C up to 131072 (an 8-row block in 4 MiB); the
-    # port's LayerNorm has no bound in either direction, and the fused
-    # epilogue keeps its own
+    # port's LayerNorm and its fused epilogue have no bound in either
+    # direction: past their row kernels, the wide kernels take any C
     assert not hasattr(tln, "MAX_C") and not hasattr(tln, "BWD_MAX_C")
+    assert not hasattr(tln, "FRLN_MAX_C") and \
+        not hasattr(tln, "FRLN_BWD_MAX_C")
     assert jln._row_block(8, 131072) == 8
     for C in (12257, 131072, 131073):
         assert tln._ln_fwd_plan(8, C, 4, True).wide
         assert tln._ln_bwd_plan(8, C, 4, True, SMS).wide
-    assert tln.FRLN_MAX_C == 12256 and tln.FRLN_BWD_MAX_C == 8192
+        assert tln._frln_fwd_plan(8, C, 4, True, SMS).wide
+        assert tln._frln_bwd_plan(8, C, 4, True, SMS).wide
 
 
 # --------------------------------------------- the reductions' order

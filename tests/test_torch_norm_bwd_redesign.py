@@ -2,7 +2,7 @@
 (``csrc/layer_norm_bwd.cu``) and the channels-minor BatchNorm backward
 (``csrc/batch_norm_bwd.cu``, ``bn_bwd_cm_*``), on the CPU.
 
-The geometry helpers (``_ln_bwd_plan``, ``_cm_bwd_plan``) are pure
+The geometry helpers (``_ln_bwd_plan``, ``_cm_plan``) are pure
 Python in the port's modules: these tests check that every row falls in
 exactly one CTA or chunk, every column or channel in exactly one thread,
 that the partial buffers match the grid, and that the 16-byte vector
@@ -134,13 +134,13 @@ def test_bn_cm_bwd_plan_covers_every_row_and_channel_once(C, dtype):
     v = 16 // it
     for R in ROWS:
         for aligned in (True, False):
-            p = tbn._cm_bwd_plan(R, C, it, aligned, SMS)
+            p = tbn._cm_plan(R, C, it, aligned, SMS)
             assert p.vec == (v if aligned and C % v == 0 else 1)
             # a tile of at most 256 channels; the row lanes fill the CTA
-            assert p.tv * p.vec <= tbn.CM_BWD_WIDTH
-            assert p.ly == tbn.CM_BWD_THREADS // p.tv >= 1
+            assert p.tv * p.vec <= tbn.CM_WIDTH
+            assert p.ly == tbn.CM_THREADS // p.tv >= 1
             assert 1 <= p.chunks <= tbn.MAX_CHUNKS
-            assert p.chunks <= -(-SMS * tbn.CM_BWD_CTAS_PER_SM // p.tiles)
+            assert p.chunks <= -(-SMS * tbn.CM_CTAS_PER_SM // p.tiles)
             # chunks tile the rows, and the row lanes each chunk
             _exactly_once([range(k * p.per_chunk,
                                  min((k + 1) * p.per_chunk, R))
@@ -155,10 +155,11 @@ def test_bn_cm_bwd_plan_covers_every_row_and_channel_once(C, dtype):
             assert all(len(_cm_channels_of(p, tile, t, C)) == 0
                        for tile in range(p.tiles)
                        for t in range(p.ly * p.tv,
-                                      tbn.CM_BWD_THREADS))
+                                      tbn.CM_THREADS))
             # the workspace: partial sums per (chunk, channel), then the
             # three coefficients
-            assert p.work_floats(C) == 2 * p.chunks * C + 3 * C
+            assert tbn._work_floats(p.chunks, C, 3) == \
+                2 * p.chunks * C + 3 * C
 
 
 def test_plans_follow_alignment_of_the_data():
@@ -172,7 +173,7 @@ def test_plans_follow_alignment_of_the_data():
         assert t.is_contiguous() and not tln.aligned16(t)
         p = tln._ln_bwd_plan(*t.shape, 4, tln.aligned16(t), SMS)
         assert p.vec == 1
-        q = tbn._cm_bwd_plan(*t.shape, 4, tbn.aligned16(t), SMS)
+        q = tbn._cm_plan(*t.shape, 4, tbn.aligned16(t), SMS)
         assert q.vec == 1
     assert tln.aligned16(full)
     assert tln._ln_bwd_plan(8, 1024, 4, tln.aligned16(full), SMS).vec == 4
@@ -309,7 +310,7 @@ def test_bn_cm_bwd_two_passes_match_pallas_kernel(C, aligned, act, add,
     tr, jr = _pair(r, dtype) if add else (None, None)
     _, mean, var = tbn.bn_fwd_cm(tx, tg, tb, tr, 1e-5, act)
     rstd = torch.rsqrt(var + 1e-5)
-    plan = tbn._cm_bwd_plan(R, C, tx.element_size(), aligned, 2)
+    plan = tbn._cm_plan(R, C, tx.element_size(), aligned, 2)
     assert plan.chunks > 1 and plan.vec == (
         16 // tx.element_size() if aligned else 1)
     dx, dr, dgamma, dbeta, d = _emulate_cm_bwd(tx, tr, tdy, tg, tb, mean,

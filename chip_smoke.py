@@ -26,9 +26,9 @@ Phases, each fatal on failure:
      TF32 HGMMA, and their ptxas reports no spills; so must the ptxas
      reports of the kernels rebuilt on 16-byte vector loads
      (``VECTOR_KERNELS``: the LayerNorm forward and backward, row and
-     wide kernels, the fused epilogue's wide forward and its backward,
-     the BatchNorm forward and backward in both views), every
-     instantiation listed;
+     wide kernels, the fused epilogue's forward and backward, row and
+     wide kernels, the BatchNorm forward and backward in both views),
+     every instantiation listed;
   2. each BERT forward kernel against its plain version on the card, at
      the serving path's shapes (b=32, T=128, 16 heads of 64, C=1024),
      in f32 and bf16; flash attention also causal at T=127 and Tq !=
@@ -40,6 +40,13 @@ Phases, each fatal on failure:
      and 0.9, its bound with the mask's integer work, whose instruction
      mix an element is read from the SASS of a probe kernel built from
      csrc/common.cuh's threefry, the probe timed against that floor);
+     the fused epilogue's forward also timed at ``FRLN_FWD_TIMES`` (one
+     served request, R128 x C1024 f32; at keep=0.9 R300 x C12256 and
+     C4095, the widest row instance of the 16-byte and of the scalar
+     path, each beside the wide kernel on the same inputs, and C8193,
+     the scalar path's wide kernel), beside the composed eager
+     ``F.layer_norm(res + h + bias)`` at keep=1 (two calls, not a
+     library call);
   3. each BERT backward kernel likewise (flash dq and dk/dv, LayerNorm,
      the fused epilogue at keep=0.9 with dh's zeros equal to the
      dropped set bit for bit, timed also at keep=1), at the training
@@ -58,10 +65,13 @@ Phases, each fatal on failure:
      more than the backward's CTAs) and 131072 (aligned and one element
      in), the widest timed; then the fused epilogue at ``FRLN_EDGES``,
      keep=0.9, the raw forward and the public function's forward and
-     backward: the backward's scalar path (C = 1030, a view one element
-     in) and the wide kernels at C = 12257, 32768 (timed), 131072
-     (timed), 393216 (48 KB of keep bits a row) and 400000, dh's zeros
-     at 32768 against the forward's dropped set bit for bit;
+     backward: the row kernels' scalar path (C = 1030, a view one
+     element in), each forward row instance (C = 200, 512, 2048, 4096,
+     8192, 12256; 4095 scalar), and the wide kernels at C = 4097, 12257
+     and 12289 (scalar), 32768 (timed), 131072 (timed), 393216 (48 KB of
+     keep bits a row) and 400000, dh's zeros at 32768 against the forward's
+     dropped set bit for bit; and the forward at keep=1 over 2^31 + 5
+     rows of C = 1 (bf16: y == beta, mean == u exactly);
   4. the four BatchNorm kernels (channels-major and channels-minor,
      forward and backward) against their plain version in f32 and bf16
      at four of ResNet-50's shapes (N=256: the stem, a layer1 and a
@@ -222,7 +232,7 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                 "layer_norm_bwd": ("ln_bwd_rows_kernel",
                                    "ln_bwd_wide_kernel",
                                    "ln_bwd_finalize_kernel"),
-                "fused_residual_ln_fwd": ("frln_fwd_kernel",
+                "fused_residual_ln_fwd": ("frln_fwd_rows_kernel",
                                           "frln_fwd_wide_kernel"),
                 "fused_residual_ln_bwd": ("frln_bwd_rows_kernel",
                                           "frln_bwd_wide_kernel",
@@ -260,6 +270,7 @@ VECTOR_KERNELS = {"ln_fwd_rows_kernel": "layer_norm",
                   "ln_bwd_rows_kernel": "layer_norm_bwd",
                   "ln_bwd_wide_kernel": "layer_norm_bwd",
                   "ln_bwd_finalize_kernel": "layer_norm_bwd",
+                  "frln_fwd_rows_kernel": "fused_residual_ln",
                   "frln_fwd_wide_kernel": "fused_residual_ln",
                   "frln_bwd_rows_kernel": "fused_residual_ln_bwd",
                   "frln_bwd_wide_kernel": "fused_residual_ln_bwd",
@@ -805,6 +816,8 @@ def kernel_phase(checks, gen):
             "bound_ms": b_ms, "bound_by": b_by, "ms_keep09": keep09,
             "bound_keep09_ms": d_ms, "bound_keep09_by": d_by,
             "bound_int_ms": mask_ms(R * C)}
+    out[("fused_residual_ln_fwd", "float32")]["shapes"] = \
+        frln_fwd_times(ln, wide=True)
 
     # dropout mask, bit for bit: with h = 1, bias = res = beta = 0 and
     # gamma = 1, u is 1/keep where kept and 0 where dropped, so y > 0
@@ -1167,15 +1180,27 @@ def layer_norm_edge_phase(checks):
 
 
 # the fused residual LayerNorm off BERT's shape, both directions at
-# keep = 0.9: the backward's row kernel on its scalar path (C off the
-# 16-byte vector; a view one element into a buffer), and the wide kernels
-# past the row kernels (the forward's from C = 12257, the backward's from
-# 4097) up to mxtpu's 32768 and past it, with more rows than either
-# direction's CTAs at 32768 and a row's keep bits 48 KB (C = 393216) and
-# more; (tag, R, C, offset into the buffer)
+# keep = 0.9: the row kernels on their scalar path (C off the 16-byte
+# vector; a view one element into a buffer), each of the forward's row
+# instances (R off a multiple of its row groups where it has several),
+# its widest on both paths, and the wide kernels past the row kernels
+# (the forward's from C = 12289, 4097 on its scalar path, the
+# backward's from 4097) up to
+# mxtpu's 32768 and past it, with more rows than either direction's CTAs
+# at 32768 and a row's keep bits 48 KB (C = 393216) and more; (tag, R,
+# C, offset into the buffer)
 FRLN_EDGES = (("C off the vector", 37, 1030, 0),
               ("one element in", 64, 1024, 1),
+              ("row instance", 37, 200, 0),
+              ("row instance", 37, 512, 0),
+              ("row instance", 37, 2048, 0),
+              ("row instance", 19, 4096, 0),
+              ("row instance", 19, 8192, 0),
+              ("widest row instance", 300, 12256, 0),
+              ("widest scalar row instance", 37, 4095, 0),
+              ("wide, scalar", 37, 4097, 0),
               ("wide, scalar", 64, 12257, 0),
+              ("wide, scalar", 16, 12289, 0),
               ("wide", 300, 32768, 0),
               ("wide", 8, 131072, 0),
               ("wide, 48 KB of keep bits", 2, 393216, 0),
@@ -1184,6 +1209,76 @@ FRLN_EDGES = (("C off the vector", 37, 1030, 0),
 FRLN_TIMED = ((300, 32768), (8, 131072))
 # the edge whose dh must be 0 exactly where the forward dropped
 FRLN_MASK_EDGE = (300, 32768)
+# rows of the fused forward's any-R check: more than a grid of one CTA
+# a row can launch (gridDim.x < 2^31); 4 GB a bf16 tensor
+FRLN_ANY_R = (1 << 31) + 5
+# the fused epilogue's forward timed (device ms a call) by the kernel
+# phase (frln_fwd_times takes any tree's layer_norm module, so that a
+# parent commit's can be timed on the same card in turns with this
+# one): BERT's shape, one served request, the widest row instance of
+# each path and the scalar path past it; (tag, R, C, dtype, p: 0 is
+# keep = 1, whether the wide kernel is timed there too)
+FRLN_FWD_TIMES = (("BERT", 4096, 1024, "float32", 0.0, False),
+                  ("BERT", 4096, 1024, "bfloat16", 0.0, False),
+                  ("BERT", 4096, 1024, "float32", 0.1, False),
+                  ("BERT", 4096, 1024, "bfloat16", 0.1, False),
+                  ("one served request", 128, 1024, "float32", 0.0, False),
+                  ("widest row instance", 300, 12256, "float32", 0.1, True),
+                  ("widest row instance", 300, 12256, "bfloat16", 0.1,
+                   True),
+                  ("widest scalar row instance", 300, 4095, "float32", 0.1,
+                   True),
+                  ("widest scalar row instance", 300, 4095, "bfloat16",
+                   0.1, True),
+                  ("scalar, wide", 300, 8193, "float32", 0.1, False),
+                  ("scalar, wide", 300, 8193, "bfloat16", 0.1, False))
+
+
+def frln_fwd_times(ln, wide=False):
+    """Device ms a call of ``ln.fused_residual_ln_fwd`` (the public
+    wrapper every tree of the port has) at :data:`FRLN_FWD_TIMES`, from
+    a generator of their own, printed; at keep = 1 also the composed
+    eager ``F.layer_norm(res + h + bias)``: two calls, not a library
+    call, and no dropout.  With ``wide``, where a row asks for it, also
+    the wide kernel on the same inputs (the wrapper with its plan made
+    the wide kernel's for the call), which shows whether the row
+    instance there beats the wide kernel that would take its C."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device(CARD)
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    key = (0x2545F491, 0x9E3779B9)
+    out = {}
+    for tag, r, c, name, p, vs_wide in FRLN_FWD_TIMES:
+        dt = getattr(torch, name)
+        h, res = (torch.randn(r, c, generator=tgen, device=dev).to(dt)
+                  for _ in range(2))
+        bias, g, b = (torch.randn(c, generator=tgen, device=dev).to(dt)
+                      for _ in range(3))
+        args = (h, bias, res, g, b, key, p, 1e-5, p > 0)
+        row = {"ms": device_ms(lambda: ln.fused_residual_ln_fwd(*args))}
+        what = f"{tag} R{r} C{c} keep={1 - p:g} [{name}]"
+        extra = ""
+        if p == 0:
+            row["composed_ms"] = device_ms(
+                lambda: F.layer_norm(res + h + bias, (c,), g, b))
+            extra = f" composed eager F.layer_norm(res + h + bias) " \
+                f"{row['composed_ms']:.4f} (two calls, not a library call)"
+        if wide and vs_wide:
+            plan_of = ln._frln_fwd_plan
+            ln._frln_fwd_plan = lambda R, C, isz, al, sms: ln.LnPlan(
+                ln._vec(C, isz, al), 0, 0,
+                min(R, ln.FRLN_FWD_WIDE_CTAS_PER_SM * sms))
+            try:
+                row["wide_ms"] = device_ms(
+                    lambda: ln.fused_residual_ln_fwd(*args))
+            finally:
+                ln._frln_fwd_plan = plan_of
+            extra += f" wide kernel {row['wide_ms']:.4f}"
+        print(f"time fused_residual_ln_fwd {what} (device ms per call): "
+              f"kernel {row['ms']:.4f}{extra}", flush=True)
+        out[what] = row
+    return out
 
 
 def fused_ln_edge_phase(checks):
@@ -1268,6 +1363,34 @@ def fused_ln_edge_phase(checks):
                       f"[{name}] (device ms per call): fwd {fwd:.4f} bwd "
                       f"{bwd:.4f}", flush=True)
             del h, res, dy, y, ya, got, want, ins
+    torch.cuda.empty_cache()
+
+    # any R (FRLN_ANY_R rows, at C = 1 and keep = 1 in bf16).  A row of
+    # one element has u == mean and var == 0, so y is beta and mean is
+    # res + (h + bias), both exactly, and rstd is 1 / sqrt(eps)
+    r = FRLN_ANY_R
+    h, res = (torch.randn(r, 1, generator=egen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    bias, g, b = (torch.randn(1, generator=egen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(3))
+    y, mean, rstd = ln.fused_residual_ln_fwd(h, bias, res, g, b, None, 0.0,
+                                             1e-5, False)
+    torch.cuda.synchronize()
+    want_rs = 1.0 / torch.tensor(1e-5, device=dev).sqrt()
+    bad, chunk = 0, 1 << 28
+    for i in range(0, r, chunk):
+        j = min(i + chunk, r)
+        u = res[i:j, 0].float() + (h[i:j, 0].float() + bias.float())
+        bad += int((y[i:j, 0] != b).sum()) + int((mean[i:j] != u).sum()) \
+            + int(((rstd[i:j] - want_rs).abs() > 1e-6 * want_rs).sum())
+    what = f"fused_residual_ln R={r} C=1 keep=1 (bf16)"
+    print(f"check {what}: {bad} of {3 * r} values off y == beta, mean == "
+          f"u, rstd == 1/sqrt(eps) {'ok' if bad == 0 else 'FAIL'}",
+          flush=True)
+    checks.rows.append({"check": what, "bad": bad, "ok": bad == 0})
+    if bad:
+        checks.failed.append(f"{what}: {bad} values off")
+    del h, res, y, mean, rstd
     torch.cuda.empty_cache()
 
 

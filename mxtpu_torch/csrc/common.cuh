@@ -85,6 +85,28 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The sum of v over the WPR warps of a row group (the forward row
+// kernels of LayerNorm and of the fused residual LayerNorm; red holds
+// two rows of a float a warp of the CTA): warp shuffles, then (WPR > 1)
+// one exchange through red[parity] under the group's own named barrier;
+// parity flips with each exchange, so a warp that runs ahead into the
+// next exchange never overwrites a value still read
+template <int WPR, int W>
+__device__ __forceinline__ float group_sum(float v, float (*red)[W],
+                                           int& parity, int warp, int lane,
+                                           int group) {
+  v = warp_sum(v);
+  if (WPR > 1) {
+    if (lane == 0) red[parity][warp] = v;
+    bar_sync(1 + group, WPR * 32);
+    v = 0.f;
+#pragma unroll
+    for (int w = group * WPR; w < (group + 1) * WPR; ++w) v += red[parity][w];
+    parity ^= 1;
+  }
+  return v;
+}
+
 // p[0, VEC) = v (first) or p + v, in 16-byte accesses where VEC >= 4
 // (p is then 16-byte aligned: C is a multiple of VEC); a CTA's partial
 // row of parameter gradients in device memory (the wide LayerNorm

@@ -25,10 +25,10 @@
 //     (VEC = 1).  All of a row's x loads are issued before its first
 //     reduction, and x stays in registers for the second pass and the
 //     write: x is read once, with no shared-memory staging.
-//   * Each row sum reduces with warp shuffles; a group of several warps
-//     adds one exchange through shared memory under a named barrier of
-//     its own (double-buffered by the exchange's parity), so no
-//     __syncthreads runs per row.
+//   * Each row sum reduces with warp shuffles (group_sum, common.cuh);
+//     a group of several warps adds one exchange through shared memory
+//     under a named barrier of its own (double-buffered by the
+//     exchange's parity), so no __syncthreads runs per row.
 //   * Several rows are in flight per SM: 8 / WPR a CTA, and as many
 //     CTAs as the registers allow (launch bounds of 2 at least); the
 //     grid gives every row group one row (a grid-stride loop past
@@ -52,26 +52,6 @@ constexpr int LN_WIDE_THREADS = 512;
 #define LN_FWD_SHAPES(X) \
   X(256, 8, 1) X(512, 16, 1) X(1024, 16, 2) X(2048, 16, 4) X(4096, 16, 8) \
   X(8192, 32, 8)
-
-// the sum of v over the WPR warps of a row group: warp shuffles, then
-// (WPR > 1) one exchange through red[parity] under the group's own
-// named barrier; parity flips with each exchange, so a warp that runs
-// ahead into the next exchange never overwrites a value still read
-template <int WPR>
-__device__ __forceinline__ float group_sum(float v, float (*red)[LN_WARPS],
-                                           int& parity, int warp, int lane,
-                                           int group) {
-  v = warp_sum(v);
-  if (WPR > 1) {
-    if (lane == 0) red[parity][warp] = v;
-    bar_sync(1 + group, WPR * 32);
-    v = 0.f;
-#pragma unroll
-    for (int w = group * WPR; w < (group + 1) * WPR; ++w) v += red[parity][w];
-    parity ^= 1;
-  }
-  return v;
-}
 
 template <typename T, int VEC, int E, int WPR>
 __global__ void __launch_bounds__(LN_THREADS, 2)

@@ -17,8 +17,8 @@ counter:
   replaces ``_frln_fwd_kernel`` (``_pallas_frln_fwd``):
   ``y = LN(res + dropout(h + bias))`` with the reference's threefry2x32
   dropout mask over the global linear element index;
-  ``frln_fwd_kernel`` up to C = 12256, ``frln_fwd_wide_kernel`` past it
-  (:func:`_frln_fwd_plan`).
+  ``frln_fwd_rows_kernel`` up to C = 12288 (4096 on the scalar path),
+  ``frln_fwd_wide_kernel`` past it (:func:`_frln_fwd_plan`).
 * ``fused_residual_ln_bwd`` — CUDA ``csrc/fused_residual_ln_bwd.cu``;
   replaces ``_frln_bwd_kernel`` (``_pallas_frln_bwd``): recomputes the
   mask and ``u`` from h, bias and res (no saved activation);
@@ -40,11 +40,11 @@ them); the forward's grid gives each group one row, the backward's is
 persistent, a few CTAs per SM.  Past C = 8192, which 8 warps' registers
 hold, a CTA of 512 threads takes a row and reads it again from L2 for
 each pass, for any C (mxtpu's kernels take C up to 131072).  The fused
-epilogue's forward stages one row in shared memory as f32 (one CTA per
-row), so every input byte is read once and the residual sum ``u``
-never reaches device memory; its backward is LayerNorm's, each thread
-also drawing the dropout mask of its columns (independent threefry
-chains, the integer pipe's work under the loads).  Past the row
+epilogue's forward and backward are LayerNorm's, each thread also
+drawing the dropout mask of its columns while its loads are in flight
+(independent threefry chains); the forward holds the residual sum
+``u`` in f32 registers, so every input byte is read once and ``u``
+never reaches device memory.  Past the row
 kernels' widths both directions take a CTA a row that reads the row
 again from L2 for each pass and draws the mask once, keeping its keep
 bits (C / 8 bytes) in a row of device memory a CTA: any C, as mxtpu's
@@ -103,20 +103,23 @@ LN_FWD_SHAPES = LN_BWD_SHAPES   # the same instances in both sources
 # C past it, a CTA of LN_WIDE_THREADS a row
 LN_ROWS_MAX_C = LN_BWD_SHAPES[-1][0]
 LN_WIDE_THREADS = 512
-# the fused epilogue (csrc/fused_residual_ln{,_bwd}.cu).  Its forward's
-# row kernel stages a row of f32 plus the per-warp scratch in the
-# default 48 KB of dynamic shared memory, so it takes C up to
-# FRLN_FWD_ROW_MAX_C; its backward's row kernel instances (FRLN_SHAPES)
-# hold three parameter-gradient accumulators besides the row, so fewer
-# elements a thread than LayerNorm's; past either, the wide kernels (a
-# CTA of FRLN_WIDE_THREADS a row), any C: the forward's a persistent
-# grid of as many CTAs as an SM's 2048 threads take, the backward's of
-# one an SM.
+# the fused epilogue (csrc/fused_residual_ln{,_bwd}.cu).  Its
+# backward's row kernel instances (FRLN_SHAPES) hold three
+# parameter-gradient accumulators besides the row, so fewer elements a
+# thread than LayerNorm's; its forward's (FRLN_FWD_SHAPES) are the
+# backward's, then LayerNorm's widest and one more, which takes every C
+# up to 12288 (the one-CTA-a-row kernel it replaced took 12256) on the
+# 16-byte path, and up to FRLN_FWD_SCALAR_MAX_C on the scalar one (past
+# it a scalar row would hold one CTA an SM, slower than the wide
+# kernel); past either, the wide kernels (a CTA of FRLN_WIDE_THREADS a
+# row), any C: the forward's a persistent grid of as many CTAs as an
+# SM's 2048 threads take, the backward's of one an SM.
 # The wide kernels keep a row's keep bits, one uint32 word a warp, slot
 # and element of an access, in a row of device memory a CTA
-FRLN_FWD_ROW_MAX_C = 48 * 1024 // 4 - 32
 FRLN_BWD_SHAPES = ((256, 8, 1), (512, 8, 2), (1024, 8, 4), (2048, 8, 8),
                    (4096, 16, 8))
+FRLN_FWD_SHAPES = FRLN_BWD_SHAPES + ((8192, 32, 8), (12288, 48, 8))
+FRLN_FWD_SCALAR_MAX_C = FRLN_BWD_SHAPES[-1][0]
 FRLN_ROWS_MAX_C = FRLN_BWD_SHAPES[-1][0]
 FRLN_WIDE_THREADS = 512
 FRLN_FWD_WIDE_CTAS_PER_SM = 2048 // FRLN_WIDE_THREADS
@@ -130,10 +133,10 @@ _LN_BWD_ARGS = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [_P]
 # the mask's arguments: use_mask, k0, k1, thresh, inv_keep
 _MASK_ARGS = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
               ctypes.c_uint32, ctypes.c_float]
-# h, bias, res, gamma, beta, y, mean, rstd, bits; R, C, eps, wide, vec,
-# ctas; the mask; dtype, stream
+# h, bias, res, gamma, beta, y, mean, rstd, bits; R, C, eps, vec, ept,
+# wpr, ctas; the mask; dtype, stream
 _FRLN_ARGS = [_P] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float] \
-    + [ctypes.c_int] * 3 + _MASK_ARGS + [ctypes.c_int, _P]
+    + [ctypes.c_int] * 4 + _MASK_ARGS + [ctypes.c_int, _P]
 # h, bias, res, gamma, mean, rstd, dy, dh, dres, dgamma, dbeta, dbias,
 # part, bits; R, C, vec, ept, wpr, ctas; the mask; dtype, stream
 _FRLN_BWD_ARGS = [_P] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 5 \
@@ -201,19 +204,26 @@ def _vec(C: int, itemsize: int, aligned: bool) -> int:
     return v if aligned and C % v == 0 else 1
 
 
+def _fwd_rows_plan(R: int, C: int, vec: int, shapes) -> LnPlan:
+    """A forward row kernel's launch (LayerNorm's or the fused
+    epilogue's): the first instance of ``shapes`` that takes C, a grid
+    that gives each row group of a CTA one row, capped at ``_MAX_GRID``
+    CTAs (the kernels stride past it)."""
+    _, ept, wpr = next(s for s in shapes if C <= s[0])
+    groups = LN_BWD_WARPS // wpr
+    return LnPlan(vec, ept, wpr, min(-(-R // groups), _MAX_GRID))
+
+
 def _ln_fwd_plan(R: int, C: int, itemsize: int, aligned: bool) -> LnPlan:
     """Launch geometry of the LayerNorm forward for (R, C) rows: the row
-    kernel's first instance of ``LN_FWD_SHAPES`` that takes C, a grid
-    that gives each row group of a CTA one row; past
+    kernel's (:func:`_fwd_rows_plan` of ``LN_FWD_SHAPES``); past
     ``LN_ROWS_MAX_C``, the wide kernel, a CTA a row."""
     if C < 1 or R < 1:
         raise MXNetError(f"layer_norm: no launch for ({R}, {C})")
     vec = _vec(C, itemsize, aligned)
     if C > LN_ROWS_MAX_C:
         return LnPlan(vec, 0, 0, min(R, _MAX_GRID))
-    _, ept, wpr = next(s for s in LN_FWD_SHAPES if C <= s[0])
-    groups = LN_BWD_WARPS // wpr
-    return LnPlan(vec, ept, wpr, min(-(-R // groups), _MAX_GRID))
+    return _fwd_rows_plan(R, C, vec, LN_FWD_SHAPES)
 
 
 def layer_norm_fwd(x2: torch.Tensor, gamma: torch.Tensor,
@@ -465,30 +475,21 @@ def _mask_scratch(plan, C: int, keep: float,
                        dtype=torch.int32, device=device)
 
 
-class FrlnFwdPlan(NamedTuple):
-    """The launch of the fused epilogue's forward: ``wide`` picks
-    ``frln_fwd_wide_kernel`` (``vec`` elements an access, a grid of
-    ``ctas``) over ``frln_fwd_kernel`` (a CTA a row: ``vec`` 1, ``ctas``
-    the rows; the C side sizes its CTAs)."""
-    wide: bool
-    vec: int
-    ctas: int
-
-
 def _frln_fwd_plan(R: int, C: int, itemsize: int, aligned: bool,
-                   sms: int) -> FrlnFwdPlan:
+                   sms: int) -> LnPlan:
     """Launch geometry of the fused epilogue's forward for (R, C) rows:
-    up to ``FRLN_FWD_ROW_MAX_C`` its row kernel; past it the wide kernel,
-    16-byte accesses where C and every pointer allow, a persistent grid
-    of ``FRLN_FWD_WIDE_CTAS_PER_SM`` CTAs an SM, never more than the
-    rows."""
+    16-byte accesses where C and every pointer allow; up to the last C
+    of ``FRLN_FWD_SHAPES`` (``FRLN_FWD_SCALAR_MAX_C`` on the scalar
+    path) its row kernel (:func:`_fwd_rows_plan`); past it the wide
+    kernel, a persistent grid of ``FRLN_FWD_WIDE_CTAS_PER_SM`` CTAs an
+    SM, never more than the rows."""
     if C < 1 or R < 1:
         raise MXNetError(f"fused_residual_layer_norm: no launch for "
                          f"({R}, {C})")
-    if C > FRLN_FWD_ROW_MAX_C:
-        return FrlnFwdPlan(True, _vec(C, itemsize, aligned),
-                           min(R, FRLN_FWD_WIDE_CTAS_PER_SM * sms))
-    return FrlnFwdPlan(False, 1, R)
+    vec = _vec(C, itemsize, aligned)
+    if C > (FRLN_FWD_SHAPES[-1][0] if vec > 1 else FRLN_FWD_SCALAR_MAX_C):
+        return LnPlan(vec, 0, 0, min(R, FRLN_FWD_WIDE_CTAS_PER_SM * sms))
+    return _fwd_rows_plan(R, C, vec, FRLN_FWD_SHAPES)
 
 
 def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
@@ -520,7 +521,7 @@ def fused_residual_ln_fwd(h2, bias, res2, gamma, beta, key_data=None,
         err = fn(h2.data_ptr(), bias.data_ptr(), res2.data_ptr(),
                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
                  mean.data_ptr(), rstd.data_ptr(), bits_ptr, R, C,
-                 float(eps), int(plan.wide), plan.vec, plan.ctas,
+                 float(eps), plan.vec, plan.ept, plan.wpr, plan.ctas,
                  int(keep < 1.0), k0, k1, keep_thresh(keep),
                  _inv_keep(keep), _DTYPES[h2.dtype], _build.stream_of(h2))
     _build.check(err, "fused_residual_layer_norm")

@@ -107,8 +107,12 @@ def test_plans_mirror_the_sources():
     assert "FRLN_SMEM_BITS" not in common + fwd + bwd
     assert not hasattr(tln, "FRLN_SMEM_BITS")
     assert "sbits" not in fwd + bwd
-    assert "constexpr int FRLN_ROW_MAX_C = 48 * 1024 / 4 - 32;" in fwd
-    assert tln.FRLN_FWD_ROW_MAX_C == 48 * 1024 // 4 - 32 == 12256
+    # on the 16-byte path the forward's row instances take every C the
+    # one-CTA-a-row kernel took (its row of f32 in 48 KB of shared
+    # memory: C <= 12256), and that kernel's bound is gone
+    assert "FRLN_ROW_MAX_C" not in fwd and \
+        not hasattr(tln, "FRLN_FWD_ROW_MAX_C")
+    assert tln.FRLN_FWD_SHAPES[-1][0] >= 48 * 1024 // 4 - 32 == 12256
     # the launch bounds' register rule, term for term
     assert "5 * E + 3 * E * eb / 4 + (VEC > 1 ? 0 : E) + 32" in bwd
     assert "return regs <= 128 ? 2 : 1;" in bwd
@@ -416,24 +420,36 @@ def test_frln_wide_plans(C):
             f = tln._frln_fwd_plan(300, C, it, aligned, SMS)
             b = tln._frln_bwd_plan(300, C, it, aligned, SMS)
             assert b.wide and b.vec == v and b.ctas == min(300, SMS)
-            if C > tln.FRLN_FWD_ROW_MAX_C:
+            if C > (tln.FRLN_FWD_SHAPES[-1][0] if v > 1 else
+                    tln.FRLN_FWD_SCALAR_MAX_C):
                 # as many CTAs as the SMs' threads take, never more than
                 # the rows
                 assert f.wide and f.vec == v and f.ctas == 300
                 assert tln._frln_fwd_plan(5000, C, it, aligned,
                                           SMS).ctas == 4 * SMS
             else:
-                # the forward's row kernel takes what it took before
-                assert not f.wide and f.vec == 1 and f.ctas == 300
+                # the forward's row kernel, a group of 8 warps a row (a
+                # CTA) at these widths: on the 16-byte path every C the
+                # one-CTA-a-row kernel took, on the scalar one up to
+                # FRLN_FWD_SCALAR_MAX_C
+                first = next(s for s in tln.FRLN_FWD_SHAPES if C <= s[0])
+                assert f == tln.LnPlan(v, *first[1:], 300)
+                assert first[2] == tln.LN_BWD_WARPS
             assert tln._frln_bwd_plan(7, C, it, aligned, SMS).ctas == 7
             assert tln._frln_fwd_plan(7, C, it, aligned, SMS).ctas == 7
 
 
 @pytest.mark.parametrize("C", (1, 37, 1023, 1024, 1025, 12256))
 def test_frln_fwd_row_plan_is_the_row_kernel(C):
-    # a CTA a row, scalar accesses; the C side sizes the CTA
-    assert tln._frln_fwd_plan(5, C, 2, True, SMS) == \
-        tln.FrlnFwdPlan(False, 1, 5)
+    # the first row instance that takes C, its row groups each given one
+    # of the 5 rows, 16-byte accesses where C allows (aligned bf16: C a
+    # multiple of 8)
+    p = tln._frln_fwd_plan(5, C, 2, True, SMS)
+    first = next(s for s in tln.FRLN_FWD_SHAPES if C <= s[0])
+    groups = tln.LN_BWD_WARPS // first[2]
+    assert p == tln.LnPlan(8 if C % 8 == 0 else 1, *first[1:],
+                           -(-5 // groups))
+    assert not p.wide and 32 * p.wpr * p.ept >= C
 
 
 def _ballot_word(C, vec):
@@ -472,15 +488,16 @@ def test_frln_wide_keep_bits_scratch(C):
     # its bits, at every C; no mask or a row kernel, none
     cpu = torch.device("cpu")
     for plan in (tln.LnPlan(8, 0, 0, 4), tln.LnPlan(1, 0, 0, 3),
-                 tln.FrlnFwdPlan(True, 8, 4), tln.FrlnFwdPlan(True, 1, 3)):
+                 tln._frln_fwd_plan(4, 131072, 2, True, SMS),
+                 tln._frln_fwd_plan(3, 131073, 4, True, SMS)):
         t = tln._mask_scratch(plan, C, 0.9, cpu)
         assert t.shape == (plan.ctas, tln._frln_words(C, plan.vec)) and \
             t.dtype == torch.int32
         assert tln._mask_scratch(plan, C, 1.0, cpu) is None
     assert tln._mask_scratch(tln.LnPlan(1, 8, 4, 3), 1024, 0.9,
                              cpu) is None
-    assert tln._mask_scratch(tln.FrlnFwdPlan(False, 1, 3), 1024, 0.9,
-                             cpu) is None
+    assert tln._mask_scratch(tln._frln_fwd_plan(3, 1024, 2, True, SMS),
+                             1024, 0.9, cpu) is None
 
 
 def _frln_inputs(seed, R, C, dtype):

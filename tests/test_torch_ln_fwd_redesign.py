@@ -162,7 +162,11 @@ def test_no_layer_norm_bound_left():
     for C in (12257, 131072, 131073):
         assert tln._ln_fwd_plan(8, C, 4, True).wide
         assert tln._ln_bwd_plan(8, C, 4, True, SMS).wide
-        assert tln._frln_fwd_plan(8, C, 4, True, SMS).wide
+        # the fused forward's row instances reach C = 12288 on the
+        # 16-byte path, 4096 on the scalar one (C = 12257, 131073)
+        assert tln._frln_fwd_plan(8, C, 4, True, SMS).wide == \
+            (C > tln.FRLN_FWD_SHAPES[-1][0] == 12288 or C % 4 != 0)
+        assert tln.FRLN_FWD_SCALAR_MAX_C == 4096
         assert tln._frln_bwd_plan(8, C, 4, True, SMS).wide
 
 

@@ -128,14 +128,28 @@ Phases, each fatal on failure:
      ms/step, MFU (FLOPs from the port's conv and dense shapes, 3x
      forward; the reference's 22.49 GFLOP per sample beside it), peak
      memory and a profiled breakdown of one step;
- 11. the same in NHWC (``layout="NHWC"``), launches exactly 0/0/53/53;
- 12. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
+ 11. the same in NHWC (``layout="NHWC"``), launches exactly 0/0/53/53
+     (8, 10 and 11 run the bucketed update, the default);
+ 12. bulked training: BERT-Large bf16 (adam, dropout 0.1) and ResNet-50
+     NHWC (SGD momentum), each built three times from the same seeds:
+     the bucketed step and its ``MXTPU_BATCHED_OPT=0`` twin run 3 steps
+     and must agree bit for bit (losses, parameters, buffers, every
+     optimizer-state leaf), and ``run_steps`` must equal the eager steps
+     bit for bit (BERT: three ``run_steps(x, y, 1)``; ResNet: one
+     ``run_steps(x, y, 3)`` over three microbatches), cuDNN
+     deterministic for these gates; the ``update`` range's device ms of
+     each twin; then ``run_steps(x, y, 10, reuse_batch=True)`` timed as
+     ``bench.py``'s ``_measure`` times mxtpu (median of 3 windows, each
+     after an eager window on the same step), launches per step exact,
+     one call profiled; and a LAMB BERT-Large bf16 run of 5 steps whose
+     losses must be finite and fall;
+ 13. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
      through ``params_from_mxtpu``) served to 4 client threads sending
      128 requests of lengths 16-128; every result checked, 0 requeues,
      launch counts read around the run;
- 13. one served batch of 8 x 128 against the same model and weights run
+ 14. one served batch of 8 x 128 against the same model and weights run
      on the CPU (plain path);
- 14. rtc: the user kernels of ``RTC_SOURCE`` (y = 2x, a row softmax
+ 15. rtc: the user kernels of ``RTC_SOURCE`` (y = 2x, a row softmax
      and its loss gradient p - onehot(label)) compiled by
      ``rtc.CudaModule`` and launched through ``CudaKernel.launch``: y =
      2x exact at 8x128 and 4096x4096, the softmax pair against its
@@ -148,14 +162,14 @@ Phases, each fatal on failure:
      a bool for an int, a non-contiguous array, a list for an array,
      bad grid or block dims, too few arguments, a source that does not
      compile, a missing export);
- 15. resnet20 at full width, b16, through the symbolic API: the card's
+ 16. resnet20 at full width, b16, through the symbolic API: the card's
      Module against the same Module on the CPU (outputs, every
      gradient, three SGD steps at lr 1e-3), the rtc head (a Module
      ending at the logits, the ``softmax_rtc`` CustomOp under
      ``autograd.record``, ``backward(out_grads=[logits.grad])``)
      against SoftmaxOutput on the card over three steps, and a
      checkpoint round trip that predicts bit for bit;
- 16. ``train_cifar10``'s recipe: one epoch of ``Module.fit`` over the
+ 17. ``train_cifar10``'s recipe: one epoch of ``Module.fit`` over the
      synthetic CIFAR-10 fallback (14 batches of 128; sgd lr 0.01,
      momentum 0.9, wd 1e-4, rescale 1/128; Xavier; Accuracy,
      Speedometer, do_checkpoint), launches exactly 19/19/0/0 BatchNorm
@@ -201,6 +215,7 @@ without CUDA or outside a checkout.  A full report goes to
 ``mxtpu_torch/_build/chip_smoke_report.json``.
 """
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2013,16 +2028,18 @@ def train_check_phase(checks):
     return kernels.launch_counts()
 
 
-RANGES = ("forward_backward", "update")
+RANGES = ("forward_backward", "update", "run_steps")
 
 
 def step_breakdown(step, x, y):
-    """One training step, ``step(x, y)``, under torch.profiler: device ms
-    by family (each ported kernel, cuDNN convolutions, GEMMs, the
-    optimizer, other), the host and device ms of TrainStep's two
-    ``record_function`` ranges, and the device's idle share of the
-    step's wall time.  The optimizer's device time is what the
-    ``update`` range launched; it leaves "other"."""
+    """One training step, ``step(x, y)`` (or one ``run_steps`` call
+    through a callable of the same form), under torch.profiler: device
+    ms by family (each ported kernel, cuDNN convolutions, GEMMs, the
+    optimizer, other), the host and device ms of TrainStep's
+    ``record_function`` ranges, summed over their occurrences, and the
+    device's idle share of the call's wall time.  The optimizer's
+    device time is what the ``update`` ranges launched; it leaves
+    "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2041,8 +2058,9 @@ def step_breakdown(step, x, y):
         on_device = "CPU" not in str(evt.device_type)
         if evt.name in RANGES:
             if not on_device:
-                ranges[evt.name] = {"host_ms": evt.cpu_time_total / 1e3,
-                                    "device_ms": evt.device_time_total / 1e3}
+                ranges[evt.name]["host_ms"] += evt.cpu_time_total / 1e3
+                ranges[evt.name]["device_ms"] += \
+                    evt.device_time_total / 1e3
             continue
         if on_device:
             ms = evt.device_time_total / 1e3
@@ -2072,7 +2090,7 @@ def breakdown_line(tag, bd):
             f"events), idle share {bd['device_idle_share']:.4f}; " +
             "; ".join(f"{k}: host {r['host_ms']:.3f} ms, device "
                       f"{r['device_ms']:.3f} ms launched from its thread"
-                      for k, r in bd["ranges"].items()))
+                      for k, r in bd["ranges"].items() if r["host_ms"]))
 
 
 def profiled_step(checks, tag, step, x, y):
@@ -2102,33 +2120,46 @@ def check_launches(checks, tag, counts, per_step, n_steps):
                                  f"{per_step.get(name, 0)} per step")
 
 
+def seeded_bert_step(compute_dtype="bfloat16", optimizer="adam",
+                     params=None):
+    """BERT-Large and its train step from fixed seeds: the weights, and
+    the dropout streams of ``mxtpu_torch.random``."""
+    import torch
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.models import bert_large
+    from mxtpu_torch.parallel import build_train_step
+    torch.manual_seed(SEED)
+    trandom.seed(SEED)
+    with torch.device(CARD):
+        net = bert_large(vocab_size=VOCAB, max_length=T, dropout=0.1)
+    return build_train_step(net, mlm_loss, optimizer,
+                            params or {"learning_rate": 1e-4},
+                            compute_dtype=compute_dtype, cast_batch=False,
+                            device=CARD)
+
+
+def bert_tokens(b=B, seed=SEED + 5):
+    """``bench_bert``'s (b, T) token batch, on the card."""
+    import torch
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, VOCAB, (b, T)).astype(np.float32)).to(CARD)
+
+
 def train_phase(checks, compute_dtype="bfloat16"):
     """BERT-Large trained with the bench_bert recipe, in bf16 compute or,
     with ``compute_dtype=None`` (the API's default), in f32; returns the
     launch counts of the timed steps and the numbers."""
     import torch
-    from mxtpu_torch import kernels, random as trandom
-    from mxtpu_torch.models import bert_large
-    from mxtpu_torch.parallel import build_train_step
+    from mxtpu_torch import kernels
     prec = compute_dtype or "float32"
     tag = f"training {prec}"
 
     def seeded_step():
-        """BERT-Large and its train step from fixed seeds: the weights,
-        and the dropout streams of ``mxtpu_torch.random``."""
-        torch.manual_seed(SEED)
-        trandom.seed(SEED)
-        with torch.device(CARD):
-            net = bert_large(vocab_size=VOCAB, max_length=T, dropout=0.1)
-        return build_train_step(net, mlm_loss, "adam",
-                                {"learning_rate": 1e-4},
-                                compute_dtype=compute_dtype,
-                                cast_batch=False, device=CARD)
+        return seeded_bert_step(compute_dtype)
 
     t0 = time.perf_counter()
     step = seeded_step()
-    toks = torch.from_numpy(np.random.RandomState(SEED + 5).randint(
-        0, VOCAB, (B, T)).astype(np.float32)).to(CARD)
+    toks = bert_tokens()
     torch.cuda.reset_peak_memory_stats()
     losses = [step(toks, toks) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
@@ -2417,23 +2448,31 @@ def model_counts(net, x1):
     return c
 
 
+def resnet50_net(layout):
+    """``bench_resnet50``'s model (NCHW) or the model zoo's channels-last
+    one, Xavier weights from torch seed ``SEED`` on the card."""
+    import torch
+    from mxtpu_torch import initializer
+    from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxtpu_torch.models import resnet50
+    with torch.device(CARD):
+        net = resnet50(classes=RN_CLASSES) if layout == "NCHW" else \
+            resnet50_v1(classes=RN_CLASSES, layout=layout)
+    initializer.initialize(net, initializer.Xavier(),
+                           torch.Generator(device=CARD).manual_seed(SEED))
+    return net
+
+
 def resnet_train_phase(checks, layout):
     """ResNet-50 v1 trained with the bench_resnet50 recipe in
     ``layout``; returns the launch counts of the timed steps and the
     numbers."""
     import torch
-    from mxtpu_torch import initializer, kernels
-    from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
-    from mxtpu_torch.models import resnet50
+    from mxtpu_torch import kernels
     from mxtpu_torch.parallel import build_train_step
 
     t0 = time.perf_counter()
-    with torch.device(CARD):
-        # bench_resnet50's model, and the model zoo's channels-last one
-        net = resnet50(classes=RN_CLASSES) if layout == "NCHW" else \
-            resnet50_v1(classes=RN_CLASSES, layout=layout)
-    initializer.initialize(net, initializer.Xavier(),
-                           torch.Generator(device=CARD).manual_seed(SEED))
+    net = resnet50_net(layout)
     xn, yn = rn_batch(layout, RN_B, RN_HW, SEED)
     x = torch.from_numpy(xn).to(CARD)
     y = torch.from_numpy(yn).to(CARD)
@@ -2504,6 +2543,245 @@ def resnet_train_phase(checks, layout):
                     "bn_bound_ms_per_step": bn_bound_ms,
                     "memory": mem, "losses": losses, "steps": n_steps,
                     "setup_s": setup_s, "breakdown": breakdown}
+
+
+# ----------------------------------------------------------------------
+# bulked training: run_steps, the bucketed update and its twin
+# ----------------------------------------------------------------------
+
+GATE_STEPS = 3        # steps each twin runs before the bit-for-bit check
+LAMB_STEPS = 5
+BERT_LAMB = {"learning_rate": 2e-3}
+BERT_LAUNCHES = {"flash_attention_fwd": LAYERS,
+                 "flash_attention_bwd_dq": LAYERS,
+                 "flash_attention_bwd_dkv": LAYERS,
+                 "layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                 "fused_residual_ln_fwd": 2 * LAYERS,
+                 "fused_residual_ln_bwd": 2 * LAYERS}
+
+
+def build_twin(make, batched):
+    """``make()`` with ``MXTPU_BATCHED_OPT`` set for the build, which is
+    when TrainStep reads it: the bucketed update (mxtpu's default) or
+    the per-parameter twin."""
+    old = os.environ.get("MXTPU_BATCHED_OPT")
+    os.environ["MXTPU_BATCHED_OPT"] = "1" if batched else "0"
+    try:
+        return make()
+    finally:
+        if old is None:
+            del os.environ["MXTPU_BATCHED_OPT"]
+        else:
+            os.environ["MXTPU_BATCHED_OPT"] = old
+
+
+def train_snapshot(step):
+    """Every parameter, buffer (BatchNorm's running statistics) and
+    optimizer-state leaf of ``step``, copied on the card."""
+    return ([t.detach().clone() for _, t in step.net.named_parameters()] +
+            [t.detach().clone() for _, t in step.net.named_buffers()] +
+            [leaf.detach().clone() for st in step._canonical_state()
+             for leaf in st])
+
+
+def bit_equal(a, b):
+    import torch
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+class deterministic_cudnn:
+    """cuDNN's deterministic algorithms while a bit-for-bit gate runs:
+    its default backward algorithms may sum with atomics, which part
+    two identical runs (measured in PR 4's rtc-head check) and would
+    test cuDNN, not the update."""
+
+    def __enter__(self):
+        import torch
+        self.old = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cudnn.deterministic = self.old
+
+
+def bulked_cell(checks, tag, make, micro, bulked, x, y, per_step, unit,
+                units_per_step, card):
+    """One model's bulked phase.  From the same seeds: the bucketed step
+    runs ``GATE_STEPS`` eager steps on the microbatches ``micro``; its
+    per-parameter twin does the same and must equal it bit for bit
+    (losses, parameters, buffers, state); a third bucketed step runs
+    ``bulked(step)`` (run_steps over the same microbatches) and must
+    equal the eager steps bit for bit.  Each twin's next step is
+    profiled for its ``update`` range.  Then the third step is timed as
+    bench.py's ``_measure`` times mxtpu: ``run_steps(x, y, TRAIN_STEPS,
+    reuse_batch=True)`` after a warm-up call, median of
+    ``TRAIN_WINDOWS`` windows, each ended by a host read of its last
+    loss and each after a window of as many eager steps on the same
+    step object (timed too); launches per step inside run_steps must be
+    ``per_step``; one call is profiled."""
+    import torch
+    from mxtpu_torch import kernels
+    t0 = time.perf_counter()
+    out = {}
+    with deterministic_cudnn():
+        step = build_twin(make, True)
+        eager = [float(step(xb, yb)) for xb, yb in micro]
+        ref = train_snapshot(step)
+    n_params, n_buckets = len(step._params), len(step._groups)
+    bd_b = profiled_step(checks, f"{tag} bucketed", step, *micro[0])
+    del step
+    torch.cuda.empty_cache()
+    with deterministic_cudnn():
+        step = build_twin(make, False)
+        per = [float(step(xb, yb)) for xb, yb in micro]
+        same_twin = per == eager and bit_equal(train_snapshot(step), ref)
+    bd_p = profiled_step(checks, f"{tag} per-parameter", step, *micro[0])
+    del step
+    torch.cuda.empty_cache()
+    with deterministic_cudnn():
+        step = build_twin(make, True)
+        got = bulked(step)
+        same_bulk = got == eager and bit_equal(train_snapshot(step), ref)
+    del ref
+    torch.cuda.empty_cache()
+    upd = {"bucketed": bd_b["ranges"]["update"]["device_ms"],
+           "per_parameter": bd_p["ranges"]["update"]["device_ms"]}
+    print(f"check {tag}: {GATE_STEPS} steps from the same seeds, "
+          f"bucketed ({n_buckets} buckets of {n_params} parameters) vs "
+          f"per-parameter update: losses {eager} vs {per}, every "
+          f"parameter, buffer and state leaf bit for bit "
+          f"{'ok' if same_twin else 'FAIL'}; run_steps vs the eager "
+          f"steps: {got} bit for bit {'ok' if same_bulk else 'FAIL'}",
+          flush=True)
+    if not same_twin:
+        checks.failed.append(f"{tag}: the bucketed update differs from "
+                             f"the per-parameter one")
+    if not same_bulk:
+        checks.failed.append(f"{tag}: run_steps differs from eager steps")
+    print(f"{tag} update range, device ms a step: bucketed "
+          f"{upd['bucketed']:.3f}, per-parameter {upd['per_parameter']:.3f}"
+          f" ({card})", flush=True)
+
+    warm = step.run_steps(x, y, TRAIN_WARMUP, reuse_batch=True)
+    losses = [float(v) for v in warm]
+    torch.cuda.reset_peak_memory_stats()
+    # bulked windows, each after an eager window of as many steps on the
+    # same step object, so the two see the same host and allocator
+    counts = {}
+    window_ms, eager_ms = [], []
+    for _ in range(TRAIN_WINDOWS):
+        t1 = time.perf_counter()
+        eager = [step(x, y) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t1) / TRAIN_STEPS * 1e3)
+        losses += [float(v) for v in eager]
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        last = step.run_steps(x, y, TRAIN_STEPS, reuse_batch=True)
+        float(last[-1])
+        window_ms.append((time.perf_counter() - t1) / TRAIN_STEPS * 1e3)
+        for k, v in kernels.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        losses += [float(v) for v in last]
+    mem = step.memory_summary()
+    n_steps = TRAIN_STEPS * TRAIN_WINDOWS
+    check_launches(checks, f"{tag} run_steps", counts, per_step, n_steps)
+    if not all(np.isfinite(losses)):
+        checks.failed.append(f"{tag} run_steps losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        checks.failed.append(f"{tag} run_steps loss did not fall: {losses}")
+    ms_step = float(np.median(window_ms))
+    for _ in range(3):
+        bd = step_breakdown(
+            lambda a, b: step.run_steps(a, b, TRAIN_STEPS, reuse_batch=True),
+            x, y)
+        if bd["device_idle_share"] is not None:
+            print(breakdown_line(f"{tag} run_steps({TRAIN_STEPS}) call", bd),
+                  flush=True)
+            break
+    else:
+        checks.failed.append(f"torch.profiler recorded no device time in "
+                             f"the {tag} run_steps call")
+    busy = bd["device_busy_ms"] / TRAIN_STEPS
+    print(f"{tag} bulked: {ms_step:.3f} ms/step (median of {TRAIN_WINDOWS}"
+          f" windows of run_steps(x, y, {TRAIN_STEPS}, reuse_batch=True): "
+          f"{', '.join(f'{w:.3f}' for w in window_ms)}; eager windows "
+          f"before each: {', '.join(f'{w:.3f}' for w in eager_ms)}), "
+          f"{units_per_step / ms_step * 1e3:.1f} {unit}/s; one profiled "
+          f"call: device busy {busy:.3f} ms a step, idle share "
+          f"{bd['device_idle_share'] or 0:.4f}, update range "
+          f"{bd['ranges']['update']['device_ms'] / TRAIN_STEPS:.3f} ms a "
+          f"step on the device; peak memory "
+          f"{(mem['peak_bytes'] or 0) / 2**30:.3f} GiB; launches in "
+          f"{n_steps} steps {json.dumps(counts)}; "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    out.update({"ms_per_step": ms_step, "window_ms_per_step": window_ms,
+                "eager_window_ms_per_step": eager_ms,
+                f"{unit}_per_s": units_per_step / ms_step * 1e3,
+                "device_busy_ms_per_step": busy,
+                "device_idle_share": bd["device_idle_share"],
+                "memory": mem, "losses": losses, "launches": counts,
+                "update_device_ms_per_step": upd, "buckets": n_buckets,
+                "parameters": n_params, "breakdown": bd,
+                "twin_breakdowns": {"bucketed": bd_b, "per_parameter": bd_p},
+                "bucketed_equals_per_parameter": same_twin,
+                "run_steps_equals_eager": same_bulk, "card": card})
+    del step
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def bulked_train_phase(checks, card):
+    """BERT-Large bf16 (adam) and ResNet-50 NHWC (SGD momentum) on the
+    bucketed update and through ``run_steps``, each beside its
+    per-parameter twin (:func:`bulked_cell`); BERT's ``run_steps`` gate
+    is three ``run_steps(x, y, 1)`` calls (adam's bias correction is
+    sampled once a call), ResNet's one ``run_steps(x, y, 3)`` over three
+    microbatches (constant lr); then a LAMB BERT-Large bf16 run of
+    ``LAMB_STEPS`` steps, its losses finite and falling."""
+    import torch
+    results, counts = {}, {}
+    toks = bert_tokens()
+    counts["bert"], results["bert"] = bulked_cell(
+        checks, "bulked BERT-Large bf16 adam", seeded_bert_step,
+        [(toks, toks)] * GATE_STEPS,
+        lambda st: [float(st.run_steps(toks, toks, 1)[0])
+                    for _ in range(GATE_STEPS)],
+        toks, toks, BERT_LAUNCHES, "tokens", B * T, card)
+
+    xn, yn = rn_batch("NHWC", RN_B * GATE_STEPS, RN_HW, SEED)
+    x3, y3 = torch.from_numpy(xn).to(CARD), torch.from_numpy(yn).to(CARD)
+    micro = [(x3[i * RN_B:(i + 1) * RN_B], y3[i * RN_B:(i + 1) * RN_B])
+             for i in range(GATE_STEPS)]
+
+    def resnet_step():
+        from mxtpu_torch.parallel import build_train_step
+        return build_train_step(resnet50_net("NHWC"), rn_loss(), "sgd",
+                                RN_SGD, compute_dtype="bfloat16",
+                                device=CARD)
+    counts["resnet"], results["resnet"] = bulked_cell(
+        checks, "bulked resnet50 NHWC sgd momentum", resnet_step, micro,
+        lambda st: st.run_steps(x3, y3, GATE_STEPS).tolist(),
+        *micro[0], RN_LAUNCHES["NHWC"], "samples", RN_B, card)
+    del x3, y3, micro
+    torch.cuda.empty_cache()
+
+    step = seeded_bert_step(optimizer="lamb", params=BERT_LAMB)
+    lamb = step.run_steps(toks, toks, LAMB_STEPS, reuse_batch=True).tolist()
+    ok = bool(np.isfinite(lamb).all()) and np.mean(lamb[-3:]) < lamb[0]
+    print(f"check LAMB BERT-Large bf16 (lr {BERT_LAMB['learning_rate']}, "
+          f"{len(step._groups)} buckets), run_steps({LAMB_STEPS}) losses "
+          f"{lamb}: finite and falling {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        checks.failed.append(f"LAMB BERT-Large losses not finite and "
+                             f"falling: {lamb}")
+    results["lamb_losses"] = lamb
+    del step
+    torch.cuda.empty_cache()
+    return counts, results
 
 
 # ----------------------------------------------------------------------
@@ -3782,6 +4060,7 @@ def main():
     for layout in ("NCHW", "NHWC"):
         rn_counts[layout], resnet[layout] = resnet_train_phase(checks,
                                                                layout)
+    bulk_counts, bulked = bulked_train_phase(checks, card)
     rtc_timings, rtc_info = rtc_phase(checks)
     symbolic_check_phase(checks)
     sym_counts, sym_rtc, symbolic = symbolic_train_phase(checks)
@@ -3902,13 +4181,15 @@ def main():
                            "serving": serve_counts,
                            **{f"resnet50 {k}": c
                               for k, c in rn_counts.items()},
+                           "bulked BERT-Large bf16": bulk_counts["bert"],
+                           "bulked resnet50 NHWC": bulk_counts["resnet"],
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,
                            **{f"tool {k}": c
                               for k, c in tool_counts.items()}},
               "tools": tool_tables,
               "training": training, "training_f32": training_f32,
-              "resnet50": resnet,
+              "resnet50": resnet, "bulked": bulked,
               "serving": serving, "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

@@ -2,11 +2,12 @@
 
 The package mirrors ``mxtpu``'s layout and names (``nd``, ``autograd``,
 ``sym``, ``mod``, ``serving``, ``models``, ``gluon``, ``optimizer``,
-``parallel``, ``random``, ``rtc``, ``kernels``) on torch tensors, so
-``import mxtpu_torch as mx`` runs MXNet-1.x-style code.  Each Pallas
-kernel of a ported path becomes a kernel written by hand for ``sm_90a``
-under ``csrc/``, built with ``nvcc`` at first use.  Entry points run on
-``cuda:0`` unless the caller passes ``device="cpu"``.
+``lr_scheduler``, ``parallel``, ``random``, ``rtc``, ``kernels``) on
+torch tensors, so ``import mxtpu_torch as mx`` runs MXNet-1.x-style
+code.  Each Pallas kernel of a ported path becomes a kernel written by
+hand for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
+Entry points run on ``cuda:0`` unless the caller passes
+``device="cpu"``.
 
 This package imports torch and numpy only — never jax or mxtpu.
 """
@@ -20,6 +21,7 @@ from . import model, module, operator, rtc  # noqa: F401
 nd = ndarray
 sym = symbol
 mod = module
+lr_scheduler = optimizer.lr_scheduler
 init = initializer
 
 __version__ = "0.1.0"

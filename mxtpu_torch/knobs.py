@@ -82,3 +82,9 @@ register("MXTPU_SERVING_MAX_DELAY_US", 2000.0, "float",
 register("MXTPU_SERVING_MAX_QUEUE", 0, "int",
          "Bound on queued requests before ServerBusy shedding "
          "(0/unset = 8x max batch).", "serving")
+
+# -- training ------------------------------------------------------------
+register("MXTPU_BATCHED_OPT", True, "bool",
+         "(shape, dtype)-bucketed stacked optimizer updates in "
+         "TrainStep; `0` reverts to one update chain per parameter.",
+         "kill-switch")

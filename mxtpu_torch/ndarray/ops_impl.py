@@ -11,7 +11,10 @@ negation, comparisons), a few unary ops and reductions, the shape ops
 recipes reach: ``Convolution`` (``ops_impl.py:733``), ``BatchNorm``
 (``:1071-1111``), ``Activation`` (``:847``), ``Pooling`` (``:828``),
 ``FullyConnected`` (``:663``), ``softmax``/``log_softmax`` and
-``SoftmaxOutput`` (``:907-967``).  The rest of the registry waits.
+``SoftmaxOutput`` (``:907-967``), and the optimizer update ops
+(``sgd_update`` ... ``multi_sgd_mom_update``, ``:1247-1460`` and
+``:1727-1780``), whose rules live in ``optimizer/functional.py``.  The
+rest of the registry waits.
 
 Convolution, pooling and the dense product are lax outside any Pallas
 kernel in the JAX package, so they stay torch calls here (cuDNN with
@@ -621,3 +624,61 @@ register_op("BatchNorm", num_inputs=5, num_outputs=3,
                     Param("output_mean_var", bool, False),
                     Param("axis", int, 1)],
             aliases=("batch_norm", "BatchNorm_v1"))(_batch_norm)
+
+
+# ----------------------------------------------------------------------
+# optimizer ops (``ops_impl.py:1247-1460``, ``:1727-1780``): functional
+# torch rules from optimizer/functional.py, not recorded by autograd
+# ----------------------------------------------------------------------
+from ..optimizer import functional as _upd  # noqa: E402
+
+_CLIP = [Param("rescale_grad", float, 1.0),
+         Param("clip_gradient", float, -1.0)]
+
+
+def _update_op(name, fn, num_inputs, num_outputs, params):
+    register_op(name, num_inputs=num_inputs, num_outputs=num_outputs,
+                params=params, differentiable=False)(fn)
+
+
+_update_op("sgd_update", _upd.sgd_update, 2, 1,
+           [Param("lr", float), Param("wd", float, 0.0), *_CLIP])
+_update_op("sgd_mom_update", _upd.sgd_mom_update, 3, 2,
+           [Param("lr", float), Param("momentum", float, 0.0),
+            Param("wd", float, 0.0), *_CLIP])
+_update_op("adam_update", _upd.adam_update, 4, 3,
+           [Param("lr", float), Param("beta1", float, 0.9),
+            Param("beta2", float, 0.999), Param("epsilon", float, 1e-8),
+            Param("wd", float, 0.0), *_CLIP])
+_update_op("rmsprop_update", _upd.rmsprop_update, 3, 2,
+           [Param("lr", float), Param("gamma1", float, 0.9),
+            Param("epsilon", float, 1e-8), Param("wd", float, 0.0), *_CLIP,
+            Param("clip_weights", float, -1.0)])
+_update_op("lamb_update", _upd.lamb_update, 5, 3,
+           [Param("lr", float), Param("beta1", float, 0.9),
+            Param("beta2", float, 0.999), Param("epsilon", float, 1e-6),
+            Param("wd", float, 0.0), *_CLIP,
+            Param("bias_correction", bool, True),
+            Param("stacked", bool, False)])
+_update_op("rmspropalex_update", _upd.rmspropalex_update, 5, 4,
+           [Param("lr", float), Param("gamma1", float, 0.95),
+            Param("gamma2", float, 0.9), Param("epsilon", float, 1e-8),
+            Param("wd", float, 0.0), *_CLIP])
+_update_op("ftrl_update", _upd.ftrl_update, 4, 3,
+           [Param("lr", float), Param("lamda1", float, 0.01),
+            Param("beta", float, 1.0), Param("wd", float, 0.0), *_CLIP])
+_update_op("signsgd_update", _upd.signsgd_update, 2, 1,
+           [Param("lr", float), Param("wd", float, 0.0), *_CLIP])
+_update_op("signum_update", _upd.signum_update, 3, 2,
+           [Param("lr", float), Param("momentum", float, 0.9),
+            Param("wd", float, 0.0), *_CLIP, Param("wd_lh", float, 0.0)])
+for _name, _fn, _k, _extra in (
+        ("multi_sgd_update", _upd.multi_sgd_update, 1, []),
+        ("multi_sgd_mom_update", _upd.multi_sgd_mom_update, 2,
+         [Param("momentum", float, 0.0)])):
+    register_op(_name, num_inputs=-1,
+                params=[Param("lrs", tuple, ()), Param("wds", tuple, ()),
+                        *_extra, *_CLIP, Param("num_weights", int, 1)],
+                num_outputs_fn=lambda p, k=_k: k * int(
+                    p.get("num_weights", 1)),
+                differentiable=False)(_fn)

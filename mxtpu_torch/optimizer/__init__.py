@@ -1,6 +1,8 @@
-"""Optimizers (``mxtpu.optimizer`` counterpart): SGD and Adam, their
-registry, the Updater Module drives, and the functional rules the train
-step runs."""
-from .optimizer import (SGD, Adam, Optimizer, Updater, create,  # noqa: F401
+"""Optimizers (``mxtpu.optimizer`` counterpart): the fourteen
+optimizers and their registry, the lr schedulers, the Updater Module
+drives, and the functional rules the train step runs."""
+from .optimizer import (SGD, NAG, Adam, AdaGrad, AdaDelta,  # noqa: F401
+                        Adamax, Nadam, RMSProp, LAMB, Ftrl, Signum, SGLD,
+                        LBSGD, Test, ccSGD, Optimizer, Updater, create,
                         get_updater, register)
-from . import functional  # noqa: F401
+from . import functional, lr_scheduler  # noqa: F401

@@ -1,21 +1,27 @@
-"""Optimizer registry and the SGD and Adam optimizers (the counterpart
-of ``mxtpu/optimizer/optimizer.py``).
+"""Optimizer registry and the optimizers (the counterpart of
+``mxtpu/optimizer/optimizer.py``): ``SGD``, ``NAG``, ``Adam``,
+``AdaGrad``, ``AdaDelta``, ``Adamax``, ``Nadam``, ``RMSProp``,
+``LAMB``, ``Ftrl``, ``Signum``, ``SGLD``, ``LBSGD`` and ``Test``, and
+the ``ccSGD`` alias of ``SGD``.
 
 An optimizer holds the hyperparameters, the per-parameter lr/wd
-multipliers and the update count; the math is the update ops of
-:mod:`.functional` ("optimizers are ops").  The eager ``update`` works
-on torch tensors and rebinds ``weight.data`` and the state tensors to
-the functionally updated values.  :class:`Updater` (``get_updater``)
-applies an optimizer to NDArray weights with per-index states, as
-Module does, through the multi-precision pair
-(``create_state_multi_precision`` / ``update_multi_precision``): a
-bf16 or f16 weight gets an f32 master, updated in f32 and cast back
-once a step, unless ``multi_precision=False``.  Not ported yet: lr
-schedulers, the other optimizers (LAMB, RMSProp, ...) and row-sparse
-lazy updates.
+multipliers, the update count and an optional lr scheduler
+(:mod:`.lr_scheduler`); the math is the update ops of
+:mod:`.functional` ("optimizers are ops"), or, for the optimizers the
+reference writes as NDArray arithmetic, the same arithmetic on tensors.
+The eager ``update`` works on torch tensors and rebinds
+``weight.data`` and the state tensors to the functionally updated
+values.  :class:`Updater` (``get_updater``) applies an optimizer to
+NDArray weights with per-index states, as Module does, through the
+multi-precision pair (``create_state_multi_precision`` /
+``update_multi_precision``): a bf16 or f16 weight gets an f32 master,
+updated in f32 and cast back once a step, unless
+``multi_precision=False``.  ``SGLD`` draws its noise from the seeded
+generator of :mod:`..random`.  Not ported: row-sparse lazy updates.
 """
 from __future__ import annotations
 
+import math
 import pickle
 from typing import Any, Dict
 
@@ -24,19 +30,22 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "register", "create", "SGD", "Adam", "Updater",
+__all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Adam",
+           "AdaGrad", "AdaDelta", "Adamax", "Nadam", "RMSProp", "LAMB",
+           "Ftrl", "Signum", "SGLD", "LBSGD", "Test", "ccSGD", "Updater",
            "get_updater"]
 
 _REGISTRY: Dict[str, type] = {}
 
 
-def register(klass):
-    """Register an Optimizer subclass under its name and lowercased
-    name."""
-    for name in (klass.__name__, klass.__name__.lower()):
-        if name in _REGISTRY and _REGISTRY[name] is not klass:
-            raise MXNetError(f"optimizer {name!r} registered twice")
-        _REGISTRY[name] = klass
+def register(klass, name=None):
+    """Register an Optimizer subclass under ``name`` (default its class
+    name) and that name lowercased."""
+    name = name or klass.__name__
+    for n in (name, name.lower()):
+        if n in _REGISTRY and _REGISTRY[n] is not klass:
+            raise MXNetError(f"optimizer {n!r} registered twice")
+        _REGISTRY[n] = klass
     return klass
 
 
@@ -52,23 +61,26 @@ def create(name, **kwargs) -> "Optimizer":
 
 class Optimizer:
     """Base optimizer: the update count, ``lr_mult``/``wd_mult`` by
-    index or name, gradient rescale and clip, and ``multi_precision``
-    (read by :func:`.functional.opt_rule`).  ``idx2name``, which Module
-    sets, lets ``lr_mult``/``wd_mult`` be keyed by name for an index.
+    index or name, gradient rescale and clip, an lr scheduler, and
+    ``multi_precision`` (read by :func:`.functional.opt_rule`).
+    ``idx2name``, which Module sets, lets ``lr_mult``/``wd_mult`` be
+    keyed by name for an index.  ``begin_num_update`` is the count a
+    parameter's updates start from (a resumed run passes its last).
     The options that take no effect here (``sym``, ``param_dict``,
-    ``param_idx2name``, ``begin_num_update``, ``lazy_update``) are not
-    accepted."""
+    ``param_idx2name``, ``lazy_update``) are not accepted."""
 
     def __init__(self, *, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None,
+                 learning_rate=0.01, lr_scheduler=None, begin_num_update=0,
                  multi_precision=None):
-        if lr_scheduler is not None:
-            raise NotImplementedError("lr_scheduler is not ported yet")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
-        self.num_update = 0
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
         self._index_update_count: Dict[int, int] = {}
         self.multi_precision = multi_precision
         self.lr_mult: Dict[Any, float] = {}
@@ -113,10 +125,14 @@ class Optimizer:
 
     # -- hyperparameters -------------------------------------------------
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("lr_scheduler is set; cannot set lr directly")
         self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     @learning_rate.setter
@@ -130,7 +146,8 @@ class Optimizer:
         self.wd_mult = dict(args_wd_mult)
 
     def _update_count(self, index):
-        count = self._index_update_count.get(index, 0) + 1
+        count = self._index_update_count.get(index,
+                                             self.begin_num_update) + 1
         self._index_update_count[index] = count
         self.num_update = max(count, self.num_update)
 
@@ -140,7 +157,7 @@ class Optimizer:
         return mults.get(self.idx2name.get(index), 1.0)
 
     def _get_lr(self, index):
-        return self.lr * self._mult(self.lr_mult, index)
+        return self.learning_rate * self._mult(self.lr_mult, index)
 
     def _get_wd(self, index):
         return self.wd * self._mult(self.wd_mult, index)
@@ -206,6 +223,318 @@ class Adam(Optimizer):
             weight.detach(), grad, mean, var, lr=lr, beta1=self.beta1,
             beta2=self.beta2, epsilon=self.epsilon, wd=wd,
             rescale_grad=self.rescale_grad, clip_gradient=self._clip())
+
+
+def _clipped(opt, grad, weight, wd, always_decay=False):
+    """``grad * rescale_grad``, clipped when ``clip_gradient`` is set,
+    plus ``wd * weight`` (always, or only for a nonzero ``wd``): the
+    preamble of the optimizers the reference writes as NDArray
+    arithmetic."""
+    g = grad * opt.rescale_grad
+    if opt.clip_gradient:
+        g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
+    if always_decay or wd:
+        g = g + wd * weight
+    return g
+
+
+def _zeros_like(weight, n=1):
+    z = tuple(torch.zeros_like(weight) for _ in range(n))
+    return z[0] if n == 1 else z
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _clipped(self, grad, weight, wd, always_decay=True)
+        if state is None:
+            weight.data = weight - lr * g
+        else:
+            m = self.momentum * state + g
+            state.data = m
+            weight.data = weight - lr * (g + self.momentum * m)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _clipped(self, grad, weight, wd)
+        hist = state + g * g
+        state.data = hist
+        weight.data = weight - lr * g / torch.sqrt(hist +
+                                                   self.float_stable_eps)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (it takes no lr)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        g = _clipped(self, grad, weight, wd)
+        acc_g, acc_delta = state
+        g2 = self.rho * acc_g + (1 - self.rho) * (g * g)
+        delta = torch.sqrt(acc_delta + self.epsilon) / \
+            torch.sqrt(g2 + self.epsilon) * g
+        d2 = self.rho * acc_delta + (1 - self.rho) * (delta * delta)
+        acc_g.data, acc_delta.data = g2, d2
+        weight.data = weight - delta
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax, Adam under the infinity norm."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr /= (1.0 - self.beta1 ** t)
+        g = _clipped(self, grad, weight, wd)
+        m, u = state
+        m_new = self.beta1 * m + (1 - self.beta1) * g
+        u_new = torch.maximum(self.beta2 * u, torch.abs(g))
+        m.data, u.data = m_new, u_new
+        weight.data = weight - lr * m_new / (u_new + 1e-8)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam.  ``m_schedule`` is one product over every update
+    call, whatever the parameter, as in the reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        g = _clipped(self, grad, weight, wd)
+        m_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        m_t1 = self.beta1 * (1.0 - 0.5 * 0.96 **
+                             ((t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * m_t
+        sched1 = self.m_schedule * m_t1
+        m, v = state
+        g_prime = g / (1.0 - self.m_schedule)
+        m_new = self.beta1 * m + (1 - self.beta1) * g
+        v_new = self.beta2 * v + (1 - self.beta2) * (g * g)
+        m_prime = m_new / (1.0 - sched1)
+        v_prime = v_new / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - m_t) * g_prime + m_t1 * m_prime
+        m.data, v.data = m_new, v_new
+        weight.data = weight - lr * m_bar / (torch.sqrt(v_prime) +
+                                             self.epsilon)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp over ``rmsprop_update`` (Tieleman) or, with
+    ``centered=True``, ``rmspropalex_update`` (Graves)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, 3) if self.centered else \
+            (torch.zeros_like(weight),)
+
+    def update(self, index, weight, grad, state):
+        from .functional import rmsprop_update, rmspropalex_update
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = dict(lr=lr, gamma1=self.gamma1, epsilon=self.epsilon, wd=wd,
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self._clip())
+        if not self.centered:
+            (n,) = state
+            weight.data, n.data = rmsprop_update(
+                weight.detach(), grad, n, clip_weights=self.clip_weights
+                or -1.0, **kw)
+        else:
+            n, g, delta = state
+            weight.data, n.data, g.data, delta.data = rmspropalex_update(
+                weight.detach(), grad, n, g, delta, gamma2=self.gamma2,
+                **kw)
+
+
+@register
+class LAMB(Optimizer):
+    """LAMB (You et al. 2020, "Large Batch Optimization for Deep
+    Learning") over ``lamb_update``: Adam moments with a per-tensor
+    trust ratio."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        from .functional import lamb_update
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        weight.data, mean.data, var.data = lamb_update(
+            weight.detach(), grad, mean, var,
+            torch.tensor(t, dtype=torch.int32, device=weight.device),
+            lr=lr, beta1=self.beta1, beta2=self.beta2,
+            epsilon=self.epsilon, wd=wd, rescale_grad=self.rescale_grad,
+            clip_gradient=self._clip(),
+            bias_correction=self.bias_correction)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal over ``ftrl_update``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, 2)
+
+    def update(self, index, weight, grad, state):
+        from .functional import ftrl_update
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        z, n = state
+        weight.data, z.data, n.data = ftrl_update(
+            weight.detach(), grad, z, n, lr=lr, lamda1=self.lamda1,
+            beta=self.beta, wd=wd, rescale_grad=self.rescale_grad,
+            clip_gradient=self._clip())
+
+
+@register
+class Signum(Optimizer):
+    """SignSGD (``momentum=0``) and Signum over ``signsgd_update`` /
+    ``signum_update``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        from .functional import signsgd_update, signum_update
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self._clip())
+        if state is None:
+            weight.data = signsgd_update(weight.detach(), grad, **kw)
+        else:
+            weight.data, state.data = signum_update(
+                weight.detach(), grad, state, momentum=self.momentum,
+                wd_lh=self.wd_lh, **kw)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: an SGD half-step plus
+    N(0, lr) noise, drawn from the weight's device generator of
+    :mod:`..random`."""
+
+    def update(self, index, weight, grad, state):
+        from .. import random as _rnd
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = _clipped(self, grad, weight, wd, always_decay=True)
+        noise = torch.empty_like(weight).normal_(
+            0.0, math.sqrt(lr), generator=_rnd.generator(weight.device))
+        weight.data = weight - lr / 2 * g + noise
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD; as in the reference, its warm-up and LARS
+    heuristics reduce to momentum SGD."""
+
+
+@register
+class Test(Optimizer):
+    """The trivial test optimizer: ``w += rescale_grad * g``, its state
+    the new weight."""
+
+    def create_state(self, index, weight):
+        return torch.zeros(weight.shape, device=weight.device)
+
+    def update(self, index, weight, grad, state):
+        weight.data = weight + grad * self.rescale_grad
+        state.data = weight.detach()
+
+
+# ``ccSGD`` was an alias of SGD by the reference's v1.x
+ccSGD = register(SGD, "ccSGD")
 
 
 class Updater:

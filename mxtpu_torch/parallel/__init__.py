@@ -9,6 +9,23 @@ step's ``lr`` and ``wd``.  The JAX package compiles that into one XLA
 program; here it runs eagerly, the kernels' autograd Functions supplying
 the backward of attention and the norms.
 
+The update is bucketed, as the JAX package's is by default
+(``MXTPU_BATCHED_OPT``, ``mxtpu/parallel/__init__.py:636-686``): the
+trainable parameters are grouped by (shape, dtype) in parameter order,
+and each bucket of more than one goes through the rule once, stacked
+on a new axis 0, with lr/wd as Python floats where the bucket's
+parameters share them and as ``(n, 1, ..., 1)`` f32 tensors where they
+do not.  A bucket's weights and optimizer state live in one contiguous
+``(n,) + shape`` tensor each, the parameters being views of it, so a
+step stacks only the gradients and the update writes the weights and
+the state **in place** (a second copy of BERT-Large's adam state would
+cost 2.7 GB).  A parameter rebound after the step was built (``p.data
+= ...``) is found by its data pointer before the next update and its
+bucket re-packed from the live parameters.  ``MXTPU_BATCHED_OPT=0``
+updates one parameter at a time, also in place; the rules are
+elementwise, so the two paths agree bit for bit (LAMB's trust-ratio
+norms, reduced per slice, to rounding).
+
 Mixed precision (``compute_dtype``): the f32 master parameters are cast
 to ``compute_dtype`` for the forward (``torch.func.functional_call``
 substitutes the casts for the module's parameters), so the GEMMs and
@@ -21,29 +38,39 @@ parameters f32.  The loss leaves the bf16 region in f32.
 ``cast_batch=False`` keeps it in its own type (float token ids above
 256 are not exact in bf16).  Labels are never cast.
 
+:meth:`TrainStep.run_steps` runs several steps in one call with the
+JAX package's semantics (``mxtpu/parallel/__init__.py:1148-1300``): lr
+and wd are sampled once a call, after the step count has advanced by
+the call's steps.  The JAX package scans them in one program; here they
+are a Python loop (a captured CUDA graph is later work).
+:meth:`save_states` / :meth:`load_states` write and read the JAX
+package's checkpoint of the optimizer state, per parameter.
+
 A call runs inside two ``torch.profiler.record_function`` ranges,
 ``forward_backward`` and ``update``, so a profile of one call splits
-the step without reaching into the class.
+the step without reaching into the class; ``run_steps`` adds one
+``run_steps`` range around its loop.
 
 Not ported, and refused with ``NotImplementedError`` rather than
 ignored: a device mesh (``mesh``), tensor parallelism
-(``param_spec_fn``), ZeRO-1 (``zero``), policy AMP (``amp``), the
-persistent executable cache (``cache``), bulked steps (``run_steps``)
-and the batched (bucket-stacked) update; the update is per parameter,
-the JAX package's ``MXTPU_BATCHED_OPT=0`` path.
+(``param_spec_fn``), ZeRO-1 (``zero``), policy AMP (``amp``) and the
+persistent executable cache (``cache``).
 """
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import knobs
 from ..base import MXNetError
 from ..context import resolve_device
 from ..optimizer import optimizer as opt_mod
-from ..optimizer.functional import adam_bias_correction, opt_rule
+from ..optimizer.functional import (_needs_master, adam_bias_correction,
+                                    opt_rule)
 
 __all__ = ["TrainStep", "build_train_step"]
 
@@ -99,9 +126,92 @@ class TrainStep:
         self.param_names = [n for n, _ in named]
         self._params = [p for _, p in named]
         self._opt_init, self._opt_update = opt_rule(optimizer)
+        self._no_master = optimizer.multi_precision is False
+        # buckets: lists of indices into _params, by (shape, dtype) in
+        # order of first appearance, or one a parameter
+        by_sig: Dict[Tuple, List[int]] = {}
+        for j, p in enumerate(self._params):
+            key = (tuple(p.shape), p.dtype) \
+                if knobs.get("MXTPU_BATCHED_OPT") else j
+            by_sig.setdefault(key, []).append(j)
+        self._groups = list(by_sig.values())
+        # per bucket: its stacked weights (None for a bucket of one) and
+        # its state, stacked like them; per parameter: where its data
+        # must lie
+        self._stacks: List[Optional[torch.Tensor]] = []
+        self._ptrs: List[int] = [0] * len(self._params)
         with torch.no_grad():
-            self._opt_state = [self._opt_init(p.detach())
-                               for p in self._params]
+            for group in self._groups:
+                self._stacks.append(self._pack(group)
+                                    if len(group) > 1 else None)
+            self._opt_state = [
+                self._opt_init(self._params[g[0]].detach()
+                               if w is None else w, stacked=w is not None)
+                for g, w in zip(self._groups, self._stacks)]
+
+    # -- buckets ---------------------------------------------------------
+    def _pack(self, group: List[int]) -> torch.Tensor:
+        """Stack the live parameters of ``group`` into one contiguous
+        tensor and rebind each parameter to its slice."""
+        w = torch.stack([self._params[j].detach() for j in group])
+        for a, j in enumerate(group):
+            self._params[j].data = w[a]
+            self._ptrs[j] = self._params[j].data_ptr()
+        return w
+
+    def _repack_stale(self) -> None:
+        """Re-pack every bucket a parameter of which no longer lies in
+        its stack (the caller rebound ``p.data``), so the update never
+        writes a stale copy."""
+        for k, (group, w) in enumerate(zip(self._groups, self._stacks)):
+            if w is None or all(self._params[j].data_ptr() == self._ptrs[j]
+                                for j in group):
+                continue
+            for j in group:
+                p = self._params[j]
+                if p.shape != w.shape[1:] or p.dtype != w.dtype:
+                    raise MXNetError(
+                        f"TrainStep: parameter {self.param_names[j]} is "
+                        f"now {tuple(p.shape)} {p.dtype}; it was "
+                        f"{tuple(w.shape[1:])} {w.dtype} when the step "
+                        f"was built")
+            self._stacks[k] = self._pack(group)
+
+    def _per_slice(self, vals: List[float], w: torch.Tensor):
+        """A bucket's lr or wd: a Python float where its parameters
+        share it, else an ``(n, 1, ..., 1)`` f32 tensor."""
+        if all(v == vals[0] for v in vals):
+            return vals[0]
+        return torch.tensor(vals, dtype=torch.float32, device=w.device
+                            ).reshape((-1,) + (1,) * (w.ndim - 1))
+
+    def _apply(self, grads: List[torch.Tensor], lrs: List[float],
+               wds: List[float]) -> None:
+        """One in-place update of every bucket with the given per-
+        parameter lr/wd."""
+        self._repack_stale()
+        for k, (group, w) in enumerate(zip(self._groups, self._stacks)):
+            st = self._opt_state[k]
+            if w is None:
+                j = group[0]
+                _, self._opt_state[k] = self._opt_update(
+                    self._params[j].detach(), grads[j], st, lrs[j],
+                    wds[j], inplace=True)
+                continue
+            g = torch.stack([grads[j] for j in group])
+            lr = self._per_slice([lrs[j] for j in group], w)
+            wd = self._per_slice([wds[j] for j in group], w)
+            if self._no_master and _needs_master(w) and \
+                    (isinstance(lr, torch.Tensor) or
+                     isinstance(wd, torch.Tensor)):
+                # a sub-f32 weight without a master: an f32 lr tensor
+                # would promote the update to f32, so slice by slice
+                for a, j in enumerate(group):
+                    self._opt_update(w[a], g[a], tuple(s[a] for s in st),
+                                     lrs[j], wds[j], inplace=True)
+                continue
+            _, self._opt_state[k] = self._opt_update(
+                w, g, st, lr, wd, stacked=True, inplace=True)
 
     # -- one step ------------------------------------------------------
     def _batch(self, a, cast: bool) -> torch.Tensor:
@@ -154,25 +264,115 @@ class TrainStep:
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor]) -> None:
         """The second half of a step: one optimizer update of every
-        trainable parameter, each rebound to the rule's new value, as
-        the JAX step rebinds its buffers."""
+        trainable parameter, written in place."""
         with torch.profiler.record_function("update"):
             self._t += 1
-            lrs, wds = self._lrs_wds()
-            for j, (p, g) in enumerate(zip(self._params, grads)):
-                w2, self._opt_state[j] = self._opt_update(
-                    p.detach(), g, self._opt_state[j], lrs[j], wds[j])
-                p.data = w2
+            self._apply(grads, *self._lrs_wds())
 
     def __call__(self, x, y) -> torch.Tensor:
         loss, grads = self.forward_backward(x, y)
         self.update(grads)
         return loss
 
-    # -- not ported / introspection -------------------------------------
-    def run_steps(self, x, y, steps: int, reuse_batch: bool = False):
-        _refuse("run_steps (bulked steps in one program)")
+    # -- bulked steps -----------------------------------------------------
+    def run_steps(self, x, y, steps: int, reuse_batch: bool = False
+                  ) -> torch.Tensor:
+        """``steps`` optimizer steps in one call, with the JAX package's
+        semantics: ``x``/``y`` hold ``steps`` microbatches stacked on
+        the batch axis (leading dim ``steps * B``) or, with
+        ``reuse_batch=True``, one batch stepped ``steps`` times.  The
+        step count advances by ``steps`` first and lr/wd are sampled
+        once for the call, so every step of it takes the last step's
+        lr (Adam's bias correction and a scheduler's value included).
+        Each step draws fresh dropout words and advances BatchNorm's
+        running statistics.  Returns the ``(steps,)`` f32 losses on the
+        device; nothing is read back to the host inside the loop."""
+        if steps <= 0:
+            raise MXNetError("run_steps needs steps >= 1")
+        with torch.profiler.record_function("run_steps"):
+            xs = self._batch(x, self.cast_batch)
+            ys = self._batch(y, False)
+            if not reuse_batch:
+                if xs.shape[0] % steps:
+                    raise MXNetError(
+                        f"leading dim {xs.shape[0]} not divisible into "
+                        f"{steps} microbatches")
+                xs = xs.reshape((steps, -1) + xs.shape[1:])
+                if ys.ndim:
+                    ys = ys.reshape((steps, -1) + ys.shape[1:])
+            self._t += steps
+            lrs, wds = self._lrs_wds()
+            losses = []
+            for i in range(steps):
+                xb, yb = (xs, ys) if reuse_batch else \
+                    (xs[i], ys[i] if ys.ndim else ys)
+                loss, grads = self.forward_backward(xb, yb)
+                with torch.no_grad(), \
+                        torch.profiler.record_function("update"):
+                    self._apply(grads, lrs, wds)
+                # free the gradients before the next forward, as a
+                # step's return does
+                del grads
+                losses.append(loss)
+            return torch.stack(losses)
 
+    # -- checkpoints ------------------------------------------------------
+    def _canonical_state(self) -> List[Tuple[torch.Tensor, ...]]:
+        """The optimizer state per parameter, in ``param_names`` order
+        (a stacked bucket's leaves sliced; LAMB's ``t`` a scalar per
+        parameter): the JAX package's canonical layout."""
+        per_param: List[Tuple[torch.Tensor, ...]] = [()] * len(self._params)
+        for group, w, st in zip(self._groups, self._stacks,
+                                self._opt_state):
+            for a, j in enumerate(group):
+                per_param[j] = tuple(st) if w is None else \
+                    tuple(leaf[a] for leaf in st)
+        return per_param
+
+    def save_states(self, fname: str) -> None:
+        """Write the step count and the optimizer state, per parameter,
+        as the JAX package's ``save_states`` does: a pickle of
+        ``{"t": int, "opt_state": tuple of tuples of numpy arrays}``
+        (bf16 leaves as f32: numpy has no bf16).  Either update path,
+        and either package, loads it."""
+        def host(t):
+            t = t.detach()
+            return (t.float() if _needs_master(t) else t).cpu().numpy()
+        blob = {"t": self._t, "opt_state": tuple(
+            tuple(host(leaf) for leaf in st)
+            for st in self._canonical_state())}
+        with open(fname, "wb") as f:
+            pickle.dump(blob, f)
+
+    @torch.no_grad()
+    def load_states(self, fname: str) -> None:
+        """Restore a :meth:`save_states` file (of this package or the
+        JAX package's): the step count, so bias correction and
+        schedules resume where they stopped, and every state leaf,
+        copied into this step's buckets in their own types."""
+        with open(fname, "rb") as f:
+            data = pickle.load(f)  # a checkpoint of the caller's own
+        loaded = data["opt_state"]
+        cur = self._canonical_state()
+        if len(loaded) != len(cur):
+            raise MXNetError(f"optimizer state structure mismatch: "
+                             f"{len(loaded)} parameters, this step has "
+                             f"{len(cur)}")
+        for n, a, b in zip(self.param_names, loaded, cur):
+            got = [tuple(np.shape(x)) for x in a]
+            if got != [tuple(y.shape) for y in b]:
+                raise MXNetError(
+                    f"optimizer state structure mismatch at {n}: leaves "
+                    f"{got}, this step's {[tuple(y.shape) for y in b]}")
+        for a, b in zip(loaded, cur):
+            for x, y in zip(a, b):
+                x = np.asarray(x)
+                if x.dtype.name == "bfloat16":   # the JAX package's bf16
+                    x = x.astype(np.float32)
+                y.copy_(torch.as_tensor(x))
+        self._t = int(data["t"])
+
+    # -- introspection ----------------------------------------------------
     def memory_summary(self) -> Dict[str, Any]:
         """Peak device memory since the last reset
         (``torch.cuda.max_memory_allocated``), with the bytes of the

@@ -166,8 +166,7 @@ def test_unported_options_raise(option):
     # the optimizers have no symbol, no row-sparse gradients and no
     # eager parameter table
     *[(n, o) for n in ("adam", "sgd")
-      for o in ("sym", "param_dict", "param_idx2name", "begin_num_update",
-                "lazy_update")]])
+      for o in ("sym", "param_dict", "param_idx2name", "lazy_update")]])
 def test_options_without_effect_are_refused(target, option):
     with pytest.raises(TypeError, match=option):
         if target == "step":
@@ -177,13 +176,55 @@ def test_options_without_effect_are_refused(target, option):
             create(target, **{option: None})
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("adam", {"learning_rate": 0.01}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9})])
+def test_begin_num_update_matches_mxtpu(name, kw):
+    """``begin_num_update`` is where each parameter's update count
+    starts: adam's bias correction at t = 101, 102, 103, and a
+    MultiFactorScheduler past its first milestone for both, against
+    mxtpu's eager updates at 1e-6."""
+    from mxtpu.optimizer.lr_scheduler import MultiFactorScheduler as JMF
+    from mxtpu_torch.optimizer.lr_scheduler import MultiFactorScheduler
+    rng = np.random.RandomState(9)
+    w = rng.randn(4, 6).astype(np.float32)
+    grads = [rng.randn(4, 6).astype(np.float32) for _ in range(3)]
+    jo = jopt.create(name, begin_num_update=100,
+                     lr_scheduler=JMF([50, 102], factor=0.5), **kw)
+    to = create(name, begin_num_update=100,
+                lr_scheduler=MultiFactorScheduler([50, 102], factor=0.5),
+                **kw)
+    jw, tw = nd.array(w), torch.from_numpy(w.copy())
+    js, ts = jo.create_state(0, jw), to.create_state(0, tw)
+    for g in grads:
+        jo.update(0, jw, nd.array(g), js)
+        to.update(0, tw, torch.from_numpy(g), ts)
+        assert to.num_update == jo.num_update
+    assert to.num_update == 103
+    np.testing.assert_allclose(tw.numpy(), jw.asnumpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
 def test_run_steps_and_the_stacked_update_raise():
+    """``run_steps`` raises on the arguments mxtpu's refuses; the
+    stacked update, once refused, runs and equals the per-parameter
+    one."""
     step = build_train_step(_torch_bert(), _tmlm, "adam", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        step.run_steps(_tokens(0), _tokens(0), 2)
-    init, _ = functional.opt_rule(step.optimizer)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init(torch.zeros(2, 3), stacked=True)
+    for steps in (0, -1):
+        with pytest.raises(MXNetError, match="steps >= 1"):
+            step.run_steps(_tokens(0), _tokens(0), steps)
+    with pytest.raises(MXNetError, match="not divisible into 2"):
+        step.run_steps(_tokens(0, b=3), _tokens(0, b=3), 2)
+    assert step._t == 0
+    init, update = functional.opt_rule(step.optimizer)
+    w = torch.randn(2, 3)
+    g = torch.randn(2, 3)
+    st = init(w, stacked=True)
+    w2, (m, v) = update(w, g, st, 0.1, 0.0, stacked=True)
+    for a in range(2):
+        wa, (ma, va) = update(w[a], g[a], init(w[a]), 0.1, 0.0)
+        assert torch.equal(w2[a], wa) and torch.equal(m[a], ma) and \
+            torch.equal(v[a], va)
 
 
 # ------------------------------------------------------------ the pieces
@@ -235,8 +276,15 @@ def test_optimizer_registry_and_bias_correction():
         assert functional.adam_bias_correction(Adam(), t) == \
             jbc(jopt.Adam(), t)
     assert functional.adam_bias_correction(SGD(), 3) == 1.0
-    with pytest.raises(NotImplementedError, match="lr_scheduler"):
-        Adam(lr_scheduler=object())
+    # a scheduler takes the optimizer's lr as its base, and then owns it
+    from mxtpu_torch.optimizer.lr_scheduler import FactorScheduler
+    sched = FactorScheduler(step=10, factor=0.5, base_lr=1.0)
+    opt = Adam(learning_rate=0.02, lr_scheduler=sched)
+    assert sched.base_lr == 0.02 and opt.learning_rate == 0.02
+    opt.num_update = 25
+    assert opt.learning_rate == 0.005
+    with pytest.raises(MXNetError, match="lr_scheduler is set"):
+        opt.set_learning_rate(0.1)
 
 
 def test_multi_precision_rule_keeps_an_f32_master():

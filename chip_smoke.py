@@ -143,6 +143,23 @@ Phases, each fatal on failure:
      after an eager window on the same step), launches per step exact,
      one call profiled; and a LAMB BERT-Large bf16 run of 5 steps whose
      losses must be finite and fall;
+ 12b. mxtpu's Gluon loop through the port's public API
+     (``initialize``, ``hybridize()``, ``gluon.Trainer(net.collect_params
+     (), ...)``, ``autograd.record()``, ``loss.backward()``,
+     ``trainer.step(n)``): BERT-Large (b32 x T128, adam lr 1e-4,
+     SoftmaxCrossEntropyLoss on the MLM logits as bench_bert shapes
+     them, n = the 4096 tokens) in f32 with dropout 0.1 and cast to bf16
+     with ``multi_precision=True``, and ResNet-50 v1 NHWC (b64 x 224^2,
+     SGD momentum 0.9, lr 0.1, wd 1e-4, f32); after a warm-up step 3
+     counted steps, launches exactly 24/24/24/1/1/48/48 a BERT step and
+     53/53 channels-minor BatchNorm a ResNet step, the losses finite;
+     eager ms/step and one profiled step (device ms, the Trainer
+     update's host and device time) beside TrainStep's on the same
+     configuration; the weights ``save_parameters`` wrote, loaded into a
+     fresh ``bert_large()``, give the f32 logits bit for bit; and one
+     Gluon step against one ``MXTPU_BATCHED_OPT=0`` TrainStep step from
+     the same weights and batch (f32, dropout 0) on each model: equal
+     losses and every weight bit for bit (see ``gluon_gate``);
  13. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
      through ``params_from_mxtpu``) served to 4 client threads sending
      128 requests of lengths 16-128; every result checked, 0 requeues,
@@ -1968,6 +1985,29 @@ def mlm_loss(pred, y):
                                      y.reshape(-1))
 
 
+def fresh_names(make):
+    """``make()`` with the port's gluon name counters empty, so the
+    Blocks it builds carry the names a fresh process gives them (the
+    names ``mxtpu_params`` writes and ``params_from_mxtpu`` matches);
+    the process's counters come back afterwards."""
+    from mxtpu_torch.gluon import block
+    saved, block._NAME_COUNTERS = block._NAME_COUNTERS, {}
+    try:
+        return make()
+    finally:
+        block._NAME_COUNTERS = saved
+
+
+def settle(net, x1):
+    """Give a Block's deferred parameters their shapes: one
+    predict-mode forward of the one-sample batch ``x1``, without
+    grad."""
+    import torch
+    with torch.no_grad():
+        net(x1)
+    return net
+
+
 def train_check_phase(checks):
     """A 2-layer full-width BERT, f32, dropout 0: one forward and
     backward, then three adam steps, on the card and on the CPU; returns
@@ -1982,8 +2022,9 @@ def train_check_phase(checks):
         0, VOCAB, (CHECK_B, T)).astype(np.float32)
 
     def step_on(device):
-        net = BERTModel(VOCAB, UNITS, FFN, CHECK_LAYERS, HEADS,
-                        max_length=T, dropout=0.0)
+        net = fresh_names(lambda: BERTModel(
+            VOCAB, UNITS, FFN, CHECK_LAYERS, HEADS, max_length=T,
+            dropout=0.0))
         params_from_mxtpu(params, net)
         return build_train_step(net, mlm_loss, "adam",
                                 {"learning_rate": 1e-4}, cast_batch=False,
@@ -2122,16 +2163,18 @@ def check_launches(checks, tag, counts, per_step, n_steps):
 
 def seeded_bert_step(compute_dtype="bfloat16", optimizer="adam",
                      params=None):
-    """BERT-Large and its train step from fixed seeds: the weights, and
-    the dropout streams of ``mxtpu_torch.random``."""
+    """BERT-Large and its train step from fixed seeds: xavier weights
+    (``bench_bert``'s init) and the dropout streams, both from
+    ``mxtpu_torch.random``; the deferred shapes settled before the step
+    is built, so it reads ``MXTPU_BATCHED_OPT`` then."""
     import torch
     from mxtpu_torch import random as trandom
     from mxtpu_torch.models import bert_large
     from mxtpu_torch.parallel import build_train_step
-    torch.manual_seed(SEED)
     trandom.seed(SEED)
-    with torch.device(CARD):
-        net = bert_large(vocab_size=VOCAB, max_length=T, dropout=0.1)
+    net = bert_large(vocab_size=VOCAB, max_length=T, dropout=0.1)
+    net.initialize(init="xavier", ctx=CARD)
+    settle(net, torch.zeros(1, T, device=CARD))
     return build_train_step(net, mlm_loss, optimizer,
                             params or {"learning_rate": 1e-4},
                             compute_dtype=compute_dtype, cast_batch=False,
@@ -2304,10 +2347,10 @@ def bias_noise_probe(net, sums, side):
                                   g.detach().double().abs().sum(dims).cpu())
         out.register_hook(grad_hook)
 
-    for name, mod in net.named_modules():
+    for mod in net.modules():
         if isinstance(mod, Conv2D) and mod.bias is not None:
             mod.register_forward_hook(
-                lambda m, i, o, name=f"{name}.bias": hook(m, i, o, name))
+                lambda m, i, o, name=mod.bias.name: hook(m, i, o, name))
 
 
 def resnet_check_phase(checks):
@@ -2327,10 +2370,20 @@ def resnet_check_phase(checks):
         x, y = rn_batch(layout, RN_CHECK_B, RN_CHECK_HW, SEED + 6)
 
         def net_on(device):
-            net = ResNetV1(BottleneckV1, RN_CHECK_LAYERS, RN_CHANNELS,
-                           classes=RN_CLASSES, layout=layout)
-            initializer.initialize(
-                net, generator=torch.Generator().manual_seed(SEED + 7))
+            # the same names on both sides (they key the bias probe's
+            # sums) and the same Xavier weights, drawn on the CPU from
+            # one torch generator in parameter order, as this check has
+            # always drawn them, then moved
+            net = fresh_names(lambda: ResNetV1(
+                BottleneckV1, RN_CHECK_LAYERS, RN_CHANNELS,
+                classes=RN_CLASSES, layout=layout))
+            net.initialize(ctx="cpu")
+            settle(net, torch.from_numpy(x[:1]))
+            gen = torch.Generator().manual_seed(SEED + 7)
+            xavier = initializer.Xavier()
+            with torch.no_grad():
+                for name, t in net.named_parameters():
+                    xavier.init_weight(name.rsplit(".", 1)[-1], t, gen)
             return net.to(device)
 
         def step_on(device):
@@ -2414,7 +2467,7 @@ def resnet_check_phase(checks):
 
 
 def model_counts(net, x1):
-    """From one eval-mode forward of ``net`` on the one-sample batch
+    """From one predict-mode forward of ``net`` on the one-sample batch
     ``x1`` (forward hooks on the port's own layers): the multiply-add
     FLOPs (2 per MAC) of its convolutions and dense layers, and the
     bytes the BatchNorm kernels must move per sample in bf16 — forward:
@@ -2425,8 +2478,8 @@ def model_counts(net, x1):
     c = {"flops": 0, "bn_fwd_bytes": 0, "bn_bwd_bytes": 0}
 
     def conv_hook(mod, inp, out):
-        w = mod.weight
-        k = w.numel() // w.shape[0]          # I/groups * kh * kw
+        w = mod.weight.shape
+        k = int(np.prod(w)) // w[0]          # I/groups * kh * kw
         c["flops"] += 2 * out.numel() * k
 
     def dense_hook(mod, inp, out):
@@ -2440,7 +2493,6 @@ def model_counts(net, x1):
                gnn.BatchNorm: bn_hook}
     hooks = [m.register_forward_hook(hook_of[type(m)])
              for m in net.modules() if type(m) in hook_of]
-    net.eval()
     with torch.no_grad():
         net(x1)
     for h in hooks:
@@ -2450,17 +2502,19 @@ def model_counts(net, x1):
 
 def resnet50_net(layout):
     """``bench_resnet50``'s model (NCHW) or the model zoo's channels-last
-    one, Xavier weights from torch seed ``SEED`` on the card."""
+    one, Xavier weights from ``mxtpu_torch.random`` seed ``SEED`` on the
+    card, the deferred shapes settled."""
     import torch
-    from mxtpu_torch import initializer
+    from mxtpu_torch import initializer, random as trandom
     from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxtpu_torch.models import resnet50
-    with torch.device(CARD):
-        net = resnet50(classes=RN_CLASSES) if layout == "NCHW" else \
-            resnet50_v1(classes=RN_CLASSES, layout=layout)
-    initializer.initialize(net, initializer.Xavier(),
-                           torch.Generator(device=CARD).manual_seed(SEED))
-    return net
+    trandom.seed(SEED)
+    net = resnet50(classes=RN_CLASSES) if layout == "NCHW" else \
+        resnet50_v1(classes=RN_CLASSES, layout=layout)
+    net.initialize(initializer.Xavier(), ctx=CARD)
+    shape = (1, 3, RN_HW, RN_HW) if layout == "NCHW" else \
+        (1, RN_HW, RN_HW, 3)
+    return settle(net, torch.zeros(shape, device=CARD))
 
 
 def resnet_train_phase(checks, layout):
@@ -2781,6 +2835,296 @@ def bulked_train_phase(checks, card):
     results["lamb_losses"] = lamb
     del step
     torch.cuda.empty_cache()
+    return counts, results
+
+
+# ----------------------------------------------------------------------
+# the Gluon loop: initialize, hybridize, Trainer, record, backward, step
+# ----------------------------------------------------------------------
+
+GLUON_STEPS = 3       # counted and timed steps, after one warm-up step
+GLUON_BERT_ADAM = {"learning_rate": 1e-4}
+GLUON_RN_B = 64
+RN_NHWC_LAUNCHES = RN_LAUNCHES["NHWC"]
+
+
+def gluon_bert_model(dropout):
+    """``bert_large`` at bench_bert's T, named as a fresh process names
+    it."""
+    from mxtpu_torch.models import bert_large
+    return fresh_names(lambda: bert_large(vocab_size=VOCAB, max_length=T,
+                                          dropout=dropout))
+
+
+def gluon_resnet_model():
+    from mxtpu_torch.gluon.model_zoo.vision import resnet50_v1
+    return fresh_names(lambda: resnet50_v1(classes=RN_CLASSES,
+                                           layout="NHWC"))
+
+
+def gluon_loop(net, make_loss, opt, kw, per_loss):
+    """mxtpu's Gluon loop on ``net`` (initialized): ``hybridize()``, a
+    ``gluon.Trainer`` over ``collect_params()``, and a step function
+    ``step(x, y)`` of NDArrays that records the forward and the loss,
+    runs ``loss.backward()`` and ``trainer.step(n)``, ``n`` the number
+    of entries of the loss vector (``per_loss`` of the batch); the
+    forward and backward run in a ``forward_backward`` profiler range,
+    the Trainer's update in its own ``update`` range."""
+    import torch
+    from mxtpu_torch import autograd, gluon
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), opt, dict(kw))
+    L = make_loss()
+
+    def step(x, y):
+        with torch.profiler.record_function("forward_backward"):
+            with autograd.record():
+                loss = L(*per_loss(net(x), y))
+            loss.backward()
+        t0 = time.perf_counter()
+        trainer.step(loss.shape[0])
+        # the host time of the Trainer's call (its launches; the device
+        # runs behind)
+        step.update_host_ms = (time.perf_counter() - t0) * 1e3
+        return loss
+    return trainer, step
+
+
+def bert_mlm(out, y):
+    # bench_bert's shapes: one loss entry a token
+    return out.reshape((-1, VOCAB)), y.reshape((-1,))
+
+
+def timed_steps(step, x, y, n):
+    """``n`` steps, synchronized at the end: (losses, ms a step)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(x, y) for _ in range(n)]
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) / n * 1e3
+
+
+def as_mean(loss):
+    """The f32 mean of a loss vector (an NDArray or a tensor), as
+    ``TrainStep`` reduces it."""
+    t = getattr(loss, "_data", loss)
+    return float(t.detach().float().mean())
+
+
+def gluon_cell(checks, tag, net, make_loss, opt, kw, per_loss, x, y,
+               launches, twin):
+    """One Gluon configuration: a warm-up step (it also fills the
+    deferred shapes), ``GLUON_STEPS`` counted and timed steps whose
+    launches must be exactly ``launches`` a step and whose losses must
+    be finite, one profiled step, and ``twin()``'s TrainStep on the
+    same configuration timed beside it in this process."""
+    import torch
+    from mxtpu_torch import kernels
+    t0 = time.perf_counter()
+    trainer, step = gluon_loop(net, make_loss, opt, kw, per_loss)
+    first = as_mean(step(x, y))
+    setup_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    losses, ms = timed_steps(step, x, y, GLUON_STEPS)
+    update_host_ms = step.update_host_ms
+    counts = kernels.launch_counts()
+    losses = [first] + [as_mean(v) for v in losses]
+    check_launches(checks, tag, counts, launches, GLUON_STEPS)
+    if not np.isfinite(losses).all():
+        checks.failed.append(f"{tag}: losses not finite: {losses}")
+    n_params = len(trainer._params)
+    bd = profiled_step(checks, tag, step, x, y)
+    del trainer, step
+    torch.cuda.empty_cache()
+    tstep, tx, ty = twin()
+    tstep(tx, ty)
+    _, t_ms = timed_steps(tstep, tx, ty, GLUON_STEPS)
+    tbd = profiled_step(checks, f"{tag} TrainStep", tstep, tx, ty)
+    del tstep
+    torch.cuda.empty_cache()
+    upd = bd["ranges"]["update"]
+    print(f"{tag}: gluon loop {ms:.3f} ms/step eager (mean of "
+          f"{GLUON_STEPS}), device {bd['device_busy_ms']:.3f} ms a step, "
+          f"idle share {bd['device_idle_share'] or 0:.4f}; Trainer update "
+          f"of {n_params} parameters one at a time: host "
+          f"{upd['host_ms']:.3f} ms in the profiled step "
+          f"({update_host_ms:.3f} ms in the last timed one), device "
+          f"{upd['device_ms']:.3f} ms; TrainStep beside it: {t_ms:.3f} "
+          f"ms/step eager, device {tbd['device_busy_ms']:.3f} ms, update "
+          f"host {tbd['ranges']['update']['host_ms']:.3f} ms device "
+          f"{tbd['ranges']['update']['device_ms']:.3f} ms; losses "
+          f"{[round(v, 5) for v in losses]}; launches in {GLUON_STEPS} "
+          f"steps {json.dumps(counts)}; set-up and first step "
+          f"{setup_s:.1f} s", flush=True)
+    return counts, {"ms_per_step": ms, "device_ms": bd["device_busy_ms"],
+                    "idle_share": bd["device_idle_share"],
+                    "update_host_ms": upd["host_ms"],
+                    "update_host_ms_unprofiled": update_host_ms,
+                    "update_device_ms": upd["device_ms"],
+                    "params": n_params, "losses": losses,
+                    "breakdown": bd, "train_step_ms_per_step": t_ms,
+                    "train_step_device_ms": tbd["device_busy_ms"],
+                    "train_step_breakdown": tbd}
+
+
+def gluon_gate(checks, tag, make, init, opt, kw, per_loss, x, y):
+    """The Gluon step against ``TrainStep``: two nets with the same
+    weights (f32, dropout 0), one Gluon step on one, one
+    ``MXTPU_BATCHED_OPT=0`` TrainStep step on the other, on the same
+    batch.  The losses and every weight must be equal bit for bit.
+
+    Why, from the two paths' arithmetic: both compute the same f32 loss
+    from the same forward (the same kernels on the same inputs).  The
+    gradients differ by an exact power of two only, the sum-loss
+    gradient times rescale_grad = 1/n against the mean-loss gradient
+    (n = 4096 tokens or 64 images; scaling by 2^-k commutes with every
+    rounding of the linear backward), and the update ops get the same
+    f32 lr and wd.  Every backward on the path sums in a fixed order:
+    the port's kernels, cuBLAS, cuDNN made deterministic here, and the
+    embedding's backward (an accumulating index_put, which sorts its
+    indices on the card).  So no slack is reasoned from rounding, and a
+    Trainer step that leaves the weights unchanged (apart by lr under
+    adam), flips the gradient's sign or misses a multiplier fails."""
+    import torch
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxtpu_torch.parallel import build_train_step
+    trandom.seed(SEED + 12)
+    a = make()
+    a.initialize(init, ctx=CARD)
+    settle(a, x[:1]._data)
+    b = make()
+    for pa, pb in zip(a.collect_params().values(),
+                      b.collect_params().values()):
+        pb.set_data(pa.data())
+    _, gstep = gluon_loop(a, SoftmaxCrossEntropyLoss, opt, kw, per_loss)
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(pred, yy):
+        return ce(*per_loss(pred, yy))
+    with deterministic_cudnn():
+        gl = as_mean(gstep(x, y))
+        tstep = build_twin(lambda: build_train_step(
+            b, loss_fn, opt, dict(kw), cast_batch=False, device=CARD),
+            False)
+        tl = float(tstep(x._data, y._data))
+    worst, n_diff, n_all, ok = 0.0, 0, 0, gl == tl
+    for (n, pa), pb in zip(a.collect_params().items(),
+                           b.collect_params().values()):
+        wa, wb = pa.data()._data.detach(), pb.data()._data.detach()
+        d = (wa.double() - wb.double()).abs()
+        worst = max(worst, float(d.max()))
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+        if wa.dtype != wb.dtype or not torch.equal(wa, wb):
+            ok = False
+            checks.failed.append(f"{tag}: {n} off its TrainStep twin by "
+                                 f"up to {float(d.max()):.3e} (must be "
+                                 f"bit for bit)")
+    if gl != tl:
+        checks.failed.append(f"{tag}: Gluon loss {gl!r} != TrainStep's "
+                             f"{tl!r}")
+    print(f"check {tag}: Gluon step vs TrainStep (f32, dropout 0, "
+          f"per-parameter update): loss {gl!r} vs {tl!r}; weights: "
+          f"{n_diff} of {n_all} elements differ (must be 0), by up to "
+          f"{worst:.3e} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    del a, b, gstep, tstep
+    torch.cuda.empty_cache()
+    return {"loss_gluon": gl, "loss_train_step": tl,
+            "elements_differing": n_diff, "elements": n_all,
+            "worst_abs_diff": worst, "ok": ok}
+
+
+def gluon_train_phase(checks, card):
+    """mxtpu's Gluon loop through the port's public API at full width:
+    BERT-Large (b32 x T128, adam lr 1e-4, the MLM loss shaped as
+    bench_bert shapes it) in f32 with dropout 0.1 and cast to bf16 with
+    ``multi_precision=True``, and ResNet-50 v1 NHWC (b64 x 224^2, SGD
+    momentum 0.9, lr 0.1, wd 1e-4, f32), each with its launch gate,
+    ms/step beside TrainStep's and the Trainer update's host and device
+    time; the Gluon step against TrainStep on each model; and the
+    weights ``save_parameters`` wrote, loaded into a fresh
+    ``bert_large()``, giving the f32 net's logits bit for bit."""
+    import torch
+    from mxtpu_torch import initializer, nd, random as trandom
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxtpu_torch.parallel import build_train_step
+    counts, results = {}, {}
+    toks = bert_tokens()
+    x, y = nd.NDArray(toks), nd.NDArray(toks)
+
+    def bert_twin(compute_dtype):
+        def twin():
+            return seeded_bert_step(compute_dtype), toks, toks
+        return twin
+
+    for prec in ("float32", "bfloat16"):
+        tag = f"gluon BERT-Large {prec}"
+        trandom.seed(SEED + 10)
+        net = gluon_bert_model(0.1)
+        net.initialize(init="xavier", ctx=CARD)
+        kw = dict(GLUON_BERT_ADAM)
+        if prec == "bfloat16":
+            settle(net, toks[:1])
+            net.cast("bfloat16")
+            kw["multi_precision"] = True
+        counts[tag], results[tag] = gluon_cell(
+            checks, tag, net, SoftmaxCrossEntropyLoss, "adam", kw,
+            bert_mlm, x, y, BERT_LAUNCHES,
+            bert_twin(None if prec == "float32" else "bfloat16"))
+        if prec == "float32":
+            out_dir = ROOT / "mxtpu_torch" / "_build"
+            out_dir.mkdir(exist_ok=True)
+            path = str(out_dir / "gluon_bert.params")
+            t0 = time.perf_counter()
+            net.save_parameters(path)
+            fresh = gluon_bert_model(0.1)
+            fresh.load_parameters(path, ctx=CARD)
+            os.remove(path)
+            with torch.no_grad():
+                same = torch.equal(net(toks), fresh(toks))
+            print(f"check {tag}: save_parameters -> a fresh bert_large()'s "
+                  f"load_parameters gives the logits bit for bit: "
+                  f"{'ok' if same else 'FAIL'} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            if not same:
+                checks.failed.append(f"{tag}: reloaded weights give other "
+                                     f"logits")
+            results[tag]["reload_bit_equal"] = same
+            del fresh
+        del net
+        torch.cuda.empty_cache()
+
+    xn, yn = rn_batch("NHWC", GLUON_RN_B, RN_HW, SEED + 13)
+    rx, ry = torch.from_numpy(xn).to(CARD), torch.from_numpy(yn).to(CARD)
+
+    def rn_twin():
+        trandom.seed(SEED + 10)
+        net = gluon_resnet_model()
+        net.initialize(initializer.Xavier(), ctx=CARD)
+        settle(net, rx[:1])
+        return build_train_step(net, rn_loss(), "sgd", RN_SGD,
+                                device=CARD), rx, ry
+    tag = "gluon resnet50 NHWC float32"
+    trandom.seed(SEED + 10)
+    net = gluon_resnet_model()
+    net.initialize(initializer.Xavier(), ctx=CARD)
+    counts[tag], results[tag] = gluon_cell(
+        checks, tag, net, SoftmaxCrossEntropyLoss, "sgd", RN_SGD,
+        lambda o, l: (o, l), nd.NDArray(rx), nd.NDArray(ry),
+        RN_NHWC_LAUNCHES, rn_twin)
+    del net
+    torch.cuda.empty_cache()
+
+    results["gate bert"] = gluon_gate(
+        checks, "gluon gate BERT-Large", lambda: gluon_bert_model(0.0),
+        "xavier", "adam", GLUON_BERT_ADAM, bert_mlm, x, y)
+    results["gate resnet"] = gluon_gate(
+        checks, "gluon gate resnet50 NHWC", gluon_resnet_model,
+        initializer.Xavier(), "sgd", RN_SGD, lambda o, l: (o, l),
+        nd.NDArray(rx), nd.NDArray(ry))
     return counts, results
 
 
@@ -3844,7 +4188,7 @@ def serve_phase(checks, params):
     from mxtpu_torch.serving import InferenceServer, ModelRunner
 
     t0 = time.perf_counter()
-    runner = ModelRunner(bert_large(), params,
+    runner = ModelRunner(fresh_names(bert_large), params,
                          input_specs={"data": (None,)},
                          seq_buckets=[64, 128], max_batch_size=32)
     load_s = time.perf_counter() - t0
@@ -3942,7 +4286,7 @@ def serve_phase(checks, params):
     breakdown = forward_breakdown(runner)
 
     # the same model and weights on the CPU, plain path
-    cpu_runner = ModelRunner(bert_large(), params,
+    cpu_runner = ModelRunner(fresh_names(bert_large), params,
                              input_specs={"data": (None,)},
                              seq_buckets=[128], max_batch_size=8,
                              device="cpu")
@@ -4061,6 +4405,7 @@ def main():
         rn_counts[layout], resnet[layout] = resnet_train_phase(checks,
                                                                layout)
     bulk_counts, bulked = bulked_train_phase(checks, card)
+    gluon_counts, gluon = gluon_train_phase(checks, card)
     rtc_timings, rtc_info = rtc_phase(checks)
     symbolic_check_phase(checks)
     sym_counts, sym_rtc, symbolic = symbolic_train_phase(checks)
@@ -4071,7 +4416,8 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve_counts, serving = serve_phase(checks, params)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
-              sym_counts[k] + sum(c[k] for c in rn_counts.values())
+              sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
+              sum(c[k] for c in gluon_counts.values())
               for k in train_counts}
 
     # BERT's flash forward, dq and dk/dv in both types, every one on the
@@ -4183,13 +4529,14 @@ def main():
                               for k, c in rn_counts.items()},
                            "bulked BERT-Large bf16": bulk_counts["bert"],
                            "bulked resnet50 NHWC": bulk_counts["resnet"],
+                           **gluon_counts,
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,
                            **{f"tool {k}": c
                               for k, c in tool_counts.items()}},
               "tools": tool_tables,
               "training": training, "training_f32": training_f32,
-              "resnet50": resnet, "bulked": bulked,
+              "resnet50": resnet, "bulked": bulked, "gluon": gluon,
               "serving": serving, "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

@@ -17,6 +17,7 @@ from .context import cpu, gpu  # noqa: F401
 from . import ndarray, autograd, symbol, executor  # noqa: F401
 from . import initializer, optimizer, io, metric, callback  # noqa: F401
 from . import model, module, operator, rtc  # noqa: F401
+from . import gluon  # noqa: F401
 
 nd = ndarray
 sym = symbol

@@ -37,6 +37,9 @@ _STATE = _State()
 # by id (NDArray is unhashable, like the reference's)
 _LEAVES: Dict[int, "weakref.ref"] = {}  # guarded-by: _LEAVES_LOCK
 _LEAVES_LOCK = threading.Lock()
+# one count per :func:`backward`: a gluon Parameter with grad_req
+# "write" clears its gradient the first time a backward reaches it
+_BACKWARD_GEN = [0]
 
 
 def is_recording() -> bool:
@@ -149,6 +152,7 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     ``MXAutogradBackwardEx``†)."""
     from .ndarray.ndarray import NDArray
     outs, grads = _heads(heads, head_grads)
+    _BACKWARD_GEN[0] += 1
     with _Scope(None, train_mode):
         torch.autograd.backward(outs, grads, retain_graph=retain_graph)
     with _LEAVES_LOCK:

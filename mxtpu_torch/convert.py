@@ -1,16 +1,19 @@
 """Carry weights between ``mxtpu`` and an ``mxtpu_torch`` model.
 
-``mxtpu`` gluon parameter names carry per-process counters
-(``dense0_weight``, ``fusedresiduallayernorm3_gamma``…), so names say
-nothing about which module a weight belongs to.  Weights are matched by
-order instead: ``mxtpu``'s ``collect_params()`` order (which is also
-the order of an exported ``.params`` file) against the model's own
-order: each module's parameters, then its buffers (BatchNorm's
-``running_mean`` and ``running_var``, mxtpu's aux parameters), module
-by module in registration order — for a model without buffers, its
-``parameters()`` order.  Every shape is checked.  ``Dense`` weights
-are (out, in) on both sides and convolution weights keep the
-reference's layout, so nothing is transposed.
+A gluon Block of the port carries mxtpu's parameter names
+(``bertmodel0_pos_embed``, ``dense0_weight``, ...), so its weights are
+matched by name: a name missing on either side raises, and so does a
+shape that differs.  A name holds only where both packages built the
+same blocks in the same order (the counters are per process, as in
+mxtpu): a fresh process, or counters set alike.
+
+Any other ``nn.Module`` is matched by order: ``mxtpu``'s
+``collect_params()`` order (which is also the order of an exported
+``.params`` file) against the model's own order, each module's
+parameters, then its buffers, module by module in registration order.
+
+``Dense`` weights are (out, in) on both sides and convolution weights
+keep the reference's layout, so nothing is transposed.
 
 Symbolic models name their arrays in the graph, the same names in both
 packages, so :func:`symbol_params_from_mxtpu` and
@@ -37,10 +40,19 @@ __all__ = ["params_from_mxtpu", "params_to_mxtpu", "named_tensors",
            "symbol_params_from_mxtpu", "symbol_params_to_mxtpu"]
 
 
+def _block_params(model):
+    from .gluon.block import Block
+    return model.collect_params() if isinstance(model, Block) else None
+
+
 def named_tensors(model: nn.Module) -> List[Tuple[str, torch.Tensor]]:
     """``model``'s parameters and buffers in ``collect_params()`` order:
-    module by module, each module's own parameters, then its own
-    buffers; a tensor shared by two modules counts once."""
+    a Block's by mxtpu's names; another module's module by module, each
+    module's own parameters, then its own buffers; a tensor shared by
+    two modules counts once."""
+    gparams = _block_params(model)
+    if gparams is not None:
+        return [(n, p._checked()) for n, p in gparams.items()]
     out, seen = [], set()
     for mname, mod in model.named_modules():
         for name, t in [*mod.named_parameters(recurse=False),
@@ -53,9 +65,32 @@ def named_tensors(model: nn.Module) -> List[Tuple[str, torch.Tensor]]:
 
 def params_from_mxtpu(params: Dict[str, np.ndarray],
                       model: nn.Module) -> nn.Module:
-    """Copy ``params`` (name → array in ``collect_params()`` order) into
-    ``model``'s parameters and buffers in place; raises on a count or
-    shape mismatch.  Returns the model."""
+    """Copy ``params`` (name → array) into ``model``: a Block's
+    parameters by name (one not initialized yet takes the array's
+    shape), another module's parameters and buffers by
+    ``collect_params()`` order.  Raises on a missing or extra name, a
+    count or a shape mismatch.  Returns the model."""
+    gparams = _block_params(model)
+    if gparams is not None:
+        missing = [n for n in gparams.keys() if n not in params]
+        extra = [n for n in params if n not in gparams]
+        if missing or extra:
+            raise MXNetError(
+                f"params_from_mxtpu: names differ: missing "
+                f"{missing[:5]}{'...' if len(missing) > 5 else ''}, extra "
+                f"{extra[:5]}{'...' if len(extra) > 5 else ''}")
+        for n, p in gparams.items():
+            a = np.asarray(params[n])
+            want = p._tensor().shape if p._tensor() is not None \
+                else p.shape
+            if want is not None and (len(want) != a.ndim or any(
+                    w not in (0, s) for w, s in zip(want, a.shape))):
+                raise MXNetError(
+                    f"params_from_mxtpu: {n} has shape {tuple(a.shape)} "
+                    f"but the model expects {tuple(want)}")
+        for n, p in gparams.items():
+            p.set_data(np.asarray(params[n]))
+        return model
     targets = named_tensors(model)
     if len(params) != len(targets):
         raise MXNetError(
@@ -81,8 +116,17 @@ def params_to_mxtpu(model: nn.Module,
                     ) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_mxtpu`: ``model``'s parameters
     and buffers as f32 numpy arrays in ``collect_params()`` order, keyed
-    by ``names`` (mxtpu's names, in that order) or else by the model's
-    own names."""
+    by the Block's names (``names``, when given, must be the same set
+    and give the order), or for another module by ``names`` (mxtpu's
+    names, in that order) or else the module's own."""
+    gparams = _block_params(model)
+    if gparams is not None:
+        order = list(gparams.keys()) if names is None else list(names)
+        if sorted(order) != sorted(gparams.keys()):
+            raise MXNetError("params_to_mxtpu: names differ from the "
+                             "model's")
+        return {n: gparams[n]._checked().detach().float().cpu().numpy()
+                for n in order}
     targets = named_tensors(model)
     if names is None:
         names = [n for n, _ in targets]

@@ -1,201 +1,404 @@
-"""The gluon layers BERT and ResNet need, as ``nn.Module``s.
+"""Gluon basic layers (the counterpart of
+``mxtpu/gluon/nn/basic_layers.py``): ``Sequential``,
+``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``,
+``InstanceNorm``, ``LayerNorm``, ``FusedResidualLayerNorm``,
+``Embedding``, ``Flatten``, ``Lambda`` and ``HybridLambda``.
 
-Counterparts of ``mxtpu/gluon/nn/basic_layers.py``: same constructor
-arguments where they matter, same parameter shapes and the same
-registration order (what ``convert.params_from_mxtpu`` relies on).
-Shapes are explicit here — no deferred initialization — so each layer
-takes its input width.  Training mode is the module's ``training``
-flag (the JAX package's ``autograd.record(train_mode=True)``): dropout
-draws from the device's generator in :mod:`mxtpu_torch.random`.
+Each layer has mxtpu's constructor and parameter names and one
+``hybrid_forward`` over the registry's ops, so the same code runs
+eagerly on tensors and builds the graph ``export`` writes.  A size left
+0 (``in_units``, ``in_channels``) is inferred at the first forward.
+LayerNorm, BatchNorm (in training mode) and the fused residual
+epilogue reach the port's kernels through their ops.  BatchNorm moves
+its running statistics as mxtpu does, ``running * momentum + batch *
+(1 - momentum)``, written in place after the call in training mode.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ... import random as _random
 from ...base import MXNetError
-from ...kernels import fused_bn_act, fused_residual_layer_norm, layer_norm
+from ... import autograd
+from ..block import Block, HybridBlock
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "BatchNorm",
-           "FusedResidualLayerNorm", "HybridSequential", "gelu"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "InstanceNorm", "LayerNorm",
+           "FusedResidualLayerNorm", "Embedding", "Flatten", "Lambda",
+           "HybridLambda", "gelu"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """gelu, tanh approximation (``ops_impl.py`` LeakyReLU
-    ``act_type="gelu"`` → ``jax.nn.gelu(approximate=True)``)."""
+    """gelu, tanh approximation (the ``LeakyReLU`` op's
+    ``act_type="gelu"``, ``jax.nn.gelu(approximate=True)``)."""
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-class Dense(nn.Module):
-    """Fully connected layer ``y = x @ W.T + b`` with ``W`` of shape
-    (units, in_units).  ``flatten=True`` (gluon's default) first
-    reshapes x to (batch, -1); ``flatten=False`` applies the layer to
-    the last axis."""
+class _Stack:
+    """``add``, ``len``, indexing and iteration over the children."""
 
-    def __init__(self, units: int, in_units: int, use_bias: bool = True,
-                 flatten: bool = True):
-        super().__init__()
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)(prefix=self._prefix)
+            for layer in layers[key]:
+                net.add(layer)
+            return net
+        return layers[key]
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class Sequential(_Stack, Block):
+    """Stacks Blocks sequentially (reference ``nn.Sequential``†)."""
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x, *args)
+            args = ()
+            if isinstance(x, (tuple, list)):
+                args = tuple(x[1:])
+                x = x[0]
+        if args:
+            return (x,) + args
+        return x
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Stacks HybridBlocks (reference ``nn.HybridSequential``†)."""
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x, *args)
+            args = ()
+        return x
+
+
+class Dense(HybridBlock):
+    """``act(x W^T + b)`` on the ``FullyConnected`` op, W (units,
+    in_units); ``flatten=True`` first reshapes x to (batch, -1)."""
+
+    def __init__(self, units, activation=None, use_bias=True,
+                 flatten=True, dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
+        self._units = units
         self._flatten = flatten
-        self.weight = nn.Parameter(torch.empty(units, in_units))
-        nn.init.normal_(self.weight, std=0.02)
-        self.bias = nn.Parameter(torch.zeros(units)) if use_bias else None
+        self._act = activation
+        self.weight = self.params.get(
+            "weight", shape=(units, in_units), dtype=dtype,
+            init=weight_initializer, allow_deferred_init=True)
+        if use_bias:
+            self.bias = self.params.get(
+                "bias", shape=(units,), dtype=dtype,
+                init=bias_initializer, allow_deferred_init=True)
+        else:
+            self.bias = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self._flatten:
-            x = x.reshape(x.shape[0], -1)
-        y = torch.matmul(x, self.weight.t())
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+    def _infer_params(self, x, *args):
+        if self.weight.shape and self.weight.shape[1] == 0:
+            in_units = 1
+            for s in x.shape[1:]:
+                in_units *= int(s)
+            self.weight.shape = (self._units, in_units if self._flatten
+                                 else int(x.shape[-1]))
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        if bias is None:
+            out = F.FullyConnected(x, weight, no_bias=True,
+                                   num_hidden=self._units,
+                                   flatten=self._flatten)
+        else:
+            out = F.FullyConnected(x, weight, bias,
+                                   num_hidden=self._units,
+                                   flatten=self._flatten)
+        if self._act is not None:
+            out = F.Activation(out, act_type=self._act)
+        return out
+
+    def __repr__(self):
+        shape = self.weight.shape
+        return (f"Dense({shape[1] if shape and len(shape) > 1 else None} "
+                f"-> {self._units}, "
+                f"{'linear' if self._act is None else self._act})")
 
 
-class Dropout(nn.Module):
-    """Dropout: in training mode each element is kept with probability
-    ``1 - rate`` and scaled by ``1 / (1 - rate)`` (``ops_impl.py``
-    ``_dropout``), the mask drawn from ``random.generator(x.device)``;
-    the identity in eval mode."""
+class Dropout(HybridBlock):
+    """Dropout (reference ``nn.Dropout``†), on only in training mode
+    (``autograd.record()`` / ``autograd.train_mode()``)."""
 
-    def __init__(self, rate: float):
-        super().__init__()
-        self._rate = float(rate)
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._rate = rate
+        self._axes = axes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self._rate <= 0.0:
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
             return x
-        keep = 1.0 - self._rate
-        u = torch.rand(x.shape, generator=_random.generator(x.device),
-                       device=x.device)
-        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
-class Embedding(nn.Module):
-    """Table lookup.  Token ids may arrive as floats (the serving wire
-    format) and are truncated to integers, as ``ops_impl.py``'s
-    ``Embedding`` does with ``astype(int32)``."""
+class BatchNorm(HybridBlock):
+    """Batch normalization over channel ``axis`` (reference
+    ``nn.BatchNorm``†).  ``act_type="relu"`` fuses the ReLU and, when a
+    second ``residual`` input is passed, the shortcut add before it
+    (the ``BatchNormRelu`` / ``BatchNormAddRelu`` ops): in training
+    mode the fused BatchNorm kernels, channels-major for axis 1 of a
+    4-d input and channels-minor for the last axis."""
 
-    def __init__(self, input_dim: int, output_dim: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(input_dim, output_dim))
-        nn.init.normal_(self.weight, std=0.02)
-
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids.to(torch.int64)]
-
-
-class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, on the LayerNorm kernel."""
-
-    def __init__(self, in_channels: int, epsilon: float = 1e-5):
-        super().__init__()
-        self._eps = epsilon
-        self.gamma = nn.Parameter(torch.ones(in_channels))
-        self.beta = nn.Parameter(torch.zeros(in_channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.gamma, self.beta, self._eps)
-
-
-class BatchNorm(nn.Module):
-    """Batch normalization over channel ``axis`` (gluon's
-    ``nn.BatchNorm``), with ``act_type="relu"`` fusing the ReLU and,
-    when a second ``residual`` input is passed, the shortcut add before
-    it (the ``BatchNormAddRelu`` op).
-
-    gamma and beta are parameters (gamma is fixed at 1 when
-    ``scale=False``); ``running_mean`` and ``running_var`` are f32
-    buffers, registered after them.  In training mode (unless
-    ``use_global_stats``) the layer runs :func:`kernels.fused_bn_act`
-    on the batch statistics and moves the running statistics by
-    ``running * momentum + batch * (1 - momentum)``; otherwise it
-    normalizes with the running statistics in plain PyTorch, as the
-    JAX package does outside its kernels.  ``in_channels`` is
-    required (no deferred shapes)."""
-
-    def __init__(self, axis: int = 1, momentum: float = 0.9,
-                 epsilon: float = 1e-5, center: bool = True,
-                 scale: bool = True, use_global_stats: bool = False,
-                 in_channels: int = 0, act_type=None):
-        super().__init__()
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 act_type=None, prefix=None, params=None):
+        super().__init__(prefix, params)
         if act_type not in (None, "relu"):
             raise MXNetError(f"BatchNorm act_type must be None or 'relu', "
                              f"got {act_type!r}")
-        if in_channels <= 0:
-            raise MXNetError("BatchNorm needs in_channels (shapes are "
-                             "explicit in mxtpu_torch)")
+        self._act_type = act_type
         self._axis = axis
-        self._momentum = float(momentum)
-        self._eps = float(epsilon)
+        self._momentum = momentum
+        self._eps = epsilon
+        self._center = center
         self._scale = scale
         self._use_global_stats = use_global_stats
-        self._act = "relu" if act_type == "relu" else "none"
-        self.gamma = nn.Parameter(torch.ones(in_channels),
-                                  requires_grad=scale)
-        self.beta = nn.Parameter(torch.zeros(in_channels),
-                                 requires_grad=center)
-        self.register_buffer("running_mean", torch.zeros(in_channels))
-        self.register_buffer("running_var", torch.ones(in_channels))
+        self.gamma = self.params.get(
+            "gamma", shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True,
+            grad_req="write" if scale else "null")
+        self.beta = self.params.get(
+            "beta", shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True,
+            grad_req="write" if center else "null")
+        self.running_mean = self.params.get(
+            "running_mean", shape=(in_channels,),
+            init=running_mean_initializer, allow_deferred_init=True,
+            differentiable=False)
+        self.running_var = self.params.get(
+            "running_var", shape=(in_channels,),
+            init=running_variance_initializer, allow_deferred_init=True,
+            differentiable=False)
 
-    def forward(self, x: torch.Tensor,
-                residual: torch.Tensor = None) -> torch.Tensor:
-        if residual is not None and self._act != "relu":
-            raise MXNetError("BatchNorm residual input requires "
-                             "act_type='relu'")
-        g = self.gamma if self._scale else torch.ones_like(self.gamma)
-        if self.training and not self._use_global_stats:
-            y, mean, var = fused_bn_act(x, g, self.beta, self._eps,
-                                        self._act, residual, self._axis)
+    def _infer_params(self, x, *args):
+        c = int(x.shape[self._axis])
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            if p.shape and p.shape[0] == 0:
+                p.shape = (c,)
+
+    def hybrid_forward(self, F, x, residual=None, gamma=None, beta=None,
+                       running_mean=None, running_var=None):
+        training = autograd.is_training()
+        kw = dict(eps=self._eps, momentum=self._momentum,
+                  fix_gamma=not self._scale,
+                  use_global_stats=self._use_global_stats or not training,
+                  axis=self._axis)
+        if residual is not None:
+            if self._act_type != "relu":
+                raise MXNetError("BatchNorm residual input requires "
+                                 "act_type='relu'")
+            out, mean, var = F.BatchNormAddRelu(
+                x, residual, gamma, beta, running_mean, running_var, **kw)
+        elif self._act_type == "relu":
+            out, mean, var = F.BatchNormRelu(
+                x, gamma, beta, running_mean, running_var, **kw)
+        else:
+            out, mean, var = F.BatchNorm(
+                x, gamma, beta, running_mean, running_var, **kw)
+        if training and not self._use_global_stats:
             m = self._momentum
             with torch.no_grad():
-                self.running_mean.copy_(self.running_mean * m +
-                                        mean * (1 - m))
-                self.running_var.copy_(self.running_var * m +
-                                       var * (1 - m))
-            return y
-        shape = [1] * x.ndim
-        shape[self._axis] = -1
-        scale = g.float() * torch.rsqrt(self.running_var.float() + self._eps)
-        out = (x.float() - self.running_mean.float().reshape(shape)) * \
-            scale.reshape(shape) + self.beta.float().reshape(shape)
-        if residual is not None:
-            out = out + residual.float()
-        if self._act == "relu":
-            out = out.clamp_min(0.0)
-        return out.to(x.dtype)
+                running_mean.copy_(running_mean * m + mean * (1 - m))
+                running_var.copy_(running_var * m + var * (1 - m))
+        return out
+
+    def __repr__(self):
+        return (f"BatchNorm(axis={self._axis}, eps={self._eps}, "
+                f"momentum={self._momentum}, in_channels="
+                f"{self.gamma.shape[0] if self.gamma.shape else None})")
 
 
-class FusedResidualLayerNorm(nn.Module):
-    """Transformer post-LN epilogue ``LN(residual + dropout(x + bias))``
-    on the fused kernel.  Owns the bias of the preceding projection
-    (build that ``Dense`` with ``use_bias=False``).  Call as
-    ``layer(x, residual)``.  In training mode each call draws two
-    threefry key words from ``random.key_words(x.device)``; in eval
-    mode dropout is off."""
+class InstanceNorm(HybridBlock):
+    """Instance normalization (reference ``nn.InstanceNorm``†)."""
 
-    def __init__(self, in_channels: int, dropout: float = 0.1,
-                 epsilon: float = 1e-5):
-        super().__init__()
-        self._p = float(dropout)
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._axis = axis
         self._eps = epsilon
-        self.bias = nn.Parameter(torch.zeros(in_channels))
-        self.gamma = nn.Parameter(torch.ones(in_channels))
-        self.beta = nn.Parameter(torch.zeros(in_channels))
+        self.gamma = self.params.get(
+            "gamma", shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True,
+            grad_req="write" if scale else "null")
+        self.beta = self.params.get(
+            "beta", shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True,
+            grad_req="write" if center else "null")
 
-    def forward(self, x: torch.Tensor,
-                residual: torch.Tensor) -> torch.Tensor:
-        training = self.training and self._p > 0.0
-        key = _random.key_words(x.device) if training else None
-        return fused_residual_layer_norm(
-            x, self.bias, residual, self.gamma, self.beta, key,
-            p=self._p, eps=self._eps, training=training)
+    def _infer_params(self, x, *args):
+        c = int(x.shape[self._axis])
+        for p in (self.gamma, self.beta):
+            if p.shape and p.shape[0] == 0:
+                p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
 
 
-class HybridSequential(nn.Sequential):
-    """Sequential container (``HybridSequential``); ``add`` appends."""
+class LayerNorm(HybridBlock):
+    """Layer normalization (reference ``nn.LayerNorm``†): the
+    ``LayerNorm`` op, on the LayerNorm kernels over the last axis."""
 
-    def add(self, *blocks: nn.Module) -> None:
-        for b in blocks:
-            if not isinstance(b, nn.Module):
-                raise MXNetError(f"HybridSequential.add: {b!r} is not a "
-                                 f"module")
-            self.append(b)
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = self.params.get(
+            "gamma", shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True,
+            grad_req="write" if scale else "null")
+        self.beta = self.params.get(
+            "beta", shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True,
+            grad_req="write" if center else "null")
+
+    def _infer_params(self, x, *args):
+        c = int(x.shape[self._axis])
+        for p in (self.gamma, self.beta):
+            if p.shape and p.shape[0] == 0:
+                p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class FusedResidualLayerNorm(HybridBlock):
+    """The transformer post-LN epilogue ``LN(residual + dropout(x +
+    bias))`` over the last axis as one layer, on the fused kernels.
+    It owns the bias of the projection before it (build that ``Dense``
+    with ``use_bias=False``).  Call as ``layer(x, residual)``; in
+    training mode each call draws fresh threefry key words."""
+
+    def __init__(self, dropout=0.1, epsilon=1e-5,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
+        self._p = dropout
+        self._eps = epsilon
+        self.bias = self.params.get(
+            "bias", shape=(in_channels,), init=bias_initializer,
+            allow_deferred_init=True)
+        self.gamma = self.params.get(
+            "gamma", shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def _infer_params(self, x, *args):
+        c = int(x.shape[-1])
+        for p in (self.bias, self.gamma, self.beta):
+            if p.shape and p.shape[0] == 0:
+                p.shape = (c,)
+
+    def hybrid_forward(self, F, x, residual, bias, gamma, beta):
+        return F.FusedResidualLayerNorm(x, bias, residual, gamma, beta,
+                                        p=self._p, eps=self._eps)
+
+
+class Embedding(HybridBlock):
+    """Id → row lookup (reference ``nn.Embedding``† → ``Embedding``
+    op); float ids truncate to integers."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim), dtype=dtype,
+            init=weight_initializer,
+            grad_stype="row_sparse" if sparse_grad else "default")
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+    def __repr__(self):
+        return f"Embedding({self._input_dim} -> {self._output_dim})"
+
+
+class Flatten(HybridBlock):
+    """Flattens to (batch, -1) (reference ``nn.Flatten``†)."""
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Lambda(Block):
+    """Wraps a function, or the name of an ``nd`` function, as a Block
+    (reference ``nn.Lambda``†)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            if not hasattr(nd, function):
+                raise MXNetError(f"no such nd function {function}")
+            self._func = getattr(nd, function)
+            self._name = function
+        elif callable(function):
+            self._func = function
+            self._name = getattr(function, "__name__", "lambda")
+        else:
+            raise MXNetError("function must be str or callable")
+
+    def forward(self, *args):
+        return self._func(*args)
+
+    def __repr__(self):
+        return f"Lambda({self._name})"
+
+
+class HybridLambda(HybridBlock):
+    """Wraps ``function(F, *args)``, or the name of an op, as a
+    HybridBlock (reference ``nn.HybridLambda``†)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix)
+        if isinstance(function, str):
+            self._func_name = function
+            self._func = None
+        elif callable(function):
+            self._func = function
+            self._func_name = getattr(function, "__name__", "lambda")
+        else:
+            raise MXNetError("function must be str or callable")
+
+    def hybrid_forward(self, F, *args):
+        if self._func is not None:
+            return self._func(F, *args)
+        return getattr(F, self._func_name)(*args)
+
+    def __repr__(self):
+        return f"HybridLambda({self._func_name})"

@@ -1,34 +1,36 @@
 """Weight initializers (the counterpart of ``mxtpu/initializer.py``):
 the registry, ``InitDesc``, name-pattern dispatch, ``Uniform``,
-``Normal``, ``Zero``, ``One``, ``Constant`` and ``Xavier``, plus
-gluon's per-parameter defaults for a torch module (:func:`initialize`).
+``Normal``, ``Zero``, ``One``, ``Constant`` and ``Xavier``.
 
 ``init(InitDesc(name), arr)`` fills an NDArray as the reference's
 Module does: names ending in ``gamma`` or ``*_var`` get ones, ``beta``,
 ``bias`` or ``*_mean`` zeros, every other array the initializer's own
 draw.  Draws come from an explicit ``torch.Generator``: by default
 ``mxtpu_torch.random.generator(device)``, seeded by
-``mxtpu_torch.random.seed`` (:func:`initialize` takes its generator
-as given, torch's global one when ``None``).  JAX's random stream has no torch
+``mxtpu_torch.random.seed``.  JAX's random stream has no torch
 counterpart, so an array initialized here matches one initialized by
 mxtpu in distribution (bounds and spread), not element for element;
-exact weights cross with ``convert``.  Not ported yet: ``MSRAPrelu``,
-``Orthogonal``, ``Bilinear``, ``LSTMBias``, ``Mixed`` and the
-``__init__`` attribute of a parameter.
+exact weights cross with ``convert``.  A parameter's own initializer
+rides in ``InitDesc.attrs["__init__"]`` and bypasses the name rules, as
+gluon's ``Parameter`` passes it (``bias_initializer="ones"`` wins over
+the bias→zero rule).  Also here: ``MSRAPrelu``, ``Orthogonal`` (the
+SVD of a draw from the same generator), ``Bilinear``, ``LSTMBias`` and
+``Mixed``.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .base import MXNetError, Registry
 
 __all__ = ["Initializer", "InitDesc", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "register", "create", "initialize"]
+           "Constant", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
+           "LSTMBias", "Mixed", "register", "create"]
 
 _REGISTRY: Registry = Registry("initializer")
 
@@ -84,8 +86,13 @@ class Initializer:
         if generator is None:
             from . import random
             generator = random.generator(t.device)
+        specific = desc.attrs.get("__init__", "") \
+            if isinstance(desc, InitDesc) else ""
         with torch.no_grad():
-            self.init_weight(str(desc), t, generator)
+            if specific:
+                create(specific)._init_weight(str(desc), t, generator)
+            else:
+                self.init_weight(str(desc), t, generator)
 
     def init_weight(self, name: str, t: torch.Tensor, generator=None):
         if name.endswith("gamma") or name.endswith(("running_var",
@@ -186,16 +193,81 @@ class Xavier(Initializer):
             t.normal_(0.0, s, generator=generator)
 
 
-@torch.no_grad()
-def initialize(net: nn.Module, init=None,
-               generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Initialize every parameter and buffer of ``net`` in place by name,
-    as gluon's defaults do: names ending in ``gamma`` or
-    ``running_var`` get ones, ``beta``, ``bias`` or ``running_mean``
-    zeros, and every other tensor (convolution and dense weights,
-    embeddings) the initializer ``init`` (default ``Xavier()``), drawn
-    from ``generator``.  Returns the net."""
-    init = Xavier() if init is None else init
-    for name, t in [*net.named_parameters(), *net.named_buffers()]:
-        init.init_weight(name.rsplit(".", 1)[-1], t, generator)
-    return net
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU nets: Xavier gaussian with
+    magnitude ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type: str = "avg", slope: float = 0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal basis: the SVD factor of an
+    (out, prod(rest)) draw, uniform in [-1, 1] or standard normal."""
+
+    def __init__(self, scale: float = 1.414, rand_type: str = "uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, t, generator=None):
+        nout, nin = t.shape[0], math.prod(t.shape[1:])
+        tmp = torch.empty((nout, nin), dtype=torch.float64, device=t.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=generator)
+        else:
+            tmp.normal_(0.0, 1.0, generator=generator)
+        u, _, v = torch.linalg.svd(tmp.cpu(), full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        t.copy_((self.scale * q).reshape(t.shape))
+
+
+@register
+class Bilinear(Initializer):
+    """Bilinear upsampling weights for a deconvolution (N, C, H, W)."""
+
+    def _init_weight(self, name, t, generator=None):
+        shape = t.shape
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = torch.arange(shape[3], dtype=torch.float64)
+        y = torch.arange(shape[2], dtype=torch.float64)
+        wy = (1 - (y / f - c).abs()).reshape(-1, 1)
+        wx = (1 - (x / f - c).abs()).reshape(1, -1)
+        t.copy_((wy * wx).float().expand(shape))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (the second of four) at
+    ``forget_bias``."""
+
+    def __init__(self, forget_bias: float = 1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, t, generator=None):
+        t.zero_()
+        h = t.shape[0] // 4
+        t[h:2 * h] = self.forget_bias
+
+
+class Mixed:
+    """The first initializer whose pattern matches the name (``re.match``)
+    fills the array; no match raises."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers length mismatch")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr, generator=None):
+        for pat, init in self.map:
+            if pat.match(name):
+                init(name, arr, generator)
+                return
+        raise MXNetError(f"no initializer pattern matches {name}")

@@ -1,153 +1,190 @@
-"""BERT encoder family on PyTorch modules — the counterpart of
-``mxtpu/models/transformer.py`` (full-sequence forward and its
-gradients, in eval or training mode; the incremental ``(step, cache)``
-decode mode is not ported yet).
+"""BERT encoder family as HybridBlocks (the counterpart of
+``mxtpu/models/transformer.py``): ``MultiHeadAttention``,
+``PositionwiseFFN``, ``TransformerEncoderCell``, ``TransformerEncoder``,
+``BERTModel``, ``bert_base`` and ``bert_large``, with mxtpu's children,
+so their parameters carry mxtpu's names in mxtpu's order
+(``bertmodel0_pos_embed``, ``embedding0_weight``, ...).
 
-Attention runs on the flash-attention kernels, the post-LN epilogues
-on the fused residual-LayerNorm kernels and the embedding LayerNorm on
-the LayerNorm kernels, forward and backward (autograd Functions); the
-dense products stay ``torch.matmul``, as the JAX package leaves them to
-XLA.  In training mode the epilogues drop out with fresh key words per
-call and ``embed_drop`` draws its mask from the device's generator.
-Parameter registration order matches ``mxtpu``'s ``collect_params()``
-order.
+Attention runs on the ``flash_attention`` op (the flash-attention
+kernels), the post-LN epilogues on ``FusedResidualLayerNorm`` and the
+embedding LayerNorm on ``LayerNorm`` (their kernels, forward and
+backward); the dense products are the ``FullyConnected`` op, as the JAX
+package leaves them to XLA.  The position table is cut to the
+sequence with ``slice_like``, so an exported BERT takes any T up to
+``max_length``.  The full-sequence forward only: the incremental
+``(step, cache)`` decode is not ported yet, nor is ``remat=True``
+(it raises).
 """
 from __future__ import annotations
 
-import torch
-from torch import nn
-
 from ..base import MXNetError
-from ..gluon import nn as gnn
-from ..kernels import flash_attention
+from ..gluon import nn
+from ..gluon.block import HybridBlock, _is_symbol
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder", "BERTModel",
            "bert_base", "bert_large"]
 
 
-class MultiHeadAttention(nn.Module):
-    """Self-attention over (N, T, C) via the fused attention kernel."""
+class MultiHeadAttention(HybridBlock):
+    """Self-attention over (N, T, C) on the fused attention op."""
 
-    def __init__(self, units: int, num_heads: int, causal: bool = False,
-                 proj_bias: bool = True):
-        super().__init__()
+    def __init__(self, units, num_heads, dropout=0.0, causal=False,
+                 proj_bias=True, **kwargs):
+        super().__init__(**kwargs)
         if units % num_heads:
             raise MXNetError(f"units {units} not divisible by "
                              f"num_heads {num_heads}")
         self._units = units
         self._heads = num_heads
         self._causal = causal
-        self.qkv = gnn.Dense(3 * units, units, flatten=False)
+        self.qkv = nn.Dense(3 * units, flatten=False, use_bias=True)
         # proj_bias=False when a FusedResidualLayerNorm epilogue folds
-        # the output bias into its kernel
-        self.proj = gnn.Dense(units, units, use_bias=proj_bias,
-                               flatten=False)
+        # the output bias (and dropout) into its kernel
+        self.proj = nn.Dense(units, flatten=False, use_bias=proj_bias)
+        self.drop = nn.Dropout(dropout) if dropout else None
 
-    def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
-        # (N, T, u) -> (N, h, T, u/h), contiguous for the kernel
-        n, T, _ = t.shape
-        t = t.reshape(n, T, self._heads, self._units // self._heads)
-        return t.transpose(1, 2).contiguous()
+    def _split_heads(self, F, t):
+        # (N, T, u) -> (N, h, T, u/h)
+        t = F.reshape(t, shape=(0, -1, self._heads,
+                                self._units // self._heads))
+        return F.transpose(t, axes=(0, 2, 1, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def hybrid_forward(self, F, x, *args):
+        if args:
+            raise NotImplementedError(
+                "MultiHeadAttention: cross-attention and the incremental "
+                "decode are not ported yet")
         u = self._units
-        q, k, v = self.qkv(x).split(u, dim=-1)
-        out = flash_attention(self._split_heads(q), self._split_heads(k),
-                              self._split_heads(v), causal=self._causal)
-        n, _, T, _ = out.shape
-        out = out.transpose(1, 2).reshape(n, T, u)
-        return self.proj(out)
+        qkv = self.qkv(x)
+        if _is_symbol(qkv):
+            # mxtpu's graph: three slice_axis
+            parts = [F.slice_axis(qkv, axis=-1, begin=i * u,
+                                  end=(i + 1) * u) for i in range(3)]
+        else:
+            # the same three slices as one split, whose backward writes
+            # qkv's gradient once (each slice_axis backward writes all
+            # of it, and two adds sum the three)
+            parts = qkv.split(u, dim=-1)
+        q, k, v = (self._split_heads(F, t) for t in parts)
+        out = F.flash_attention(q, k, v, causal=self._causal)
+        out = F.reshape(F.transpose(out, axes=(0, 2, 1, 3)),
+                        shape=(0, -1, u))
+        out = self.proj(out)
+        if self.drop is not None:
+            out = self.drop(out)
+        return out
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(HybridBlock):
     """Dense → gelu → Dense (the transformer MLP)."""
 
-    def __init__(self, units: int, hidden_size: int,
-                 out_bias: bool = True):
-        super().__init__()
-        self.ffn1 = gnn.Dense(hidden_size, units, flatten=False)
-        self.ffn2 = gnn.Dense(units, hidden_size, use_bias=out_bias,
-                               flatten=False)
+    def __init__(self, units, hidden_size, dropout=0.0, out_bias=True,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.ffn1 = nn.Dense(hidden_size, flatten=False)
+        self.ffn2 = nn.Dense(units, flatten=False, use_bias=out_bias)
+        self.drop = nn.Dropout(dropout) if dropout else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ffn2(gnn.gelu(self.ffn1(x)))
+    def hybrid_forward(self, F, x):
+        out = self.ffn2(F.LeakyReLU(self.ffn1(x), act_type="gelu"))
+        if self.drop is not None:
+            out = self.drop(out)
+        return out
 
 
-class TransformerEncoderCell(nn.Module):
+class TransformerEncoderCell(HybridBlock):
     """Post-LN encoder layer (BERT convention): LN(x + attn),
-    LN(x + ffn), each epilogue one fused kernel that also applies the
+    LN(x + ffn), each epilogue one fused op that also applies the
     sub-block's output bias and dropout."""
 
-    def __init__(self, units: int, hidden_size: int, num_heads: int,
-                 dropout: float = 0.0, causal: bool = False):
-        super().__init__()
-        self.attn = MultiHeadAttention(units, num_heads, causal,
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 causal=False, **kwargs):
+        super().__init__(**kwargs)
+        self.attn = MultiHeadAttention(units, num_heads, 0.0, causal,
                                        proj_bias=False)
-        self.ffn = PositionwiseFFN(units, hidden_size, out_bias=False)
-        self.ln1 = gnn.FusedResidualLayerNorm(units, dropout)
-        self.ln2 = gnn.FusedResidualLayerNorm(units, dropout)
+        self.ffn = PositionwiseFFN(units, hidden_size, 0.0,
+                                   out_bias=False)
+        self.ln1 = nn.FusedResidualLayerNorm(dropout)
+        self.ln2 = nn.FusedResidualLayerNorm(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def hybrid_forward(self, F, x):
         x = self.ln1(self.attn(x), x)
         return self.ln2(self.ffn(x), x)
 
 
-class TransformerEncoder(nn.Module):
+def _refuse_remat(remat):
+    if remat:
+        raise NotImplementedError(
+            "remat=True: rematerializing the encoder layers is not ported "
+            "yet (set_remat records mxtpu's flag only)")
+
+
+class TransformerEncoder(HybridBlock):
     """Stack of encoder cells."""
 
-    def __init__(self, num_layers: int, units: int, hidden_size: int,
-                 num_heads: int, dropout: float = 0.0,
-                 causal: bool = False):
-        super().__init__()
-        self.layers = gnn.HybridSequential()
+    def __init__(self, num_layers, units, hidden_size, num_heads,
+                 dropout=0.0, causal=False, remat=False, **kwargs):
+        super().__init__(**kwargs)
+        _refuse_remat(remat)
+        self.layers = nn.HybridSequential()
         for _ in range(num_layers):
             self.layers.add(TransformerEncoderCell(
                 units, hidden_size, num_heads, dropout, causal))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def hybrid_forward(self, F, x):
         return self.layers(x)
 
 
-class BERTModel(nn.Module):
-    """BERT-style encoder LM: token + position (+ type) embeddings,
-    encoder stack, MLM head.  ``forward(tokens, token_types=None)``
-    takes (N, T) ids (float ids are truncated) and returns (N, T, vocab)
+class BERTModel(HybridBlock):
+    """BERT-style encoder LM: token + position (+ type) embeddings, the
+    encoder stack and the MLM head.  ``net(tokens, token_types=None)``
+    takes (N, T) ids (float ids truncate) and gives (N, T, vocab)
     logits."""
 
-    def __init__(self, vocab_size: int, units: int, hidden_size: int,
-                 num_layers: int, num_heads: int, max_length: int = 512,
-                 dropout: float = 0.1, use_token_type: bool = True,
-                 causal: bool = False):
-        super().__init__()
+    def __init__(self, vocab_size, units, hidden_size, num_layers,
+                 num_heads, max_length=512, dropout=0.1,
+                 use_token_type=True, causal=False, remat=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        _refuse_remat(remat)
         self._units = units
         self._num_layers = num_layers
         self._num_heads = num_heads
         self._max_length = max_length
-        self.pos_embed = nn.Parameter(torch.empty(max_length, units))
-        nn.init.normal_(self.pos_embed, std=0.02)
-        self.word_embed = gnn.Embedding(vocab_size, units)
-        self.type_embed = gnn.Embedding(2, units) \
-            if use_token_type else None
-        self.embed_ln = gnn.LayerNorm(units)
-        self.embed_drop = gnn.Dropout(dropout) if dropout else None
+        self.word_embed = nn.Embedding(vocab_size, units)
+        self.pos_embed = self.params.get(
+            "pos_embed", shape=(max_length, units), init="normal")
+        self.type_embed = nn.Embedding(2, units) if use_token_type \
+            else None
+        self.embed_ln = nn.LayerNorm()
+        self.embed_drop = nn.Dropout(dropout) if dropout else None
         self.encoder = TransformerEncoder(num_layers, units, hidden_size,
-                                          num_heads, dropout, causal)
-        self.mlm = gnn.Dense(vocab_size, units, flatten=False)
+                                          num_heads, dropout,
+                                          causal=causal)
+        self.mlm = nn.Dense(vocab_size, flatten=False)
 
-    def forward(self, tokens: torch.Tensor,
-                token_types: torch.Tensor = None) -> torch.Tensor:
-        T = tokens.shape[1]
-        if T > self._max_length:
-            raise MXNetError(f"sequence length {T} exceeds max_length "
-                             f"{self._max_length}")
-        x = self.word_embed(tokens) + self.pos_embed[:T]
+    def hybrid_forward(self, F, tokens, *args, pos_embed=None):
+        if len(args) > 1:
+            raise NotImplementedError("BERTModel: the incremental "
+                                      "(step, cache) decode is not "
+                                      "ported yet")
+        token_types = args[0] if args else None
+        if not _is_symbol(tokens) and tokens.shape[1] > self._max_length:
+            raise MXNetError(f"sequence length {tokens.shape[1]} exceeds "
+                             f"max_length {self._max_length}")
+        x = self.word_embed(tokens)
+        # slice_like, not a static-T slice_axis: an exported graph runs
+        # for any sequence length up to max_length
+        pe = F.slice_like(F.expand_dims(pos_embed, axis=0), x, axes=(1,))
+        x = x + pe
         if self.type_embed is not None and token_types is not None:
             x = x + self.type_embed(token_types)
         x = self.embed_ln(x)
         if self.embed_drop is not None:
             x = self.embed_drop(x)
-        return self.mlm(self.encoder(x))
+        x = self.encoder(x)
+        return self.mlm(x)
 
 
 def bert_base(vocab_size=30522, max_length=512, dropout=0.1):
@@ -155,6 +192,8 @@ def bert_base(vocab_size=30522, max_length=512, dropout=0.1):
     return BERTModel(vocab_size, 768, 3072, 12, 12, max_length, dropout)
 
 
-def bert_large(vocab_size=30522, max_length=512, dropout=0.1):
+def bert_large(vocab_size=30522, max_length=512, dropout=0.1,
+               remat=False):
     """BERT-Large: 24 layers, 1024 units, 4096 FFN, 16 heads."""
-    return BERTModel(vocab_size, 1024, 4096, 24, 16, max_length, dropout)
+    return BERTModel(vocab_size, 1024, 4096, 24, 16, max_length,
+                     dropout, remat=remat)

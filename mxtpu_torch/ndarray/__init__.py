@@ -113,3 +113,48 @@ for _op in list(OP_REGISTRY._entries.values()):
     for _n in (_op.name,) + _op.aliases:
         if not hasattr(_THIS_MODULE, _n):
             setattr(_THIS_MODULE, _n, _make_op_fn(_n))
+
+
+# Dropout and the fused epilogue take a key input: these conveniences
+# draw it and read the mode from autograd's training flag, as mxtpu's
+# ``nd.Dropout`` / ``nd.FusedResidualLayerNorm`` do (and as a symbol
+# graph, which omits the key, evaluates them)
+def _key_nd(dev) -> NDArray:
+    from .. import random as _rnd
+    # the two words live on the host: the epilogue reads them as launch
+    # arguments, so drawing them never waits for the card
+    return NDArray(torch.tensor(_rnd.key_words(dev), dtype=torch.int64))
+
+
+def _mode(mode):
+    """``mode``, or when None mxtpu's default: "training" under
+    ``autograd.is_training()``, else "always_off"."""
+    from .. import autograd
+    if mode is None:
+        return "training" if autograd.is_training() else "always_off"
+    return mode
+
+
+def Dropout(data, p=0.5, mode=None, axes=()):  # noqa: N802
+    """Dropout with the mode from ``autograd.is_training()`` when not
+    given; the mask from ``mxtpu_torch.random``'s generator."""
+    mode = _mode(mode)
+    if mode != "training" or p <= 0.0:
+        return data
+    return _invoke_op("Dropout", data, _key_nd(data.context), p=p,
+                      mode="training", axes=axes)
+
+
+def FusedResidualLayerNorm(data, bias, residual, gamma, beta, p=0.1,  # noqa: N802
+                           eps=1e-5, mode=None):
+    """``LN(residual + dropout(data + bias))`` with a key drawn from
+    ``mxtpu_torch.random`` in training mode."""
+    training = _mode(mode) == "training" and p > 0.0
+    key = _key_nd(data.context) if training else \
+        NDArray(torch.zeros(2, dtype=torch.int64))
+    return _invoke_op("FusedResidualLayerNorm", data, bias, residual, gamma,
+                      beta, key, p=p, eps=eps,
+                      mode="training" if training else "always_off")
+
+
+dropout = Dropout

@@ -110,10 +110,12 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self) -> np.ndarray:
+        """A copy on the host, as mxtpu's (never a view of a CPU
+        tensor, which a later in-place update would change)."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.cpu().numpy()
+            return t.float().cpu().numpy()     # a fresh tensor already
+        return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
 
     def asscalar(self):
         if self.size != 1:

@@ -29,8 +29,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from ..kernels import batch_norm as _bn
+from ..kernels import fused_residual_layer_norm as _frln_kernel
+from ..kernels import layer_norm as _ln_kernel
 from ..ops.registry import Param, register_op
 from .ndarray import _NARROW, torch_dtype
 
@@ -423,11 +426,10 @@ def _convolution(data, weight, *maybe_bias, kernel=(), stride=None,
     if last:
         perm = (0, nd + 1) + tuple(range(1, nd + 1))
         data, weight = data.permute(perm), weight.permute(perm)
-    out = _CONV[nd](data, weight, None, _tuple(stride, nd),
+    bias = maybe_bias[0] if maybe_bias and not no_bias else None
+    out = _CONV[nd](data, weight, bias, _tuple(stride, nd),
                     _tuple(pad, nd) if pad is not None else 0,
                     _tuple(dilate, nd), num_group)
-    if maybe_bias and not no_bias:
-        out = out + maybe_bias[0].reshape((1, -1) + (1,) * nd)
     if last:
         out = out.permute((0,) + tuple(range(2, nd + 2)) + (1,))
     return out
@@ -624,6 +626,279 @@ register_op("BatchNorm", num_inputs=5, num_outputs=3,
                     Param("output_mean_var", bool, False),
                     Param("axis", int, 1)],
             aliases=("batch_norm", "BatchNorm_v1"))(_batch_norm)
+
+
+# ----------------------------------------------------------------------
+# the ops gluon's layers, losses and BERT call (``ops_impl.py:248-448``,
+# ``:875``, ``:985-1210``).  LayerNorm, BatchNormRelu/BatchNormAddRelu
+# and FusedResidualLayerNorm run the port's kernels on a CUDA tensor
+# (their plain versions on the CPU; no fallback between the two); the
+# rest is torch glue, as mxtpu leaves it to XLA.
+# ----------------------------------------------------------------------
+register_op("reshape_like", num_inputs=2)(lambda x, y: x.reshape(y.shape))
+
+
+def _end_of(end, n):
+    if isinstance(end, tuple):
+        end = end[0] if end else None
+    return n if end is None else int(end)
+
+
+def _slice_axis(x, axis=0, begin=0, end=None):
+    """``lax.slice_in_dim``: negative bounds count from the end."""
+    n = x.shape[axis]
+    b, e = int(begin), _end_of(end, n)
+    b, e = b + n if b < 0 else b, e + n if e < 0 else e
+    return x.narrow(axis, b, e - b)
+
+
+register_op("slice_axis", params=[Param("axis", int, 0),
+                                  Param("begin", int, 0),
+                                  Param("end", tuple, None)])(_slice_axis)
+
+
+def _slice_like(x, y, axes=()):
+    """x sliced to y's sizes on ``axes`` (every axis when empty)."""
+    return x[tuple(
+        slice(0, y.shape[i]) if (not axes or i in axes or
+                                 (i - x.ndim) in axes) else slice(None)
+        for i in range(x.ndim))]
+
+
+register_op("slice_like", num_inputs=2,
+            params=[Param("axes", tuple, ())])(_slice_like)
+
+
+def _pad(x, mode="constant", pad_width=None, constant_value=0.0):
+    """``jnp.pad`` on (before, after) pairs per axis, leading axes
+    first; "edge" repeats the border and "reflect" mirrors without it,
+    both by index so every axis may be padded."""
+    pw = tuple(int(v) for v in pad_width)
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if mode == "constant":
+        flat = [v for lo, hi in reversed(pairs) for v in (lo, hi)]
+        return F.pad(x, flat, value=float(constant_value))
+    for ax, (lo, hi) in enumerate(pairs):
+        if not lo and not hi:
+            continue
+        n = x.shape[ax]
+        i = torch.arange(-lo, n + hi, device=x.device)
+        if mode == "edge":
+            i = i.clamp(0, n - 1)
+        else:
+            i = i.abs()
+            i = torch.where(i > n - 1, 2 * (n - 1) - i, i)
+        x = x.index_select(ax, i)
+    return x
+
+
+register_op("pad", params=[Param("mode", str, "constant",
+                                 enum=("constant", "edge", "reflect")),
+                           Param("pad_width", tuple, ()),
+                           Param("constant_value", float, 0.0)],
+            aliases=("Pad",))(_pad)
+
+
+def _take(a, indices, axis=0, mode="clip"):
+    """``jnp.take`` with int32-truncated indices, clipped or wrapped
+    (mxtpu maps "raise" to "wrap")."""
+    n = a.shape[axis]
+    idx = indices.to(torch.int64)
+    idx = idx.clamp(0, n - 1) if mode == "clip" else torch.remainder(idx, n)
+    out = a.index_select(axis, idx.reshape(-1))
+    return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+
+
+register_op("take", num_inputs=2,
+            params=[Param("axis", int, 0),
+                    Param("mode", str, "clip",
+                          enum=("clip", "wrap", "raise"))])(_take)
+
+
+def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
+               sparse_grad=False):
+    """Rows of ``weight`` at the ids (float ids truncate to integers,
+    as ``astype(int32)``)."""
+    return weight[data.to(torch.int64)]
+
+
+register_op("Embedding", num_inputs=2,
+            params=[Param("input_dim", int, 0),
+                    Param("output_dim", int, 0),
+                    Param("dtype", str, "float32"),
+                    Param("sparse_grad", bool, False)],
+            aliases=("embedding",))(_embedding)
+
+
+def _pick(data, index, axis=(-1,), keepdims=False, mode="clip"):
+    ax = int(axis[0]) if isinstance(axis, tuple) else int(axis)
+    idx = index.to(torch.int64).clamp(0, data.shape[ax] - 1)
+    out = data.gather(ax % data.ndim, idx.unsqueeze(ax))
+    return out if keepdims else out.squeeze(ax)
+
+
+register_op("pick", num_inputs=2,
+            params=[Param("axis", tuple, (-1,)),
+                    Param("keepdims", bool, False),
+                    Param("mode", str, "clip")])(_pick)
+
+register_op("where", num_inputs=3)(
+    lambda cond, x, y: torch.where(cond.bool(), x, y))
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def _leaky_relu(x, *extra, act_type="leaky", slope=0.25, lower_bound=0.125,
+                upper_bound=0.334):
+    if act_type == "leaky":
+        return torch.where(x > 0, x, slope * x)
+    if act_type == "prelu":
+        gamma = extra[0]
+        if gamma.ndim == 1 and x.ndim > 1:
+            gamma = gamma.reshape((1, -1) + (1,) * (x.ndim - 2))
+        return torch.where(x > 0, x, gamma * x)
+    if act_type == "elu":
+        return torch.where(x > 0, x, slope * (torch.exp(x) - 1.0))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            x > 0, x, _SELU_ALPHA * (torch.exp(x) - 1.0))
+    if act_type == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if act_type == "rrelu":
+        return torch.where(x > 0, x, (lower_bound + upper_bound) / 2.0 * x)
+    raise MXNetError(f"LeakyReLU act_type {act_type} unsupported")
+
+
+register_op("LeakyReLU", num_inputs=-1,
+            params=[Param("act_type", str, "leaky",
+                          enum=("leaky", "prelu", "elu", "selu", "gelu",
+                                "rrelu")),
+                    Param("slope", float, 0.25),
+                    Param("lower_bound", float, 0.125),
+                    Param("upper_bound", float, 0.334)])(_leaky_relu)
+
+
+def _layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    """Over the last axis the LayerNorm kernels (#4, #5); over another
+    axis the composite, as mxtpu's op."""
+    if axis in (-1, x.ndim - 1):
+        if x.device.type == "meta":   # shape inference
+            return torch.empty_like(x)
+        return _ln_kernel(x.contiguous(), gamma, beta, eps)
+    mean = x.mean(dim=axis, keepdim=True)
+    var = (x - mean).square().mean(dim=axis, keepdim=True)
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    return (x - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) + \
+        beta.reshape(shape)
+
+
+register_op("LayerNorm", num_inputs=3,
+            params=[Param("axis", int, -1), Param("eps", float, 1e-5)])(
+    _layer_norm)
+
+
+def _instance_norm(x, gamma, beta, eps=1e-3):
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) + \
+        beta.reshape(shape)
+
+
+register_op("InstanceNorm", num_inputs=3,
+            params=[Param("eps", float, 1e-3)])(_instance_norm)
+
+
+def _batch_norm_fused_act(x, gamma, beta, moving_mean, moving_var,
+                          residual=None, eps=1e-5, momentum=0.9,
+                          fix_gamma=True, use_global_stats=False, axis=1):
+    """BatchNorm, then the residual add, then ReLU: with the batch
+    statistics the fused BatchNorm kernels (#8-#11, channels-major or
+    -minor by ``axis``), with the moving ones the composite."""
+    axis %= x.ndim
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if use_global_stats:
+        sh = [1] * x.ndim
+        sh[axis] = -1
+        mean, var = moving_mean.float(), moving_var.float()
+        scale = g.float() * torch.rsqrt(var + eps)
+        out = (x.float() - mean.reshape(sh)) * scale.reshape(sh) + \
+            beta.float().reshape(sh)
+        if residual is not None:
+            out = out + residual.float()
+        return out.clamp_min(0.0).to(x.dtype), mean, var
+    if x.device.type == "meta":   # shape inference
+        return _bn.bn_act_reference(x, g, beta, eps, "relu", residual,
+                                    axis)
+    return _bn.fused_bn_act(x, g, beta, eps=eps, act="relu",
+                            residual=residual, axis=axis)
+
+
+_BN_ACT_PARAMS = [Param("eps", float, 1e-5),
+                  Param("momentum", float, 0.9),
+                  Param("fix_gamma", bool, True),
+                  Param("use_global_stats", bool, False),
+                  Param("axis", int, 1)]
+
+register_op("BatchNormRelu", num_inputs=5, num_outputs=3,
+            params=_BN_ACT_PARAMS)(
+    lambda data, gamma, beta, moving_mean, moving_var, **kw:
+    _batch_norm_fused_act(data, gamma, beta, moving_mean, moving_var,
+                          None, **kw))
+# input order (data, addend, gamma, beta, moving_mean, moving_var): the
+# addend is the bottleneck's shortcut
+register_op("BatchNormAddRelu", num_inputs=6, num_outputs=3,
+            params=_BN_ACT_PARAMS)(
+    lambda data, addend, gamma, beta, moving_mean, moving_var, **kw:
+    _batch_norm_fused_act(data, gamma, beta, moving_mean, moving_var,
+                          addend, **kw))
+
+
+def _dropout(x, key=None, p=0.5, mode="training", axes=()):
+    """Inverted dropout in "training" mode: an element (or, along
+    ``axes``, a broadcast slice) is kept with probability ``1 - p`` and
+    scaled by ``1 / (1 - p)``.  The key input keeps mxtpu's signature;
+    the mask comes from ``mxtpu_torch.random``'s generator of x's
+    device (jax's PRNG has no torch counterpart)."""
+    if mode != "training" or p <= 0.0:
+        return x
+    shape = list(x.shape)
+    for ax in axes:
+        shape[ax] = 1
+    keep = 1.0 - p
+    u = torch.rand(shape, generator=_random.generator(x.device),
+                   device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+register_op("Dropout", num_inputs=2,
+            params=[Param("p", float, 0.5),
+                    Param("mode", str, "training"),
+                    Param("axes", tuple, ())],
+            aliases=("dropout",))(_dropout)
+
+
+def _fused_residual_ln(h, bias, res, gamma, beta, key, p=0.1, eps=1e-5,
+                       mode="training"):
+    """``LN(res + dropout(h + bias))`` on the fused kernels (#6, #7).
+    ``key`` is mxtpu's key data, two uint32 words: the threefry mask
+    they give is mxtpu's bit for bit."""
+    if h.device.type == "meta":   # shape inference
+        return torch.empty_like(h)
+    training = mode == "training"
+    return _frln_kernel(
+        h.contiguous(), bias, res.contiguous(), gamma, beta,
+        key if training and p > 0.0 else None, p=p, eps=eps,
+        training=training)
+
+
+register_op("FusedResidualLayerNorm", num_inputs=6,
+            params=[Param("p", float, 0.1), Param("eps", float, 1e-5),
+                    Param("mode", str, "training")])(_fused_residual_ln)
+
+from . import rnn_impl  # noqa: E402,F401  (flash_attention)
 
 
 # ----------------------------------------------------------------------

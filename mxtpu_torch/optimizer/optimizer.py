@@ -17,7 +17,8 @@ multi-precision pair (``create_state_multi_precision`` /
 ``update_multi_precision``): a bf16 or f16 weight gets an f32 master,
 updated in f32 and cast back once a step, unless
 ``multi_precision=False``.  ``SGLD`` draws its noise from the seeded
-generator of :mod:`..random`.  Not ported: row-sparse lazy updates.
+generator of :mod:`..random`.  Not ported: row-sparse lazy updates
+(``lazy_update`` is accepted and every update is dense).
 """
 from __future__ import annotations
 
@@ -63,15 +64,18 @@ class Optimizer:
     """Base optimizer: the update count, ``lr_mult``/``wd_mult`` by
     index or name, gradient rescale and clip, an lr scheduler, and
     ``multi_precision`` (read by :func:`.functional.opt_rule`).
-    ``idx2name``, which Module sets, lets ``lr_mult``/``wd_mult`` be
-    keyed by name for an index.  ``begin_num_update`` is the count a
-    parameter's updates start from (a resumed run passes its last).
-    The options that take no effect here (``sym``, ``param_dict``,
-    ``param_idx2name``, ``lazy_update``) are not accepted."""
+    ``idx2name`` (``param_idx2name``, or set by Module) lets
+    ``lr_mult``/``wd_mult`` be keyed by name for an index;
+    ``param_dict`` maps an index to a gluon Parameter whose own
+    ``lr_mult``/``wd_mult`` win (what ``gluon.Trainer`` passes).
+    ``begin_num_update`` is the count a parameter's updates start from
+    (a resumed run passes its last).  ``sym`` is accepted and ignored,
+    as in mxtpu.  The arguments keep mxtpu's positional order."""
 
-    def __init__(self, *, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None, begin_num_update=0,
-                 multi_precision=None):
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0, multi_precision=None,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -85,7 +89,16 @@ class Optimizer:
         self.multi_precision = multi_precision
         self.lr_mult: Dict[Any, float] = {}
         self.wd_mult: Dict[Any, float] = {}
-        self.idx2name: Dict[int, str] = {}
+        self.idx2name: Dict[int, str] = dict(param_idx2name or {})
+        self.param_dict: Dict[int, Any] = dict(param_dict or {})
+
+    def __getstate__(self):
+        # gluon Parameters hold their Blocks: a pickled optimizer (an
+        # Updater's ``get_states(dump_optimizer=True)``) leaves them out,
+        # and Trainer.load_states sets its own again, as mxtpu's does
+        state = dict(self.__dict__)
+        state["param_dict"] = {}
+        return state
 
     create_optimizer = staticmethod(create)
 
@@ -143,7 +156,12 @@ class Optimizer:
         self.lr_mult = dict(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
-        self.wd_mult = dict(args_wd_mult)
+        """``wd_mult`` from ``args_wd_mult``, after mxtpu's default: no
+        weight decay for an ``idx2name`` name that ends in neither
+        ``_weight`` nor ``_gamma`` (biases, betas, running stats)."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith(("_weight", "_gamma"))}
+        self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):
         count = self._index_update_count.get(index,
@@ -151,16 +169,22 @@ class Optimizer:
         self._index_update_count[index] = count
         self.num_update = max(count, self.num_update)
 
-    def _mult(self, mults, index):
+    def _mult(self, attr, index):
+        """mxtpu's lookup order: the ``param_dict`` Parameter's own
+        multiplier, else the optimizer's entry for the index, else its
+        entry for the index's name."""
+        if index in self.param_dict:
+            return getattr(self.param_dict[index], attr)
+        mults = getattr(self, attr)
         if index in mults:
             return mults[index]
         return mults.get(self.idx2name.get(index), 1.0)
 
     def _get_lr(self, index):
-        return self.learning_rate * self._mult(self.lr_mult, index)
+        return self.learning_rate * self._mult("lr_mult", index)
 
     def _get_wd(self, index):
-        return self.wd * self._mult(self.wd_mult, index)
+        return self.wd * self._mult("wd_mult", index)
 
     def _clip(self):
         return self.clip_gradient if self.clip_gradient else -1.0
@@ -171,9 +195,12 @@ class SGD(Optimizer):
     """(Momentum) SGD over the ``sgd_update`` / ``sgd_mom_update``
     ops."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        # kept for mxtpu's signature: the port has no row-sparse
+        # gradients, so every update is dense
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -203,11 +230,12 @@ class Adam(Optimizer):
     folded into the lr."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
+        self.lazy_update = lazy_update   # as SGD's: every update is dense
 
     def create_state(self, index, weight):
         return (torch.zeros_like(weight), torch.zeros_like(weight))

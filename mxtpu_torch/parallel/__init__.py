@@ -26,14 +26,23 @@ updates one parameter at a time, also in place; the rules are
 elementwise, so the two paths agree bit for bit (LAMB's trust-ratio
 norms, reduced per slice, to rounding).
 
+The model is a gluon Block (its trainable parameters and
+``param_names`` from ``collect_params()`` in mxtpu's order; those with
+``grad_req="null"``, BatchNorm's running statistics, are neither
+updated nor cast) or any ``nn.Module`` (its ``named_parameters()`` that
+require grad).  A Block whose shapes are still deferred is set up at
+the first step, after one predict-mode forward of its batch, as mxtpu's
+step does.  The forward runs in ``autograd.train_mode()``, the
+training flag gluon's layers read.
+
 Mixed precision (``compute_dtype``): the f32 master parameters are cast
 to ``compute_dtype`` for the forward (``torch.func.functional_call``
 substitutes the casts for the module's parameters), so the GEMMs and
 convolutions run in bf16 on the tensor cores, and autograd through each
-cast hands an f32 gradient back to its master.  Buffers are not cast:
-BatchNorm's running statistics stay f32 and the training-mode forward
-updates the module's own buffers, as the JAX step keeps its aux
-parameters f32.  The loss leaves the bf16 region in f32.
+cast hands an f32 gradient back to its master.  Parameters that are not
+trained are not cast: BatchNorm's running statistics stay f32 and the
+training-mode forward updates the module's own, as the JAX step keeps
+its aux parameters f32.  The loss leaves the bf16 region in f32.
 ``cast_batch=True`` casts a float batch (images) to ``compute_dtype``;
 ``cast_batch=False`` keeps it in its own type (float token ids above
 256 are not exact in bf16).  Labels are never cast.
@@ -65,9 +74,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import knobs
+from .. import autograd, knobs
 from ..base import MXNetError
 from ..context import resolve_device
+from ..gluon.block import Block
 from ..optimizer import optimizer as opt_mod
 from ..optimizer.functional import (_needs_master, adam_bias_correction,
                                     opt_rule)
@@ -121,12 +131,47 @@ class TrainStep:
         self.compute_dtype = _as_dtype(compute_dtype)
         self.cast_batch = cast_batch
         self._t = 0
-        named = [(n, p) for n, p in self.net.named_parameters()
-                 if p.requires_grad]
-        self.param_names = [n for n, _ in named]
-        self._params = [p for _, p in named]
         self._opt_init, self._opt_update = opt_rule(optimizer)
         self._no_master = optimizer.multi_precision is False
+        self._params: Optional[List[nn.Parameter]] = None
+        if not self._deferred():
+            self._setup()
+
+    # -- parameters ------------------------------------------------------
+    def _deferred(self) -> bool:
+        return isinstance(self.net, Block) and any(
+            p._tensor() is None for p in self.net.collect_params().values())
+
+    def _setup(self, x=None) -> None:
+        """Collect the trainable parameters (a Block's from
+        ``collect_params()`` in mxtpu's order, ``grad_req="null"`` ones
+        left out; another module's ``named_parameters()`` that require
+        grad) and build the buckets.  Parameters still waiting for a
+        shape get it from one forward of ``x`` first, in predict mode
+        and without grad, as mxtpu's step does."""
+        if x is not None and self._deferred():
+            with torch.no_grad(), autograd.pause():
+                self.net(x)
+        if self._deferred():
+            raise MXNetError(
+                "TrainStep: the model has parameters whose shape is not "
+                "known yet; run a step (or a forward) first")
+        if isinstance(self.net, Block):
+            gparams = [p for p in self.net.collect_params().values()
+                       if p.grad_req != "null"]
+            self.param_names = [p.name for p in gparams]
+            self._params = [p._tensor() for p in gparams]
+            self._mults = gparams
+        else:
+            named = [(n, p) for n, p in self.net.named_parameters()
+                     if p.requires_grad]
+            self.param_names = [n for n, _ in named]
+            self._params = [p for _, p in named]
+            self._mults = self._params
+        # torch's dotted names of the trainable tensors, for the
+        # compute-dtype substitution
+        tnames = {id(t): n for n, t in self.net.named_parameters()}
+        self._torch_names = [tnames[id(t)] for t in self._params]
         # buckets: lists of indices into _params, by (shape, dtype) in
         # order of first appearance, or one a parameter
         by_sig: Dict[Tuple, List[int]] = {}
@@ -229,15 +274,20 @@ class TrainStep:
         with torch.profiler.record_function("forward_backward"):
             x = self._batch(x, self.cast_batch)
             y = self._batch(y, False)
+            if self._params is None:
+                self._setup(x)
             self.net.train()
-            if self.compute_dtype is None:
-                pred = self.net(x)
-            else:
-                cd = self.compute_dtype
-                cast = {n: (p.to(cd) if p.is_floating_point() else p)
-                        for n, p in self.net.named_parameters()}
-                pred = torch.func.functional_call(self.net, cast, (x,))
-            loss = self.loss_fn(pred, y).float().mean()
+            with autograd.train_mode():
+                if self.compute_dtype is None:
+                    pred = self.net(x)
+                else:
+                    cd = self.compute_dtype
+                    cast = {n: (p.to(cd) if p.is_floating_point() else p)
+                            for n, p in zip(self._torch_names,
+                                            self._params)}
+                    pred = torch.func.functional_call(self.net, cast,
+                                                      (x,))
+                loss = self.loss_fn(pred, y).float().mean()
             grads = torch.autograd.grad(loss, self._params,
                                         allow_unused=True)
         # a parameter the forward did not use (type_embed without token
@@ -248,13 +298,14 @@ class TrainStep:
     def _lrs_wds(self) -> Tuple[List[float], List[float]]:
         """Per-parameter (lr, wd) for this step: the Adam bias
         correction folded into the lr, ``lr_mult``/``wd_mult`` read live
-        (a parameter's own attribute times the optimizer's entry for its
-        name), each rounded to f32 as the JAX step's vectors are."""
+        (a gluon Parameter's own attribute times the optimizer's entry
+        for its mxtpu name), each rounded to f32 as the JAX step's
+        vectors are."""
         opt = self.optimizer
         opt.num_update = self._t
         lr = _f32(opt.learning_rate * adam_bias_correction(opt, self._t))
         lrs, wds = [], []
-        for n, p in zip(self.param_names, self._params):
+        for n, p in zip(self.param_names, self._mults):
             lm = _f32(getattr(p, "lr_mult", 1.0) * opt.lr_mult.get(n, 1.0))
             wm = _f32(getattr(p, "wd_mult", 1.0) * opt.wd_mult.get(n, 1.0))
             lrs.append(_f32(lr * lm))
@@ -300,6 +351,8 @@ class TrainStep:
                 xs = xs.reshape((steps, -1) + xs.shape[1:])
                 if ys.ndim:
                     ys = ys.reshape((steps, -1) + ys.shape[1:])
+            if self._params is None:
+                self._setup(xs if reuse_batch else xs[0])
             self._t += steps
             lrs, wds = self._lrs_wds()
             losses = []
@@ -321,6 +374,8 @@ class TrainStep:
         """The optimizer state per parameter, in ``param_names`` order
         (a stacked bucket's leaves sliced; LAMB's ``t`` a scalar per
         parameter): the JAX package's canonical layout."""
+        if self._params is None:
+            self._setup()
         per_param: List[Tuple[torch.Tensor, ...]] = [()] * len(self._params)
         for group, w, st in zip(self._groups, self._stacks,
                                 self._opt_state):
@@ -378,6 +433,8 @@ class TrainStep:
         (``torch.cuda.max_memory_allocated``), with the bytes of the
         parameters and the optimizer state.  On the CPU the peak is not
         measured (None)."""
+        if self._params is None:
+            self._setup()
         params = sum(p.numel() * p.element_size() for p in self._params)
         state = sum(t.numel() * t.element_size()
                     for st in self._opt_state for t in st)

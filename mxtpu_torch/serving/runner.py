@@ -50,14 +50,14 @@ class ModelRunner:
 
     Parameters
     ----------
-    model : torch.nn.Module
+    model : gluon Block (or any torch.nn.Module)
         Called as ``model(*inputs)`` with one tensor per input, in
         ``input_specs`` order; returns a tensor or a tuple of tensors.
     params : dict name -> numpy array, optional
-        ``mxtpu`` weights in ``collect_params()`` order (what an
-        exported ``.params`` file holds), carried in through
-        :func:`mxtpu_torch.convert.params_from_mxtpu`.  None keeps the
-        model's own weights.
+        ``mxtpu`` weights (what an exported ``.params`` file holds),
+        carried in through :func:`mxtpu_torch.convert.params_from_mxtpu`:
+        by name into a Block, by ``collect_params()`` order into another
+        module.  None keeps the model's own (initialized) weights.
     input_specs : dict name -> per-example shape tuple
         Shapes EXCLUDE the batch axis.  A ``None`` entry marks the
         variable (sequence) axis and requires ``seq_buckets``.

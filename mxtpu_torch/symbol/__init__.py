@@ -653,6 +653,10 @@ def _compose(sym: Symbol, mapping: Dict[str, Symbol]) -> Symbol:
     return Symbol(heads)
 
 
+# ops whose key input a graph omits (drawn at evaluation time)
+_KEY_OPS = ("Dropout", "FusedResidualLayerNorm")
+
+
 # ----------------------------------------------------------------------
 # evaluation (the executor's engine — interpretation over nd ops)
 # ----------------------------------------------------------------------
@@ -676,8 +680,12 @@ def _eval_symbol(outputs, bindings: Dict[str, Any]):
                 else nd_mod.array(val)
             continue
         ins = [memo[(id(s), i)] for s, i in node.inputs]
-        out = nd_mod._invoke_op(_op_of(node).name, *ins,
-                                **_node_attrs(node))
+        op = _op_of(node)
+        if op.name in _KEY_OPS and len(ins) < op.num_inputs:
+            # the graph omits the key input: the nd convenience draws it
+            out = getattr(nd_mod, op.name)(*ins, **_node_attrs(node))
+        else:
+            out = nd_mod._invoke_op(op.name, *ins, **_node_attrs(node))
         if isinstance(out, (list, tuple)):
             for i, o in enumerate(out):
                 memo[(id(node), i)] = o
@@ -730,6 +738,13 @@ _AUTO_VARS: Dict[str, List[str]] = {
     "FullyConnected": ["data", "weight", "bias"],
     "Convolution": ["data", "weight", "bias"],
     "BatchNorm": ["data", "gamma", "beta", "moving_mean", "moving_var"],
+    "BatchNormRelu": ["data", "gamma", "beta", "moving_mean",
+                      "moving_var"],
+    "BatchNormAddRelu": ["data", "addend", "gamma", "beta",
+                         "moving_mean", "moving_var"],
+    "LayerNorm": ["data", "gamma", "beta"],
+    "InstanceNorm": ["data", "gamma", "beta"],
+    "Embedding": ["data", "weight"],
     "SoftmaxOutput": ["data", "label"],
 }
 

@@ -5,4 +5,7 @@ package's ``tools/microbench.py``, ``tools/probe_conv_strategies.py``,
 Each runs on the card by default (``python -m mxtpu_torch.tools.<name>``)
 and on the CPU only when asked (``--device cpu``), where the kernels'
 plain versions stand in and no time means anything about the card.
+``step_times`` has no JAX counterpart: it times ``TrainStep`` steps for
+the ``mxtpu_torch`` of any source tree and runs by its path
+(``python3 mxtpu_torch/tools/step_times.py --tree DIR``).
 """

@@ -6,7 +6,9 @@ The weights cross in the legacy ``.params`` format written by
 the same products in another summation order, over two encoder
 layers).  Also here: the weight carry-over's failure modes, the
 ``.params`` reader, device resolution, and the rule that the port
-imports neither jax nor mxtpu.
+imports neither jax nor mxtpu.  Both packages build their BERT with
+fresh name counters, so the port's Block carries the exported names
+(``bertmodel0_pos_embed``, ...) and the weights cross by name.
 """
 import ast
 import os
@@ -27,11 +29,13 @@ from mxtpu.ndarray import legacy_format as j_legacy
 from mxtpu.serving import InferenceServer as JServer
 from mxtpu.serving import ModelRunner as JRunner
 
-from mxtpu_torch import MXNetError
+from mxtpu_torch import MXNetError, autograd, cpu
 from mxtpu_torch.convert import params_from_mxtpu
 from mxtpu_torch.ndarray import legacy_format, load_params
 from mxtpu_torch.models import BERTModel
 from mxtpu_torch.serving import InferenceServer, ModelRunner, batch_ladder
+
+from tests.torch_gluon_names import fresh_names
 
 torch.set_num_threads(2)
 
@@ -42,15 +46,25 @@ SPEC = dict(input_specs={"data": (None,)}, seq_buckets=[16, 32],
 ATOL = 1e-4
 
 
-def _torch_bert():
-    return BERTModel(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.1)
+def _torch_bert(initialize=False):
+    """The port's BERT, named as a fresh process names it; with
+    ``initialize``, its own random weights on the CPU (the deferred
+    shapes filled by one forward)."""
+    with fresh_names():
+        net = BERTModel(V, U, 4 * U, L, H, max_length=MAXLEN,
+                        dropout=0.1)
+    if initialize:
+        net.initialize(ctx=cpu())
+        net(torch.zeros(1, 8))
+    return net
 
 
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
     """mxtpu BERT (dropout on, so inference must switch it off) written
     by ``export``; returns (symbol file, params file)."""
-    net = JBERT(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.1)
+    with fresh_names():
+        net = JBERT(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.1)
     net.initialize(init="xavier")
     net(nd.array(np.zeros((1, 8), np.float32)))
     return net.export(str(tmp_path_factory.mktemp("bert") / "bert"))
@@ -98,6 +112,7 @@ def test_params_from_mxtpu_order_matches_collect_params(exported):
     _, params_file = exported
     params = load_params(params_file)
     net = params_from_mxtpu(params, _torch_bert())
+    assert list(net.collect_params()) == list(params)
     named = list(net.named_parameters())
     assert [n for n, _ in named[:3]] == ["pos_embed", "word_embed.weight",
                                          "type_embed.weight"]
@@ -111,14 +126,17 @@ def test_params_from_mxtpu_raises_on_shape_mismatch(exported):
     k = next(k for k in bad if k.endswith("_weight") and
              bad[k].shape == (3 * U, U))
     bad[k] = np.zeros((3 * U, U + 1), np.float32)
+    # the shapes are known once a forward has run (before it, Dense's
+    # in_units is 0 and takes whatever the file holds, as in mxtpu)
     with pytest.raises(MXNetError, match="has shape"):
-        params_from_mxtpu(bad, _torch_bert())
+        params_from_mxtpu(bad, _torch_bert(initialize=True))
 
 
 def test_params_from_mxtpu_raises_on_count_mismatch(exported):
     params = load_params(exported[1])
     params.popitem()
-    with pytest.raises(MXNetError, match="parameters for"):
+    # a Block matches by name: the missing array is a missing name
+    with pytest.raises(MXNetError, match="missing"):
         params_from_mxtpu(params, _torch_bert())
 
 
@@ -194,23 +212,25 @@ def test_float_token_ids_truncate_like_mxtpu(runners):
 
 def test_serving_knob_sets_the_ladder(monkeypatch):
     monkeypatch.setenv("MXTPU_SERVING_MAX_BATCH", "6")
-    r = ModelRunner(_torch_bert(), device="cpu",
+    r = ModelRunner(_torch_bert(initialize=True), device="cpu",
                     input_specs={"data": (None,)}, seq_buckets=[8])
     assert r.batch_buckets == (1, 2, 4, 6)
 
 
 def test_training_mode_draws_seeded_dropout_and_serving_runs_eval():
     # a training forward drops out from the seeded generators, and
-    # serving never sees it: ModelRunner puts the model in eval mode,
-    # where dropout is off
+    # serving never sees it: ModelRunner runs outside training mode
+    # (autograd.is_training(), the flag gluon's layers read), where
+    # dropout is off
     from mxtpu_torch import random as trandom
-    net = _torch_bert()          # dropout 0.1, still in training mode
+    net = _torch_bert(initialize=True)          # dropout 0.1
     toks = torch.from_numpy(_tokens(4, 2, 16))  # fills a bucket
-    trandom.seed(5)
-    a = net(toks)
-    trandom.seed(5)
-    b = net(toks)
-    c = net(toks)
+    with autograd.train_mode():
+        trandom.seed(5)
+        a = net(toks)
+        trandom.seed(5)
+        b = net(toks)
+        c = net(toks)
     assert torch.equal(a, b) and not torch.equal(b, c)
     runner = ModelRunner(net, device="cpu", **SPEC)
     assert not net.training

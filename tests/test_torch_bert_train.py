@@ -11,7 +11,8 @@ adam's division by sqrt(v)); bf16 compute 2e-2 on the losses
 (``log_softmax`` and the GEMMs round to bf16 at other places in the two
 frameworks).  mxtpu's batched optimizer path misses its own parity bar
 on this tree, so the reference is its per-parameter path
-(``MXTPU_BATCHED_OPT=0``).
+(``MXTPU_BATCHED_OPT=0``).  Both packages build their BERT with fresh
+name counters, so the weights cross by mxtpu's names.
 """
 import numpy as np
 import pytest
@@ -23,13 +24,16 @@ from mxtpu import parallel as jpar
 from mxtpu.gluon import loss as jloss
 from mxtpu.models.transformer import BERTModel as JBERT
 
-from mxtpu_torch import MXNetError, random as trandom
+from mxtpu_torch import MXNetError, autograd as tautograd, cpu
+from mxtpu_torch import random as trandom
 from mxtpu_torch.convert import params_from_mxtpu, params_to_mxtpu
 from mxtpu_torch.gluon import nn as tnn
 from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxtpu_torch.models import BERTModel
 from mxtpu_torch.optimizer import SGD, Adam, create, functional, register
 from mxtpu_torch.parallel import build_train_step
+
+from tests.torch_gluon_names import fresh_names
 
 torch.set_num_threads(2)
 
@@ -42,7 +46,8 @@ def _tokens(seed, b=2):
 
 
 def _jax_bert():
-    net = JBERT(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.0)
+    with fresh_names():
+        net = JBERT(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.0)
     net.initialize(init="xavier")
     net(nd.array(_tokens(0)))
     return net
@@ -53,8 +58,16 @@ def _jax_params(net):
 
 
 def _torch_bert(params=None, dropout=0.0):
-    net = BERTModel(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=dropout)
-    return net if params is None else params_from_mxtpu(params, net)
+    """The port's BERT named as a fresh process names it: ``params``
+    carried in by name, else xavier weights of its own on the CPU (the
+    deferred shapes filled at the first forward)."""
+    with fresh_names():
+        net = BERTModel(V, U, 4 * U, L, H, max_length=MAXLEN,
+                        dropout=dropout)
+    if params is None:
+        net.initialize(init="xavier", ctx=cpu())
+        return net
+    return params_from_mxtpu(params, net)
 
 
 def _jmlm(pred, y):
@@ -135,13 +148,20 @@ def test_lr_mult_is_read_live():
     step = build_train_step(net, _tmlm, "adam", {"learning_rate": 1e-3},
                             cast_batch=False, device="cpu")
     x = _tokens(5)
-    step.optimizer.set_lr_mult({"mlm.weight": 0.0})
-    before = net.mlm.weight.detach().clone()
+    step(x, x)                       # fills the deferred shapes
+    # keyed by mxtpu's name, as mxtpu's step reads it
+    step.optimizer.set_lr_mult({net.mlm.weight.name: 0.0})
+    before = net.mlm.weight.data().asnumpy()
     step(x, x)
-    assert torch.equal(net.mlm.weight.detach(), before)
+    np.testing.assert_array_equal(net.mlm.weight.data().asnumpy(), before)
     step.optimizer.set_lr_mult({})
     step(x, x)
-    assert not torch.equal(net.mlm.weight.detach(), before)
+    assert not np.array_equal(net.mlm.weight.data().asnumpy(), before)
+    # and the Parameter's own multiplier
+    net.mlm.weight.lr_mult = 0.0
+    before = net.mlm.weight.data().asnumpy()
+    step(x, x)
+    np.testing.assert_array_equal(net.mlm.weight.data().asnumpy(), before)
 
 
 def test_build_train_step_defaults_to_the_card():
@@ -163,17 +183,23 @@ def test_unported_options_raise(option):
 @pytest.mark.parametrize("target,option", [
     # the one-device step has no mesh axis and no buffer donation
     *[("step", o) for o in ("dp_axis", "batch_axis", "donate")],
-    # the optimizers have no symbol, no row-sparse gradients and no
-    # eager parameter table
+    # the optimizers take mxtpu's constructor arguments: sym (ignored,
+    # as in mxtpu), param_dict and param_idx2name (the multipliers'
+    # lookup) and lazy_update (kept; every update is dense)
     *[(n, o) for n in ("adam", "sgd")
       for o in ("sym", "param_dict", "param_idx2name", "lazy_update")]])
 def test_options_without_effect_are_refused(target, option):
-    with pytest.raises(TypeError, match=option):
-        if target == "step":
+    if target == "step":
+        with pytest.raises(TypeError, match=option):
             build_train_step(_torch_bert(), _tmlm, "adam", device="cpu",
                              **{option: None})
-        else:
-            create(target, **{option: None})
+        return
+    value = {"sym": None, "param_dict": {0: object()},
+             "param_idx2name": {0: "w_weight"}, "lazy_update": False}[option]
+    opt = create(target, **{option: value})
+    attr = {"param_idx2name": "idx2name", "sym": None}.get(option, option)
+    if attr is not None:
+        assert getattr(opt, attr) == value
 
 
 @pytest.mark.parametrize("name,kw", [
@@ -300,16 +326,17 @@ def test_multi_precision_rule_keeps_an_f32_master():
 def test_dropout_draws_from_the_seeded_generator():
     x = torch.ones(64, 64)
     drop = tnn.Dropout(0.25)
-    trandom.seed(11)
-    a = drop(x)
-    trandom.seed(11)
-    b = drop(x)
-    c = drop(x)
+    with tautograd.train_mode():
+        trandom.seed(11)
+        a = drop(x)
+        trandom.seed(11)
+        b = drop(x)
+        c = drop(x)
     assert torch.equal(a, b) and not torch.equal(b, c)
     kept = (a != 0).float().mean().item()
     assert abs(kept - 0.75) < 0.03
     assert torch.allclose(a[a != 0], torch.full_like(a[a != 0], 1 / 0.75))
-    drop.eval()
+    # outside training mode (autograd's flag, as in mxtpu) it is off
     assert torch.equal(drop(x), x)
     trandom.seed(11)
     k1 = trandom.key_words()
@@ -325,6 +352,6 @@ def test_params_to_mxtpu_inverts_params_from_mxtpu():
     for n in params:
         np.testing.assert_array_equal(back[n], params[n])
     own = params_to_mxtpu(_torch_bert(params))
-    assert list(own)[:2] == ["pos_embed", "word_embed.weight"]
-    with pytest.raises(MXNetError, match="names for"):
+    assert list(own)[:2] == ["bertmodel0_pos_embed", "embedding0_weight"]
+    with pytest.raises(MXNetError, match="names differ"):
         params_to_mxtpu(_torch_bert(), ["a", "b"])

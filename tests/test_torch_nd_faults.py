@@ -8,8 +8,10 @@ window pads and reduces) and ``SoftmaxOutput``'s gradient with
 an error); then the eager ``Updater``'s f32 masters for bf16 weights,
 ``cast``, the reductions' axes, ``argmax`` keepdims, ties, ``abs`` and
 ``sign`` at 0 and NaN, integer inputs, backward from heads without a
-gradient path, the power ops' gradients at 0, ``squeeze`` and bf16 3-D
-pooling, one parametrised test each.
+gradient path, the power ops' gradients at 0, ``squeeze``, bf16 3-D
+pooling, and the optimizers' constructor arguments, multiplier lookup
+and ``set_wd_mult`` default (items 18 and 19), one parametrised test
+each.
 
 The same numpy inputs (seed 0) go to both packages; outputs and
 gradients agree to 1e-6 (f32, the same sums in another order) and
@@ -446,3 +448,56 @@ def test_bf16_pool3d_matches_mxtpu(kw):
     want, got = _both(lambda nd, ag, ctx: nd.Pooling(
         nd.array(xv, **ctx).astype("bfloat16"), **kw).astype("float32"))
     _same(want, got, tol=2.0 ** -6 * float(np.abs(xv).max()))
+
+
+# ----------------------------------------------------------------------
+# optimizer constructor arguments and the multipliers' lookup (queue 3
+# items 18 and 19)
+# ----------------------------------------------------------------------
+
+NAMES = {0: "fc_weight", 1: "fc_bias", 2: "bn_beta", 3: "bn_gamma"}
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam", "nag"])
+def test_optimizer_takes_mxtpus_arguments_and_lookup_order(name):
+    """``param_idx2name``, ``sym``, ``param_dict`` (and SGD's and Adam's
+    ``lazy_update``) are accepted, positionally in mxtpu's order too,
+    and ``_get_lr`` / ``_get_wd`` look up ``param_dict`` first, then the
+    index, then the name, as mxtpu's do."""
+    pkgs = []
+    for mx in (jmx, tmx):
+        pd = {1: mx.gluon.Parameter("p1", shape=(1,), lr_mult=0.25,
+                                    wd_mult=4.0)}
+        extra = {"lazy_update": False} if name != "nag" else {}
+        o = mx.optimizer.create(name, learning_rate=1.0, wd=0.1,
+                                param_idx2name=NAMES, sym=None,
+                                param_dict=pd, **extra)
+        o.set_lr_mult({0: 0.5, "fc_bias": 9.0, "bn_beta": 3.0})
+        o.set_wd_mult({"bn_gamma": 2.0, 2: 0.7})
+        pkgs.append([(o._get_lr(i), o._get_wd(i)) for i in range(5)])
+        if name != "nag":
+            assert o.lazy_update is False
+    assert pkgs[0] == pkgs[1]
+    # mxtpu's positional order: rescale_grad, param_idx2name, wd, ...
+    j = jmx.optimizer.Optimizer(0.5, NAMES, 0.01)
+    t = tmx.optimizer.Optimizer(0.5, NAMES, 0.01)
+    assert (t.rescale_grad, t.idx2name, t.wd) == \
+        (j.rescale_grad, j.idx2name, j.wd)
+
+
+def test_set_wd_mult_drops_decay_off_weights_and_gammas():
+    """With ``idx2name``, ``set_wd_mult`` gives wd_mult 0 to every name
+    ending in neither ``_weight`` nor ``_gamma`` before the caller's
+    dict, as mxtpu's does: [0.1, 0, 0, 0.1] at wd 0.1, not 0.1 four
+    times; the caller's entries still win."""
+    got = []
+    for mx in (jmx, tmx):
+        o = mx.optimizer.SGD(learning_rate=1.0, wd=0.1,
+                             param_idx2name=NAMES)
+        o.set_wd_mult({})
+        first = [o._get_wd(i) for i in range(4)]
+        o.set_wd_mult({"fc_bias": 0.5})
+        got.append((first, [o._get_wd(i) for i in range(4)]))
+    assert got[0] == got[1]
+    assert got[1][0] == [0.1, 0.0, 0.0, 0.1]
+    assert got[1][1] == [0.1, 0.05, 0.0, 0.1]

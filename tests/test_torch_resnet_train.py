@@ -1,7 +1,7 @@
 """A narrow ResNet V1 trained by mxtpu_torch on the CPU, held against
 mxtpu's model and per-parameter train step; also the layers it is made
 of (BatchNorm, Conv2D, MaxPool2D, GlobalAvgPool2D, Dense), the weight
-carry with BatchNorm's buffers, and the Xavier initializer.
+carry with BatchNorm's running statistics, and the Xavier initializer.
 
 The network is ``ResNetV1(BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64,
 128], classes=10)`` with the 7x7 stem and the max pool, on (2, 3, 64,
@@ -10,12 +10,13 @@ channels-minor ones).  At 32x32 the last stage is 1x1, so its BNs
 normalize 2 values per channel and the net is ill-conditioned: mxtpu's
 own f32 logits land 1e-3 from an f64 evaluation there; at 64x64 they
 land 2.3e-5 from it, and the port's 2.3e-6.  The weights start in
-mxtpu (xavier) and cross with ``params_from_mxtpu``, running
-statistics included.  mxtpu's side
+mxtpu (xavier) and cross with ``params_from_mxtpu`` by name (both
+packages build with fresh name counters), running statistics
+included.  mxtpu's side
 runs its traced forward and its compiled train step (its eager forward
-costs tens of seconds on the CPU); its parameters get their shapes
-from the port's model, in ``collect_params()`` order, so a misordered
-carry fails on the first forward.
+costs tens of seconds on the CPU); its deferred parameters get their
+shapes from the port's model by name, after one forward of the port's
+model has inferred them.
 
 Tolerances, f32: logits 1e-4 (mxtpu's f32 error above), gradients
 1e-4 relative L2 per tensor (convolutions and BN sums in another
@@ -47,7 +48,8 @@ from mxtpu.gluon.model_zoo.vision.resnet import BottleneckV1 as JBottleneck
 from mxtpu.gluon.model_zoo.vision.resnet import ResNetV1 as JResNetV1
 from mxtpu.ndarray.ndarray import NDArray
 
-from mxtpu_torch import MXNetError, initializer
+from mxtpu_torch import MXNetError, autograd as tautograd, cpu
+from mxtpu_torch import initializer, random as trandom
 from mxtpu_torch.convert import (named_tensors, params_from_mxtpu,
                                  params_to_mxtpu)
 from mxtpu_torch.gluon import nn as tnn
@@ -56,6 +58,8 @@ from mxtpu_torch.gluon.model_zoo.vision import (BottleneckV1, ResNetV1,
                                                 get_resnet, resnet50_v1)
 from mxtpu_torch.models import resnet50
 from mxtpu_torch.parallel import build_train_step
+
+from tests.torch_gluon_names import fresh_names
 
 torch.set_num_threads(2)
 
@@ -71,22 +75,38 @@ def _data(layout, seed=0):
         np.array([1.0, 7.0], np.float32)
 
 
+def _shaped(net, layout, hw=32):
+    """One forward of a zero image (predict mode) fills the deferred
+    shapes."""
+    shape = (1, 3, hw, hw) if layout == "NCHW" else (1, hw, hw, 3)
+    net(torch.zeros(shape))
+    return net
+
+
 def _torch_net(layout, params=None):
-    net = ResNetV1(BottleneckV1, LAYERS, CHANNELS, classes=CLASSES,
-                   layout=layout)
-    return net if params is None else params_from_mxtpu(params, net)
+    """The port's network named as a fresh process names it: ``params``
+    carried in by name, else xavier weights of its own on the CPU."""
+    with fresh_names():
+        net = ResNetV1(BottleneckV1, LAYERS, CHANNELS, classes=CLASSES,
+                       layout=layout)
+    if params is not None:
+        return params_from_mxtpu(params, net)
+    net.initialize(init="xavier", ctx=cpu())
+    return _shaped(net, layout)
 
 
 def _jax_net(layout):
     """mxtpu's network, xavier-initialized, its deferred shapes taken
-    from the port's model in collect_params() order."""
-    net = JResNetV1(JBottleneck, LAYERS, CHANNELS, classes=CLASSES,
-                    layout=layout)
-    shapes = [tuple(t.shape) for _, t in named_tensors(_torch_net(layout))]
-    params = list(net.collect_params().values())
-    assert len(params) == len(shapes)
-    for p, s in zip(params, shapes):
-        p.shape = s
+    from the port's model by name."""
+    with fresh_names():
+        net = JResNetV1(JBottleneck, LAYERS, CHANNELS, classes=CLASSES,
+                        layout=layout)
+    shapes = {n: tuple(t.shape) for n, t in
+              named_tensors(_torch_net(layout))}
+    params = net.collect_params()
+    assert list(params) == list(shapes)
+    for n, p in params.items():
+        p.shape = shapes[n]
     net.initialize(init="xavier")
     return net
 
@@ -143,14 +163,15 @@ def test_logits_and_gradients_match_mxtpu(layout):
     x, y = _data(layout)
     jl, jlogits, jgrads = _jax_forward_grads(jnet, x, y)
     tnet = _torch_net(layout, params)
-    tnet.train()
-    logits = tnet(torch.from_numpy(x))
+    with tautograd.train_mode():
+        logits = tnet(torch.from_numpy(x))
     np.testing.assert_allclose(logits.detach().numpy(), jlogits, rtol=1e-4,
                                atol=1e-4)
     loss = _CE(logits, torch.from_numpy(y)).mean()
     np.testing.assert_allclose(float(loss.detach()), jl, rtol=1e-5)
     # the parameter gradients, in collect_params() order
-    tparams = [(n, p) for n, p in tnet.named_parameters()]
+    tparams = [(n, p._tensor()) for n, p in tnet.collect_params().items()
+               if p.grad_req != "null"]
     grads = torch.autograd.grad(loss, [p for _, p in tparams])
     assert len(grads) == len(jgrads)
     floor = 1e-6 * max(float(np.sqrt(np.mean(np.square(g, dtype=np.float64))))
@@ -213,10 +234,9 @@ def test_params_to_mxtpu_round_trip_carries_buffers():
     for n in params:
         np.testing.assert_array_equal(back[n], params[n])
     names = [n for n, _ in named_tensors(tnet)]
-    assert names[:6] == ["features.0.weight", "features.1.gamma",
-                         "features.1.beta", "features.1.running_mean",
-                         "features.1.running_var",
-                         "features.3.0.body.0.weight"]
+    assert names[:6] == ["conv2d0_weight", "batchnorm0_gamma",
+                         "batchnorm0_beta", "batchnorm0_running_mean",
+                         "batchnorm0_running_var", "conv2d1_weight"]
     with pytest.raises(MXNetError, match="shape"):
         params_from_mxtpu(params, _torch_net("NHWC"))
 
@@ -235,26 +255,27 @@ def test_batchnorm_running_stats_and_eval_match_mxtpu(axis, act):
     jbn.initialize()
     tbn = tnn.BatchNorm(axis=axis, momentum=0.8, act_type=act,
                         in_channels=6)
+    tbn.initialize(ctx=cpu())
     g = (1.0 + 0.1 * rng.randn(6)).astype(np.float32)
     jbn.gamma.set_data(nd.array(g))
-    with torch.no_grad():
-        tbn.gamma.copy_(torch.from_numpy(g))
+    tbn.gamma.set_data(g)
     for x in xs:
         args = (nd.array(x),) + ((nd.array(res),) if act else ())
         with autograd.record(train_mode=True):
             jy = jbn(*args)
-        ty = tbn(torch.from_numpy(x),
-                 *((torch.from_numpy(res),) if act else ()))
+        with tautograd.train_mode():
+            ty = tbn(torch.from_numpy(x),
+                     *((torch.from_numpy(res),) if act else ()))
         np.testing.assert_allclose(ty.detach().numpy(), jy.asnumpy(),
                                    rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(tbn.running_mean.numpy(),
+    np.testing.assert_allclose(tbn.running_mean.data().asnumpy(),
                                jbn.running_mean.data().asnumpy(),
                                rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(tbn.running_var.numpy(),
+    np.testing.assert_allclose(tbn.running_var.data().asnumpy(),
                                jbn.running_var.data().asnumpy(),
                                rtol=1e-5, atol=1e-6)
-    # eval mode: the running statistics (mxtpu's use_global_stats path)
-    tbn.eval()
+    # predict mode: the running statistics (mxtpu's use_global_stats
+    # path)
     want = jbn(*((nd.array(xs[0]),) + ((nd.array(res),) if act else ())))
     got = tbn(torch.from_numpy(xs[0]),
               *((torch.from_numpy(res),) if act else ()))
@@ -265,9 +286,11 @@ def test_batchnorm_running_stats_and_eval_match_mxtpu(axis, act):
 def test_batchnorm_options():
     with pytest.raises(MXNetError, match="act_type"):
         tnn.BatchNorm(in_channels=4, act_type="gelu")
-    with pytest.raises(MXNetError, match="in_channels"):
-        tnn.BatchNorm()
-    bn = tnn.BatchNorm(in_channels=4)
+    # in_channels left 0 is inferred at the first forward, as in mxtpu
+    bn = tnn.BatchNorm()
+    bn.initialize(ctx=cpu())
+    bn(torch.randn(2, 4, 3, 3))
+    assert bn.gamma.shape == (4,) and bn.running_var.shape == (4,)
     with pytest.raises(MXNetError, match="residual"):
         bn(torch.randn(2, 4, 3, 3), torch.randn(2, 4, 3, 3))
     # scale=False fixes gamma at 1 and leaves it out of training;
@@ -275,14 +298,16 @@ def test_batchnorm_options():
     # training mode and leaves them alone
     bn = tnn.BatchNorm(in_channels=4, scale=False, center=False,
                        use_global_stats=True)
-    assert not bn.gamma.requires_grad and not bn.beta.requires_grad
-    with torch.no_grad():
-        bn.gamma.fill_(5.0)
+    bn.initialize(ctx=cpu())
+    assert bn.gamma.grad_req == "null" and bn.beta.grad_req == "null"
+    assert not any(t.requires_grad for t in bn.parameters())
+    bn.gamma.set_data(np.full(4, 5.0, np.float32))
     x = torch.randn(2, 4, 3, 3)
-    assert torch.allclose(bn(x), x / np.sqrt(1 + 1e-5), atol=1e-6)
-    assert torch.equal(bn.running_mean, torch.zeros(4))
-    assert [n for n, _ in bn.named_buffers()] == ["running_mean",
-                                                 "running_var"]
+    with tautograd.train_mode():
+        assert torch.allclose(bn(x), x / np.sqrt(1 + 1e-5), atol=1e-6)
+    assert torch.equal(bn.running_mean.data()._data, torch.zeros(4))
+    assert [n.split("_", 1)[1] for n in bn.collect_params()] == \
+        ["gamma", "beta", "running_mean", "running_var"]
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -294,9 +319,11 @@ def test_conv2d_matches_mxtpu(layout, kw):
     rng = np.random.RandomState(3)
     shape = (2, 3, 9, 9) if layout == "NCHW" else (2, 9, 9, 3)
     x = rng.randn(*shape).astype(np.float32)
-    jc = jnn.Conv2D(layout=layout, in_channels=3, **kw)
+    with fresh_names():
+        jc = jnn.Conv2D(layout=layout, in_channels=3, **kw)
     jc.initialize(init="xavier")
-    tc = tnn.Conv2D(layout=layout, in_channels=3, **kw)
+    with fresh_names():
+        tc = tnn.Conv2D(layout=layout, in_channels=3, **kw)
     want = jc(nd.array(x)).asnumpy()
     params_from_mxtpu(_jax_params(jc), tc)
     got = tc(torch.from_numpy(x))
@@ -327,23 +354,31 @@ def test_pooling_matches_mxtpu(layout):
 def test_dense_flattens_like_gluon():
     rng = np.random.RandomState(5)
     x = rng.randn(3, 4, 1, 2).astype(np.float32)
-    jd = jnn.Dense(5, in_units=8)
+    with fresh_names():
+        jd = jnn.Dense(5, in_units=8)
     jd.initialize(init="xavier")
-    td = tnn.Dense(5, 8)
+    with fresh_names():
+        td = tnn.Dense(5, in_units=8)
     params_from_mxtpu(_jax_params(jd), td)
     np.testing.assert_allclose(td(torch.from_numpy(x)).detach().numpy(),
                                jd(nd.array(x)).asnumpy(), rtol=1e-5,
                                atol=1e-6)
-    flat = tnn.Dense(5, 2, flatten=False)
+    flat = tnn.Dense(5, flatten=False)       # in_units from the input
+    flat.initialize(ctx=cpu())
     assert flat(torch.from_numpy(x)).shape == (3, 4, 1, 5)
+    assert flat.weight.shape == (5, 2)
 
 
 # -------------------------------------------------------------- the rest
 
 def test_xavier_bounds_and_spread():
-    gen = torch.Generator().manual_seed(0)
-    net = ResNetV1(BottleneckV1, LAYERS, CHANNELS, classes=CLASSES)
-    initializer.initialize(net, initializer.Xavier(), gen)
+    def xavier_net():
+        trandom.seed(0)
+        with fresh_names():
+            net = ResNetV1(BottleneckV1, LAYERS, CHANNELS, classes=CLASSES)
+        net.initialize(initializer.Xavier(), ctx=cpu())
+        return _shaped(net, "NCHW")
+    net = xavier_net()
     jnet = _jax_net("NCHW")
     jp = _jax_params(jnet)
     for (n, t), (jn, ja) in zip(named_tensors(net), jp.items()):
@@ -361,9 +396,8 @@ def test_xavier_bounds_and_spread():
                                            rtol=0.1, err_msg=n)
                 np.testing.assert_allclose(ja.std(), s / np.sqrt(3),
                                            rtol=0.1, err_msg=n)
-    # a fixed generator draws the same weights again
-    again = ResNetV1(BottleneckV1, LAYERS, CHANNELS, classes=CLASSES)
-    initializer.initialize(again, generator=torch.Generator().manual_seed(0))
+    # the same seed draws the same weights again
+    again = xavier_net()
     assert all(torch.equal(a, b) for (_, a), (_, b) in
                zip(named_tensors(net), named_tensors(again)))
     g = initializer.Xavier(rnd_type="gaussian", factor_type="in",
@@ -377,10 +411,17 @@ def test_resnet50_shapes_and_the_default_device():
     net = resnet50()
     n_bn = sum(isinstance(m, tnn.BatchNorm) for m in net.modules())
     assert n_bn == 53
+    net.initialize(ctx=cpu())
+    _shaped(net, "NCHW")
     # torchvision's 25,557,032 and the 18,880 biases the reference keeps
-    # on the bottlenecks' 1x1 convolutions
-    assert sum(p.numel() for p in net.parameters()) == 25557032 + 18880
+    # on the bottlenecks' 1x1 convolutions (the running statistics are
+    # parameters that are not trained)
+    assert sum(p.numel() for p in net.parameters() if p.requires_grad) \
+        == 25557032 + 18880
     nhwc = resnet50_v1(layout="NHWC")
+    assert nhwc.features[0].weight.shape == (64, 7, 7, 0)   # deferred
+    nhwc.initialize(ctx=cpu())
+    _shaped(nhwc, "NHWC")
     assert nhwc.features[0].weight.shape == (64, 7, 7, 3)
     with pytest.raises(MXNetError, match="invalid depth"):
         get_resnet(1, 18)
@@ -393,8 +434,8 @@ def test_resnet50_shapes_and_the_default_device():
 
 
 def test_bf16_step_keeps_stats_f32_and_labels_uncast():
+    trandom.seed(1)
     net = _torch_net("NHWC")
-    initializer.initialize(net, generator=torch.Generator().manual_seed(1))
     seen = {}
 
     def loss(pred, y):
@@ -403,9 +444,10 @@ def test_bf16_step_keeps_stats_f32_and_labels_uncast():
     step = build_train_step(net, loss, "sgd", SGD,
                             compute_dtype="bfloat16", device="cpu")
     x, y = _data("NHWC", seed=2)
-    before = net.features[1].running_mean.clone()
+    before = net.features[1].running_mean.data().asnumpy()
     losses = [float(step(x, y)) for _ in range(3)]
     assert np.isfinite(losses).all()
     assert seen == {"pred": torch.bfloat16, "y": torch.float32}
-    rm = net.features[1].running_mean
-    assert rm.dtype == torch.float32 and not torch.equal(rm, before)
+    rm = net.features[1].running_mean.data()
+    assert rm.dtype == np.float32 and \
+        not np.array_equal(rm.asnumpy(), before)

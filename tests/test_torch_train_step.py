@@ -52,6 +52,7 @@ from mxtpu_torch.optimizer import lr_scheduler as tls
 from mxtpu_torch.parallel import build_train_step
 
 from test_torch_symbol import build as build_symbol
+from tests.torch_gluon_names import fresh_names
 
 torch.set_num_threads(2)
 
@@ -65,7 +66,8 @@ def _tokens(seed, b=2):
 
 
 def _jax_bert():
-    net = JBERT(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.0)
+    with fresh_names():
+        net = JBERT(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=0.0)
     net.initialize(init="xavier")
     net(nd.array(_tokens(0)))
     return net
@@ -76,8 +78,17 @@ def _jax_params(net):
 
 
 def _torch_bert(params=None, dropout=0.0):
-    net = BERTModel(V, U, 4 * U, L, H, max_length=MAXLEN, dropout=dropout)
-    return net if params is None else params_from_mxtpu(params, net)
+    """The port's BERT named as a fresh process names it: ``params``
+    carried in by name, else xavier weights from the seeded generator,
+    its deferred shapes filled by one predict-mode forward."""
+    with fresh_names():
+        net = BERTModel(V, U, 4 * U, L, H, max_length=MAXLEN,
+                        dropout=dropout)
+    if params is not None:
+        return params_from_mxtpu(params, net)
+    net.initialize(init="xavier", ctx=CPU)
+    net(torch.zeros(1, T))
+    return net
 
 
 def _jmlm(pred, y):
@@ -497,10 +508,11 @@ def test_bucketed_step_equals_per_parameter_step(monkeypatch, opt, kw, cd):
 
 
 def _resnet():
-    from mxtpu_torch import initializer
-    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128],
-                   classes=10, layout="NHWC")
-    initializer.initialize(net, generator=torch.Generator().manual_seed(1))
+    with fresh_names():
+        net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128],
+                       classes=10, layout="NHWC")
+    net.initialize(init="xavier", ctx=CPU)
+    net(torch.zeros(1, 32, 32, 3))
     return net
 
 
@@ -533,7 +545,8 @@ def test_a_rebound_parameter_is_repacked(monkeypatch):
     x = _tokens(2)
     step = _seeded_step(monkeypatch, True, dropout=0.0)
     p = dict(step.net.named_parameters())["encoder.layers.0.ffn.ffn1.weight"]
-    j = step.param_names.index("encoder.layers.0.ffn.ffn1.weight")
+    j = step.param_names.index(step.net.encoder.layers[0].ffn.ffn1.weight
+                               .name)
     k, group = next((k, g) for k, g in enumerate(step._groups) if j in g)
     assert len(group) > 1
     p.data = p.detach() * 0.5 + 0.01
@@ -568,9 +581,11 @@ def test_lr_mult_per_slice_in_a_bucket(monkeypatch, dtype):
         step = _seeded_step(
             monkeypatch, batched, kw=kw, dropout=0.0,
             net=lambda: _torch_bert(dropout=0.0).to(getattr(torch, dtype)))
-        lm = {"encoder.layers.0.ffn.ffn1.weight": 0.25,
-              "encoder.layers.1.ffn.ffn1.weight": 0.0}
-        wm = {"encoder.layers.0.ffn.ffn2.weight": 3.0}
+        # by mxtpu's names, as mxtpu's step reads the multipliers
+        cells = step.net.encoder.layers
+        lm = {cells[0].ffn.ffn1.weight.name: 0.25,
+              cells[1].ffn.ffn1.weight.name: 0.0}
+        wm = {cells[0].ffn.ffn2.weight.name: 3.0}
         assert set(lm) | set(wm) <= set(step.param_names)
         step.optimizer.set_lr_mult(lm)
         step.optimizer.set_wd_mult(wm)
@@ -759,3 +774,48 @@ def test_load_states_refuses_another_structure(monkeypatch, tmp_path):
                                                   "momentum": 0.9})
     with pytest.raises(MXNetError, match="structure mismatch"):
         b.load_states(str(tmp_path / "a"))
+
+
+# ------------------------------------------------ a module not a Block
+
+def test_plain_module_carries_by_order_and_trains_as_mxtpu(monkeypatch):
+    """A ``torch.nn.Module`` that is not a Block: mxtpu's weights go in
+    by ``collect_params()`` order, ``TrainStep`` takes its
+    ``named_parameters()``, and three SGD-momentum steps with weight
+    decay follow mxtpu's step from the same weights (losses 1e-5; the
+    weights, carried back under mxtpu's names, 1e-5); a count that
+    differs raises."""
+    from mxtpu.gluon import nn as jnn
+    with fresh_names():
+        jnet = jnn.HybridSequential()
+        jnet.add(jnn.Dense(16, in_units=8, activation="relu"),
+                 jnn.Dense(4, in_units=16))
+    jnet.initialize(init="xavier")
+    jp = _jax_params(jnet)
+    tnet = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                               torch.nn.Linear(16, 4))
+    params_from_mxtpu(jp, tnet)
+    kw = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}
+    tstep = build_train_step(tnet, SoftmaxCrossEntropyLoss(), "sgd",
+                             dict(kw), device="cpu", cast_batch=False)
+    assert tstep.param_names == ["0.weight", "0.bias", "2.weight",
+                                 "2.bias"]
+    monkeypatch.setenv("MXTPU_BATCHED_OPT", "0")
+    jstep = jpar.build_train_step(jnet, jloss.SoftmaxCrossEntropyLoss(),
+                                  "sgd", dict(kw), cache=None,
+                                  cast_batch=False)
+    rng = np.random.RandomState(3)
+    x = rng.randn(6, 8).astype(np.float32)
+    y = rng.randint(0, 4, 6).astype(np.float32)
+    want = [float(jstep(nd.array(x), nd.array(y)).asnumpy())
+            for _ in range(3)]
+    got = [float(tstep(x, y)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    jp = _jax_params(jnet)
+    tp = params_to_mxtpu(tnet, list(jp))
+    assert list(tp) == list(jp)
+    for n in jp:
+        np.testing.assert_allclose(tp[n], jp[n], rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+    with pytest.raises(MXNetError, match="5 mxtpu parameters for 4"):
+        params_from_mxtpu(dict(jp, extra=np.zeros(1, np.float32)), tnet)

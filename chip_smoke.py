@@ -194,7 +194,38 @@ Phases, each fatal on failure:
      profiled batch; then the same epoch with the rtc head from the
      same parameters and batch order: rtc launches 1/1 and BatchNorm
      19/19 per batch, the per-batch losses within 1e-4 of max(|p|,
-     0.01) of the SoftmaxOutput run's.
+     0.01) of the SoftmaxOutput run's;
+ 18. generation serving: mxtpu's generation model,
+     ``BERTModel(30522, 1024, 4096, 24, 16, max_length=512, dropout=0,
+     use_token_type=False, causal=True)`` in f32, seeded with the
+     port's initializers, its incremental call traced and exported, then
+     ``GenerateRunner.from_export(..., kv_cache_spec(8, 512),
+     prompt_buckets=(32, 128))`` (8 lanes + scratch, a 0.91 GB KV table)
+     and ``warmup()``.  Gates: (1) one lane, a 100-token prompt
+     prefilled, then 16 decode steps, each step's logits against the
+     full causal forward's (flash #1) at the same position, the greedy
+     tokens where the top-2 gap exceeds the tolerance; (2) one prefill
+     (b=2, s=32) and 4 decode steps against the same runner on the CPU;
+     (3) every prefill and decode call of gate 1 launches exactly 1
+     LayerNorm (#4), 48 fused epilogues (#6) and no flash kernel, and so
+     does every runner call of the server run; (4) ``InferenceServer.
+     register_generator`` serves 32 requests (prompts 8-300 tokens,
+     those past 128 prefilled in chunks, 24 new tokens; half greedy,
+     half top-k 8 with their own seeds) from 4 threads, every stream
+     complete, in order, "length", and each greedy one against the same
+     request alone through a fresh ``GenerateBatcher``; (5) a batcher
+     closed after 8 steps, each request resumed from its
+     ``partial_state()`` as a prefix: every index exactly once, the
+     greedy tokens those of the run never closed.  Greedy streams that
+     first part at a near tie of the full forward's logits (within the
+     tolerance) count as agreeing.  Printed: decode tokens/s at
+     saturation (``bench.py``'s ``serving_generate`` run: 8 requests of
+     64 tokens through one batcher), TTFT and per-token p50/p95 at the
+     stream callback, the naive re-prefill tokens/s and the ratio, a
+     decode step's wall and host ms in ``_eval_symbol``, its device ms
+     by family (GEMMs, ``cached_attention``, KV copies, #4, #6, the
+     copies to and from the host, other) and #4 and #6 timed at the
+     decode step's shape (9 x 1024).
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -202,7 +233,8 @@ order) and 2e-2 in bf16 (one bf16 rounding of the output); the bf16
 flash gradients, whose typical size is about 0.1, are held at
 |r - p| <= 2e-2 * max(min(1, rms(p)), |p|) instead, and BatchNorm's f32
 dgamma and dbeta (sums over N*S elements) at 1e-4 * max(rms(p), |p|);
-the served logits against the CPU: 1e-3 (24 layers of f32 GEMMs in
+the served logits against the CPU, and the generation logits against
+the full forward and against the CPU: 1e-3 (24 layers of f32 GEMMs in
 another order); the rtc softmax: p 1e-6 relative, dx 1e-6 absolute;
 the symbolic resnet20 card vs CPU: outputs (probabilities) 1e-5, each
 gradient's rms error 1e-4 of its rms, three step losses 1e-4 of
@@ -226,7 +258,9 @@ and serving numbers, a ``{"kernels": [...]}`` JSON line (flash forward,
 dq and dk/dv in bf16 and f32, the bf16 rows with BERT-Large bf16
 training's launches, the f32 forward with serving's and the f32
 backward with BERT-Large f32 training's; an f32 row on the tensor cores
-takes the smaller of its FMA and split bounds), and last the line
+takes the smaller of its FMA and split bounds; #4 and #6 again with
+``"path": "generate"``, at the decode step's shape with the generation
+server's launches), and last the line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without CUDA or outside a checkout.  A full report goes to
 ``mxtpu_torch/_build/chip_smoke_report.json``.
@@ -4313,6 +4347,688 @@ def serve_phase(checks, params):
                     "forward_b32_t128": breakdown}
 
 
+# ----------------------------------------------------------------------
+# phase 18: generation serving (the incremental decode, GenerateRunner,
+# GenerateBatcher, the server's generator endpoints)
+# ----------------------------------------------------------------------
+
+GEN_LANES, GEN_BUCKETS = 8, (32, 128)
+GEN_PROMPT, GEN_DECODE = 100, 16           # gate 1
+GEN_CPU_B, GEN_CPU_S, GEN_CPU_STEPS = 2, 32, 4   # gate 2
+GEN_REQUESTS, GEN_CLIENTS = 32, 4          # gate 4
+GEN_MAX_TOKENS, GEN_TOPK = 24, 8
+GEN_PROMPT_LENS = (8, 300)
+GEN_SAT_PROMPT, GEN_SAT_RUNS = 64, 2       # saturation and naive runs
+GEN_LAUNCHES = {"layer_norm_fwd": 1, "fused_residual_ln_fwd": 2 * LAYERS}
+# a decode step's device time by family: the op whose range launched it
+GEN_OP_FAMILY = {"FullyConnected": "gemm",
+                 "cached_attention": "cached_attention",
+                 "kv_cache_write": "kv_copies", "stack": "kv_copies",
+                 "LayerNorm": "layer_norm_fwd",
+                 "FusedResidualLayerNorm": "fused_residual_ln_fwd"}
+
+
+def gen_bert():
+    """mxtpu's generation model (``BERTModel(..., causal=True)``) at
+    BERT-Large's widths."""
+    from mxtpu_torch.models import BERTModel
+    return BERTModel(VOCAB, UNITS, FFN, LAYERS, HEADS, max_length=MAXLEN,
+                     dropout=0.0, use_token_type=False, causal=True)
+
+
+def gen_export(path):
+    """The generation model with weights from the port's initializers
+    (``mxtpu_torch.random.seed(SEED)``), its incremental call traced
+    once and exported to ``path``."""
+    from mxtpu_torch import nd
+    from mxtpu_torch import random as trandom
+    trandom.seed(SEED)
+    net = fresh_names(gen_bert)
+    net.initialize(ctx=CARD)
+    net(nd.array(np.ones((1, 3), np.float32), ctx=CARD),
+        nd.zeros((1,), ctx=CARD), nd.zeros(net.kv_cache_spec(1), ctx=CARD))
+    return net, net.export(path)
+
+
+def full_logits(net, seq):
+    """The full causal forward (flash #1) over ``seq``: (len, V) on the
+    host."""
+    import torch
+    with torch.no_grad():
+        x = torch.tensor(np.asarray(seq, np.float32)[None], device=CARD)
+        return net(x)[0].cpu()
+
+
+def near_tie(row, a, b):
+    """Whether tokens ``a`` and ``b`` are within SERVE_TOL of each other
+    in the logits ``row``: a greedy pick between them may go either way
+    in another f32 summation order."""
+    row = np.asarray(row, np.float64)
+    return abs(row[a] - row[b]) <= SERVE_TOL * max(1.0, abs(row[a]),
+                                                   abs(row[b]))
+
+
+def same_greedy(net, prompt, got, want):
+    """Two greedy streams of one prompt agree, or first differ at a
+    near tie of the full forward's logits there (after which they
+    continue from different tokens).  Returns (ok, index of the first
+    difference or None)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            row = full_logits(net, list(prompt) + list(want[:i]))[-1]
+            return near_tie(row.numpy(), a, b), i
+    return len(got) == len(want), None
+
+
+def gen_incremental_gate(checks, net, runner):
+    """Gates 1 and 3: one lane prefilled with a 100-token prompt, then
+    16 decode steps; each step's logits against the full causal
+    forward's at the same position, the greedy tokens where the top-2
+    gap exceeds the tolerance, and each call's launches exactly 1
+    LayerNorm (#4), 48 fused epilogues (#6) and no flash kernel."""
+    import torch
+    from mxtpu_torch import kernels
+    rng = np.random.RandomState(SEED + 20)
+    prompt = [int(t) for t in rng.randint(0, VOCAB, GEN_PROMPT)]
+    kv = runner.new_cache()
+    s = runner.prompt_bucket_for(GEN_PROMPT)
+    tok = np.zeros((1, s), np.float32)
+    tok[0, :GEN_PROMPT] = prompt
+    kernels.reset_launch_counts()
+    logits, kv = runner.prefill(tok, np.zeros(1, np.float32),
+                                np.zeros(1, np.float32), kv)
+    check_launches(checks, "generate prefill", kernels.launch_counts(),
+                   GEN_LAUNCHES, 1)
+    inc = [logits[0, GEN_PROMPT - 1]]
+    seq = list(prompt)
+    slots = runner.max_lanes + 1
+    for i in range(GEN_DECODE):
+        seq.append(int(np.argmax(inc[-1])))
+        dt = np.zeros((slots, 1), np.float32)
+        ds = np.zeros(slots, np.float32)
+        dt[0, 0], ds[0] = seq[-1], len(seq) - 1
+        kernels.reset_launch_counts()
+        logits, kv = runner.decode(dt, ds, kv)
+        check_launches(checks, f"generate decode step {i}",
+                       kernels.launch_counts(), GEN_LAUNCHES, 1)
+        inc.append(logits[0, 0])
+    ref = full_logits(net, seq)[GEN_PROMPT - 1:]
+    got = torch.from_numpy(np.stack(inc))
+    rel, absmax = rel_err(got, ref)
+    flips, ties = 0, 0
+    for i in range(GEN_DECODE):
+        want = int(ref[i].argmax())
+        if seq[GEN_PROMPT + i] != want:
+            if near_tie(ref[i].numpy(), seq[GEN_PROMPT + i], want):
+                ties += 1
+            else:
+                flips += 1
+    ok = rel <= SERVE_TOL and flips == 0
+    print(f"check generate: {GEN_DECODE} decode steps after a "
+          f"{GEN_PROMPT}-token prefill vs the full causal forward: "
+          f"max_abs_err={absmax:.3e} max_rel_err={rel:.3e} "
+          f"tol={SERVE_TOL}; greedy tokens differing beyond a near tie "
+          f"{flips}, at a near tie {ties} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    checks.rows.append({"check": "generate incremental vs full forward",
+                        "max_abs_err": absmax, "max_rel_err": rel,
+                        "tol": SERVE_TOL, "flips": flips, "ties": ties,
+                        "ok": ok})
+    if not ok:
+        checks.failed.append("generate: incremental logits or greedy "
+                             "tokens differ from the full forward")
+    return absmax
+
+
+def gen_cpu_gate(checks, runner, files):
+    """Gate 2: one prefill (b=2, s=32) and 4 decode steps on the card
+    against the same runner built on the CPU (the plain versions)."""
+    import torch
+    from mxtpu_torch.serving import GenerateRunner
+    cpu = GenerateRunner.from_export(*files, runner.kv_spec,
+                                     prompt_buckets=GEN_BUCKETS,
+                                     device="cpu")
+    rng = np.random.RandomState(SEED + 21)
+    toks = rng.randint(0, VOCAB, (GEN_CPU_B, GEN_CPU_S)).astype(np.float32)
+    lanes = np.arange(GEN_CPU_B, dtype=np.float32)
+    step = np.zeros(GEN_CPU_B, np.float32)
+    lg, kg = runner.prefill(toks, step, lanes, runner.new_cache())
+    lc, kc = cpu.prefill(toks, step, lanes, cpu.new_cache())
+    errs = [rel_err(torch.from_numpy(lg), torch.from_numpy(lc))]
+    slots = runner.max_lanes + 1
+    for i in range(GEN_CPU_STEPS):
+        dt = np.zeros((slots, 1), np.float32)
+        ds = np.zeros(slots, np.float32)
+        last = lg[:, -1] if i == 0 else lg[:, 0]
+        for b in range(GEN_CPU_B):
+            dt[b, 0], ds[b] = int(np.argmax(last[b])), GEN_CPU_S + i
+        lg, kg = runner.decode(dt, ds, kg)
+        lc, kc = cpu.decode(dt, ds, kc)
+        errs.append(rel_err(torch.from_numpy(lg), torch.from_numpy(lc)))
+    errs.append(rel_err(kg[:, :, :GEN_CPU_B].cpu(), kc[:, :, :GEN_CPU_B]))
+    rel = max(e[0] for e in errs)
+    absmax = max(e[1] for e in errs)
+    ok = rel <= SERVE_TOL
+    print(f"check generate card vs CPU: prefill b{GEN_CPU_B} s{GEN_CPU_S} "
+          f"and {GEN_CPU_STEPS} decode steps, logits and the lanes' KV: "
+          f"max_abs_err={absmax:.3e} max_rel_err={rel:.3e} "
+          f"tol={SERVE_TOL} {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "generate card vs CPU", "max_abs_err":
+                        absmax, "max_rel_err": rel, "tol": SERVE_TOL,
+                        "ok": ok})
+    if not ok:
+        checks.failed.append("generate: the card's logits differ from "
+                             "the CPU runner's")
+    del cpu, kc
+    return absmax
+
+
+def pct(vals, q):
+    """bench.py's nearest-rank percentile (q in [0, 1])."""
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))] \
+        if vals else None
+
+
+def gen_saturation(runner):
+    """``bench.py``'s ``serving_generate`` measurement at full width:
+    8 greedy requests of 64 tokens, 24 new tokens each, through one
+    batcher stepped until drained (tokens/s, and TTFT and per-token
+    gaps at the stream callback), twice; then its naive denominator,
+    the same continuation of the first prompt by a full prefill over
+    the growing sequence per token."""
+    from mxtpu_torch.serving import GenerateBatcher
+    rng = np.random.RandomState(SEED + 22)
+    prompts = [[int(t) for t in rng.randint(1, VOCAB, GEN_SAT_PROMPT)]
+               for _ in range(runner.max_lanes)]
+    host = []
+    orig = runner._eval_incremental
+
+    def eval_timed(*a):
+        t0 = time.perf_counter()
+        out = orig(*a)
+        host.append(time.perf_counter() - t0)
+        return out
+
+    rates, ttfts, gaps, step_ms, eval_ms = [], [], [], [], []
+    runner._eval_incremental = eval_timed
+    try:
+        for _ in range(GEN_SAT_RUNS):
+            batcher = GenerateBatcher(runner)
+            marks = [[] for _ in prompts]
+            t_submit = time.perf_counter()
+            reqs = [batcher.submit(p, max_tokens=GEN_MAX_TOKENS,
+                                   on_token=lambda t, i, m=m:
+                                   m.append(time.perf_counter()))
+                    for p, m in zip(prompts, marks)]
+            while not batcher.drain():
+                del host[:]
+                t0 = time.perf_counter()
+                out = batcher.step()
+                if not out["admitted"]:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    eval_ms.append(sum(host) * 1e3)
+            elapsed = time.perf_counter() - t_submit
+            batcher.close()
+            rates.append(sum(len(r.result(0)) for r in reqs) / elapsed)
+            ttfts += [(m[0] - t_submit) * 1e3 for m in marks if m]
+            gaps += [(b - a) * 1e3 for m in marks
+                     for a, b in zip(m, m[1:])]
+    finally:
+        runner._eval_incremental = orig
+    kv = runner.new_cache()
+    seq = list(prompts[0])
+    b = runner.batch_rung_for(1)
+    t0 = time.perf_counter()
+    while len(seq) - GEN_SAT_PROMPT < GEN_MAX_TOKENS:
+        s = runner.prompt_bucket_for(len(seq))
+        tok = np.zeros((b, s), np.float32)
+        tok[0, :len(seq)] = seq
+        logits, kv = runner.prefill(
+            tok, np.zeros(b, np.float32),
+            np.full(b, runner.scratch_slot, np.float32), kv)
+        seq.append(int(np.argmax(logits[0, len(seq) - 1])))
+    naive = GEN_MAX_TOKENS / (time.perf_counter() - t0)
+    out = {"tok_per_s": rates, "best_tok_per_s": max(rates),
+           "ttft_ms": {"p50": pct(ttfts, 0.5), "p95": pct(ttfts, 0.95)},
+           "per_token_ms": {"p50": pct(gaps, 0.5),
+                            "p95": pct(gaps, 0.95)},
+           "naive_reprefill_tok_per_s": naive,
+           "kv_vs_naive": max(rates) / naive,
+           "decode_step_wall_ms": {"p50": pct(step_ms, 0.5),
+                                   "p95": pct(step_ms, 0.95)},
+           "decode_eval_host_ms": {"p50": pct(eval_ms, 0.5),
+                                   "p95": pct(eval_ms, 0.95)}}
+    print(f"generate saturation ({runner.max_lanes} lanes, "
+          f"{GEN_SAT_PROMPT}-token prompts, {GEN_MAX_TOKENS} tokens "
+          f"each): decode tokens/s {', '.join(f'{r:.2f}' for r in rates)}"
+          f"; TTFT p50 {out['ttft_ms']['p50']:.3f} ms p95 "
+          f"{out['ttft_ms']['p95']:.3f} ms; per-token p50 "
+          f"{out['per_token_ms']['p50']:.3f} ms p95 "
+          f"{out['per_token_ms']['p95']:.3f} ms (stream callback); naive "
+          f"re-prefill {naive:.2f} tokens/s, ratio "
+          f"{out['kv_vs_naive']:.3f}; a decode step {pct(step_ms, 0.5):.3f}"
+          f" ms wall (p50), of it {pct(eval_ms, 0.5):.3f} ms host in "
+          f"_eval_symbol", flush=True)
+    return out
+
+
+def gen_decode_breakdown(checks, runner):
+    """One decode step with every lane active under torch.profiler, its
+    device time by family.  Each device kernel is charged to the op
+    whose ``record_function`` range launched it (the profiler links a
+    kernel to the innermost op around its launch; the walk goes up to
+    the nearest range): GEMMs are the FullyConnected ranges', KV copies
+    kv_cache_write's and stack's plus the kernels outside the graph
+    (the donation's copy of the new table over the old), copies to and
+    from the host by name, other the rest of the graph.  A range's own
+    span on the device timeline is left out; its ``device_time_total``,
+    which holds that span, is printed beside the kernels' sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxtpu_torch.ops.registry import get_op
+    slots = runner.max_lanes + 1
+    rng = np.random.RandomState(SEED + 23)
+    dt = rng.randint(0, VOCAB, (slots, 1)).astype(np.float32)
+    ds = np.full(slots, GEN_SAT_PROMPT + 5, np.float32)
+    ds[-1] = 0
+    kv = runner.new_cache()
+    runner.decode(dt, ds, kv)
+    saved = {}
+    for name in GEN_OP_FAMILY:
+        op = get_op(name)
+        saved[name] = op.fn
+
+        def ranged(*a, _fn=op.fn, _tag=f"gen_op:{name}", **k):
+            with record_function(_tag):
+                return _fn(*a, **k)
+        op.fn = ranged
+    orig = runner._eval_incremental
+
+    def eval_ranged(*a):
+        with record_function("gen:eval"):
+            return orig(*a)
+    runner._eval_incremental = eval_ranged
+
+    def family(evt):
+        while evt is not None:
+            if evt.name.startswith("gen_op:"):
+                return GEN_OP_FAMILY[evt.name[7:]]
+            if evt.name == "gen:eval":
+                return "other"
+            evt = evt.cpu_parent
+        return "kv_copies"    # outside the graph: the donation's copy
+
+    try:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                runner.decode(dt, ds, kv)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            by = {k: 0.0 for k in ("gemm", "cached_attention", "kv_copies",
+                                   "layer_norm_fwd",
+                                   "fused_residual_ln_fwd", "host_copies",
+                                   "other")}
+            busy = eval_total = eval_host = 0.0
+            n = 0
+            for evt in prof.events():
+                if "CPU" not in str(evt.device_type):
+                    if not evt.name.startswith(("gen:", "gen_op:")):
+                        busy += evt.device_time_total / 1e3
+                    continue
+                if evt.name == "gen:eval":
+                    eval_total += evt.device_time_total / 1e3
+                    eval_host += evt.cpu_time_total / 1e3
+                fam = None
+                for k in evt.kernels:
+                    if k.name.startswith(("gen:", "gen_op:")):
+                        continue      # a range's span, not a kernel
+                    fam = fam or family(evt)
+                    ms = k.duration / 1e3
+                    n += 1
+                    by["host_copies" if "memcpy" in k.name.lower()
+                       else fam] += ms
+            if busy:
+                break
+    finally:
+        for name, fn in saved.items():
+            get_op(name).fn = fn
+        runner._eval_incremental = orig
+    if not busy:
+        checks.failed.append("torch.profiler recorded no device time in "
+                             "the decode step")
+        return {}
+    linked = sum(by.values())
+    out = {"device_ms_by_family": by, "device_busy_ms": busy,
+           "linked_ms": linked, "kernels": n, "profiled_wall_ms": wall,
+           "eval_host_ms": eval_host,
+           "eval_range_device_time_total_ms": eval_total,
+           "device_idle_share": 1.0 - busy / wall}
+    print("generate decode step breakdown (device ms, 9 slots, 8 lanes "
+          f"at position {GEN_SAT_PROMPT + 5}): " +
+          ", ".join(f"{k} {v:.3f}" for k, v in by.items()) +
+          f"; {n} kernels linked to their ops, {linked:.3f} ms, of "
+          f"{busy:.3f} ms busy on the device in {wall:.3f} ms wall, idle "
+          f"share {out['device_idle_share']:.4f}; host in _eval_symbol "
+          f"{eval_host:.3f} ms (profiled); the eval range's "
+          f"device_time_total {eval_total:.3f} ms", flush=True)
+    return out
+
+
+def gen_alone(runner, prompt, kw):
+    """One request run alone through a fresh GenerateBatcher."""
+    from mxtpu_torch.serving import GenerateBatcher
+    b = GenerateBatcher(runner)
+    r = b.submit(prompt, **kw)
+    while not r.done():
+        b.step()
+    b.close()
+    return r.result(0)
+
+
+def gen_server_gate(checks, net, runner):
+    """Gate 4: InferenceServer.register_generator serves 32 requests from
+    4 client threads (prompts 8-300 tokens, those past 128 prefilled in
+    chunks; half greedy, half top-k 8 with their own seeds); every
+    stream complete, none hanging; each greedy stream against the same
+    request run alone.  Its launches are the kernels line's."""
+    from mxtpu_torch import kernels
+    from mxtpu_torch.serving import InferenceServer
+    rng = np.random.RandomState(SEED + 24)
+    lens = [int(n) for n in rng.randint(GEN_PROMPT_LENS[0],
+                                        GEN_PROMPT_LENS[1] + 1,
+                                        GEN_REQUESTS)]
+    prompts = [[int(t) for t in rng.randint(0, VOCAB, n)] for n in lens]
+    kws = [dict(max_tokens=GEN_MAX_TOKENS) if i % 2 == 0 else
+           dict(max_tokens=GEN_MAX_TOKENS, top_k=GEN_TOPK, seed=1000 + i)
+           for i in range(GEN_REQUESTS)]
+    streams = [[] for _ in prompts]
+    results = [None] * GEN_REQUESTS
+    errors = []
+    server = InferenceServer(log_every_s=1e9)
+    server.register_generator("gen", runner)
+
+    def client(idx):
+        try:
+            reqs = [(i, server.submit_generate(
+                "gen", prompts[i], timeout_s=600.0,
+                on_token=lambda t, j, g=streams[i]: g.append((j, t)),
+                **kws[i])) for i in idx]
+            for i, req in reqs:
+                results[i] = (req.result(timeout=660.0), req.finish_reason)
+        except Exception as e:  # noqa: BLE001 — reported as a failure
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, GEN_REQUESTS,
+                                            GEN_CLIENTS),))
+               for c in range(GEN_CLIENTS)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ep = server._gen_endpoint("gen", None)
+    steps, joins = ep.batcher.steps, ep.batcher.joins
+    server.close()
+    snap = server.stats("gen")
+    if any(t.is_alive() for t in threads):
+        checks.failed.append("generate: client threads did not finish")
+    if errors:
+        checks.failed.append(f"generate: request errors: {errors[:3]}")
+    bad = [i for i, r in enumerate(results)
+           if r is None or len(r[0]) != GEN_MAX_TOKENS
+           or r[1] != "length" or [j for j, _ in streams[i]] !=
+           list(range(GEN_MAX_TOKENS)) or [t for _, t in streams[i]] !=
+           r[0]]
+    if bad:
+        checks.failed.append(f"generate: {len(bad)} streams incomplete, "
+                             f"of the wrong length or finish reason")
+    failures = snap["extras"].get("step_failures", 0)
+    if failures:
+        checks.failed.append(f"generate: {failures} failed steps (last "
+                             f"error {ep.last_error!r})")
+    n_calls = counts["layer_norm_fwd"]
+    for name, got in counts.items():
+        want = GEN_LAUNCHES.get(name, 0) * n_calls
+        if got != want:
+            checks.failed.append(f"generate serving: {name} launched {got}"
+                                 f" times in {n_calls} runner calls, want "
+                                 f"{GEN_LAUNCHES.get(name, 0)} a call")
+    if n_calls == 0:
+        checks.failed.append("generate serving launched no kernel")
+    tokens = GEN_REQUESTS * GEN_MAX_TOKENS
+    gen = snap.get("generate", {})
+    print(f"generate serving: {GEN_REQUESTS} requests (prompts "
+          f"{min(lens)}-{max(lens)} tokens, {GEN_MAX_TOKENS} new tokens "
+          f"each) from {GEN_CLIENTS} threads in {wall:.3f} s = "
+          f"{tokens / wall:.2f} tokens/s; {steps} decode steps, {joins} "
+          f"joins, {n_calls} runner calls; server stats TTFT p50 "
+          f"{gen.get('ttft_ms', {}).get('p50')} ms p95 "
+          f"{gen.get('ttft_ms', {}).get('p95')} ms, per-token p50 "
+          f"{gen.get('token_ms', {}).get('p50')} ms p95 "
+          f"{gen.get('token_ms', {}).get('p95')} ms; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
+
+    # each greedy stream against the same request alone
+    ties, diverged = 0, []
+    for i in range(0, GEN_REQUESTS, 2):
+        if results[i] is None:
+            continue
+        alone = gen_alone(runner, prompts[i], kws[i])
+        ok, at = same_greedy(net, prompts[i], results[i][0], alone)
+        if not ok:
+            diverged.append(i)
+        elif at is not None:
+            ties += 1
+    ok = not diverged
+    print(f"check generate: {GEN_REQUESTS // 2} greedy served streams vs "
+          f"each request alone: {len(diverged)} differ beyond a near tie,"
+          f" {ties} part at a near tie {'ok' if ok else 'FAIL'}",
+          flush=True)
+    checks.rows.append({"check": "generate served vs alone",
+                        "diverged": diverged, "ties": ties, "ok": ok})
+    if not ok:
+        checks.failed.append(f"generate: served greedy streams {diverged} "
+                             f"differ from the request alone")
+    return counts, {"requests": GEN_REQUESTS, "clients": GEN_CLIENTS,
+                    "wall_s": wall, "tok_per_s": tokens / wall,
+                    "decode_steps": steps, "joins": joins,
+                    "runner_calls": n_calls, "server_stats": gen,
+                    "near_ties": ties}
+
+
+def gen_replay_gate(checks, net, runner):
+    """Gate 5: 8 requests (4 greedy, 4 top-k) in a batcher closed after
+    a third of their tokens (8 steps at 24 tokens); each resubmitted
+    from its ``partial_state()`` as a ``prefix`` in a new batcher
+    continues at the exact next index with no token twice, and its
+    greedy tokens match the run never closed."""
+    from mxtpu_torch.serving import GenerateBatcher, WorkerLost
+    rng = np.random.RandomState(SEED + 25)
+    prompts = [[int(t) for t in rng.randint(0, VOCAB, n)]
+               for n in rng.randint(8, 129, runner.max_lanes)]
+    kws = [dict(max_tokens=GEN_MAX_TOKENS) if i % 2 == 0 else
+           dict(max_tokens=GEN_MAX_TOKENS, top_k=GEN_TOPK, seed=2000 + i)
+           for i in range(len(prompts))]
+
+    def start():
+        b = GenerateBatcher(runner)
+        streams = [[] for _ in prompts]
+        reqs = [b.submit(p, on_token=lambda t, j, g=g: g.append((j, t)),
+                         **k) for p, k, g in zip(prompts, kws, streams)]
+        return b, reqs, streams
+
+    b, reqs, _ = start()
+    while not b.drain():
+        b.step()
+    full = [r.result(0) for r in reqs]
+    b, reqs, streams = start()
+    close_after = GEN_MAX_TOKENS // 3
+    for _ in range(close_after):
+        b.step()
+    b.close()
+    b2 = GenerateBatcher(runner)
+    resumed, bad = [], []
+    for i, r in enumerate(reqs):
+        try:
+            r.result(0)
+            bad.append(i)            # nothing should finish by then
+            continue
+        except WorkerLost as e:
+            p = e.partial
+        resumed.append((i, b2.submit(
+            p["prompt"], prefix=p["tokens"],
+            on_token=lambda t, j, g=streams[i]: g.append((j, t)),
+            **kws[i])))
+    while not b2.drain():
+        b2.step()
+    ties = 0
+    for i, r in resumed:
+        got = r.result(0)
+        if [j for j, _ in streams[i]] != list(range(GEN_MAX_TOKENS)) or \
+                [t for _, t in streams[i]] != got:
+            bad.append(i)
+        elif kws[i].get("top_k", 1) <= 1:
+            ok, at = same_greedy(net, prompts[i], got, full[i])
+            if not ok:
+                bad.append(i)
+            elif at is not None:
+                ties += 1
+    ok = not bad
+    print(f"check generate replay: {len(resumed)} streams closed after "
+          f"{close_after} steps and resumed from partial_state(): "
+          f"{len(bad)} with a missing, repeated or (greedy) wrong token, "
+          f"{ties} greedy part at a near tie {'ok' if ok else 'FAIL'}",
+          flush=True)
+    checks.rows.append({"check": "generate replay", "bad": bad,
+                        "ties": ties, "ok": ok})
+    if not ok:
+        checks.failed.append(f"generate: replayed streams {bad} wrong")
+
+
+def gen_kernel_rows(checks, gen):
+    """#4 and #6 at the decode step's shape (9 slots x C = 1024, f32,
+    keep 1) against their plain versions, timed beside the library
+    call (LayerNorm) and the byte bound: the kernels line's rows for
+    the generation path."""
+    import torch
+    import torch.nn.functional as F
+    import importlib
+    ln = importlib.import_module("mxtpu_torch.kernels.layer_norm")
+    R, C = GEN_LANES + 1, UNITS
+    dev = torch.device(CARD)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x, g, b = randn(R, C), 1.0 + 0.1 * randn(C), 0.1 * randn(C)
+    y, _, _ = ln.layer_norm_fwd(x, g, b)
+    py, _, _ = ln.layer_norm_reference(x, g, b)
+    torch.cuda.synchronize()
+    out = {}
+    err = checks.close(f"layer_norm R{R} C{C} (decode step)", y, py,
+                       "float32")
+    nbytes = 2 * R * C * 4 + 2 * C * 4 + 2 * R * 4
+    b_ms, b_by = bound(nbytes, 8 * R * C, "float32")
+    out["layer_norm_fwd"] = {
+        "max_abs_err": err,
+        **timed(lambda: ln.layer_norm_fwd(x, g, b),
+                lambda: ln.layer_norm_reference(x, g, b),
+                lambda: F.layer_norm(x, (C,), g, b)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    h, res, bias = randn(R, C), randn(R, C), 0.1 * randn(C)
+    args = (h, bias, res, g, b, None, 0.0, 1e-5, False)
+    y, _, _ = ln.fused_residual_ln_fwd(*args)
+    py, _, _ = ln.fused_residual_ln_reference(*args)
+    torch.cuda.synchronize()
+    err = checks.close(f"fused_residual_ln R{R} C{C} keep=1 (decode step)",
+                       y, py, "float32")
+    nbytes = 3 * R * C * 4 + 3 * C * 4 + 2 * R * 4
+    b_ms, b_by = bound(nbytes, 10 * R * C, "float32")
+    out["fused_residual_ln_fwd"] = {
+        "max_abs_err": err,
+        **timed(lambda: ln.fused_residual_ln_fwd(*args),
+                lambda: ln.fused_residual_ln_reference(*args)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    for name, r in out.items():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f}"
+        print(f"time {name} [float32, R{R} x C{C}, the decode step] "
+              f"(device ms per call): kernel_ms={r['ms']:.6f} "
+              f"plain_ms={r['plain_ms']:.6f} library_ms={lib} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}); kernel "
+              f"wall_ms={r['wall_ms']:.6f}", flush=True)
+    return out
+
+
+def generate_phase(checks, gen):
+    """Phase 18 (see the module's docstring)."""
+    import tempfile
+    import torch
+    from mxtpu_torch.serving import GenerateRunner
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "mxtpu_torch" / "_build",
+                                     prefix="gen_") as tmp:
+        t0 = time.perf_counter()
+        net, files = gen_export(os.path.join(tmp, "genbert"))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner = GenerateRunner.from_export(
+            *files, net.kv_cache_spec(GEN_LANES, MAXLEN),
+            prompt_buckets=GEN_BUCKETS)
+        load_s = time.perf_counter() - t0
+        warm = runner.warmup()
+        kv_gb = runner.new_cache().numel() * 4 / 1e9
+        print(f"generate: BERT-Large causal (f32) exported in "
+              f"{export_s:.1f} s, GenerateRunner.from_export "
+              f"{load_s:.1f} s ({runner.weight_bytes() / 1e9:.3f} GB of "
+              f"weights, a {kv_gb:.3f} GB KV table of "
+              f"{GEN_LANES} lanes + scratch x L {MAXLEN}); warmup of "
+              f"{len(warm)} buckets {sum(warm.values()):.1f} s", flush=True)
+        marks = [time.perf_counter()]
+        secs = {"setup": marks[0] - t_phase}
+
+        def lap(tag):
+            marks.append(time.perf_counter())
+            secs[tag] = marks[-1] - marks[-2]
+
+        inc_err = gen_incremental_gate(checks, net, runner)
+        lap("incremental")
+        cpu_err = gen_cpu_gate(checks, runner, files)
+        lap("cpu")
+    sat = gen_saturation(runner)
+    lap("saturation")
+    breakdown = gen_decode_breakdown(checks, runner)
+    lap("breakdown")
+    counts, served = gen_server_gate(checks, net, runner)
+    lap("server")
+    gen_replay_gate(checks, net, runner)
+    lap("replay")
+    rows = gen_kernel_rows(checks, gen)
+    lap("kernels")
+    phase_s = time.perf_counter() - t_phase
+    print(f"generate: phase {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + ")", flush=True)
+    return counts, rows, {"export_s": export_s, "load_s": load_s,
+                          "warmup_s": sum(warm.values()),
+                          "kv_table_gb": kv_gb,
+                          "weight_gb": runner.weight_bytes() / 1e9,
+                          "incremental_vs_full_max_abs_err": inc_err,
+                          "card_vs_cpu_max_abs_err": cpu_err,
+                          "saturation": sat, "decode_breakdown": breakdown,
+                          "serving": served, "phase_s": phase_s,
+                          "phase_split_s": secs}
+
+
 def main():
     try:
         import torch
@@ -4415,6 +5131,8 @@ def main():
     print(f"weights: {len(params)} arrays from numpy seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve_counts, serving = serve_phase(checks, params)
+    del params
+    gen_counts, gen_rows, generation = generate_phase(checks, gen)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values())
@@ -4517,6 +5235,25 @@ def main():
            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms")}})
 
+    # the generation path's #4 and #6 at the decode step's shape, with
+    # the launches of the generation server's run
+    for name, src, rep in (
+            ("layer_norm_fwd", "mxtpu_torch/csrc/layer_norm.cu",
+             "mxtpu/kernels/layer_norm.py:104"),
+            ("fused_residual_ln_fwd",
+             "mxtpu_torch/csrc/fused_residual_ln.cu",
+             "mxtpu/kernels/layer_norm.py:355")):
+        if gen_counts[name] == 0:
+            checks.failed.append(f"kernel {name} never launched on the "
+                                 f"generation path")
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "dtype": "float32", "path": "generate",
+            "launches": gen_counts[name],
+            **{k: gen_rows[name][k]
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -4525,6 +5262,7 @@ def main():
                            "training f32": f32_counts,
                            "training f32 check": f32_train_counts,
                            "serving": serve_counts,
+                           "generate serving": gen_counts,
                            **{f"resnet50 {k}": c
                               for k, c in rn_counts.items()},
                            "bulked BERT-Large bf16": bulk_counts["bert"],
@@ -4537,7 +5275,8 @@ def main():
               "tools": tool_tables,
               "training": training, "training_f32": training_f32,
               "resnet50": resnet, "bulked": bulked, "gluon": gluon,
-              "serving": serving, "symbolic": symbolic,
+              "serving": serving, "generation": generation,
+              "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},
               "kernels": line,

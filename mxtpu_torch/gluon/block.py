@@ -42,6 +42,7 @@ from torch import nn
 
 from ..base import MXNetError, _as_list
 from .. import autograd
+from ..context import resolve_device
 from ..ndarray import _mode
 from ..ndarray.ndarray import NDArray
 from ..ops.registry import get_op
@@ -97,6 +98,13 @@ class _TensorOps:
         except MXNetError:
             raise AttributeError(f"F has no op {name!r}") from None
         rule, cache = op.fn, {}
+        if op.num_inputs == 0:
+            # no tensor to take a device from: ``ctx`` names it
+            def create(ctx=None, **kwargs):
+                return rule(**op.resolve_params(kwargs),
+                            device=resolve_device(ctx))
+            create.__name__ = create.__qualname__ = name
+            return create
 
         def fn(*tensors, **kwargs):
             key = tuple(kwargs.items())

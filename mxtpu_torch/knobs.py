@@ -82,6 +82,21 @@ register("MXTPU_SERVING_MAX_DELAY_US", 2000.0, "float",
 register("MXTPU_SERVING_MAX_QUEUE", 0, "int",
          "Bound on queued requests before ServerBusy shedding "
          "(0/unset = 8x max batch).", "serving")
+register("MXTPU_SERVING_DONATE", True, "bool",
+         "GenerateRunner updates the KV table passed in place (off: a "
+         "new table is returned and the old one stays intact).",
+         "serving")
+register("MXTPU_GEN_MAX_LANES", 8, "int",
+         "KV-cache lanes per GenerateRunner: the continuous-batching "
+         "decode width (one in-flight generation per lane).",
+         "serving")
+register("MXTPU_GEN_MAX_TOKENS", 64, "int",
+         "Default per-request generation cap when submit passes no "
+         "max_tokens.", "serving")
+register("MXTPU_GEN_STREAM", True, "bool",
+         "Stream tokens through the incremental result channel as "
+         "they decode (off = deliver only the final sequence).",
+         "serving")
 
 # -- training ------------------------------------------------------------
 register("MXTPU_BATCHED_OPT", True, "bool",

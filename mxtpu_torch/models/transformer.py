@@ -11,9 +11,17 @@ embedding LayerNorm on ``LayerNorm`` (their kernels, forward and
 backward); the dense products are the ``FullyConnected`` op, as the JAX
 package leaves them to XLA.  The position table is cut to the
 sequence with ``slice_like``, so an exported BERT takes any T up to
-``max_length``.  The full-sequence forward only: the incremental
-``(step, cache)`` decode is not ported yet, nor is ``remat=True``
-(it raises).
+``max_length``.
+
+``net(tokens, step, cache)`` is the incremental decode that
+``mxtpu_torch.serving.generate`` serves (a ``causal=True`` BERT): the T
+new tokens of each lane at positions ``step_b + t``, their keys and
+values written into the lane's cache (``kv_cache_write``) and attended
+with ``cached_attention``; it returns ``(logits, new_cache)``, the
+cache ``kv_cache_spec(B, L)``-shaped.  Its graph is mxtpu's, op for op,
+so the incremental ``export()`` is byte-equal to mxtpu's.
+Cross-attention (the seq2seq decoder) and ``remat=True`` are not ported
+yet (they raise).
 """
 from __future__ import annotations
 
@@ -50,11 +58,7 @@ class MultiHeadAttention(HybridBlock):
                                 self._units // self._heads))
         return F.transpose(t, axes=(0, 2, 1, 3))
 
-    def hybrid_forward(self, F, x, *args):
-        if args:
-            raise NotImplementedError(
-                "MultiHeadAttention: cross-attention and the incremental "
-                "decode are not ported yet")
+    def _qkv(self, F, x):
         u = self._units
         qkv = self.qkv(x)
         if _is_symbol(qkv):
@@ -66,14 +70,37 @@ class MultiHeadAttention(HybridBlock):
             # qkv's gradient once (each slice_axis backward writes all
             # of it, and two adds sum the three)
             parts = qkv.split(u, dim=-1)
-        q, k, v = (self._split_heads(F, t) for t in parts)
-        out = F.flash_attention(q, k, v, causal=self._causal)
+        return [self._split_heads(F, t) for t in parts]
+
+    def _project(self, F, out):
         out = F.reshape(F.transpose(out, axes=(0, 2, 1, 3)),
-                        shape=(0, -1, u))
+                        shape=(0, -1, self._units))
         out = self.proj(out)
         if self.drop is not None:
             out = self.drop(out)
         return out
+
+    def hybrid_forward(self, F, x, *args):
+        if len(args) == 2:
+            # incremental decode: x holds the T new tokens, cache is
+            # (2, B, H, L, u/h) [k; v] and step (B,) each lane's write
+            # frontier; returns (out, new_cache)
+            step, cache = args
+            q, k, v = self._qkv(F, x)
+            k_cache = F.squeeze(
+                F.slice_axis(cache, axis=0, begin=0, end=1), axis=0)
+            v_cache = F.squeeze(
+                F.slice_axis(cache, axis=0, begin=1, end=2), axis=0)
+            k_cache = F.kv_cache_write(k_cache, k, step)
+            v_cache = F.kv_cache_write(v_cache, v, step)
+            out = F.cached_attention(q, k_cache, v_cache, step)
+            return self._project(F, out), F.stack(k_cache, v_cache, axis=0)
+        if args:
+            raise NotImplementedError(
+                "MultiHeadAttention: cross-attention is not ported yet")
+        q, k, v = self._qkv(F, x)
+        return self._project(
+            F, F.flash_attention(q, k, v, causal=self._causal))
 
 
 class PositionwiseFFN(HybridBlock):
@@ -108,7 +135,12 @@ class TransformerEncoderCell(HybridBlock):
         self.ln1 = nn.FusedResidualLayerNorm(dropout)
         self.ln2 = nn.FusedResidualLayerNorm(dropout)
 
-    def hybrid_forward(self, F, x):
+    def hybrid_forward(self, F, x, *args):
+        if args:
+            step, cache = args
+            a, cache = self.attn(x, step, cache)
+            x = self.ln1(a, x)
+            return self.ln2(self.ffn(x), x), cache
         x = self.ln1(self.attn(x), x)
         return self.ln2(self.ffn(x), x)
 
@@ -132,7 +164,18 @@ class TransformerEncoder(HybridBlock):
             self.layers.add(TransformerEncoderCell(
                 units, hidden_size, num_heads, dropout, causal))
 
-    def hybrid_forward(self, F, x):
+    def hybrid_forward(self, F, x, *args):
+        if args:
+            # incremental: cache is (num_layers, 2, B, H, L, u/h), a
+            # static slice of it a layer
+            step, cache = args
+            outs = []
+            for i, cell in enumerate(self.layers):
+                c = F.squeeze(F.slice_axis(cache, axis=0, begin=i,
+                                           end=i + 1), axis=0)
+                x, c = cell(x, step, c)
+                outs.append(c)
+            return x, F.stack(*outs, axis=0)
         return self.layers(x)
 
 
@@ -164,11 +207,33 @@ class BERTModel(HybridBlock):
                                           causal=causal)
         self.mlm = nn.Dense(vocab_size, flatten=False)
 
+    def kv_cache_spec(self, batch_size, max_len=None):
+        """Shape of the stacked per-layer KV cache this model
+        consumes/returns in incremental mode:
+        (num_layers, 2, B, num_heads, L, units // num_heads)."""
+        L = self._max_length if max_len is None else int(max_len)
+        return (self._num_layers, 2, int(batch_size), self._num_heads,
+                L, self._units // self._num_heads)
+
     def hybrid_forward(self, F, tokens, *args, pos_embed=None):
-        if len(args) > 1:
-            raise NotImplementedError("BERTModel: the incremental "
-                                      "(step, cache) decode is not "
-                                      "ported yet")
+        if len(args) == 2:
+            # incremental decode: (tokens, step, cache); token t of lane
+            # b sits at position step_b + t, gathered from the table (no
+            # token-type embedding on the generation path)
+            step, cache = args
+            x = self.word_embed(tokens)
+            # an op with no inputs: eagerly it is told the device
+            ar = F._arange(start=0, stop=self._max_length) \
+                if _is_symbol(x) else \
+                F._arange(start=0, stop=self._max_length, ctx=x.device)
+            pos = F.slice_like(F.expand_dims(ar, axis=0), x, axes=(1,))
+            pos = F.broadcast_add(pos, F.expand_dims(step, axis=1))
+            x = x + F.take(pos_embed, pos, axis=0)
+            x = self.embed_ln(x)
+            if self.embed_drop is not None:
+                x = self.embed_drop(x)
+            x, cache = self.encoder(x, step, cache)
+            return self.mlm(x), cache
         token_types = args[0] if args else None
         if not _is_symbol(tokens) and tokens.shape[1] > self._max_length:
             raise MXNetError(f"sequence length {tokens.shape[1]} exceeds "

@@ -24,8 +24,8 @@ from ..base import MXNetError
 from ..ops.registry import OP_REGISTRY, get_op
 from . import legacy_format
 from . import ops_impl  # noqa: F401  (populates the registry)
-from .ndarray import (NDArray, arange, array, concat, empty, full, load,
-                      ones, save, stack, waitall, zeros)
+from .ndarray import (NDArray, _device, arange, array, concat, empty,
+                      full, load, ones, save, stack, waitall, zeros)
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concat", "stack", "save", "load", "waitall", "loads",
@@ -73,9 +73,17 @@ def load_params(path: str) -> Dict[str, np.ndarray]:
 # ----------------------------------------------------------------------
 def _invoke_op(name: str, *inputs, **kwargs):
     """Run op ``name`` on NDArrays (python scalars become tensors on the
-    first array's device) — the role of ``MXImperativeInvokeEx``."""
+    first array's device) — the role of ``MXImperativeInvokeEx``.  An
+    op with no inputs (``_arange``) creates on ``ctx`` (default the
+    card)."""
     from .. import autograd
     op = get_op(name)
+    if op.num_inputs == 0:
+        if inputs:
+            raise MXNetError(f"nd.{name} takes no inputs")
+        ctx = kwargs.pop("ctx", None)
+        resolved = op.resolve_params(kwargs)
+        return NDArray(op.fn(**resolved, device=_device(ctx)))
     dev = next((x._data.device for x in inputs if isinstance(x, NDArray)),
                None)
     if dev is None:

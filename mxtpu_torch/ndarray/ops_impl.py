@@ -385,6 +385,27 @@ register_op("concat", num_inputs=-1, params=[Param("dim", int, 1)],
             aliases=("Concat",))(lambda *xs, dim=1: torch.cat(xs, dim=dim))
 register_op("stack", num_inputs=-1, params=[Param("axis", int, 0)])(
     lambda *xs, axis=0: torch.stack(xs, dim=axis))
+
+
+def _arange(start=0.0, stop=None, step=1.0, repeat=1, infer_range=False,
+            dtype=None, device=None):
+    """``jnp.arange`` (``stop`` None counts from 0 to ``start``), each
+    value ``repeat`` times (``ops_extra.py:54-68``); float32 unless
+    ``dtype``.  ``infer_range`` is accepted and unused, as in mxtpu."""
+    if stop is None:
+        start, stop = 0.0, start
+    a = torch.arange(start, stop, step, dtype=torch_dtype(dtype),
+                     device=device)
+    return a.repeat_interleave(repeat) if repeat != 1 else a
+
+
+register_op("_arange", num_inputs=0, differentiable=False,
+            params=[Param("start", float, 0.0),
+                    Param("stop", float, None),
+                    Param("step", float, 1.0),
+                    Param("repeat", int, 1),
+                    Param("infer_range", bool, False),
+                    Param("dtype", str, None)])(_arange)
 register_op("clip", params=[Param("a_min", float, None),
                             Param("a_max", float, None)])(_clip)
 register_op("cast", params=[Param("dtype", str, "float32")],

@@ -9,6 +9,11 @@ the JAX package uses ``jax.eval_shape`` (``mxtpu/ops/registry.py:
 
 Every op registered here is exposed eagerly as ``mxtpu_torch.nd.<name>``
 and lazily as ``mxtpu_torch.sym.<name>``.
+
+An op with no inputs (``_arange``) has no tensor to take a device from:
+its rule takes the device to create on as the keyword ``device``, which
+is not one of its params.  The dispatchers pass it (``nd``'s ``ctx``, the
+device of a graph's bindings, ``meta`` for shape inference).
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ class Op:
         resolved = self.resolve_params(kwargs)
         metas = [torch.empty(tuple(s), dtype=dtype, device="meta")
                  for s in shapes]
+        if self.num_inputs == 0:
+            resolved["device"] = "meta"
         with torch.no_grad():
             out = self.fn(*metas, **resolved)
         outs = out if isinstance(out, tuple) else (out,)

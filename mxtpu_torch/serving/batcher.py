@@ -1,5 +1,6 @@
 """Dynamic micro-batcher (copy of ``mxtpu/serving/batcher.py`` without
-the profiler/trace hooks).
+the profiler/trace hooks; a request's ``trace_id`` is carried as
+given).
 
 A bounded request queue with ``max_batch_size`` / ``max_queue_delay_us``
 batch assembly.  The batching *policy* is pure and clock-injected —
@@ -70,7 +71,17 @@ class RequestTimeout(RetriableError):
 class WorkerLost(RetriableError):
     """The worker/batcher holding this request died or shut down
     before completing it.  Retriable — the same payload may well
-    succeed on another worker."""
+    succeed on another worker.
+
+    ``partial``, when set, carries the partial-generation state of a
+    request that died mid-decode: prompt + already-emitted tokens + the
+    ORIGINAL ``t_submit``/``deadline``, so a replay resumes the stream
+    instead of restarting it, and inherits the first attempt's deadline
+    clock instead of resetting it."""
+
+    def __init__(self, msg: str = "", partial: Optional[dict] = None):
+        super().__init__(msg)
+        self.partial = partial
 
 
 class InferenceRequest:
@@ -87,13 +98,15 @@ class InferenceRequest:
 
     __slots__ = ("payload", "group", "seq_len", "t_submit", "deadline",
                  "_event", "_value", "_error", "t_dequeue", "t_done",
-                 "requeues", "_wlock", "_watchers")
+                 "requeues", "trace_id", "_wlock", "_watchers")
 
     def __init__(self, payload: Any, group: Any = None,
                  seq_len: Optional[int] = None,
                  t_submit: float = 0.0,
-                 deadline: Optional[float] = None):
+                 deadline: Optional[float] = None,
+                 trace_id: Optional[str] = None):
         self.payload = payload
+        self.trace_id = trace_id   # a caller's id, carried as given
         self.group = group
         self.seq_len = seq_len
         self.t_submit = t_submit
@@ -178,6 +191,26 @@ class InferenceRequest:
         if self.t_dequeue is None:
             return None
         return (self.t_dequeue - self.t_submit) * 1e6
+
+
+def _lost_for(req: InferenceRequest,
+              err: BaseException) -> BaseException:
+    """The WorkerLost a dying batcher hands one request: a request
+    that can describe its partial-generation progress
+    (``partial_state()`` — GenerateRequest does) gets a per-request
+    error carrying that state so a replay can resume the stream
+    without resetting its deadline clock."""
+    state_fn = getattr(req, "partial_state", None)
+    if state_fn is None:
+        return err
+    try:
+        partial = state_fn()
+    except Exception:  # noqa: BLE001 — a broken state provider must
+        return err     # not mask the loss itself
+    if partial is None:
+        return err
+    return WorkerLost(str(err) or "serving: worker lost mid-"
+                      "generation", partial=partial)
 
 
 class Batch:

@@ -1,27 +1,92 @@
 """InferenceServer — multi-model serving front end.
 
-Counterpart of ``mxtpu/serving/server.py`` for batch inference: a name
-→ version → :class:`ModelRunner` registry; each registered (model,
-version) endpoint owns one :class:`DynamicBatcher`, one
-:class:`ServingStats`, and one worker thread per replica runner that
-assembles micro-batches and dispatches them round-robin across the
-endpoint's replicas.  Generation endpoints and the profiler/trace
+Counterpart of ``mxtpu/serving/server.py``: a name → version →
+:class:`ModelRunner` registry; each registered (model, version)
+endpoint owns one :class:`DynamicBatcher`, one :class:`ServingStats`,
+and one worker thread per replica runner that assembles micro-batches
+and dispatches them round-robin across the endpoint's replicas.
+Generation endpoints (``register_generator``) own a
+:class:`GenerateRunner`, one continuous-batching
+:class:`GenerateBatcher` and a stepping thread.  The profiler/trace
 hooks are not ported yet.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from ..base import MXNetError
 from .. import knobs
 from .batcher import DynamicBatcher, InferenceRequest
+from .generate import GenerateBatcher, GenerateRequest, GenerateRunner
 from .runner import ModelRunner
 from .stats import ServingStats
 
 __all__ = ["InferenceServer"]
+
+
+class _GenEndpoint:
+    """One (model, version) GENERATION endpoint: a
+    :class:`GenerateRunner` + one continuous-batching
+    :class:`GenerateBatcher` + a stepping thread that advances the
+    whole lane table one decode step at a time.  Requests join at step
+    boundaries and stream tokens through their ``on_token``
+    callbacks."""
+
+    def __init__(self, name: str, version: int,
+                 runner: GenerateRunner, max_queue: Optional[int],
+                 log_every_s: float):
+        self.name = name
+        self.version = version
+        self.runner = runner
+        self.stats = ServingStats(name=f"{name}:v{version}:gen",
+                                  log_every_s=log_every_s)
+        self.batcher = GenerateBatcher(
+            runner, max_queue=max_queue, stats=self.stats,
+            on_timeout=self.stats.record_timeout)
+        # the last step failure, kept for diagnosis
+        self.last_error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self.thread = threading.Thread(
+            target=self._work, daemon=True,
+            name=f"mxtpu-torch-gen-{name}-v{version}")
+
+    def start(self) -> None:
+        self.thread.start()
+
+    def _work(self) -> None:
+        while not self._stop.is_set():
+            if self.batcher.drain():
+                # idle: no lanes, no queue — park briefly
+                self._stop.wait(0.005)
+                continue
+            try:
+                self.batcher.step()
+            except Exception as e:  # noqa: BLE001 — a failed decode
+                # step leaves every lane's state intact; back off and
+                # retry (a persistent failure surfaces as caller
+                # deadlines)
+                self.last_error = e
+                self.stats.bump("step_failures")
+                self._stop.wait(0.01)
+                continue
+            self.stats.maybe_log()
+
+    def snapshot(self) -> Dict:
+        snap = self.stats.snapshot()
+        snap["lanes"] = self.runner.max_lanes
+        snap["compiled_buckets"] = self.runner.num_compiled()
+        return snap
+
+    def stop(self) -> None:
+        # same wind-down order as _Endpoint: let the stepping thread
+        # finish its current step (those tokens are real), then close
+        # the batcher so queued + in-lane callers all unblock
+        self._stop.set()
+        self.thread.join(timeout=2.0)
+        self.batcher.close()
 
 
 class _Endpoint:
@@ -123,6 +188,10 @@ class InferenceServer:
 
     def __init__(self, log_every_s: float = 10.0):
         self._endpoints: Dict[str, Dict[int, _Endpoint]] = {}  # guarded-by: _lock
+        # generation endpoints, the same name → version shape; a model
+        # may have both a batch-inference and a generation registration
+        # under one name
+        self._gen: Dict[str, Dict[int, _GenEndpoint]] = {}  # guarded-by: _lock
         self._lock = threading.Lock()
         self._log_every_s = log_every_s
         self._closed = False          # guarded-by: _lock
@@ -162,6 +231,61 @@ class InferenceServer:
                     f"serving: {name!r} v{version} already registered")
             self._endpoints.setdefault(name, {})[version] = ep
         ep.start()
+
+    def register_generator(self, name: str, runner: GenerateRunner,
+                           version: int = 1,
+                           max_queue: Optional[int] = None,
+                           warmup: bool = False) -> None:
+        """Attach a GENERATION endpoint: a :class:`GenerateRunner`
+        serving streamed incremental decode with continuous batching.
+        ``warmup=True`` runs the prefill ladder and the decode step
+        once before traffic."""
+        if not isinstance(runner, GenerateRunner):
+            raise MXNetError("serving: register_generator needs a "
+                             "GenerateRunner")
+        if max_queue is None:
+            mq = knobs.get("MXTPU_SERVING_MAX_QUEUE")
+            if mq:  # 0 = unbounded (knob unset)
+                max_queue = mq
+        if warmup:
+            runner.warmup()
+        ep = _GenEndpoint(name, version, runner, max_queue,
+                          self._log_every_s)
+        with self._lock:
+            if self._closed:
+                raise MXNetError("serving: server is closed")
+            if version in self._gen.get(name, {}):
+                raise MXNetError(
+                    f"serving: generator {name!r} v{version} already "
+                    f"registered")
+            self._gen.setdefault(name, {})[version] = ep
+        ep.start()
+
+    def unregister(self, name: str,
+                   version: Optional[int] = None) -> None:
+        with self._lock:
+            versions = self._endpoints.get(name)
+            gversions = self._gen.get(name)
+            if not versions and not gversions:
+                raise MXNetError(f"serving: unknown model {name!r}")
+            if version is not None and \
+                    version not in (versions or {}) and \
+                    version not in (gversions or {}):
+                raise MXNetError(
+                    f"serving: {name!r} has no version {version}")
+            eps: List[Any] = []
+            for reg, vs in ((self._endpoints, versions),
+                            (self._gen, gversions)):
+                if not vs:
+                    continue
+                drop = list(vs) if version is None else \
+                    [v for v in (version,) if v in vs]
+                for v in drop:
+                    eps.append(vs.pop(v))
+                if not vs:
+                    del reg[name]
+        for ep in eps:
+            ep.stop()
 
     def _endpoint(self, name: str,
                   version: Optional[int]) -> _Endpoint:
@@ -215,12 +339,73 @@ class InferenceServer:
         return req.result(timeout=None if timeout_s is None
                           else timeout_s + 5.0)
 
+    def _gen_endpoint(self, name: str,
+                      version: Optional[int]) -> _GenEndpoint:
+        with self._lock:
+            versions = self._gen.get(name)
+            if not versions:
+                raise MXNetError(
+                    f"serving: no generator registered for {name!r}")
+            if version is None:
+                version = max(versions)   # latest by default
+            ep = versions.get(version)
+            if ep is None:
+                raise MXNetError(
+                    f"serving: generator {name!r} has no version "
+                    f"{version} (have {sorted(versions)})")
+            return ep
+
+    def submit_generate(self, name: str, prompt: Sequence[int], *,
+                        max_tokens: Optional[int] = None,
+                        eos_id: Optional[int] = None,
+                        top_k: int = 1, seed: int = 0,
+                        version: Optional[int] = None,
+                        timeout_s: Optional[float] = None,
+                        on_token=None) -> GenerateRequest:
+        """Async streamed generation: the request joins the endpoint's
+        continuous batch at the next step boundary; ``on_token(token,
+        index)`` fires per decoded token.  Returns a future whose
+        result is the full generated token list."""
+        with self._lock:
+            if self._closed:
+                raise MXNetError("serving: server is closed")
+        ep = self._gen_endpoint(name, version)
+        try:
+            return ep.batcher.submit(
+                prompt, max_tokens=max_tokens, eos_id=eos_id,
+                top_k=top_k, seed=seed, timeout_s=timeout_s,
+                on_token=on_token)
+        except Exception:
+            ep.stats.record_rejected()
+            raise
+
+    def generate(self, name: str, prompt: Sequence[int], *,
+                 max_tokens: Optional[int] = None,
+                 eos_id: Optional[int] = None, top_k: int = 1,
+                 seed: int = 0, version: Optional[int] = None,
+                 timeout_s: Optional[float] = None,
+                 on_token=None) -> List[int]:
+        """Blocking convenience wrapper over ``submit_generate``."""
+        req = self.submit_generate(
+            name, prompt, max_tokens=max_tokens, eos_id=eos_id,
+            top_k=top_k, seed=seed, version=version,
+            timeout_s=timeout_s, on_token=on_token)
+        return req.result(timeout=None if timeout_s is None
+                          else timeout_s + 5.0)
+
     # -- observability ----------------------------------------------------
     def stats(self, name: Optional[str] = None,
               version: Optional[int] = None) -> Dict:
         """Stats snapshot: one endpoint when ``name`` is given, else
-        ``{"name:vN": snapshot}`` for the whole registry."""
+        ``{"name:vN": snapshot}`` for the whole registry (generation
+        endpoints under a ``:gen`` suffix)."""
         if name is not None:
+            with self._lock:
+                has_batch = version in self._endpoints.get(name, {}) \
+                    if version is not None \
+                    else bool(self._endpoints.get(name))
+            if not has_batch:
+                return self._gen_endpoint(name, version).snapshot()
             ep = self._endpoint(name, version)
             snap = ep.stats.snapshot()
             snap["replicas"] = len(ep.runners)
@@ -231,7 +416,12 @@ class InferenceServer:
         with self._lock:
             items = [(n, v) for n, vs in self._endpoints.items()
                      for v in vs]
-        return {f"{n}:v{v}": self.stats(n, v) for n, v in items}
+            gitems = [(n, v) for n, vs in self._gen.items()
+                      for v in vs]
+        out = {f"{n}:v{v}": self.stats(n, v) for n, v in items}
+        for n, v in gitems:
+            out[f"{n}:v{v}:gen"] = self._gen_endpoint(n, v).snapshot()
+        return out
 
     def close(self) -> None:
         """Stop every endpoint's workers and fail anything still
@@ -242,8 +432,10 @@ class InferenceServer:
             if self._closed:
                 return
             self._closed = True
-            eps = [ep for vs in self._endpoints.values()
-                   for ep in vs.values()]
+            eps: List[Any] = [ep for vs in self._endpoints.values()
+                              for ep in vs.values()]
+            eps += [ep for vs in self._gen.values()
+                    for ep in vs.values()]
         for ep in eps:
             ep.stop()
 

@@ -1,6 +1,7 @@
 """Serving observability — rolling latency percentiles, queue depth,
-batch fill-rate and request rate, as a ``stats()`` snapshot dict and a
-Speedometer-style periodic log line.
+batch fill-rate and request rate, and a generation endpoint's
+time-to-first-token and per-token latency, as a ``stats()`` snapshot
+dict and a Speedometer-style periodic log line.
 
 Copy of ``mxtpu/serving/stats.py`` without the ``mxtpu.obs`` metrics
 registry wiring.  Everything is O(1) per event under one lock:
@@ -49,6 +50,11 @@ class ServingStats:
         self._lat_us = deque(maxlen=window)  # guarded-by: _lock
         self._queue_us = deque(maxlen=window)  # guarded-by: _lock
         self._done_ts = deque()  # guarded-by: _lock
+        # generation rings: time-to-first-token and per-token decode
+        # latency
+        self._ttft_us = deque(maxlen=window)  # guarded-by: _lock
+        self._tok_us = deque(maxlen=window)  # guarded-by: _lock
+        self.tokens_emitted = 0  # guarded-by: _lock
         self._rate_window_s = rate_window_s
         self._log_every_s = log_every_s
         self._last_log = clock()  # guarded-by: _lock
@@ -106,6 +112,17 @@ class ServingStats:
             while self._done_ts and self._done_ts[0] < horizon:
                 self._done_ts.popleft()
 
+    def record_ttft(self, ttft_us: float) -> None:
+        """Time-to-first-token of one generation request."""
+        with self._lock:
+            self._ttft_us.append(ttft_us)
+
+    def record_token(self, tok_us: float, n: int = 1) -> None:
+        """One (or ``n`` same-latency) emitted decode tokens."""
+        with self._lock:
+            self._tok_us.append(tok_us)
+            self.tokens_emitted += n
+
     # -- views ----------------------------------------------------------
     def queue_eta_us(self, depth: Optional[float] = None,
                      percentile: float = 95.0) -> Optional[float]:
@@ -161,8 +178,24 @@ class ServingStats:
         with self._lock:
             lat = sorted(self._lat_us)
             queued = sorted(self._queue_us)
+            ttft = sorted(self._ttft_us)
+            toks = sorted(self._tok_us)
             cap = self.batched_requests + self.padded_slots
+            gen = {}
+            if ttft or toks:
+                gen = {"generate": {
+                    "tokens_emitted": self.tokens_emitted,
+                    "ttft_ms": {
+                        "p50": round(_percentile(ttft, 50) / 1e3, 3),
+                        "p95": round(_percentile(ttft, 95) / 1e3, 3),
+                        "n": len(ttft)},
+                    "token_ms": {
+                        "p50": round(_percentile(toks, 50) / 1e3, 3),
+                        "p95": round(_percentile(toks, 95) / 1e3, 3),
+                        "n": len(toks)},
+                }}
             return {
+                **gen,
                 "completed": self.completed,
                 "timed_out": self.timed_out,
                 "rejected": self.rejected,

@@ -671,6 +671,9 @@ def _eval_symbol(outputs, bindings: Dict[str, Any]):
     sym = outputs if isinstance(outputs, Symbol) else Group(
         _as_list(outputs))
     memo: Dict[Tuple[int, int], Any] = {}
+    # an op with no inputs (_arange) creates on the bindings' device
+    ctx = next((v._data.device for v in bindings.values()
+                if isinstance(v, NDArray)), None)
     for node in sym._topo():
         if node.op is None:
             if node.name not in bindings:
@@ -681,7 +684,9 @@ def _eval_symbol(outputs, bindings: Dict[str, Any]):
             continue
         ins = [memo[(id(s), i)] for s, i in node.inputs]
         op = _op_of(node)
-        if op.name in _KEY_OPS and len(ins) < op.num_inputs:
+        if op.num_inputs == 0:
+            out = nd_mod._invoke_op(op.name, ctx=ctx, **_node_attrs(node))
+        elif op.name in _KEY_OPS and len(ins) < op.num_inputs:
             # the graph omits the key input: the nd convenience draws it
             out = getattr(nd_mod, op.name)(*ins, **_node_attrs(node))
         else:

@@ -6,8 +6,8 @@ v1 with the ``bench_resnet50`` recipe (SGD momentum, bf16 compute, b256
 x 224^2) in NCHW and NHWC, train examples/train_cifar10.py's resnet20
 through the symbolic API (sym → Module.fit), also with a CustomOp
 softmax head whose kernels are compiled at run time by rtc.CudaModule,
-serve BERT-Large through InferenceServer → DynamicBatcher →
-ModelRunner, and run the chained-measurement tools (the conv strategy
+serve BERT-Large from its export through InferenceServer →
+DynamicBatcher → ModelRunner (a captured CUDA graph a bucket), and run the chained-measurement tools (the conv strategy
 probe on the NHWC conv kernel, bench_flash, probe_bn_fusion,
 microbench).
 
@@ -161,11 +161,24 @@ Phases, each fatal on failure:
      the same weights and batch (f32, dropout 0) on each model: equal
      losses and every weight bit for bit (see ``gluon_gate``);
  13. BERT-Large (24 layers, f32 weights from a numpy seed, carried in
-     through ``params_from_mxtpu``) served to 4 client threads sending
-     128 requests of lengths 16-128; every result checked, 0 requeues,
-     launch counts read around the run;
- 14. one served batch of 8 x 128 against the same model and weights run
-     on the CPU (plain path);
+     through ``params_from_mxtpu``) exported (``net.export``) and served
+     from the export by ``ModelRunner.from_export`` ({64, 128} x batch
+     1..32, one CUDA graph captured a bucket; the weight tensors the
+     same before and after the warm-up); each captured bucket against
+     the eager plan on the card, one batch each, bit for bit (or within
+     1e-3, the difference printed); 4 client threads sending 128
+     requests of lengths 16-128, every result checked, 0 requeues,
+     launches exactly 24/1/48 a forward read around the run; then the
+     same burst with the buckets on the eager plan (the runner's
+     private ``_eager_entry``), and the (32, 128) forward's device ms,
+     host ms to issue it, a served batch's wall ms, the logits copy and
+     the idle share, each for both; peak memory over the ladder, eager
+     plan and captured warm-up; a toy runner under ``MXTPU_GUARDS=2``
+     (captures and serves exactly, a host read in the guards' scope
+     raises, the 8th build of a 3-bucket ladder raises
+     ``RecompileChurn``);
+ 14. one served batch of 8 x 128 against the same export run on the
+     CPU (plain path);
  15. rtc: the user kernels of ``RTC_SOURCE`` (y = 2x, a row softmax
      and its loss gradient p - onehot(label)) compiled by
      ``rtc.CudaModule`` and launched through ``CudaKernel.launch``: y =
@@ -201,7 +214,9 @@ Phases, each fatal on failure:
      port's initializers, its incremental call traced and exported, then
      ``GenerateRunner.from_export(..., kv_cache_spec(8, 512),
      prompt_buckets=(32, 128))`` (8 lanes + scratch, a 0.91 GB KV table)
-     and ``warmup()``.  Gates: (1) one lane, a 100-token prompt
+     and ``warmup(kv=table)`` (one CUDA graph captured an entry, on
+     the table the first gates run on; peak memory beside the eager
+     plan's; ``donate=False`` refused on the card).  Gates: (1) one lane, a 100-token prompt
      prefilled, then 16 decode steps, each step's logits against the
      full causal forward's (flash #1) at the same position, the greedy
      tokens where the top-2 gap exceeds the tolerance; (2) one prefill
@@ -218,14 +233,19 @@ Phases, each fatal on failure:
      ``partial_state()`` as a prefix: every index exactly once, the
      greedy tokens those of the run never closed.  Greedy streams that
      first part at a near tie of the full forward's logits (within the
-     tolerance) count as agreeing.  Printed: decode tokens/s at
+     tolerance) count as agreeing; (6) each captured entry against the
+     eager plan from the same random table, logits and table bit for
+     bit, and a decode on a second table captured anew there with the
+     first table untouched.  Printed, for the captured entries and the
+     eager plan: decode tokens/s at
      saturation (``bench.py``'s ``serving_generate`` run: 8 requests of
      64 tokens through one batcher), TTFT and per-token p50/p95 at the
      stream callback, the naive re-prefill tokens/s and the ratio, a
-     decode step's wall and host ms in ``_eval_symbol``, its device ms
-     by family (GEMMs, ``cached_attention``, KV copies, #4, #6, the
-     copies to and from the host, other) and #4 and #6 timed at the
-     decode step's shape (9 x 1024).
+     decode step's wall ms and the host ms of the runner's call, its
+     device busy ms and idle share (by family under the eager plan:
+     GEMMs, ``cached_attention``, KV copies, #4, #6, the copies to and
+     from the host, other), and #4 and #6 timed at the decode step's
+     shape (9 x 1024).
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -265,6 +285,7 @@ server's launches), and last the line
 without CUDA or outside a checkout.  A full report goes to
 ``mxtpu_torch/_build/chip_smoke_report.json``.
 """
+import contextlib
 import json
 import os
 import re
@@ -4171,24 +4192,52 @@ def mxtpu_params(seed, layers=LAYERS, maxlen=MAXLEN):
     return out
 
 
-def forward_breakdown(runner):
-    """One forward of the (32, 128) bucket: its device time, the copy of
-    its logits to the host, and device time by kernel family from
-    torch.profiler."""
+@contextlib.contextmanager
+def eager_plan(runner):
+    """Inside it, ``runner``'s buckets run as the graph plan eagerly (its
+    private ``_eager_entry``), never as the captured graphs: the figure
+    each captured one is printed beside."""
+    runner._entry = runner._eager_entry
+    try:
+        yield runner
+    finally:
+        del runner._entry
+
+
+def forward_breakdown(runner, tag):
+    """One forward of the (32, 128) bucket: its time on the device
+    (events over back-to-back calls), the host ms to issue it, a served
+    batch's wall ms through ``infer`` (pad, upload, forward, logits to
+    the host), the copy of its logits to the host, and device time by
+    kernel family and the idle share from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     bucket = (B, T)
     rng = np.random.RandomState(SEED + 2)
-    vals = runner._pad_stack(
-        [{"data": rng.randint(0, VOCAB, T).astype(np.float32)}
-         for _ in range(B)], bucket)
+    rows = [{"data": rng.randint(0, VOCAB, T).astype(np.float32)}
+            for _ in range(B)]
+    vals = runner._pad_stack(rows, bucket)
     fwd_ms = time_ms(lambda: runner.run_raw(vals, bucket), iters=10,
                      warmup=2)
+    issue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run_raw(vals, bucket)
+        issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    batch = {"data": np.stack([r["data"] for r in rows])}
+    served = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        runner.infer(batch)
+        served.append((time.perf_counter() - t0) * 1e3)
     (logits,) = runner.run_raw(vals, bucket)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits.cpu().numpy()
     d2h_ms = (time.perf_counter() - t0) * 1e3
+    del logits
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.run_raw(vals, bucket)
@@ -4202,38 +4251,177 @@ def forward_breakdown(runner):
             fam = family_of(evt.key)
             by[fam] = by.get(fam, 0.0) + us / 1e3
     busy = sum(by.values())
-    out = {"forward_ms": fwd_ms, "logits_to_host_ms": d2h_ms,
-           "profiled_wall_ms": wall_ms,
+    out = {"forward_ms": fwd_ms, "issue_host_ms": pct(issue, 0.5),
+           "served_batch_ms": pct(served, 0.5),
+           "logits_to_host_ms": d2h_ms, "profiled_wall_ms": wall_ms,
            "device_ms_by_family": by, "device_busy_ms": busy,
            "device_idle_share": (1.0 - busy / wall_ms) if busy else None}
-    print(f"forward (32, 128): {fwd_ms:.3f} ms on the device (events); "
-          f"logits to host {d2h_ms:.3f} ms; profiled: " +
+    print(f"forward (32, 128), {tag}: {fwd_ms:.3f} ms a forward (events, "
+          f"back to back); host {out['issue_host_ms']:.3f} ms to issue it "
+          f"(p50 of 5); a served batch through infer() "
+          f"{out['served_batch_ms']:.3f} ms wall (p50 of 3); logits to "
+          f"host {d2h_ms:.3f} ms; profiled: " +
           (", ".join(f"{k} {v:.3f} ms" for k, v in by.items())
-           + f"; idle share {out['device_idle_share']:.4f}"
+           + f" busy in {wall_ms:.3f} ms wall; idle share "
+           f"{out['device_idle_share']:.4f}"
            if busy else "no device time recorded (not measured)"),
           flush=True)
     return out
 
 
-def serve_phase(checks, params):
-    import torch
-    from mxtpu_torch import kernels
+def serve_export(params, path):
+    """BERT-Large built by the port, carrying the seeded weights, and
+    exported as a Gluon user deploys it (``net.export``): the
+    ``-symbol.json`` graph and the ``.params`` file."""
+    from mxtpu_torch.convert import params_from_mxtpu
     from mxtpu_torch.models import bert_large
-    from mxtpu_torch.serving import InferenceServer, ModelRunner
+    return params_from_mxtpu(params, fresh_names(bert_large)).export(path)
 
-    t0 = time.perf_counter()
-    runner = ModelRunner(fresh_names(bert_large), params,
-                         input_specs={"data": (None,)},
-                         seq_buckets=[64, 128], max_batch_size=32)
-    load_s = time.perf_counter() - t0
-    warm = runner.warmup()
-    print(f"serving: weights {runner.weight_bytes() / 2**30:.3f} GiB "
-          f"loaded in {load_s:.1f} s; warmup of {len(warm)} buckets "
-          f"{sum(warm.values()):.1f} s", flush=True)
 
-    rng = np.random.RandomState(SEED + 1)
-    lens = [int(n) for n in rng.randint(16, 129, N_REQUESTS)]
-    toks = [rng.randint(0, VOCAB, n).astype(np.float32) for n in lens]
+def peak_gb():
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def reset_peak():
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def ladder_memory(runner, tag, run_eager, warm_up):
+    """Peak device memory over one call of every bucket of the ladder:
+    the eager plan's (``run_eager()``), then the captured ladder's
+    warm-up (``warm_up()``: its graphs' shared pool, the static
+    buffers, the weights); what stays allocated and reserved after the
+    warm-up.  Prints the number of entries and each one's capture
+    seconds."""
+    import torch
+    reset_peak()
+    run_eager()
+    eager = peak_gb()
+    reset_peak()
+    warm = warm_up()
+    out = {"eager_peak_gb": eager, "captured_peak_gb": peak_gb(),
+           "captured_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "captured_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+           "capture_s": {str(k): v for k, v in warm.items()}}
+    print(f"{tag}: {runner.num_compiled()} entries captured in "
+          f"{sum(warm.values()):.2f} s (" + ", ".join(
+              f"{k} {v:.3f}" for k, v in warm.items()) +
+          f" s); peak device memory over the ladder: eager plan "
+          f"{eager:.3f} GB, captured warm-up {out['captured_peak_gb']:.3f}"
+          f" GB; after it {out['captured_allocated_gb']:.3f} GB allocated,"
+          f" {out['captured_reserved_gb']:.3f} GB reserved", flush=True)
+    return warm, out
+
+
+def serve_memory(runner):
+    def run_eager():
+        for bucket in runner.buckets():
+            e = runner._eager_entry(bucket)
+            with e.lock:
+                e.run(runner._example(bucket))
+    return ladder_memory(runner, "serving", run_eager, runner.warmup)
+
+
+def serve_entry_gate(checks, runner):
+    """Each captured bucket against the eager plan on the card, one
+    batch of every bucket: bit for bit, or (where cuBLAS took another
+    algorithm under capture) within the served-logits tolerance, the
+    largest difference printed."""
+    import torch
+    rng = np.random.RandomState(SEED + 3)
+    apart, worst_abs, worst_rel = [], 0.0, 0.0
+    for bucket in runner.buckets():
+        b, s = bucket
+        vals = runner._pad_stack(
+            [{"data": rng.randint(0, VOCAB, s).astype(np.float32)}
+             for _ in range(b)], bucket)
+        (got,) = runner.run_raw(vals, bucket)
+        eager = runner._eager_entry(bucket)
+        with eager.lock:
+            (want,) = eager.run(vals)
+        if not torch.equal(got, want):
+            rel, absmax = rel_err(got, want)
+            apart.append(list(bucket))
+            worst_abs, worst_rel = max(worst_abs, absmax), max(worst_rel,
+                                                               rel)
+        del got, want
+    ok = worst_rel <= SERVE_TOL
+    print(f"check serving: each of {len(runner.buckets())} captured "
+          f"buckets vs the eager plan on the card, one batch each: "
+          f"{len(runner.buckets()) - len(apart)} bit for bit" +
+          (f"; {apart} apart by at most max_abs_err={worst_abs:.3e} "
+           f"max_rel_err={worst_rel:.3e} tol={SERVE_TOL}" if apart else "")
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "served buckets captured vs eager",
+                        "apart": apart, "max_abs_err": worst_abs,
+                        "max_rel_err": worst_rel, "tol": SERVE_TOL,
+                        "ok": ok})
+    if not ok:
+        checks.failed.append("serving: a captured bucket differs from the "
+                             "eager plan")
+
+
+def guard_gate(checks):
+    """``MXTPU_GUARDS=2`` on the card: a runner built under it captures,
+    replays and serves a toy graph (``data * w``) exactly; inside the
+    guards' scope a host read raises; past its ladder plus 4 builds the
+    runner raises ``RecompileChurn``."""
+    import torch
+    from mxtpu_torch import guards
+    from mxtpu_torch import symbol as sym
+    from mxtpu_torch.serving import ModelRunner
+    os.environ["MXTPU_GUARDS"] = "2"
+    try:
+        w = np.arange(1, 4, dtype=np.float32)
+        r = ModelRunner(sym.var("data") * sym.var("w"), {"w": w},
+                        {"data": (3,)}, max_batch_size=4)
+        r.warmup()
+        x = np.random.RandomState(SEED).randn(3, 3).astype(np.float32)
+        (out,) = r.infer({"data": x})
+        served = np.array_equal(out, x * w)
+        try:
+            with guards.no_implicit_transfers(device=torch.device(CARD)):
+                torch.ones(1, device=CARD).item()
+            sync_raises = False
+        except RuntimeError:
+            sync_raises = True
+        try:
+            r.warmup([(b, None) for b in range(5, 10)])
+            churn = False
+        except guards.RecompileChurn:
+            churn = True
+    finally:
+        os.environ.pop("MXTPU_GUARDS", None)
+    ok = served and sync_raises and churn
+    print(f"check guards (MXTPU_GUARDS=2): a guarded runner serves its "
+          f"captured ladder exactly {served}; a host read inside the scope "
+          f"raises {sync_raises}; the 8th build of a 3-bucket ladder raises "
+          f"RecompileChurn {churn} {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "guards on the card", "served": served,
+                        "sync_raises": sync_raises, "churn": churn,
+                        "ok": ok})
+    if not ok:
+        checks.failed.append("guards: MXTPU_GUARDS=2 did not hold on the "
+                             "card")
+
+
+SERVE_PER_FWD = {"flash_attention_fwd": LAYERS, "layer_norm_fwd": 1,
+                 "fused_residual_ln_fwd": 2 * LAYERS}
+
+
+def serve_burst(checks, runner, tag, toks, check_toks=None):
+    """The 128-request burst from 4 client threads through
+    InferenceServer: every result of the right shape and finite, 0
+    requeues and failures, launches exactly 24/1/48 a forward and 0
+    elsewhere.  With ``check_toks``, one batch of them through the same
+    server after the burst (the CPU gate's input)."""
+    from mxtpu_torch import kernels
+    from mxtpu_torch.serving import InferenceServer
     results = [None] * N_REQUESTS
     errors = []
     server = InferenceServer(log_every_s=1e9)
@@ -4261,69 +4449,108 @@ def serve_phase(checks, params):
         t.join(timeout=600)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-
-    # phase 4 input: one batch of 8 x 128 through the server
-    check_toks = [rng.randint(0, VOCAB, T).astype(np.float32)
-                  for _ in range(8)]
-    check_reqs = [server.submit("bert", {"data": x}, timeout_s=300.0)
-                  for x in check_toks]
-    served = [r.result(timeout=360.0)[0] for r in check_reqs]
+    served = None
+    if check_toks is not None:
+        check_reqs = [server.submit("bert", {"data": x}, timeout_s=300.0)
+                      for x in check_toks]
+        served = [r.result(timeout=360.0)[0] for r in check_reqs]
     server.close()
     snap = server.stats("bert")
     ep_err = server._endpoint("bert", None).last_error
 
     if any(t.is_alive() for t in threads):
-        checks.failed.append("client threads did not finish")
+        checks.failed.append(f"serving ({tag}): client threads did not "
+                             f"finish")
     if errors:
-        checks.failed.append(f"request errors: {errors[:3]}")
+        checks.failed.append(f"serving ({tag}): request errors: "
+                             f"{errors[:3]}")
     bad = [i for i, r in enumerate(results)
-           if r is None or r.shape != (lens[i], VOCAB)
+           if r is None or r.shape != (len(toks[i]), VOCAB)
            or not np.isfinite(r).all()]
     if bad:
-        checks.failed.append(f"{len(bad)} served results missing, of the "
-                             f"wrong shape or not finite")
+        checks.failed.append(f"serving ({tag}): {len(bad)} served results "
+                             f"missing, of the wrong shape or not finite")
     requeues = snap["extras"].get("requeues", 0)
     if requeues:
-        checks.failed.append(f"{requeues} requeues (last batch error: "
-                             f"{ep_err!r})")
-    print(f"kernels: launches in the serving run over "
+        checks.failed.append(f"serving ({tag}): {requeues} requeues (last "
+                             f"batch error: {ep_err!r})")
+    print(f"kernels: launches in the serving run ({tag}) over "
           f"{N_REQUESTS} requests: {json.dumps(counts)}", flush=True)
-    per_fwd = {"flash_attention_fwd": LAYERS, "layer_norm_fwd": 1,
-               "fused_residual_ln_fwd": 2 * LAYERS}
     n_fwd = counts["layer_norm_fwd"]
-    for name, per in per_fwd.items():
-        if counts[name] == 0:
+    for name, got in counts.items():
+        want = SERVE_PER_FWD.get(name, 0) * n_fwd
+        if name in SERVE_PER_FWD and got == 0:
             checks.failed.append(f"kernel {name} never launched on the "
-                                 f"main path")
-        elif counts[name] != per * n_fwd:
-            checks.failed.append(f"{name}: {counts[name]} launches for "
-                                 f"{n_fwd} forwards, want {per} each")
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                 "layer_norm_bwd", "fused_residual_ln_bwd",
-                 "batch_norm_fwd", "batch_norm_bwd", "batch_norm_fwd_cm",
-                 "batch_norm_bwd_cm"):
-        if counts[name]:
-            checks.failed.append(f"serving launched kernel {name} "
-                                 f"{counts[name]} times")
+                                 f"main path ({tag})")
+        elif got != want:
+            checks.failed.append(f"serving ({tag}): {name} launched {got} "
+                                 f"times in {n_fwd} forwards, want "
+                                 f"{SERVE_PER_FWD.get(name, 0)} each")
     # one forward per batch: at least N/32 batches, at most N
     if not -(-N_REQUESTS // 32) <= n_fwd <= N_REQUESTS:
-        checks.failed.append(f"{n_fwd} forwards for {N_REQUESTS} "
-                             f"requests")
+        checks.failed.append(f"serving ({tag}): {n_fwd} forwards for "
+                             f"{N_REQUESTS} requests")
     rps = N_REQUESTS / wall
     lat = snap["latency_ms"]
-    print(f"serving: {N_REQUESTS} requests from {N_CLIENTS} threads in "
-          f"{wall:.3f} s = {rps:.2f} req/s; latency p50 {lat['p50']} ms "
-          f"p99 {lat['p99']} ms; {n_fwd} forwards, mean batch "
-          f"{snap['mean_batch_size']}, fill {snap['batch_fill_rate']}, "
-          f"requeues {requeues}", flush=True)
+    print(f"serving ({tag}): {N_REQUESTS} requests from {N_CLIENTS} "
+          f"threads in {wall:.3f} s = {rps:.2f} req/s; latency p50 "
+          f"{lat['p50']} ms p99 {lat['p99']} ms; {n_fwd} forwards, mean "
+          f"batch {snap['mean_batch_size']}, fill "
+          f"{snap['batch_fill_rate']}, requeues {requeues}", flush=True)
+    return counts, served, {
+        "wall_s": wall, "req_per_s": rps, "p50_ms": lat["p50"],
+        "p99_ms": lat["p99"], "batches": snap["batches"],
+        "mean_batch_size": snap["mean_batch_size"],
+        "batch_fill_rate": snap["batch_fill_rate"], "requeues": requeues}
 
-    breakdown = forward_breakdown(runner)
 
-    # the same model and weights on the CPU, plain path
-    cpu_runner = ModelRunner(fresh_names(bert_large), params,
-                             input_specs={"data": (None,)},
-                             seq_buckets=[128], max_batch_size=8,
-                             device="cpu")
+def serve_phase(checks, params):
+    """BERT-Large f32 built by the port, exported, and served from the
+    export through ``ModelRunner.from_export`` ({64, 128} x batch
+    1..32, one captured CUDA graph a bucket), each measurement beside
+    the eager plan's on the same card."""
+    import tempfile
+    import torch
+    from mxtpu_torch.serving import ModelRunner
+
+    spec = dict(input_specs={"data": (None,)})
+    with tempfile.TemporaryDirectory(dir=ROOT / "mxtpu_torch" / "_build",
+                                     prefix="serve_") as tmp:
+        t0 = time.perf_counter()
+        files = serve_export(params, os.path.join(tmp, "bert"))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner = ModelRunner.from_export(*files, seq_buckets=[64, 128],
+                                         max_batch_size=32, **spec)
+        load_s = time.perf_counter() - t0
+        # the same export on the CPU, plain path
+        cpu_runner = ModelRunner.from_export(*files, seq_buckets=[128],
+                                             max_batch_size=8,
+                                             device="cpu", **spec)
+    print(f"serving: BERT-Large exported in {export_s:.1f} s; weights "
+          f"{runner.weight_bytes() / 2**30:.3f} GiB loaded from the export "
+          f"in {load_s:.1f} s", flush=True)
+    ptrs = [w.data_ptr() for w in runner.weight_buffers()]
+    warm, memory = serve_memory(runner)
+    if [w.data_ptr() for w in runner.weight_buffers()] != ptrs:
+        checks.failed.append("serving: the warm-up moved the weights")
+    serve_entry_gate(checks, runner)
+    guard_gate(checks)
+
+    rng = np.random.RandomState(SEED + 1)
+    lens = [int(n) for n in rng.randint(16, 129, N_REQUESTS)]
+    toks = [rng.randint(0, VOCAB, n).astype(np.float32) for n in lens]
+    # phase 14 input: one batch of 8 x 128 through the server
+    check_toks = [rng.randint(0, VOCAB, T).astype(np.float32)
+                  for _ in range(8)]
+    counts, served, burst = serve_burst(checks, runner, "captured", toks,
+                                        check_toks)
+    with eager_plan(runner):
+        _, _, eager_burst = serve_burst(checks, runner, "eager plan", toks)
+    breakdown = forward_breakdown(runner, "captured")
+    with eager_plan(runner):
+        eager_breakdown = forward_breakdown(runner, "eager plan")
+
     (want,) = cpu_runner.infer({"data": np.stack(check_toks)})
     got = torch.from_numpy(np.stack(served))
     rel, absmax = rel_err(got, torch.from_numpy(want))
@@ -4337,14 +4564,13 @@ def serve_phase(checks, params):
     if not ok:
         checks.failed.append("served logits differ from the CPU path")
     return counts, {"requests": N_REQUESTS, "clients": N_CLIENTS,
-                    "wall_s": wall, "req_per_s": rps,
-                    "p50_ms": lat["p50"], "p99_ms": lat["p99"],
-                    "batches": snap["batches"],
-                    "mean_batch_size": snap["mean_batch_size"],
-                    "batch_fill_rate": snap["batch_fill_rate"],
-                    "requeues": requeues, "warmup_s": sum(warm.values()),
+                    **burst, "eager_plan": eager_burst,
+                    "export_s": export_s, "load_s": load_s,
+                    "num_compiled": runner.num_compiled(),
+                    "warmup_s": sum(warm.values()), "memory": memory,
                     "served_vs_cpu_max_abs_err": absmax,
-                    "forward_b32_t128": breakdown}
+                    "forward_b32_t128": breakdown,
+                    "forward_b32_t128_eager_plan": eager_breakdown}
 
 
 # ----------------------------------------------------------------------
@@ -4420,17 +4646,18 @@ def same_greedy(net, prompt, got, want):
     return len(got) == len(want), None
 
 
-def gen_incremental_gate(checks, net, runner):
-    """Gates 1 and 3: one lane prefilled with a 100-token prompt, then
-    16 decode steps; each step's logits against the full causal
-    forward's at the same position, the greedy tokens where the top-2
-    gap exceeds the tolerance, and each call's launches exactly 1
-    LayerNorm (#4), 48 fused epilogues (#6) and no flash kernel."""
+def gen_incremental_gate(checks, net, runner, kv):
+    """Gates 1 and 3: one lane of table ``kv`` (zeroed) prefilled with a
+    100-token prompt, then 16 decode steps; each step's logits against
+    the full causal forward's at the same position, the greedy tokens
+    where the top-2 gap exceeds the tolerance, and each call's launches
+    exactly 1 LayerNorm (#4), 48 fused epilogues (#6) and no flash
+    kernel."""
     import torch
     from mxtpu_torch import kernels
     rng = np.random.RandomState(SEED + 20)
     prompt = [int(t) for t in rng.randint(0, VOCAB, GEN_PROMPT)]
-    kv = runner.new_cache()
+    kv.zero_()
     s = runner.prompt_bucket_for(GEN_PROMPT)
     tok = np.zeros((1, s), np.float32)
     tok[0, :GEN_PROMPT] = prompt
@@ -4480,9 +4707,10 @@ def gen_incremental_gate(checks, net, runner):
     return absmax
 
 
-def gen_cpu_gate(checks, runner, files):
+def gen_cpu_gate(checks, runner, files, kv):
     """Gate 2: one prefill (b=2, s=32) and 4 decode steps on the card
-    against the same runner built on the CPU (the plain versions)."""
+    (table ``kv``, zeroed) against the same runner built on the CPU
+    (the plain versions)."""
     import torch
     from mxtpu_torch.serving import GenerateRunner
     cpu = GenerateRunner.from_export(*files, runner.kv_spec,
@@ -4492,7 +4720,7 @@ def gen_cpu_gate(checks, runner, files):
     toks = rng.randint(0, VOCAB, (GEN_CPU_B, GEN_CPU_S)).astype(np.float32)
     lanes = np.arange(GEN_CPU_B, dtype=np.float32)
     step = np.zeros(GEN_CPU_B, np.float32)
-    lg, kg = runner.prefill(toks, step, lanes, runner.new_cache())
+    lg, kg = runner.prefill(toks, step, lanes, kv.zero_())
     lc, kc = cpu.prefill(toks, step, lanes, cpu.new_cache())
     errs = [rel_err(torch.from_numpy(lg), torch.from_numpy(lc))]
     slots = runner.max_lanes + 1
@@ -4530,31 +4758,34 @@ def pct(vals, q):
         if vals else None
 
 
-def gen_saturation(runner):
+def gen_saturation(runner, tag):
     """``bench.py``'s ``serving_generate`` measurement at full width:
     8 greedy requests of 64 tokens, 24 new tokens each, through one
     batcher stepped until drained (tokens/s, and TTFT and per-token
-    gaps at the stream callback), twice; then its naive denominator,
-    the same continuation of the first prompt by a full prefill over
-    the growing sequence per token."""
+    gaps at the stream callback), twice, each batcher warmed on its own
+    table before its requests; then its naive denominator, the same
+    continuation of the first prompt by a full prefill over the growing
+    sequence per token.  A decode step's wall ms and the host ms of its
+    runner call (the replay or the eager plan, and the logits' copy)."""
     from mxtpu_torch.serving import GenerateBatcher
     rng = np.random.RandomState(SEED + 22)
     prompts = [[int(t) for t in rng.randint(1, VOCAB, GEN_SAT_PROMPT)]
                for _ in range(runner.max_lanes)]
-    host = []
-    orig = runner._eval_incremental
+    calls = []
+    decode = runner.decode
 
-    def eval_timed(*a):
+    def decode_timed(*a):
         t0 = time.perf_counter()
-        out = orig(*a)
-        host.append(time.perf_counter() - t0)
+        out = decode(*a)
+        calls.append(time.perf_counter() - t0)
         return out
 
-    rates, ttfts, gaps, step_ms, eval_ms = [], [], [], [], []
-    runner._eval_incremental = eval_timed
+    rates, ttfts, gaps, step_ms, call_ms = [], [], [], [], []
+    runner.decode = decode_timed
     try:
         for _ in range(GEN_SAT_RUNS):
             batcher = GenerateBatcher(runner)
+            batcher.warmup()
             marks = [[] for _ in prompts]
             t_submit = time.perf_counter()
             reqs = [batcher.submit(p, max_tokens=GEN_MAX_TOKENS,
@@ -4562,12 +4793,12 @@ def gen_saturation(runner):
                                    m.append(time.perf_counter()))
                     for p, m in zip(prompts, marks)]
             while not batcher.drain():
-                del host[:]
+                del calls[:]
                 t0 = time.perf_counter()
                 out = batcher.step()
                 if not out["admitted"]:
                     step_ms.append((time.perf_counter() - t0) * 1e3)
-                    eval_ms.append(sum(host) * 1e3)
+                    call_ms.append(sum(calls) * 1e3)
             elapsed = time.perf_counter() - t_submit
             batcher.close()
             rates.append(sum(len(r.result(0)) for r in reqs) / elapsed)
@@ -4575,7 +4806,7 @@ def gen_saturation(runner):
             gaps += [(b - a) * 1e3 for m in marks
                      for a, b in zip(m, m[1:])]
     finally:
-        runner._eval_incremental = orig
+        del runner.decode
     kv = runner.new_cache()
     seq = list(prompts[0])
     b = runner.batch_rung_for(1)
@@ -4597,9 +4828,9 @@ def gen_saturation(runner):
            "kv_vs_naive": max(rates) / naive,
            "decode_step_wall_ms": {"p50": pct(step_ms, 0.5),
                                    "p95": pct(step_ms, 0.95)},
-           "decode_eval_host_ms": {"p50": pct(eval_ms, 0.5),
-                                   "p95": pct(eval_ms, 0.95)}}
-    print(f"generate saturation ({runner.max_lanes} lanes, "
+           "decode_call_host_ms": {"p50": pct(call_ms, 0.5),
+                                   "p95": pct(call_ms, 0.95)}}
+    print(f"generate saturation, {tag} ({runner.max_lanes} lanes, "
           f"{GEN_SAT_PROMPT}-token prompts, {GEN_MAX_TOKENS} tokens "
           f"each): decode tokens/s {', '.join(f'{r:.2f}' for r in rates)}"
           f"; TTFT p50 {out['ttft_ms']['p50']:.3f} ms p95 "
@@ -4608,22 +4839,24 @@ def gen_saturation(runner):
           f"{out['per_token_ms']['p95']:.3f} ms (stream callback); naive "
           f"re-prefill {naive:.2f} tokens/s, ratio "
           f"{out['kv_vs_naive']:.3f}; a decode step {pct(step_ms, 0.5):.3f}"
-          f" ms wall (p50), of it {pct(eval_ms, 0.5):.3f} ms host in "
-          f"_eval_symbol", flush=True)
+          f" ms wall (p50), of it {pct(call_ms, 0.5):.3f} ms in the "
+          f"runner's decode call", flush=True)
     return out
 
 
-def gen_decode_breakdown(checks, runner):
-    """One decode step with every lane active under torch.profiler, its
-    device time by family.  Each device kernel is charged to the op
-    whose ``record_function`` range launched it (the profiler links a
-    kernel to the innermost op around its launch; the walk goes up to
-    the nearest range): GEMMs are the FullyConnected ranges', KV copies
+def gen_decode_breakdown(checks, runner, tag, replayed=True):
+    """One decode step with every lane active under torch.profiler: its
+    device busy time, wall time and idle share.  Under the eager plan
+    each device kernel is also charged to the op whose
+    ``record_function`` range launched it (the profiler links a kernel
+    to the innermost op around its launch; the walk goes up to the
+    nearest range): GEMMs are the FullyConnected ranges', KV copies
     kv_cache_write's and stack's plus the kernels outside the graph
     (the donation's copy of the new table over the old), copies to and
     from the host by name, other the rest of the graph.  A range's own
     span on the device timeline is left out; its ``device_time_total``,
-    which holds that span, is printed beside the kernels' sum."""
+    which holds that span, is printed beside the kernels' sum.  A
+    replayed graph runs no op, so its kernels are not linked."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from mxtpu_torch.ops.registry import get_op
@@ -4633,9 +4866,10 @@ def gen_decode_breakdown(checks, runner):
     ds = np.full(slots, GEN_SAT_PROMPT + 5, np.float32)
     ds[-1] = 0
     kv = runner.new_cache()
+    runner.warmup([("decode", (slots,))], kv=kv)
     runner.decode(dt, ds, kv)
     saved = {}
-    for name in GEN_OP_FAMILY:
+    for name in () if replayed else GEN_OP_FAMILY:
         op = get_op(name)
         saved[name] = op.fn
 
@@ -4682,6 +4916,8 @@ def gen_decode_breakdown(checks, runner):
                 if evt.name == "gen:eval":
                     eval_total += evt.device_time_total / 1e3
                     eval_host += evt.cpu_time_total / 1e3
+                if replayed:
+                    continue
                 fam = None
                 for k in evt.kernels:
                     if k.name.startswith(("gen:", "gen_op:")):
@@ -4698,8 +4934,8 @@ def gen_decode_breakdown(checks, runner):
             get_op(name).fn = fn
         runner._eval_incremental = orig
     if not busy:
-        checks.failed.append("torch.profiler recorded no device time in "
-                             "the decode step")
+        checks.failed.append(f"torch.profiler recorded no device time in "
+                             f"the decode step ({tag})")
         return {}
     linked = sum(by.values())
     out = {"device_ms_by_family": by, "device_busy_ms": busy,
@@ -4707,15 +4943,123 @@ def gen_decode_breakdown(checks, runner):
            "eval_host_ms": eval_host,
            "eval_range_device_time_total_ms": eval_total,
            "device_idle_share": 1.0 - busy / wall}
-    print("generate decode step breakdown (device ms, 9 slots, 8 lanes "
-          f"at position {GEN_SAT_PROMPT + 5}): " +
-          ", ".join(f"{k} {v:.3f}" for k, v in by.items()) +
-          f"; {n} kernels linked to their ops, {linked:.3f} ms, of "
-          f"{busy:.3f} ms busy on the device in {wall:.3f} ms wall, idle "
-          f"share {out['device_idle_share']:.4f}; host in _eval_symbol "
-          f"{eval_host:.3f} ms (profiled); the eval range's "
-          f"device_time_total {eval_total:.3f} ms", flush=True)
+    print(f"generate decode step breakdown, {tag} (device ms, 9 slots, 8 "
+          f"lanes at position {GEN_SAT_PROMPT + 5}): " +
+          (", ".join(f"{k} {v:.3f}" for k, v in by.items()) +
+           f"; {n} kernels linked to their ops, {linked:.3f} ms, of "
+           if n else "kernels of the replayed graph not linked to ops; ")
+          + f"{busy:.3f} ms busy on the device in {wall:.3f} ms wall, idle "
+          f"share {out['device_idle_share']:.4f}" +
+          (f"; host in the graph plan {eval_host:.3f} ms (profiled); the "
+           f"eval range's device_time_total {eval_total:.3f} ms"
+           if n else ""), flush=True)
     return out
+
+
+def gen_memory(runner, table):
+    """:func:`ladder_memory` of the generation ladder on ``table``,
+    eager and then captured."""
+    def run_eager():
+        for bucket in runner.buckets():
+            e = runner._eager_entry(bucket, table)
+            with e.lock:
+                e.run(runner._entry_inputs(bucket), (table,))
+    return ladder_memory(runner, "generate", run_eager,
+                         lambda: runner.warmup(kv=table))
+
+
+def gen_entry_gate(checks, runner):
+    """Each captured entry against the eager plan on the card, one call
+    of every bucket from the same random table: logits and table bit
+    for bit (or within the tolerance, printed).  Then a decode on a
+    second table: captured anew on it, the first table untouched, the
+    same logits; the first table keeps its graphs (4 more steps on it
+    build nothing and return it); and ``donate=False`` is refused on
+    the card."""
+    import torch
+    from mxtpu_torch import MXNetError
+    from mxtpu_torch.serving import GenerateRunner
+    from mxtpu_torch.serving.entry import tensor_key
+    g = torch.Generator(device=CARD).manual_seed(SEED + 26)
+    base = torch.randn(runner._kv_shape, generator=g, device=CARD)
+    kv_c, kv_e = torch.empty_like(base), torch.empty_like(base)
+    rng = np.random.RandomState(SEED + 26)
+    apart, worst_abs, worst_rel = [], 0.0, 0.0
+    for kind, shp in runner.buckets():
+        if kind == "prefill":
+            b, s = shp
+            args = (rng.randint(0, VOCAB, (b, s)).astype(np.float32),
+                    rng.randint(0, MAXLEN - s, b).astype(np.float32),
+                    rng.permutation(runner.max_lanes)[:b].astype(
+                        np.float32))
+            call = runner.prefill
+        else:
+            args = (rng.randint(0, VOCAB, (shp[0], 1)).astype(np.float32),
+                    rng.randint(0, MAXLEN, shp[0]).astype(np.float32))
+            call = runner.decode
+        kv_c.copy_(base)
+        kv_e.copy_(base)
+        got, _ = call(*args, kv_c)
+        with eager_plan(runner):
+            want, _ = call(*args, kv_e)
+        for a, b in ((torch.from_numpy(got), torch.from_numpy(want)),
+                     (kv_c, kv_e)):
+            if not torch.equal(a, b):
+                rel, absmax = rel_err(a, b)
+                apart.append(f"{kind} {shp}")
+                worst_abs = max(worst_abs, absmax)
+                worst_rel = max(worst_rel, rel)
+    del base, kv_e
+    dec = ("decode", (runner.max_lanes + 1,))
+    args = (rng.randint(0, VOCAB, (dec[1][0], 1)).astype(np.float32),
+            np.zeros(dec[1][0], np.float32))
+    kv_c.zero_()
+    first, _ = runner.decode(*args, kv_c)
+    entry = runner._tables[tensor_key(kv_c)][dec]
+    kept = kv_c.clone()
+    other = runner._zeros()
+    second, out = runner.decode(*args, other)
+    anew = runner._tables[tensor_key(other)][dec] is not entry
+    untouched = torch.equal(kv_c, kept)
+    same = np.array_equal(first, second) and torch.equal(out, kept)
+    n_built, secs = runner.num_compiled(), dict(runner.compile_seconds)
+    backs = [runner.decode(*args, kv_c)[1] for _ in range(4)]
+    kept_graphs = (runner._tables[tensor_key(kv_c)][dec] is entry
+                   and all(b is kv_c for b in backs)
+                   and runner.num_compiled() == n_built
+                   and runner.compile_seconds == secs)
+    try:
+        GenerateRunner(runner._symbol, {}, runner.kv_spec,
+                       prompt_buckets=runner.prompt_buckets, donate=False)
+        refused = False
+    except MXNetError as e:
+        refused = "donate=False" in str(e)
+    ok = worst_rel <= SERVE_TOL and anew and untouched and same \
+        and out is other and kept_graphs and refused
+    print(f"check generate: each of {len(runner.buckets())} captured "
+          f"entries vs the eager plan on the card (logits and table): "
+          f"{len(runner.buckets()) - len(set(apart))} bit for bit" +
+          (f"; {sorted(set(apart))} apart by at most "
+           f"max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} "
+           f"tol={SERVE_TOL}" if apart else "") +
+          f"; a decode on another table captured anew {anew}, the first "
+          f"table untouched {untouched}, the same logits and table "
+          f"{same}; 4 more steps on the first table built nothing "
+          f"{kept_graphs}; donate=False refused {refused} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "generate entries captured vs eager",
+                        "apart": sorted(set(apart)),
+                        "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+                        "tol": SERVE_TOL, "another_table_anew": anew,
+                        "first_table_untouched": untouched,
+                        "same_result": same,
+                        "first_table_kept_graphs": kept_graphs,
+                        "donate_off_refused": refused, "ok": ok})
+    if not ok:
+        checks.failed.append("generate: a captured entry differs from the "
+                             "eager plan, wrote a table it was not "
+                             "passed, was built again on its own table, "
+                             "or donate=False was not refused")
 
 
 def gen_alone(runner, prompt, kw):
@@ -4749,7 +5093,8 @@ def gen_server_gate(checks, net, runner):
     results = [None] * GEN_REQUESTS
     errors = []
     server = InferenceServer(log_every_s=1e9)
-    server.register_generator("gen", runner)
+    # warmup=True: the ladder is captured on the endpoint's table
+    server.register_generator("gen", runner, warmup=True)
 
     def client(idx):
         try:
@@ -4986,8 +5331,9 @@ def generate_phase(checks, gen):
             *files, net.kv_cache_spec(GEN_LANES, MAXLEN),
             prompt_buckets=GEN_BUCKETS)
         load_s = time.perf_counter() - t0
-        warm = runner.warmup()
-        kv_gb = runner.new_cache().numel() * 4 / 1e9
+        table = runner.new_cache()
+        warm, memory = gen_memory(runner, table)
+        kv_gb = float(np.prod(runner._kv_shape)) * 4 / 1e9
         print(f"generate: BERT-Large causal (f32) exported in "
               f"{export_s:.1f} s, GenerateRunner.from_export "
               f"{load_s:.1f} s ({runner.weight_bytes() / 1e9:.3f} GB of "
@@ -5001,13 +5347,20 @@ def generate_phase(checks, gen):
             marks.append(time.perf_counter())
             secs[tag] = marks[-1] - marks[-2]
 
-        inc_err = gen_incremental_gate(checks, net, runner)
+        inc_err = gen_incremental_gate(checks, net, runner, table)
         lap("incremental")
-        cpu_err = gen_cpu_gate(checks, runner, files)
+        cpu_err = gen_cpu_gate(checks, runner, files, table)
         lap("cpu")
-    sat = gen_saturation(runner)
+    gen_entry_gate(checks, runner)
+    lap("entries")
+    sat = gen_saturation(runner, "captured")
+    with eager_plan(runner):
+        sat_eager = gen_saturation(runner, "eager plan")
     lap("saturation")
-    breakdown = gen_decode_breakdown(checks, runner)
+    breakdown = gen_decode_breakdown(checks, runner, "captured")
+    with eager_plan(runner):
+        breakdown_eager = gen_decode_breakdown(checks, runner,
+                                               "eager plan", False)
     lap("breakdown")
     counts, served = gen_server_gate(checks, net, runner)
     lap("server")
@@ -5020,11 +5373,15 @@ def generate_phase(checks, gen):
         f"{k} {v:.1f}" for k, v in secs.items()) + ")", flush=True)
     return counts, rows, {"export_s": export_s, "load_s": load_s,
                           "warmup_s": sum(warm.values()),
-                          "kv_table_gb": kv_gb,
+                          "num_compiled": runner.num_compiled(),
+                          "memory": memory, "kv_table_gb": kv_gb,
                           "weight_gb": runner.weight_bytes() / 1e9,
                           "incremental_vs_full_max_abs_err": inc_err,
                           "card_vs_cpu_max_abs_err": cpu_err,
-                          "saturation": sat, "decode_breakdown": breakdown,
+                          "saturation": sat,
+                          "saturation_eager_plan": sat_eager,
+                          "decode_breakdown": breakdown,
+                          "decode_breakdown_eager_plan": breakdown_eager,
                           "serving": served, "phase_s": phase_s,
                           "phase_split_s": secs}
 

@@ -5,7 +5,10 @@ take the plain PyTorch version, tensors on a CUDA device launch the
 kernel, or the call raises (no fallback).  Each wrapper counts its
 launches in a plain integer beside it (``LAUNCHES`` and the like of its
 module); :func:`launch_counts` reads them all and
-:func:`reset_launch_counts` sets them to 0.
+:func:`reset_launch_counts` sets them to 0.  A CUDA graph's capture
+launches nothing on the card: while a thread records
+(:func:`recording`), its wrappers' counts go to the record instead, and
+each replay of the graph adds the record (:func:`add_launches`).
 
 The public functions (``flash_attention``, ``layer_norm``,
 ``fused_residual_layer_norm``, ``fused_bn_act``) run through
@@ -19,21 +22,23 @@ no graph, so on the card they refuse inputs that require grad
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib
 import threading
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import torch
 
 from ..base import MXNetError
 
 __all__ = ["on_card", "refuse_grad", "bump", "launch_counts",
-           "reset_launch_counts", "aligned16", "sm_count",
+           "reset_launch_counts", "recording", "add_launches", "aligned16", "sm_count",
            "flash_attention", "layer_norm", "fused_residual_layer_norm",
            "fused_bn_act", "conv_nhwc"]
 
 _count_lock = threading.Lock()
+_recorder = threading.local()
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -83,9 +88,36 @@ def sm_count(device: torch.device) -> int:
 def bump(module, attr: str = "LAUNCHES") -> None:
     """Add one to the launch counter ``module.<attr>`` (server worker
     threads launch concurrently, so the read-modify-write takes a
-    lock)."""
+    lock), or to this thread's record while it records."""
+    record = getattr(_recorder, "record", None)
+    if record is not None:
+        record[(module, attr)] = record.get((module, attr), 0) + 1
+        return
     with _count_lock:
         setattr(module, attr, getattr(module, attr) + 1)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[Tuple[object, str], int]]:
+    """Inside it, this thread's launches are counted in the yielded
+    record, ``{(module, counter name): launches}``, and not in the
+    counts: a CUDA graph's capture (and the eager warm-up before it)
+    runs under one, and each replay adds the capture's record."""
+    prev = getattr(_recorder, "record", None)
+    record: Dict[Tuple[object, str], int] = {}
+    _recorder.record = record
+    try:
+        yield record
+    finally:
+        _recorder.record = prev
+
+
+def add_launches(record: Dict[Tuple[object, str], int]) -> None:
+    """Add a :func:`recording`'s launches to the counts (a replay of
+    the graph it captured launched each of them once)."""
+    with _count_lock:
+        for (module, attr), n in record.items():
+            setattr(module, attr, getattr(module, attr) + n)
 
 
 def _modules():

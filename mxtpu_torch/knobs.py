@@ -98,6 +98,20 @@ register("MXTPU_GEN_STREAM", True, "bool",
          "they decode (off = deliver only the final sequence).",
          "serving")
 
+# -- guards --------------------------------------------------------------
+register("MXTPU_GUARDS", "", "str",
+         "Runtime guard rails (mxtpu_torch.guards): `1` warn on "
+         "recompile churn and run ModelRunner/GenerateRunner dispatch "
+         "under torch.cuda.set_sync_debug_mode('error'); `2` raise "
+         "instead of warn; unset/`0` = off with zero overhead.",
+         "guards")
+register("MXTPU_GUARDS_CHURN_LIMIT", 10, "int",
+         "Compiles tolerated per guarded entry before the recompile-"
+         "churn guard fires, for a ChurnDetector built without a limit "
+         "(ModelRunner and GenerateRunner set their own from their "
+         "bucket ladders).",
+         "guards")
+
 # -- training ------------------------------------------------------------
 register("MXTPU_BATCHED_OPT", True, "bool",
          "(shape, dtype)-bucketed stacked optimizer updates in "

@@ -76,21 +76,27 @@ def _invoke_op(name: str, *inputs, **kwargs):
     first array's device) — the role of ``MXImperativeInvokeEx``.  An
     op with no inputs (``_arange``) creates on ``ctx`` (default the
     card)."""
-    from .. import autograd
     op = get_op(name)
+    ctx = None
     if op.num_inputs == 0:
         if inputs:
             raise MXNetError(f"nd.{name} takes no inputs")
         ctx = kwargs.pop("ctx", None)
-        resolved = op.resolve_params(kwargs)
+    return _invoke_resolved(op, op.resolve_params(kwargs), inputs, ctx)
+
+
+def _invoke_resolved(op, resolved, inputs, ctx=None):
+    """:func:`_invoke_op` after the op's lookup and the resolution of
+    its params (what a graph plan does once per node)."""
+    from .. import autograd
+    if op.num_inputs == 0:
         return NDArray(op.fn(**resolved, device=_device(ctx)))
     dev = next((x._data.device for x in inputs if isinstance(x, NDArray)),
                None)
     if dev is None:
-        raise MXNetError(f"nd.{name}: no NDArray among the inputs")
+        raise MXNetError(f"nd.{op.name}: no NDArray among the inputs")
     tensors = [x._data if isinstance(x, NDArray)
                else torch.as_tensor(x, device=dev) for x in inputs]
-    resolved = op.resolve_params(kwargs)
     # a non-differentiable op is not recorded, as in mxtpu's
     # _invoke_op_inner: its output is a constant, and a backward from it
     # finds no graph

@@ -885,6 +885,8 @@ def _dropout(x, key=None, p=0.5, mode="training", axes=()):
     device (jax's PRNG has no torch counterpart)."""
     if mode != "training" or p <= 0.0:
         return x
+    if x.device.type == "meta":   # shape inference draws nothing
+        return torch.empty_like(x)
     shape = list(x.shape)
     for ax in axes:
         shape[ax] = 1

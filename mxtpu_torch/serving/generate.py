@@ -13,10 +13,13 @@ Three pieces, with mxtpu's names and signatures:
   ``kv_cache_write`` writes each lane at its own step and
   ``cached_attention`` masks each lane to its valid prefix, so what lies
   past a lane's frontier is never read and lane reuse needs no zeroing.
-  PyTorch runs eagerly: a bucket needs no compile, and ``warmup`` runs
-  each bucket once, as ``ModelRunner.warmup`` does.  mxtpu's persistent
-  executable cache, AMP and int8 paths are not ported (those arguments
-  raise ``TypeError``), nor is its introspection of compiled programs.
+  Each bucket (every prefill rung and the decode step) gets one entry
+  (:mod:`.entry`), as each gets one executable in mxtpu: on the card a
+  CUDA graph captured on the KV table it runs on (one ladder for each
+  of the last :data:`MAX_TABLES` tables), on the CPU the graph plan run
+  eagerly.  mxtpu's persistent executable cache, AMP and int8
+  paths are not ported (those arguments raise ``TypeError``), nor is
+  its introspection of compiled programs.
 
 - :class:`GenerateRequest` is the streaming future: tokens fire through
   ``on_token`` as they are sampled, ``result()`` returns the full
@@ -41,30 +44,27 @@ from __future__ import annotations
 import math
 import threading
 import time
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import guards
 from .. import knobs
 from ..context import resolve_device, strict_f32
 from .batcher import (InferenceRequest, RequestTimeout, ServerBusy,
                       WorkerLost, _lost_for)
-from .runner import batch_ladder
+from .entry import Entry, GraphPool, tensor_key
+from .runner import _NOT_PORTED, as_numpy, batch_ladder
 
 __all__ = ["GenerateRequest", "GenerateRunner", "GenerateBatcher",
            "sample_token"]
 
-# mxtpu's GenerateRunner arguments this port refuses: the ROADMAP item
-# that brings each
-_NOT_PORTED = {"cache": "the persistent executable cache (ROADMAP "
-                        "queue 1 item 3)",
-               "amp": "AMP generation (ROADMAP queue 1 item 5)",
-               "quant": "int8 generation (ROADMAP queue 1 item 5)",
-               "quant_scales": "int8 generation (ROADMAP queue 1 "
-                               "item 5)"}
-
+# KV tables whose captured ladders a runner keeps on the card: a third
+# table drops the ladder of the one used least recently
+MAX_TABLES = 2
 
 def sample_token(logits, *, position: int, seed: int = 0,
                  top_k: int = 1) -> int:
@@ -173,8 +173,18 @@ class GenerateRunner:
         ``"cpu"``.
     donate : bool, optional (env MXTPU_SERVING_DONATE, on)
         On, ``prefill``/``decode`` update the table passed in, in place,
-        and return it; off, they return a new table and leave the old
-        one intact.
+        and return it (on the card the decode graph writes the new
+        cache into the table it was captured on: that is donation);
+        off, they return a new table and leave the old one intact.  Off
+        is refused on the card, where a captured step would copy the
+        table out of its static output every step (ROADMAP queue 1
+        item 3).
+
+    On the card an entry runs only on the table it was captured on:
+    each table gets its own ladder, built at its first call or by
+    :meth:`warmup` with that table, so a replay never writes a table
+    other than the one passed.  The ladders of the last
+    :data:`MAX_TABLES` tables are kept.
     """
 
     def __init__(self, symbol, params: Dict[str, Any],
@@ -226,10 +236,16 @@ class GenerateRunner:
                 f"{self.max_len}")
         self.batch_buckets = batch_ladder(self.max_lanes)
         self._device = resolve_device(device)
-        if self._device.type == "cuda":
-            strict_f32()
         self._donate = bool(knobs.get("MXTPU_SERVING_DONATE")
                             if donate is None else donate)
+        self._captured = self._device.type == "cuda"
+        if self._captured and not self._donate:
+            raise MXNetError(
+                "GenerateRunner: donate=False is not ported to the card: "
+                "a captured step writes the table it was captured on "
+                "(ROADMAP queue 1 item 3)")
+        if self._captured:
+            strict_f32()
 
         # -- one weight upload shared by prefill AND decode ------------
         known = set(symbol.list_inputs())
@@ -248,16 +264,24 @@ class GenerateRunner:
                 f"generate: graph inputs {sorted(missing)} have "
                 f"neither a param nor an input name")
         self._param_vals = tuple(
-            torch.tensor(self._as_np(params[n]), device=self._device)
+            torch.tensor(as_numpy(params[n]), device=self._device)
             for n in self._param_names)
+        from ..symbol import _GraphPlan
+        self._plan = _GraphPlan(symbol)
+        self._pool = GraphPool(self._device)
 
+        # table key (None on the CPU, where no entry binds a table) ->
+        # bucket -> entry, least recently used table first; an entry is
+        # built exactly once per table it runs on, under _lock
         self._lock = threading.Lock()
-        self._warm: set = set()  # guarded-by: _lock
-        self.warmup_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
-
-    @staticmethod
-    def _as_np(v):
-        return v.asnumpy() if hasattr(v, "asnumpy") else np.asarray(v)
+        self._tables: "OrderedDict[Any, Dict[Tuple, Entry]]" = \
+            OrderedDict()  # guarded-by: _lock
+        self.compile_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
+        self._guards = guards.enabled()
+        # a ladder for each table kept (+ slack for extra buckets)
+        self._churn = guards.ChurnDetector(
+            f"GenerateRunner[{type(symbol).__name__}]",
+            limit=MAX_TABLES * len(self.buckets()) + 4)
 
     @classmethod
     def from_export(cls, symbol_file: str, params_file: str,
@@ -296,60 +320,131 @@ class GenerateRunner:
         out.append(("decode", (self._slots,)))
         return out
 
-    def warmup(self, buckets: Optional[Sequence[Tuple]] = None
-               ) -> Dict[Tuple, float]:
-        """Run each bucket once (the whole ladder by default) on a
-        scratch table, so no token pays the kernel build or the
-        allocator's first growth; returns per-bucket seconds."""
-        kv = self.new_cache()
+    def warmup(self, buckets: Optional[Sequence[Tuple]] = None,
+               kv: Optional[torch.Tensor] = None) -> Dict[Tuple, float]:
+        """Build each bucket's entry (the whole ladder by default), so
+        no token pays a capture.  On the card an entry is captured on
+        the table it runs on: pass that table as ``kv``
+        (:meth:`GenerateBatcher.warmup` passes its own); the CPU needs
+        none.  Returns per-entry build seconds."""
+        if kv is None and self._captured:
+            raise MXNetError(
+                "GenerateRunner.warmup: on the card an entry is captured "
+                "on the table it runs on; pass kv= (or call "
+                "GenerateBatcher.warmup())")
         for kind, shp in (buckets if buckets is not None
                           else self.buckets()):
-            t0 = time.perf_counter()
-            if kind == "prefill":
-                b, s = shp
-                lanes = np.full((b,), self.scratch_slot, np.float32)
-                _, kv = self.prefill(np.zeros((b, s), np.float32),
-                                     np.zeros((b,), np.float32), lanes, kv)
-            elif kind == "decode":
-                _, kv = self.decode(np.zeros((shp[0], 1), np.float32),
-                                    np.zeros(shp, np.float32), kv)
-            else:
-                raise MXNetError(f"generate: unknown bucket kind {kind!r}")
-            with self._lock:
-                self.warmup_seconds[(kind, tuple(shp))] = \
-                    time.perf_counter() - t0
+            self._entry((kind, tuple(shp)), kv)
         with self._lock:
-            return dict(self.warmup_seconds)
+            return dict(self.compile_seconds)
 
     def num_compiled(self) -> int:
-        """Buckets run at least once (mxtpu's name: there a bucket is an
-        executable)."""
+        """Entries held: one per bucket built, for each table kept."""
         with self._lock:
-            return len(self._warm)
+            return sum(len(t) for t in self._tables.values())
+
+    # -- the entries -------------------------------------------------------
+    def _prefill_fn(self, tokens, step, lane_idx, kv):
+        """Gather-extend-scatter over the slot table: each row's lane
+        is pulled from ``kv``, extended by its s tokens at its own step
+        offset, and (donating) written back; not donating, the new
+        lanes come back for the caller to scatter into a copy."""
+        idx = lane_idx.to(torch.int64)
+        logits, new_small = self._eval_incremental(tokens, step,
+                                                   kv[:, :, idx])
+        if not self._donate:
+            return logits, new_small
+        with torch.no_grad():
+            # the padding rows all write the scratch slot: whichever
+            # lands is garbage by design
+            kv[:, :, idx] = new_small.to(kv.dtype)
+        return (logits,)
+
+    def _decode_fn(self, tokens, step, kv):
+        """THE decode step over every slot; donating, the new table is
+        written into ``kv``."""
+        logits, new = self._eval_incremental(tokens, step, kv)
+        if not self._donate:
+            return logits, new
+        with torch.no_grad():
+            kv.copy_(new)
+        return (logits,)
+
+    def _entry(self, bucket: Tuple, kv: Optional[torch.Tensor]) -> Entry:
+        """The bucket's entry for table ``kv``, built once (under
+        ``_lock``); on the card each table has its own."""
+        table = tensor_key(kv) if self._captured else None
+        with self._lock:
+            ladder = self._tables.get(table)
+            if ladder is None:
+                ladder = self._tables[table] = {}
+                while len(self._tables) > MAX_TABLES:
+                    self._tables.popitem(last=False)
+            self._tables.move_to_end(table)
+            entry = ladder.get(bucket)
+            if entry is not None:
+                return entry
+            if self._guards:
+                self._churn.note_compile(bucket)
+            example = self._entry_inputs(bucket)
+            fn = self._prefill_fn if bucket[0] == "prefill" \
+                else self._decode_fn
+            t0 = time.perf_counter()
+            entry = Entry(fn, example, self._pool,
+                          bound=(kv,) if self._captured else (),
+                          label=f"GenerateRunner {bucket[0]} {bucket[1]}",
+                          guard=self._guards)
+            self.compile_seconds[bucket] = time.perf_counter() - t0
+            ladder[bucket] = entry
+            return entry
+
+    def _entry_inputs(self, bucket: Tuple) -> Tuple[torch.Tensor, ...]:
+        """A call's device inputs at the bucket's shapes (the padding
+        rows of a prefill on the scratch slot)."""
+        kind, shp = bucket
+        dev = self._device
+        if kind == "prefill":
+            b, s = shp
+            return (torch.zeros((b, s), device=dev),
+                    torch.zeros((b,), device=dev),
+                    torch.full((b,), float(self.scratch_slot), device=dev))
+        if kind == "decode":
+            return (torch.zeros((shp[0], 1), device=dev),
+                    torch.zeros(shp, device=dev))
+        raise MXNetError(f"generate: unknown bucket kind {kind!r}")
+
+    def _eager_entry(self, bucket: Tuple, kv: torch.Tensor) -> Entry:
+        """The bucket's graph plan run eagerly, never captured (what
+        ``chip_smoke.py`` holds a captured entry against on the card)."""
+        fn = self._prefill_fn if bucket[0] == "prefill" else self._decode_fn
+        return Entry(fn, (), self._pool, capture=False,
+                     label=f"GenerateRunner eager {bucket}")
 
     # -- execution --------------------------------------------------------
-    def new_cache(self) -> torch.Tensor:
-        """Fresh zeroed KV slot table on this runner's device."""
+    def _zeros(self) -> torch.Tensor:
         return torch.zeros(self._kv_shape, dtype=torch.float32,
                            device=self._device)
+
+    def new_cache(self) -> torch.Tensor:
+        """Fresh zeroed KV slot table on this runner's device."""
+        return self._zeros()
 
     def _upload(self, a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a, np.float32)).to(self._device)
 
     def _eval_incremental(self, tokens, step, kv_small):
-        """The incremental graph once: (tokens, step, small cache) ->
-        (logits, new small cache), in inference mode (autograd neither
-        recording nor training)."""
+        """The incremental graph once, through its plan: (tokens, step,
+        small cache) -> (logits, new small cache), in inference mode
+        (autograd neither recording nor training)."""
         from .. import autograd
         from ..ndarray.ndarray import NDArray
-        from ..symbol import _eval_symbol
         bindings = {self._input_names[0]: NDArray(tokens),
                     self._input_names[1]: NDArray(step),
                     self._input_names[2]: NDArray(kv_small)}
         for n, v in zip(self._param_names, self._param_vals):
             bindings[n] = NDArray(v)
         with autograd.pause(train_mode=False), torch.no_grad():
-            outs = _eval_symbol(self._symbol, bindings)
+            outs = self._plan.run(bindings)
         if len(outs) != 2:
             raise MXNetError(
                 f"generate: incremental graph must output (logits, "
@@ -367,34 +462,36 @@ class GenerateRunner:
         calls at advancing offsets; padding rows target the scratch
         slot.  Returns (host logits (b, s, V), the table)."""
         b, s = tokens.shape
-        idx = torch.from_numpy(np.asarray(lane_idx).astype(np.int64)) \
-            .to(self._device)
-        logits, new_small = self._eval_incremental(
-            self._upload(tokens), self._upload(step), kv[:, :, idx])
-        with torch.no_grad():
+        entry = self._entry(("prefill", (b, s)), kv)
+        vals = (self._upload(tokens), self._upload(step),
+                self._upload(lane_idx))
+        if self._guards:
+            self._churn.note_call()
+        with entry.lock:
+            outs = entry.run(vals, (kv,))
+            logits = outs[0].cpu().numpy()
             if not self._donate:
-                kv = kv.clone()
-            # the padding rows all write the scratch slot: whichever
-            # lands is garbage by design
-            kv[:, :, idx] = new_small.to(kv.dtype)
-        with self._lock:
-            self._warm.add(("prefill", (b, s)))
-        return logits.cpu().numpy(), kv
+                with torch.no_grad():
+                    kv = kv.clone()
+                    kv[:, :, vals[2].to(torch.int64)] = \
+                        outs[1].to(kv.dtype)
+        return logits, kv
 
     def decode(self, tokens: np.ndarray, step: np.ndarray,
                kv: torch.Tensor) -> Tuple[np.ndarray, torch.Tensor]:
         """THE decode step: ``tokens (slots, 1)`` / ``step (slots,)``
         advance every slot one position.  Returns (host logits (slots,
         1, V), the table)."""
-        logits, new = self._eval_incremental(
-            self._upload(tokens), self._upload(step), kv)
-        if self._donate:
-            with torch.no_grad():
-                kv.copy_(new)
-            new = kv
-        with self._lock:
-            self._warm.add(("decode", (self._slots,)))
-        return logits.cpu().numpy(), new
+        entry = self._entry(("decode", (self._slots,)), kv)
+        vals = (self._upload(tokens), self._upload(step))
+        if self._guards:
+            self._churn.note_call()
+        with entry.lock:
+            outs = entry.run(vals, (kv,))
+            logits = outs[0].cpu().numpy()
+        if not self._donate:  # the CPU only: the step's new table
+            kv = outs[1]
+        return logits, kv
 
     # -- introspection ----------------------------------------------------
     def weight_buffers(self) -> Tuple[torch.Tensor, ...]:
@@ -473,6 +570,17 @@ class GenerateBatcher:
         # the slot table; only the stepping thread touches it (single
         # stepper enforced by _step_lock)
         self._kv = None  # guarded-by: _step_lock
+
+    def warmup(self, buckets: Optional[Sequence[Tuple]] = None
+               ) -> Dict[Tuple, float]:
+        """Build the runner's entries (the whole ladder by default) on
+        this batcher's slot table, taken now if it has none, so no
+        request pays a capture; returns the runner's per-entry build
+        seconds."""
+        with self._step_lock:
+            if self._kv is None:
+                self._kv = self.runner.new_cache()
+            return self.runner.warmup(buckets, kv=self._kv)
 
     # -- submit side ------------------------------------------------------
     def submit(self, prompt: Sequence[int], *,

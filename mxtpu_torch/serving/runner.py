@@ -1,16 +1,19 @@
-"""ModelRunner — bucketed inference over one weight upload.
+"""ModelRunner — bucketed inference over an exported graph and one
+weight upload (the counterpart of ``mxtpu/serving/runner.py``).
 
-Counterpart of ``mxtpu/serving/runner.py``.  A model (an ``nn.Module``)
-is moved to its device once; every request batch is padded to a bucket
-of a powers-of-two batch ladder crossed with optional sequence-length
-buckets, so the card only ever sees a bounded set of shapes.  PyTorch
-runs eagerly, so a bucket needs no compile: ``warmup`` runs one forward
-per bucket, which builds the kernels and settles the allocator before
-traffic arrives.
+A deployed model is the export mxtpu writes: a ``-symbol.json`` graph
+and a ``.params`` file (gluon ``HybridBlock.export`` or
+``Module.save_checkpoint``, of either package).  Every request batch
+is padded to a bucket of a powers-of-two batch ladder crossed with
+optional sequence-length buckets, so the card only ever sees a
+bounded set of shapes.  Each bucket gets one entry, built once
+(:mod:`.entry`): on the card a CUDA graph of the graph plan captured
+over static buffers, on the CPU the plan run eagerly.  The weights are
+uploaded once and every bucket's entry reads the same tensors.
 
 Pad-to-bucket contract (unchanged from mxtpu): batch padding repeats
 row 0, sequence padding uses ``pad_value``, and attention also covers
-the pad positions, so a served result equals the model's output on the
+the pad positions, so a served result equals the graph's output on the
 same padded batch.
 """
 from __future__ import annotations
@@ -21,14 +24,23 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..base import MXNetError
+from .. import guards
 from .. import knobs
 from ..context import resolve_device, strict_f32
 from .batcher import InferenceRequest
+from .entry import Entry, GraphPool
 
 __all__ = ["ModelRunner", "batch_ladder"]
+
+# mxtpu's runner arguments this port refuses when set: the ROADMAP item
+# that brings each
+_NOT_PORTED = {"cache": "the persistent executable cache (ROADMAP "
+                        "queue 1 item 3)",
+               "amp": "AMP (ROADMAP queue 1 item 5)",
+               "quant": "int8 (ROADMAP queue 1 item 5)",
+               "quant_scales": "int8 (ROADMAP queue 1 item 5)"}
 
 
 def batch_ladder(max_batch_size: int) -> Tuple[int, ...]:
@@ -45,47 +57,72 @@ def batch_ladder(max_batch_size: int) -> Tuple[int, ...]:
     return tuple(rungs)
 
 
+def refuse_not_ported(who: str, cache: Any, amp: Any, quant: Any) -> None:
+    """``TypeError`` for an mxtpu runner option the port has not got:
+    an explicit cache object, ``amp`` or ``quant`` on."""
+    for name, on in (("cache", cache not in (None, "auto")),
+                     ("amp", bool(amp)), ("quant", bool(quant))):
+        if on:
+            raise TypeError(f"{who}: {name}= is not ported yet: "
+                            f"{_NOT_PORTED[name]}")
+
+
+def as_numpy(v) -> np.ndarray:
+    """A param value (NDArray of either package, or array-like) on the
+    host."""
+    return v.asnumpy() if hasattr(v, "asnumpy") else np.asarray(v)
+
+
 class ModelRunner:
-    """Load-once, bucket-per-shape, run-many inference engine.
+    """Load-once, build-per-bucket, run-many inference engine.
 
     Parameters
     ----------
-    model : gluon Block (or any torch.nn.Module)
-        Called as ``model(*inputs)`` with one tensor per input, in
-        ``input_specs`` order; returns a tensor or a tuple of tensors.
-    params : dict name -> numpy array, optional
-        ``mxtpu`` weights (what an exported ``.params`` file holds),
-        carried in through :func:`mxtpu_torch.convert.params_from_mxtpu`:
-        by name into a Block, by ``collect_params()`` order into another
-        module.  None keeps the model's own (initialized) weights.
+    symbol : mxtpu_torch.symbol.Symbol
+        The inference graph (deployment artifact).
+    params : dict name -> numpy array / NDArray
+        Trained weights (``arg:``/``aux:`` prefixes already stripped).
     input_specs : dict name -> per-example shape tuple
         Shapes EXCLUDE the batch axis.  A ``None`` entry marks the
-        variable (sequence) axis and requires ``seq_buckets``.
-    input_dtypes : dict name -> numpy dtype, optional (default float32)
+        variable (sequence) axis of a token model and requires
+        ``seq_buckets``; e.g. ``{"data": (None,)}`` for token ids.
+    input_dtypes : dict name -> dtype, optional (default float32)
     seq_buckets : ascending ints, optional
+        Sequence-length rungs for every ``None`` axis.
     max_batch_size : int, optional (env MXTPU_SERVING_MAX_BATCH, 32)
     device : None (``cuda:0``; raises without CUDA) or a device such as
-        ``"cpu"``.
+        ``"cpu"``.  One runner binds one device.
     pad_value : scalar used for sequence padding (default 0).
+    donate : accepted for mxtpu's signature; a bucket's entry always
+        reuses its own input buffers.
+    cache : "auto" or None (both inert until ``cache.py`` is ported);
+        an explicit cache object raises ``TypeError``, as do ``amp``
+        and ``quant`` set on.
     """
 
-    def __init__(self, model: nn.Module,
-                 params: Optional[Dict[str, np.ndarray]] = None,
-                 input_specs: Optional[Dict[str, Tuple]] = None,
+    def __init__(self, symbol, params: Dict[str, Any],
+                 input_specs: Dict[str, Tuple],
                  input_dtypes: Optional[Dict[str, Any]] = None,
                  seq_buckets: Optional[Sequence[int]] = None,
                  max_batch_size: Optional[int] = None,
-                 device=None, pad_value: float = 0):
+                 device=None, pad_value: float = 0,
+                 donate: Optional[bool] = None, cache: Any = "auto",
+                 amp=None, quant=None):
+        refuse_not_ported("ModelRunner", cache, amp, quant)
+        from ..symbol import _GraphPlan
         if not input_specs:
             raise MXNetError("serving: input_specs is required")
         self._device = resolve_device(device)
         if self._device.type == "cuda":
             strict_f32()
+        self._symbol = symbol
         self._input_names = list(input_specs)
         self._input_specs = {k: tuple(v) for k, v in input_specs.items()}
         self._input_dtypes = {
             k: np.dtype((input_dtypes or {}).get(k, np.float32))
             for k in input_specs}
+        # Serving knobs: the env defaults feed every runner that does
+        # not pass explicit values
         self.max_batch_size = int(
             max_batch_size if max_batch_size is not None
             else knobs.get("MXTPU_SERVING_MAX_BATCH"))
@@ -99,29 +136,51 @@ class ModelRunner:
                 "pass seq_buckets")
         self._pad_value = pad_value
 
-        # -- one weight upload, shared by every bucket -----------------
-        if params is not None:
-            from ..convert import params_from_mxtpu
-            params_from_mxtpu(params, model)
-        model.eval()
-        for p in model.parameters():
-            p.requires_grad_(False)
-        self._model = model.to(self._device)
+        # -- one weight upload, shared by every bucket's entry ---------
+        known = set(symbol.list_inputs())
+        self._param_names = tuple(
+            n for n in params if n in known and n not in input_specs)
+        missing = known - set(self._param_names) - set(input_specs)
+        if missing:
+            raise MXNetError(
+                f"serving: graph inputs {sorted(missing)} have neither "
+                f"a param nor an input_spec")
+        self._param_vals = tuple(
+            torch.tensor(as_numpy(params[n]), device=self._device)
+            for n in self._param_names)
+        self._plan = _GraphPlan(symbol)
+        self._pool = GraphPool(self._device)
 
+        # server worker threads race through _entry()/warmup(); an
+        # entry is built exactly once, under _lock
         self._lock = threading.Lock()
-        self._warm: set = set()  # guarded-by: _lock
-        self.warmup_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
+        self._entries: Dict[Tuple, Entry] = {}  # guarded-by: _lock
+        self.compile_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
+        self._guards = guards.enabled()
+        # one build per ladder rung is the design; anything past the
+        # ladder (+ slack for explicit extra warmup buckets) is churn
+        self._churn = guards.ChurnDetector(
+            f"ModelRunner[{type(symbol).__name__}]",
+            limit=len(self.buckets()) + 4)
 
-    # -- deployment-artifact constructor ---------------------------------
+    # -- deployment-artifact constructors -------------------------------
     @classmethod
-    def from_export(cls, model: nn.Module, params_file: str, **kwargs
+    def from_export(cls, symbol_file: str, params_file: str, **kwargs
                     ) -> "ModelRunner":
-        """Load the ``.params`` file of an ``mxtpu`` gluon ``export``
-        (or ``Module.save_checkpoint``) into ``model``.  The
-        ``-symbol.json`` graph is not read: ``model`` is the
-        architecture."""
+        """Load gluon ``HybridBlock.export`` / ``Module.save_checkpoint``
+        artifacts (``-symbol.json`` + ``-NNNN.params``) of either
+        package."""
+        from .. import symbol as sym_mod
         from ..ndarray import load_params
-        return cls(model, load_params(params_file), **kwargs)
+        return cls(sym_mod.load(symbol_file), load_params(params_file),
+                   **kwargs)
+
+    @classmethod
+    def from_checkpoint(cls, prefix: str, epoch: int, **kwargs
+                        ) -> "ModelRunner":
+        """``prefix-symbol.json`` + ``prefix-{epoch:04d}.params``."""
+        return cls.from_export(f"{prefix}-symbol.json",
+                               f"{prefix}-{epoch:04d}.params", **kwargs)
 
     # -- buckets ---------------------------------------------------------
     def bucket_for(self, n: int, seq_len: Optional[int] = None) -> Tuple:
@@ -153,7 +212,7 @@ class ModelRunner:
         return self.bucket_for(1, seq_len)[1]
 
     def buckets(self) -> List[Tuple]:
-        """The full ladder (what ``warmup()`` runs)."""
+        """The full ladder (what ``warmup()`` builds)."""
         seqs = self.seq_buckets or (None,)
         return [(b, s) for s in seqs for b in self.batch_buckets]
 
@@ -162,35 +221,78 @@ class ModelRunner:
         return (batch,) + tuple(seq if d is None else int(d)
                                 for d in self._input_specs[name])
 
+    # -- the persistent cache (not ported) --------------------------------
+    def cached_buckets(self) -> List[Tuple]:
+        """The ladder's buckets in the persistent cache: none until
+        ``cache.py`` is ported."""
+        return []
+
+    def warm_from_disk(self) -> Dict[Tuple, float]:
+        """Warm what the persistent cache holds: nothing until
+        ``cache.py`` is ported."""
+        return {}
+
+    # -- the entries -------------------------------------------------------
+    def _forward(self, *input_vals: torch.Tensor
+                 ) -> Tuple[torch.Tensor, ...]:
+        """The graph plan on one bucket's inputs and the shared weights,
+        in inference mode (no recording, training off: dropout is the
+        identity)."""
+        from .. import autograd
+        from ..ndarray.ndarray import NDArray
+        bindings = {n: NDArray(v)
+                    for n, v in zip(self._input_names, input_vals)}
+        for n, v in zip(self._param_names, self._param_vals):
+            bindings[n] = NDArray(v)
+        with autograd.pause(train_mode=False), torch.inference_mode():
+            outs = self._plan.run(bindings)
+        return tuple(o._data for o in outs)
+
+    def _example(self, bucket: Tuple) -> Tuple[torch.Tensor, ...]:
+        batch, seq = bucket
+        return tuple(
+            torch.full(self._concrete_shape(n, batch, seq), self._pad_value,
+                       dtype=_torch_dtype(self._input_dtypes[n]),
+                       device=self._device)
+            for n in self._input_names)
+
+    def _entry(self, bucket: Tuple) -> Entry:
+        """Build (once) and return the bucket's entry.  Holding
+        ``_lock`` across the build trades warmup parallelism for the
+        exactly-once contract: two worker threads hitting the same cold
+        bucket would otherwise both capture it."""
+        with self._lock:
+            entry = self._entries.get(bucket)
+            if entry is not None:
+                return entry
+            if self._guards:
+                self._churn.note_compile(bucket)
+            t0 = time.perf_counter()
+            entry = Entry(self._forward, self._example(bucket), self._pool,
+                          label=f"ModelRunner bucket {bucket}",
+                          guard=self._guards)
+            self.compile_seconds[bucket] = time.perf_counter() - t0
+            self._entries[bucket] = entry
+            return entry
+
+    def _eager_entry(self, bucket: Tuple) -> Entry:
+        """The bucket's graph plan run eagerly, never captured (what
+        ``chip_smoke.py`` holds a captured entry against on the card)."""
+        return Entry(self._forward, (), self._pool, capture=False,
+                     label=f"ModelRunner eager {bucket}")
+
     def warmup(self, buckets: Optional[Sequence[Tuple]] = None
                ) -> Dict[Tuple, float]:
-        """Run one forward per bucket (the whole ladder by default) so
-        no production request pays the kernel build or the allocator's
-        first growth; returns per-bucket seconds."""
-        for bucket in (buckets if buckets is not None
-                       else self.buckets()):
-            bucket = tuple(bucket)
-            batch, seq = bucket
-            vals = tuple(
-                torch.full(self._concrete_shape(n, batch, seq),
-                           self._pad_value,
-                           dtype=_torch_dtype(self._input_dtypes[n]),
-                           device=self._device)
-                for n in self._input_names)
-            t0 = time.perf_counter()
-            self.run_raw(vals, bucket)
-            if self._device.type == "cuda":
-                torch.cuda.synchronize(self._device)
-            with self._lock:
-                self.warmup_seconds[bucket] = time.perf_counter() - t0
+        """Build the ladder (or a subset) so no production request pays
+        a capture; returns per-bucket build seconds."""
+        for bucket in (buckets if buckets is not None else self.buckets()):
+            self._entry(tuple(bucket))
         with self._lock:
-            return dict(self.warmup_seconds)
+            return dict(self.compile_seconds)
 
     def num_compiled(self) -> int:
-        """Buckets run at least once (the ``mxtpu`` name is kept: there
-        a bucket is an executable)."""
         with self._lock:
-            return len(self._warm)
+            return len(self._entries)
 
     # -- execution --------------------------------------------------------
     def _pad_stack(self, rows: List[Dict[str, np.ndarray]],
@@ -223,21 +325,42 @@ class ModelRunner:
             vals.append(torch.from_numpy(buf).to(self._device))
         return tuple(vals)
 
+    def _dispatch(self, input_vals: Tuple[torch.Tensor, ...],
+                  bucket: Tuple, n: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, ...]:
+        """Run the bucket's entry on pre-padded device tensors; returns
+        the first ``n`` rows (all, ``None``) of each output as device
+        tensors of the caller's own, copied out of a captured entry's
+        static outputs under its lock, before the next replay
+        overwrites them."""
+        entry = self._entry(tuple(bucket))
+        if self._guards:
+            self._churn.note_call()
+        with entry.lock:
+            outs = tuple(o[:n] for o in entry.run(input_vals))
+            if entry.graph is not None:
+                outs = tuple(o.clone() for o in outs)
+        return outs
+
     def run_raw(self, input_vals: Tuple[torch.Tensor, ...],
                 bucket: Tuple) -> Tuple[torch.Tensor, ...]:
-        """One forward on pre-padded device tensors of ``bucket``'s
-        shape; returns the outputs as a tuple of device tensors."""
-        with torch.inference_mode():
-            out = self._model(*input_vals)
-        with self._lock:
-            self._warm.add(tuple(bucket))
-        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+        """One dispatch on pre-padded device tensors of ``bucket``'s
+        shape; returns the outputs as device tensors of the caller's
+        own."""
+        return self._dispatch(input_vals, bucket)
+
+    def _run_host(self, input_vals: Tuple[torch.Tensor, ...],
+                  bucket: Tuple, n: int) -> List[np.ndarray]:
+        # only the real rows cross to the host, outside the entry's
+        # lock (the next replay need not wait for the copy)
+        return [o.cpu().numpy()
+                for o in self._dispatch(input_vals, bucket, n)]
 
     def infer(self, inputs: Dict[str, np.ndarray],
               seq_len: Optional[int] = None) -> List[np.ndarray]:
         """Synchronous batched inference: ``inputs`` carry a leading
         batch axis; pads to the covering bucket, runs, slices back.
-        Returns host numpy arrays (one per model output)."""
+        Returns host numpy arrays (one per graph output)."""
         names = self._input_names
         n = int(np.asarray(inputs[names[0]]).shape[0])
         if seq_len is None and self.seq_buckets is not None:
@@ -245,8 +368,7 @@ class ModelRunner:
         bucket = self.bucket_for(n, seq_len)
         rows = [{name: np.asarray(inputs[name])[i] for name in names}
                 for i in range(n)]
-        outs = self.run_raw(self._pad_stack(rows, bucket), bucket)
-        return [o[:n].cpu().numpy() for o in outs]
+        return self._run_host(self._pad_stack(rows, bucket), bucket, n)
 
     def run_requests(self, requests: List[InferenceRequest],
                      now: Optional[float] = None) -> Tuple:
@@ -258,8 +380,7 @@ class ModelRunner:
         seq = requests[0].group if self.seq_buckets is not None else None
         bucket = self.bucket_for(n, seq)
         vals = self._pad_stack([r.payload for r in requests], bucket)
-        # only the real rows cross to the host; padding rows stay behind
-        host = [o[:n].cpu().numpy() for o in self.run_raw(vals, bucket)]
+        host = self._run_host(vals, bucket, n)
         done_t = time.monotonic() if now is None else now
         for i, r in enumerate(requests):
             row_outs = []
@@ -275,10 +396,41 @@ class ModelRunner:
             r._complete(row_outs, done_t)
         return bucket, host
 
+    # -- fleet handoff -----------------------------------------------------
+    def ladder_metadata(self) -> Dict[str, Any]:
+        """What a draining worker hands its replacement: the ladder
+        shape plus WHICH buckets were actually built (traffic-driven
+        subset) and what each cost — so the replacement warms exactly
+        the donor's working set instead of the full cross product."""
+        with self._lock:
+            compiled = sorted(self._entries)
+            secs = dict(self.compile_seconds)
+        return {"max_batch_size": self.max_batch_size,
+                "seq_buckets": list(self.seq_buckets)
+                if self.seq_buckets is not None else None,
+                "compiled_buckets": [list(b) for b in compiled],
+                "compile_seconds": {str(k): v for k, v in secs.items()},
+                "weight_bytes": self.weight_bytes()}
+
+    def warm_from(self, metadata: Dict[str, Any]) -> Dict[Tuple, float]:
+        """Warm this (replacement) runner from a donor's
+        :meth:`ladder_metadata` — builds the donor's bucket set,
+        restricted to buckets this runner's own ladder actually has
+        (a replacement with a different ladder warms the
+        intersection)."""
+        own = set(self.buckets())
+        donor = [tuple(b) for b in metadata.get("compiled_buckets", [])]
+        return self.warmup([b for b in donor if b in own])
+
     # -- introspection ----------------------------------------------------
+    def weight_buffers(self) -> Tuple[torch.Tensor, ...]:
+        """The device tensors every bucket's entry reads — the same
+        tensors, at the same addresses, across the whole ladder."""
+        return self._param_vals
+
     def weight_bytes(self) -> int:
-        return int(sum(p.numel() * p.element_size()
-                       for p in self._model.parameters()))
+        return int(sum(v.numel() * v.element_size()
+                       for v in self._param_vals))
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:

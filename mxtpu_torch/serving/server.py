@@ -238,8 +238,8 @@ class InferenceServer:
                            warmup: bool = False) -> None:
         """Attach a GENERATION endpoint: a :class:`GenerateRunner`
         serving streamed incremental decode with continuous batching.
-        ``warmup=True`` runs the prefill ladder and the decode step
-        once before traffic."""
+        ``warmup=True`` builds the prefill ladder and the decode step on
+        the endpoint's slot table before traffic."""
         if not isinstance(runner, GenerateRunner):
             raise MXNetError("serving: register_generator needs a "
                              "GenerateRunner")
@@ -247,10 +247,10 @@ class InferenceServer:
             mq = knobs.get("MXTPU_SERVING_MAX_QUEUE")
             if mq:  # 0 = unbounded (knob unset)
                 max_queue = mq
-        if warmup:
-            runner.warmup()
         ep = _GenEndpoint(name, version, runner, max_queue,
                           self._log_every_s)
+        if warmup:
+            ep.batcher.warmup()
         with self._lock:
             if self._closed:
                 raise MXNetError("serving: server is closed")

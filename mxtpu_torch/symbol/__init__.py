@@ -518,21 +518,40 @@ def _conv_hook(in_shapes, attrs):
     return out
 
 
-def _channel_hook(in_shapes, attrs):
+def _channel_hook(in_shapes, attrs, default_axis=1):
     # gamma, beta and the moving statistics are (C,) of the data's
-    # channel axis (BatchNorm's axis, default 1)
+    # normalised axis; default_axis is the op's Param default:
+    # BatchNorm and InstanceNorm per channel (1), LayerNorm per the
+    # last axis (-1)
     data = in_shapes[0]
     if data is None:
         return [None] * len(in_shapes)
-    axis = int(_coerce_attr(attrs.get("axis", 1)))
+    axis = int(_coerce_attr(attrs.get("axis", default_axis)))
     c = data[axis]
     return [data] + [(c,)] * (len(in_shapes) - 1)
 
 
+def _embedding_hook(in_shapes, attrs):
+    data = in_shapes[0]
+    ind = int(_coerce_attr(attrs.get("input_dim", 0)))
+    outd = int(_coerce_attr(attrs.get("output_dim", 0)))
+    return [data, (ind, outd)]
+
+
+# Deconvolution's hook comes with the op (ROADMAP queue 1 item 7)
 _INFER_HOOKS = {
     "FullyConnected": _fc_hook,
     "Convolution": _conv_hook,
     "BatchNorm": _channel_hook,
+    "BatchNormRelu": _channel_hook,
+    # addend (input 1) is data-shaped, the rest are (C,)
+    "BatchNormAddRelu": lambda in_shapes, attrs: (
+        lambda full: [full[0], full[0]] + full[1:]
+    )(_channel_hook([in_shapes[0]] + list(in_shapes[2:]), attrs)),
+    "InstanceNorm": _channel_hook,
+    "LayerNorm": lambda in_shapes, attrs: _channel_hook(
+        in_shapes, attrs, default_axis=-1),
+    "Embedding": _embedding_hook,
 }
 
 
@@ -660,43 +679,126 @@ _KEY_OPS = ("Dropout", "FusedResidualLayerNorm")
 # ----------------------------------------------------------------------
 # evaluation (the executor's engine — interpretation over nd ops)
 # ----------------------------------------------------------------------
+_NO_INPUTS, _KEY_DRAWN, _PLAIN = range(3)
+
+
+class _GraphPlan:
+    """A graph's interpretation resolved once: the topological order,
+    each op node's coerced attributes, its op and resolved params, how
+    it is called (an op with no inputs creates on the bindings' device;
+    a ``_KEY_OPS`` node whose graph omits the key goes through the nd
+    convenience that draws it), a slot index for every node output in
+    place of a dict keyed by node identity, and for each step the
+    outputs it drops because no later step reads them.
+
+    Nothing in it depends on the bindings: :meth:`run` takes them on
+    every call and computes what :func:`_eval_symbol` always did, op
+    call for op call.  A runner builds one per graph and runs it for
+    every bucket."""
+
+    __slots__ = ("_vars", "_steps", "_heads", "_n_slots")
+
+    def __init__(self, sym: Symbol):
+        from .. import ndarray as nd_mod
+        order = sym._topo()
+        # slots a node's outputs need: what its op declares, or more
+        # where a consumer or a head reads further
+        width = {id(n): builtins.max(1, n.num_outputs) for n in order}
+        for n in order:
+            for s, i in n.inputs:
+                width[id(s)] = builtins.max(width[id(s)], i + 1)
+        for n, i in sym._heads:
+            width[id(n)] = builtins.max(width[id(n)], i + 1)
+        base: Dict[int, int] = {}
+        self._vars: List[Tuple[str, int]] = []
+        self._steps: List[Tuple] = []
+        n_slots = 0
+        for node in order:
+            base[id(node)] = n_slots
+            outs = tuple(range(n_slots, n_slots + width[id(node)]))
+            n_slots += len(outs)
+            if node.op is None:
+                self._vars.append((node.name, outs[0]))
+                continue
+            ins = tuple(base[id(s)] + i for s, i in node.inputs)
+            op = _op_of(node)
+            attrs = _node_attrs(node)
+            if op.num_inputs == 0:
+                step = (_NO_INPUTS, op, op.resolve_params(attrs))
+            elif op.name in _KEY_OPS and len(ins) < op.num_inputs:
+                # the graph omits the key input: the nd convenience
+                # draws it (and reads the training mode) at each run
+                step = (_KEY_DRAWN, getattr(nd_mod, op.name), attrs)
+            else:
+                step = (_PLAIN, op, op.resolve_params(attrs))
+            self._steps.append(step + (ins, outs,
+                                       f"{node.name!r} ({node.op})"))
+        self._heads = [base[id(n)] + i for n, i in sym._heads]
+        self._n_slots = n_slots
+        # each step drops the op outputs no later step reads, so a run
+        # holds only live intermediates (a captured graph's pool too)
+        last: Dict[int, int] = {}
+        for k, step in enumerate(self._steps):
+            for i in step[3]:
+                last[i] = k
+        keep = set(self._heads) | {slot for _, slot in self._vars}
+        drops: List[List[int]] = [[] for _ in self._steps]
+        for k, step in enumerate(self._steps):
+            for i in step[4]:
+                if i not in keep:
+                    drops[last.get(i, k)].append(i)
+        self._steps = [step + (tuple(d),)
+                       for step, d in zip(self._steps, drops)]
+
+    def run(self, bindings: Dict[str, Any]) -> List[Any]:
+        """The graph on ``bindings`` (var name -> NDArray or array);
+        a list of NDArray, one per head."""
+        from .. import ndarray as nd_mod
+        from ..ndarray.ndarray import NDArray
+        vals: List[Any] = [None] * self._n_slots
+        for name, slot in self._vars:
+            if name not in bindings:
+                raise MXNetError(f"unbound variable {name!r}")
+            val = bindings[name]
+            vals[slot] = val if isinstance(val, NDArray) \
+                else nd_mod.array(val)
+        # an op with no inputs (_arange) creates on the bindings' device
+        ctx = next((v._data.device for v in bindings.values()
+                    if isinstance(v, NDArray)), None)
+        invoke = nd_mod._invoke_resolved
+        where = None
+        try:
+            for kind, fn, params, ins, outs, where, drops in self._steps:
+                args = [vals[i] for i in ins]
+                if kind == _PLAIN:
+                    out = invoke(fn, params, args)
+                elif kind == _KEY_DRAWN:
+                    out = fn(*args, **params)
+                else:
+                    out = invoke(fn, params, (), ctx)
+                if isinstance(out, (list, tuple)):
+                    for slot, o in zip(outs, out):
+                        vals[slot] = o
+                else:
+                    vals[outs[0]] = out
+                for i in drops:
+                    vals[i] = None
+        except Exception as e:
+            # which node failed (what a failed CUDA graph capture names)
+            e.add_note(f"graph node {where}")
+            raise
+        return [vals[i] for i in self._heads]
+
+
 def _eval_symbol(outputs, bindings: Dict[str, Any]):
     """Topologically interpret a symbol through the eager op namespace.
     ``bindings`` maps var name → NDArray.  Returns a list of NDArray
     (single-head symbols still return a 1-list, reference executor
-    semantics)."""
-    from .. import ndarray as nd_mod
-    from ..ndarray.ndarray import NDArray
-
+    semantics).  A caller that runs one graph many times builds its
+    :class:`_GraphPlan` once instead."""
     sym = outputs if isinstance(outputs, Symbol) else Group(
         _as_list(outputs))
-    memo: Dict[Tuple[int, int], Any] = {}
-    # an op with no inputs (_arange) creates on the bindings' device
-    ctx = next((v._data.device for v in bindings.values()
-                if isinstance(v, NDArray)), None)
-    for node in sym._topo():
-        if node.op is None:
-            if node.name not in bindings:
-                raise MXNetError(f"unbound variable {node.name!r}")
-            val = bindings[node.name]
-            memo[(id(node), 0)] = val if isinstance(val, NDArray) \
-                else nd_mod.array(val)
-            continue
-        ins = [memo[(id(s), i)] for s, i in node.inputs]
-        op = _op_of(node)
-        if op.num_inputs == 0:
-            out = nd_mod._invoke_op(op.name, ctx=ctx, **_node_attrs(node))
-        elif op.name in _KEY_OPS and len(ins) < op.num_inputs:
-            # the graph omits the key input: the nd convenience draws it
-            out = getattr(nd_mod, op.name)(*ins, **_node_attrs(node))
-        else:
-            out = nd_mod._invoke_op(op.name, *ins, **_node_attrs(node))
-        if isinstance(out, (list, tuple)):
-            for i, o in enumerate(out):
-                memo[(id(node), i)] = o
-        else:
-            memo[(id(node), 0)] = out
-    return [memo[(id(n), i)] for n, i in sym._heads]
+    return _GraphPlan(sym).run(bindings)
 
 
 # ----------------------------------------------------------------------

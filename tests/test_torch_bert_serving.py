@@ -1,14 +1,17 @@
-"""A small BERT exported by mxtpu, served by mxtpu_torch on the CPU and
-held against mxtpu's own serving path.
+"""A small BERT exported by mxtpu, served by mxtpu_torch on the CPU
+from the export (``ModelRunner.from_export``: the ``-symbol.json``
+graph and the ``.params`` file) and held against mxtpu's own serving
+path.
 
 The weights cross in the legacy ``.params`` format written by
 ``HybridBlock.export``.  Logits agree within 1e-4 (f32 on both sides:
 the same products in another summation order, over two encoder
-layers).  Also here: the weight carry-over's failure modes, the
-``.params`` reader, device resolution, and the rule that the port
-imports neither jax nor mxtpu.  Both packages build their BERT with
-fresh name counters, so the port's Block carries the exported names
-(``bertmodel0_pos_embed``, ...) and the weights cross by name.
+layers).  Also here: the weight carry-over into a Block and its
+failure modes, the ``.params`` reader, device resolution, and the rule
+that the port imports neither jax nor mxtpu.  Both packages build
+their BERT with fresh name counters, so the port's Block carries the
+exported names (``bertmodel0_pos_embed``, ...) and the weights cross
+by name.
 """
 import ast
 import os
@@ -74,7 +77,7 @@ def exported(tmp_path_factory):
 def runners(exported):
     sym_file, params_file = exported
     jr = JRunner.from_export(sym_file, params_file, cache=None, **SPEC)
-    tr = ModelRunner.from_export(_torch_bert(), params_file, device="cpu",
+    tr = ModelRunner.from_export(sym_file, params_file, device="cpu",
                                  **SPEC)
     return jr, tr
 
@@ -210,18 +213,20 @@ def test_float_token_ids_truncate_like_mxtpu(runners):
     np.testing.assert_allclose(got, want, rtol=ATOL, atol=ATOL)
 
 
-def test_serving_knob_sets_the_ladder(monkeypatch):
+def test_serving_knob_sets_the_ladder(exported, monkeypatch):
     monkeypatch.setenv("MXTPU_SERVING_MAX_BATCH", "6")
-    r = ModelRunner(_torch_bert(initialize=True), device="cpu",
-                    input_specs={"data": (None,)}, seq_buckets=[8])
+    r = ModelRunner.from_export(*exported, device="cpu",
+                                input_specs={"data": (None,)},
+                                seq_buckets=[8])
     assert r.batch_buckets == (1, 2, 4, 6)
 
 
-def test_training_mode_draws_seeded_dropout_and_serving_runs_eval():
+def test_training_mode_draws_seeded_dropout_and_serving_runs_eval(
+        tmp_path):
     # a training forward drops out from the seeded generators, and
-    # serving never sees it: ModelRunner runs outside training mode
-    # (autograd.is_training(), the flag gluon's layers read), where
-    # dropout is off
+    # serving never sees it: ModelRunner runs its export outside
+    # training mode (autograd.is_training(), the flag the graph's
+    # Dropout and fused epilogues read), where dropout is off
     from mxtpu_torch import random as trandom
     net = _torch_bert(initialize=True)          # dropout 0.1
     toks = torch.from_numpy(_tokens(4, 2, 16))  # fills a bucket
@@ -232,8 +237,8 @@ def test_training_mode_draws_seeded_dropout_and_serving_runs_eval():
         b = net(toks)
         c = net(toks)
     assert torch.equal(a, b) and not torch.equal(b, c)
-    runner = ModelRunner(net, device="cpu", **SPEC)
-    assert not net.training
+    runner = ModelRunner.from_export(*net.export(str(tmp_path / "bert")),
+                                     device="cpu", **SPEC)
     (served,) = runner.infer({"data": toks.numpy()})
     (again,) = runner.infer({"data": toks.numpy()})
     np.testing.assert_array_equal(served, again)
@@ -244,12 +249,12 @@ def test_training_mode_draws_seeded_dropout_and_serving_runs_eval():
 
 # --------------------------------------------------- devices and imports
 
-def test_default_device_is_the_card():
+def test_default_device_is_the_card(exported):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the default would be cuda:0")
     with pytest.raises(MXNetError, match="CUDA is not available"):
-        ModelRunner(_torch_bert(), input_specs={"data": (None,)},
-                    seq_buckets=[8])
+        ModelRunner.from_export(*exported, input_specs={"data": (None,)},
+                                seq_buckets=[8])
 
 
 def test_port_imports_neither_jax_nor_mxtpu():

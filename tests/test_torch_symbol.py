@@ -238,3 +238,120 @@ def test_paramset_resolves_like_mxtpu():
         op.resolve_params({"kernel": (3, 3), "bogus": 1})
     with pytest.raises(MXNetError, match="required"):
         ParamSet(Param("x", int)).resolve({})
+
+
+# ------------------------------------------------ shape hooks and bind
+
+def _hook_graph(s, op):
+    """A graph of ``op`` over ``data`` whose weights only the op's shape
+    hook can give (each package's ``sym`` as ``s``)."""
+    data = s.var("data")
+    if op == "Embedding":
+        return s.LayerNorm(s.Embedding(data, input_dim=100, output_dim=16,
+                                       name="emb"), name="ln")
+    if op == "LayerNorm":
+        return s.Group([s.LayerNorm(data, name="ln"),
+                        s.LayerNorm(data, axis=1, name="ln1")])
+    if op == "BatchNormAddRelu":
+        return s.BatchNormAddRelu(data, s.var("addend"), name="bnar")
+    return getattr(s, op)(data, name="n")
+
+
+HOOK_OPS = {"Embedding": (4, 8), "LayerNorm": (4, 6, 10),
+            "BatchNormRelu": (4, 3, 5, 5), "BatchNormAddRelu": (4, 3, 5, 5),
+            "InstanceNorm": (4, 3, 5, 5)}
+
+
+@pytest.mark.parametrize("op", sorted(HOOK_OPS))
+def test_shape_hooks_infer_as_mxtpu(op, monkeypatch):
+    monkeypatch.setattr(jsym, "_NAME_COUNTERS", {})
+    monkeypatch.setattr(tsym, "_NAME_COUNTERS", {})
+    j, t = _hook_graph(jsym, op), _hook_graph(tsym, op)
+    assert t.tojson() == j.tojson()
+    shape = HOOK_OPS[op]
+    got, want = t.infer_shape(data=shape), j.infer_shape(data=shape)
+    assert got == want
+    args = dict(zip(t.list_arguments(), got[0]))
+    if op == "Embedding":
+        assert args["emb_weight"] == (100, 16) and args["ln_gamma"] == (16,)
+    elif op == "LayerNorm":
+        assert args["ln_gamma"] == (10,) and args["ln1_beta"] == (6,)
+    elif op == "BatchNormAddRelu":
+        assert args["addend"] == shape and args["bnar_gamma"] == (3,)
+
+
+def test_deconvolution_waits_for_its_op():
+    # mxtpu has a Deconvolution hook; the port registers neither the op
+    # nor its hook yet (ROADMAP queue 1 item 7)
+    assert "Deconvolution" in jsym._INFER_HOOKS
+    assert "Deconvolution" not in tsym._INFER_HOOKS
+    assert "Deconvolution" not in list_ops()
+
+
+@pytest.fixture(scope="module")
+def bert_export(tmp_path_factory):
+    """mxtpu's 2-layer BERT export (the graph a deployment ships)."""
+    from mxtpu import nd as jnd
+    from mxtpu.models.transformer import BERTModel as JBERT
+    from tests.torch_gluon_names import fresh_names
+    with fresh_names():
+        net = JBERT(128, 64, 256, 2, 4, max_length=40, dropout=0.1)
+    net.initialize(init="xavier")
+    net(jnd.array(np.zeros((1, 8), np.float32)))
+    return net.export(str(tmp_path_factory.mktemp("bert") / "bert"))
+
+
+@pytest.mark.parametrize("known", [{}, {"bertmodel0_pos_embed": (40, 64)}])
+def test_bert_export_infers_as_mxtpu(bert_export, known):
+    """From the data shape alone mxtpu infers the word embedding and no
+    more: the positional table's length is nowhere in the graph
+    (``expand_dims``/``slice_like`` have no hook) and the fused
+    residual LayerNorm has no hook.  Given the table, the first layer's
+    LayerNorm and attention weights follow.  The port infers exactly
+    what mxtpu does, partial shapes included."""
+    j, t = jsym.load(bert_export[0]), tsym.load(bert_export[0])
+    shapes = dict(data=(4, 8), **known)
+    got = t.infer_shape_partial(**shapes)
+    assert got == j.infer_shape_partial(**shapes)
+    args = dict(zip(t.list_arguments(), got[0]))
+    assert args["embedding0_weight"] == (128, 64)
+    if known:
+        assert args["layernorm0_gamma"] == (64,)
+        assert args["dense0_weight"] == (192, 64)
+        assert args["dense1_weight"] == (64, 64)
+    assert args["fusedresiduallayernorm0_gamma"] is None
+    with pytest.raises(mxtpu.MXNetError, match="could not infer") as je:
+        j.infer_shape(**shapes)
+    with pytest.raises(MXNetError, match="could not infer") as te:
+        t.infer_shape(**shapes)
+    assert str(te.value).split("—")[0] == str(je.value).split("—")[0]
+
+
+def test_module_bind_from_data_shapes_as_mxtpu(bert_export):
+    """``Module.bind`` from data_shapes alone: the Embedding ->
+    LayerNorm graph binds, each weight as mxtpu binds it; the BERT
+    export stops in both packages at the same unknown weights."""
+    import mxtpu.module as jmod
+    from mxtpu_torch import module as tmod
+    cpu = mxtpu_torch.cpu()
+    j = _hook_graph(jsym, "Embedding")
+    t = _hook_graph(tsym, "Embedding")
+    jm = jmod.Module(j, data_names=("data",), label_names=None)
+    tm = tmod.Module(t, data_names=("data",), label_names=None,
+                     context=cpu)
+    for m in (jm, tm):
+        m.bind(data_shapes=[("data", (4, 8))], for_training=False)
+        m.init_params()
+    (jargs, _), (targs, _) = jm.get_params(), tm.get_params()
+    assert {k: v.shape for k, v in targs.items()} == \
+        {k: tuple(v.shape) for k, v in jargs.items()}
+    msgs = []
+    for mod, err, sym_mod in ((jmod, mxtpu.MXNetError, jsym),
+                              (tmod, MXNetError, tsym)):
+        kw = {} if mod is jmod else {"context": cpu}
+        m = mod.Module(sym_mod.load(bert_export[0]), data_names=("data",),
+                       label_names=None, **kw)
+        with pytest.raises(err, match="could not infer") as e:
+            m.bind(data_shapes=[("data", (4, 8))], for_training=False)
+        msgs.append(str(e.value).split("—")[0])
+    assert msgs[0] == msgs[1]

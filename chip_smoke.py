@@ -245,7 +245,46 @@ Phases, each fatal on failure:
      device busy ms and idle share (by family under the eager plan:
      GEMMs, ``cached_attention``, KV copies, #4, #6, the copies to and
      from the host, other), and #4 and #6 timed at the decode step's
-     shape (9 x 1024).
+     shape (9 x 1024); then (7) the same export under AMP and in int8
+     (phase 19b's entropy thresholds): each runner's 9 entries captured
+     on its own table and held against the eager plan bit for bit, a
+     decode call's launches 1/48/0 and 97 AMP or int8 contractions, a
+     prefill (b=2, s=32) and 2 decode steps against the same runner on
+     the CPU within ``PASS_CPU_TOL``, a captured decode step's wall ms;
+ 19. AMP and int8 (``mxtpu_torch.amp``, ``mxtpu_torch.quant``):
+     (a) after the Gluon phase, the AMP contraction routes against their
+     plain f32 versions (the f32-output GEMM at BERT's five shapes,
+     forward and both backward GEMMs; the convolution as the GEMM over
+     its patches at ResNet-50's 7x7/2, 3x3 and 1x1/2, forward and
+     backward), timed; BERT-Large (bench_bert's recipe, ``amp=True``):
+     parameters bf16 over f32 masters and state, 3 steps against the
+     f32 step from the same seeds (rtol 3e-2, atol 1e-2, mxtpu's parity
+     bar), ``MXTPU_AMP=0`` bit-equal to ``amp=None`` (losses, weights,
+     state), launches 24/24/24/1/1/48/48 and 97 bf16 GEMMs a step
+     (the f32 flash kernels), ms/step and device ms beside phase 8's
+     bf16 and f32 runs, the cost of the loss scaler's flag read (in
+     turns against a step built with ``MXTPU_AMP_LOSS_SCALE=0``), and a
+     step under an inf scale skipped with every weight and state tensor
+     bit-equal; ResNet-50 NHWC (bench_resnet50's recipe, ``amp=True``):
+     the same types (running statistics f32), 3 steps against the f32
+     step (its ms/step and device ms printed), launches 0/0/53/53 and 53
+     convolutions and 1 GEMM a step in bf16, a batch with an inf pixel
+     skipped (weights and state bit-equal, the scale halved, one skipped
+     step counted); (b) after the serving phase, ``quant.int_mm``
+     bit-equal to the plain int32 product at every (M, K, N) the served
+     ladder and the generation runner reach (padded where
+     ``torch._int_mm`` refuses), then BERT-Large from its export through
+     ``ModelRunner`` in f32, ``amp=True`` and ``quant=True`` ({128} x
+     batch 1..32), the int8 runner calibrated with minmax and then
+     entropy on seeded batches (97 keys each); every AMP and int8 bucket
+     captured and held against the eager plan bit for bit; a captured
+     (32, 128) forward's launches 24/1/48 and 97 contractions; the AMP
+     and int8 logits' distance from f32 over the scale, printed; the
+     (1, 128) bucket against the CPU's plain path within
+     ``PASS_CPU_TOL``; the (32, 128) forward's device ms in the three
+     types.  ResNet-50's AMP-vs-f32 gate runs at the CPU check's lr 1e-3
+     (at the recipe's 0.1 three steps are chaotic: printed beside f32
+     against f32 with TF32 convolutions).
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -255,7 +294,14 @@ flash gradients, whose typical size is about 0.1, are held at
 dgamma and dbeta (sums over N*S elements) at 1e-4 * max(rms(p), |p|);
 the served logits against the CPU, and the generation logits against
 the full forward and against the CPU: 1e-3 (24 layers of f32 GEMMs in
-another order); the rtc softmax: p 1e-6 relative, dx 1e-6 absolute;
+another order); AMP and int8 logits against the CPU's plain path: 5e-2
+and 1e-1 of their scale (an input that lands within an f32 rounding of
+a bf16 or int8 step rounds to the other side, and 24 layers part the
+two runs by about each type's own distance from f32); the AMP GEMM
+against its plain version: twice the rounding bound of a K-term f32
+sum, K 2^-24 (|a| @ |b|), each element; the AMP convolution 1e-5 of the
+result's largest magnitude, its weight gradient 1e-3 (8e5-term sums);
+the rtc softmax: p 1e-6 relative, dx 1e-6 absolute;
 the symbolic resnet20 card vs CPU: outputs (probabilities) 1e-5, each
 gradient's rms error 1e-4 of its rms, three step losses 1e-4 of
 max(|p|, 0.01); the rtc head against SoftmaxOutput over three steps:
@@ -2217,11 +2263,12 @@ def check_launches(checks, tag, counts, per_step, n_steps):
 
 
 def seeded_bert_step(compute_dtype="bfloat16", optimizer="adam",
-                     params=None):
+                     params=None, amp=None):
     """BERT-Large and its train step from fixed seeds: xavier weights
     (``bench_bert``'s init) and the dropout streams, both from
     ``mxtpu_torch.random``; the deferred shapes settled before the step
-    is built, so it reads ``MXTPU_BATCHED_OPT`` then."""
+    is built, so it reads ``MXTPU_BATCHED_OPT`` (and ``MXTPU_AMP``)
+    then."""
     import torch
     from mxtpu_torch import random as trandom
     from mxtpu_torch.models import bert_large
@@ -2233,7 +2280,7 @@ def seeded_bert_step(compute_dtype="bfloat16", optimizer="adam",
     return build_train_step(net, mlm_loss, optimizer,
                             params or {"learning_rate": 1e-4},
                             compute_dtype=compute_dtype, cast_batch=False,
-                            device=CARD)
+                            amp=amp, device=CARD)
 
 
 def bert_tokens(b=B, seed=SEED + 5):
@@ -5314,8 +5361,10 @@ def gen_kernel_rows(checks, gen):
     return out
 
 
-def generate_phase(checks, gen):
-    """Phase 18 (see the module's docstring)."""
+def generate_phase(checks, gen, scales):
+    """Phase 18 (see the module's docstring), with phase 19's
+    generation under AMP and int8 (``scales``: the serving phase's
+    entropy thresholds)."""
     import tempfile
     import torch
     from mxtpu_torch.serving import GenerateRunner
@@ -5351,6 +5400,8 @@ def generate_phase(checks, gen):
         lap("incremental")
         cpu_err = gen_cpu_gate(checks, runner, files, table)
         lap("cpu")
+        passes = gen_pass_gate(checks, files, runner.kv_spec, scales)
+        lap("amp and int8")
     gen_entry_gate(checks, runner)
     lap("entries")
     sat = gen_saturation(runner, "captured")
@@ -5383,7 +5434,750 @@ def generate_phase(checks, gen):
                           "decode_breakdown": breakdown,
                           "decode_breakdown_eager_plan": breakdown_eager,
                           "serving": served, "phase_s": phase_s,
-                          "phase_split_s": secs}
+                          "amp_int8": passes, "phase_split_s": secs}
+
+
+# ----------------------------------------------------------------------
+# phase 19: AMP training and AMP / int8 serving (mxtpu_torch.amp,
+# mxtpu_torch.quant)
+# ----------------------------------------------------------------------
+
+AMP_PARITY = {"rtol": 3e-2, "atol": 1e-2}   # tests/test_amp.py's AMP vs f32
+# the card's contraction routes against their plain versions: the same
+# exact products of bf16 operands, f32 sums in another order.  A GEMM's
+# element is held to twice the rounding bound of a K-term f32 sum,
+# K * 2^-24 * sum_k |a_ik b_kj|; a convolution to 1e-5 of the result's
+# largest magnitude, its weight gradient (N * OH * OW terms, 8e5 at
+# ResNet's 3x3, with cancellation) to 1e-3
+ROUTE_TOL, ROUTE_DW_TOL = 1e-5, 1e-3
+# BERT's GEMMs a training step, (M, K, N) of the forward x @ w^T
+AMP_GEMMS = {"qkv": (B * T, UNITS, 3 * UNITS), "proj": (B * T, UNITS, UNITS),
+             "ffn1": (B * T, UNITS, FFN), "ffn2": (B * T, FFN, UNITS),
+             "head": (B * T, UNITS, VOCAB)}
+# one ResNet-50 NHWC convolution of each kind at b256: x, w (OHWI),
+# stride, pad
+AMP_CONVS = {"7x7/2": ((RN_B, RN_HW, RN_HW, 3), (64, 7, 7, 3), 2, 3),
+             "3x3": ((RN_B, 56, 56, 64), (64, 3, 3, 64), 1, 1),
+             "1x1/2": ((RN_B, 14, 14, 1024), (2048, 1, 1, 1024), 2, 0)}
+AMP_DOTS_BERT = 4 * LAYERS + 1       # FullyConnected a forward
+AMP_CONVS_RN, AMP_DOTS_RN = 53, 1
+SKIP_TURNS = 2                        # (scaler, none, none, scaler) turns
+# logits, card vs the CPU's plain path, of their scale: AMP and int8
+# round a few inputs a layer to the other side of a bf16 or int8 step
+# where the f32 sums before them differ in the last bit, and over 24
+# layers the two runs part by about each type's own distance from f32
+# (served BERT-Large: AMP 0.015, int8 0.05 of the scale)
+PASS_CPU_TOL = {"amp": 5e-2, "int8": 1e-1}
+QS_SEQ, QS_MAX_B = 128, 32
+QS_CALIB_B, QS_CALIB_N = 4, 2         # seeded calibration batches
+QS_CPU_BUCKET = (1, QS_SEQ)
+
+
+def pass_counts():
+    """The AMP and int8 contraction counts (forward GEMMs, forward
+    convolutions, int8 products) since the last reset."""
+    from mxtpu_torch import amp, quant
+    return {"amp_dot": amp.DOT_LAUNCHES, "amp_conv": amp.CONV_LAUNCHES,
+            "int8_gemm": quant.INT8_GEMMS}
+
+
+def reset_pass_counts():
+    from mxtpu_torch import amp, quant
+    amp.DOT_LAUNCHES = amp.CONV_LAUNCHES = quant.INT8_GEMMS = 0
+
+
+def check_pass_counts(checks, tag, per_step, n):
+    got = pass_counts()
+    want = {k: per_step.get(k, 0) * n for k in got}
+    if got != want:
+        checks.failed.append(f"{tag}: AMP/int8 contractions {got} in {n} "
+                             f"calls, want {want}")
+    return got
+
+
+def snapshot_trained(step):
+    """The trainable parameters and every optimizer-state leaf of
+    ``step``, copied (the running statistics, which a skipped step's
+    forward still moves, as mxtpu's do, left out)."""
+    return ([p.detach().clone() for p in step._params] +
+            [leaf.detach().clone() for st in step._canonical_state()
+             for leaf in st])
+
+
+def amp_dtypes_ok(step):
+    """Trainable parameters bf16 (f32 only for aux-named ones), the
+    running statistics f32, every float state leaf f32."""
+    import torch
+    from mxtpu_torch.symbol import _is_aux_name
+    ok = all(p.dtype == (torch.float32 if _is_aux_name(n)
+                         else torch.bfloat16)
+             for n, p in zip(step.param_names, step._params))
+    ok &= all(p.data().dtype == np.float32
+              for p in step.net.collect_params().values()
+              if _is_aux_name(p.name))
+    ok &= all(leaf.dtype == torch.float32
+              for st in step._canonical_state() for leaf in st
+              if leaf.is_floating_point())
+    return bool(ok)
+
+
+def route_rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def contraction_route_phase(checks, gen):
+    """The AMP contraction routes against their plain versions on the
+    card: the f32-output GEMM at BERT's five forward shapes and the two
+    backward ones of each, and the GEMM-over-patches convolution,
+    forward and backward, at one ResNet-50 NHWC convolution of each
+    kind; each timed beside its plain version, its bound (bytes or bf16
+    tensor-core operations) and a library call with a bf16 output."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch import amp
+    dev = torch.device(CARD)
+    rows = {}
+
+    def randn(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=gen, device=dev)).bfloat16()
+
+    worst = 0.0
+    for name, (m, k, n) in AMP_GEMMS.items():
+        x, w, g = randn(m, k), randn(n, k, s=0.02), randn(m, n)
+        for kind, (a, b) in (("fwd", (x, w.t())), ("dx", (g, w)),
+                             ("dw", (g.t(), x))):
+            got, want = amp.gemm(a, b), amp.gemm_plain(a, b)
+            # of the bound 2 * K * 2^-24 * (|a| @ |b|), elementwise
+            lim = amp.gemm_plain(a.abs(), b.abs()) * (2 * a.shape[1]
+                                                     * 2.0 ** -24)
+            frac = float(((got - want).abs() / lim.clamp_min(1e-30)).max())
+            worst = max(worst, frac)
+            if frac > 1.0:
+                checks.failed.append(f"amp GEMM route {name} {kind}: "
+                                     f"{frac:.3f} of its sum bound")
+            del got, want, lim
+        a, b = x, w.t()
+        mm, kk, nn_ = a.shape[0], a.shape[1], b.shape[1]
+        b_ms, b_by = bound(2 * (mm * kk + kk * nn_) + 4 * mm * nn_,
+                           2 * mm * kk * nn_, "bfloat16")
+        rows[f"gemm {name}"] = {
+            "ms": device_ms(lambda: amp.gemm(a, b)),
+            "plain_ms": device_ms(lambda: amp.gemm_plain(a, b)),
+            "library_bf16_out_ms": device_ms(lambda: a @ b),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del x, w, g, a, b
+    print(f"check amp GEMM route (bf16 x bf16 -> f32, torch.mm out_dtype) "
+          f"vs its plain f32 product at BERT's 5 shapes x fwd/dx/dw: the "
+          f"largest difference {worst:.4f} of the f32 sum bound 2 K 2^-24 "
+          f"(|a| @ |b|) {'ok' if worst <= 1.0 else 'FAIL'}", flush=True)
+    for name, (xs, ws, st, pd) in AMP_CONVS.items():
+        x, w = randn(*xs), randn(*ws, s=0.05)
+        geom = (ws[1:3], (st, st), (pd, pd), (1, 1), 1, "NHWC")
+        y = amp._conv_gemm(x, w, geom)
+        ry = route_rel(y, amp.conv_plain(x, w, geom))
+        g = randn(*y.shape)
+        (dx, dw), (px, pw) = (amp._conv_gemm_bwd(x, w, g, geom),
+                              amp.conv_bwd_plain(x, w, g, geom))
+        rx, rw = route_rel(dx, px), route_rel(dw, pw)
+        ok = ry <= ROUTE_TOL and rx <= ROUTE_TOL and rw <= ROUTE_DW_TOL
+        print(f"check amp conv route {name} NHWC {xs} (GEMM over the "
+              f"patches) vs the plain f32 convolution: y {ry:.3e}, dx "
+              f"{rx:.3e} (tol {ROUTE_TOL}), dw {rw:.3e} (tol "
+              f"{ROUTE_DW_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            checks.failed.append(f"amp conv route {name} differs from its "
+                                 f"plain version")
+        del y, dx, dw, px, pw
+        oh = (xs[1] + 2 * pd - ws[1]) // st + 1
+        ops = 2 * xs[0] * oh * oh * ws[0] * ws[1] * ws[2] * ws[3]
+        nbytes = 2 * (x.numel() + w.numel()) + 4 * xs[0] * oh * oh * ws[0]
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+        rows[f"conv {name}"] = {
+            "ms": device_ms(lambda: amp._conv_gemm(x, w, geom)),
+            "bwd_ms": device_ms(lambda: amp._conv_gemm_bwd(x, w, g, geom)),
+            "plain_ms": device_ms(lambda: amp.conv_plain(x, w, geom)),
+            "library_bf16_out_ms": device_ms(
+                lambda: F.conv2d(xc, wc, None, st, pd)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del x, w, g, xc, wc
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        print(f"time amp route {name} (device ms): route_ms={r['ms']:.4f}" +
+              (f" bwd_ms={r['bwd_ms']:.4f}" if "bwd_ms" in r else "") +
+              f" plain_ms={r['plain_ms']:.4f} library_bf16_out_ms="
+              f"{r['library_bf16_out_ms']:.4f} bound_ms={r['bound_ms']:.4f}"
+              f" ({r['bound_by']})", flush=True)
+    return rows
+
+
+def amp_bert_cell(checks, training, training_f32):
+    """BERT-Large under AMP with bench_bert's recipe: the storage types,
+    3 steps against the f32 step from the same seeds, ``MXTPU_AMP=0``
+    bit-equal to ``amp=None``, launches and contractions per step
+    exact, ms/step and one profiled step beside the bf16 and f32 runs
+    of this call, the skip's cost (the step with the scaler against one
+    built with ``MXTPU_AMP_LOSS_SCALE=0``, in turns) and a step under an
+    inf scale: skipped and counted, every weight and state tensor
+    unchanged."""
+    import torch
+    from mxtpu_torch import kernels
+    toks = bert_tokens()
+    t0 = time.perf_counter()
+    # each step runs right after its build, which reseeds the dropout
+    # stream: the three see the same masks
+    step = seeded_bert_step(None, amp=True)
+    types_ok = amp_dtypes_ok(step)
+    amp_l = [float(step(toks, toks)) for _ in range(GATE_STEPS)]
+    f32 = seeded_bert_step(None)
+    f32_l = [float(f32(toks, toks)) for _ in range(GATE_STEPS)]
+    os.environ["MXTPU_AMP"] = "0"
+    try:
+        killed = seeded_bert_step(None, amp=True)
+    finally:
+        del os.environ["MXTPU_AMP"]
+    killed_l = [float(killed(toks, toks)) for _ in range(GATE_STEPS)]
+    parity = bool(np.allclose(amp_l, f32_l, **AMP_PARITY))
+    kill_ok = killed_l == f32_l and \
+        bit_equal(train_snapshot(killed), train_snapshot(f32)) and \
+        killed.amp_stats() is None
+    del f32, killed
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+
+    kernels.reset_launch_counts()
+    reset_pass_counts()
+    window_ms, losses = [], list(amp_l)
+    for _ in range(TRAIN_WINDOWS):
+        t1 = time.perf_counter()
+        losses += [step(toks, toks) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t1) / TRAIN_STEPS * 1e3)
+    n = TRAIN_STEPS * TRAIN_WINDOWS
+    counts = kernels.launch_counts()
+    check_launches(checks, "training amp", counts, BERT_LAUNCHES, n)
+    passes = check_pass_counts(checks, "training amp",
+                               {"amp_dot": AMP_DOTS_BERT}, n)
+    losses = [float(v) for v in losses]
+    ms_step = float(np.median(window_ms))
+    breakdown = profiled_step(checks, "training amp", step, toks, toks)
+    stats = step.amp_stats()
+
+    # the skip's cost: the same step built without a scaler reads no
+    # flag back; windows in turns, scaler first
+    os.environ["MXTPU_AMP_LOSS_SCALE"] = "0"
+    try:
+        plain = seeded_bert_step(None, amp=True)
+    finally:
+        del os.environ["MXTPU_AMP_LOSS_SCALE"]
+    turns = {"scaler": [], "no scaler": []}
+    for tag, st in (("scaler", step), ("no scaler", plain),
+                    ("no scaler", plain), ("scaler", step)) * SKIP_TURNS:
+        st(toks, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            st(toks, toks)
+        torch.cuda.synchronize()
+        turns[tag].append((time.perf_counter() - t1) / TRAIN_STEPS * 1e3)
+    plain_bd = step_breakdown(plain, toks, toks)
+    del plain
+    torch.cuda.empty_cache()
+    skip_ms = float(np.mean(turns["scaler"]) - np.mean(turns["no scaler"]))
+
+    # a non-finite step: the scale set to inf, so every scaled gradient
+    # is inf or nan (the token batch cannot carry one; ResNet's does)
+    before = snapshot_trained(step)
+    st = step._amp_state
+    step._amp_state = (torch.full_like(st[0], float("inf")), st[1], st[2])
+    skipped_before = stats["skipped_steps"]
+    step(toks, toks)
+    after = step.amp_stats()
+    skip_ok = bit_equal(before, snapshot_trained(step)) and \
+        after["skipped_steps"] == skipped_before + 1 and \
+        after["good_steps"] == 0
+    del before
+    ok = types_ok and parity and kill_ok and skip_ok and \
+        all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0]
+    bf16, f32m = training, training_f32
+    print(f"check training amp BERT-Large: parameters bf16, masters and "
+          f"state f32 {types_ok}; {GATE_STEPS} steps {amp_l} vs f32 "
+          f"{f32_l} within rtol {AMP_PARITY['rtol']} atol "
+          f"{AMP_PARITY['atol']} {parity}; MXTPU_AMP=0 bit-equal to "
+          f"amp=None (losses, weights, state) {kill_ok}; a step under "
+          f"an inf scale skipped, weights and state bit-equal, counted "
+          f"{skip_ok} {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"training amp BERT-Large b{B} T{T} adam: losses "
+          f"{[round(v, 4) for v in losses]}; scaler {stats}", flush=True)
+    print(f"training BERT-Large ms/step (median of {TRAIN_WINDOWS} windows "
+          f"of {TRAIN_STEPS}) and device ms a step (profiled): amp "
+          f"{ms_step:.3f} / {breakdown['device_busy_ms']:.3f} (idle "
+          f"{breakdown['device_idle_share'] or 0:.4f}), bf16 compute "
+          f"{bf16['ms_per_step']:.3f} / "
+          f"{bf16['breakdown']['device_busy_ms']:.3f}, f32 "
+          f"{f32m['ms_per_step']:.3f} / "
+          f"{f32m['breakdown']['device_busy_ms']:.3f}", flush=True)
+    print(f"training amp: the skip's flag read costs {skip_ms:.3f} ms a "
+          f"step (windows of {TRAIN_STEPS} in turns: scaler "
+          f"{[round(v, 3) for v in turns['scaler']]}, no scaler "
+          f"{[round(v, 3) for v in turns['no scaler']]}); no-scaler "
+          f"device {plain_bd['device_busy_ms']:.3f} ms; set-up and gates "
+          f"{setup_s:.1f} s; launches in {n} steps {json.dumps(counts)}, "
+          f"contractions {passes}", flush=True)
+    if not ok:
+        checks.failed.append("training amp (BERT-Large): a gate failed")
+    del step
+    torch.cuda.empty_cache()
+    return counts, {"ms_per_step": ms_step, "window_ms_per_step": window_ms,
+                    "tokens_per_s": B * T / ms_step * 1e3,
+                    "losses": losses, "f32_losses": f32_l,
+                    "breakdown": breakdown, "scaler": stats,
+                    "skip_cost_ms": skip_ms, "skip_turns_ms": turns,
+                    "no_scaler_device_ms": plain_bd["device_busy_ms"],
+                    "types_ok": types_ok, "parity": parity,
+                    "kill_switch_bit_equal": kill_ok, "skip_ok": skip_ok}
+
+
+def amp_resnet_cell(checks, resnet_bf16):
+    """ResNet-50 v1 NHWC under AMP with bench_resnet50's recipe: the
+    storage types, 3 steps against the f32 step from the same seeds
+    (the f32 steps timed, one profiled), launches and contractions per
+    step exact, ms/step and one profiled step, and a batch with an inf
+    pixel: skipped, weights and state unchanged, the scale halved."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.parallel import build_train_step
+    xn, yn = rn_batch("NHWC", RN_B, RN_HW, SEED)
+    x, y = torch.from_numpy(xn).to(CARD), torch.from_numpy(yn).to(CARD)
+    t0 = time.perf_counter()
+
+    def losses_of(opt, **kw):
+        st = build_train_step(resnet50_net("NHWC"), rn_loss(), "sgd", opt,
+                              device=CARD, **kw)
+        return st, [float(st(x, y)) for _ in range(GATE_STEPS)]
+
+    # the gate at the card-vs-CPU check's lr 1e-3: at the recipe's 0.1
+    # the three steps are chaotic (printed below: f32 against f32 with
+    # TF32 convolutions parts there too)
+    chk, chk_amp = losses_of(RN_CHECK_SGD, amp=True)
+    types_ok = amp_dtypes_ok(chk)
+    del chk
+    chk, chk_f32 = losses_of(RN_CHECK_SGD)
+    del chk
+    parity = bool(np.allclose(chk_amp, chk_f32, **AMP_PARITY))
+    step, amp_l = losses_of(RN_SGD, amp=True)
+    f32 = build_train_step(resnet50_net("NHWC"), rn_loss(), "sgd", RN_SGD,
+                           device=CARD)
+    f32_l = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(GATE_STEPS):
+        f32_l.append(float(f32(x, y)))
+    f32_ms = (time.perf_counter() - t1) / GATE_STEPS * 1e3
+    f32_bd = step_breakdown(f32, x, y)
+    del f32
+    old_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32, tf32_l = losses_of(RN_SGD)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old_tf32
+    del tf32
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+
+    kernels.reset_launch_counts()
+    reset_pass_counts()
+    window_ms, losses = [], list(amp_l)
+    for _ in range(TRAIN_WINDOWS):
+        t1 = time.perf_counter()
+        losses += [step(x, y) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t1) / TRAIN_STEPS * 1e3)
+    n = TRAIN_STEPS * TRAIN_WINDOWS
+    counts = kernels.launch_counts()
+    check_launches(checks, "resnet50 NHWC amp", counts, RN_LAUNCHES["NHWC"],
+                   n)
+    passes = check_pass_counts(checks, "resnet50 NHWC amp",
+                               {"amp_conv": AMP_CONVS_RN,
+                                "amp_dot": AMP_DOTS_RN}, n)
+    losses = [float(v) for v in losses]
+    ms_step = float(np.median(window_ms))
+    breakdown = profiled_step(checks, "resnet50 NHWC amp", step, x, y)
+
+    stats = step.amp_stats()
+    before = snapshot_trained(step)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("inf")
+    step(bad, y)
+    after = step.amp_stats()
+    skip_ok = bit_equal(before, snapshot_trained(step)) and \
+        after["loss_scale"] == stats["loss_scale"] / 2 and \
+        after["skipped_steps"] == stats["skipped_steps"] + 1
+    del before, bad
+    ok = types_ok and parity and skip_ok and all(np.isfinite(losses)) \
+        and np.mean(losses[-3:]) < losses[0]
+    print(f"check resnet50 NHWC amp: parameters bf16 (running statistics "
+          f"f32), masters and state f32 {types_ok}; {GATE_STEPS} steps at "
+          f"lr {RN_CHECK_SGD['learning_rate']} {chk_amp} vs f32 {chk_f32} "
+          f"within rtol {AMP_PARITY['rtol']} atol {AMP_PARITY['atol']} "
+          f"{parity}; a batch with an inf pixel skipped, weights and state "
+          f"bit-equal, scale halved {skip_ok} {'ok' if ok else 'FAIL'}; at "
+          f"the recipe's lr {RN_SGD['learning_rate']} (no gate): amp "
+          f"{amp_l}, f32 {f32_l}, f32 with TF32 convolutions {tf32_l}",
+          flush=True)
+    print(f"resnet50 NHWC amp b{RN_B} {RN_HW}x{RN_HW} sgd momentum: losses "
+          f"{[round(v, 4) for v in losses]}; scaler {step.amp_stats()}",
+          flush=True)
+    print(f"resnet50 NHWC ms/step and device ms a step (profiled): amp "
+          f"{ms_step:.3f} (median of {TRAIN_WINDOWS} windows of "
+          f"{TRAIN_STEPS}) / {breakdown['device_busy_ms']:.3f} (idle "
+          f"{breakdown['device_idle_share'] or 0:.4f}), bf16 compute "
+          f"{resnet_bf16['ms_per_step']:.3f} / "
+          f"{resnet_bf16['breakdown']['device_busy_ms']:.3f}, f32 "
+          f"{f32_ms:.3f} (mean of {GATE_STEPS}, the first included) / "
+          f"{f32_bd['device_busy_ms']:.3f}; set-up and gates {setup_s:.1f}"
+          f" s; launches in {n} steps {json.dumps(counts)}, contractions "
+          f"{passes}", flush=True)
+    for fam in ("gemm", "other"):
+        print(f"resnet50 NHWC amp top {fam} kernels (device ms): " +
+              "; ".join(f"{k[:70]} {v:.3f}" for k, v in
+                        breakdown["top_kernels"].get(fam, [])[:4]),
+              flush=True)
+    if not ok:
+        checks.failed.append("resnet50 NHWC amp: a gate failed")
+    del step
+    torch.cuda.empty_cache()
+    return counts, {"ms_per_step": ms_step, "window_ms_per_step": window_ms,
+                    "samples_per_s": RN_B / ms_step * 1e3,
+                    "losses": losses, "f32_losses": f32_l,
+                    "tf32_losses": tf32_l, "check_losses": {
+                        "amp": chk_amp, "f32": chk_f32},
+                    "f32_ms_per_step": f32_ms,
+                    "f32_device_ms": f32_bd["device_busy_ms"],
+                    "breakdown": breakdown, "types_ok": types_ok,
+                    "parity": parity, "skip_ok": skip_ok}
+
+
+def amp_train_phase(checks, gen, training, training_f32, resnet):
+    """Phase 19a (see the module's docstring)."""
+    import torch
+    t0 = time.perf_counter()
+    routes = contraction_route_phase(checks, gen)
+    bert_counts, bert = amp_bert_cell(checks, training, training_f32)
+    rn_counts, rn = amp_resnet_cell(checks, resnet["NHWC"])
+    torch.cuda.empty_cache()
+    print(f"amp training: phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"bert": bert_counts, "resnet": rn_counts}, \
+        {"routes": routes, "bert": bert, "resnet50_nhwc": rn}
+
+
+def qs_batches(n, b, seed):
+    rng = np.random.RandomState(seed)
+    return [{"data": rng.randint(0, VOCAB, (b, QS_SEQ)).astype(np.float32)}
+            for _ in range(n)]
+
+
+def int_mm_shapes(checks, gen):
+    """``quant.int_mm`` against the plain int32 product, bit for bit, at
+    every (M, K, N) the served ladder and the generation runner reach
+    (M = rows of a bucket; the 9-row decode step and BERT's 30522-wide
+    head among them, padded for ``torch._int_mm``)."""
+    import torch
+    from mxtpu_torch import quant
+    ms = sorted({b * QS_SEQ for b in (1, 2, 4, 8, 16, 32)} |
+                {GEN_LANES + 1} | {b * s for s in GEN_BUCKETS
+                                   for b in (1, 2, 4, 8)})
+    kn = [(k, n) for _, k, n in AMP_GEMMS.values()]
+    apart = []
+    for m in ms:
+        for k, n in kn:
+            a = torch.randint(-127, 128, (m, k), generator=gen,
+                              device=CARD, dtype=torch.int8)
+            w = torch.randint(-127, 128, (n, k), generator=gen,
+                              device=CARD, dtype=torch.int8)
+            if not torch.equal(quant.int_mm(a, w),
+                               quant.int_mm_plain(a, w)):
+                apart.append((m, k, n))
+    # the int8 convolution (channels-first: the product over the patches)
+    # at ResNet-50's 7x7/2 stem and a 3x3, b8
+    for xs, ws, st, pd in (((8, 3, RN_HW, RN_HW), (64, 3, 7, 7), 2, 3),
+                           ((8, 64, 56, 56), (64, 64, 3, 3), 1, 1)):
+        qx = torch.randint(-127, 128, xs, generator=gen, device=CARD,
+                           dtype=torch.int8)
+        qw = torch.randint(-127, 128, ws, generator=gen, device=CARD,
+                           dtype=torch.int8)
+        args = (ws[2:], (st, st), (pd, pd), (1, 1), 1)
+        if not torch.equal(quant.int_conv(qx, qw, *args),
+                           quant.int_conv_plain(qx, qw, *args)):
+            apart.append(("conv", xs, ws))
+    ok = not apart
+    print(f"check int8 GEMM (torch._int_mm, padded where it refuses) vs the "
+          f"plain int32 product at {len(ms) * len(kn)} shapes (M in {ms}, "
+          f"(K, N) in {kn}) and the int8 convolution at ResNet-50's 7x7/2 "
+          f"and a 3x3 (b8, NCHW): bit for bit "
+          f"{'ok' if ok else f'FAIL at {apart}'}", flush=True)
+    if not ok:
+        checks.failed.append(f"int8 GEMM differs from the plain product at "
+                             f"{apart}")
+
+
+def pass_entry_gate(checks, runner, tag):
+    """Each captured bucket against the eager plan on the card, one
+    random batch a bucket: bit for bit."""
+    import torch
+    rng = np.random.RandomState(SEED + 40)
+    apart = []
+    for bucket in runner.buckets():
+        b, s = bucket
+        vals = runner._pad_stack(
+            [{"data": rng.randint(0, VOCAB, s).astype(np.float32)}
+             for _ in range(b)], bucket)
+        (got,) = runner.run_raw(vals, bucket)
+        eager = runner._eager_entry(bucket)
+        with eager.lock:
+            (want,) = eager.run(vals)
+        if not torch.equal(got, want):
+            apart.append(list(bucket))
+    ok = not apart
+    print(f"check serving {tag}: each of {len(runner.buckets())} captured "
+          f"buckets vs the eager plan: bit for bit "
+          f"{'ok' if ok else f'FAIL at {apart}'}", flush=True)
+    if not ok:
+        checks.failed.append(f"serving {tag}: captured buckets {apart} "
+                             f"differ from the eager plan")
+
+
+def pass_forward_counts(checks, runner, tag, passes):
+    """One captured (32, 128) forward: the kernels of SERVE_PER_FWD and
+    ``passes`` contractions, exactly."""
+    from mxtpu_torch import kernels
+    rng = np.random.RandomState(SEED + 41)
+    bucket = (QS_MAX_B, QS_SEQ)
+    vals = runner._pad_stack(
+        [{"data": rng.randint(0, VOCAB, QS_SEQ).astype(np.float32)}
+         for _ in range(QS_MAX_B)], bucket)
+    kernels.reset_launch_counts()
+    reset_pass_counts()
+    runner.run_raw(vals, bucket)
+    counts = kernels.launch_counts()
+    check_launches(checks, f"serving {tag}", counts, SERVE_PER_FWD, 1)
+    got = check_pass_counts(checks, f"serving {tag}", passes, 1)
+    print(f"serving {tag}: a captured (32, 128) forward launched "
+          f"{json.dumps(counts)}, contractions {got}", flush=True)
+    return counts
+
+
+def quant_serve_phase(checks, params, gen):
+    """Phase 19b (see the module's docstring); returns the entropy
+    thresholds for the generation phase."""
+    import tempfile
+    import torch
+    from mxtpu_torch.serving import ModelRunner
+    t_phase = time.perf_counter()
+    int_mm_shapes(checks, gen)
+    spec = dict(input_specs={"data": (None,)}, seq_buckets=[QS_SEQ],
+                max_batch_size=QS_MAX_B)
+    with tempfile.TemporaryDirectory(dir=ROOT / "mxtpu_torch" / "_build",
+                                     prefix="qserve_") as tmp:
+        files = serve_export(params, os.path.join(tmp, "bert"))
+        f32 = ModelRunner.from_export(*files, device=CARD, **spec)
+        ampr = ModelRunner.from_export(*files, device=CARD, amp=True, **spec)
+        q8 = ModelRunner.from_export(*files, device=CARD, quant=True, **spec)
+        cpu = {k: ModelRunner.from_export(*files, device="cpu", **kw,
+                                          **{**spec, "seq_buckets":
+                                             [QS_CPU_BUCKET[1]],
+                                             "max_batch_size":
+                                             QS_CPU_BUCKET[0]})
+               for k, kw in (("amp", {"amp": True}),
+                             ("int8", {"quant": True}))}
+    batches = qs_batches(QS_CALIB_N, QS_CALIB_B, SEED + 42)
+    t0 = time.perf_counter()
+    mm = q8.calibrate(batches, mode="minmax")
+    mm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scales = q8.calibrate(batches, mode="entropy")
+    en_s = time.perf_counter() - t0
+    keys_ok = len(mm) == len(scales) == AMP_DOTS_BERT and \
+        sorted(mm) == sorted(scales)
+    print(f"quant: calibrated on {QS_CALIB_N} seeded ({QS_CALIB_B}, "
+          f"{QS_SEQ}) batches: minmax {len(mm)} keys in {mm_s:.1f} s, "
+          f"entropy {len(scales)} keys in {en_s:.1f} s (thresholds "
+          f"{min(scales.values()):.4g}..{max(scales.values()):.4g}) "
+          f"{'ok' if keys_ok else 'FAIL'}", flush=True)
+    if not keys_ok:
+        checks.failed.append(f"quant: calibration keyed {len(mm)} / "
+                             f"{len(scales)} contractions, want "
+                             f"{AMP_DOTS_BERT}")
+    warm = {}
+    for tag, r in (("f32", f32), ("amp", ampr), ("int8", q8)):
+        w = r.warmup()
+        warm[tag] = sum(w.values())
+        print(f"serving {tag}: {r.num_compiled()} buckets captured in "
+              f"{warm[tag]:.2f} s; weights {r.weight_bytes() / 1e9:.3f} GB",
+              flush=True)
+    pass_entry_gate(checks, ampr, "amp")
+    pass_entry_gate(checks, q8, "int8")
+    counts = {"amp": pass_forward_counts(checks, ampr, "amp",
+                                         {"amp_dot": AMP_DOTS_BERT}),
+              "int8": pass_forward_counts(checks, q8, "int8",
+                                          {"int8_gemm": AMP_DOTS_BERT})}
+
+    # the logits of one (32, 128) batch in the three types
+    rng = np.random.RandomState(SEED + 43)
+    bucket = (QS_MAX_B, QS_SEQ)
+    vals = f32._pad_stack([{"data": rng.randint(0, VOCAB, QS_SEQ)
+                            .astype(np.float32)} for _ in range(QS_MAX_B)],
+                          bucket)
+    (lf,) = f32.run_raw(vals, bucket)
+    scale = float(lf.abs().max())
+    delta = {}
+    for tag, r in (("amp", ampr), ("int8", q8)):
+        (lg,) = r.run_raw(vals, bucket)
+        delta[tag] = float((lg - lf).abs().max()) / max(1.0, scale)
+        del lg
+    del lf
+    print(f"serving BERT-Large (32, 128): logits vs f32, max |delta| / "
+          f"max(1, scale {scale:.4f}): amp {delta['amp']:.5f}, int8 "
+          f"{delta['int8']:.5f} (mxtpu gates int8 at 0.10 at its 2-layer "
+          f"fixture only)", flush=True)
+
+    # one small bucket against the CPU's plain path (the same thresholds)
+    cpu["int8"]._quant_scales = dict(scales)
+    toks = np.random.RandomState(SEED + 44).randint(
+        0, VOCAB, QS_CPU_BUCKET).astype(np.float32)
+    cpu_err = {}
+    for tag, r in (("amp", ampr), ("int8", q8)):
+        (got,) = r.infer({"data": toks})
+        (want,) = cpu[tag].infer({"data": toks})
+        cpu_err[tag] = float(np.abs(got - want).max()) / \
+            max(1.0, float(np.abs(want).max()))
+    cpu_ok = all(v <= PASS_CPU_TOL[k] for k, v in cpu_err.items())
+    print(f"check serving card vs CPU plain path at {QS_CPU_BUCKET}: "
+          f"max |delta| / max(1, scale): amp {cpu_err['amp']:.3e}, int8 "
+          f"{cpu_err['int8']:.3e} tol {PASS_CPU_TOL} "
+          f"{'ok' if cpu_ok else 'FAIL'}", flush=True)
+    if not cpu_ok:
+        checks.failed.append("serving amp/int8: the card differs from the "
+                             "CPU's plain path")
+    del cpu
+    breakdown = {tag: forward_breakdown(r, f"captured {tag}")
+                 for tag, r in (("f32", f32), ("amp", ampr), ("int8", q8))}
+    del f32, ampr, q8
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"quant/amp serving: phase {phase_s:.1f} s", flush=True)
+    return scales, counts, {
+        "calibrate_s": {"minmax": mm_s, "entropy": en_s},
+        "keys": len(scales), "warmup_s": warm,
+        "logit_delta_over_scale": delta, "scale": scale,
+        "card_vs_cpu": cpu_err, "forward_b32_t128": breakdown,
+        "phase_s": phase_s}
+
+
+def gen_pass_gate(checks, files, kv_spec, scales):
+    """Generation under AMP and int8 (the entropy thresholds of the
+    serving phase): each runner's ladder captured on its own table, each
+    entry against the eager plan bit for bit, a decode call's launches
+    (1/48/0) and contractions (97) exact, a prefill and two decode steps
+    against the same runner on the CPU, and a decode step's wall ms."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.serving import GenerateRunner
+    out = {}
+    for tag, kw, passes in (("amp", {"amp": True},
+                             {"amp_dot": AMP_DOTS_BERT}),
+                            ("int8", {"quant": True, "quant_scales": scales},
+                             {"int8_gemm": AMP_DOTS_BERT})):
+        r = GenerateRunner.from_export(*files, kv_spec, device=CARD,
+                                       prompt_buckets=GEN_BUCKETS, **kw)
+        table = r.new_cache()
+        warm = r.warmup(kv=table)
+        g = torch.Generator(device=CARD).manual_seed(SEED + 45)
+        base = torch.randn(r._kv_shape, generator=g, device=CARD)
+        kv_e = torch.empty_like(base)
+        rng = np.random.RandomState(SEED + 45)
+        apart = []
+        for kind, shp in r.buckets():
+            if kind == "prefill":
+                b, s = shp
+                args = (rng.randint(0, VOCAB, (b, s)).astype(np.float32),
+                        rng.randint(0, MAXLEN - s, b).astype(np.float32),
+                        rng.permutation(r.max_lanes)[:b].astype(np.float32))
+                call = r.prefill
+            else:
+                args = (rng.randint(0, VOCAB, (shp[0], 1))
+                        .astype(np.float32),
+                        rng.randint(0, MAXLEN, shp[0]).astype(np.float32))
+                call = r.decode
+            table.copy_(base)
+            kv_e.copy_(base)
+            got, _ = call(*args, table)
+            with eager_plan(r):
+                want, _ = call(*args, kv_e)
+            if not (np.array_equal(got, want) and torch.equal(table, kv_e)):
+                apart.append(f"{kind} {shp}")
+        del base, kv_e
+        slots = r.max_lanes + 1
+        dt = rng.randint(0, VOCAB, (slots, 1)).astype(np.float32)
+        ds = np.arange(slots, dtype=np.float32)
+        kernels.reset_launch_counts()
+        reset_pass_counts()
+        r.decode(dt, ds, table)
+        check_launches(checks, f"generate {tag} decode",
+                       kernels.launch_counts(), GEN_LAUNCHES, 1)
+        got_passes = check_pass_counts(checks, f"generate {tag} decode",
+                                       passes, 1)
+        walls = []
+        for _ in range(GEN_DECODE):
+            t0 = time.perf_counter()
+            r.decode(dt, ds, table)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        # the CPU's plain path: a prefill (2, 32) and two decode steps
+        cpu = GenerateRunner.from_export(*files, kv_spec,
+                                         prompt_buckets=GEN_BUCKETS,
+                                         device="cpu", **kw)
+        toks = rng.randint(0, VOCAB, (GEN_CPU_B, GEN_CPU_S)).astype(
+            np.float32)
+        lanes = np.arange(GEN_CPU_B, dtype=np.float32)
+        step = np.zeros(GEN_CPU_B, np.float32)
+        lg, kg = r.prefill(toks, step, lanes, table.zero_())
+        lc, kc = cpu.prefill(toks, step, lanes, cpu.new_cache())
+        errs = [(lg, lc)]
+        for i in range(2):
+            d_t = np.zeros((slots, 1), np.float32)
+            d_s = np.zeros(slots, np.float32)
+            last = lg[:, -1] if i == 0 else lg[:, 0]
+            for bb in range(GEN_CPU_B):
+                d_t[bb, 0], d_s[bb] = int(np.argmax(last[bb])), GEN_CPU_S + i
+            lg, kg = r.decode(d_t, d_s, kg)
+            lc, kc = cpu.decode(d_t, d_s, kc)
+            errs.append((lg, lc))
+        cpu_err = max(float(np.abs(a - b).max()) /
+                      max(1.0, float(np.abs(b).max())) for a, b in errs)
+        ok = not apart and cpu_err <= PASS_CPU_TOL[tag]
+        print(f"check generate {tag}: {len(r.buckets())} entries captured in "
+              f"{sum(warm.values()):.2f} s, each vs the eager plan (logits "
+              f"and table) bit for bit "
+              f"{'yes' if not apart else f'no: {apart}'}; card vs CPU "
+              f"(prefill b{GEN_CPU_B} s{GEN_CPU_S}, 2 decode steps) max "
+              f"|delta| / max(1, scale) {cpu_err:.3e} tol "
+              f"{PASS_CPU_TOL[tag]}; a "
+              f"captured decode step {pct(walls, 0.5):.3f} ms wall (p50 of "
+              f"{GEN_DECODE}, logits to the host included); contractions "
+              f"a decode call {got_passes} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            checks.failed.append(f"generate {tag}: an entry differs from "
+                                 f"the eager plan or the card from the CPU")
+        out[tag] = {"capture_s": sum(warm.values()), "apart": apart,
+                    "card_vs_cpu": cpu_err,
+                    "decode_wall_ms_p50": pct(walls, 0.5)}
+        del r, cpu, table, kg, kc
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -5479,6 +6273,8 @@ def main():
                                                                layout)
     bulk_counts, bulked = bulked_train_phase(checks, card)
     gluon_counts, gluon = gluon_train_phase(checks, card)
+    amp_counts, amp_training = amp_train_phase(checks, gen, training,
+                                               training_f32, resnet)
     rtc_timings, rtc_info = rtc_phase(checks)
     symbolic_check_phase(checks)
     sym_counts, sym_rtc, symbolic = symbolic_train_phase(checks)
@@ -5488,11 +6284,15 @@ def main():
     print(f"weights: {len(params)} arrays from numpy seed {SEED} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     serve_counts, serving = serve_phase(checks, params)
+    scales, qs_counts, quant_serving = quant_serve_phase(checks, params,
+                                                         gen)
     del params
-    gen_counts, gen_rows, generation = generate_phase(checks, gen)
+    gen_counts, gen_rows, generation = generate_phase(checks, gen, scales)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
-              sum(c[k] for c in gluon_counts.values())
+              sum(c[k] for c in gluon_counts.values()) +
+              sum(c[k] for c in amp_counts.values()) +
+              sum(c[k] for c in qs_counts.values())
               for k in train_counts}
 
     # BERT's flash forward, dq and dk/dv in both types, every one on the
@@ -5625,12 +6425,18 @@ def main():
                            "bulked BERT-Large bf16": bulk_counts["bert"],
                            "bulked resnet50 NHWC": bulk_counts["resnet"],
                            **gluon_counts,
+                           "amp BERT-Large": amp_counts["bert"],
+                           "amp resnet50 NHWC": amp_counts["resnet"],
+                           "serving amp (one forward)": qs_counts["amp"],
+                           "serving int8 (one forward)": qs_counts["int8"],
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,
                            **{f"tool {k}": c
                               for k, c in tool_counts.items()}},
               "tools": tool_tables,
               "training": training, "training_f32": training_f32,
+              "amp_training": amp_training,
+              "quant_serving": quant_serving,
               "resnet50": resnet, "bulked": bulked, "gluon": gluon,
               "serving": serving, "generation": generation,
               "symbolic": symbolic,

@@ -45,6 +45,7 @@ from .. import autograd
 from ..context import resolve_device
 from ..ndarray import _mode
 from ..ndarray.ndarray import NDArray
+from ..ops import interpose as _interpose
 from ..ops.registry import get_op
 from .. import symbol as sym_mod
 from .parameter import (DeferredInitializationError, Parameter,
@@ -69,8 +70,9 @@ def _gen_prefix(hint: str) -> str:
 class _TensorOps:
     """``F`` of an eager ``hybrid_forward``: every registered op as its
     torch rule on tensors (parameters resolved once per distinct
-    sequence of keyword arguments), plus the key-drawing ``Dropout`` and
-    ``FusedResidualLayerNorm``."""
+    sequence of keyword arguments; inside an AMP or int8 scope the
+    pass's replacement, as ``nd``'s dispatch has it), plus the
+    key-drawing ``Dropout`` and ``FusedResidualLayerNorm``."""
 
     def __init__(self):
         self._fns: Dict[str, Callable] = {}
@@ -114,6 +116,12 @@ class _TensorOps:
                     resolved = cache[key] = op.resolve_params(kwargs)
             except TypeError:   # an unhashable argument (a list)
                 resolved = op.resolve_params(kwargs)
+            # the int8 and AMP passes, as nd's dispatch has them: off
+            # their scopes, one attribute read
+            if _interpose.SCOPES.open:
+                wrapped = _interpose.wrap_op(name, op, tensors, resolved)
+                if wrapped is not None:
+                    return wrapped(*tensors)
             return rule(*tensors, **resolved)
         fn.__name__ = fn.__qualname__ = name
         return fn

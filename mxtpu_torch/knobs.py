@@ -117,3 +117,34 @@ register("MXTPU_BATCHED_OPT", True, "bool",
          "(shape, dtype)-bucketed stacked optimizer updates in "
          "TrainStep; `0` reverts to one update chain per parameter.",
          "kill-switch")
+
+# -- mixed precision and int8 (mxtpu/knobs.py:140-170) --------------------
+register("MXTPU_AMP", "", "str",
+         "Policy-driven bf16 autocast (mxtpu_torch.amp, reads "
+         "contracts/amp_policy.json): `0` is the kill switch — AMP off "
+         "everywhere, every step and runner as without it; `1` turns it "
+         "on for every TrainStep/ModelRunner/GenerateRunner; unset "
+         "defers to the per-call `amp=` argument.", "kill-switch")
+register("MXTPU_AMP_LOSS_SCALE", 65536.0, "float",
+         "Initial dynamic loss scale for AMP training (a power of two; "
+         "x2 after each window of finite steps, halved on a non-finite "
+         "step).  `0` disables loss scaling (no scale, no skipped "
+         "steps).", "kill-switch")
+register("MXTPU_AMP_SCALE_WINDOW", 2000, "int",
+         "Consecutive finite steps before the AMP loss scale doubles "
+         "(the backoff on a non-finite step is immediate).",
+         "kill-switch")
+register("MXTPU_QUANT", "", "str",
+         "Policy-driven int8 post-training quantization "
+         "(mxtpu_torch.quant, reads contracts/quant_policy.json): `0` "
+         "is the kill switch — quantization off everywhere, every "
+         "runner as without it; `1` turns it on for every ModelRunner "
+         "and GenerateRunner; unset defers to the per-call `quant=` "
+         "argument.", "kill-switch")
+register("MXTPU_QUANT_CALIB", "entropy", "str",
+         "Calibration collector for the activation thresholds: "
+         "`entropy` (the KL-minimizing threshold) or `minmax` "
+         "(abs-max).", "kill-switch")
+register("MXTPU_QUANT_CALIB_BATCHES", 10, "int",
+         "Most representative batches a ModelRunner.calibrate() pass "
+         "reads when the caller does not say otherwise.", "kill-switch")

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..ops import interpose as _interpose
 from ..ops.registry import OP_REGISTRY, get_op
 from . import legacy_format
 from . import ops_impl  # noqa: F401  (populates the registry)
@@ -82,12 +83,14 @@ def _invoke_op(name: str, *inputs, **kwargs):
         if inputs:
             raise MXNetError(f"nd.{name} takes no inputs")
         ctx = kwargs.pop("ctx", None)
-    return _invoke_resolved(op, op.resolve_params(kwargs), inputs, ctx)
+    return _invoke_resolved(op, op.resolve_params(kwargs), inputs, ctx, name)
 
 
-def _invoke_resolved(op, resolved, inputs, ctx=None):
+def _invoke_resolved(op, resolved, inputs, ctx=None, name=None):
     """:func:`_invoke_op` after the op's lookup and the resolution of
-    its params (what a graph plan does once per node)."""
+    its params (what a graph plan does once per node).  ``name`` is the
+    op's name as called (an alias keys an int8 scale as mxtpu's
+    dispatch does); default the op's own."""
     from .. import autograd
     if op.num_inputs == 0:
         return NDArray(op.fn(**resolved, device=_device(ctx)))
@@ -97,11 +100,15 @@ def _invoke_resolved(op, resolved, inputs, ctx=None):
         raise MXNetError(f"nd.{op.name}: no NDArray among the inputs")
     tensors = [x._data if isinstance(x, NDArray)
                else torch.as_tensor(x, device=dev) for x in inputs]
+    # the int8 and AMP passes (mxtpu/ndarray/__init__.py:79-91): off
+    # their scopes, one attribute read
+    fn = _interpose.wrap_op(name or op.name, op, tensors, resolved) \
+        if _interpose.SCOPES.open else None
     # a non-differentiable op is not recorded, as in mxtpu's
     # _invoke_op_inner: its output is a constant, and a backward from it
     # finds no graph
     with autograd._grad_mode() if op.differentiable else torch.no_grad():
-        out = op.fn(*tensors, **resolved)
+        out = fn(*tensors) if fn is not None else op.fn(*tensors, **resolved)
     if isinstance(out, tuple):
         return tuple(NDArray(o) for o in out)
     return NDArray(out)

@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import amp as _amp
 from .. import random as _random
 from ..base import MXNetError
 from ..kernels import batch_norm as _bn
@@ -420,7 +421,12 @@ def _fully_connected(data, weight, *maybe_bias, num_hidden=0,
                      no_bias=False, flatten=True):
     x = data.reshape(data.shape[0], -1) if flatten and data.ndim > 2 \
         else data
-    y = torch.matmul(x, weight.t())
+    if _amp.matmul_preferred(x, weight) is not None:
+        # bf16 operands under autocast: f32 output and accumulation,
+        # both directions (mxtpu/ndarray/ops_impl.py:677-680)
+        y = _amp.dense(x, weight)
+    else:
+        y = torch.matmul(x, weight.t())
     if maybe_bias and not no_bias:
         y = y + maybe_bias[0]
     return y
@@ -443,11 +449,22 @@ def _convolution(data, weight, *maybe_bias, kernel=(), stride=None,
     permuted channels-first views)."""
     nd = len(kernel)
     layout = layout or {1: "NCW", 2: "NCHW", 3: "NCDHW"}[nd]
+    bias = maybe_bias[0] if maybe_bias and not no_bias else None
+    if _amp.matmul_preferred(data, weight) is not None:
+        # bf16 operands under autocast: f32 output and accumulation,
+        # both directions (mxtpu/ndarray/ops_impl.py:711-717); the bias
+        # adds in f32
+        out = _amp.conv(data, weight, kernel, _tuple(stride, nd),
+                        _tuple(pad, nd) if pad is not None else (0,) * nd,
+                        _tuple(dilate, nd), num_group, layout)
+        if bias is None:
+            return out
+        return out + (bias if layout.endswith("C")
+                      else bias.reshape((1, -1) + (1,) * nd))
     last = layout.endswith("C")
     if last:
         perm = (0, nd + 1) + tuple(range(1, nd + 1))
         data, weight = data.permute(perm), weight.permute(perm)
-    bias = maybe_bias[0] if maybe_bias and not no_bias else None
     out = _CONV[nd](data, weight, bias, _tuple(stride, nd),
                     _tuple(pad, nd) if pad is not None else 0,
                     _tuple(dilate, nd), num_group)

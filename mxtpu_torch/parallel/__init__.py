@@ -60,10 +60,29 @@ A call runs inside two ``torch.profiler.record_function`` ranges,
 the step without reaching into the class; ``run_steps`` adds one
 ``run_steps`` range around its loop.
 
+Policy AMP (``amp=True``, ``mxtpu/parallel/__init__.py:330-345``,
+``:576-630``, ``:694-735``; :mod:`mxtpu_torch.amp`): the trainable f32
+parameters are stored in bf16 from the first step on (aux-named ones,
+BatchNorm's running statistics, stay f32), the optimizer's
+multi-precision rule keeps their f32 masters, and its state is f32.
+The forward upcasts every float parameter to f32 at the graph's entry
+and runs inside ``amp.autocast()``, so only the policy's contractions
+see bf16 (with f32 outputs).  With the dynamic loss scaler on
+(``MXTPU_AMP_LOSS_SCALE`` > 0, the default) the loss is multiplied by
+the scale, the gradients (bf16 at the parameters) are unscaled in f32,
+and a step whose gradients are not all finite keeps every weight,
+master and state tensor as it was; the scaler then grows, or halves
+and counts the skipped step (:meth:`amp_stats`).  mxtpu keeps them with
+``where`` on the device; the update here writes in place, so the step
+reads the finiteness flag back to the host, once a step (also inside
+``run_steps``), and skips the update there.  The scaler's state rides
+``save_states``/``load_states``.  ``amp`` with ``compute_dtype``
+raises, as in mxtpu; ``MXTPU_AMP=0`` turns AMP off everywhere.
+
 Not ported, and refused with ``NotImplementedError`` rather than
 ignored: a device mesh (``mesh``), tensor parallelism
-(``param_spec_fn``), ZeRO-1 (``zero``), policy AMP (``amp``) and the
-persistent executable cache (``cache``).
+(``param_spec_fn``), ZeRO-1 (``zero``) and the persistent executable
+cache (``cache``).
 """
 from __future__ import annotations
 
@@ -74,6 +93,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import amp as _amp
 from .. import autograd, knobs
 from ..base import MXNetError
 from ..context import resolve_device
@@ -120,8 +140,6 @@ class TrainStep:
             _refuse("param_spec_fn (tensor parallelism)")
         if zero:
             _refuse("ZeRO-1 (zero)")
-        if amp:
-            _refuse("policy-driven AMP (amp)")
         if cache is not None:
             _refuse("the persistent executable cache (cache)")
         self.device = resolve_device(device)
@@ -130,6 +148,16 @@ class TrainStep:
         self.optimizer = optimizer
         self.compute_dtype = _as_dtype(compute_dtype)
         self.cast_batch = cast_batch
+        self.amp = _amp.resolve(amp)
+        if self.amp and self.compute_dtype is not None:
+            raise MXNetError(
+                "amp and compute_dtype are two mixed-precision recipes — "
+                "pass one (amp supersedes compute_dtype)")
+        # the loss scaler: (enabled, initial scale, grow window); its
+        # state, 0-d tensors on the device, from the first step
+        self._amp_scaler, self._amp_init_scale, self._amp_window = \
+            _amp.scaler_config() if self.amp else (False, 0.0, 1)
+        self._amp_state = None
         self._t = 0
         self._opt_init, self._opt_update = opt_rule(optimizer)
         self._no_master = optimizer.multi_precision is False
@@ -172,6 +200,13 @@ class TrainStep:
         # compute-dtype substitution
         tnames = {id(t): n for n, t in self.net.named_parameters()}
         self._torch_names = [tnames[id(t)] for t in self._params]
+        if self.amp:
+            # stored bf16 from here on, over the f32 masters the
+            # multi-precision rule seeds; aux-named ones stay f32
+            from ..symbol import _is_aux_name
+            for n, p in zip(self.param_names, self._params):
+                if p.dtype == torch.float32 and not _is_aux_name(n):
+                    p.data = p.data.to(torch.bfloat16)
         # buckets: lists of indices into _params, by (shape, dtype) in
         # order of first appearance, or one a parameter
         by_sig: Dict[Tuple, List[int]] = {}
@@ -277,6 +312,8 @@ class TrainStep:
             if self._params is None:
                 self._setup(x)
             self.net.train()
+            if self.amp:
+                return self._amp_forward_backward(x, y)
             with autograd.train_mode():
                 if self.compute_dtype is None:
                     pred = self.net(x)
@@ -294,6 +331,28 @@ class TrainStep:
         # types) has a zero gradient, as under JAX's AD
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(self._params, grads)]
+
+    def _amp_forward_backward(self, x, y):
+        """The AMP half step: every float parameter upcast to f32 at the
+        entry, the forward and the loss inside ``amp.autocast()``, the
+        loss times the scale, the gradients unscaled in f32."""
+        if self._amp_scaler and self._amp_state is None:
+            self._amp_state = _amp.scaler_init(self._amp_init_scale,
+                                               device=self.device)
+        upcast = {n: p.float() for n, p in self.net.named_parameters()
+                  if p.is_floating_point() and p.dtype != torch.float32}
+        with autograd.train_mode(), _amp.autocast():
+            pred = torch.func.functional_call(self.net, upcast, (x,)) \
+                if upcast else self.net(x)
+            loss = self.loss_fn(pred, y).float().mean()
+        scaled = loss * self._amp_state[0] if self._amp_scaler else loss
+        grads = torch.autograd.grad(scaled, self._params, allow_unused=True)
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 if g is None else g.float()
+                 for p, g in zip(self._params, grads)]
+        if self._amp_scaler:
+            torch._foreach_div_(grads, self._amp_state[0])
+        return loss.detach(), grads
 
     def _lrs_wds(self) -> Tuple[List[float], List[float]]:
         """Per-parameter (lr, wd) for this step: the Adam bias
@@ -318,7 +377,21 @@ class TrainStep:
         trainable parameter, written in place."""
         with torch.profiler.record_function("update"):
             self._t += 1
-            self._apply(grads, *self._lrs_wds())
+            self._apply_checked(grads, *self._lrs_wds())
+
+    def _apply_checked(self, grads: List[torch.Tensor], lrs: List[float],
+                       wds: List[float]) -> None:
+        """:meth:`_apply`, and under the AMP loss scaler only for
+        finite gradients (the flag read back, once), then the scaler's
+        update."""
+        if not self._amp_scaler:
+            self._apply(grads, lrs, wds)
+            return
+        finite = _amp.all_finite(grads)
+        if bool(finite):
+            self._apply(grads, lrs, wds)
+        self._amp_state = _amp.scaler_update(self._amp_state, finite,
+                                             self._amp_window)
 
     def __call__(self, x, y) -> torch.Tensor:
         loss, grads = self.forward_backward(x, y)
@@ -336,8 +409,11 @@ class TrainStep:
         once for the call, so every step of it takes the last step's
         lr (Adam's bias correction and a scheduler's value included).
         Each step draws fresh dropout words and advances BatchNorm's
-        running statistics.  Returns the ``(steps,)`` f32 losses on the
-        device; nothing is read back to the host inside the loop."""
+        running statistics, and under AMP threads the loss scaler from
+        step to step.  Returns the ``(steps,)`` f32 losses on the
+        device; nothing is read back to the host inside the loop but,
+        under the AMP loss scaler, each step's finiteness flag, as the
+        eager step reads it."""
         if steps <= 0:
             raise MXNetError("run_steps needs steps >= 1")
         with torch.profiler.record_function("run_steps"):
@@ -362,7 +438,7 @@ class TrainStep:
                 loss, grads = self.forward_backward(xb, yb)
                 with torch.no_grad(), \
                         torch.profiler.record_function("update"):
-                    self._apply(grads, lrs, wds)
+                    self._apply_checked(grads, lrs, wds)
                 # free the gradients before the next forward, as a
                 # step's return does
                 del grads
@@ -396,6 +472,9 @@ class TrainStep:
         blob = {"t": self._t, "opt_state": tuple(
             tuple(host(leaf) for leaf in st)
             for st in self._canonical_state())}
+        if self._amp_scaler and self._amp_state is not None:
+            blob["amp"] = self.amp_stats()
+            blob["amp"]["scale"] = blob["amp"].pop("loss_scale")
         with open(fname, "wb") as f:
             pickle.dump(blob, f)
 
@@ -426,6 +505,30 @@ class TrainStep:
                     x = x.astype(np.float32)
                 y.copy_(torch.as_tensor(x))
         self._t = int(data["t"])
+        if self._amp_scaler and "amp" in data:
+            # the scale and its accounting resume (a file without them
+            # keeps the fresh scaler)
+            a = data["amp"]
+            self._amp_state = (
+                torch.tensor(a["scale"], dtype=torch.float32,
+                             device=self.device),
+                torch.tensor(a["good_steps"], dtype=torch.int32,
+                             device=self.device),
+                torch.tensor(a["skipped_steps"], dtype=torch.int32,
+                             device=self.device))
+
+    def amp_stats(self) -> Optional[Dict[str, Any]]:
+        """The loss scaler's state on the host: ``{'loss_scale',
+        'good_steps', 'skipped_steps'}`` (a read of three scalars).
+        None when AMP is off; 1.0/0/0 when scaling is disabled
+        (``MXTPU_AMP_LOSS_SCALE=0``) or before the first step."""
+        if not self.amp:
+            return None
+        if not self._amp_scaler or self._amp_state is None:
+            return {"loss_scale": 1.0, "good_steps": 0, "skipped_steps": 0}
+        scale, good, skipped = (t.item() for t in self._amp_state)
+        return {"loss_scale": float(scale), "good_steps": int(good),
+                "skipped_steps": int(skipped)}
 
     # -- introspection ----------------------------------------------------
     def memory_summary(self) -> Dict[str, Any]:

@@ -17,9 +17,11 @@ Three pieces, with mxtpu's names and signatures:
   (:mod:`.entry`), as each gets one executable in mxtpu: on the card a
   CUDA graph captured on the KV table it runs on (one ladder for each
   of the last :data:`MAX_TABLES` tables), on the CPU the graph plan run
-  eagerly.  mxtpu's persistent executable cache, AMP and int8
-  paths are not ported (those arguments raise ``TypeError``), nor is
-  its introspection of compiled programs.
+  eagerly.  AMP and int8 run as in :class:`.ModelRunner` (``amp=``,
+  ``quant=`` with the ``quant_scales`` a ``ModelRunner.calibrate``
+  gave).  mxtpu's persistent executable cache is not ported (``cache``
+  raises ``TypeError``), nor is its introspection of compiled
+  programs.
 
 - :class:`GenerateRequest` is the streaming future: tokens fire through
   ``on_token`` as they are sampled, ``result()`` returns the full
@@ -57,7 +59,8 @@ from ..context import resolve_device, strict_f32
 from .batcher import (InferenceRequest, RequestTimeout, ServerBusy,
                       WorkerLost, _lost_for)
 from .entry import Entry, GraphPool, tensor_key
-from .runner import _NOT_PORTED, as_numpy, batch_ladder
+from .runner import (_NOT_PORTED, batch_ladder, entry_values, scopes,
+                     stage_weights)
 
 __all__ = ["GenerateRequest", "GenerateRunner", "GenerateBatcher",
            "sample_token"]
@@ -179,6 +182,13 @@ class GenerateRunner:
         is refused on the card, where a captured step would copy the
         table out of its static output every step (ROADMAP queue 1
         item 3).
+    amp : policy AMP, as :class:`.ModelRunner` has it (bf16 weights,
+        upcast at the entry; the KV table stays f32).
+    quant, quant_scales : int8, as :class:`.ModelRunner` has it, with
+        the activation thresholds of a ``ModelRunner.calibrate`` over
+        the same architecture (the keys name the graph's contractions in
+        dispatch order); a quantized runner without them raises when it
+        builds an entry.
 
     On the card an entry runs only on the table it was captured on:
     each table gets its own ladder, built at its first call or by
@@ -193,7 +203,11 @@ class GenerateRunner:
                  input_names: Sequence[str] = ("data0", "data1",
                                                "data2"),
                  device=None, donate: Optional[bool] = None,
+                 amp=None, quant=None,
+                 quant_scales: Optional[Dict[str, float]] = None,
                  **kwargs):
+        from .. import amp as _amp
+        from .. import quant as _quant
         for name in kwargs:
             if name in _NOT_PORTED:
                 raise TypeError(
@@ -202,6 +216,9 @@ class GenerateRunner:
         if kwargs:
             raise TypeError(f"GenerateRunner: unexpected arguments "
                             f"{sorted(kwargs)}")
+        self._amp = _amp.resolve(amp)
+        self._quant = _quant.resolve(quant)
+        self._quant_scales = dict(quant_scales) if quant_scales else None
         self._symbol = symbol
         if len(input_names) != 3:
             raise MXNetError(
@@ -263,9 +280,8 @@ class GenerateRunner:
             raise MXNetError(
                 f"generate: graph inputs {sorted(missing)} have "
                 f"neither a param nor an input name")
-        self._param_vals = tuple(
-            torch.tensor(as_numpy(params[n]), device=self._device)
-            for n in self._param_names)
+        self._param_vals = stage_weights(self._param_names, params,
+                                         self._device, self._amp)
         from ..symbol import _GraphPlan
         self._plan = _GraphPlan(symbol)
         self._pool = GraphPool(self._device)
@@ -386,6 +402,11 @@ class GenerateRunner:
                 return entry
             if self._guards:
                 self._churn.note_compile(bucket)
+            if self._quant and self._quant_scales is None:
+                raise MXNetError(
+                    "generate: quantized runner has no calibrated scales — "
+                    "pass quant_scales (from a ModelRunner.calibrate over "
+                    "the same architecture)")
             example = self._entry_inputs(bucket)
             fn = self._prefill_fn if bucket[0] == "prefill" \
                 else self._decode_fn
@@ -435,15 +456,19 @@ class GenerateRunner:
     def _eval_incremental(self, tokens, step, kv_small):
         """The incremental graph once, through its plan: (tokens, step,
         small cache) -> (logits, new small cache), in inference mode
-        (autograd neither recording nor training)."""
+        (autograd neither recording nor training), inside the AMP and
+        int8 scopes the runner was built with."""
         from .. import autograd
         from ..ndarray.ndarray import NDArray
         bindings = {self._input_names[0]: NDArray(tokens),
                     self._input_names[1]: NDArray(step),
                     self._input_names[2]: NDArray(kv_small)}
-        for n, v in zip(self._param_names, self._param_vals):
+        for n, v in zip(self._param_names,
+                        entry_values(self._param_vals, self._amp)):
             bindings[n] = NDArray(v)
-        with autograd.pause(train_mode=False), torch.no_grad():
+        with autograd.pause(train_mode=False), torch.no_grad(), \
+                scopes(self._amp, self._quant, self._quant_scales,
+                       "generate"):
             outs = self._plan.run(bindings)
         if len(outs) != 2:
             raise MXNetError(

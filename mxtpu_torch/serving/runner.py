@@ -18,6 +18,7 @@ same padded batch.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -37,10 +38,7 @@ __all__ = ["ModelRunner", "batch_ladder"]
 # mxtpu's runner arguments this port refuses when set: the ROADMAP item
 # that brings each
 _NOT_PORTED = {"cache": "the persistent executable cache (ROADMAP "
-                        "queue 1 item 3)",
-               "amp": "AMP (ROADMAP queue 1 item 5)",
-               "quant": "int8 (ROADMAP queue 1 item 5)",
-               "quant_scales": "int8 (ROADMAP queue 1 item 5)"}
+                        "queue 1 item 3)"}
 
 
 def batch_ladder(max_batch_size: int) -> Tuple[int, ...]:
@@ -57,14 +55,58 @@ def batch_ladder(max_batch_size: int) -> Tuple[int, ...]:
     return tuple(rungs)
 
 
-def refuse_not_ported(who: str, cache: Any, amp: Any, quant: Any) -> None:
+def refuse_not_ported(who: str, cache: Any) -> None:
     """``TypeError`` for an mxtpu runner option the port has not got:
-    an explicit cache object, ``amp`` or ``quant`` on."""
-    for name, on in (("cache", cache not in (None, "auto")),
-                     ("amp", bool(amp)), ("quant", bool(quant))):
-        if on:
-            raise TypeError(f"{who}: {name}= is not ported yet: "
-                            f"{_NOT_PORTED[name]}")
+    an explicit cache object."""
+    if cache not in (None, "auto"):
+        raise TypeError(f"{who}: cache= is not ported yet: "
+                        f"{_NOT_PORTED['cache']}")
+
+
+def stage_weights(names, params, device, amp_on: bool
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The one weight upload of a runner: under AMP the f32 weights in
+    bf16 (half the device memory), aux-named ones (BatchNorm's running
+    statistics) kept f32, as mxtpu stages them."""
+    from ..symbol import _is_aux_name
+    out = []
+    for n in names:
+        v = torch.tensor(as_numpy(params[n]), device=device)
+        if amp_on and v.dtype == torch.float32 and not _is_aux_name(n):
+            v = v.to(torch.bfloat16)
+        out.append(v)
+    return tuple(out)
+
+
+def entry_values(vals: Sequence[torch.Tensor], amp_on: bool
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The weights as a graph reads them: under AMP every float one
+    narrower than f32 upcast at the entry, so only the policy's
+    contractions (cast back inside the autocast scope) see bf16."""
+    if not amp_on:
+        return tuple(vals)
+    return tuple(v.float() if v.is_floating_point() and
+                 v.dtype != torch.float32 else v for v in vals)
+
+
+def scopes(amp_on: bool, quant_on: bool, scales, who: str
+           ) -> contextlib.ExitStack:
+    """The scopes a runner's graph runs in: quantize outermost (a
+    contraction with a recorded scale becomes an int8 product; one it
+    leaves on the float path still gets AMP's cast when both are on),
+    then autocast."""
+    from .. import amp as _amp
+    from .. import quant as _quant
+    stack = contextlib.ExitStack()
+    if quant_on:
+        if scales is None:
+            raise MXNetError(
+                f"{who}: quantized runner has no calibrated scales — "
+                f"run calibrate(batches) (or pass quant_scales) first")
+        stack.enter_context(_quant.quantize(scales))
+    if amp_on:
+        stack.enter_context(_amp.autocast())
+    return stack
 
 
 def as_numpy(v) -> np.ndarray:
@@ -96,8 +138,15 @@ class ModelRunner:
     donate : accepted for mxtpu's signature; a bucket's entry always
         reuses its own input buffers.
     cache : "auto" or None (both inert until ``cache.py`` is ported);
-        an explicit cache object raises ``TypeError``, as do ``amp``
-        and ``quant`` set on.
+        an explicit cache object raises ``TypeError``.
+    amp : policy AMP (:mod:`mxtpu_torch.amp`): the weights are uploaded
+        in bf16 (aux-named ones f32), upcast to f32 at the graph's entry,
+        and the policy's contractions run on bf16 with f32 outputs.
+        ``MXTPU_AMP=0`` forces it off, ``=1`` on.
+    quant : int8 (:mod:`mxtpu_torch.quant`): after :meth:`calibrate`
+        records activation thresholds, every bucket runs the policy's
+        contractions as int8 products with int32 sums.
+        ``MXTPU_QUANT=0`` forces it off, ``=1`` on.
     """
 
     def __init__(self, symbol, params: Dict[str, Any],
@@ -108,13 +157,18 @@ class ModelRunner:
                  device=None, pad_value: float = 0,
                  donate: Optional[bool] = None, cache: Any = "auto",
                  amp=None, quant=None):
-        refuse_not_ported("ModelRunner", cache, amp, quant)
+        refuse_not_ported("ModelRunner", cache)
+        from .. import amp as _amp
+        from .. import quant as _quant
         from ..symbol import _GraphPlan
         if not input_specs:
             raise MXNetError("serving: input_specs is required")
         self._device = resolve_device(device)
         if self._device.type == "cuda":
             strict_f32()
+        self._amp = _amp.resolve(amp)
+        self._quant = _quant.resolve(quant)
+        self._quant_scales: Optional[Dict[str, float]] = None
         self._symbol = symbol
         self._input_names = list(input_specs)
         self._input_specs = {k: tuple(v) for k, v in input_specs.items()}
@@ -145,9 +199,8 @@ class ModelRunner:
             raise MXNetError(
                 f"serving: graph inputs {sorted(missing)} have neither "
                 f"a param nor an input_spec")
-        self._param_vals = tuple(
-            torch.tensor(as_numpy(params[n]), device=self._device)
-            for n in self._param_names)
+        self._param_vals = stage_weights(self._param_names, params,
+                                         self._device, self._amp)
         self._plan = _GraphPlan(symbol)
         self._pool = GraphPool(self._device)
 
@@ -232,19 +285,86 @@ class ModelRunner:
         ``cache.py`` is ported."""
         return {}
 
+    # -- int8 calibration -------------------------------------------------
+    def calibrate(self, batches: Sequence[Dict[str, Any]],
+                  mode: Optional[str] = None,
+                  num_batches: Optional[int] = None,
+                  collector=None) -> Dict[str, float]:
+        """Post-training calibration (``mxtpu/serving/runner.py:379-
+        452``): run representative ``batches`` (dicts of batched host
+        arrays, one per input) eagerly through the deployed graph, each
+        candidate contraction's activations observed by the collector
+        (``mode``: minmax | entropy; default the MXTPU_QUANT_CALIB knob),
+        at most ``num_batches`` of them (default the
+        MXTPU_QUANT_CALIB_BATCHES knob).  The thresholds arm the int8
+        path of every bucket built afterwards, so calibration must come
+        before any bucket is built (on the card, captured).
+        Deterministic given the batches."""
+        from .. import autograd
+        from .. import quant as _quant
+        from ..ndarray.ndarray import NDArray
+        if not self._quant:
+            raise MXNetError(
+                "serving: calibrate() on a non-quantized runner — pass "
+                "quant=True (or MXTPU_QUANT=1), and note MXTPU_QUANT=0 "
+                "overrides both")
+        with self._lock:
+            if self._entries:
+                raise MXNetError(
+                    "serving: calibrate() after buckets were built — "
+                    "calibration changes every bucket's graph; calibrate "
+                    "before warmup()")
+        if num_batches is None:
+            _, num_batches = _quant.calib_config()
+        if collector is None:
+            collector = _quant.make_collector(mode)
+        # the weights enter in f32 as _forward enters them, so what is
+        # observed is what the quantized graph quantizes
+        params = {n: NDArray(v) for n, v in zip(
+            self._param_names, entry_values(self._param_vals, self._amp))}
+        with autograd.pause(train_mode=False), torch.inference_mode():
+            for i, batch in enumerate(batches):
+                if i >= num_batches:
+                    break
+                bindings = dict(params)
+                for n in self._input_names:
+                    arr = np.asarray(batch[n], self._input_dtypes[n])
+                    bindings[n] = NDArray(torch.from_numpy(arr).to(
+                        self._device))
+                with _quant.calibrating(collector):
+                    self._plan.run(bindings)
+        scales = collector.thresholds()
+        if not scales:
+            raise MXNetError(
+                "serving: calibration observed no quantizable contraction "
+                "— the graph has no FullyConnected/Convolution on f32 "
+                "inputs")
+        self._quant_scales = scales
+        return dict(scales)
+
+    def quant_scales(self) -> Optional[Dict[str, float]]:
+        """The calibrated activation-threshold table (None before
+        :meth:`calibrate`)."""
+        return dict(self._quant_scales) \
+            if self._quant_scales is not None else None
+
     # -- the entries -------------------------------------------------------
     def _forward(self, *input_vals: torch.Tensor
                  ) -> Tuple[torch.Tensor, ...]:
         """The graph plan on one bucket's inputs and the shared weights,
         in inference mode (no recording, training off: dropout is the
-        identity)."""
+        identity), inside the AMP and int8 scopes the runner was built
+        with."""
         from .. import autograd
         from ..ndarray.ndarray import NDArray
         bindings = {n: NDArray(v)
                     for n, v in zip(self._input_names, input_vals)}
-        for n, v in zip(self._param_names, self._param_vals):
+        for n, v in zip(self._param_names,
+                        entry_values(self._param_vals, self._amp)):
             bindings[n] = NDArray(v)
-        with autograd.pause(train_mode=False), torch.inference_mode():
+        with autograd.pause(train_mode=False), torch.inference_mode(), \
+                scopes(self._amp, self._quant, self._quant_scales,
+                       "serving"):
             outs = self._plan.run(bindings)
         return tuple(o._data for o in outs)
 
@@ -267,6 +387,10 @@ class ModelRunner:
                 return entry
             if self._guards:
                 self._churn.note_compile(bucket)
+            if self._quant and self._quant_scales is None:
+                raise MXNetError(
+                    "serving: quantized runner has no calibrated scales — "
+                    "run calibrate(batches) before building buckets")
             t0 = time.perf_counter()
             entry = Entry(self._forward, self._example(bucket), self._pool,
                           label=f"ModelRunner bucket {bucket}",

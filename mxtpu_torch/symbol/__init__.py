@@ -731,7 +731,7 @@ class _GraphPlan:
                 step = (_KEY_DRAWN, getattr(nd_mod, op.name), attrs)
             else:
                 step = (_PLAIN, op, op.resolve_params(attrs))
-            self._steps.append(step + (ins, outs,
+            self._steps.append(step + (ins, outs, node.op,
                                        f"{node.name!r} ({node.op})"))
         self._heads = [base[id(n)] + i for n, i in sym._heads]
         self._n_slots = n_slots
@@ -768,10 +768,11 @@ class _GraphPlan:
         invoke = nd_mod._invoke_resolved
         where = None
         try:
-            for kind, fn, params, ins, outs, where, drops in self._steps:
+            for kind, fn, params, ins, outs, name, where, drops in \
+                    self._steps:
                 args = [vals[i] for i in ins]
                 if kind == _PLAIN:
-                    out = invoke(fn, params, args)
+                    out = invoke(fn, params, args, None, name)
                 elif kind == _KEY_DRAWN:
                     out = fn(*args, **params)
                 else:

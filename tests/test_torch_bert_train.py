@@ -173,11 +173,22 @@ def test_build_train_step_defaults_to_the_card():
 
 @pytest.mark.parametrize("option", [
     {"mesh": object()}, {"param_spec_fn": lambda p: None}, {"zero": 1},
-    {"amp": True}, {"cache": "auto"}])
+    {"cache": "auto"}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="not ported"):
         build_train_step(_torch_bert(), _tmlm, "adam", device="cpu",
                          **option)
+
+
+def test_amp_option_is_ported():
+    """amp=True (no longer refused): the trainable weights are stored in
+    bf16 over f32 masters, and a step returns an f32 loss."""
+    step = build_train_step(_torch_bert(), _tmlm, "adam", device="cpu",
+                            amp=True, cast_batch=False)
+    loss = step(_tokens(1), _tokens(1))
+    assert {p.dtype for p in step._params} == {torch.bfloat16}
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert step.amp_stats()["good_steps"] == 1
 
 
 @pytest.mark.parametrize("target,option", [

@@ -349,12 +349,47 @@ def test_runner_rejects_bad_kv_spec(export):
 
 
 @pytest.mark.parametrize("name, value", [("cache", None),
-                                         ("cache", "auto"),
-                                         ("amp", True), ("quant", True),
-                                         ("quant_scales", {"t": 1.0})])
+                                         ("cache", "auto")])
 def test_runner_refuses_options_not_ported(export, name, value):
-    with pytest.raises(TypeError, match="item [35]"):
+    with pytest.raises(TypeError, match="item 3"):
         _runner(export, **{name: value})
+
+
+def test_runner_takes_amp(export, runner):
+    """amp=True (no longer refused): bf16 weights, f32 logits near the
+    f32 runner's (mxtpu's AMP parity bar), the table f32."""
+    r = _runner(export, amp=True)
+    assert {w.dtype for w in r.weight_buffers()} == {torch.bfloat16}
+    toks = np.array([[3, 7, 1, 4]], np.float32)
+    args = (toks, np.zeros(1, np.float32), np.zeros(1, np.float32))
+    got, kv = r.prefill(*args, r.new_cache())
+    want, _ = runner.prefill(*args, runner.new_cache())
+    assert got.dtype == np.float32 and kv.dtype == torch.float32
+    np.testing.assert_allclose(got, want, rtol=3e-2, atol=1e-2)
+
+
+def test_runner_takes_quant_and_quant_scales(export, runner, monkeypatch):
+    """quant=True with no scales raises when it builds an entry, as
+    mxtpu's does; with quant_scales (no longer refused) each of the 9
+    dense products of a prefill runs in int8."""
+    with pytest.raises(MXNetError, match="no calibrated scales"):
+        _runner(export, quant=True).warmup()
+    scales = {f"FullyConnected_{i}": 1.5 for i in range(9)}
+    r = _runner(export, quant=True, quant_scales=scales)
+    from mxtpu_torch import quant
+    seen = []
+    real = quant.int_mm
+
+    def spy(a, w):
+        seen.append((a.dtype, w.dtype))
+        return real(a, w)
+    monkeypatch.setattr(quant, "int_mm", spy)
+    toks = np.array([[3, 7, 1, 4]], np.float32)
+    args = (toks, np.zeros(1, np.float32), np.zeros(1, np.float32))
+    got, _ = r.prefill(*args, r.new_cache())
+    assert seen == [(torch.int8, torch.int8)] * 9
+    want, _ = runner.prefill(*args, runner.new_cache())
+    assert got.shape == want.shape and np.isfinite(got).all()
 
 
 def test_runner_matches_mxtpus_runner(runner, jrunner):

@@ -7,9 +7,11 @@ x 224^2) in NCHW and NHWC, train examples/train_cifar10.py's resnet20
 through the symbolic API (sym → Module.fit), also with a CustomOp
 softmax head whose kernels are compiled at run time by rtc.CudaModule,
 serve BERT-Large from its export through InferenceServer →
-DynamicBatcher → ModelRunner (a captured CUDA graph a bucket), and run the chained-measurement tools (the conv strategy
-probe on the NHWC conv kernel, bench_flash, probe_bn_fusion,
-microbench).
+DynamicBatcher → ModelRunner (a captured CUDA graph a bucket), run the
+chained-measurement tools (the conv strategy probe on the NHWC conv
+kernel, bench_flash, probe_bn_fusion, microbench), and train, check,
+rematerialize and decode Transformer-big with the
+``bench_transformer`` recipe (adam, b16 x (64 + 64)).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -284,7 +286,35 @@ Phases, each fatal on failure:
      ``PASS_CPU_TOL``; the (32, 128) forward's device ms in the three
      types.  ResNet-50's AMP-vs-f32 gate runs at the CPU check's lr 1e-3
      (at the recipe's 0.1 three steps are chaotic: printed beside f32
-     against f32 with TF32 convolutions).
+     against f32 with TF32 convolutions);
+ 20. Transformer-big (``transformer_big(vocab_size=32768,
+     max_length=256, dropout=0.1)``: 6+6 layers, 1024 units, 16 heads,
+     FFN 4096) behind bench_transformer's wrapper (one (N, src + tgt)
+     batch split with ``slice_axis``; adam lr 1e-4, ``cast_batch=
+     False``): (a) the training row at b16 x (64 + 64), bf16 compute
+     over f32 masters and then ``amp=True``: 3 warm-up steps, 3 eager
+     windows of 10 steps, then 3 ``run_steps(x, y, 10,
+     reuse_batch=True)`` windows (ms/step the median of each), launches
+     exactly 18/18/18/2/2/30/30 of #1-#7 a step in both, tokens/s over
+     src+tgt, MFU against 989 TFLOP/s (``mt_flops``; bench.py's 0.727
+     GF/token beside it), one profiled step, peak memory, the losses
+     finite and falling and the first 5 repeating bit for bit from the
+     same seeds; (b) one f32 step (dropout 0) at b2, source 96,
+     target 64 (cross-attention at Tk = 96 != Tq = 64) on the card
+     against the CPU's plain path from the same weights, the loss 1e-5
+     and every gradient 1e-4 of its norm; (c) ``remat=True`` against
+     ``remat=False`` from the same weights and seed at b64 x (256 +
+     256), bf16, dropout 0.1: 3 steps, the losses and every weight bit
+     for bit, launches 36/18/18/2/2/60/30 a step under remat, both peak
+     memories (the remat peak lower) and ms/step, the cells' saved
+     bytes reckoned from the shapes (``mt_saved_bytes``) beside the
+     measured saving; (d) the incremental call ``net(src, tgt, step,
+     cache)`` in f32 (b4, source 64): a prefill of 8 target tokens and 8
+     one-token steps, each against the full call on the same prefix
+     within 1e-3 x max(1, |ref|), the greedy tokens equal but at a near
+     tie; (e) #1-#7 at the training row's shapes (bf16; flash
+     non-causal at 16 x 16 heads, T 64) against their plain versions,
+     timed.
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -326,12 +356,15 @@ training's launches, the f32 forward with serving's and the f32
 backward with BERT-Large f32 training's; an f32 row on the tensor cores
 takes the smaller of its FMA and split bounds; #4 and #6 again with
 ``"path": "generate"``, at the decode step's shape with the generation
-server's launches), and last the line
+server's launches; #1-#7 with ``"path": "transformer"``, bf16 at the
+Transformer-big step's shapes with its bf16 eager steps' launches),
+and last the line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without CUDA or outside a checkout.  A full report goes to
 ``mxtpu_torch/_build/chip_smoke_report.json``.
 """
 import contextlib
+import gc
 import json
 import os
 import re
@@ -520,7 +553,9 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
     :func:`time_ms` it leaves out the host's launch cost, which for a
     ~20 us kernel called from Python can exceed the kernel itself.
     With ``by_name`` (a list of kernel names) it returns the device ms
-    per call of each named kernel instead."""
+    per call of each named kernel instead.  Where the profiler records
+    no device time at all, the call's time (without ``by_name``) is
+    read with CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -550,17 +585,30 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
               f"calls (window {attempt + 1} of 3)", file=sys.stderr,
               flush=True)
     evts, total, n_dev = best
+    if not total and by_name is None:
+        # CUPTI now and then records nothing in three windows running:
+        # CUDA events over the same calls instead, the host's launch
+        # cost included
+        ms = time_ms(fn, iters, warmup)
+        print(f"torch.profiler recorded no device time in 3 windows: "
+              f"{ms:.4f} ms a call from CUDA events instead (host launch "
+              f"included)", file=sys.stderr, flush=True)
+        return ms
     if not total:
         fail("torch.profiler recorded no device time")
     per = min(n_dev, iters)
     if by_name is None:
         return total / per / 1e3
-    out = {n: sum(_device_us(e) for e in evts
-                  if re.search(rf"\b{n}\b", e.key)) / per / 1e3
-           for n in by_name}
-    for n, ms in out.items():
-        if not ms:
+    # a named kernel runs once a call: its time is its mean over the
+    # launches the profiler recorded, which a dropped event leaves true
+    out = {}
+    for n in by_name:
+        mine = [e for e in evts if re.search(rf"\b{n}\b", e.key)]
+        us, count = sum(_device_us(e) for e in mine), \
+            sum(e.count for e in mine)
+        if not us:
             fail(f"torch.profiler recorded no time for kernel {n}")
+        out[n] = us / count / 1e3
     return out
 
 
@@ -6180,6 +6228,553 @@ def gen_pass_gate(checks, files, kv_spec, scales):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 20: Transformer-big, mxtpu's seq2seq model (bench_transformer)
+# ----------------------------------------------------------------------
+
+MT_VOCAB, MT_MAXLEN, MT_LAYERS = 32768, 256, 6
+MT_B, MT_SRC, MT_TGT = 16, 64, 64         # bench_transformer's batch
+MT_WARMUP, MT_STEPS, MT_WINDOWS, MT_REPEAT = 3, 10, 3, 5
+MT_CHECK = (2, 96, 64)    # card vs CPU: cross-attention at Tk 96 != Tq 64
+MT_REMAT = (64, 256, 256)
+MT_REMAT_STEPS = 3
+MT_DEC_B, MT_DEC_SRC, MT_PREFILL, MT_DECODE = 4, 64, 8, 8
+# bench.py's FLOPs a (src + tgt) token for the transformer rows
+BENCH_MT_FLOPS = 0.727e9
+# a training step: #1 in 6 encoder, 6 causal decoder and 6 cross
+# attentions, their dq and dk/dv; #4/#5 on the source and on the target
+# (the shared embed_ln); #6/#7 three a decoder and two an encoder layer
+MT_LAUNCHES = {"flash_attention_fwd": 3 * MT_LAYERS,
+               "flash_attention_bwd_dq": 3 * MT_LAYERS,
+               "flash_attention_bwd_dkv": 3 * MT_LAYERS,
+               "layer_norm_fwd": 2, "layer_norm_bwd": 2,
+               "fused_residual_ln_fwd": 5 * MT_LAYERS,
+               "fused_residual_ln_bwd": 5 * MT_LAYERS}
+# every cell rematerialized: the cells' forward kernels run again in the
+# backward; the embedding is outside any cell
+MT_REMAT_LAUNCHES = {**MT_LAUNCHES,
+                     "flash_attention_fwd": 6 * MT_LAYERS,
+                     "fused_residual_ln_fwd": 10 * MT_LAYERS}
+
+
+def mt_wrap(split, **kw):
+    """bench_transformer's model: ``transformer_big(vocab_size=32768,
+    max_length=256, **kw)`` behind a block that takes one (N, src +
+    tgt) batch array and splits it with ``slice_axis``."""
+    from mxtpu_torch.gluon.block import HybridBlock
+    from mxtpu_torch.models import transformer_big
+
+    class MTWrap(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.model = transformer_big(vocab_size=MT_VOCAB,
+                                         max_length=MT_MAXLEN, **kw)
+
+        def hybrid_forward(self, F, x):
+            src = F.slice_axis(x, axis=1, begin=0, end=split)
+            tgt = F.slice_axis(x, axis=1, begin=split, end=None)
+            return self.model(src, tgt)
+    return MTWrap()
+
+
+def mt_loss(pred, y):
+    """bench_transformer's loss: softmax cross entropy over the
+    vocabulary at every target position."""
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return SoftmaxCrossEntropyLoss()(pred.reshape(-1, MT_VOCAB),
+                                     y.reshape(-1))
+
+
+def mt_batch(b, ts, tt, seed=SEED + 20, device=None):
+    """bench_transformer's batch: (b, ts + tt) source|target ids and (b,
+    tt) labels from a numpy seed, on ``device`` (default the card)."""
+    import torch
+    device = device or CARD
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, MT_VOCAB, (b, ts + tt)).astype(np.float32)
+    y = rng.randint(0, MT_VOCAB, (b, tt)).astype(np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def seeded_mt_step(ts, tt, compute_dtype="bfloat16", amp=None,
+                   dropout=0.1, remat=False):
+    """Transformer-big and bench_transformer's train step (adam lr 1e-4,
+    ``cast_batch=False``) from fixed seeds: xavier weights and the
+    dropout streams from ``mxtpu_torch.random``, the deferred shapes
+    settled before the step is built."""
+    import torch
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.parallel import build_train_step
+    trandom.seed(SEED)
+    net = mt_wrap(ts, dropout=dropout, remat=remat)
+    net.initialize(init="xavier", ctx=CARD)
+    settle(net, torch.zeros(1, ts + tt, device=CARD))
+    return build_train_step(net, mt_loss, "adam", {"learning_rate": 1e-4},
+                            compute_dtype=compute_dtype, cast_batch=False,
+                            amp=amp, device=CARD)
+
+
+def mt_flops(b, ts, tt):
+    """Training FLOPs of one step: 6 x the multiply-adds of the dense
+    products a token goes through (the encoder's on the source; the
+    decoder's self-attention, cross-attention queries and FFN and the
+    output projection on the target; the cross-attention's keys and
+    values on the source, through the full 3u-wide qkv GEMM as mxtpu
+    computes it), plus attention: 12 Tq Tk u a layer and sequence
+    (forward and backward), the causal self-attention's half."""
+    u, f, L = UNITS, FFN, MT_LAYERS
+    enc = (4 * u * u + 2 * u * f) * ts
+    dec = (4 * u * u + 4 * u * u + 2 * u * f) * tt + 3 * u * u * ts
+    dense = L * (enc + dec) + MT_VOCAB * u * tt
+    attn = 12 * L * u * (ts * ts + tt * tt / 2 + tt * ts)
+    return b * (6 * dense + attn)
+
+
+def mt_saved_bytes(b, ts, tt, el=2):
+    """The bytes the encoder and decoder cells save for their backward
+    and remat drops (each cell's input is kept either way), reckoned
+    from the shapes before the run: per token and layer, in elements of
+    the compute type, an encoder cell's q, k, v (3u), O (u), the output
+    projection's input (u), the two epilogues' h (2u), the first
+    epilogue's output (u) and the FFN's two hidden tensors (2F); a
+    decoder cell's self-attention (q, k, v, O, projection input, h,
+    output: 7u) and cross-attention (q, O, projection input, h, output:
+    5u on the target, k and v 2u on the source), the FFN's 2F and its
+    h; in f32, each attention's lse (one a head) and each epilogue's
+    mean and rstd."""
+    u, f, h = UNITS, FFN, HEADS
+    enc = ts * ((8 * u + 2 * f) * el + h * 4 + 2 * 2 * 4)
+    dec = tt * ((13 * u + 2 * f) * el + 2 * h * 4 + 3 * 2 * 4) + \
+        ts * 2 * u * el
+    return b * MT_LAYERS * (enc + dec)
+
+
+def mt_window(step, x, y, bulked):
+    """One timed window of MT_STEPS steps (eager) or one run_steps call,
+    ended by a host read of its last loss: (ms per step, the losses)."""
+    import torch
+    t0 = time.perf_counter()
+    if bulked:
+        losses = list(step.run_steps(x, y, MT_STEPS, reuse_batch=True))
+    else:
+        losses = [step(x, y) for _ in range(MT_STEPS)]
+    float(losses[-1])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / MT_STEPS * 1e3, losses
+
+
+def mt_train_cell(checks, tag, make):
+    """bench_transformer's row: warm-up, MT_WINDOWS eager windows, then
+    MT_WINDOWS run_steps(x, y, 10, reuse_batch=True) windows (ms/step
+    the median of each), exact launches in both, one profiled step,
+    peak memory, MFU; the losses finite and falling and the first
+    MT_REPEAT repeating bit for bit from the same seeds."""
+    import torch
+    from mxtpu_torch import kernels
+    gc.collect()    # a Block and its Parameters form reference cycles
+    reset_peak()
+    # what earlier phases still hold, left out of the row's peak
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step = make()
+    x, y = mt_batch(MT_B, MT_SRC, MT_TGT)
+    losses = [step(x, y) for _ in range(MT_WARMUP)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = MT_STEPS * MT_WINDOWS
+    ms = {}
+    for mode in ("eager", "run_steps"):
+        kernels.reset_launch_counts()
+        windows = []
+        for _ in range(MT_WINDOWS):
+            w, ls = mt_window(step, x, y, mode == "run_steps")
+            windows.append(w)
+            losses += ls
+        counts = kernels.launch_counts()
+        check_launches(checks, f"{tag} {mode}", counts, MT_LAUNCHES, n)
+        ms[mode] = (float(np.median(windows)), windows)
+        if mode == "eager":
+            eager_counts = counts
+    mem = {**step.memory_summary(), "held_before_bytes": held}
+    bd = profiled_step(checks, tag, step, x, y)
+    losses = [float(v) for v in losses]
+    del step
+    torch.cuda.empty_cache()
+    again = make()
+    rep = [float(again(x, y)) for _ in range(MT_REPEAT)]
+    del again
+    torch.cuda.empty_cache()
+    same = rep == losses[:MT_REPEAT]
+    print(f"check {tag} repeats bit for bit from the same seeds over "
+          f"{MT_REPEAT} steps: {'ok' if same else 'FAIL'} ({rep})",
+          flush=True)
+    if not same:
+        checks.failed.append(f"{tag} does not repeat from the same seeds")
+    if not all(np.isfinite(losses)):
+        checks.failed.append(f"{tag} losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        checks.failed.append(f"{tag} loss did not fall: {losses}")
+    tokens = MT_B * (MT_SRC + MT_TGT)
+    flops = mt_flops(MT_B, MT_SRC, MT_TGT)
+    rows = {}
+    for mode, (m, windows) in ms.items():
+        mfu = flops / (m / 1e3) / PEAK_OPS["bfloat16"]
+        bench_mfu = BENCH_MT_FLOPS * tokens / (m / 1e3) / \
+            PEAK_OPS["bfloat16"]
+        rows[mode] = {"ms_per_step": m, "window_ms_per_step": windows,
+                      "tokens_per_s": tokens / m * 1e3, "mfu": mfu,
+                      "mfu_bench_flops": bench_mfu}
+        print(f"{tag} {mode}: {m:.3f} ms/step (median of {MT_WINDOWS} "
+              f"windows of {MT_STEPS}: "
+              f"{', '.join(f'{w:.3f}' for w in windows)}), "
+              f"{tokens / m * 1e3:.1f} tokens/s over src+tgt, MFU "
+              f"{mfu:.4f} of 989 TFLOP/s ({flops / tokens / 1e9:.4f} "
+              f"GF/token counted; at bench.py's "
+              f"{BENCH_MT_FLOPS / 1e9:.3f} GF/token {bench_mfu:.4f})",
+              flush=True)
+    print(f"{tag}: device {bd['device_busy_ms']:.3f} ms a step, idle "
+          f"share {bd['device_idle_share'] or 0:.4f} (the profiled step); "
+          f"peak memory {((mem['peak_bytes'] or 0) - held) / 2**30:.3f} "
+          f"GiB over the {held / 2**30:.3f} GiB earlier phases held; set-up "
+          f"and {MT_WARMUP} warm-up steps {setup_s:.1f} s; losses "
+          f"{[round(v, 4) for v in losses[:6]]} ... {losses[-1]:.4f}",
+          flush=True)
+    print(f"{tag}: launches in {n} eager steps {json.dumps(eager_counts)}",
+          flush=True)
+    return eager_counts, {**rows, "flops_per_step": flops,
+                          "tokens_per_step": tokens, "memory": mem,
+                          "breakdown": bd, "losses": losses,
+                          "setup_s": setup_s, "repeats_bit_for_bit": same}
+
+
+def mt_cpu_check(checks):
+    """One f32 step of the full-width model (dropout 0) at source 96,
+    target 64, so that cross-attention runs at Tk = 96 != Tq = 64: the
+    loss and every parameter's gradient on the card against the CPU's
+    plain path from the same weights."""
+    import torch
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.convert import params_from_mxtpu, params_to_mxtpu
+    from mxtpu_torch.parallel import build_train_step
+    b, ts, tt = MT_CHECK
+    t0 = time.perf_counter()
+    trandom.seed(SEED + 7)
+    card = fresh_names(lambda: mt_wrap(ts, dropout=0.0))
+    card.initialize(init="xavier", ctx=CARD)
+    settle(card, torch.zeros(1, ts + tt, device=CARD))
+    cpu = params_from_mxtpu(params_to_mxtpu(card),
+                            fresh_names(lambda: mt_wrap(ts, dropout=0.0)))
+    steps = [build_train_step(net, mt_loss, "adam", {"learning_rate": 1e-4},
+                              cast_batch=False, device=dev)
+             for net, dev in ((card, CARD), (cpu, "cpu"))]
+    x, y = mt_batch(b, ts, tt, seed=SEED + 21, device="cpu")
+    (lc, gc), (lp, gp) = (s.forward_backward(x, y) for s in steps)
+    worst = 0.0
+    for n, a, p in zip(steps[0].param_names, gc, gp):
+        a, p = a.double().cpu(), p.double()
+        rel = float((a - p).norm() / max(float(p.norm()), 1e-12))
+        worst = max(worst, rel)
+        if rel > GRAD_TOL:
+            checks.failed.append(f"transformer check: grad of {n} off by "
+                                 f"{rel:.3e}")
+    lrel = abs(float(lc) - float(lp)) / abs(float(lp))
+    ok = worst <= GRAD_TOL and lrel <= LOSS_TOL
+    print(f"check transformer_big b{b} src{ts} tgt{tt} f32 card vs CPU: "
+          f"loss {float(lc):.6f} vs {float(lp):.6f} (rel {lrel:.3e}, tol "
+          f"{LOSS_TOL}); worst gradient rel L2 {worst:.3e} over {len(gc)} "
+          f"parameters (tol {GRAD_TOL}) {'ok' if ok else 'FAIL'}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if lrel > LOSS_TOL:
+        checks.failed.append(f"transformer check: loss off by {lrel:.3e}")
+    checks.rows.append({"check": "transformer_big Tq != Tk card vs CPU",
+                        "loss_rel": lrel, "worst_grad_rel": worst,
+                        "ok": ok})
+    del steps, card, cpu, gc, gp
+    torch.cuda.empty_cache()
+    return {"loss_rel": lrel, "worst_grad_rel": worst, "ok": ok}
+
+
+def mt_remat_cell(checks):
+    """remat=True against remat=False from the same weights and seed at
+    b64 x (256 + 256), bf16, dropout 0.1: 3 steps, the losses and every
+    weight bit for bit, exact launches of each, both peak memories and
+    ms/step; the remat peak must be lower."""
+    import torch
+    from mxtpu_torch import kernels
+    b, ts, tt = MT_REMAT
+    reckoned = mt_saved_bytes(b, ts, tt)
+    print(f"transformer remat b{b} src{ts} tgt{tt} bf16: the cells save "
+          f"{reckoned / 2**30:.3f} GiB for their backward (reckoned from "
+          f"the shapes)", flush=True)
+    x, y = mt_batch(b, ts, tt, seed=SEED + 22)
+    got = {}
+    for remat in (False, True):
+        gc.collect()    # the last step's Blocks, in reference cycles
+        reset_peak()
+        held = torch.cuda.memory_allocated()
+        step = seeded_mt_step(ts, tt, remat=remat)
+        kernels.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(MT_REMAT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        check_launches(checks, f"transformer remat={remat}", counts,
+                       MT_REMAT_LAUNCHES if remat else MT_LAUNCHES,
+                       MT_REMAT_STEPS)
+        got[remat] = {"losses": losses, "ms_per_step": times,
+                      "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                      "held_before_bytes": held,
+                      "weights": [p.detach().cpu()
+                                  for p in step.net.parameters()],
+                      "launches": counts}
+        del step
+        torch.cuda.empty_cache()
+    plain, rem = got[False], got[True]
+    same = plain["losses"] == rem["losses"] and all(
+        torch.equal(a, b_) for a, b_ in zip(plain["weights"],
+                                            rem["weights"]))
+    saved = plain["peak_bytes"] - rem["peak_bytes"]
+    print(f"check transformer remat vs plain, {MT_REMAT_STEPS} steps: "
+          f"losses {rem['losses']} vs {plain['losses']}, every weight "
+          f"{'bit for bit ok' if same else 'FAIL'}; peak "
+          f"{rem['peak_bytes'] / 2**30:.3f} vs "
+          f"{plain['peak_bytes'] / 2**30:.3f} GiB (remat saves "
+          f"{saved / 2**30:.3f} GiB; each over what was held before it, "
+          f"{rem['held_before_bytes'] / 2**30:.3f} and "
+          f"{plain['held_before_bytes'] / 2**30:.3f} GiB; reckoned "
+          f"{reckoned / 2**30:.3f}); ms/step "
+          f"{[round(t, 3) for t in rem['ms_per_step']]} vs "
+          f"{[round(t, 3) for t in plain['ms_per_step']]}", flush=True)
+    if not same:
+        checks.failed.append("transformer remat is not bit-equal to the "
+                             "plain step")
+    if saved <= 0:
+        checks.failed.append("transformer remat does not lower the peak "
+                             "memory")
+    for r in got.values():
+        del r["weights"]
+    return {"plain": plain, "remat": rem, "bit_equal": same,
+            "saved_bytes": saved, "reckoned_bytes": reckoned}
+
+
+def mt_decode_check(checks):
+    """The incremental call ``net(src, tgt, step, cache)`` in f32, not
+    training: a prefill of MT_PREFILL target tokens, then MT_DECODE
+    one-token steps, each against the full call ``net(src, tgt)`` on the
+    same prefix (within SERVE_TOL x max(1, |ref|)), the greedy tokens
+    equal but at a near tie; the decode continues from the full call's
+    tokens."""
+    import torch
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.models import transformer_big
+    trandom.seed(SEED + 9)
+    net = transformer_big(vocab_size=MT_VOCAB, max_length=MT_MAXLEN,
+                          dropout=0.1)
+    net.initialize(init="xavier", ctx=CARD)
+    rng = np.random.RandomState(SEED + 23)
+    src = torch.tensor(rng.randint(0, MT_VOCAB, (MT_DEC_B, MT_DEC_SRC)),
+                       dtype=torch.float32, device=CARD)
+    toks = torch.tensor(rng.randint(0, MT_VOCAB, (MT_DEC_B, MT_PREFILL)),
+                        dtype=torch.float32, device=CARD)
+    cache = torch.zeros(net.kv_cache_spec(MT_DEC_B), device=CARD)
+    worst, flips, ties = 0.0, 0, 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        inc, cache = net(src, toks, torch.zeros(MT_DEC_B, device=CARD),
+                         cache)
+        full = net(src, toks)
+        worst = float(((inc - full).abs() /
+                       full.abs().clamp_min(1.0)).max())
+        inc = inc[:, -1]
+        for i in range(MT_DECODE):
+            full = net(src, toks)[:, -1]
+            if i:
+                worst = max(worst, float(((inc - full).abs() /
+                                          full.abs().clamp_min(1.0)).max()))
+            got, want = inc.argmax(-1), full.argmax(-1)
+            for lane in torch.nonzero(got != want).flatten().tolist():
+                row = full[lane].cpu().numpy()
+                if near_tie(row, int(got[lane]), int(want[lane])):
+                    ties += 1
+                else:
+                    flips += 1
+            nxt = want.float()[:, None]
+            toks = torch.cat([toks, nxt], 1)
+            step = torch.full((MT_DEC_B,), float(toks.shape[1] - 1),
+                              device=CARD)
+            inc, cache = net(src, nxt, step, cache)
+            inc = inc[:, 0]
+    ok = worst <= SERVE_TOL and flips == 0
+    print(f"check transformer_big incremental decode f32 b{MT_DEC_B} "
+          f"src{MT_DEC_SRC}: prefill {MT_PREFILL} then {MT_DECODE} steps "
+          f"vs the full call, max err {worst:.3e} of max(1, |ref|) (tol "
+          f"{SERVE_TOL}), greedy flips {flips} (near ties {ties}) "
+          f"{'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not ok:
+        checks.failed.append("transformer incremental decode vs the full "
+                             "call")
+    checks.rows.append({"check": "transformer_big incremental decode",
+                        "max_err": worst, "flips": flips, "ties": ties,
+                        "ok": ok})
+    del net, cache
+    torch.cuda.empty_cache()
+    return {"max_err": worst, "flips": flips, "near_ties": ties}
+
+
+def mt_kernel_rows(checks, gen):
+    """#1-#7 at the training row's shapes in bf16 (16 heads x b16, T 64,
+    D 64, non-causal as the cross-attention runs it; R = b16 x 64 rows
+    of C = 1024; the fused epilogue at keep 0.9) against their plain
+    versions, timed beside the library call and the bound: the kernels
+    line's rows for the transformer path."""
+    import torch
+    import torch.nn.functional as F
+    import importlib
+    fa = importlib.import_module("mxtpu_torch.kernels.flash_attention")
+    ln = importlib.import_module("mxtpu_torch.kernels.layer_norm")
+    dev, bf = torch.device(CARD), torch.bfloat16
+    BH, Tm, R, C = MT_B * HEADS, MT_TGT, MT_B * MT_TGT, UNITS
+    scale = 1.0 / D ** 0.5
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    def grads_of(fn, xs, dy):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        y = fn(*xs)
+        return lambda: torch.autograd.grad(y, xs, dy, retain_graph=True)
+
+    q, k, v, do = (randn(BH, Tm, D) for _ in range(4))
+    q4, k4, v4, do4 = (t.reshape(MT_B, HEADS, Tm, D) for t in (q, k, v, do))
+    o, lse = fa.flash_forward(q, k, v, False, scale)
+    po, _ = fa.flash_forward_reference(q, k, v, False, scale)
+    got = fa.flash_backward(q, k, v, do, o, lse, False, scale)
+    want = fa.flash_backward_reference(q, k, v, do, o, lse, False, scale)
+    torch.cuda.synchronize()
+    tag = f"transformer flash BH{BH} T{Tm}"
+    err = checks.close(tag, o, po, "bfloat16")
+    errs = [checks.close(f"{tag} {g}", a, w, "bfloat16",
+                         scale_floor(w, "bfloat16"))
+            for g, a, w in zip(("dq", "dk", "dv"), got, want)]
+    per, rows = BH * Tm * D * 2, BH * Tm * 4
+    b_ms, b_by = bound(4 * per + rows, 4 * BH * Tm * Tm * D, "bfloat16")
+    out["flash_attention_fwd"] = {
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        **timed(lambda: fa.flash_forward(q, k, v, False, scale),
+                lambda: fa.flash_forward_reference(q, k, v, False, scale),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4))}
+    names = ["fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel"]
+    kern = device_ms(lambda: fa.flash_backward(q, k, v, do, o, lse, False,
+                                               scale), by_name=names)
+    plain = device_ms(lambda: fa.flash_backward_reference(
+        q, k, v, do, o, lse, False, scale))
+    sdpa = device_ms(grads_of(F.scaled_dot_product_attention,
+                              (q4, k4, v4), do4))
+    wall = time_ms(lambda: fa.flash_backward(q, k, v, do, o, lse, False,
+                                             scale))
+    for kname, pname, nt, ops, e in (
+            ("flash_attention_bwd_dq", names[0], 5, 6 * BH * Tm * Tm * D,
+             errs[0]),
+            ("flash_attention_bwd_dkv", names[1], 6, 8 * BH * Tm * Tm * D,
+             max(errs[1:]))):
+        b_ms, b_by = bound(nt * per + 2 * rows, ops, "bfloat16")
+        out[kname] = {"max_abs_err": e, "ms": kern[pname],
+                      "plain_ms": plain, "library_ms": sdpa,
+                      "wall_ms": wall, "bound_ms": b_ms, "bound_by": b_by}
+
+    x, dy = randn(R, C), randn(R, C)
+    g, b = (1.0 + 0.1 * randn(C)).to(bf), (0.1 * randn(C)).to(bf)
+    y_, mean, rstd = ln.layer_norm_fwd(x, g, b)
+    py, _, _ = ln.layer_norm_reference(x, g, b)
+    lgot = ln.layer_norm_bwd(x, g, mean, rstd, dy)
+    lwant = ln.layer_norm_bwd_reference(x, g, mean, rstd, dy)
+    torch.cuda.synchronize()
+    err = checks.close(f"transformer layer_norm R{R} C{C}", y_, py,
+                       "bfloat16")
+    berr = max(checks.close(f"transformer layer_norm_bwd R{R} {n}", a, w,
+                            "bfloat16")
+               for n, a, w in zip(("dx", "dgamma", "dbeta"), lgot, lwant))
+    b_ms, b_by = bound(2 * R * C * 2 + 2 * C * 2 + 2 * R * 4, 8 * R * C,
+                       "bfloat16")
+    out["layer_norm_fwd"] = {
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        **timed(lambda: ln.layer_norm_fwd(x, g, b),
+                lambda: ln.layer_norm_reference(x, g, b),
+                lambda: F.layer_norm(x, (C,), g, b))}
+    b_ms, b_by = bound(3 * R * C * 2 + 3 * C * 2 + 2 * R * 4, 12 * R * C,
+                       "bfloat16")
+    out["layer_norm_bwd"] = {
+        "max_abs_err": berr, "bound_ms": b_ms, "bound_by": b_by,
+        **timed(lambda: ln.layer_norm_bwd(x, g, mean, rstd, dy),
+                lambda: ln.layer_norm_bwd_reference(x, g, mean, rstd, dy),
+                grads_of(lambda a, c, d: F.layer_norm(a, (C,), c, d),
+                         (x, g, b), dy))}
+
+    h, res = randn(R, C), randn(R, C)
+    bias = (0.1 * randn(C)).to(bf)
+    key = (0x2545F491, 0x9E3779B9)
+    fargs = (h, bias, res, g, b, np.array(key, np.uint32), 0.1, 1e-5, True)
+    fy, fmean, frstd = ln.fused_residual_ln_fwd(*fargs)
+    fpy, _, _ = ln.fused_residual_ln_reference(*fargs)
+    bargs = (h, bias, res, g, key, fmean, frstd, dy, 0.9)
+    fgot = ln.fused_residual_ln_bwd(*bargs)
+    fwant = ln.fused_residual_ln_bwd_reference(*bargs)
+    torch.cuda.synchronize()
+    err = checks.close(f"transformer fused_residual_ln R{R} keep=0.9", fy,
+                       fpy, "bfloat16")
+    berr = max(checks.close(f"transformer fused_residual_ln_bwd R{R} "
+                            f"keep=0.9 {n}", a, w, "bfloat16")
+               for n, a, w in zip(("dh", "dbias", "dres", "dgamma",
+                                   "dbeta"), fgot, fwant))
+    b_ms, b_by = bound(3 * R * C * 2 + 3 * C * 2 + 2 * R * 4, 10 * R * C,
+                       "bfloat16", R * C)
+    out["fused_residual_ln_fwd"] = {
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        **timed(lambda: ln.fused_residual_ln_fwd(*fargs),
+                lambda: ln.fused_residual_ln_reference(*fargs))}
+    b_ms, b_by = bound(5 * R * C * 2 + 5 * C * 2 + 2 * R * 4, 20 * R * C,
+                       "bfloat16", R * C)
+    out["fused_residual_ln_bwd"] = {
+        "max_abs_err": berr, "bound_ms": b_ms, "bound_by": b_by,
+        **timed(lambda: ln.fused_residual_ln_bwd(*bargs),
+                lambda: ln.fused_residual_ln_bwd_reference(*bargs))}
+    for name, r in out.items():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f}"
+        print(f"time {name} [bfloat16, the transformer step's shape] "
+              f"(device ms per call): kernel_ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); kernel "
+              f"wall_ms={r['wall_ms']:.4f}", flush=True)
+    return out
+
+
+def transformer_phase(checks, gen):
+    """Phase 20 (see the module's docstring): returns the launches of the
+    bf16 row's eager steps, the kernel rows at its shapes and the
+    numbers."""
+    t0 = time.perf_counter()
+    counts, bf16 = mt_train_cell(checks, "transformer bf16",
+                                 lambda: seeded_mt_step(MT_SRC, MT_TGT))
+    _, amp = mt_train_cell(
+        checks, "transformer amp",
+        lambda: seeded_mt_step(MT_SRC, MT_TGT, compute_dtype=None,
+                               amp=True))
+    check = mt_cpu_check(checks)
+    remat = mt_remat_cell(checks)
+    decode = mt_decode_check(checks)
+    rows = mt_kernel_rows(checks, gen)
+    print(f"transformer phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return counts, rows, {"bf16": bf16, "amp": amp, "cpu_check": check,
+                          "remat": remat, "decode": decode}
+
+
 def main():
     try:
         import torch
@@ -6288,6 +6883,7 @@ def main():
                                                          gen)
     del params
     gen_counts, gen_rows, generation = generate_phase(checks, gen, scales)
+    mt_counts, mt_rows, transformer = transformer_phase(checks, gen)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values()) +
@@ -6411,6 +7007,36 @@ def main():
                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
 
+    # the transformer path's #1-#7 at its training shapes (bf16), with
+    # the launches of the bf16 row's eager steps
+    for name, src, rep in (
+            ("flash_attention_fwd", fa_src,
+             "mxtpu/kernels/flash_attention.py:192"),
+            ("flash_attention_bwd_dq", fab_src,
+             "mxtpu/kernels/flash_attention.py:347"),
+            ("flash_attention_bwd_dkv", fab_src,
+             "mxtpu/kernels/flash_attention.py:368"),
+            ("layer_norm_fwd", "mxtpu_torch/csrc/layer_norm.cu",
+             "mxtpu/kernels/layer_norm.py:104"),
+            ("layer_norm_bwd", "mxtpu_torch/csrc/layer_norm_bwd.cu",
+             "mxtpu/kernels/layer_norm.py:137"),
+            ("fused_residual_ln_fwd",
+             "mxtpu_torch/csrc/fused_residual_ln.cu",
+             "mxtpu/kernels/layer_norm.py:355"),
+            ("fused_residual_ln_bwd",
+             "mxtpu_torch/csrc/fused_residual_ln_bwd.cu",
+             "mxtpu/kernels/layer_norm.py:384")):
+        if mt_counts[name] == 0:
+            checks.failed.append(f"kernel {name} never launched on the "
+                                 f"transformer path")
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "dtype": "bfloat16", "path": "transformer",
+            "launches": mt_counts[name],
+            **{k: mt_rows[name][k]
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -6420,6 +7046,7 @@ def main():
                            "training f32 check": f32_train_counts,
                            "serving": serve_counts,
                            "generate serving": gen_counts,
+                           "transformer bf16": mt_counts,
                            **{f"resnet50 {k}": c
                               for k, c in rn_counts.items()},
                            "bulked BERT-Large bf16": bulk_counts["bert"],
@@ -6439,6 +7066,7 @@ def main():
               "quant_serving": quant_serving,
               "resnet50": resnet, "bulked": bulked, "gluon": gluon,
               "serving": serving, "generation": generation,
+              "transformer": transformer,
               "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

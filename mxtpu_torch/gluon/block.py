@@ -27,11 +27,27 @@ changes nothing.
 
 ``hybridize()`` keeps mxtpu's flags and runs eagerly: mxtpu's cached
 program computes what its eager call computes, so outputs and
-gradients are the same.  ``set_remat`` keeps its flag and runs eagerly
-too (no activation is rematerialized).
+gradients are the same.
+
+``set_remat(True)`` rematerializes the block's activations: while
+torch records a graph (``autograd.record()``, a ``TrainStep``'s
+forward) a call runs under ``torch.utils.checkpoint`` (non-reentrant),
+which keeps the call's inputs and drops what the block saved for its
+backward, and runs the block again in the backward to get it back.
+The replay sees what the first run saw: the parameter tensors it read
+(a caller may have substituted them, as ``TrainStep``'s casts do
+through ``functional_call``), the recording, training and AMP modes,
+and the state of the device's two :mod:`mxtpu_torch.random` streams,
+so Dropout draws the same mask and the fused epilogue the same key
+words; the streams are put back after the replay, where the first run
+left them.  A BatchNorm in training mode inside the region raises (its
+running statistics would move twice), as mxtpu's ``_forward_remat``
+does.  Off the recorded path (no grad, ``export``) the block runs as
+it is.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
 from typing import Any, Callable, Dict, Optional
@@ -55,6 +71,19 @@ __all__ = ["Block", "HybridBlock", "SymbolBlock", "F"]
 
 _NAME_COUNTERS: Dict[str, int] = {}
 _NAME_LOCK = threading.Lock()
+
+
+class _RematDepth(threading.local):
+    depth = 0   # > 0 while a rematerialized block's forward runs
+
+
+_REMAT = _RematDepth()
+
+
+def in_remat() -> bool:
+    """Whether this thread is inside a rematerialized block's forward
+    (its first run or its replay in the backward)."""
+    return _REMAT.depth > 0
 
 
 def _gen_prefix(hint: str) -> str:
@@ -170,6 +199,70 @@ def _wrap(x):
 def _has_nd(args) -> bool:
     return any(isinstance(a, NDArray) or
                (isinstance(a, (list, tuple)) and _has_nd(a)) for a in args)
+
+
+def _flatten(args):
+    """The leaves of ``args`` (lists and tuples opened) and the function
+    that puts a list of leaves back into its structure."""
+    leaves = []
+
+    def walk(a):
+        if isinstance(a, (list, tuple)):
+            return type(a), [walk(v) for v in a]
+        leaves.append(a)
+        return None
+
+    tree = [walk(a) for a in args]
+
+    def rebuild(vals):
+        it = iter(vals)
+
+        def build(node):
+            if node is None:
+                return next(it)
+            kind, kids = node
+            return kind(build(k) for k in kids)
+        return tuple(build(n) for n in tree)
+    return leaves, rebuild
+
+
+class _RunState:
+    """What a rematerialized block's first run saw: the tensor behind
+    each parameter of its subtree, the port's modes and the random
+    streams' state.  :meth:`replay` is the context the recompute runs
+    in: it puts all three back for the replay and restores the
+    caller's afterwards, the streams where the first run left them."""
+
+    def __init__(self, block, streams):
+        self.params = [(m, n, t) for m in block.modules()
+                       for n, t in m._parameters.items() if t is not None]
+        self.modes = (autograd.is_recording(), autograd.is_training(),
+                      _interpose.SCOPES.amp)
+        self.streams = streams
+
+    @contextlib.contextmanager
+    def replay(self, device):
+        from .. import random as _rnd
+        live = [(m, n, m._parameters[n]) for m, n, _ in self.params]
+        modes = (autograd.is_recording(), autograd.is_training(),
+                 _interpose.SCOPES.amp)
+        streams = _rnd.get_state(device)
+        self._set(self.params, self.modes)
+        _rnd.set_state(self.streams, device)
+        try:
+            yield
+        finally:
+            _rnd.set_state(streams, device)
+            self._set(live, modes)
+
+    @staticmethod
+    def _set(params, modes):
+        for m, n, t in params:
+            m._parameters[n] = t
+        autograd.set_recording(modes[0])
+        autograd.set_training(modes[1])
+        _interpose.SCOPES.amp = modes[2]
+        _interpose.SCOPES.refresh()
 
 
 class _NameScope:
@@ -347,8 +440,11 @@ class HybridBlock(Block):
                           static_shape=static_shape, **kwargs)
 
     def set_remat(self, active: bool = True):
-        """mxtpu's flag for rematerializing this block's activations in
-        the backward; recorded, and the block runs as before."""
+        """Rematerialize this block's activations in the backward (see
+        the module's docstring): recompute instead of keeping them,
+        trading FLOPs for device memory.  For repeated layers
+        (transformer cells), not for blocks holding a training-mode
+        BatchNorm."""
         self._remat = active
         return self
 
@@ -358,11 +454,49 @@ class HybridBlock(Block):
             self.__dict__["_num_inputs"] = len(args)
         if _has_nd(args) or (kwargs and _has_nd(kwargs.values())):
             with autograd._grad_mode():
-                out = super().__call__(*_unwrap(args),
-                                       **{k: _unwrap(v)
-                                          for k, v in kwargs.items()})
+                out = self._call(*_unwrap(args),
+                                 **{k: _unwrap(v)
+                                    for k, v in kwargs.items()})
             return _wrap(out)
+        return self._call(*args, **kwargs)
+
+    def _call(self, *args, **kwargs):
+        if self._remat and torch.is_grad_enabled() and \
+                not (args and _is_symbol(args[0])):
+            return self._forward_remat(args, kwargs)
         return super().__call__(*args, **kwargs)
+
+    def _forward_remat(self, args, kwargs):
+        """The call under ``torch.utils.checkpoint``, its replay given
+        the first run's parameters, modes and random streams."""
+        from torch.utils.checkpoint import checkpoint
+        from .. import random as _rnd
+        leaves, rebuild = _flatten(args)
+        at = [i for i, a in enumerate(leaves)
+              if isinstance(a, torch.Tensor)]
+        if not at:
+            raise MXNetError(
+                f"{type(self).__name__}.set_remat: no tensor inputs to "
+                f"checkpoint; remat cannot engage on this call (disable "
+                f"remat on this block or pass tensor inputs)")
+        device = leaves[at[0]].device
+        first = _RunState(self, _rnd.get_state(device))
+
+        def run(*tensors):
+            full = list(leaves)
+            for i, t in zip(at, tensors):
+                full[i] = t
+            _REMAT.depth += 1
+            try:
+                return nn.Module.__call__(self, *rebuild(full), **kwargs)
+            finally:
+                _REMAT.depth -= 1
+
+        def contexts():
+            return contextlib.nullcontext(), first.replay(device)
+
+        return checkpoint(run, *(leaves[i] for i in at),
+                          use_reentrant=False, context_fn=contexts)
 
     def forward(self, *args, **kwargs):
         if args and _is_symbol(args[0]):

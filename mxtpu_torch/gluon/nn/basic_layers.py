@@ -19,7 +19,7 @@ import torch
 
 from ...base import MXNetError
 from ... import autograd
-from ..block import Block, HybridBlock
+from ..block import Block, HybridBlock, in_remat
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
            "BatchNorm", "InstanceNorm", "LayerNorm",
@@ -201,6 +201,13 @@ class BatchNorm(HybridBlock):
     def hybrid_forward(self, F, x, residual=None, gamma=None, beta=None,
                        running_mean=None, running_var=None):
         training = autograd.is_training()
+        if training and not self._use_global_stats and in_remat():
+            # the replay would move the running statistics a second
+            # time; mxtpu refuses the update inside its checkpoint too
+            raise MXNetError(
+                f"{self.name}: a training-mode BatchNorm updates its "
+                f"running statistics inside a set_remat region; remat a "
+                f"smaller block or disable remat")
         kw = dict(eps=self._eps, momentum=self._momentum,
                   fix_gamma=not self._scale,
                   use_global_stats=self._use_global_stats or not training,

@@ -1,9 +1,13 @@
-"""Model builders (``mxtpu.models`` counterpart): the BERT family, and
+"""Model builders (``mxtpu.models`` counterpart): the Transformer and
+BERT families, and
 ``lenet``, ``mlp`` and ``resnet50`` as the JAX package builds them."""
 from ..gluon import nn
 from .transformer import (BERTModel, MultiHeadAttention,  # noqa: F401
-                          PositionwiseFFN, TransformerEncoder,
-                          TransformerEncoderCell, bert_base, bert_large)
+                          PositionwiseFFN, TransformerDecoder,
+                          TransformerDecoderCell, TransformerEncoder,
+                          TransformerEncoderCell, TransformerModel,
+                          bert_base, bert_large, transformer_base,
+                          transformer_big, transformer_encoder)
 
 
 def resnet50(classes: int = 1000, thumbnail: bool = False):

@@ -9,6 +9,9 @@ fused residual-LayerNorm epilogue takes per call.  Drawing the words on
 the host means launching the epilogue never waits for the card.  The
 JAX package's streams (``jax.random``) give other numbers from the same
 seed; what carries over is the rule: equal seeds, equal draws.
+:func:`get_state` and :func:`set_state` save and restore both of a
+device's streams (a rematerialized block's replay draws what its first
+run drew).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["seed", "generator", "key_words"]
+__all__ = ["seed", "generator", "key_words", "get_state", "set_state"]
 
 _LOCK = threading.Lock()
 _DEFAULT_SEED = 0
@@ -76,3 +79,19 @@ def key_words(device=None) -> Tuple[int, int]:
                           generator=host)
     k0, k1 = w.tolist()
     return int(k0), int(k1)
+
+
+def get_state(device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The state of ``device``'s two streams, for :func:`set_state`."""
+    dev, host = _pair(device)
+    with _LOCK:
+        return dev.get_state(), host.get_state()
+
+
+def set_state(state: Tuple[torch.Tensor, torch.Tensor],
+              device=None) -> None:
+    """Put ``device``'s two streams back to a :func:`get_state`."""
+    dev, host = _pair(device)
+    with _LOCK:
+        dev.set_state(state[0])
+        host.set_state(state[1])

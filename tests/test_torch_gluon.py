@@ -451,12 +451,14 @@ def test_a_parameter_attached_after_the_first_forward_is_initialized():
 
 
 def test_remat_argument_raises_and_set_remat_keeps_its_flag():
-    """remat=True would rematerialize nothing, so it raises;
-    ``set_remat`` records mxtpu's flag and the block runs as before."""
+    """remat=True builds and sets every encoder cell's flag (the
+    rematerialization itself is tests/test_torch_remat.py's);
+    ``set_remat`` keeps its flag and, without grad, the block runs as
+    before."""
     for make in (lambda: bert_large(remat=True),
                  lambda: BERTModel(64, 16, 32, 1, 2, remat=True)):
-        with pytest.raises(NotImplementedError, match="remat"):
-            make()
+        net = make()
+        assert all(cell._remat for cell in net.encoder.layers)
     _, net = _pair_bert()
     x = torch.from_numpy(_tokens(6))
     with torch.no_grad():

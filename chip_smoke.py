@@ -11,7 +11,9 @@ DynamicBatcher → ModelRunner (a captured CUDA graph a bucket), run the
 chained-measurement tools (the conv strategy probe on the NHWC conv
 kernel, bench_flash, probe_bn_fusion, microbench), and train, check,
 rematerialize and decode Transformer-big with the
-``bench_transformer`` recipe (adam, b16 x (64 + 64)).
+``bench_transformer`` recipe (adam, b16 x (64 + 64)), train ResNet-50
+fed from the input pipeline (``bench_resnet50_pipeline``'s recipe) and
+step every ResNet of the model zoo.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -314,7 +316,36 @@ Phases, each fatal on failure:
      within 1e-3 x max(1, |ref|), the greedy tokens equal but at a near
      tie; (e) #1-#7 at the training row's shapes (bf16; flash
      non-causal at 16 x 16 heads, T 64) against their plain versions,
-     timed.
+     timed;
+ 21. ResNet from the model zoo, fed from the input pipeline
+     (``pipeline_phase``): (a) bench_resnet50_pipeline's recipe: 4 x
+     256 raw records of 3 x 224^2 uint8 written with the port's
+     recordio, ``ImageRecordIter(raw_records=True, dtype="uint8",
+     shuffle=True, rand_mirror=True, preprocess_threads=2,
+     host_batches=True)`` -> ``PrefetchingIter`` -> ``DeviceFeedIter``
+     feeding a ``HybridSequential`` of a uint8 normalize (a frozen
+     ``inv_std`` in the compute type) and ``resnet50()`` (NCHW, bf16,
+     SGD momentum, ``cast_batch=False``), per-step batches: 8 fed
+     batches (two epochs) equal to a second reader's of the same seed
+     bit for bit, the first 5 fed losses equal to a twin fed by a
+     blocking copy (cuDNN deterministic), 53/53/0/0 BatchNorm launches
+     a fed step; the fed samples/s (median of 3 windows of 10) beside
+     the same step on one reused batch, the feed's ``next()`` on the
+     consumer thread, the pipeline alone (batches/s, no step), one
+     profiled fed step, the peak memory; (b) one bf16 step each of
+     resnet18/34/101/152_v1 and resnet18-152_v2 at b32 x 224^2 (the
+     batch cut from 256), resnet50_v2 also in NHWC: losses finite,
+     BatchNorm launches the model's count a step forward (counted from
+     the model and held to ``ZOO_BN``) and backward but V2's input
+     BatchNorm; resnet18_v2 in f32 at b2 x 64^2 on the card against the
+     CPU (logits 1e-4, each gradient's rms error 1e-4 of its rms); #8-
+     #11 at ``ZOO_ROWS`` against their plain versions, timed; (c)
+     Conv1D, Conv3D, Conv{1,2,3}DTranspose (stride 2, padding 1,
+     dilation 2), 1-D and 3-D pooling and ReflectionPad2D, f32, forward
+     and backward on the card against the CPU, each tensor within 1e-5
+     of max(1, its rms, |want|); Embedding's ids [0, 11, 12, 25, -1,
+     -13] on a CUDA tensor give NaN rows where mxtpu's do, and the CUDA
+     context works after.
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -357,7 +388,10 @@ backward with BERT-Large f32 training's; an f32 row on the tensor cores
 takes the smaller of its FMA and split bounds; #4 and #6 again with
 ``"path": "generate"``, at the decode step's shape with the generation
 server's launches; #1-#7 with ``"path": "transformer"``, bf16 at the
-Transformer-big step's shapes with its bf16 eager steps' launches),
+Transformer-big step's shapes with its bf16 eager steps' launches;
+#8/#9 with ``"path": "pipeline"`` at ResNet-50 NCHW's b256 shape with
+the fed windows' launches, and #8-#11 with ``"path": "zoo"`` at
+``ZOO_ROWS`` with the zoo steps' launches),
 and last the line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without CUDA or outside a checkout.  A full report goes to
@@ -1665,7 +1699,9 @@ def refusal_phase(checks):
 # (C, S, act, add) of ResNet-50's BatchNorms at N = 256: the stem, a
 # layer1 bn_out, a downsample and a layer4 bn_out (these four timed),
 # then the shapes that only probe_bn_fusion runs: its 14^2 x 1024
-# stage and the bottlenecks' inner widths of its conv+BN+ReLU chain
+# stage and the bottlenecks' inner widths of its conv+BN+ReLU chain,
+# and two of the zoo's: ResNet V2's input BatchNorm (C = 3 at 224^2)
+# and a basic block's closing one at stage 1 (the add and ReLU)
 BN_SHAPES = {"stem": (64, 12544, "relu", False),
              "layer1_out": (256, 3136, "relu", True),
              "downsample": (512, 784, "none", False),
@@ -1674,7 +1710,9 @@ BN_SHAPES = {"stem": (64, 12544, "relu", False),
              "s1_inner": (64, 3136, "relu", False),
              "s2_inner": (128, 784, "relu", False),
              "s3_inner": (256, 196, "relu", False),
-             "s4_inner": (512, 49, "relu", False)}
+             "s4_inner": (512, 49, "relu", False),
+             "v2_input": (3, 50176, "none", False),
+             "basic_s1_out": (64, 3136, "relu", True)}
 BN_TIMED = ("stem", "layer1_out", "downsample", "layer4_out")
 BN_N = 256
 # the shape whose times stand in the kernels line
@@ -1696,6 +1734,52 @@ CIFAR_BN_SHAPES = ((16, 1024, 2.0, 0.55), (32, 256, 0.5, 2.0),
 BN_OPS = {"fwd": 7, "bwd": 14}
 
 
+def bn_times(x, r, dy, g, b, act, cm, shape):
+    """#8/#9 (or #10/#11 with ``cm``) timed at one shape (N, C, S) on
+    the given view: the kernel, its plain version and cuDNN's BatchNorm
+    with the add and ReLU (4-D, in the view's memory layout), forward
+    and backward, beside the byte bound; keyed by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    import importlib
+    bn = importlib.import_module("mxtpu_torch.kernels.batch_norm")
+    n, C, S = shape
+    add = r is not None
+    fwd = bn.bn_fwd_cm if cm else bn.bn_fwd
+    bwd = bn.bn_bwd_cm if cm else bn.bn_bwd
+    _, mean, var = fwd(x, g, b, r, 1e-5, act)
+    rstd = torch.rsqrt(var + 1e-5)
+    x4, r4, dy4 = (None if t is None else
+                   (t.reshape(n, S, 1, C).permute(0, 3, 1, 2) if cm
+                    else t.reshape(n, C, S, 1)) for t in (x, r, dy))
+
+    def lib(x_, g_, b_, r_=None):
+        y_ = F.batch_norm(x_, None, None, g_, b_, True, 0.1, 1e-5)
+        if r_ is not None:
+            y_ = y_ + r_
+        return torch.relu(y_) if act == "relu" else y_
+    lib_in = [t.detach().requires_grad_(True)
+              for t in (x4, g, b) + ((r4,) if add else ())]
+    ly = lib(*lib_in)
+    numel, el = n * C * S, x.element_size()
+    out = {}
+    for d, kern, plain, library, nbig in (
+            ("fwd", lambda: fwd(x, g, b, r, 1e-5, act),
+             lambda: bn.bn_act_reference(x, g, b, 1e-5, act, r),
+             lambda: lib(*lib_in), 2 + int(add)),      # x (r) read, y
+            ("bwd", lambda: bwd(x, r, dy, g, b, mean, rstd, act),
+             lambda: bn.bn_bwd_reference(x, r, dy, g, b, mean, rstd, act),
+             lambda: torch.autograd.grad(ly, lib_in, dy4,
+                                         retain_graph=True),
+             3 + 2 * int(add))):                       # x dy (r), dx (dr)
+        t = timed(kern, plain, library)
+        b_ms, b_by = bound(nbig * numel * el + 4 * C * 4, BN_OPS[d] * numel,
+                           "float32")
+        out[f"batch_norm_{d}{'_cm' if cm else ''}"] = {
+            **t, "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
 def bn_phase(checks, gen):
     """The four BatchNorm kernels against their plain versions on the
     card, forward (y, mean, var) and backward (dx, dr, dgamma, dbeta),
@@ -1706,7 +1790,6 @@ def bn_phase(checks, gen):
     timings of ``BN_LINE_SHAPE`` keyed like the other kernels', and
     prints every timed shape's."""
     import torch
-    import torch.nn.functional as F
     import importlib
     bn = importlib.import_module("mxtpu_torch.kernels.batch_norm")
     dev = torch.device(CARD)
@@ -1715,11 +1798,6 @@ def bn_phase(checks, gen):
     def randn(*shape, dtype=torch.float32, mean=0.0, std=1.0):
         return (mean + std * torch.randn(*shape, generator=gen,
                                          device=dev)).to(dtype)
-
-    def grads_of(fn, xs, dy):
-        xs = [x.detach().requires_grad_(True) for x in xs]
-        y = fn(*xs)
-        return lambda: torch.autograd.grad(y, xs, dy, retain_graph=True)
 
     def run(x, r, dy, g, b, act, cm, tag, name):
         """Kernel and plain version, forward then backward from the
@@ -1751,7 +1829,6 @@ def bn_phase(checks, gen):
 
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
-        el = torch.tensor([], dtype=dt).element_size()
         for key, (C, S, act, add) in BN_SHAPES.items():
             x = randn(BN_N, C, S, dtype=dt, mean=0.5, std=2.0)
             r = randn(BN_N, C, S, dtype=dt) if add else None
@@ -1795,54 +1872,20 @@ def bn_phase(checks, gen):
                 if key not in BN_TIMED:
                     del outs
                     continue
-                # times: the kernel, its plain version, cuDNN's BN (4-D,
-                # in the view's memory layout) with the add and ReLU
-                fwd = bn.bn_fwd_cm if cm else bn.bn_fwd
-                bwd = bn.bn_bwd_cm if cm else bn.bn_bwd
-                mean, rstd = outs[1], torch.rsqrt(outs[2] + 1e-5)
-                x4 = (xv.reshape(BN_N, S, 1, C).permute(0, 3, 1, 2) if cm
-                      else xv.reshape(BN_N, C, S, 1))
-                r4 = None if rv is None else \
-                    (rv.reshape(BN_N, S, 1, C).permute(0, 3, 1, 2) if cm
-                     else rv.reshape(BN_N, C, S, 1))
-                dy4 = (dyv.reshape(BN_N, S, 1, C).permute(0, 3, 1, 2) if cm
-                       else dyv.reshape(BN_N, C, S, 1))
-
-                def lib(x_, g_, b_, r_=None):
-                    y_ = F.batch_norm(x_, None, None, g_, b_, True, 0.1,
-                                      1e-5)
-                    if r_ is not None:
-                        y_ = y_ + r_
-                    return torch.relu(y_) if act == "relu" else y_
-                lib_in = (x4, g, b) + ((r4,) if add else ())
-                n_big_f = 2 + int(add)             # x (r) read, y written
-                n_big_b = 3 + 2 * int(add)         # x dy (r) read, dx (dr)
-                numel = BN_N * C * S
-                for d, kern, plain, library, nbig in (
-                        ("fwd", lambda: fwd(xv, g, b, rv, 1e-5, act),
-                         lambda: bn.bn_act_reference(xv, g, b, 1e-5, act,
-                                                     rv),
-                         lambda: lib(*lib_in), n_big_f),
-                        ("bwd", lambda: bwd(xv, rv, dyv, g, b, mean, rstd,
-                                            act),
-                         lambda: bn.bn_bwd_reference(xv, rv, dyv, g, b,
-                                                     mean, rstd, act),
-                         grads_of(lib, lib_in, dy4), n_big_b)):
-                    kname = f"batch_norm_{d}{'_cm' if cm else ''}"
-                    t = timed(kern, plain, library)
-                    nbytes = nbig * numel * el + 4 * C * 4
-                    b_ms, b_by = bound(nbytes, BN_OPS[d] * numel, "float32")
+                for kname, t in bn_times(xv, rv, dyv, g, b, act, cm,
+                                         (BN_N, C, S)).items():
                     print(f"time {kname} [{name}] {key} C{C} S{S} "
                           f"(device ms per call): kernel_ms={t['ms']:.4f} "
                           f"plain_ms={t['plain_ms']:.4f} library_ms="
-                          f"{t['library_ms']:.4f} bound_ms={b_ms:.4f} "
-                          f"({b_by}); kernel wall_ms={t['wall_ms']:.4f}",
-                          flush=True)
+                          f"{t['library_ms']:.4f} bound_ms="
+                          f"{t['bound_ms']:.4f} ({t['bound_by']}); "
+                          f"kernel wall_ms={t['wall_ms']:.4f}", flush=True)
                     if key == BN_LINE_SHAPE:
                         out[(kname, name)] = {"max_abs_err": err, **t,
-                                              "bound_ms": b_ms,
-                                              "bound_by": b_by,
                                               "shape": [BN_N, C, S]}
+                fwd = bn.bn_fwd_cm if cm else bn.bn_fwd
+                bwd = bn.bn_bwd_cm if cm else bn.bn_bwd
+                mean, rstd = outs[1], torch.rsqrt(outs[2] + 1e-5)
                 for d, call in (
                         ("fwd", lambda: fwd(xv, g, b, rv, 1e-5, act)),
                         ("bwd", lambda: bwd(xv, rv, dyv, g, b, mean, rstd,
@@ -6775,6 +6818,510 @@ def transformer_phase(checks, gen):
                           "remat": remat, "decode": decode}
 
 
+# ----------------------------------------------------------------------
+# phase 21: ResNet fed from the input pipeline, the model zoo at full
+# width, the N-D and transposed convolution layers
+# ----------------------------------------------------------------------
+
+# bench_resnet50_pipeline's recipe (bench.py:262-394): 4 x 256 raw
+# records of 3 x 224^2 uint8, shuffled and mirrored, ResNet-50 NCHW
+PIPE_B, PIPE_HW, PIPE_EPOCH = 256, 224, 4
+PIPE_MEAN, PIPE_INV_STD = 114.8, 1.0 / 57.7
+PIPE_GATE_STEPS = 5          # fed losses against the blocking twin's
+PIPE_BATCH_GATE = 2 * PIPE_EPOCH   # fed batches against a second reader
+PIPE_ALONE = 12              # batches drawn with no step
+# the zoo: one bf16 step each at b32 x 224^2 (the batch cut from 256)
+ZOO_B = 32
+ZOO_MODELS = ("resnet18_v1", "resnet34_v1", "resnet101_v1",
+              "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
+              "resnet101_v2", "resnet152_v2")
+# BatchNorm layers a model holds (counted in the script from the model,
+# held to these): V1 one per convolution, V2 two or three a block plus
+# the input's, the stem's and the closing one
+ZOO_BN = {"resnet18_v1": 20, "resnet34_v1": 36, "resnet101_v1": 104,
+          "resnet152_v1": 155, "resnet18_v2": 19, "resnet34_v2": 35,
+          "resnet50_v2": 51, "resnet101_v2": 102, "resnet152_v2": 153}
+# resnet18_v2 f32 card vs CPU (resnet_check_phase's bar)
+ZOO_CHECK_B, ZOO_CHECK_HW = 2, 64
+# (N, C, S, act, add) of the zoo rows of the kernels line: a basic
+# block's closing BatchNorm at stage 1 (#8/#9, resnet18_v1) and a V2
+# bottleneck's first at stage 1 (#10/#11, resnet50_v2 NHWC), at b32
+ZOO_ROWS = {"major": (ZOO_B, 64, 3136, "relu", True),
+            "cm": (ZOO_B, 256, 3136, "relu", False)}
+LAYER_TOL = 1e-5
+# (class, kwargs, input shape) of the new layers held card vs CPU
+T2 = {"strides": 2, "padding": 1, "dilation": 2}
+NEW_LAYERS = (
+    ("Conv1D", dict(channels=16, kernel_size=3, **T2), (4, 8, 64)),
+    ("Conv3D", dict(channels=16, kernel_size=3, **T2), (2, 8, 12, 12, 12)),
+    ("Conv1DTranspose", dict(channels=16, kernel_size=3, **T2), (4, 8, 32)),
+    ("Conv2DTranspose", dict(channels=16, kernel_size=3, **T2),
+     (2, 8, 16, 16)),
+    ("Conv3DTranspose", dict(channels=8, kernel_size=3, **T2),
+     (2, 8, 6, 6, 6)),
+    ("MaxPool1D", dict(pool_size=3, strides=2, padding=1), (4, 8, 64)),
+    ("AvgPool1D", dict(pool_size=3, strides=2, padding=1,
+                       count_include_pad=False), (4, 8, 64)),
+    ("MaxPool3D", dict(pool_size=3, strides=2, padding=1),
+     (2, 8, 12, 12, 12)),
+    ("AvgPool3D", dict(pool_size=3, strides=2, padding=1),
+     (2, 8, 12, 12, 12)),
+    ("GlobalAvgPool3D", dict(), (2, 8, 12, 12, 12)),
+    ("ReflectionPad2D", dict(padding=(1, 2, 3, 0)), (2, 8, 16, 16)))
+
+
+def pipeline_records(prefix):
+    """bench.py:300-314's dataset, written with the port's recordio:
+    4 x 256 raw records, an image refreshed every 61 and rolled."""
+    from mxtpu_torch import recordio as rio
+    rng = np.random.RandomState(0)
+    rec = rio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    base = None
+    for i in range(PIPE_EPOCH * PIPE_B):
+        if i % 61 == 0:
+            base = (rng.rand(3, PIPE_HW, PIPE_HW) * 255).astype(np.uint8)
+        rec.write_idx(i, rio.pack(
+            rio.IRHeader(0, float(i % 1000), i, 0),
+            np.roll(base, i % PIPE_HW, axis=2).tobytes()))
+    rec.close()
+
+
+def pipeline_reader(prefix):
+    """bench_resnet50_pipeline's ImageRecordIter (seed 0): whole raw
+    batches, shuffled, mirrored, uint8, numpy out."""
+    from mxtpu_torch.io import ImageRecordIter
+    return ImageRecordIter(prefix + ".rec", (3, PIPE_HW, PIPE_HW), PIPE_B,
+                           path_imgidx=prefix + ".idx", shuffle=True,
+                           rand_mirror=True, raw_records=True,
+                           dtype="uint8", preprocess_threads=2,
+                           host_batches=True)
+
+
+def endless(it):
+    """Batches of ``it`` across epochs (reset at each end), as
+    bench.py's ``batches()``."""
+    while True:
+        try:
+            yield it.next()
+        except StopIteration:
+            it.reset()
+
+
+def pipeline_net():
+    """bench.py's ``_DeviceNormalize`` (uint8 to (x - 114.8) * inv_std,
+    inv_std a frozen parameter that takes the compute type) before
+    ``resnet50()`` (NCHW), Xavier weights from ``mxtpu_torch.random``
+    seed ``SEED`` on the card, the shapes settled."""
+    import torch
+    from mxtpu_torch import initializer, random as trandom
+    from mxtpu_torch.gluon import HybridBlock, nn
+    from mxtpu_torch.models import resnet50
+
+    class DeviceNormalize(HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.inv_std = self.params.get(
+                "inv_std", shape=(1,),
+                init=initializer.Constant(PIPE_INV_STD), grad_req="null")
+
+        def hybrid_forward(self, F, x, inv_std):
+            dt = str(inv_std.dtype).replace("torch.", "")
+            return (F.cast(x, dtype=dt) - PIPE_MEAN) * inv_std
+
+    trandom.seed(SEED)
+    net = nn.HybridSequential(prefix="pipe_")
+    net.add(DeviceNormalize(), resnet50(classes=RN_CLASSES))
+    net.initialize(initializer.Xavier(), ctx=CARD)
+    return settle(net, torch.zeros((1, 3, PIPE_HW, PIPE_HW),
+                                   dtype=torch.uint8, device=CARD))
+
+
+def pipeline_step():
+    from mxtpu_torch.parallel import build_train_step
+    return build_train_step(pipeline_net(), rn_loss(), "sgd", RN_SGD,
+                            compute_dtype="bfloat16", cast_batch=False,
+                            device=CARD)
+
+
+def fed_windows(step, next_batch, n_windows, n_steps):
+    """``n_windows`` windows of ``n_steps`` steps on the batches
+    ``next_batch()`` hands over, each ended by a host read of its last
+    loss: ms per step of each window and the host ms spent in
+    ``next_batch`` a step."""
+    ms, feed_ms = [], 0.0
+    for _ in range(n_windows):
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            x, y = next_batch()
+            feed_ms += (time.perf_counter() - t1) * 1e3
+            loss = step(x, y)
+        float(loss)
+        ms.append((time.perf_counter() - t0) / n_steps * 1e3)
+    return ms, feed_ms / (n_windows * n_steps)
+
+
+def pipeline_cell(checks, prefix):
+    """(a): the pipeline's gates and numbers; returns the BatchNorm
+    launches of the fed windows and the numbers."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.io import DeviceFeedIter, PrefetchingIter
+    tag = "pipeline resnet50 NCHW"
+
+    # the fed batches against a second reader of the same seed, read
+    # synchronously; the first PIPE_GATE_STEPS of them also train a
+    # step each, against a twin fed by a blocking copy
+    with deterministic_cudnn():
+        fed_step, twin = pipeline_step(), pipeline_step()
+        feed = DeviceFeedIter(PrefetchingIter(pipeline_reader(prefix)),
+                              ctx=CARD)
+        fed, sync = endless(feed), endless(pipeline_reader(prefix))
+        same_batches, fed_losses, twin_losses = 0, [], []
+        for i in range(PIPE_BATCH_GATE):
+            b, s = next(fed), next(sync)
+            xs = torch.from_numpy(s.data[0]).to(CARD)
+            ys = torch.from_numpy(s.label[0]).to(CARD)
+            same = torch.equal(b.data[0].data, xs) and \
+                torch.equal(b.label[0].data, ys) and b.pad == s.pad
+            same_batches += int(same)
+            if i < PIPE_GATE_STEPS:
+                fed_losses.append(fed_step(b.data[0], b.label[0]))
+                twin_losses.append(twin(xs, ys))
+        fed_losses = [float(v) for v in fed_losses]
+        twin_losses = [float(v) for v in twin_losses]
+        feed.close()
+        feed.data_iter.close()
+    loss_gate = fed_losses == twin_losses and all(np.isfinite(fed_losses))
+    print(f"check {tag}: {same_batches} of {PIPE_BATCH_GATE} fed batches "
+          f"equal a synchronous reader's bit for bit (pixels after the "
+          f"mirror, labels, pads): "
+          f"{'ok' if same_batches == PIPE_BATCH_GATE else 'FAIL'}; the "
+          f"first {PIPE_GATE_STEPS} fed losses {fed_losses} vs the "
+          f"blocking twin's {twin_losses} (cuDNN deterministic) bit for "
+          f"bit: {'ok' if loss_gate else 'FAIL'}", flush=True)
+    checks.rows.append({"check": f"{tag} fed batches and losses",
+                        "same_batches": same_batches,
+                        "fed_losses": fed_losses,
+                        "twin_losses": twin_losses,
+                        "ok": same_batches == PIPE_BATCH_GATE and loss_gate})
+    if same_batches != PIPE_BATCH_GATE:
+        checks.failed.append(f"{tag}: {PIPE_BATCH_GATE - same_batches} fed "
+                             f"batches differ from the synchronous reader's")
+    if not loss_gate:
+        checks.failed.append(f"{tag}: fed losses {fed_losses} != the "
+                             f"blocking twin's {twin_losses}")
+    del twin
+    torch.cuda.empty_cache()
+
+    # the timed windows: fed (a fresh feed from the same seed), then the
+    # same step on one reused batch
+    step = fed_step
+    per_sample = model_counts(step.net, torch.zeros(
+        (1, 3, PIPE_HW, PIPE_HW), dtype=torch.uint8, device=CARD))
+    flops = 3 * per_sample["flops"] * PIPE_B
+    feed = DeviceFeedIter(PrefetchingIter(pipeline_reader(prefix)), ctx=CARD)
+    fed = endless(feed)
+
+    def next_fed():
+        b = next(fed)
+        return b.data[0], b.label[0]
+    for _ in range(TRAIN_WARMUP):
+        step(*next_fed())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    fed_ms, feed_ms = fed_windows(step, next_fed, TRAIN_WINDOWS,
+                                  TRAIN_STEPS)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(checks, tag, counts, RN_LAUNCHES["NCHW"],
+                   TRAIN_WINDOWS * TRAIN_STEPS)
+    xr, yr = next_fed()
+    reused_ms, _ = fed_windows(step, lambda: (xr, yr), TRAIN_WINDOWS,
+                               TRAIN_STEPS)
+    breakdown = profiled_step(checks, f"{tag} fed",
+                              lambda _x, _y: step(*next_fed()), None, None)
+    # the pipeline alone: batches handed over with no step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PIPE_ALONE):
+        b = next(fed)
+    torch.cuda.synchronize()
+    alone = PIPE_ALONE / (time.perf_counter() - t0)
+    feed.close()
+    feed.data_iter.close()
+    fed_rate = PIPE_B / float(np.median(fed_ms)) * 1e3
+    reused_rate = PIPE_B / float(np.median(reused_ms)) * 1e3
+    mfu = flops / (float(np.median(fed_ms)) / 1e3) / PEAK_OPS["bfloat16"]
+    print(f"{tag} b{PIPE_B} {PIPE_HW}x{PIPE_HW} bf16 sgd momentum, "
+          f"ImageRecordIter(raw, uint8, shuffle, mirror, 2 threads) -> "
+          f"PrefetchingIter -> DeviceFeedIter: fed {fed_rate:.1f} "
+          f"samples/s ({np.median(fed_ms):.3f} ms/step, median of "
+          f"{TRAIN_WINDOWS} windows of {TRAIN_STEPS}: "
+          f"{', '.join(f'{w:.3f}' for w in fed_ms)}; MFU {mfu:.4f}), "
+          f"the same step on one reused batch {reused_rate:.1f} samples/s "
+          f"({np.median(reused_ms):.3f} ms/step: "
+          f"{', '.join(f'{w:.3f}' for w in reused_ms)}), fed/reused "
+          f"{fed_rate / reused_rate:.4f}; the feed's next() "
+          f"{feed_ms:.3f} ms a step on the consumer thread; the pipeline "
+          f"alone {alone:.2f} batches/s ({alone * PIPE_B:.1f} samples/s); "
+          f"peak memory {peak / 2**30:.3f} GiB", flush=True)
+    print(f"{tag}: launches in {TRAIN_WINDOWS * TRAIN_STEPS} fed steps "
+          f"{json.dumps(counts)}", flush=True)
+    del step, feed, fed
+    torch.cuda.empty_cache()
+    return counts, {"fed_samples_per_s": fed_rate,
+                    "reused_samples_per_s": reused_rate,
+                    "fed_over_reused": fed_rate / reused_rate,
+                    "fed_window_ms": fed_ms, "reused_window_ms": reused_ms,
+                    "feed_next_ms_per_step": feed_ms,
+                    "pipeline_alone_batches_per_s": alone,
+                    "peak_bytes": peak, "mfu": mfu,
+                    "gate_losses": fed_losses, "breakdown": breakdown}
+
+
+def zoo_net(name, layout, b1_shape):
+    """A zoo model on the card, Xavier weights from
+    ``mxtpu_torch.random`` seed ``SEED``, the shapes settled."""
+    import torch
+    from mxtpu_torch import initializer, random as trandom
+    from mxtpu_torch.gluon.model_zoo import vision
+    trandom.seed(SEED)
+    net = fresh_names(lambda: getattr(vision, name)(classes=RN_CLASSES,
+                                                    layout=layout))
+    net.initialize(initializer.Xavier(), ctx=CARD)
+    return settle(net, torch.zeros(b1_shape, device=CARD))
+
+
+def zoo_cell(checks):
+    """(b): one bf16 step (after one warm-up) of each zoo model at
+    b32 x 224^2, resnet50_v2 also in NHWC; BatchNorm launches exactly
+    the model's count a step forward, and backward but for V2's input
+    BatchNorm; then resnet18_v2 in f32 on the card against the CPU."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.gluon import nn as gnn
+    from mxtpu_torch.parallel import build_train_step
+    totals = {}
+    rows = {}
+    for name, layout in [(m, "NCHW") for m in ZOO_MODELS] + \
+            [("resnet50_v2", "NHWC")]:
+        t0 = time.perf_counter()
+        tag = f"zoo {name} {layout}"
+        x, y = rn_batch(layout, ZOO_B, RN_HW, SEED + 21)
+        x, y = torch.from_numpy(x).to(CARD), torch.from_numpy(y).to(CARD)
+        net = zoo_net(name, layout, (1,) + tuple(x.shape[1:]))
+        n_bn = sum(isinstance(m, gnn.BatchNorm) for m in net.modules())
+        if n_bn != ZOO_BN[name]:
+            checks.failed.append(f"{tag}: {n_bn} BatchNorms, want "
+                                 f"{ZOO_BN[name]}")
+        step = build_train_step(net, rn_loss(), "sgd", RN_SGD,
+                                compute_dtype="bfloat16", device=CARD)
+        first = float(step(x, y))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        loss = float(step(x, y))
+        ms = (time.perf_counter() - t1) * 1e3
+        counts = kernels.launch_counts()
+        sfx = "_cm" if layout == "NHWC" else ""
+        # V2's input BatchNorm (no scale, no shift, on the batch) has
+        # nothing to differentiate: it runs no backward
+        n_bwd = n_bn - int(name.endswith("_v2"))
+        check_launches(checks, tag, counts,
+                       {f"batch_norm_fwd{sfx}": n_bn,
+                        f"batch_norm_bwd{sfx}": n_bwd}, 1)
+        if not (np.isfinite(first) and np.isfinite(loss)):
+            checks.failed.append(f"{tag}: losses {first}, {loss}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"{tag} b{ZOO_B} {RN_HW}x{RN_HW} bf16: {n_bn} BatchNorms, "
+              f"losses {first:.4f} {loss:.4f}, one step {ms:.3f} ms "
+              f"(wall, host read of the loss), launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rows[f"{name} {layout}"] = {"bn": n_bn, "losses": [first, loss],
+                                    "step_ms": ms, "launches": counts}
+        del step, net
+        torch.cuda.empty_cache()
+    rows["resnet18_v2 f32 card vs CPU"] = zoo_cpu_check(checks)
+    return totals, rows
+
+
+def zoo_cpu_check(checks):
+    """resnet18_v2, f32, b2 x 64^2, the same weights on the card and on
+    the CPU: the logits 1e-4 and every gradient's rms error 1e-4 of its
+    rms."""
+    import torch
+    from mxtpu_torch import autograd, initializer
+    from mxtpu_torch.gluon.model_zoo import vision
+    from mxtpu_torch.parallel import build_train_step
+    x, y = rn_batch("NCHW", ZOO_CHECK_B, ZOO_CHECK_HW, SEED + 22)
+
+    def net_on(device):
+        net = fresh_names(lambda: vision.resnet18_v2(classes=RN_CLASSES))
+        net.initialize(ctx="cpu")
+        settle(net, torch.from_numpy(x[:1]))
+        gen = torch.Generator().manual_seed(SEED + 23)
+        xavier = initializer.Xavier()
+        with torch.no_grad():
+            for n, t in net.named_parameters():
+                if t.requires_grad:
+                    xavier.init_weight(n.rsplit(".", 1)[-1], t, gen)
+        return net.to(device)
+    card, cpu = (build_train_step(net_on(d), rn_loss(), "sgd", RN_SGD,
+                                  device=d) for d in (CARD, "cpu"))
+    with autograd.train_mode(), torch.no_grad():
+        lc = card.net(torch.from_numpy(x).to(CARD))
+        lp = cpu.net(torch.from_numpy(x))
+    l_err, _ = rel_err(lc.cpu(), lp)
+    _, gc = card.forward_backward(x, y)
+    _, gp = cpu.forward_backward(x, y)
+    worst = 0.0
+    for n, a, b in zip(card.param_names, gc, gp):
+        r = float(b.double().pow(2).mean().sqrt())
+        d = float((a.double().cpu() - b.double()).pow(2).mean().sqrt())
+        worst = max(worst, d / max(r, 1e-30))
+    ok = l_err <= GRAD_TOL and worst <= GRAD_TOL
+    print(f"check zoo resnet18_v2 f32 b{ZOO_CHECK_B} {ZOO_CHECK_HW}x"
+          f"{ZOO_CHECK_HW} card vs CPU: logits max rel err {l_err:.3e} "
+          f"(tol {GRAD_TOL}), gradients over {len(gc)} tensors worst rms "
+          f"error {worst:.3e} of the tensor's rms (tol {GRAD_TOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        checks.failed.append(f"zoo resnet18_v2 card vs CPU: logits "
+                             f"{l_err:.3e}, gradients {worst:.3e}")
+    return {"logits_rel": l_err, "worst_grad_rel": worst, "ok": ok}
+
+
+def zoo_kernel_rows(checks, gen):
+    """#8-#11 at the zoo rows' shapes (``ZOO_ROWS``, bf16) against their
+    plain versions, timed (:func:`bn_times`): the kernels line's
+    ``"path": "zoo"`` rows."""
+    import torch
+    import importlib
+    bn = importlib.import_module("mxtpu_torch.kernels.batch_norm")
+    dev, bf = torch.device(CARD), torch.bfloat16
+    out = {}
+    for view, (n, C, S, act, add) in ZOO_ROWS.items():
+        cm = view == "cm"
+
+        def randn(*shape, mean=0.0, std=1.0):
+            return (mean + std * torch.randn(*shape, generator=gen,
+                                             device=dev)).to(bf)
+        x = randn(n, C, S, mean=0.5, std=2.0)
+        r = randn(n, C, S) if add else None
+        dy = randn(n, C, S)
+        g, b = randn(C, mean=1.0, std=0.2), randn(C, std=0.1)
+        if cm:
+            x, r, dy = (None if t is None else
+                        t.transpose(1, 2).contiguous().reshape(n * S, C)
+                        for t in (x, r, dy))
+        fwd = bn.bn_fwd_cm if cm else bn.bn_fwd
+        bwd = bn.bn_bwd_cm if cm else bn.bn_bwd
+        y, mean, var = fwd(x, g, b, r, 1e-5, act)
+        py, _, _ = bn.bn_act_reference(x, g, b, 1e-5, act, r)
+        rstd = torch.rsqrt(var + 1e-5)
+        got = bwd(x, r, dy, g, b, mean, rstd, act)
+        want = bn.bn_bwd_reference(x, r, dy, g, b, mean, rstd, act)
+        tag = f"zoo bn {view} N{n} C{C} S{S} {act}{' add' if add else ''}"
+        errs = {"fwd": checks.close(f"{tag} y", y, py, "bfloat16"),
+                "bwd": checks.close(f"{tag} dx", got[0], want[0],
+                                    "bfloat16")}
+        for kname, t in bn_times(x, r, dy, g, b, act, cm,
+                                 (n, C, S)).items():
+            print(f"time {kname} [bfloat16] zoo N{n} C{C} S{S} (device ms "
+                  f"per call): kernel_ms={t['ms']:.4f} plain_ms="
+                  f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+                  f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})",
+                  flush=True)
+            out[kname] = {"max_abs_err": errs[kname.split("_")[2]], **t,
+                          "shape": [n, C, S]}
+        del x, r, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def layers_cell(checks):
+    """(c): the new layers, f32 (TF32 off), forward and backward on the
+    card against the CPU from the same weights and inputs, each tensor
+    within 1e-5 of max(1, its rms, |want|); then ROADMAP queue 3 item
+    23's Embedding ids on the card (NaN rows, no device assert) and the
+    CUDA context still working after it."""
+    import torch
+    from mxtpu_torch import autograd, initializer, nd, random as trandom
+    from mxtpu_torch.gluon import nn
+    worst = 0.0
+    for name, kw, shape in NEW_LAYERS:
+        trandom.seed(SEED)
+        net = fresh_names(lambda: getattr(nn, name)(**kw))
+        net.initialize(initializer.Xavier(), ctx="cpu")
+        rng = np.random.RandomState(SEED + 24)
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        settle(net, x[:1])
+        res = {}
+        for dev in ("cpu", CARD):
+            net = net.to(dev)
+            xs = x.to(dev).requires_grad_(True)
+            ps = [p for p in net.parameters() if p.requires_grad]
+            with autograd.record():
+                yv = net(xs)
+            head = torch.from_numpy(np.random.RandomState(SEED + 25).randn(
+                *yv.shape).astype(np.float32)).to(dev)
+            grads = torch.autograd.grad(yv, [xs] + ps, head)
+            res[dev] = [yv.detach().cpu()] + [g.cpu() for g in grads]
+        # a weight gradient sums ~2000 products a tap: each tensor is
+        # held to its own scale, max(1, rms, |want|)
+        errs = [rel_err(a, b, max(1.0, float(b.double().pow(2).mean()
+                                             .sqrt())))[0]
+                for a, b in zip(res[CARD], res["cpu"])]
+        err = max(errs)
+        worst = max(worst, err)
+        ok = err <= LAYER_TOL
+        print(f"check layer {name} {kw} {shape} card vs CPU f32: output and "
+              f"{len(errs) - 1} gradients max rel err {err:.3e} (tol "
+              f"{LAYER_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            checks.failed.append(f"layer {name} card vs CPU {err:.3e}")
+    w = nd.array(np.arange(24, dtype=np.float32).reshape(12, 2), ctx=CARD)
+    ids = nd.array(np.array([0, 11, 12, 25, -1, -13], np.float32), ctx=CARD)
+    rows = nd.Embedding(ids, w, input_dim=12, output_dim=2).asnumpy()
+    torch.cuda.synchronize()
+    alive = float(torch.ones(8, device=CARD).sum()) == 8.0
+    want_nan = np.array([False, False, True, True, False, True])
+    ok = bool((np.isnan(rows).all(1) == want_nan).all()) and \
+        rows[4].tolist() == [22.0, 23.0] and alive
+    print(f"check Embedding ids [0, 11, 12, 25, -1, -13] on the card: NaN "
+          f"rows {np.isnan(rows).all(1).astype(int).tolist()}, row -1 = "
+          f"{rows[4].tolist()}, the CUDA context usable after it: {alive} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        checks.failed.append("Embedding ids outside [0, V) on the card")
+    return {"worst_rel": worst, "embedding_ok": ok}
+
+
+def pipeline_phase(checks, gen):
+    """Phase 21 (see the module's docstring): returns the BatchNorm
+    launches of the fed windows and of the zoo steps, the zoo rows of
+    the kernels line and the numbers."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as d:
+        prefix = os.path.join(d, "synth")
+        pipeline_records(prefix)
+        print(f"pipeline dataset: {PIPE_EPOCH * PIPE_B} raw records of "
+              f"3x{PIPE_HW}x{PIPE_HW} uint8 written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        pipe_counts, pipe = pipeline_cell(checks, prefix)
+    zoo_counts, zoo = zoo_cell(checks)
+    rows = zoo_kernel_rows(checks, gen)
+    layers = layers_cell(checks)
+    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return pipe_counts, zoo_counts, rows, {"pipeline": pipe, "zoo": zoo,
+                                           "layers": layers}
+
+
 def main():
     try:
         import torch
@@ -6884,6 +7431,8 @@ def main():
     del params
     gen_counts, gen_rows, generation = generate_phase(checks, gen, scales)
     mt_counts, mt_rows, transformer = transformer_phase(checks, gen)
+    pipe_counts, zoo_counts, zoo_rows, pipeline = pipeline_phase(checks,
+                                                                 gen)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values()) +
@@ -7037,6 +7586,33 @@ def main():
                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
 
+    # phase 21's #8-#11: the pipeline's (ResNet-50 NCHW at b256, the
+    # BN_LINE_SHAPE rows' shape) with the fed windows' launches, and the
+    # zoo's at ZOO_ROWS with the zoo steps' launches
+    bn_src = {"fwd": "mxtpu_torch/csrc/batch_norm.cu",
+              "bwd": "mxtpu_torch/csrc/batch_norm_bwd.cu"}
+    bn_rep = {"batch_norm_fwd": "mxtpu/kernels/batch_norm.py:319",
+              "batch_norm_bwd": "mxtpu/kernels/batch_norm.py:345",
+              "batch_norm_fwd_cm": "mxtpu/kernels/batch_norm.py:393",
+              "batch_norm_bwd_cm": "mxtpu/kernels/batch_norm.py:419"}
+    for path, names, launches, rows in (
+            ("pipeline", ("batch_norm_fwd", "batch_norm_bwd"), pipe_counts,
+             {n: timings[(n, "bfloat16")] for n in ("batch_norm_fwd",
+                                                    "batch_norm_bwd")}),
+            ("zoo", tuple(bn_rep), zoo_counts, zoo_rows)):
+        for name in names:
+            if launches.get(name, 0) == 0:
+                checks.failed.append(f"kernel {name} never launched on the "
+                                     f"{path} path")
+            line["kernels"].append({
+                "name": name, "route": "cuda",
+                "source": bn_src[name.split("_")[2]],
+                "replaces": bn_rep[name], "dtype": "bfloat16",
+                "path": path, "launches": launches.get(name, 0),
+                **{k: rows[name][k]
+                   for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -7047,6 +7623,8 @@ def main():
                            "serving": serve_counts,
                            "generate serving": gen_counts,
                            "transformer bf16": mt_counts,
+                           "pipeline resnet50 fed": pipe_counts,
+                           "zoo steps": zoo_counts,
                            **{f"resnet50 {k}": c
                               for k, c in rn_counts.items()},
                            "bulked BERT-Large bf16": bulk_counts["bert"],
@@ -7066,7 +7644,7 @@ def main():
               "quant_serving": quant_serving,
               "resnet50": resnet, "bulked": bulked, "gluon": gluon,
               "serving": serving, "generation": generation,
-              "transformer": transformer,
+              "transformer": transformer, "pipeline": pipeline,
               "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

@@ -2,7 +2,8 @@
 
 The package mirrors ``mxtpu``'s layout and names (``nd``, ``autograd``,
 ``sym``, ``mod``, ``serving``, ``models``, ``gluon``, ``optimizer``,
-``lr_scheduler``, ``parallel``, ``random``, ``rtc``, ``kernels``) on
+``lr_scheduler``, ``parallel``, ``random``, ``rtc``, ``kernels``,
+``io``, ``recordio``, ``image``) on
 torch tensors, so ``import mxtpu_torch as mx`` runs MXNet-1.x-style
 code.  Each Pallas kernel of a ported path becomes a kernel written by
 hand for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
@@ -17,6 +18,7 @@ from .context import cpu, gpu  # noqa: F401
 from . import ndarray, autograd, symbol, executor  # noqa: F401
 from . import initializer, optimizer, io, metric, callback  # noqa: F401
 from . import model, module, operator, rtc  # noqa: F401
+from . import recordio, image  # noqa: F401
 from . import gluon  # noqa: F401
 
 nd = ndarray

@@ -142,6 +142,33 @@ def _mod(a, b):
         a, torch.where(zero, torch.ones_like(b), b)))
 
 
+class _RMod(torch.autograd.Function):
+    """s mod x (jnp.mod(s, x)) with jax's gradient in x: lax.rem's
+    -trunc(s / x), plus the head where jnp.mod adds x back (a nonzero
+    remainder of the other sign); torch implements no derivative of
+    remainder in its divisor."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.save_for_backward(x, s)
+        return _mod(s, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        rem = torch.fmod(s, x)
+        back = (rem != 0) & (torch.sign(rem) != torch.sign(x))
+        return torch.where(back, g, torch.zeros_like(g)) - \
+            g * torch.trunc(s / x), None
+
+
+def _rmod(x, s):
+    s = _scalar(x, s)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RMod.apply(x, s)
+    return _mod(s, x)
+
+
 class _NoPath(torch.autograd.Function):
     """``value`` as an output of ``x`` whose gradient is zero: what jax's
     vjp gives for stop_gradient, zeros_like and ones_like, so a
@@ -226,7 +253,7 @@ _SCALAR = {
     "_div_scalar": (lambda x, s: x / s, True, ("_DivScalar",)),
     "_rdiv_scalar": (lambda x, s: s / x, True, ("_RDivScalar",)),
     "_mod_scalar": (lambda x, s: torch.remainder(x, s), True, ()),
-    "_rmod_scalar": (lambda x, s: torch.remainder(s, x), True, ()),
+    "_rmod_scalar": (_rmod, True, ()),
     "_power_scalar": (lambda x, s: _Pow.apply(x, _scalar(x, s)), True,
                       ("_PowerScalar",)),
     "_rpower_scalar": (lambda x, s: _Pow.apply(_scalar(x, s), x), True,
@@ -483,6 +510,61 @@ register_op("Convolution", num_inputs=-1,
                     Param("no_bias", bool, False),
                     Param("layout", str, None)],
             aliases=("convolution", "Convolution_v1"))(_convolution)
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconvolution(data, weight, *maybe_bias, kernel=(), stride=None,
+                   dilate=None, pad=None, adj=None, num_filter=0,
+                   num_group=1, no_bias=False, layout=None):
+    """The transposed convolution as mxtpu's ``_deconvolution``
+    (``lax.conv_transpose(transpose_kernel=True)``): weights (in,
+    out/g, *k), or (in, *k, out/g) channels last; the output is (in -
+    1)·stride + dilate·(k - 1) + 1 - 2·pad a side.  mxtpu pads the
+    dilated input by dilate·(k - 1) - pad, which crops where pad is
+    larger: here torch pads by at most dilate·(k - 1) and the rest is
+    cropped off.  As in mxtpu, ``adj`` is ignored and ``num_group`` is
+    not passed on: the weights' second axis is the output's width (a
+    bias of ``num_filter`` then fails to broadcast, as it does in
+    mxtpu)."""
+    nd = len(kernel)
+    layout = layout or {1: "NCW", 2: "NCHW", 3: "NCDHW"}[nd]
+    last = not layout.startswith("NC")
+    stride, dil = _tuple(stride, nd), _tuple(dilate, nd)
+    pad = _tuple(pad, nd) if pad is not None else (0,) * nd
+    if last:
+        perm = (0, nd + 1) + tuple(range(1, nd + 1))
+        data, weight = data.permute(perm), weight.permute(perm)
+    full = tuple(d * (int(k) - 1) for d, k in zip(dil, kernel))
+    tpad = tuple(min(p, f) for p, f in zip(pad, full))
+    out = _CONV_T[nd](data, weight, None, stride, tpad, 0, 1, dil)
+    crop = [p - t for p, t in zip(pad, tpad)]
+    if any(crop):
+        out = out[(slice(None), slice(None)) + tuple(
+            slice(c, out.shape[2 + i] - c) for i, c in enumerate(crop))]
+    if maybe_bias and not no_bias:
+        b = maybe_bias[0]
+        if b.shape[0] != out.shape[1]:
+            raise TypeError(
+                f"add got incompatible shapes for broadcasting: "
+                f"{tuple(out.shape)}, {(1, b.shape[0]) + (1,) * nd}")
+        out = out + b.reshape((1, -1) + (1,) * nd)
+    if last:
+        out = out.permute((0,) + tuple(range(2, nd + 2)) + (1,))
+    return out
+
+
+register_op("Deconvolution", num_inputs=-1,
+            params=[Param("kernel", tuple, ()),
+                    Param("stride", tuple, None),
+                    Param("dilate", tuple, None),
+                    Param("pad", tuple, None),
+                    Param("adj", tuple, None),
+                    Param("num_filter", int, 0),
+                    Param("num_group", int, 1),
+                    Param("no_bias", bool, False),
+                    Param("layout", str, None)])(_deconvolution)
 
 _AVG = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 _MAX = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -756,8 +838,17 @@ register_op("take", num_inputs=2,
 def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
                sparse_grad=False):
     """Rows of ``weight`` at the ids (float ids truncate to integers,
-    as ``astype(int32)``)."""
-    return weight[data.to(torch.int64)]
+    as ``astype(int32)``), in ``jnp.take``'s fill mode: an id in
+    [-V, 0) counts from the end, any other id outside [0, V) gives a
+    NaN row and adds nothing to the gradient.  The gather reads a
+    clamped index, so no id reads out of bounds (on the card that would
+    be a device-side assert, fatal to the process's CUDA context)."""
+    V = weight.shape[0]
+    ids = data.to(torch.int64)
+    ids = torch.where(ids < 0, ids + V, ids)
+    valid = ((ids >= 0) & (ids < V)).unsqueeze(-1)
+    rows = weight[ids.clamp(0, V - 1)]
+    return torch.where(valid, rows, torch.full_like(rows, math.nan))
 
 
 register_op("Embedding", num_inputs=2,

@@ -28,21 +28,21 @@ norms, reduced per slice, to rounding).
 
 The model is a gluon Block (its trainable parameters and
 ``param_names`` from ``collect_params()`` in mxtpu's order; those with
-``grad_req="null"``, BatchNorm's running statistics, are neither
-updated nor cast) or any ``nn.Module`` (its ``named_parameters()`` that
-require grad).  A Block whose shapes are still deferred is set up at
-the first step, after one predict-mode forward of its batch, as mxtpu's
-step does.  The forward runs in ``autograd.train_mode()``, the
-training flag gluon's layers read.
+``grad_req="null"`` are not updated) or any ``nn.Module`` (its
+``named_parameters()`` that require grad).  A Block whose shapes are
+still deferred is set up at the first step, after one predict-mode
+forward of its batch, as mxtpu's step does.  The forward runs in
+``autograd.train_mode()``, the training flag gluon's layers read.
 
 Mixed precision (``compute_dtype``): the f32 master parameters are cast
 to ``compute_dtype`` for the forward (``torch.func.functional_call``
 substitutes the casts for the module's parameters), so the GEMMs and
 convolutions run in bf16 on the tensor cores, and autograd through each
-cast hands an f32 gradient back to its master.  Parameters that are not
-trained are not cast: BatchNorm's running statistics stay f32 and the
-training-mode forward updates the module's own, as the JAX step keeps
-its aux parameters f32.  The loss leaves the bf16 region in f32.
+cast hands an f32 gradient back to its master.  A frozen float
+parameter takes the compute type too, as in mxtpu, except BatchNorm's
+running statistics: they stay f32 and the training-mode forward
+updates the module's own, as the JAX step keeps its aux parameters
+f32.  The loss leaves the bf16 region in f32.
 ``cast_batch=True`` casts a float batch (images) to ``compute_dtype``;
 ``cast_batch=False`` keeps it in its own type (float token ids above
 256 are not exact in bf16).  Labels are never cast.
@@ -98,6 +98,7 @@ from .. import autograd, knobs
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import Block
+from ..ndarray.ndarray import NDArray
 from ..optimizer import optimizer as opt_mod
 from ..optimizer.functional import (_needs_master, adam_bias_correction,
                                     opt_rule)
@@ -197,9 +198,22 @@ class TrainStep:
             self._params = [p for _, p in named]
             self._mults = self._params
         # torch's dotted names of the trainable tensors, for the
-        # compute-dtype substitution
+        # compute-dtype substitution; and of the frozen float ones that
+        # take the compute type too (mxtpu casts every float parameter
+        # but BatchNorm's running statistics)
+        from ..symbol import _is_aux_name
         tnames = {id(t): n for n, t in self.net.named_parameters()}
         self._torch_names = [tnames[id(t)] for t in self._params]
+        trained = {id(t) for t in self._params}
+        if isinstance(self.net, Block):
+            frozen = [(p.name, p._tensor())
+                      for p in self.net.collect_params().values()]
+        else:
+            frozen = list(self.net.named_parameters())
+        self._frozen_cast = [
+            tnames[id(t)] for n, t in frozen
+            if id(t) not in trained and id(t) in tnames and
+            t.is_floating_point() and not _is_aux_name(n)]
         if self.amp:
             # stored bf16 from here on, over the f32 masters the
             # multi-precision rule seeds; aux-named ones stay f32
@@ -295,6 +309,10 @@ class TrainStep:
 
     # -- one step ------------------------------------------------------
     def _batch(self, a, cast: bool) -> torch.Tensor:
+        # an NDArray hands over its tensor (mxtpu takes ``arr.data``):
+        # a batch already on the card is not copied through the host
+        if isinstance(a, NDArray):
+            a = a.data
         t = torch.as_tensor(np.asarray(a) if not isinstance(
             a, torch.Tensor) else a).to(self.device)
         if cast and self.compute_dtype is not None and t.is_floating_point():
@@ -322,6 +340,9 @@ class TrainStep:
                     cast = {n: (p.to(cd) if p.is_floating_point() else p)
                             for n, p in zip(self._torch_names,
                                             self._params)}
+                    live = dict(self.net.named_parameters())
+                    cast.update((n, live[n].detach().to(cd))
+                                for n in self._frozen_cast)
                     pred = torch.func.functional_call(self.net, cast,
                                                       (x,))
                 loss = self.loss_fn(pred, y).float().mean()

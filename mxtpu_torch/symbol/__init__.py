@@ -538,10 +538,25 @@ def _embedding_hook(in_shapes, attrs):
     return [data, (ind, outd)]
 
 
-# Deconvolution's hook comes with the op (ROADMAP queue 1 item 7)
+def _deconv_hook(in_shapes, attrs):
+    """mxtpu's ``_deconv_hook``: weights (in, num_filter/g, *kernel)
+    from the data's axis 1."""
+    data = in_shapes[0]
+    if data is None:
+        return [None] * len(in_shapes)
+    kernel = tuple(_coerce_attr(attrs.get("kernel", ())))
+    nf = int(_coerce_attr(attrs.get("num_filter", 0)))
+    ng = int(_coerce_attr(attrs.get("num_group", 1)))
+    out = [data, (data[1], nf // ng) + kernel]
+    if len(in_shapes) > 2:
+        out.append((nf,))
+    return out
+
+
 _INFER_HOOKS = {
     "FullyConnected": _fc_hook,
     "Convolution": _conv_hook,
+    "Deconvolution": _deconv_hook,
     "BatchNorm": _channel_hook,
     "BatchNormRelu": _channel_hook,
     # addend (input 1) is data-shaped, the rest are (C,)
@@ -845,6 +860,7 @@ _THIS = sys.modules[__name__]
 _AUTO_VARS: Dict[str, List[str]] = {
     "FullyConnected": ["data", "weight", "bias"],
     "Convolution": ["data", "weight", "bias"],
+    "Deconvolution": ["data", "weight", "bias"],
     "BatchNorm": ["data", "gamma", "beta", "moving_mean", "moving_var"],
     "BatchNormRelu": ["data", "gamma", "beta", "moving_mean",
                       "moving_var"],

@@ -501,3 +501,190 @@ def test_set_wd_mult_drops_decay_off_weights_and_gammas():
     assert got[0] == got[1]
     assert got[1][0] == [0.1, 0.0, 0.0, 0.1]
     assert got[1][1] == [0.1, 0.05, 0.0, 0.1]
+
+
+# ---------------------------------------------------------------------
+# items 22-24: _rmod_scalar's backward, Embedding's ids outside [0, V),
+# and TrainStep's NDArray batches
+# ---------------------------------------------------------------------
+class _RModNet:
+    """``F._rmod_scalar(x, scalar=3)`` as a HybridBlock of either
+    package."""
+
+    def __new__(cls, mx):
+        class RMod(mx.gluon.HybridBlock):
+            def hybrid_forward(self, F, x):
+                return F._rmod_scalar(x, scalar=3.0)
+        return RMod()
+
+
+def _ctx(mx):
+    return mx.cpu()
+
+
+def _rmod_grad(mx, path, xv):
+    """(output, gradient of its sum) of 3 mod x through ``path``."""
+    ctx = _ctx(mx)
+    if path == "sym":
+        ex = (3.0 % mx.sym.Variable("x")).simple_bind(ctx, x=xv.shape)
+        ex.arg_dict["x"][:] = mx.nd.array(xv, ctx=ctx)
+        ex.forward(is_train=True)
+        ex.backward(mx.nd.ones(xv.shape, ctx=ctx))
+        return ex.outputs[0].asnumpy(), ex.grad_dict["x"].asnumpy()
+    x = mx.nd.array(xv, ctx=ctx)
+    x.attach_grad()
+    with mx.autograd.record():
+        y = _RModNet(mx)(x) if path == "gluon" else \
+            mx.nd._rmod_scalar(x, scalar=3.0)
+    y.backward()
+    return y.asnumpy(), x.grad.asnumpy()
+
+
+@pytest.mark.parametrize("path", ["sym", "gluon", "nd"])
+def test_rmod_scalar_backward_matches_mxtpu(path):
+    xv = np.array([0.7, 1.5, 2.5], np.float32)
+    jy, jg = _rmod_grad(jmx, path, xv)
+    ty, tg = _rmod_grad(tmx, path, xv)
+    np.testing.assert_array_equal(jg, [-4.0, -2.0, -1.0])
+    np.testing.assert_allclose(ty, jy, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(tg, jg)
+    # negative divisors and dividends of both signs: jnp.mod adds x
+    # back where the truncated remainder's sign differs from x's
+    xv = np.array([-0.7, -1.5, 4.0, -4.0, 0.3], np.float32)
+    jy, jg = _rmod_grad(jmx, path, xv)
+    ty, tg = _rmod_grad(tmx, path, xv)
+    np.testing.assert_allclose(ty, jy, rtol=0, atol=TOL)
+    np.testing.assert_array_equal(tg, jg)
+
+
+def test_rmod_scalar_integer_input_matches_mxtpu():
+    xv = np.array([2, 4, 5, -2], np.int32)
+    want = jmx.nd._rmod_scalar(jmx.nd.array(xv), scalar=3.0)
+    got = tmx.nd._rmod_scalar(tmx.nd.array(xv, ctx=CPU), scalar=3.0)
+    assert got.asnumpy().dtype == want.asnumpy().dtype
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
+EMB_W = np.arange(24, dtype=np.float32).reshape(12, 2) / 7.0
+EMB_IDS = np.array([0, 11, 12, 25, -1, -13], np.float32)
+
+
+def _embedding(mx, path):
+    """(rows, gradient of sum(rows * head) in the weight) for the ids of
+    ROADMAP's case; NaN rows are zeroed in the head's product so the
+    loss stays finite (the gradient rows of those ids must stay 0)."""
+    ctx = _ctx(mx)
+    head = np.isfinite(EMB_W[np.clip(EMB_IDS.astype(int), -12, 11)]) * \
+        np.arange(1, 13, dtype=np.float32).reshape(6, 2)
+    if path == "sym":
+        s = mx.sym.Embedding(mx.sym.Variable("ids"), mx.sym.Variable("w"),
+                             input_dim=12, output_dim=2)
+        ex = s.simple_bind(ctx, ids=EMB_IDS.shape, w=EMB_W.shape,
+                           grad_req={"ids": "null", "w": "write"})
+        ex.arg_dict["ids"][:] = mx.nd.array(EMB_IDS, ctx=ctx)
+        ex.arg_dict["w"][:] = mx.nd.array(EMB_W, ctx=ctx)
+        ex.forward(is_train=True)
+        ex.backward(mx.nd.array(head, ctx=ctx))
+        return ex.outputs[0].asnumpy(), ex.grad_dict["w"].asnumpy()
+    ids = mx.nd.array(EMB_IDS, ctx=ctx)
+    if path == "gluon":
+        layer = mx.gluon.nn.Embedding(12, 2)
+        layer.initialize(ctx=ctx)
+        layer.weight.set_data(mx.nd.array(EMB_W, ctx=ctx))
+        with mx.autograd.record():
+            rows = layer(ids)
+        rows.backward(mx.nd.array(head, ctx=ctx))
+        return rows.asnumpy(), layer.weight.grad().asnumpy()
+    w = mx.nd.array(EMB_W, ctx=ctx)
+    w.attach_grad()
+    with mx.autograd.record():
+        rows = mx.nd.Embedding(ids, w, input_dim=12, output_dim=2)
+    rows.backward(mx.nd.array(head, ctx=ctx))
+    return rows.asnumpy(), w.grad.asnumpy()
+
+
+@pytest.mark.parametrize("path", ["nd", "gluon", "sym"])
+def test_embedding_ids_out_of_range_match_mxtpu(path):
+    jrows, jgrad = _embedding(jmx, path)
+    trows, tgrad = _embedding(tmx, path)
+    # 12, 25 and -13 are outside [-12, 12): NaN rows; -1 is row 11
+    assert np.isnan(jrows[[2, 3, 5]]).all()
+    np.testing.assert_array_equal(np.isnan(trows), np.isnan(jrows))
+    np.testing.assert_array_equal(np.nan_to_num(trows),
+                                  np.nan_to_num(jrows))
+    np.testing.assert_allclose(tgrad.sum(axis=1), jgrad.sum(axis=1),
+                               rtol=0, atol=TOL)
+    np.testing.assert_allclose(tgrad, jgrad, rtol=0, atol=TOL)
+
+
+def test_train_step_takes_an_ndarray_batch_without_asnumpy(monkeypatch):
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    from mxtpu_torch.parallel import build_train_step
+    rng = np.random.RandomState(0)
+    xv = rng.randn(4, 6).astype(np.float32)
+    yv = np.array([0, 2, 1, 2], np.float32)
+
+    def step():
+        tmx.random.seed(0)
+        net = tmx.gluon.nn.Dense(3, in_units=6)
+        net.initialize(ctx=CPU)
+        return build_train_step(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                {"learning_rate": 0.1}, device="cpu")
+    want = [float(step()(xv, yv)) for _ in range(1)]
+    x, y = tmx.nd.array(xv, ctx=CPU), tmx.nd.array(yv, ctx=CPU)
+
+    def no_host(self):
+        raise AssertionError("the batch went through the host")
+    monkeypatch.setattr(NDArray, "asnumpy", no_host)
+    got = [float(step()(x, y)) for _ in range(1)]
+    assert got == want
+
+
+def _frozen_scale_net(mx, seen):
+    """A frozen scale parameter (``grad_req="null"``) before a Dense: the
+    dtype it has inside the step is recorded in ``seen``."""
+    class Scale(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.s = self.params.get(
+                "s", shape=(1,), init=mx.init.Constant(0.5),
+                grad_req="null")
+
+        def hybrid_forward(self, F, x, s):
+            seen.append(str(s.dtype).replace("torch.", ""))
+            return F.broadcast_mul(x, s)
+    net = mx.gluon.nn.HybridSequential()
+    net.add(Scale(), mx.gluon.nn.Dense(3, in_units=6))
+    return net
+
+
+def test_compute_dtype_casts_frozen_parameters_as_mxtpu():
+    """Queue 3 item 25: mxtpu's step casts every float parameter but
+    BatchNorm's running statistics to ``compute_dtype``, frozen ones
+    too; the port cast only the trained ones."""
+    from mxtpu import parallel as jpar
+    from mxtpu.gluon import loss as jloss
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxtpu_torch.parallel import build_train_step
+    rng = np.random.RandomState(0)
+    xv = rng.randn(4, 6).astype(np.float32)
+    yv = np.array([0, 2, 1, 2], np.float32)
+    jseen, tseen = [], []
+    jnet = _frozen_scale_net(jmx, jseen)
+    jnet.initialize()
+    jnet(jmx.nd.array(xv))
+    jstep = jpar.build_train_step(jnet, jloss.SoftmaxCrossEntropyLoss(),
+                                  "sgd", {"learning_rate": 0.1},
+                                  compute_dtype="bfloat16", cache=None)
+    jstep(jmx.nd.array(xv), jmx.nd.array(yv))
+    tnet = _frozen_scale_net(tmx, tseen)
+    tnet.initialize(ctx=CPU)
+    tnet(torch.from_numpy(xv))
+    tstep = build_train_step(tnet, SoftmaxCrossEntropyLoss(), "sgd",
+                             {"learning_rate": 0.1},
+                             compute_dtype="bfloat16", device="cpu")
+    tstep(xv, yv)
+    assert jseen[-1] == tseen[-1] == "bfloat16"
+    # the stored parameter stays f32
+    assert tnet[0].s.data().dtype == np.float32

@@ -423,10 +423,14 @@ def test_resnet50_shapes_and_the_default_device():
     nhwc.initialize(ctx=cpu())
     _shaped(nhwc, "NHWC")
     assert nhwc.features[0].weight.shape == (64, 7, 7, 3)
+    # mxtpu's refusals: a depth outside 18/34/50/101/152, a version
+    # other than 1 or 2, pretrained weights
     with pytest.raises(MXNetError, match="invalid depth"):
-        get_resnet(1, 18)
-    with pytest.raises(NotImplementedError, match="V2"):
-        get_resnet(2, 50)
+        get_resnet(1, 26)
+    with pytest.raises(MXNetError, match="version must be 1 or 2"):
+        get_resnet(3, 50)
+    with pytest.raises(MXNetError, match="pretrained"):
+        get_resnet(2, 50, pretrained=True)
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the default would be cuda:0")
     with pytest.raises(MXNetError, match="CUDA is not available"):

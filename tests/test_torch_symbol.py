@@ -281,11 +281,15 @@ def test_shape_hooks_infer_as_mxtpu(op, monkeypatch):
 
 
 def test_deconvolution_waits_for_its_op():
-    # mxtpu has a Deconvolution hook; the port registers neither the op
-    # nor its hook yet (ROADMAP queue 1 item 7)
+    # the op came with its hook: both registered, the hook's shapes
+    # mxtpu's (tests/test_torch_conv_layers.py holds the op itself)
     assert "Deconvolution" in jsym._INFER_HOOKS
-    assert "Deconvolution" not in tsym._INFER_HOOKS
-    assert "Deconvolution" not in list_ops()
+    assert "Deconvolution" in tsym._INFER_HOOKS
+    assert "Deconvolution" in list_ops()
+    attrs = {"kernel": "(3, 3)", "num_filter": "6", "num_group": "2"}
+    for shapes in ([(2, 4, 5, 5), None, None], [None, None]):
+        assert tsym._INFER_HOOKS["Deconvolution"](shapes, attrs) == \
+            jsym._INFER_HOOKS["Deconvolution"](shapes, attrs)
 
 
 @pytest.fixture(scope="module")

@@ -12,8 +12,10 @@ chained-measurement tools (the conv strategy probe on the NHWC conv
 kernel, bench_flash, probe_bn_fusion, microbench), and train, check,
 rematerialize and decode Transformer-big with the
 ``bench_transformer`` recipe (adam, b16 x (64 + 64)), train ResNet-50
-fed from the input pipeline (``bench_resnet50_pipeline``'s recipe) and
-step every ResNet of the model zoo.
+fed from the input pipeline (``bench_resnet50_pipeline``'s recipe),
+step every ResNet of the model zoo, and serve BERT-Large from a fleet
+of workers through a kill, a warm replacement, scripted faults and the
+autoscaler.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -345,7 +347,48 @@ Phases, each fatal on failure:
      and backward on the card against the CPU, each tensor within 1e-5
      of max(1, its rms, |want|); Embedding's ids [0, 11, 12, 25, -1,
      -13] on a CUDA tensor give NaN rows where mxtpu's do, and the CUDA
-     context works after.
+     context works after;
+ 22. the serving fleet (``fleet_phase``), BERT-Large f32 from its
+     export, each worker a ``ModelRunner(symbol, params)`` (batch <= 8,
+     the seq bucket 128, a captured CUDA graph a bucket): (c) two
+     workers with a ``GenerateRunner`` each over the causal BERT-Large's
+     incremental decode (2 lanes, prompt bucket 32), the second warmed
+     from the first's handoff while the first decodes; the worker
+     holding a greedy and a seeded top-k stream is killed after 6 of
+     32 tokens, and each stream resumed on the survivor equals the same
+     prompt's uninterrupted stream token for token, every index
+     streamed once, no build cold; (a) three workers behind a threaded
+     ``FleetRouter`` (2 ms ticks, a canary of one fixed row every 0.25
+     s, held to the eager plan's logits at (1, 128) with the router's
+     rtol 1e-4 / atol 1e-5, the sampler at 100 Hz and an
+     ``AvailabilitySLO`` attached, as ``bench_serving_fleet`` has
+     them), w0's ladder captured before traffic and w1, w2 warmed from
+     its handoff; a burst of 48 prices the fleet's raw rate, then 192
+     requests open-loop at half of it, w0 killed at request 64 and wR
+     attached from w0's handoff at 96 (the kill waits for a batch of w0
+     to have just gone in flight, so it lands mid-replay): no drop, no
+     hang, w0 dead and
+     every other worker healthy, one death, wR serving with no cold
+     build, 24/1/48 launches of #1/#4/#6 a forward; served req/s
+     through the kill, p50/p95/p99, the retries, requeues, deaths and
+     steals, wR's warm seconds beside a cold runner's first-request
+     capture; (b) a ``Corrupt`` worker caught by the canary before any
+     client request reaches it and a ``Hang`` worker caught by the
+     liveness deadline, the hung worker's requests finished on the
+     healthy one; (d) an ``Autoscaler`` (min 1, max 2) drains one of two
+     idle workers, then scales up under a burst of 64 with a replica
+     warmed from the live donor's handoff, which builds nothing cold and
+     serves its share of a tail of 8 (the scaler frozen); (e) 4 requests traced through a
+     canary-free fleet, each one's spans recorded in mxtpu's order
+     (submit, queue wait, pad/scatter, run, execute) and nested in
+     time, a ``torch.profiler`` device capture of the window through
+     ``profiler.start_jax_trace`` holding kernel events, the debug
+     server's ``/metrics`` round-tripping through
+     ``parse_prometheus_text``; (f) one served forward launches #1 24
+     times, #4 once and #6 48 times, and so does its captured entry's
+     record; last every served result of the phase is held against its
+     row alone through the eager plan at (1, 128) within the canary's
+     tolerance, the largest deviation printed.
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -390,8 +433,10 @@ takes the smaller of its FMA and split bounds; #4 and #6 again with
 server's launches; #1-#7 with ``"path": "transformer"``, bf16 at the
 Transformer-big step's shapes with its bf16 eager steps' launches;
 #8/#9 with ``"path": "pipeline"`` at ResNet-50 NCHW's b256 shape with
-the fed windows' launches, and #8-#11 with ``"path": "zoo"`` at
-``ZOO_ROWS`` with the zoo steps' launches),
+the fed windows' launches, #8-#11 with ``"path": "zoo"`` at
+``ZOO_ROWS`` with the zoo steps' launches, and #1, #4 and #6 in f32
+with ``"path": "fleet"``, timed at the serving shapes, with the fleet
+recovery run's launches),
 and last the line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without CUDA or outside a checkout.  A full report goes to
@@ -7322,6 +7367,647 @@ def pipeline_phase(checks, gen):
                                            "layers": layers}
 
 
+# ----------------------------------------------------------------------
+# phase 22: the serving fleet (FleetRouter / FleetWorker, health checks,
+# scripted faults, the control plane, obs and the profiler)
+# ----------------------------------------------------------------------
+
+FLEET_B, FLEET_T = 8, 128              # max_batch_size, the seq bucket
+FLEET_RAW = 48                         # the burst that prices the fleet
+FLEET_ROWS = 64                        # distinct token rows
+FLEET_N, FLEET_KILL, FLEET_ATTACH = 192, 64, 96
+FLEET_FAULT_N, FLEET_BURST_N, FLEET_TAIL, FLEET_TRACED = 16, 72, 8, 4
+FLEET_RTOL, FLEET_ATOL = 1e-4, 1e-5    # the router's canary compare
+FLEET_TIMEOUT_S = 30.0
+FLEET_GEN_LANES, FLEET_GEN_BUCKET = 2, 32
+FLEET_GEN_PROMPT, FLEET_GEN_TOKENS, FLEET_GEN_KILL_AT = 20, 32, 6
+FLEET_GEN_TOPK = 8
+FLEET_SPANS = ("fleet/submit", "fleet/queue_wait", "serving/pad_scatter",
+               "serving/execute", "fleet/execute")
+
+
+def fleet_router(canary, expect, **kw):
+    """A threaded router as ``bench_serving_fleet`` builds one: a 2 ms
+    ticker, a canary every 0.25 s with a 2 s deadline."""
+    from mxtpu_torch.serving import FleetRouter
+    kw.setdefault("tick_s", 0.002)
+    return FleetRouter(threaded=True, canary=canary, canary_expect=expect,
+                       canary_seq_len=None if canary is None else FLEET_T,
+                       canary_interval_s=0.25, canary_timeout_s=2.0, **kw)
+
+
+def fleet_worker(runner, name, **kw):
+    from mxtpu_torch.serving import FleetWorker
+    return FleetWorker(runner, name, max_queue_delay_us=2000.0, **kw)
+
+
+def fleet_wait(pred, timeout_s, poll_s=0.002):
+    t_end = time.perf_counter() + timeout_s
+    while time.perf_counter() < t_end:
+        if pred():
+            return True
+        time.sleep(poll_s)
+    return pred()
+
+
+def fleet_collect(reqs, idx, results):
+    """Wait for each request; its outcome goes to ``results`` as (row
+    index, logits or None, the error's class name or None).  Returns
+    (drops, hangs): terminal errors inside the deadline, and waits that
+    outlived it."""
+    from mxtpu_torch.serving import RequestTimeout
+    drops = hangs = 0
+    for i, r in zip(idx, reqs):
+        try:
+            results.append((i, r.result(timeout=FLEET_TIMEOUT_S + 5.0)[0],
+                            None))
+        except RequestTimeout as e:
+            results.append((i, None, type(e).__name__))
+            hangs += 1
+        except Exception as e:  # noqa: BLE001 — a drop, counted
+            results.append((i, None, type(e).__name__))
+            drops += 1
+    return drops, hangs
+
+
+def fleet_eager_rows(runner, rows):
+    """Each row alone through the eager plan at bucket (1, FLEET_T): the
+    logits a served request is held against (trimmed to its length)."""
+    bucket = (1, FLEET_T)
+    e = runner._eager_entry(bucket)
+    for x in rows:
+        vals = runner._pad_stack([{"data": x}], bucket)
+        with e.lock:
+            (o,) = e.run(vals)
+        yield o[0, :len(x)].cpu().numpy()
+
+
+def fleet_counts(entry):
+    """An entry's captured launches by kernel name (what each replay of
+    it adds to the counts)."""
+    from mxtpu_torch import kernels
+    names = {v: k for k, v in kernels._modules().items()}
+    return {names[k]: n for k, n in entry.launches.items() if k in names}
+
+
+def fleet_recovery(checks, runners, cold, canary, expect, rows, results):
+    """(a): three workers, a kill of w0 at request FLEET_KILL and wR
+    attached from w0's handoff at FLEET_ATTACH, open-loop traffic at half
+    the fleet's measured raw rate.  ``cold`` is a runner that serves one
+    request before anything is built (its bucket captured on the request
+    path).  Returns the launches and the numbers."""
+    from mxtpu_torch import kernels, obs
+    t0 = time.perf_counter()
+    cold.infer({"data": rows[0][None]})
+    cold_first_s = time.perf_counter() - t0
+    cold_capture_s = cold.compile_seconds[(1, FLEET_T)]
+    cold_cold = cold.cold_compiles()
+    t0 = time.perf_counter()
+    warm0 = runners["w0"].warmup()
+    w0_warm_s = time.perf_counter() - t0
+    router = fleet_router(canary, expect)
+    eng = obs.slo_engine([obs.AvailabilitySLO("fleet_avail",
+                                              objective=0.999)],
+                         obs.sampler(period_us=10_000.0))
+    router.attach_slo(eng)
+    workers = {n: fleet_worker(r, n) for n, r in runners.items()}
+    with router:
+        router.add_worker(workers["w0"])
+        handoff = workers["w0"].handoff()
+        for n in ("w1", "w2"):
+            router.add_worker(workers[n], warm_from=handoff)
+        kernels.reset_launch_counts()
+        # the fleet's raw rate: a burst of FLEET_RAW at once
+        t0 = time.perf_counter()
+        raw = [router.submit({"data": rows[i]}, seq_len=len(rows[i]),
+                             timeout_s=FLEET_TIMEOUT_S)
+               for i in range(FLEET_RAW)]
+        d0, h0 = fleet_collect(raw, range(FLEET_RAW), results)
+        raw_rps = FLEET_RAW / (time.perf_counter() - t0)
+        offered = 0.5 * raw_rps
+        interval = 1.0 / offered
+        reqs, idx = [], []
+        wr_warm_s = None
+        t_start = time.perf_counter()
+        for k in range(FLEET_N):
+            lag = t_start + k * interval - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            if k == FLEET_KILL:
+                # preemption while w0 replays a batch: its in-flight
+                # requests are stolen while its thread is mid-replay
+                busy = fleet_wait(lambda: (workers["w0"].inflight_age(
+                    time.monotonic()) or 1.0) < 0.002, 2.0, 0.0001)
+                router.kill("w0")
+            if k == FLEET_ATTACH:
+                t0 = time.perf_counter()
+                router.add_worker(workers["wR"], warm_from=handoff)
+                wr_warm_s = time.perf_counter() - t0
+                wr_cold0 = runners["wR"].cold_compiles()
+            i = FLEET_RAW + k
+            idx.append(i)
+            reqs.append(router.submit({"data": rows[i]},
+                                      seq_len=len(rows[i]),
+                                      timeout_s=FLEET_TIMEOUT_S))
+        drops, hangs = fleet_collect(reqs, idx, results)
+        served_rps = (FLEET_N - drops - hangs) / (time.perf_counter()
+                                                  - t_start)
+        counts = kernels.launch_counts()
+        snap = router.fleet_stats()
+        states = router.workers()
+        postmortem = router.postmortem("w0")
+    steals = sum(1 for r in reqs + raw if r.requeues)
+    on_wr = sum(1 for r in reqs if r.tried and r.tried[-1] == "wR")
+    ex = snap["extras"]
+    healthy_dead = [n for n, s in states.items()
+                    if n != "w0" and s != "healthy"]
+    n_fwd = counts["layer_norm_fwd"]
+    bad_counts = {k: v for k, v in counts.items()
+                  if v != SERVE_PER_FWD.get(k, 0) * n_fwd}
+    lat = snap["latency_ms"]
+    wr_cold = runners["wR"].cold_compiles()
+    ok = (drops + d0 == 0 and hangs + h0 == 0 and states["w0"] == "dead"
+          and not healthy_dead and wr_cold == 0 and wr_cold0 == 0
+          and ex.get("deaths", 0) == 1 and n_fwd > 0 and not bad_counts
+          and on_wr > 0 and ex.get("wrong_results", 0) == 0)
+    print(f"fleet (a): BERT-Large f32 x 3 workers (b<={FLEET_B}, T "
+          f"{FLEET_T}), raw burst of {FLEET_RAW} {raw_rps:.2f} req/s; "
+          f"{FLEET_N} requests open-loop at {offered:.2f} req/s, w0 "
+          f"killed at {FLEET_KILL}, wR attached from its handoff at "
+          f"{FLEET_ATTACH} (w0 mid-batch at the kill: {busy}): served "
+          f"{served_rps:.2f} req/s through the "
+          f"kill, latency p50 {lat['p50']} p95 {lat['p95']} p99 "
+          f"{lat['p99']} ms; drops {drops + d0}, hangs {hangs + h0}; "
+          f"retries {ex.get('retries', 0)}, requeues "
+          f"{ex.get('requeues', 0)}, deaths {ex.get('deaths', 0)}, "
+          f"steals {steals}, canary wrong results "
+          f"{ex.get('wrong_results', 0)}; workers {states}; {on_wr} "
+          f"requests finished on wR", flush=True)
+    print(f"fleet (a): w0's ladder of {len(warm0)} buckets captured in "
+          f"{w0_warm_s:.3f} s (" + ", ".join(
+              f"{k} {v:.3f}" for k, v in warm0.items()) +
+          f" s); wR warmed from the handoff in {wr_warm_s:.3f} s, "
+          f"{runners['wR'].num_compiled()} entries, cold builds "
+          f"{wr_cold0} at attach and {wr_cold} after the traffic; a cold "
+          f"runner's first request {cold_first_s:.3f} s wall, its bucket "
+          f"captured on the request path in {cold_capture_s:.3f} s "
+          f"({cold_cold} cold build); launches {json.dumps(counts)} over "
+          f"{n_fwd} forwards {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "fleet recovery", "drops": drops + d0,
+                        "hangs": hangs + h0, "states": states,
+                        "wR_cold_compiles": wr_cold, "launches": counts,
+                        "ok": ok})
+    if not ok:
+        checks.failed.append(
+            f"fleet (a): drops {drops + d0}, hangs {hangs + h0}, states "
+            f"{states}, wR cold builds {wr_cold0}/{wr_cold}, deaths "
+            f"{ex.get('deaths', 0)}, wrong canaries "
+            f"{ex.get('wrong_results', 0)}, {on_wr} on wR, launches off "
+            f"24/1/48 a forward: {bad_counts}")
+    return counts, {
+        "raw_rps": raw_rps, "offered_rps": offered,
+        "served_rps": served_rps, "p50_ms": lat["p50"],
+        "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+        "drops": drops + d0, "hangs": hangs + h0,
+        "retries": ex.get("retries", 0), "requeues": ex.get("requeues", 0),
+        "deaths": ex.get("deaths", 0), "steals": steals,
+        "finished_on_wR": on_wr, "states": states, "busy_at_kill": busy,
+        "w0_capture_s": {str(k): v for k, v in warm0.items()},
+        "wR_warm_s": wr_warm_s, "wR_cold_compiles": wr_cold,
+        "cold_first_request_s": cold_first_s,
+        "cold_capture_s": cold_capture_s, "forwards": n_fwd,
+        "slo": snap.get("slo"),
+        "w0_postmortem": [e["kind"] for e in
+                          postmortem["flight"]["events"]]}
+
+
+def fleet_faults(checks, runners, canary, expect, rows, results, base):
+    """(b): a Corrupt worker caught by the canary and a Hang worker by
+    the liveness deadline, each beside a healthy one; every client
+    request completes on a worker that serves it right."""
+    from mxtpu_torch.serving import Corrupt, FaultPlan, Hang
+    router = fleet_router(canary, expect)
+    ok_w = fleet_worker(runners["w1"], "ok")
+    bad = fleet_worker(runners["w2"], "corrupt",
+                       faults=FaultPlan(Corrupt(from_batch=0)))
+    hung = fleet_worker(runners["wR"], "hung",
+                        faults=FaultPlan(Hang(at_batch=1)))
+    t0 = time.perf_counter()
+    with router:
+        router.add_worker(ok_w)
+        router.add_worker(bad)
+        # the corrupt worker's first canary verdict takes it out of
+        # rotation before any client request reaches it
+        suspect = fleet_wait(
+            lambda: router.workers()["corrupt"] != "healthy", 10.0)
+        router.add_worker(hung)
+        # a first wave, then a second once the hung worker has hung (its
+        # second dispatch, a batch or a canary): the second wave queues
+        # behind the hung batch until liveness reaps the worker
+        half = FLEET_FAULT_N // 2
+        idx = list(range(base, base + FLEET_FAULT_N))
+        reqs = [router.submit({"data": rows[i]}, seq_len=len(rows[i]),
+                              timeout_s=FLEET_TIMEOUT_S) for i in idx[:half]]
+        drops, hangs = fleet_collect(reqs, idx[:half], results)
+        stuck = fleet_wait(lambda: hung._stuck, 10.0)
+        wave = [router.submit({"data": rows[i]}, seq_len=len(rows[i]),
+                              timeout_s=FLEET_TIMEOUT_S) for i in idx[half:]]
+        d2, h2 = fleet_collect(wave, idx[half:], results)
+        reqs += wave
+        drops, hangs = drops + d2, hangs + h2
+        dead = fleet_wait(lambda: router.workers()["corrupt"] == "dead"
+                          and router.workers()["hung"] == "dead", 20.0)
+        snap = router.fleet_stats()
+        states = router.workers()
+        reasons = {n: w["reason"] for n, w in snap["workers"].items()}
+    secs = time.perf_counter() - t0
+    # the hung worker may finish a batch before the one that hangs;
+    # the requests it held when it died were stolen
+    stolen = [r for r in reqs if r.requeues and "hung" in r.tried[:-1]]
+    moved = all(r.tried[-1] == "ok" for r in stolen)
+    on_bad = sum(1 for r in reqs if "corrupt" in r.tried)
+    ex = snap["extras"]
+    ok = (suspect and stuck and dead and drops == 0 and hangs == 0
+          and states["ok"] == "healthy" and "CORRUPT" in reasons["corrupt"]
+          and reasons["hung"].startswith("hang") and stolen and moved
+          and on_bad == 0 and ex.get("wrong_results", 0) >= 1)
+    print(f"fleet (b): a Corrupt worker caught by the canary ("
+          f"{reasons['corrupt']!r}, {ex.get('wrong_results', 0)} wrong "
+          f"canary results, {on_bad} client requests sent to it), a Hang "
+          f"worker caught by liveness ({reasons['hung']!r}); "
+          f"{len(stolen)} requests stolen from the hung worker, all "
+          f"finished on 'ok' {moved}; drops {drops}, hangs {hangs}; "
+          f"states {states}; {secs:.1f} s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    checks.rows.append({"check": "fleet faults", "states": states,
+                        "reasons": reasons, "stolen": len(stolen),
+                        "ok": ok})
+    if not ok:
+        checks.failed.append(f"fleet (b): states {states}, reasons "
+                             f"{reasons}, stolen {len(stolen)} moved "
+                             f"{moved}, drops {drops}, hangs {hangs}")
+    return {"reasons": reasons, "states": states, "stolen": len(stolen),
+            "wrong_canaries": ex.get("wrong_results", 0), "seconds": secs}
+
+
+def fleet_generate(checks, gen_files, kv_spec):
+    """(c): two workers with a GenerateRunner each over BERT-Large's
+    incremental decode; the worker that holds a greedy and a seeded
+    top-k stream is killed mid-generation, and each resumed stream must
+    equal the same prompt's uninterrupted stream, token for token."""
+    from mxtpu_torch import symbol as sym_mod
+    from mxtpu_torch.ndarray import load_params
+    from mxtpu_torch.serving import FleetWorker, GenerateRunner
+    gsym, gw = sym_mod.load(gen_files[0]), load_params(gen_files[1])
+
+    def worker(name):
+        return FleetWorker(None, name, gen_runner=GenerateRunner(
+            gsym, gw, kv_spec, prompt_buckets=(FLEET_GEN_BUCKET,),
+            device=CARD))
+
+    rng = np.random.RandomState(SEED + 31)
+    prompts = [[int(t) for t in rng.randint(0, VOCAB, FLEET_GEN_PROMPT)]
+               for _ in range(2)]
+    kws = [dict(max_tokens=FLEET_GEN_TOKENS),
+           dict(max_tokens=FLEET_GEN_TOKENS, top_k=FLEET_GEN_TOPK,
+                seed=SEED + 32)]
+    t0 = time.perf_counter()
+    g0 = worker("g0")
+    warm = g0.generator.warmup()
+    g0_warm_s = time.perf_counter() - t0
+    # the survivor's decode plane warmed from g0's handoff before the
+    # streams start (attaching it with warm_from then builds nothing)
+    g1 = worker("g1")
+    t0 = time.perf_counter()
+    g1.generator.warm_from(g0.handoff()["generate"])
+    g1_warm_s = time.perf_counter() - t0
+    router = fleet_router(None, None)
+    with router:
+        router.add_worker(g0)
+        streamed = [[], []]
+        freqs = [router.submit_generate(
+            p, timeout_s=FLEET_TIMEOUT_S,
+            on_token=lambda t, i, s=s: s.append((i, t)), **k)
+            for p, k, s in zip(prompts, kws, streamed)]
+        router.add_worker(g1, warm_from=g0.handoff())
+        mid = fleet_wait(lambda: min(len(s) for s in streamed)
+                         >= FLEET_GEN_KILL_AT, 30.0, 0.0005)
+        at_kill = [len(s) for s in streamed]
+        router.kill("g0")
+        got, errs = [], []
+        for f in freqs:
+            try:
+                got.append(f.result(timeout=FLEET_TIMEOUT_S + 5.0))
+            except Exception as e:  # noqa: BLE001 — reported
+                got.append(None)
+                errs.append(repr(e))
+        # the same prompts uninterrupted, on the survivor
+        alone = [router.submit_generate(p, timeout_s=FLEET_TIMEOUT_S, **k)
+                 for p, k in zip(prompts, kws)]
+        want = [a.result(timeout=FLEET_TIMEOUT_S + 5.0) for a in alone]
+    cold = g1.generator.runner.cold_compiles()
+    same = [g == w for g, w in zip(got, want)]
+    once = [[i for i, _ in s] == list(range(FLEET_GEN_TOKENS))
+            and [t for _, t in s] == g for s, g in zip(streamed, got)]
+    anomalies = [f.anomalies() for f in freqs]
+    ok = (mid and not errs and all(same) and all(once)
+          and max(at_kill) < FLEET_GEN_TOKENS
+          and all(f.requeues == 1 and f.tried == ["g0", "g1"]
+                  for f in freqs)
+          and all(a == {"duplicate_tokens": 0, "wrong_tokens": 0}
+                  for a in anomalies) and cold == 0)
+    print(f"fleet (c): generation on 2 workers (BERT-Large causal f32, "
+          f"{FLEET_GEN_LANES} lanes, prompt bucket {FLEET_GEN_BUCKET}); "
+          f"g0's ladder of {len(warm)} entries captured in {g0_warm_s:.3f}"
+          f" s, g1 warmed from its handoff in {g1_warm_s:.3f} s (cold "
+          f"builds {cold}); g0 killed with the greedy and the top-k "
+          f"stream at {at_kill} of {FLEET_GEN_TOKENS} tokens; resumed on "
+          f"g1: equal to the uninterrupted streams {same}, every index "
+          f"once {once}, anomalies {anomalies}, tried "
+          f"{[f.tried for f in freqs]} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    checks.rows.append({"check": "fleet generation", "same": same,
+                        "once": once, "at_kill": at_kill, "ok": ok})
+    if not ok:
+        checks.failed.append(f"fleet (c): resumed streams equal {same}, "
+                             f"once {once}, at kill {at_kill}, errors "
+                             f"{errs[:2]}, g1 cold builds {cold}")
+    return {"at_kill": at_kill, "same": same, "g0_warm_s": g0_warm_s,
+            "g1_warm_s": g1_warm_s, "g1_cold_compiles": cold}
+
+
+def fleet_control(checks, runners, replica, canary, expect, rows, results,
+                  base):
+    """(d): an Autoscaler (min 1, max 2) on two workers drains one when
+    idle, then scales up under a burst with a replica warmed from the
+    handoff; the replica builds nothing cold."""
+    from mxtpu_torch.serving import Autoscaler
+    router = fleet_router(canary, expect)
+    made = []
+
+    def make_worker(name):
+        made.append(fleet_worker(replica, name))
+        return made[-1]
+
+    scaler = Autoscaler(router, make_worker, min_workers=1, max_workers=2,
+                        up_depth=4.0, down_depth=0.5, breach_ticks=3,
+                        cooldown_s=0.5)
+    t0 = time.perf_counter()
+    with router:
+        for n in ("w1", "w2"):
+            router.add_worker(fleet_worker(runners[n], f"a{n[1]}"))
+        router.add_controller(scaler.tick)
+        down = fleet_wait(lambda: scaler.snapshot()["scale_downs"] == 1
+                          and "dead" in router.workers().values(), 10.0)
+        time.sleep(scaler.cooldown_s + 0.1)   # the burst meets no cooldown
+        idx = list(range(base, base + FLEET_BURST_N))
+        reqs = [router.submit({"data": rows[i]}, seq_len=len(rows[i]),
+                              timeout_s=FLEET_TIMEOUT_S)
+                for i in idx[:-FLEET_TAIL]]
+        drops, hangs = fleet_collect(reqs, idx[:-FLEET_TAIL], results)
+        # the replica attaches once its ladder is warm from the handoff
+        up = fleet_wait(lambda: bool(made)
+                        and made[0].name in router.workers(), 20.0)
+        # freeze the scaler, then a tail the two workers share
+        scaler.cooldown_s = float("inf")
+        tail = [router.submit({"data": rows[i]}, seq_len=len(rows[i]),
+                              timeout_s=FLEET_TIMEOUT_S)
+                for i in idx[-FLEET_TAIL:]]
+        d2, h2 = fleet_collect(tail, idx[-FLEET_TAIL:], results)
+        reqs += tail
+        drops, hangs = drops + d2, hangs + h2
+        snap = scaler.snapshot()
+        events = scaler.recorder.events()
+        states = router.workers()
+    secs = time.perf_counter() - t0
+    ups = [e for e in events if e["kind"] == "scale_up"]
+    cold = replica.cold_compiles()
+    on_new = sum(1 for r in reqs if made and made[0].name in r.tried)
+    ok = (down and up and snap["scale_ups"] == 1 and len(made) == 1
+          and cold == 0
+          and replica.num_compiled() > 0 and on_new > 0 and drops == 0
+          and hangs == 0)
+    print(f"fleet (d): autoscaler min 1 max 2: scale-down (drain) when "
+          f"idle {down}; a burst of {FLEET_BURST_N - FLEET_TAIL} scaled "
+          f"up "
+          f"{snap['scale_ups']} time(s), the replica warmed from "
+          f"{[e.get('donor') for e in ups]}'s handoff, "
+          f"{replica.num_compiled()} entries, cold builds {cold}; the "
+          f"replica served {on_new} of the burst and a tail of "
+          f"{FLEET_TAIL}; drops {drops}, hangs {hangs}; states "
+          f"{states}; {secs:.1f} s {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "fleet control plane", "scaler": snap,
+                        "replica_cold_compiles": cold, "ok": ok})
+    if not ok:
+        checks.failed.append(f"fleet (d): scaler {snap}, replica cold "
+                             f"builds {cold}, served {on_new}, drops "
+                             f"{drops}, hangs {hangs}")
+    return {"scaler": snap, "decisions": events,
+            "replica_cold_compiles": cold, "served_on_replica": on_new,
+            "seconds": secs}
+
+
+def fleet_observe(checks, runners, rows, results, base):
+    """(e) and (f): FLEET_TRACED requests traced through a canary-free
+    fleet (each request's spans in mxtpu's order, a device capture of
+    the same window through ``profiler.start_jax_trace``), ``/metrics``
+    of the debug server round-tripped through ``parse_prometheus_text``,
+    and one served forward's launches."""
+    import urllib.request
+    from mxtpu_torch import kernels, obs, profiler
+    from mxtpu_torch.obs.metrics import (parse_prometheus_text,
+                                         samples_from_snapshot)
+    out_dir = ROOT / "mxtpu_torch" / "_build"
+    router = fleet_router(None, None)
+    with router:
+        router.add_worker(fleet_worker(runners["w1"], "t0"))
+        # one served forward, alone on the card
+        kernels.reset_launch_counts()
+        r = router.submit({"data": rows[base]}, seq_len=len(rows[base]),
+                          timeout_s=FLEET_TIMEOUT_S)
+        fleet_collect([r], [base], results)
+        one = {k: v for k, v in kernels.launch_counts().items() if v}
+        captured = fleet_counts(runners["w1"]._entries[(1, FLEET_T)])
+        profiler.dumps(reset=True)
+        profiler.set_config(filename=str(out_dir / "fleet_trace.json"))
+        profiler.set_state("run")
+        profiler.start_jax_trace(str(out_dir / "fleet_device_trace"))
+        idx = list(range(base + 1, base + 1 + FLEET_TRACED))
+        reqs = [router.submit({"data": rows[i]}, seq_len=len(rows[i]),
+                              timeout_s=FLEET_TIMEOUT_S) for i in idx]
+        fleet_collect(reqs, idx, results)
+        device_path = profiler.stop_jax_trace()
+        profiler.set_state("stop")
+        profiler.dump()
+        events = profiler.events()
+    bad_order = []
+    for r in reqs:
+        # this request's spans in the order they were recorded
+        mine = [e for e in events if e.get("args") and (
+            e["args"].get("trace_id") == r.trace_id
+            or r.trace_id in e["args"].get("trace_ids", ()))]
+        names = [e["name"] for e in mine if e["name"] in FLEET_SPANS]
+        by = {e["name"]: e for e in mine}
+        ordered = names == list(FLEET_SPANS)
+        if ordered:
+            sub, qw, pad, run, ex = (by[n] for n in FLEET_SPANS)
+            eps = 1.0   # us: the spans' clocks are read apart
+            ordered = (sub["ts"] <= qw["ts"] + eps
+                       and qw["ts"] + qw["dur"] <= ex["ts"] + eps
+                       and ex["ts"] <= pad["ts"] + eps
+                       and pad["ts"] + pad["dur"] <= run["ts"] + eps
+                       and run["ts"] + run["dur"]
+                       <= ex["ts"] + ex["dur"] + eps)
+        if not ordered:
+            bad_order.append(names)
+    dev = json.loads(Path(device_path).read_text())
+    n_kern = sum(1 for e in dev.get("traceEvents", [])
+                 if e.get("cat") == "kernel")
+    srv = obs.debug_server(port=0, router=router)
+    try:
+        def fetch(path):
+            with urllib.request.urlopen(srv.url + path, timeout=10) as f:
+                return f.read().decode()
+        text = fetch("/metrics")
+        snap = obs.snapshot()
+        health = json.loads(fetch("/healthz"))
+        statusz = json.loads(fetch("/statusz"))
+    finally:
+        srv.close()
+    round_trip = parse_prometheus_text(text) == samples_from_snapshot(snap)
+    want = {"flash_attention_fwd": LAYERS, "layer_norm_fwd": 1,
+            "fused_residual_ln_fwd": 2 * LAYERS}
+    ok = (not bad_order and n_kern > 0 and round_trip
+          and one == want and captured == want
+          and "workers" in statusz and health["status"] in ("ok",
+                                                            "degraded"))
+    print(f"fleet (e): {FLEET_TRACED} traced requests, spans in mxtpu's "
+          f"order (submit, queue wait, pad/scatter, run, execute) "
+          f"{not bad_order}; the device capture of the window "
+          f"(start_jax_trace) holds {n_kern} kernel events; /metrics "
+          f"({len(text)} bytes) round-trips through parse_prometheus_text "
+          f"{round_trip}; /healthz {health['status']}; (f) one served "
+          f"forward launched {json.dumps(one)}, its captured entry records"
+          f" {json.dumps(captured)} {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "fleet obs", "bad_order": bad_order,
+                        "device_kernel_events": n_kern,
+                        "metrics_round_trip": round_trip,
+                        "one_forward": one, "ok": ok})
+    if not ok:
+        checks.failed.append(f"fleet (e/f): span order {bad_order[:2]}, "
+                             f"device kernels {n_kern}, round trip "
+                             f"{round_trip}, one forward {one}, entry "
+                             f"{captured}")
+    return one, {"device_kernel_events": n_kern, "metrics_bytes": len(text),
+                 "one_forward": one}
+
+
+def fleet_phase(checks, params):
+    """Phase 22 (see the module's docstring): returns the fleet run's
+    launches, one served forward's, and the numbers."""
+    import tempfile
+    import torch
+    from mxtpu_torch import symbol as sym_mod
+    from mxtpu_torch.ndarray import load_params
+    from mxtpu_torch.serving import ModelRunner
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "mxtpu_torch" / "_build",
+                                     prefix="fleet_") as tmp:
+        files = serve_export(params, os.path.join(tmp, "bert"))
+        symbol, weights = sym_mod.load(files[0]), load_params(files[1])
+        gnet, gen_files = gen_export(os.path.join(tmp, "genbert"))
+        kv_spec = gnet.kv_cache_spec(FLEET_GEN_LANES, MAXLEN)
+        del gnet
+        gen = fleet_generate(checks, gen_files, kv_spec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = {"generation": time.perf_counter() - t_phase}
+
+    def make_runner():
+        return ModelRunner(symbol, weights, {"data": (None,)},
+                           seq_buckets=[FLEET_T], max_batch_size=FLEET_B,
+                           device=CARD)
+
+    rng = np.random.RandomState(SEED + 30)
+    n_rows = FLEET_RAW + FLEET_N + FLEET_FAULT_N + FLEET_BURST_N + 1 + \
+        FLEET_TRACED
+    # FLEET_ROWS distinct token rows, request i carrying row i % FLEET_ROWS
+    # (each row's eager reference is computed once)
+    pool = [rng.randint(0, VOCAB, n).astype(np.float32)
+            for n in rng.randint(FLEET_T // 2, FLEET_T + 1, FLEET_ROWS)]
+    rows = [pool[i % FLEET_ROWS] for i in range(n_rows)]
+    canary_row = rng.randint(0, VOCAB, FLEET_T).astype(np.float32)
+    canary = {"data": canary_row}
+    results = []
+    t0 = time.perf_counter()
+    runners = {n: make_runner() for n in ("w0", "w1", "w2", "wR")}
+    # the canary's expected logits: the eager plan at its bucket
+    (expect,) = list(fleet_eager_rows(runners["w0"], [canary_row]))
+    counts, recovery = fleet_recovery(checks, runners, make_runner(),
+                                      canary, [expect], rows, results)
+    secs["recovery"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base = FLEET_RAW + FLEET_N
+    faults = fleet_faults(checks, runners, canary, [expect], rows, results,
+                          base)
+    secs["faults"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replica = make_runner()
+    control = fleet_control(checks, runners, replica, canary, [expect],
+                            rows, results, base + FLEET_FAULT_N)
+    secs["control"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one, observe = fleet_observe(checks, runners, rows, results,
+                                 base + FLEET_FAULT_N + FLEET_BURST_N)
+    secs["observe"] = time.perf_counter() - t0
+    # every served result against its row alone through the eager plan
+    t0 = time.perf_counter()
+    by_row = {}
+    for i, got, err in results:
+        by_row.setdefault(i % FLEET_ROWS, []).append((got, err))
+    wrong, missing, worst_abs, worst_ratio = 0, 0, 0.0, 0.0
+    order = sorted(by_row)
+    for i, want in zip(order, fleet_eager_rows(runners["w0"],
+                                               [pool[i] for i in order])):
+        for got, err in by_row[i]:
+            if got is None:
+                missing += 1
+                continue
+            diff = np.abs(got.astype(np.float64) - want)
+            lim = FLEET_ATOL + FLEET_RTOL * np.abs(want.astype(np.float64))
+            worst_abs = max(worst_abs, float(diff.max()))
+            worst_ratio = max(worst_ratio, float((diff / lim).max()))
+            if got.shape != want.shape or not np.all(diff <= lim):
+                wrong += 1
+    secs["check"] = time.perf_counter() - t0
+    ok = wrong == 0 and missing == 0 and len(results) == n_rows
+    print(f"check fleet results: {len(results)} served requests (every "
+          f"cell) against each row alone through the eager plan at (1, "
+          f"{FLEET_T}): {wrong} outside the canary's tolerance (rtol "
+          f"{FLEET_RTOL}, atol {FLEET_ATOL}), {missing} without a result; "
+          f"largest deviation {worst_abs:.3e} abs, {worst_ratio:.4f} of the "
+          f"tolerance {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "fleet results vs eager", "wrong": wrong,
+                        "missing": missing, "max_abs_err": worst_abs,
+                        "tol_ratio": worst_ratio, "ok": ok})
+    if not ok:
+        checks.failed.append(f"fleet: {wrong} wrong and {missing} missing "
+                             f"results of {len(results)}")
+    del runners, replica, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"fleet: phase {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + ")", flush=True)
+    return counts, one, {"recovery": recovery, "faults": faults,
+                         "generation": gen, "control": control,
+                         "observe": observe, "max_abs_err": worst_abs,
+                         "tol_ratio": worst_ratio, "phase_s": phase_s,
+                         "phase_split_s": secs}
+
+
 def main():
     try:
         import torch
@@ -7428,11 +8114,12 @@ def main():
     serve_counts, serving = serve_phase(checks, params)
     scales, qs_counts, quant_serving = quant_serve_phase(checks, params,
                                                          gen)
-    del params
     gen_counts, gen_rows, generation = generate_phase(checks, gen, scales)
     mt_counts, mt_rows, transformer = transformer_phase(checks, gen)
     pipe_counts, zoo_counts, zoo_rows, pipeline = pipeline_phase(checks,
                                                                  gen)
+    fleet_counts_run, fleet_one, fleet = fleet_phase(checks, params)
+    del params
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values()) +
@@ -7613,6 +8300,28 @@ def main():
                    for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms")}})
 
+    # the fleet path's #1, #4 and #6 (f32, replayed from the fleet
+    # runners' captured graphs) with the launches of phase 22's recovery
+    # run, timed at the serving shapes
+    for name, src, rep in (
+            ("flash_attention_fwd", fa_src,
+             "mxtpu/kernels/flash_attention.py:192"),
+            ("layer_norm_fwd", "mxtpu_torch/csrc/layer_norm.cu",
+             "mxtpu/kernels/layer_norm.py:104"),
+            ("fused_residual_ln_fwd",
+             "mxtpu_torch/csrc/fused_residual_ln.cu",
+             "mxtpu/kernels/layer_norm.py:355")):
+        if fleet_counts_run.get(name, 0) == 0:
+            checks.failed.append(f"kernel {name} never launched on the "
+                                 f"fleet path")
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "dtype": "float32", "path": "fleet",
+            "launches": fleet_counts_run.get(name, 0),
+            **{k: timings[(name, "float32")][k]
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -7634,6 +8343,8 @@ def main():
                            "amp resnet50 NHWC": amp_counts["resnet"],
                            "serving amp (one forward)": qs_counts["amp"],
                            "serving int8 (one forward)": qs_counts["int8"],
+                           "serving fleet": fleet_counts_run,
+                           "serving fleet (one forward)": fleet_one,
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,
                            **{f"tool {k}": c
@@ -7645,6 +8356,7 @@ def main():
               "resnet50": resnet, "bulked": bulked, "gluon": gluon,
               "serving": serving, "generation": generation,
               "transformer": transformer, "pipeline": pipeline,
+              "fleet": fleet,
               "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

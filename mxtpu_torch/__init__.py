@@ -3,7 +3,7 @@
 The package mirrors ``mxtpu``'s layout and names (``nd``, ``autograd``,
 ``sym``, ``mod``, ``serving``, ``models``, ``gluon``, ``optimizer``,
 ``lr_scheduler``, ``parallel``, ``random``, ``rtc``, ``kernels``,
-``io``, ``recordio``, ``image``) on
+``io``, ``recordio``, ``image``, ``profiler``, ``obs``) on
 torch tensors, so ``import mxtpu_torch as mx`` runs MXNet-1.x-style
 code.  Each Pallas kernel of a ported path becomes a kernel written by
 hand for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
@@ -19,6 +19,7 @@ from . import ndarray, autograd, symbol, executor  # noqa: F401
 from . import initializer, optimizer, io, metric, callback  # noqa: F401
 from . import model, module, operator, rtc  # noqa: F401
 from . import recordio, image  # noqa: F401
+from . import profiler, obs  # noqa: F401
 from . import gluon  # noqa: F401
 
 nd = ndarray

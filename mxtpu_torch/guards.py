@@ -19,8 +19,9 @@ Two failure modes that only show at run time:
 
 With ``MXTPU_GUARDS`` unset, :func:`no_implicit_transfers` returns one
 shared ``nullcontext`` and the runners read the knob once, when they
-are built.  mxtpu's metrics counter of cache misses waits for the
-port's ``obs``.
+are built.  Every build a detector notes also counts in
+``mxtpu_compile_cache_miss_total{entry}`` of the ``mxtpu_torch.obs``
+registry, so churn across every entry shows in one scrape.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import warnings
 from typing import Any, Dict, Optional
 
 from . import knobs
+from . import obs
 from .base import MXNetError
 
 __all__ = ["enabled", "strict", "ChurnDetector", "RecompileChurn",
@@ -76,6 +78,12 @@ class ChurnDetector:
         self.calls = 0           # guarded-by: _lock
         self._last_keys = []     # guarded-by: _lock
         self._tripped = False    # guarded-by: _lock
+        # builds also land in the process-wide metrics registry
+        self._obs = obs.enabled()
+        self._m_miss = obs.counter(
+            "mxtpu_compile_cache_miss_total",
+            "jit cache misses per guarded entry (ChurnDetector).",
+            labels=("entry",)).labels(entry=name)
 
     @property
     def limit(self) -> int:
@@ -89,6 +97,8 @@ class ChurnDetector:
 
     def note_compile(self, key: Any = None) -> None:
         """Record one build; trips the guard past the limit."""
+        if self._obs:
+            self._m_miss.inc()
         with self._lock:
             self.compiles += 1
             self._last_keys.append(key)

@@ -148,3 +148,118 @@ register("MXTPU_QUANT_CALIB", "entropy", "str",
 register("MXTPU_QUANT_CALIB_BATCHES", 10, "int",
          "Most representative batches a ModelRunner.calibrate() pass "
          "reads when the caller does not say otherwise.", "kill-switch")
+
+# -- observability (mxtpu_torch.obs) -----------------------------------
+register("MXTPU_OBS", True, "bool",
+         "Unified observability layer (mxtpu_torch.obs): metrics "
+         "registry, per-request trace ids, flight recorders.  `0` = off: the "
+         "factories hand back shared no-op instruments, so hot paths "
+         "pay nothing (asserted by `obs.self_check()` at bench "
+         "import).", "obs")
+register("MXTPU_OBS_FLIGHT_CAPACITY", 256, "int",
+         "Flight-recorder ring size — structured events kept per "
+         "worker (oldest evicted first).", "obs")
+register("MXTPU_OBS_DUMP_ON_ERROR", "", "str",
+         "Extra flight-recorder postmortems: unset = dump only on "
+         "worker death; `1` also dumps every recorder when a fleet "
+         "request fails terminally; a directory path additionally "
+         "writes each postmortem there as JSON.", "obs")
+register("MXTPU_OBS_SAMPLE_PERIOD_US", 1000000, "int",
+         "Time-series sampler period (obs.sampler): how often "
+         "maybe_sample() snapshots the metrics registry into the "
+         "bounded per-series rings that back windowed rates, "
+         "p50/p95/p99 and SLO burn windows.", "obs")
+register("MXTPU_OBS_HTTP_PORT", -1, "int",
+         "Debug HTTP server (obs.debug_server): /metrics /varz "
+         "/healthz /statusz /tracez on loopback.  -1 = never serve "
+         "(default); 0 = ephemeral port (tests read it back from "
+         "server.port); >0 = fixed port.", "obs")
+register("MXTPU_SLO_CLASSES", "", "str",
+         "Declarative latency SLOs, comma-separated "
+         "`name:endpoint:target_ms:objective[:percentile]` (e.g. "
+         "`interactive:fleet:50:0.95`), parsed by "
+         "obs.parse_slo_classes into LatencySLO objects next to the "
+         "built-in availability SLO.", "obs")
+register("MXTPU_PROFILER_AUTOSTART", False, "bool",
+         "Start the chrome-trace profiler at import.", "engine")
+
+# -- serving fleet (router / health / retry) ---------------------------
+register("MXTPU_FLEET_LIVENESS_S", 2.0, "float",
+         "Liveness deadline on a dispatched batch: in-flight past "
+         "this is SUSPECT, past 2x is a hang (DEAD).", "fleet")
+register("MXTPU_FLEET_DEAD_AFTER", 3, "int",
+         "Consecutive canary failures on a SUSPECT worker before it "
+         "is declared DEAD.", "fleet")
+register("MXTPU_FLEET_CANARY_INTERVAL_S", 5.0, "float",
+         "Seconds between canary inferences per worker (0 disables "
+         "active health checks).", "fleet")
+register("MXTPU_FLEET_CANARY_TIMEOUT_S", 1.0, "float",
+         "Deadline on each canary inference.", "fleet")
+register("MXTPU_FLEET_RETRY_MAX", 3, "int",
+         "Router-level re-dispatch cap per request (retriable "
+         "failures only).", "fleet")
+register("MXTPU_FLEET_BACKOFF_BASE_US", 1000, "int",
+         "Retry backoff base: min(cap, base * 2^(n-1)) + jitter.",
+         "fleet")
+register("MXTPU_FLEET_BACKOFF_CAP_US", 64000, "int",
+         "Retry backoff cap in microseconds.", "fleet")
+register("MXTPU_FLEET_JITTER", 0.2, "float",
+         "Backoff jitter fraction (deterministic seeded RNG).",
+         "fleet")
+register("MXTPU_FLEET_HEDGE_AFTER_US", 0, "int",
+         "Hedge a still-in-flight request onto a second worker after "
+         "this many microseconds (0 disables hedging).", "fleet")
+register("MXTPU_FLEET_MAX_PENDING", 1024, "int",
+         "Bound on the router's parked-retry buffer before "
+         "ServerBusy shedding.", "fleet")
+register("MXTPU_FLEET_TICK_S", 0.005, "float",
+         "Router ticker period in threaded mode.", "fleet")
+
+# -- fleet control plane (autoscaler / admission / priority) -----------
+register("MXTPU_FLEET_AUTOSCALE_MIN", 1, "int",
+         "Autoscaler floor: never drain below this many healthy "
+         "workers.", "controlplane")
+register("MXTPU_FLEET_AUTOSCALE_MAX", 4, "int",
+         "Autoscaler ceiling on live (non-dead) workers.",
+         "controlplane")
+register("MXTPU_FLEET_AUTOSCALE_UP_DEPTH", 4.0, "float",
+         "Scale-up band: mean outstanding requests per healthy worker "
+         "(router backlog included) above this counts as an overload "
+         "tick.", "controlplane")
+register("MXTPU_FLEET_AUTOSCALE_DOWN_DEPTH", 0.5, "float",
+         "Scale-down band: mean outstanding per healthy worker below "
+         "this (with an empty router backlog) counts as an underload "
+         "tick.", "controlplane")
+register("MXTPU_FLEET_AUTOSCALE_UP_ETA_US", 0.0, "float",
+         "Additional scale-up trigger: predicted queue ETA "
+         "(ServingStats.queue_eta_us) above this many microseconds "
+         "counts as overload (0 disables the ETA signal).",
+         "controlplane")
+register("MXTPU_FLEET_AUTOSCALE_BURN", False, "bool",
+         "Let an attached SLO engine's firing burn-rate alerts count "
+         "as autoscaler overload ticks (scale up while the error "
+         "budget is burning even if queue depth looks fine).  Off by "
+         "default: scaling behaviour is bit-identical to the "
+         "pre-SLO autoscaler unless explicitly enabled.",
+         "controlplane")
+register("MXTPU_FLEET_AUTOSCALE_BREACH_TICKS", 3, "int",
+         "Hysteresis: consecutive over/under-band evaluations before "
+         "the autoscaler acts (bands reset each action).",
+         "controlplane")
+register("MXTPU_FLEET_AUTOSCALE_COOLDOWN_S", 5.0, "float",
+         "Minimum seconds between autoscaler actions (either "
+         "direction).", "controlplane")
+register("MXTPU_FLEET_ADMISSION", False, "bool",
+         "Predictive admission control: shed a deadline-carrying "
+         "request at submit with ServerBusy (+retry_after_us) when "
+         "the class-aware queue ETA says it cannot finish in time.",
+         "controlplane")
+register("MXTPU_FLEET_ADMISSION_MARGIN", 1.0, "float",
+         "Admission safety factor: shed when margin x predicted ETA "
+         "exceeds the deadline budget (>1 sheds earlier, <1 gambles).",
+         "controlplane")
+register("MXTPU_FLEET_CLASSES", "", "str",
+         "Priority/fairness classes as `name:weight[:quota],...` "
+         "(e.g. `gold:8,bulk:1:64`): weight sets the weighted-round-"
+         "robin dispatch share, quota bounds in-system requests per "
+         "class.  Unset = one `default` class.", "controlplane")

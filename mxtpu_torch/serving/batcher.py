@@ -1,6 +1,4 @@
-"""Dynamic micro-batcher (copy of ``mxtpu/serving/batcher.py`` without
-the profiler/trace hooks; a request's ``trace_id`` is carried as
-given).
+"""Dynamic micro-batcher (copy of ``mxtpu/serving/batcher.py``).
 
 A bounded request queue with ``max_batch_size`` / ``max_queue_delay_us``
 batch assembly.  The batching *policy* is pure and clock-injected —
@@ -30,6 +28,8 @@ import time
 from typing import Any, Callable, List, Optional
 
 from ..base import MXNetError
+from .. import profiler
+from ..obs import trace as _trace
 
 __all__ = ["RetriableError", "ServerBusy", "RequestTimeout",
            "WorkerLost", "InferenceRequest", "Batch", "DynamicBatcher"]
@@ -106,7 +106,7 @@ class InferenceRequest:
                  deadline: Optional[float] = None,
                  trace_id: Optional[str] = None):
         self.payload = payload
-        self.trace_id = trace_id   # a caller's id, carried as given
+        self.trace_id = trace_id   # obs: minted at the submit edge
         self.group = group
         self.seq_len = seq_len
         self.t_submit = t_submit
@@ -263,14 +263,17 @@ class DynamicBatcher:
     # -- submit side ----------------------------------------------------
     def submit(self, payload: Any, *, group: Any = None,
                seq_len: Optional[int] = None,
-               timeout_s: Optional[float] = None) -> InferenceRequest:
+               timeout_s: Optional[float] = None,
+               trace_id: Optional[str] = None) -> InferenceRequest:
         """Enqueue one request; raises :class:`ServerBusy` when the
         bounded queue is full (explicit rejection, never unbounded
-        growth)."""
+        growth).  ``trace_id`` (obs) rides the request through
+        assembly into the runner's phase spans."""
         now = self._clock()
         req = InferenceRequest(
             payload, group=group, seq_len=seq_len, t_submit=now,
-            deadline=None if timeout_s is None else now + timeout_s)
+            deadline=None if timeout_s is None else now + timeout_s,
+            trace_id=trace_id)
         with self._cond:
             if self._closed:
                 raise WorkerLost(
@@ -392,6 +395,12 @@ class DynamicBatcher:
                 self._queue[0:0] = requeued
                 self._note_depth_locked()
                 self._cond.notify_all()
+        if requeued and profiler.is_active():
+            for r in requeued:
+                if r.trace_id is not None:
+                    _trace.span(_trace.SPAN_REQUEUE, now * 1e6, 0.0,
+                                trace_id=r.trace_id,
+                                requeues=r.requeues)
         return len(requeued)
 
     def oldest_waiting_age(self, now: Optional[float] = None

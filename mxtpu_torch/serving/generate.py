@@ -19,9 +19,11 @@ Three pieces, with mxtpu's names and signatures:
   of the last :data:`MAX_TABLES` tables), on the CPU the graph plan run
   eagerly.  AMP and int8 run as in :class:`.ModelRunner` (``amp=``,
   ``quant=`` with the ``quant_scales`` a ``ModelRunner.calibrate``
-  gave).  mxtpu's persistent executable cache is not ported (``cache``
-  raises ``TypeError``), nor is its introspection of compiled
-  programs.
+  gave).  A draining worker hands its ladder to a replacement
+  (``ladder_metadata``/``warm_from``).  mxtpu's persistent executable
+  cache is not ported (``cache`` raises ``TypeError``; ``cached_buckets``
+  and ``warm_from_disk`` return nothing), nor is its introspection of
+  compiled programs.
 
 - :class:`GenerateRequest` is the streaming future: tokens fire through
   ``on_token`` as they are sampled, ``result()`` returns the full
@@ -39,7 +41,8 @@ Three pieces, with mxtpu's names and signatures:
 Sampling is host-side and replay-deterministic: greedy argmax, or top-k
 seeded by ``(seed, absolute_position)``, so the same token ids come out
 across runs and across a replay that resumes at the same positions.
-The tracing spans and profiler tasks of mxtpu's version are left out.
+Traced requests emit mxtpu's prefill and token spans, and entry builds
+feed the compile counters and the "compile" flight recorder.
 """
 from __future__ import annotations
 
@@ -55,12 +58,15 @@ import torch
 from ..base import MXNetError
 from .. import guards
 from .. import knobs
+from .. import obs
+from .. import profiler
 from ..context import resolve_device, strict_f32
 from .batcher import (InferenceRequest, RequestTimeout, ServerBusy,
                       WorkerLost, _lost_for)
 from .entry import Entry, GraphPool, tensor_key
-from .runner import (_NOT_PORTED, batch_ladder, entry_values, scopes,
-                     stage_weights)
+from .runner import (COMPILE_SECONDS, COMPILE_SECONDS_HELP,
+                     COMPILE_TOTAL, COMPILE_TOTAL_HELP, _NOT_PORTED,
+                     batch_ladder, entry_values, scopes, stage_weights)
 
 __all__ = ["GenerateRequest", "GenerateRunner", "GenerateBatcher",
            "sample_token"]
@@ -293,11 +299,23 @@ class GenerateRunner:
         self._tables: "OrderedDict[Any, Dict[Tuple, Entry]]" = \
             OrderedDict()  # guarded-by: _lock
         self.compile_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
+        # source per built entry, as ModelRunner records it: "cold" or
+        # "donor" (built by warm_from from a donor's handoff)
+        self._compile_sources: Dict[Tuple, str] = {}  # guarded-by: _lock
         self._guards = guards.enabled()
         # a ladder for each table kept (+ slack for extra buckets)
+        self._entry_label = f"GenerateRunner[{type(symbol).__name__}]"
         self._churn = guards.ChurnDetector(
-            f"GenerateRunner[{type(symbol).__name__}]",
-            limit=MAX_TABLES * len(self.buckets()) + 4)
+            self._entry_label, limit=MAX_TABLES * len(self.buckets()) + 4)
+        self._obs = obs.enabled()
+        self._m_compile = obs.counter(
+            COMPILE_TOTAL, COMPILE_TOTAL_HELP,
+            labels=("entry",)).labels(entry=self._entry_label)
+        _h = obs.histogram(COMPILE_SECONDS, COMPILE_SECONDS_HELP,
+                           labels=("entry", "source"))
+        self._m_compile_s = {
+            src: _h.labels(entry=self._entry_label, source=src)
+            for src in ("cold", "donor")}
 
     @classmethod
     def from_export(cls, symbol_file: str, params_file: str,
@@ -337,7 +355,8 @@ class GenerateRunner:
         return out
 
     def warmup(self, buckets: Optional[Sequence[Tuple]] = None,
-               kv: Optional[torch.Tensor] = None) -> Dict[Tuple, float]:
+               kv: Optional[torch.Tensor] = None,
+               _source: str = "cold") -> Dict[Tuple, float]:
         """Build each bucket's entry (the whole ladder by default), so
         no token pays a capture.  On the card an entry is captured on
         the table it runs on: pass that table as ``kv``
@@ -350,7 +369,7 @@ class GenerateRunner:
                 "GenerateBatcher.warmup())")
         for kind, shp in (buckets if buckets is not None
                           else self.buckets()):
-            self._entry((kind, tuple(shp)), kv)
+            self._entry((kind, tuple(shp)), kv, _source)
         with self._lock:
             return dict(self.compile_seconds)
 
@@ -358,6 +377,60 @@ class GenerateRunner:
         """Entries held: one per bucket built, for each table kept."""
         with self._lock:
             return sum(len(t) for t in self._tables.values())
+
+    def default_bucket(self, kind: str = "decode") -> Tuple:
+        if kind == "decode":
+            return ("decode", (self._slots,))
+        return ("prefill", (self.batch_buckets[-1],
+                            self.prompt_buckets[-1]))
+
+    # -- the persistent cache (not ported) --------------------------------
+    def cached_buckets(self) -> List[Tuple]:
+        """The ladder's buckets in the persistent cache: none until
+        ``cache.py`` is ported."""
+        return []
+
+    def warm_from_disk(self) -> Dict[Tuple, float]:
+        """Warm what the persistent cache holds: nothing until
+        ``cache.py`` is ported."""
+        return {}
+
+    def compile_sources(self) -> Dict[Tuple, str]:
+        """Per built bucket: "cold" (built with no donor's list) or
+        "donor" (built by :meth:`warm_from`), as of its latest build."""
+        with self._lock:
+            return dict(self._compile_sources)
+
+    def cold_compiles(self) -> int:
+        with self._lock:
+            return sum(1 for s in self._compile_sources.values()
+                       if s == "cold")
+
+    # -- fleet handoff -----------------------------------------------------
+    def ladder_metadata(self) -> Dict[str, Any]:
+        """What a draining worker hands its replacement: which entries
+        were actually built (on any table) and what each cost."""
+        with self._lock:
+            compiled = sorted(self.compile_seconds)
+            secs = dict(self.compile_seconds)
+        return {"max_lanes": self.max_lanes,
+                "prompt_buckets": list(self.prompt_buckets),
+                "compiled_buckets": [[k, list(s)] for k, s in compiled],
+                "compile_seconds": {str(k): v for k, v in secs.items()},
+                "weight_bytes": self.weight_bytes()}
+
+    def warm_from(self, metadata: Dict[str, Any],
+                  kv: Optional[torch.Tensor] = None
+                  ) -> Dict[Tuple, float]:
+        """Warm this (replacement) runner from a donor's
+        :meth:`ladder_metadata`, restricted to this runner's own
+        ladder.  On the card the entries are captured on ``kv``, the
+        table they will run on (:meth:`GenerateBatcher.warm_from`
+        passes its own)."""
+        own = set(self.buckets())
+        donor = [(k, tuple(s))
+                 for k, s in metadata.get("compiled_buckets", [])]
+        return self.warmup([b for b in donor if b in own], kv, "donor")
 
     # -- the entries -------------------------------------------------------
     def _prefill_fn(self, tokens, step, lane_idx, kv):
@@ -386,9 +459,11 @@ class GenerateRunner:
             kv.copy_(new)
         return (logits,)
 
-    def _entry(self, bucket: Tuple, kv: Optional[torch.Tensor]) -> Entry:
+    def _entry(self, bucket: Tuple, kv: Optional[torch.Tensor],
+               source: str = "cold") -> Entry:
         """The bucket's entry for table ``kv``, built once (under
-        ``_lock``); on the card each table has its own."""
+        ``_lock``); on the card each table has its own.  ``source`` is
+        what :meth:`compile_sources` records for a new entry."""
         table = tensor_key(kv) if self._captured else None
         with self._lock:
             ladder = self._tables.get(table)
@@ -411,12 +486,24 @@ class GenerateRunner:
             fn = self._prefill_fn if bucket[0] == "prefill" \
                 else self._decode_fn
             t0 = time.perf_counter()
-            entry = Entry(fn, example, self._pool,
-                          bound=(kv,) if self._captured else (),
-                          label=f"GenerateRunner {bucket[0]} {bucket[1]}",
-                          guard=self._guards)
+            with profiler.Task(f"generate:compile:{bucket[0]}"
+                               f"{bucket[1]}"):
+                entry = Entry(fn, example, self._pool,
+                              bound=(kv,) if self._captured else (),
+                              label=f"GenerateRunner {bucket[0]} "
+                                    f"{bucket[1]}",
+                              guard=self._guards)
             self.compile_seconds[bucket] = time.perf_counter() - t0
+            self._compile_sources[bucket] = source
             ladder[bucket] = entry
+            if self._obs:
+                self._m_compile.inc()
+                self._m_compile_s[source].observe(
+                    self.compile_seconds[bucket])
+                obs.flight("compile").record(
+                    "compile_miss", entry=self._entry_label,
+                    bucket=str(bucket), source=source,
+                    seconds=round(self.compile_seconds[bucket], 4))
             return entry
 
     def _entry_inputs(self, bucket: Tuple) -> Tuple[torch.Tensor, ...]:
@@ -434,9 +521,11 @@ class GenerateRunner:
                     torch.zeros(shp, device=dev))
         raise MXNetError(f"generate: unknown bucket kind {kind!r}")
 
-    def _eager_entry(self, bucket: Tuple, kv: torch.Tensor) -> Entry:
+    def _eager_entry(self, bucket: Tuple, kv: torch.Tensor,
+                     source: str = "cold") -> Entry:
         """The bucket's graph plan run eagerly, never captured (what
-        ``chip_smoke.py`` holds a captured entry against on the card)."""
+        ``chip_smoke.py`` holds a captured entry against on the card).
+        Takes :meth:`_entry`'s arguments, so it can stand in for it."""
         fn = self._prefill_fn if bucket[0] == "prefill" else self._decode_fn
         return Entry(fn, (), self._pool, capture=False,
                      label=f"GenerateRunner eager {bucket}")
@@ -607,6 +696,15 @@ class GenerateBatcher:
                 self._kv = self.runner.new_cache()
             return self.runner.warmup(buckets, kv=self._kv)
 
+    def warm_from(self, metadata: Dict[str, Any]) -> Dict[Tuple, float]:
+        """:meth:`GenerateRunner.warm_from` on this batcher's slot table
+        (taken now if it has none): what the fleet router calls to warm
+        a replacement's decode plane from a donor's handoff."""
+        with self._step_lock:
+            if self._kv is None:
+                self._kv = self.runner.new_cache()
+            return self.runner.warm_from(metadata, kv=self._kv)
+
     # -- submit side ------------------------------------------------------
     def submit(self, prompt: Sequence[int], *,
                max_tokens: Optional[int] = None,
@@ -725,7 +823,7 @@ class GenerateBatcher:
             if active:
                 self._decode_locked(active, now, emissions, finished,
                                     completions)
-            self._fire(emissions)
+            self._fire(emissions, now)
             for r, value in completions:
                 r._complete(value, now)
             return {"admitted": len(admitted), "active": n_active,
@@ -815,6 +913,7 @@ class GenerateBatcher:
         need = [len(f) for f in full]
         chunks = max(1, math.ceil(max(need) / s))
         first_logits: List[Optional[np.ndarray]] = [None] * len(pairs)
+        t0 = now * 1e6
         for c in range(chunks):
             base = c * s
             tokens = np.zeros((b, s), np.float32)
@@ -863,6 +962,11 @@ class GenerateBatcher:
                     finished.append(r)
                 else:
                     self._lanes[lane] = ln
+                if r.trace_id is not None and profiler.is_active():
+                    obs.span(obs.SPAN_PREFILL, t0, now * 1e6 - t0,
+                             trace_id=r.trace_id, cat="gen",
+                             lane=lane, prompt=len(r.prompt),
+                             prefix=len(r.prefix))
             self._cond.notify_all()
 
     def _decode_locked(self, active: List[Tuple[int, _Lane]], now: float,
@@ -905,10 +1009,11 @@ class GenerateBatcher:
                 finished.append(r)
             self._cond.notify_all()
 
-    def _fire(self, emissions) -> None:
-        """Stream callbacks + per-token stats, OUTSIDE every lock
+    def _fire(self, emissions, now: float) -> None:
+        """Stream callbacks + per-token stats/spans, OUTSIDE every lock
         (on_token is arbitrary user code)."""
         stats = self._stats
+        active = profiler.is_active()
         for r, tok, index, is_first, dt in emissions:
             if stats is not None:
                 if is_first and not r.prefix:
@@ -916,6 +1021,10 @@ class GenerateBatcher:
                     stats.record_ttft(max(0.0, dt) * 1e6)
                 else:
                     stats.record_token(max(0.0, dt) * 1e6)
+            if active and r.trace_id is not None:
+                obs.span(obs.SPAN_TOKEN, now * 1e6, 0.0,
+                         trace_id=r.trace_id, cat="gen", token=tok,
+                         index=index)
             if self.stream and r.on_token is not None:
                 try:
                     r.on_token(tok, index)

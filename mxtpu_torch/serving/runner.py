@@ -29,6 +29,8 @@ import torch
 from ..base import MXNetError
 from .. import guards
 from .. import knobs
+from .. import obs
+from .. import profiler
 from ..context import resolve_device, strict_f32
 from .batcher import InferenceRequest
 from .entry import Entry, GraphPool
@@ -39,6 +41,17 @@ __all__ = ["ModelRunner", "batch_ladder"]
 # that brings each
 _NOT_PORTED = {"cache": "the persistent executable cache (ROADMAP "
                         "queue 1 item 3)"}
+
+
+# the entry-build instruments ModelRunner and GenerateRunner share
+# (mxtpu's metric names)
+COMPILE_TOTAL = "mxtpu_serving_compile_total"
+COMPILE_TOTAL_HELP = ("Bucket entries built (on the card, a CUDA graph "
+                      "captured; on the CPU, the graph plan bound).")
+COMPILE_SECONDS = "mxtpu_serving_compile_seconds"
+COMPILE_SECONDS_HELP = ("Per-bucket entry build wall time (source=cold: "
+                        "built with no donor; source=donor: built by "
+                        "warm_from from a donor's handoff).")
 
 
 def batch_ladder(max_batch_size: int) -> Tuple[int, ...]:
@@ -209,12 +222,33 @@ class ModelRunner:
         self._lock = threading.Lock()
         self._entries: Dict[Tuple, Entry] = {}  # guarded-by: _lock
         self.compile_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
+        # per built entry: "cold" (captured with no donor's list) or
+        # "donor" (captured by warm_from from a donor's handoff); a
+        # "disk" source comes with the persistent cache
+        self._compile_sources: Dict[Tuple, str] = {}  # guarded-by: _lock
         self._guards = guards.enabled()
         # one build per ladder rung is the design; anything past the
         # ladder (+ slack for explicit extra warmup buckets) is churn
+        self._entry_label = f"ModelRunner[{type(symbol).__name__}]"
         self._churn = guards.ChurnDetector(
-            f"ModelRunner[{type(symbol).__name__}]",
-            limit=len(self.buckets()) + 4)
+            self._entry_label, limit=len(self.buckets()) + 4)
+        self._obs_wiring()
+
+    def _obs_wiring(self) -> None:
+        """mxtpu_torch.obs instruments (cached bool; no-op singletons
+        when ``MXTPU_OBS=0``): entry builds feed the registry AND the
+        "compile" flight recorder, so a postmortem shows every build
+        with its time.  In this package a "compile" is the build (on
+        the card, the capture) of a bucket's entry."""
+        self._obs = obs.enabled()
+        self._m_compile = obs.counter(
+            COMPILE_TOTAL, COMPILE_TOTAL_HELP,
+            labels=("entry",)).labels(entry=self._entry_label)
+        _h = obs.histogram(COMPILE_SECONDS, COMPILE_SECONDS_HELP,
+                           labels=("entry", "source"))
+        self._m_compile_s = {
+            src: _h.labels(entry=self._entry_label, source=src)
+            for src in ("cold", "donor")}
 
     # -- deployment-artifact constructors -------------------------------
     @classmethod
@@ -376,11 +410,12 @@ class ModelRunner:
                        device=self._device)
             for n in self._input_names)
 
-    def _entry(self, bucket: Tuple) -> Entry:
+    def _entry(self, bucket: Tuple, source: str = "cold") -> Entry:
         """Build (once) and return the bucket's entry.  Holding
         ``_lock`` across the build trades warmup parallelism for the
         exactly-once contract: two worker threads hitting the same cold
-        bucket would otherwise both capture it."""
+        bucket would otherwise both capture it.  ``source`` is what
+        :meth:`compile_sources` records for a new entry."""
         with self._lock:
             entry = self._entries.get(bucket)
             if entry is not None:
@@ -391,32 +426,60 @@ class ModelRunner:
                 raise MXNetError(
                     "serving: quantized runner has no calibrated scales — "
                     "run calibrate(batches) before building buckets")
+            batch, seq = bucket
             t0 = time.perf_counter()
-            entry = Entry(self._forward, self._example(bucket), self._pool,
-                          label=f"ModelRunner bucket {bucket}",
-                          guard=self._guards)
+            with profiler.Task(f"serving:compile:b{batch}"
+                               f"{'' if seq is None else f's{seq}'}"):
+                entry = Entry(self._forward, self._example(bucket),
+                              self._pool,
+                              label=f"ModelRunner bucket {bucket}",
+                              guard=self._guards)
             self.compile_seconds[bucket] = time.perf_counter() - t0
             self._entries[bucket] = entry
+            self._compile_sources[bucket] = source
+            if self._obs:
+                self._m_compile.inc()
+                self._m_compile_s[source].observe(
+                    self.compile_seconds[bucket])
+                obs.flight("compile").record(
+                    "compile_miss", entry=self._entry_label,
+                    bucket=str(bucket), source=source,
+                    seconds=round(self.compile_seconds[bucket], 4))
             return entry
 
-    def _eager_entry(self, bucket: Tuple) -> Entry:
+    def _eager_entry(self, bucket: Tuple, source: str = "cold") -> Entry:
         """The bucket's graph plan run eagerly, never captured (what
-        ``chip_smoke.py`` holds a captured entry against on the card)."""
+        ``chip_smoke.py`` holds a captured entry against on the card).
+        Takes :meth:`_entry`'s arguments, so it can stand in for it."""
         return Entry(self._forward, (), self._pool, capture=False,
                      label=f"ModelRunner eager {bucket}")
 
-    def warmup(self, buckets: Optional[Sequence[Tuple]] = None
-               ) -> Dict[Tuple, float]:
+    def warmup(self, buckets: Optional[Sequence[Tuple]] = None,
+               _source: str = "cold") -> Dict[Tuple, float]:
         """Build the ladder (or a subset) so no production request pays
         a capture; returns per-bucket build seconds."""
         for bucket in (buckets if buckets is not None else self.buckets()):
-            self._entry(tuple(bucket))
+            self._entry(tuple(bucket), _source)
         with self._lock:
             return dict(self.compile_seconds)
 
     def num_compiled(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def compile_sources(self) -> Dict[Tuple, str]:
+        """Per built entry: "cold" (built with no donor's list: by
+        :meth:`warmup` or by a call) or "donor" (built by
+        :meth:`warm_from` from a donor's handoff)."""
+        with self._lock:
+            return dict(self._compile_sources)
+
+    def cold_compiles(self) -> int:
+        """Entries built cold — zero on a replacement warmed from a
+        donor that then serves only the donor's buckets."""
+        with self._lock:
+            return sum(1 for s in self._compile_sources.values()
+                       if s == "cold")
 
     # -- execution --------------------------------------------------------
     def _pad_stack(self, rows: List[Dict[str, np.ndarray]],
@@ -495,16 +558,36 @@ class ModelRunner:
         return self._run_host(self._pad_stack(rows, bucket), bucket, n)
 
     def run_requests(self, requests: List[InferenceRequest],
-                     now: Optional[float] = None) -> Tuple:
+                     now: Optional[float] = None,
+                     mutate=None) -> Tuple:
         """Server path: execute one assembled same-group batch and
         scatter each request its OWN output rows (sequence axis trimmed
         back to the request's true length).  Returns (bucket, outputs)
-        for stats."""
+        for stats.  ``mutate`` (host outputs -> host outputs) is the
+        fault-injection seam — :mod:`.faults` corrupts results here so
+        canary-based detection is exercised deterministically;
+        production callers leave it None."""
         n = len(requests)
         seq = requests[0].group if self.seq_buckets is not None else None
         bucket = self.bucket_for(n, seq)
+        # obs phase spans (pad/scatter, run) — gated BEFORE any
+        # timing/args work so the profiler-off path is one bool read
+        active = profiler.is_active()
+        tids = [r.trace_id for r in requests
+                if r.trace_id is not None] if active else []
+        t0 = profiler._now_us() if active else 0.0
         vals = self._pad_stack([r.payload for r in requests], bucket)
+        if active:
+            t1 = profiler._now_us()
+            obs.span(obs.SPAN_PAD_SCATTER, t0, t1 - t0, cat="serving",
+                     trace_ids=tids, bucket=str(bucket), batch=n)
         host = self._run_host(vals, bucket, n)
+        if active:
+            obs.span(obs.SPAN_RUN, t1, profiler._now_us() - t1,
+                     cat="serving", trace_ids=tids,
+                     bucket=str(bucket), batch=n)
+        if mutate is not None:
+            host = mutate(host)
         done_t = time.monotonic() if now is None else now
         for i, r in enumerate(requests):
             row_outs = []
@@ -544,7 +627,7 @@ class ModelRunner:
         intersection)."""
         own = set(self.buckets())
         donor = [tuple(b) for b in metadata.get("compiled_buckets", [])]
-        return self.warmup([b for b in donor if b in own])
+        return self.warmup([b for b in donor if b in own], "donor")
 
     # -- introspection ----------------------------------------------------
     def weight_buffers(self) -> Tuple[torch.Tensor, ...]:

@@ -7,8 +7,13 @@ and one worker thread per replica runner that assembles micro-batches
 and dispatches them round-robin across the endpoint's replicas.
 Generation endpoints (``register_generator``) own a
 :class:`GenerateRunner`, one continuous-batching
-:class:`GenerateBatcher` and a stepping thread.  The profiler/trace
-hooks are not ported yet.
+:class:`GenerateBatcher` and a stepping thread.
+
+While the profiler runs, every executed batch (and every decode step
+that emits) records a chrome-trace span through
+``mxtpu_torch.profiler.record_span`` (cat ``serving``), and each
+submitted request gets a trace id that rides it into the runner's
+phase spans.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import numpy as np
 
 from ..base import MXNetError
 from .. import knobs
+from .. import obs
+from .. import profiler
 from .batcher import DynamicBatcher, InferenceRequest
 from .generate import GenerateBatcher, GenerateRequest, GenerateRunner
 from .runner import ModelRunner
@@ -62,8 +69,9 @@ class _GenEndpoint:
                 # idle: no lanes, no queue — park briefly
                 self._stop.wait(0.005)
                 continue
+            t0 = profiler._now_us()
             try:
-                self.batcher.step()
+                out = self.batcher.step()
             except Exception as e:  # noqa: BLE001 — a failed decode
                 # step leaves every lane's state intact; back off and
                 # retry (a persistent failure surfaces as caller
@@ -72,6 +80,13 @@ class _GenEndpoint:
                 self.stats.bump("step_failures")
                 self._stop.wait(0.01)
                 continue
+            if out["emitted"] and profiler.is_active():
+                profiler.record_span(
+                    f"serve/{self.name}:v{self.version}:gen", t0,
+                    profiler._now_us() - t0, cat="serving",
+                    args={"lanes": out["active"],
+                          "admitted": out["admitted"],
+                          "tokens": out["emitted"]})
             self.stats.maybe_log()
 
     def snapshot(self) -> Dict:
@@ -148,7 +163,9 @@ class _Endpoint:
             batch = self.batcher.wait_next(timeout=0.1)
             if batch is None:
                 continue
-            runner = self.runners[self._next_runner()]
+            idx = self._next_runner()
+            runner = self.runners[idx]
+            t0 = profiler._now_us()
             try:
                 bucket, _ = runner.run_requests(batch.requests)
             except Exception as e:  # noqa: BLE001 — requeue the batch,
@@ -160,6 +177,15 @@ class _Endpoint:
                 if n:
                     self.stats.bump("requeues", n)
                 continue
+            if profiler.is_active():
+                tids = [r.trace_id for r in batch.requests
+                        if r.trace_id is not None]
+                profiler.record_span(
+                    f"serve/{self.name}:v{self.version}", t0,
+                    profiler._now_us() - t0, cat="serving",
+                    args={"batch": len(batch.requests),
+                          "bucket": list(bucket), "replica": idx,
+                          "trace_ids": tids})
             self.stats.record_batch(len(batch.requests), bucket[0])
             for r in batch.requests:
                 if r.latency_us is not None:
@@ -321,8 +347,11 @@ class InferenceServer:
             seq_len = int(first.shape[0])
         group = r0.seq_bucket_for(seq_len)
         try:
-            return ep.batcher.submit(inputs, group=group, seq_len=seq_len,
-                                     timeout_s=timeout_s)
+            return ep.batcher.submit(
+                inputs, group=group, seq_len=seq_len,
+                timeout_s=timeout_s,
+                trace_id=obs.new_trace_id()
+                if profiler.is_active() else None)
         except Exception:
             ep.stats.record_rejected()
             raise
@@ -374,7 +403,9 @@ class InferenceServer:
             return ep.batcher.submit(
                 prompt, max_tokens=max_tokens, eos_id=eos_id,
                 top_k=top_k, seed=seed, timeout_s=timeout_s,
-                on_token=on_token)
+                on_token=on_token,
+                trace_id=obs.new_trace_id()
+                if profiler.is_active() else None)
         except Exception:
             ep.stats.record_rejected()
             raise

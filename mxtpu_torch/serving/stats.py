@@ -3,8 +3,11 @@ batch fill-rate and request rate, and a generation endpoint's
 time-to-first-token and per-token latency, as a ``stats()`` snapshot
 dict and a Speedometer-style periodic log line.
 
-Copy of ``mxtpu/serving/stats.py`` without the ``mxtpu.obs`` metrics
-registry wiring.  Everything is O(1) per event under one lock:
+Copy of ``mxtpu/serving/stats.py``: every instance also publishes to
+the ``mxtpu_torch.obs`` metrics registry (labeled
+``endpoint=<name>``, the fleet ``bump()`` counters as
+``mxtpu_fleet_events_total{kind=...}``); with ``MXTPU_OBS=0`` that is
+a cached-bool branch.  Everything is O(1) per event under one lock:
 percentiles come from a bounded ring of recent latencies, rates from a
 deque of completion timestamps.
 """
@@ -16,6 +19,8 @@ import time
 from collections import deque
 from typing import Callable, Dict, Optional
 
+from .. import obs
+
 __all__ = ["ServingStats"]
 
 logger = logging.getLogger("mxtpu_torch.serving")
@@ -25,14 +30,9 @@ logger = logging.getLogger("mxtpu_torch.serving")
 _ETA_SAMPLE = 256
 
 
-def _percentile(sorted_vals, q: float) -> float:
-    """Nearest-rank percentile on a pre-sorted sequence, ``q`` in
-    [0, 100] (``mxtpu.obs.metrics.percentile``)."""
-    if not sorted_vals:
-        return 0.0
-    idx = min(len(sorted_vals) - 1,
-              max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
-    return sorted_vals[idx]
+# one quantile implementation for the whole tree:
+# the nearest-rank math lives in obs.metrics next to bucket_quantile
+_percentile = obs.percentile
 
 
 class ServingStats:
@@ -72,6 +72,65 @@ class ServingStats:
         # them under "extras", maybe_log() appends the nonzero ones to
         # the Speedometer line (extended, not duplicated)
         self.extras: Dict[str, int] = {}  # guarded-by: _lock
+        # obs registry wiring — one labeled child per instrument,
+        # resolved once here; _obs gates the hot paths (cached bool)
+        self._obs = obs.enabled()
+        ep = name or "default"
+        self._m_completed = obs.counter(
+            "mxtpu_serving_completed_total",
+            "Requests completed per endpoint.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_timeout = obs.counter(
+            "mxtpu_serving_timeout_total",
+            "Requests failed on an expired deadline.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_rejected = obs.counter(
+            "mxtpu_serving_rejected_total",
+            "Requests shed at the edge (ServerBusy).",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_batches = obs.counter(
+            "mxtpu_serving_batches_total",
+            "Micro-batches executed.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_batched = obs.counter(
+            "mxtpu_serving_batched_requests_total",
+            "Real (non-padding) examples across executed batches.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_padded = obs.counter(
+            "mxtpu_serving_padded_slots_total",
+            "Padding slots across executed batches.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_depth = obs.gauge(
+            "mxtpu_serving_queue_depth",
+            "Current batcher queue depth.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_latency = obs.histogram(
+            "mxtpu_serving_latency_seconds",
+            "End-to-end request latency.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_queue_wait = obs.histogram(
+            "mxtpu_serving_queue_wait_seconds",
+            "Submit-to-dequeue wait.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_ttft = obs.histogram(
+            "mxtpu_serving_ttft_seconds",
+            "Submit-to-first-token latency of generation requests "
+            "(LatencySLO metric= target).",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_token = obs.histogram(
+            "mxtpu_serving_token_seconds",
+            "Per-token decode-step latency (LatencySLO metric= "
+            "target).",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_tokens = obs.counter(
+            "mxtpu_serving_tokens_total",
+            "Tokens emitted by generation endpoints.",
+            labels=("endpoint",)).labels(endpoint=ep)
+        self._m_fleet = obs.counter(
+            "mxtpu_fleet_events_total",
+            "Fleet counters (the ServingStats.bump keys: retries, "
+            "requeues, hedges, drains, deaths, ...).",
+            labels=("endpoint", "kind"))
 
     # -- event hooks (called by batcher/server) -------------------------
     def record_queue_depth(self, depth: int) -> None:
@@ -79,26 +138,39 @@ class ServingStats:
             self.queue_depth = depth
             if depth > self.peak_queue_depth:
                 self.peak_queue_depth = depth
+        if self._obs:
+            self._m_depth.set(depth)
 
     def record_rejected(self, n: int = 1) -> None:
         with self._lock:
             self.rejected += n
+        if self._obs:
+            self._m_rejected.inc(n)
 
     def record_timeout(self, n: int = 1) -> None:
         with self._lock:
             self.timed_out += n
+        if self._obs:
+            self._m_timeout.inc(n)
 
     def bump(self, key: str, n: int = 1) -> None:
         """Increment a named fleet counter (``retries``, ``requeues``,
         ``hedges_won``, ``drains``, ``deaths``, ...)."""
         with self._lock:
             self.extras[key] = self.extras.get(key, 0) + n
+        if self._obs:
+            self._m_fleet.labels(endpoint=self.name or "default",
+                                 kind=key).inc(n)
 
     def record_batch(self, n_real: int, capacity: int) -> None:
         with self._lock:
             self.batches += 1
             self.batched_requests += n_real
             self.padded_slots += max(0, capacity - n_real)
+        if self._obs:
+            self._m_batches.inc()
+            self._m_batched.inc(n_real)
+            self._m_padded.inc(max(0, capacity - n_real))
 
     def record_completion(self, latency_us: float,
                           queue_us: float = 0.0) -> None:
@@ -111,19 +183,42 @@ class ServingStats:
             horizon = now - self._rate_window_s
             while self._done_ts and self._done_ts[0] < horizon:
                 self._done_ts.popleft()
+        if self._obs:
+            self._m_completed.inc()
+            self._m_latency.observe(latency_us / 1e6)
+            self._m_queue_wait.observe(queue_us / 1e6)
 
     def record_ttft(self, ttft_us: float) -> None:
         """Time-to-first-token of one generation request."""
         with self._lock:
             self._ttft_us.append(ttft_us)
+        if self._obs:
+            self._m_ttft.observe(ttft_us / 1e6)
 
     def record_token(self, tok_us: float, n: int = 1) -> None:
         """One (or ``n`` same-latency) emitted decode tokens."""
         with self._lock:
             self._tok_us.append(tok_us)
             self.tokens_emitted += n
+        if self._obs:
+            self._m_token.observe(tok_us / 1e6)
+            self._m_tokens.inc(n)
 
     # -- views ----------------------------------------------------------
+    def token_eta_us(self, n_tokens: float,
+                     percentile: float = 95.0) -> Optional[float]:
+        """Predicted decode time for ``n_tokens`` more tokens at this
+        endpoint's observed per-token service rate — the generation
+        term of per-token-aware admission control: a
+        generation request's feasibility is queue ETA *plus* this.
+        None until a token has been emitted (cold: no prediction)."""
+        with self._lock:
+            if not self._tok_us:
+                return None
+            toks = sorted(list(self._tok_us)[-_ETA_SAMPLE:])
+        return _percentile(toks, percentile) * max(0.0,
+                                                   float(n_tokens))
+
     def queue_eta_us(self, depth: Optional[float] = None,
                      percentile: float = 95.0) -> Optional[float]:
         """Predicted wait for a request entering this endpoint's queue

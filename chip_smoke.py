@@ -388,7 +388,47 @@ Phases, each fatal on failure:
      times, #4 once and #6 48 times, and so does its captured entry's
      record; last every served result of the phase is held against its
      row alone through the eager plan at (1, 128) within the canary's
-     tolerance, the largest deviation printed.
+     tolerance, the largest deviation printed;
+ 23. detection (``detection_phase``, ~2 min; whether ``cv2`` imports is
+     printed): (a) the NMS kernel (``csrc/nms.cu``, no TPU kernel: mxtpu's
+     sweep is a ``lax.fori_loop``) against its plain loop at n 256 (b2,
+     faster_rcnn_small's pre_n), 1704 (b8, ssd_300's anchors, 400
+     sweeping rows) and 6000 (b2, Proposal's default pre_n), class-aware
+     and force_suppress, and at n 256 with NaN corners: keep masks bit
+     for bit, one launch a call, ms (the sum of the call's two CUDA
+     kernels) and CUDA kernels a call of each; #8/#9 against their plain
+     versions at SSD-300's seven BatchNorm shapes (N 8, bf16), timed at
+     8 x 32 x 300² over 3 copies of the inputs in turn (one copy fits
+     in L2); (b) bench_ssd's recipe (``ssd_300(20)``, xavier, b8 x 3 x
+     300², VOC-shaped labels, ``det_loss`` without mining, SGD lr 5e-3
+     momentum 0.9 wd 5e-4, bf16 compute): 3 eager windows of 10 steps,
+     then 3 ``run_steps(x, y, 10, reuse_batch=True)`` windows, launches
+     exactly 14/14/0/0 of #8-#11 a step in both, samples/s, one profiled
+     step, peak memory, the losses finite and falling, the first 5
+     repeating bit for bit from the same seeds (cuDNN deterministic);
+     (c) ssd_300 in f32 at b2 on the card against the CPU from the same
+     weights, the CPU on the card's max-pool and ReLU choices: the
+     forward's three outputs 1e-4 x max(1, |ref|), the loss 1e-5, each
+     gradient's rms error 1e-4 of its rms (the error without the replay
+     printed beside); MultiBoxTarget on both devices from the card's
+     cls_preds, mining -1 and 3: cls_target and box_mask equal,
+     box_target 1e-6; (d) ``SSD.detect`` at b8 after (b): rows against
+     the CPU's MultiBoxDetection on the same (probs, box_preds,
+     anchors), keep masks equal but where a near tie (an IoU within
+     1e-6 of the threshold) explains each image's first difference,
+     classes and scores equal, corners 1e-6; VOC07 mAP of both row sets
+     equal; ms and NMS launches a ``detect``; (e)
+     ``faster_rcnn_small(20)`` at b2 x 3 x 600²: Proposal card against
+     CPU on the same (prob, rpn_reg) as (d), corners 1e-6 of the image
+     side; the head on the CPU over the card's rois 1e-4; 12 RPN steps
+     (test_rcnn's, adam through ``gluon.Trainer``) at 3/3 BN launches a
+     step, losses finite and falling; ``detect`` with one NMS launch for
+     Proposal and one an image; (f) Proposal at the reference's
+     defaults on a (2, 24, 38, 38) map (pre_n 6000, post_n 300) card
+     against CPU, ms a call.  The NMS launches of the main path are
+     counted cell by cell before any timing loop: 2 in (d) (the card's
+     MultiBoxDetection, one ``detect``), 16 in (e) (the forward, 12 RPN
+     steps, ``detect``'s 1 + 2), 1 in (f).
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -436,7 +476,9 @@ Transformer-big step's shapes with its bf16 eager steps' launches;
 the fed windows' launches, #8-#11 with ``"path": "zoo"`` at
 ``ZOO_ROWS`` with the zoo steps' launches, and #1, #4 and #6 in f32
 with ``"path": "fleet"``, timed at the serving shapes, with the fleet
-recovery run's launches),
+recovery run's launches; #8/#9 with ``"path": "detection"`` at
+8 x 32 x 300² with SSD-300's eager steps' launches, and the NMS kernel at
+SSD's detection shape with the main path's NMS launches of (d)-(f)),
 and last the line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without CUDA or outside a checkout.  A full report goes to
@@ -493,7 +535,8 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                 "conv_nhwc": ("conv_nhwc_wgmma_kernel",
                               "conv_nhwc_f32_wgmma_kernel",
                               "conv_split_f32_kernel",
-                              "conv_nhwc_f32_kernel")}
+                              "conv_nhwc_f32_kernel"),
+                "nms": ("nms_mask_kernel", "nms_sweep_kernel")}
 # the kernels that must run on the tensor cores with TMA loads (bf16,
 # and f32 split into bf16 parts): the library each is built into, and
 # the instructions its SASS must hold; the f32 ones (named "_f32_")
@@ -720,13 +763,21 @@ def family_of(key):
     return "gemm" if any(w in low for w in GEMM_WORDS) else "other"
 
 
-def timed(kernel, plain, library=None):
+def timed(kernel, plain, library=None, names=None):
     """The timing fields of one kernel: device ms of the kernel, its
     plain version and the library call, plus the kernel's wall ms per
-    call (events, host launch cost included)."""
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-            "library_ms": None if library is None else device_ms(library),
-            "wall_ms": time_ms(kernel)}
+    call (events, host launch cost included).  With ``names`` (the CUDA
+    kernels one call launches) the kernel's ms is the sum of each named
+    kernel's mean over its recorded launches, kept in ``ms_parts``: a
+    window that drops some of a call's several kernels then still reads
+    whole calls."""
+    out = {"plain_ms": device_ms(plain),
+           "library_ms": None if library is None else device_ms(library),
+           "wall_ms": time_ms(kernel)}
+    if names is None:
+        return {"ms": device_ms(kernel), **out}
+    parts = device_ms(kernel, by_name=list(names))
+    return {"ms": sum(parts.values()), "ms_parts": parts, **out}
 
 
 def bound(nbytes, ops, dtype, mask_elems=0):
@@ -1779,11 +1830,16 @@ CIFAR_BN_SHAPES = ((16, 1024, 2.0, 0.55), (32, 256, 0.5, 2.0),
 BN_OPS = {"fwd": 7, "bwd": 14}
 
 
-def bn_times(x, r, dy, g, b, act, cm, shape):
+def bn_times(x, r, dy, g, b, act, cm, shape, rotate=1):
     """#8/#9 (or #10/#11 with ``cm``) timed at one shape (N, C, S) on
     the given view: the kernel, its plain version and cuDNN's BatchNorm
     with the add and ReLU (4-D, in the view's memory layout), forward
-    and backward, beside the byte bound; keyed by kernel name."""
+    and backward, beside the byte bound; keyed by kernel name.  With
+    ``rotate`` > 1 every call takes the next of that many copies of the
+    inputs, so a call finds none of its inputs left in L2 by the one
+    before (set it where one copy's bytes fit in L2), and the kernel's
+    ms is the sum of its CUDA kernels' (:func:`timed`'s ``names``)."""
+    import itertools
     import torch
     import torch.nn.functional as F
     import importlib
@@ -1794,34 +1850,58 @@ def bn_times(x, r, dy, g, b, act, cm, shape):
     bwd = bn.bn_bwd_cm if cm else bn.bn_bwd
     _, mean, var = fwd(x, g, b, r, 1e-5, act)
     rstd = torch.rsqrt(var + 1e-5)
-    x4, r4, dy4 = (None if t is None else
-                   (t.reshape(n, S, 1, C).permute(0, 3, 1, 2) if cm
-                    else t.reshape(n, C, S, 1)) for t in (x, r, dy))
 
     def lib(x_, g_, b_, r_=None):
         y_ = F.batch_norm(x_, None, None, g_, b_, True, 0.1, 1e-5)
         if r_ is not None:
             y_ = y_ + r_
         return torch.relu(y_) if act == "relu" else y_
-    lib_in = [t.detach().requires_grad_(True)
-              for t in (x4, g, b) + ((r4,) if add else ())]
-    ly = lib(*lib_in)
+    sets = []
+    for k in range(max(1, rotate)):
+        xk, rk, dyk = (None if t is None else (t if k == 0 else t.clone())
+                       for t in (x, r, dy))
+        x4, r4, dy4 = (None if t is None else
+                       (t.reshape(n, S, 1, C).permute(0, 3, 1, 2) if cm
+                        else t.reshape(n, C, S, 1)) for t in (xk, rk, dyk))
+        lib_in = [t.detach().requires_grad_(True)
+                  for t in (x4, g, b) + ((r4,) if add else ())]
+        sets.append((xk, rk, dyk, dy4, lib_in, lib(*lib_in)))
+    turn = itertools.cycle(sets)
     numel, el = n * C * S, x.element_size()
     out = {}
+
+    def fwd_k():
+        xk, rk = next(turn)[:2]
+        return fwd(xk, g, b, rk, 1e-5, act)
+
+    def fwd_p():
+        xk, rk = next(turn)[:2]
+        return bn.bn_act_reference(xk, g, b, 1e-5, act, rk)
+
+    def fwd_l():
+        return lib(*next(turn)[4])
+
+    def bwd_k():
+        xk, rk, dyk = next(turn)[:3]
+        return bwd(xk, rk, dyk, g, b, mean, rstd, act)
+
+    def bwd_p():
+        xk, rk, dyk = next(turn)[:3]
+        return bn.bn_bwd_reference(xk, rk, dyk, g, b, mean, rstd, act)
+
+    def bwd_l():
+        _, _, _, dy4, lib_in, ly = next(turn)
+        return torch.autograd.grad(ly, lib_in, dy4, retain_graph=True)
     for d, kern, plain, library, nbig in (
-            ("fwd", lambda: fwd(x, g, b, r, 1e-5, act),
-             lambda: bn.bn_act_reference(x, g, b, 1e-5, act, r),
-             lambda: lib(*lib_in), 2 + int(add)),      # x (r) read, y
-            ("bwd", lambda: bwd(x, r, dy, g, b, mean, rstd, act),
-             lambda: bn.bn_bwd_reference(x, r, dy, g, b, mean, rstd, act),
-             lambda: torch.autograd.grad(ly, lib_in, dy4,
-                                         retain_graph=True),
+            ("fwd", fwd_k, fwd_p, fwd_l, 2 + int(add)),  # x (r) read, y
+            ("bwd", bwd_k, bwd_p, bwd_l,
              3 + 2 * int(add))):                       # x dy (r), dx (dr)
-        t = timed(kern, plain, library)
+        name = f"batch_norm_{d}{'_cm' if cm else ''}"
+        t = timed(kern, plain, library,
+                  names=KERNEL_NAMES[name] if rotate > 1 else None)
         b_ms, b_by = bound(nbig * numel * el + 4 * C * 4, BN_OPS[d] * numel,
                            "float32")
-        out[f"batch_norm_{d}{'_cm' if cm else ''}"] = {
-            **t, "bound_ms": b_ms, "bound_by": b_by}
+        out[name] = {**t, "bound_ms": b_ms, "bound_by": b_by}
     return out
 
 
@@ -8008,6 +8088,906 @@ def fleet_phase(checks, params):
                          "phase_split_s": secs}
 
 
+# ----------------------------------------------------------------------
+# phase 23: detection (the MultiBox, Proposal, ROI and box-NMS ops on
+# the greedy-suppression kernel; SSD-300 and Faster R-CNN)
+# ----------------------------------------------------------------------
+
+DET_B, DET_HW, DET_CLASSES = 8, 300, 20       # bench_ssd's batch
+DET_SGD = {"learning_rate": 5e-3, "momentum": 0.9, "wd": 5e-4}
+DET_WARMUP, DET_STEPS, DET_WINDOWS, DET_REPEAT = 3, 10, 3, 5
+DET_LAUNCHES = {"batch_norm_fwd": 14, "batch_norm_bwd": 14}
+# SSD-300's BatchNorm (C, S): the body's 4 blocks, the 3 extra scales
+DET_BN = ((32, 300 ** 2), (64, 150 ** 2), (128, 75 ** 2), (256, 37 ** 2),
+          (256, 18 ** 2), (128, 9 ** 2), (128, 4 ** 2))
+# the timed shape's copies of x and dy (46 MB each in bf16, under the
+# H100's 50 MB of L2): each call reads the copies the one before did not
+DET_BN_ROTATE = 3
+DET_CHECK_B = 2                               # the card-vs-CPU step
+DET_TOL = 1e-5        # the loss: x max(1, |ref|)
+# the forward's outputs, x max(1, |ref|): 14 f32 convolutions, each
+# followed by a training-mode BatchNorm whose one-pass variance E[x^2] -
+# E[x]^2 (mxtpu's formula) rounds apart by ~1e-6 of itself between the
+# devices' summation orders; measured 4.3-4.6e-5 on an H100
+DET_FWD_TOL = 1e-4
+DET_TARGET_TOL = 1e-6  # MultiBoxTarget's box_target: x max(1, |ref|)
+DET_ROW_TOL = 1e-6    # detection rows' and rois' coordinates
+NEAR_TIE = 1e-6       # an IoU this close to the threshold may flip
+# (batch, n, n_iter, pixel IoU, what the size is)
+NMS_CASES = ((2, 256, 256, True, "faster_rcnn_small's pre_n"),
+             (8, 1704, 400, False, "ssd_300's anchors, nms_topk 400"),
+             (2, 6000, 6000, True, "Proposal's rpn_pre_nms_top_n"))
+NMS_LINE_CASE = 1     # the kernels line's NMS row: SSD's detection
+RCNN_B, RCNN_HW, RCNN_STEPS, RCNN_OBJ = 2, 600, 12, 32
+RCNN_LAUNCHES = {"batch_norm_fwd": 3, "batch_norm_bwd": 3}
+RCNN_HEAD_TOL = 1e-4
+PROP_SHAPE = (2, 24, 38, 38)   # Proposal at the reference's defaults
+
+
+def det_labels(rng, b, classes):
+    """bench_ssd's VOC-shaped labels (``bench.py:509-518``): (b, 3, 5)
+    rows [cls, x0, y0, x1, y1], 1 + i % 3 objects, -1 padding."""
+    labels = np.full((b, 3, 5), -1.0, np.float32)
+    for i in range(b):
+        for o in range(1 + i % 3):
+            x0, y0 = rng.uniform(0, 0.6, 2)
+            labels[i, o] = [rng.randint(classes), x0, y0,
+                            x0 + rng.uniform(0.2, 0.4),
+                            y0 + rng.uniform(0.2, 0.4)]
+    return labels
+
+
+def det_batch(b, seed=0):
+    """bench_ssd's batch: x ~ randn(b, 3, 300, 300), then the labels,
+    from one ``RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, 3, DET_HW, DET_HW).astype(np.float32)
+    return x, det_labels(rng, b, DET_CLASSES)
+
+
+def det_loss_fn():
+    """bench_ssd's ``det_loss`` (``bench.py:496-499``) over the step's
+    tensors: MultiBoxTarget (no mining), SSDLoss, the mean."""
+    from mxtpu_torch.gluon.block import F
+    from mxtpu_torch.models import SSDLoss
+    loss_fn = SSDLoss()
+
+    def det_loss(pred, labels):
+        anchors, cls_preds, box_preds = pred
+        bt, bm, ct = F.MultiBoxTarget(anchors, labels, cls_preds)
+        return loss_fn(cls_preds, box_preds, ct, bt, bm).mean()
+    return det_loss
+
+
+def seeded_ssd(device=None):
+    """``ssd_300(20)`` with xavier weights from ``mxtpu_torch.random``'s
+    seed, its shapes settled on one image (on the card by default)."""
+    import torch
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.models import ssd_300
+    device = device or CARD
+    trandom.seed(SEED)
+    net = fresh_names(lambda: ssd_300(num_classes=DET_CLASSES))
+    net.initialize(init="xavier", ctx=device)
+    settle(net, torch.zeros(1, 3, DET_HW, DET_HW, device=device))
+    return net
+
+
+def seeded_ssd_step(compute_dtype="bfloat16"):
+    """bench_ssd's step: SGD momentum, ``compute_dtype`` (bf16, mxtpu's
+    ``MXTPU_BENCH_DTYPE`` default), the batch cast, the labels not."""
+    from mxtpu_torch.parallel import build_train_step
+    return build_train_step(seeded_ssd(), det_loss_fn(), "sgd", DET_SGD,
+                            compute_dtype=compute_dtype, device=CARD)
+
+
+@contextlib.contextmanager
+def nms_record():
+    """Record every ``nms_keep`` call the detection rules make (their
+    inputs and the keep mask), for the near-tie rule."""
+    from mxtpu_torch.ndarray import detection_impl as di
+    from mxtpu_torch.ndarray import contrib as dc
+    orig, calls = di.nms_keep, []
+
+    def rec(boxes, keep0, thr, n_iter, ids=None, pixel=False):
+        keep = orig(boxes, keep0, thr, n_iter, ids=ids, pixel=pixel)
+        calls.append({"boxes": boxes.detach().cpu(),
+                      "keep0": keep0.cpu(), "thr": thr, "n_iter": n_iter,
+                      "ids": None if ids is None else ids.cpu(),
+                      "pixel": pixel, "keep": keep.cpu()})
+        return keep
+    di.nms_keep = dc.nms_keep = rec
+    try:
+        yield calls
+    finally:
+        di.nms_keep = dc.nms_keep = orig
+
+
+def near_tie_rows(call):
+    """(B, n) bool: rows that a live earlier sweeping row overlaps with
+    an IoU within ``NEAR_TIE`` of the threshold (same class where the
+    call masks by class)."""
+    import torch
+    from mxtpu_torch.kernels.nms import pair_iou
+    iou = pair_iou(call["boxes"], call["pixel"])
+    n = iou.shape[-1]
+    near = (iou - float(np.float32(call["thr"]))).abs() <= NEAR_TIE
+    if call["ids"] is not None:
+        ids = call["ids"]
+        near &= ids[..., :, None] == ids[..., None, :]
+    i = torch.arange(n)
+    near &= (i[None, :] > i[:, None]) & (i[:, None] < call["n_iter"])
+    near &= call["keep"][..., :, None]
+    return near.any(-2)
+
+
+def keep_agreement(card, cpu):
+    """Compare the card's and the CPU's recorded sweeps call by call:
+    (rows that differ, near-tie rows, every image's first differing row
+    a near-tie row)."""
+    differ = near = 0
+    explained = True
+    for a, b in zip(card, cpu):
+        d = a["keep"] != b["keep"]
+        nt = near_tie_rows(b) | near_tie_rows(a)
+        differ += int(d.sum())
+        near += int(nt.sum())
+        for img in range(d.shape[0]):
+            idx = d[img].nonzero()
+            if len(idx) and not bool(nt[img, int(idx[0])]):
+                explained = False
+    return differ, near, explained and len(card) == len(cpu)
+
+
+def count_device_kernels(fn, windows=3):
+    """CUDA kernels one call of ``fn`` launches (torch.profiler; the most
+    of ``windows`` windows, as a window now and then drops events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = 0
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if _device_us(e) > 0))
+    return best
+
+
+def nms_inputs(b, n, pixel, seed):
+    """Seeded score-ordered boxes (pixel boxes in a 600² image, else
+    normalized), class ids among 20 and ~90 % of keep0 set."""
+    import torch
+    rng = np.random.RandomState(seed)
+    scale = 600.0 if pixel else 1.0
+    xy = rng.uniform(0, scale, (b, n, 2)).astype(np.float32)
+    wh = rng.uniform(0, 0.2 * scale, (b, n, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(CARD)
+    ids = torch.from_numpy(rng.randint(0, DET_CLASSES, (b, n))
+                           .astype(np.float32)).to(CARD)
+    keep0 = torch.from_numpy(rng.rand(b, n) > 0.1).to(CARD)
+    return boxes, ids, keep0
+
+
+def nms_cell(checks):
+    """(a): the NMS kernel against its plain loop at ``NMS_CASES``,
+    class-aware and force_suppress: keep masks bit-equal, one launch a
+    call; class-aware, ms a call of each and the CUDA kernels each
+    launches (the plain loop, thousands of launches a call, timed over
+    one call), and the bound (the IoU pairs' operations against the
+    boxes' bytes)."""
+    import importlib
+    from mxtpu_torch import kernels
+    nms = importlib.import_module("mxtpu_torch.kernels.nms")
+    rows = []
+    for k, (b, n, n_iter, pixel, what) in enumerate(NMS_CASES):
+        boxes, ids, keep0 = nms_inputs(b, n, pixel, SEED + 230 + k)
+        for mode, cls in (("class-aware", ids), ("force_suppress", None)):
+            thr = 0.7 if pixel else 0.5
+            kernels.reset_launch_counts()
+            got = nms.nms_keep(boxes, keep0, thr, n_iter, ids=cls,
+                               pixel=pixel)
+            one = kernels.launch_counts()["nms"]
+            want = nms.nms_keep_reference(boxes, keep0, thr, n_iter,
+                                          ids=cls, pixel=pixel)
+            same = bool((got == want).all())
+            ok = same and one == 1
+            tag = f"nms b{b} n{n} n_iter{n_iter} {mode}"
+            print(f"check {tag} ({what}): keep mask kernel == plain loop "
+                  f"bit for bit {same}, kept {int(got.sum())} of {b * n}, "
+                  f"{one} launch a call {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                checks.failed.append(f"{tag}: equal {same}, launches {one}")
+            if cls is None:
+                continue
+
+            def kern():
+                return nms.nms_keep(boxes, keep0, thr, n_iter, ids=cls,
+                                    pixel=pixel)
+
+            def plain():
+                return nms.nms_keep_reference(boxes, keep0, thr, n_iter,
+                                              ids=cls, pixel=pixel)
+            # one call is two kernels: each one's mean over its
+            # recorded launches, so a window that drops some still
+            # reads whole calls
+            parts = device_ms(kern, by_name=list(KERNEL_NAMES["nms"]))
+            ms = sum(parts.values())
+            plain_ms = device_ms(plain, iters=1, warmup=0)
+            wall = time_ms(kern, iters=20, warmup=3)
+            plain_wall = time_ms(plain, iters=1, warmup=0)
+            k_kernels = count_device_kernels(kern)
+            p_kernels = count_device_kernels(plain, windows=1)
+            pairs = sum(n - 1 - i for i in range(n_iter)) * b
+            nbytes = b * n * (16 + (4 if cls is not None else 0) + 2)
+            b_ms, b_by = bound(nbytes, 14 * pairs, "float32")
+            print(f"time nms [float32] {tag} (device ms per call): "
+                  f"kernel_ms={ms:.4f} (" + ", ".join(
+                      f"{k} {v:.4f}" for k, v in parts.items()) +
+                  f") plain_ms={plain_ms:.4f} "
+                  f"library_ms=null bound_ms={b_ms:.6f} ({b_by}); wall ms "
+                  f"a call kernel {wall:.4f} plain {plain_wall:.4f}; CUDA "
+                  f"kernels a call: kernel {k_kernels}, plain loop "
+                  f"{p_kernels}", flush=True)
+            rows.append({"b": b, "n": n, "n_iter": n_iter, "mode": mode,
+                         "what": what, "equal": same, "launches": one,
+                         "ms": ms, "ms_parts": parts,
+                         "plain_ms": plain_ms, "wall_ms": wall,
+                         "plain_wall_ms": plain_wall, "library_ms": None,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": 0.0 if same else 1.0,
+                         "cuda_kernels": k_kernels,
+                         "plain_cuda_kernels": p_kernels})
+    # NaN corners: the kernel's minima and maxima pass NaN on as the
+    # plain version's do, so a NaN IoU suppresses nothing on both
+    b, n, n_iter, pixel, _ = NMS_CASES[0]
+    boxes, ids, keep0 = nms_inputs(b, n, pixel, SEED + 239)
+    boxes[:, 5::17, 0] = float("nan")
+    boxes[:, 11::29, 3] = float("nan")
+    for mode, cls in (("class-aware", ids), ("force_suppress", None)):
+        got = nms.nms_keep(boxes, keep0, 0.7, n_iter, ids=cls, pixel=pixel)
+        want = nms.nms_keep_reference(boxes, keep0, 0.7, n_iter, ids=cls,
+                                      pixel=pixel)
+        same = bool((got == want).all())
+        print(f"check nms b{b} n{n} {mode} with NaN corners: keep mask "
+              f"kernel == plain loop bit for bit {same} "
+              f"{'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            checks.failed.append(f"nms with NaN corners {mode}")
+    return rows
+
+
+def det_bn_cell(checks, gen):
+    """#8/#9 against their plain versions at each of SSD-300's seven
+    BatchNorm shapes (N = 8, bf16, no add, no ReLU: the block's
+    Activation follows), forward and backward; the largest, 8 x 32 x
+    300², timed over ``DET_BN_ROTATE`` copies of its inputs (so no call
+    finds them in L2) as the sum of each call's CUDA kernels: the
+    kernels line's ``"path": "detection"`` rows."""
+    import torch
+    import importlib
+    bn = importlib.import_module("mxtpu_torch.kernels.batch_norm")
+    dev, bf = torch.device(CARD), torch.bfloat16
+    out = {}
+    for C, S in DET_BN:
+        def randn(*shape, mean=0.0, std=1.0):
+            return (mean + std * torch.randn(*shape, generator=gen,
+                                             device=dev)).to(bf)
+        x = randn(DET_B, C, S, mean=0.5, std=2.0)
+        dy = randn(DET_B, C, S)
+        g, b = randn(C, mean=1.0, std=0.2), randn(C, std=0.1)
+        y, mean, var = bn.bn_fwd(x, g, b, None, 1e-5, "none")
+        py, _, _ = bn.bn_act_reference(x, g, b, 1e-5, "none", None)
+        rstd = torch.rsqrt(var + 1e-5)
+        got = bn.bn_bwd(x, None, dy, g, b, mean, rstd, "none")
+        want = bn.bn_bwd_reference(x, None, dy, g, b, mean, rstd, "none")
+        tag = f"ssd bn N{DET_B} C{C} S{S}"
+        errs = {"fwd": checks.close(f"{tag} y", y, py, "bfloat16"),
+                "bwd": checks.close(f"{tag} dx", got[0], want[0],
+                                    "bfloat16")}
+        if (C, S) == DET_BN[0]:
+            for kname, t in bn_times(x, None, dy, g, b, "none", False,
+                                     (DET_B, C, S),
+                                     rotate=DET_BN_ROTATE).items():
+                parts = ", ".join(f"{k} {v:.4f}"
+                                  for k, v in t["ms_parts"].items())
+                print(f"time {kname} [bfloat16] ssd N{DET_B} C{C} S{S} "
+                      f"(device ms per call, {DET_BN_ROTATE} input copies "
+                      f"in turn): kernel_ms={t['ms']:.4f} ({parts}) "
+                      f"plain_ms={t['plain_ms']:.4f} library_ms="
+                      f"{t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+                      f"({t['bound_by']})", flush=True)
+                out[kname] = {"max_abs_err": errs[kname.split("_")[2]],
+                              **t, "shape": [DET_B, C, S]}
+        del x, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def det_window(step, x, y, bulked):
+    """One timed window of DET_STEPS steps (eager) or one run_steps
+    call, ended by a host read of its last loss."""
+    import torch
+    t0 = time.perf_counter()
+    if bulked:
+        losses = list(step.run_steps(x, y, DET_STEPS, reuse_batch=True))
+    else:
+        losses = [step(x, y) for _ in range(DET_STEPS)]
+    float(losses[-1])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / DET_STEPS * 1e3, losses
+
+
+def ssd_train_cell(checks):
+    """(b): bench_ssd's recipe on ssd_300 at b8 x 3 x 300², bf16:
+    eager windows then run_steps windows (launches 14/14/0/0 a step in
+    both), samples/s, one profiled step, peak memory; the losses finite
+    and falling; the first DET_REPEAT losses of two steps built from the
+    same seed bit for bit (cuDNN deterministic).  Returns the counts,
+    the numbers, the trained step (for (d)) and the batch."""
+    import torch
+    from mxtpu_torch import kernels
+    gc.collect()
+    reset_peak()
+    held = torch.cuda.memory_allocated()
+    x, labels = det_batch(DET_B)
+    xd, yd = torch.from_numpy(x).to(CARD), torch.from_numpy(labels).to(CARD)
+    with deterministic_cudnn():
+        reps = []
+        for _ in range(2):
+            s = seeded_ssd_step()
+            reps.append([float(s(xd, yd)) for _ in range(DET_REPEAT)])
+            del s
+            torch.cuda.empty_cache()
+    same = reps[0] == reps[1]
+    print(f"check ssd_300 bf16 b{DET_B} repeats bit for bit from the same "
+          f"seeds over {DET_REPEAT} steps (cuDNN deterministic): "
+          f"{'ok' if same else 'FAIL'} ({reps[0]} / {reps[1]})", flush=True)
+    if not same:
+        checks.failed.append("ssd_300 does not repeat from the same seeds")
+    t0 = time.perf_counter()
+    step = seeded_ssd_step()
+    losses = [step(xd, yd) for _ in range(DET_WARMUP)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = DET_STEPS * DET_WINDOWS
+    ms = {}
+    for mode in ("eager", "run_steps"):
+        kernels.reset_launch_counts()
+        windows = []
+        for _ in range(DET_WINDOWS):
+            w, ls = det_window(step, xd, yd, mode == "run_steps")
+            windows.append(w)
+            losses += ls
+        counts = kernels.launch_counts()
+        check_launches(checks, f"ssd_300 {mode}", counts, DET_LAUNCHES, n)
+        ms[mode] = (float(np.median(windows)), windows)
+        if mode == "eager":
+            eager_counts = counts
+    mem = {**step.memory_summary(), "held_before_bytes": held}
+    bd = profiled_step(checks, "ssd_300 bf16", step, xd, yd)
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        checks.failed.append(f"ssd_300 losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        checks.failed.append(f"ssd_300 loss did not fall: {losses}")
+    rows = {}
+    for mode, (m, windows) in ms.items():
+        rows[mode] = {"ms_per_step": m, "window_ms_per_step": windows,
+                      "samples_per_s": DET_B / m * 1e3}
+        print(f"ssd_300 bf16 b{DET_B} {mode}: {m:.3f} ms/step (median of "
+              f"{DET_WINDOWS} windows of {DET_STEPS}: "
+              f"{', '.join(f'{w:.3f}' for w in windows)}), "
+              f"{DET_B / m * 1e3:.2f} samples/s", flush=True)
+    print(f"ssd_300 bf16: device {bd['device_busy_ms']:.3f} ms a step, idle "
+          f"share {bd['device_idle_share'] or 0:.4f} (the profiled step); "
+          f"peak memory {((mem['peak_bytes'] or 0) - held) / 2**30:.3f} GiB "
+          f"over the {held / 2**30:.3f} GiB earlier phases held; set-up and "
+          f"{DET_WARMUP} warm-up steps {setup_s:.1f} s; losses "
+          f"{[round(v, 4) for v in losses[:6]]} ... {losses[-1]:.4f}",
+          flush=True)
+    print(f"ssd_300: launches in {n} eager steps {json.dumps(eager_counts)}",
+          flush=True)
+    return eager_counts, {**rows, "memory": mem, "breakdown": bd,
+                          "losses": losses, "setup_s": setup_s,
+                          "repeats_bit_for_bit": same}, step, (x, labels)
+
+
+@contextlib.contextmanager
+def pool_relu_decisions(net, replay=None):
+    """The card's discrete choices, or their replay on the CPU.  With
+    ``replay`` None, record each ``MaxPool2D``'s argmax and each ReLU
+    ``Activation``'s mask of ``net`` (a dict by block name, yielded);
+    given such a dict, make ``net``'s pools gather at the recorded
+    argmax and its ReLUs multiply by the recorded mask.  A pool window
+    whose two largest values lie within a rounding of each other (or a
+    ReLU input within one of 0) decides otherwise on the two devices
+    and sends the whole gradient elsewhere: replayed, the CPU follows
+    the card's routes, and the two gradients differ by their
+    arithmetic alone.  SSD's pools are 2x2 with stride 2; the global
+    max pool is not replayed."""
+    import torch
+    import torch.nn.functional as F
+    rec = {} if replay is None else replay
+    hooks = []
+
+    def pool(mod, inp, out):
+        x = inp[0]
+        if replay is None:
+            _, idx = F.max_pool2d(x.detach(), 2, 2, return_indices=True)
+            if not torch.equal(x.detach().flatten(2).gather(
+                    2, idx.flatten(2)).view_as(out), out.detach()):
+                raise AssertionError(f"{mod.name}: argmax misread")
+            rec[mod.name] = idx.cpu()
+            return None
+        idx = rec[mod.name].to(x.device)
+        return x.flatten(2).gather(2, idx.flatten(2)).view_as(idx)
+
+    def relu(mod, inp, out):
+        x = inp[0]
+        if replay is None:
+            rec[mod.name] = (x.detach() > 0).cpu()
+            return None
+        return x * rec[mod.name].to(x.device)
+    for m in net.modules():
+        kind = type(m).__name__
+        if kind == "MaxPool2D":
+            hooks.append(m.register_forward_hook(pool))
+        elif kind == "Activation" and getattr(m, "_act_type", "relu") \
+                == "relu":
+            hooks.append(m.register_forward_hook(relu))
+    try:
+        yield rec
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def ssd_cpu_check(checks):
+    """(c): ssd_300 in f32 at b2 x 300² on the card against the CPU from
+    the same weights, the CPU following the card's pool and ReLU
+    choices (:func:`pool_relu_decisions`; the gradients without the
+    replay are printed beside): the training-mode forward's three
+    outputs, one step's loss and every gradient; then MultiBoxTarget
+    on both devices from the same inputs (the card's cls_preds,
+    copied), mining -1 and 3."""
+    import torch
+    from mxtpu_torch import autograd
+    from mxtpu_torch.convert import params_from_mxtpu, params_to_mxtpu
+    from mxtpu_torch.gluon.block import F
+    from mxtpu_torch.models import ssd_300
+    from mxtpu_torch.parallel import build_train_step
+    t0 = time.perf_counter()
+    x, labels = det_batch(DET_CHECK_B, seed=SEED + 23)
+
+    def pair():
+        card = seeded_ssd()
+        return card, params_from_mxtpu(params_to_mxtpu(card), fresh_names(
+            lambda: ssd_300(num_classes=DET_CLASSES)))
+    card, cpu = pair()
+    outs = {}
+    with pool_relu_decisions(card) as rec:
+        with torch.no_grad(), autograd.train_mode():
+            outs[CARD] = [o.cpu() for o in card(torch.from_numpy(x).to(CARD))]
+    with pool_relu_decisions(cpu, rec):
+        with torch.no_grad(), autograd.train_mode():
+            outs["cpu"] = [o for o in cpu(torch.from_numpy(x))]
+    fwd = max(rel_err(a, b)[0] for a, b in zip(outs[CARD], outs["cpu"]))
+
+    def grads(replay):
+        card, cpu = pair()
+        steps = [build_train_step(net, det_loss_fn(), "sgd", DET_SGD,
+                                  device=dev)
+                 for net, dev in ((card, CARD), (cpu, "cpu"))]
+        if not replay:
+            return steps[0].param_names, [s.forward_backward(x, labels)
+                                          for s in steps]
+        with pool_relu_decisions(card) as rec:
+            lg_card = steps[0].forward_backward(x, labels)
+        with pool_relu_decisions(cpu, rec):
+            lg_cpu = steps[1].forward_backward(x, labels)
+        return steps[0].param_names, [lg_card, lg_cpu]
+
+    def rms(t):
+        return float(t.pow(2).mean().sqrt())
+    worst = {}
+    for replay in (False, True):
+        names, ((lc, gc_), (lp, gp)) = grads(replay)
+        errs = [(rms(a.double().cpu() - p.double()) /
+                 max(rms(p.double()), 1e-30), n)
+                for n, a, p in zip(names, gc_, gp)]
+        worst[replay] = max(errs)
+        if replay:
+            for err, n in errs:
+                if err > GRAD_TOL:
+                    checks.failed.append(f"ssd check: grad of {n} off by "
+                                         f"{err:.3e} of its rms")
+            lrel = abs(float(lc) - float(lp)) / max(1.0, abs(float(lp)))
+            loss = (float(lc), float(lp))
+    ok = fwd <= DET_FWD_TOL and lrel <= DET_TOL and \
+        worst[True][0] <= GRAD_TOL
+    print(f"check ssd_300 b{DET_CHECK_B} f32 card vs CPU (the CPU on the "
+          f"card's pool and ReLU choices): forward outputs max rel err "
+          f"{fwd:.3e} (tol {DET_FWD_TOL} x max(1, |ref|)); loss "
+          f"{loss[0]:.6f} vs {loss[1]:.6f} (err {lrel:.3e}, tol {DET_TOL}); "
+          f"worst gradient rms err {worst[True][0]:.3e} of its rms "
+          f"({worst[True][1]}) over {len(names)} parameters (tol "
+          f"{GRAD_TOL}) {'ok' if ok else 'FAIL'}; without the replay "
+          f"{worst[False][0]:.3e} ({worst[False][1]})", flush=True)
+    if fwd > DET_FWD_TOL or lrel > DET_TOL:
+        checks.failed.append(f"ssd check: forward {fwd:.3e}, loss "
+                             f"{lrel:.3e}")
+    anchors, cls_preds = outs[CARD][0], outs[CARD][1]
+    for ratio in (-1.0, 3.0):
+        tgt = {dev: [t.cpu() for t in F.MultiBoxTarget(
+            anchors.to(dev), torch.from_numpy(labels).to(dev),
+            cls_preds.to(dev), negative_mining_ratio=ratio)]
+            for dev in (CARD, "cpu")}
+        (bt, bm, ct), (pbt, pbm, pct_) = tgt[CARD], tgt["cpu"]
+        terr = rel_err(bt, pbt)[0]
+        eq = bool(torch.equal(ct, pct_)) and bool(torch.equal(bm, pbm))
+        tok = eq and terr <= DET_TARGET_TOL
+        ok = ok and tok
+        print(f"check MultiBoxTarget mining {ratio} card vs CPU (the card's "
+              f"cls_preds): cls_target and box_mask equal {eq}, box_target "
+              f"max rel err {terr:.3e} (tol {DET_TARGET_TOL} x max(1, "
+              f"|ref|)); positives {int(bm.sum()) // 4}, ignored "
+              f"{int((ct < 0).sum())} {'ok' if tok else 'FAIL'}", flush=True)
+        if not tok:
+            checks.failed.append(f"MultiBoxTarget mining {ratio} card vs CPU")
+    print(f"ssd card vs CPU: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return {"forward_rel": fwd, "loss_err": lrel,
+            "worst_grad_rms_of_rms": worst[True][0],
+            "worst_grad_rms_of_rms_unreplayed": worst[False][0], "ok": ok}
+
+
+def rows_agree(checks, tag, card_rows, cpu_rows, card_calls, cpu_calls):
+    """Detection rows of the card against the CPU's on the same inputs:
+    every sweep's keep mask equal but where a near tie explains the
+    first difference; where both keep a row, its class and score equal
+    and its corners within DET_ROW_TOL."""
+    import torch
+    differ, near, explained = keep_agreement(card_calls, cpu_calls)
+    both = (card_rows[..., 0] >= 0) & (cpu_rows[..., 0] >= 0)
+    same_id = bool(torch.equal(card_rows[..., :2][both],
+                               cpu_rows[..., :2][both]))
+    coord = float((card_rows[..., 2:][both] -
+                   cpu_rows[..., 2:][both]).abs().max()) if both.any() \
+        else 0.0
+    ok = explained and same_id and coord <= DET_ROW_TOL and \
+        (differ == 0 or near > 0)
+    print(f"check {tag} card vs CPU on the same inputs: {differ} kept rows "
+          f"differ ({near} rows decided by an IoU within {NEAR_TIE} of the "
+          f"threshold; each first difference such a row: {explained}); "
+          f"classes and scores of rows both keep equal {same_id}, corners "
+          f"max abs err {coord:.3e} (tol {DET_ROW_TOL}); "
+          f"{int(both.sum())} rows kept on both {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        checks.failed.append(f"{tag} card vs CPU")
+    return {"rows_differ": differ, "near_tie_rows": near,
+            "explained": explained, "coord_err": coord, "ok": ok}
+
+
+def ssd_detect_cell(checks, step, batch):
+    """(d): ``SSD.detect`` at b8 after (b)'s steps: the card's rows
+    against the CPU's MultiBoxDetection on the same (probs, box_preds,
+    anchors); VOC07 mAP of both row sets against the batch's labels
+    equal; ms and NMS launches a detect call."""
+    import torch
+    from mxtpu_torch import kernels, nd
+    from mxtpu_torch.metric import VOC07MApMetric
+    net = step.net
+    x, labels = batch
+    xn = nd.array(x, ctx=CARD)
+    anchors, cls_preds, box_preds = net(xn)
+    probs = nd.softmax(cls_preds, axis=1)
+    kernels.reset_launch_counts()
+    with nms_record() as card_calls:
+        rows_card = nd.MultiBoxDetection(probs, box_preds, anchors,
+                                         nms_topk=400).data.cpu()
+    main = kernels.launch_counts()["nms"]
+    cpu = [nd.array(t.asnumpy(), ctx="cpu")
+           for t in (probs, box_preds, anchors)]
+    with nms_record() as cpu_calls:
+        rows_cpu = nd.MultiBoxDetection(*cpu, nms_topk=400).data.cpu()
+    res = rows_agree(checks, f"ssd_300 detect b{DET_B}", rows_card,
+                     rows_cpu, card_calls, cpu_calls)
+    maps = []
+    for rows in (rows_card, rows_cpu):
+        m = VOC07MApMetric()
+        m.update([labels], [rows.numpy()])
+        maps.append(m.get()[1])
+    same_map = maps[0] == maps[1] or (np.isnan(maps[0]) and
+                                      np.isnan(maps[1]))
+    print(f"check VOC07MApMetric of the card's rows == of the CPU's: "
+          f"{maps[0]!r} vs {maps[1]!r} {'ok' if same_map else 'FAIL'}",
+          flush=True)
+    if not same_map:
+        checks.failed.append("VOC07 mAP of the card's rows != the CPU's")
+    kernels.reset_launch_counts()
+    net.detect(xn)
+    main += kernels.launch_counts()["nms"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    calls = 5
+    for _ in range(calls):
+        out = net.detect(xn)
+    out.asnumpy()
+    detect_ms = (time.perf_counter() - t0) / calls * 1e3
+    per = kernels.launch_counts()["nms"] / calls
+    ok = per == 1 and main == 2 and \
+        tuple(out.shape) == (DET_B, anchors.shape[1], 6)
+    print(f"ssd_300 detect b{DET_B}: {detect_ms:.3f} ms a call (host clock "
+          f"over {calls}, ended by a copy), {per:g} NMS launch a call; "
+          f"{main} NMS launches on the main path (MultiBoxDetection, one "
+          f"detect), "
+          f"rows {tuple(out.shape)}, kept {int((rows_card[..., 0] >= 0).sum())}"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        checks.failed.append(f"ssd detect: {per} NMS launches a call, "
+                             f"{main} on the main path")
+    return {**res, "map_card": maps[0], "map_cpu": maps[1],
+            "detect_ms": detect_ms, "nms_per_detect": per,
+            "nms_main": main}
+
+
+def rcnn_scene(b, size, obj):
+    """test_rcnn's RPN scene at ``size``: dim noise with one bright
+    square of ``obj`` pixels an image, its box the label (class 0)."""
+    rng = np.random.RandomState(SEED + 26)
+    x = rng.rand(b, 3, size, size).astype(np.float32) * 0.1
+    labels = np.zeros((b, 1, 5), np.float32)
+    for i in range(b):
+        x0 = size // 8 + (size // 4) * i
+        x[i, :, x0:x0 + obj, x0:x0 + obj] = 1.0
+        labels[i, 0] = [0, x0 / size, x0 / size, (x0 + obj) / size,
+                        (x0 + obj) / size]
+    return x, labels
+
+
+def rcnn_cell(checks):
+    """(e): faster_rcnn_small(20) at b2 x 3 x 600², im_info [600, 600,
+    1]: the card's Proposal against the CPU's on the same (prob,
+    rpn_reg); the head on the CPU over the card's rois within
+    RCNN_HEAD_TOL; 12 RPN steps (test_rcnn's, adam through
+    gluon.Trainer) with 3/3 BN launches a step, losses finite and
+    falling; then ``detect``."""
+    import torch
+    from mxtpu_torch import autograd, kernels, nd
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.convert import params_from_mxtpu, params_to_mxtpu
+    from mxtpu_torch.gluon import Trainer
+    from mxtpu_torch.models import faster_rcnn_small, rpn_anchors
+    t0 = time.perf_counter()
+    x, labels = rcnn_scene(RCNN_B, RCNN_HW, RCNN_OBJ)
+    info = np.array([[RCNN_HW, RCNN_HW, 1.0]] * RCNN_B, np.float32)
+    trandom.seed(SEED)
+    net = fresh_names(lambda: faster_rcnn_small(num_classes=DET_CLASSES))
+    net.initialize(init="xavier", ctx=CARD)
+    xn, infon = nd.array(x, ctx=CARD), nd.array(info, ctx=CARD)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        full = net(xn, infon)
+    fwd_nms = kernels.launch_counts()["nms"]
+    cpu_net = params_from_mxtpu(params_to_mxtpu(net), fresh_names(
+        lambda: faster_rcnn_small(num_classes=DET_CLASSES)))
+    # the forward's stages on the card, so the CPU gets Proposal's and
+    # the head's exact inputs
+    A = net._A
+    with torch.no_grad():
+        feat = net.body(xn)
+        rpn_raw, rpn_reg = net.rpn(feat)
+        bg = nd.slice_axis(rpn_raw, axis=1, begin=0, end=A)
+        fg = nd.slice_axis(rpn_raw, axis=1, begin=A, end=2 * A)
+        m = nd.maximum(bg, fg)
+        eb, ef = nd.exp(bg - m), nd.exp(fg - m)
+        prob = nd.concat(eb / (eb + ef), ef / (eb + ef), dim=1)
+        kw = dict(scales=net._scales, ratios=net._ratios,
+                  feature_stride=net._stride,
+                  rpn_pre_nms_top_n=4 * net._post_nms,
+                  rpn_post_nms_top_n=net._post_nms, threshold=0.7,
+                  rpn_min_size=net._stride, output_score=True)
+        with nms_record() as card_calls:
+            rois, scores = nd.Proposal(prob, rpn_reg, infon, **kw)
+        with nms_record() as cpu_calls:
+            crois, cscores = nd.Proposal(
+                *(nd.array(t.asnumpy(), ctx="cpu")
+                  for t in (prob, rpn_reg, infon)), **kw)
+    same_full = bool(torch.equal(full[0].data, rois.data))
+    prop = proposal_agree(checks, f"faster_rcnn_small Proposal b{RCNN_B} "
+                          f"(pre_n {4 * net._post_nms})", rois, scores,
+                          crois, cscores, card_calls, cpu_calls, RCNN_HW)
+    with torch.no_grad():
+        cfeat = nd.array(feat.asnumpy(), ctx="cpu")
+        pooled = nd.ROIPooling(cfeat, nd.array(rois.asnumpy(), ctx="cpu"),
+                               pooled_size=net._pooled,
+                               spatial_scale=1.0 / net._stride)
+        h = cpu_net.head(nd.Flatten(pooled))
+        want = (cpu_net.cls_head(h), cpu_net.reg_head(h))
+    head = max(rel_err(a.data.cpu(), b.data)[0]
+               for a, b in zip(full[1:3], want))
+    ok = head <= RCNN_HEAD_TOL and same_full
+    print(f"check faster_rcnn_small head card vs CPU on the card's rois: "
+          f"cls_scores and bbox_deltas max rel err {head:.3e} (tol "
+          f"{RCNN_HEAD_TOL} x max(1, |ref|)); the forward's rois == the "
+          f"staged Proposal's {same_full} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        checks.failed.append(f"faster_rcnn head {head:.3e}, rois "
+                             f"{same_full}")
+    # test_rcnn's RPN training, on the card
+    labels_n = nd.array(labels, ctx=CARD)
+    fh = RCNN_HW // net._stride
+    anchors = rpn_anchors(fh, fh, net._stride, net._scales, net._ratios,
+                          RCNN_HW, ctx=CARD)
+    trainer = Trainer(net.collect_params(), "adam", {"learning_rate": 3e-3})
+    losses = []
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    for _ in range(RCNN_STEPS):
+        with autograd.record():
+            _, _, _, raw, _ = net(xn, infon)
+            bgl = nd.transpose(nd.slice_axis(raw, axis=1, begin=0, end=A),
+                               axes=(0, 2, 3, 1)).reshape((RCNN_B, -1))
+            fgl = nd.transpose(nd.slice_axis(raw, axis=1, begin=A,
+                                             end=2 * A),
+                               axes=(0, 2, 3, 1)).reshape((RCNN_B, -1))
+            logits = nd.stack(bgl, fgl, axis=1)
+            bt, bm, ct = nd.MultiBoxTarget(anchors, labels_n, logits,
+                                           overlap_threshold=0.3,
+                                           negative_mining_ratio=3.0)
+            loss = nd.mean(-nd.pick(nd.log_softmax(logits, axis=1), ct,
+                                    axis=1))
+        loss.backward()
+        trainer.step(batch_size=RCNN_B)
+        losses.append(float(loss.asscalar()))
+    step_ms = (time.perf_counter() - t1) / RCNN_STEPS * 1e3
+    counts = kernels.launch_counts()
+    check_launches(checks, "faster_rcnn RPN steps",
+                   {k: v for k, v in counts.items() if k != "nms"},
+                   RCNN_LAUNCHES, RCNN_STEPS)
+    fell = all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0]
+    if counts["nms"] != RCNN_STEPS or fwd_nms != 1:
+        checks.failed.append(f"faster_rcnn NMS launches: forward {fwd_nms}"
+                             f", {RCNN_STEPS} steps {counts['nms']}")
+    print(f"faster_rcnn_small RPN b{RCNN_B} x {RCNN_HW}²: {RCNN_STEPS} "
+          f"adam steps {step_ms:.2f} ms a step (host clock), losses "
+          f"{[round(v, 4) for v in losses]} {'ok' if fell else 'FAIL'}; "
+          f"launches {json.dumps(counts)}", flush=True)
+    if not fell:
+        checks.failed.append(f"faster_rcnn RPN losses {losses}")
+    kernels.reset_launch_counts()
+    det = net.detect(xn, infon, score_threshold=0.01)
+    nms_calls = kernels.launch_counts()["nms"]
+    dok = det.shape == (RCNN_B, net._post_nms * DET_CLASSES, 6) and \
+        bool(np.isfinite(det).all()) and nms_calls == 1 + RCNN_B
+    print(f"faster_rcnn_small detect: rows {det.shape}, kept "
+          f"{int((det[..., 0] >= 0).sum())}, NMS launches {nms_calls} (one "
+          f"Proposal, one box_nms an image) {'ok' if dok else 'FAIL'}; "
+          f"the cell {time.perf_counter() - t0:.1f} s", flush=True)
+    if not dok:
+        checks.failed.append("faster_rcnn detect")
+    del net, cpu_net, trainer
+    torch.cuda.empty_cache()
+    return counts, {"proposal": prop, "head_rel": head,
+                    "rpn_losses": losses, "rpn_step_ms": step_ms,
+                    "detect_nms_launches": nms_calls,
+                    "nms_main": fwd_nms + counts["nms"] + nms_calls}
+
+
+def proposal_agree(checks, tag, rois, scores, crois, cscores, card_calls,
+                   cpu_calls, side):
+    """Proposal's rois and scores on the card against the CPU's on the
+    same inputs: the sweeps' keep masks as :func:`rows_agree` holds
+    them; with equal masks the scores equal and the corners within
+    DET_ROW_TOL of the image's larger ``side`` (a corner is a difference
+    of numbers up to the image's size, so it carries their rounding:
+    ~10 float32 ulps at 600 pixels)."""
+    import torch
+    differ, near, explained = keep_agreement(card_calls, cpu_calls)
+    r, cr = rois.data.cpu(), crois.data
+    s, cs = scores.data.cpu(), cscores.data
+    coord = float((r - cr).abs().max()) / side
+    same_s = bool(torch.equal(s, cs))
+    ok = explained and (differ > 0 or (same_s and coord <= DET_ROW_TOL))
+    print(f"check {tag} card vs CPU on the same inputs: {differ} kept rows "
+          f"differ ({near} rows decided by an IoU within {NEAR_TIE} of the "
+          f"threshold; each first difference such a row: {explained}); "
+          f"scores equal {same_s}, rois max abs err {coord:.3e} of the "
+          f"image side {side} (tol {DET_ROW_TOL}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        checks.failed.append(f"{tag} card vs CPU")
+    return {"rows_differ": differ, "near_tie_rows": near,
+            "explained": explained, "roi_rel": coord, "scores_equal": same_s,
+            "ok": ok}
+
+
+def proposal_cell(checks):
+    """(f): Proposal at the reference's defaults (A = 12, stride 16,
+    pre_n 6000, post_n 300) on a seeded (2, 24, 38, 38) score map, card
+    against CPU; ms a call."""
+    import torch
+    from mxtpu_torch import kernels, nd
+    N, twoA, H, W = PROP_SHAPE
+    rng = np.random.RandomState(SEED + 27)
+    cls = rng.rand(N, twoA, H, W).astype(np.float32)
+    bbox = (rng.randn(N, 2 * twoA, H, W) * 0.1).astype(np.float32)
+    info = np.array([[H * 16, W * 16, 1.0]] * N, np.float32)
+    args = {d: [nd.array(a, ctx=d) for a in (cls, bbox, info)]
+            for d in (CARD, "cpu")}
+    with nms_record() as card_calls:
+        r, s = nd.Proposal(*args[CARD], output_score=True)
+    with nms_record() as cpu_calls:
+        cr, cs = nd.Proposal(*args["cpu"], output_score=True)
+    res = proposal_agree(checks, f"Proposal {PROP_SHAPE} defaults", r, s,
+                         cr, cs, card_calls, cpu_calls, 16 * max(H, W))
+
+    def call():
+        return nd.Proposal(*args[CARD], output_score=True)
+    kernels.reset_launch_counts()
+    call()
+    per = kernels.launch_counts()["nms"]
+    ms = device_ms(call, iters=10)
+    wall = time_ms(call, iters=10, warmup=2)
+    print(f"time Proposal {PROP_SHAPE} pre_n 6000 post_n 300: device "
+          f"{ms:.4f} ms a call, wall {wall:.4f} ms (events, host "
+          f"included), {per} NMS launch a call", flush=True)
+    if per != 1:
+        checks.failed.append(f"Proposal: {per} NMS launches a call")
+    return {**res, "ms": ms, "wall_ms": wall, "nms_main": per}
+
+
+def detection_phase(checks, gen):
+    """Phase 23 (see the module's docstring): returns the BN launches of
+    SSD-300's eager windows, the NMS launches of the detection runs,
+    the kernels line's detection rows and the numbers."""
+    import torch
+    from mxtpu_torch import kernels
+    t0 = time.perf_counter()
+    try:
+        import cv2
+        cv2_ok = f"cv2 {cv2.__version__} imports"
+    except ImportError as e:
+        cv2_ok = f"cv2 does not import ({e})"
+    print(f"detection phase: {cv2_ok} on this machine (ImageDetIter "
+          f"decodes through it; no record is read here)", flush=True)
+    nms_rows = nms_cell(checks)
+    bn_rows = det_bn_cell(checks, gen)
+    ssd_counts, train, step, batch = ssd_train_cell(checks)
+    check = ssd_cpu_check(checks)
+    # the main path of the NMS kernel: SSD's detections, Faster R-CNN
+    # (its forward, RPN steps and detect) and Proposal at the defaults;
+    # each cell counts its own main-path launches from 0 before it
+    # times anything
+    detect = ssd_detect_cell(checks, step, batch)
+    del step
+    torch.cuda.empty_cache()
+    rcnn_counts, rcnn = rcnn_cell(checks)
+    prop = proposal_cell(checks)
+    nms_main = {"detect": detect["nms_per_detect"],
+                "ssd": detect["nms_main"], "rcnn": rcnn["nms_main"],
+                "proposal": prop["nms_main"]}
+    nms_main["runs"] = sum(nms_main[k] for k in ("ssd", "rcnn",
+                                                 "proposal"))
+    print(f"detection phase: NMS launches on the main path {nms_main['runs']}"
+          f" (ssd_300 detection {nms_main['ssd']}, faster_rcnn_small "
+          f"{nms_main['rcnn']}, Proposal {nms_main['proposal']})",
+          flush=True)
+    print(f"detection phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ssd_counts, nms_main, {"nms": nms_rows[NMS_LINE_CASE],
+                                  **bn_rows}, {
+        "cv2": cv2_ok, "nms": nms_rows, "ssd_train": train,
+        "ssd_check": check, "ssd_detect": detect, "rcnn": rcnn,
+        "rcnn_counts": rcnn_counts, "proposal": prop}
+
+
 def main():
     try:
         import torch
@@ -8120,6 +9100,7 @@ def main():
                                                                  gen)
     fleet_counts_run, fleet_one, fleet = fleet_phase(checks, params)
     del params
+    det_counts, det_nms, det_rows, detection = detection_phase(checks, gen)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values()) +
@@ -8322,6 +9303,35 @@ def main():
                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
 
+    # phase 23: #8/#9 at SSD-300's largest BatchNorm shape (8 x 32 x
+    # 300², bf16) with the SSD eager windows' launches, and the NMS
+    # kernel (no TPU kernel: mxtpu's sweep is a lax.fori_loop) at SSD's
+    # detection shape with the main path's launches of (d)-(f)
+    for name in ("batch_norm_fwd", "batch_norm_bwd"):
+        if det_counts.get(name, 0) == 0:
+            checks.failed.append(f"kernel {name} never launched on the "
+                                 f"detection path")
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": bn_src[name.split("_")[2]],
+            "replaces": bn_rep[name], "dtype": "bfloat16",
+            "path": "detection", "launches": det_counts[name],
+            **{k: det_rows[name][k]
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}})
+    if det_nms["runs"] == 0:
+        checks.failed.append("kernel nms never launched on the detection "
+                             "path")
+    line["kernels"].append({
+        "name": "nms", "route": "cuda", "source": "mxtpu_torch/csrc/nms.cu",
+        "replaces": "mxtpu/ndarray/detection_impl.py:500 (_greedy_nms_keep, "
+                    "a lax.fori_loop: no TPU kernel)",
+        "dtype": "float32", "path": "detection",
+        "launches": det_nms["runs"],
+        **{k: det_rows["nms"][k]
+           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -8345,6 +9355,8 @@ def main():
                            "serving int8 (one forward)": qs_counts["int8"],
                            "serving fleet": fleet_counts_run,
                            "serving fleet (one forward)": fleet_one,
+                           "ssd_300 bf16 eager": det_counts,
+                           "detection nms": det_nms,
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,
                            **{f"tool {k}": c
@@ -8356,7 +9368,7 @@ def main():
               "resnet50": resnet, "bulked": bulked, "gluon": gluon,
               "serving": serving, "generation": generation,
               "transformer": transformer, "pipeline": pipeline,
-              "fleet": fleet,
+              "fleet": fleet, "detection": detection,
               "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

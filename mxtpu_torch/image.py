@@ -1,7 +1,10 @@
-"""Image utilities, the classification half (the counterpart of
-``mxtpu/image.py``; reference ``python/mxnet/image/image.py``†):
-decode, resize, crop and normalize helpers over HWC NDArrays, the
-``Augmenter`` family, ``CreateAugmenter`` and ``ImageIter``.
+"""Image utilities (the counterpart of ``mxtpu/image.py``; reference
+``python/mxnet/image/image.py``† and ``detection.py``†): decode,
+resize, crop and normalize helpers over HWC NDArrays, the
+``Augmenter`` family, ``CreateAugmenter`` and ``ImageIter``; and the
+detection half, ``DetAugmenter``, ``DetHorizontalFlipAug``,
+``DetRandomCropAug``, ``CreateDetAugmenter``, ``ImageDetIter`` and
+``pack_det_label``.
 
 ``imdecode``/``imread`` decode through ``cv2`` at the call, as mxtpu's
 do, into host (CPU) NDArrays; the other helpers compute where their
@@ -12,11 +15,14 @@ jax's), and nearest is jax's own rule, source index
 floor((i + 0.5) * in * (1 / out)) in f32 (XLA takes the quotient by
 a constant as a product with its reciprocal), gathered here.
 ``random_crop`` and ``HorizontalFlipAug`` draw from Python's
-``random`` module, as mxtpu's do.  The detection half
-(``ImageDetIter`` and its augmenters) is not ported yet.
+``random`` module, as mxtpu's do.  ``ImageDetIter`` decodes with
+``cv2`` and augments on the host in numpy, each sample from a seed
+drawn in order, so a pool of any size gives the same batches; its
+batches are host (CPU) NDArrays, as every iterator of the port's.
 """
 from __future__ import annotations
 
+import os
 import random as pyrandom
 from typing import List, Tuple
 
@@ -32,7 +38,9 @@ __all__ = ["imdecode", "imread", "imresize", "resize_short",
            "fixed_crop", "random_crop", "center_crop", "color_normalize",
            "Augmenter", "HorizontalFlipAug", "CastAug",
            "ColorNormalizeAug", "ResizeAug", "ForceResizeAug",
-           "RandomCropAug", "CenterCropAug", "CreateAugmenter", "ImageIter"]
+           "RandomCropAug", "CenterCropAug", "CreateAugmenter", "ImageIter",
+           "ImageDetIter", "DetAugmenter", "DetHorizontalFlipAug",
+           "DetRandomCropAug", "CreateDetAugmenter", "pack_det_label"]
 
 
 def imdecode(buf, flag=1, to_rgb=True):
@@ -286,3 +294,334 @@ class ImageIter:
         return batch
 
     __next__ = next
+
+
+# ======================================================================
+# Detection iterator (reference ``python/mxnet/image/detection.py``† +
+# ``src/io/iter_image_det_recordio.cc``†): box-aware augmentation over
+# det-packed .rec files.
+# ======================================================================
+
+class DetAugmenter:
+    """Base detection augmenter: ``(img_hwc_np, label_np) -> (img,
+    label)`` with label rows ``[cls, x1, y1, x2, y2]`` normalized to
+    [0, 1] (reference ``DetAugmenter``†)."""
+
+    def __call__(self, img, label):
+        raise NotImplementedError
+
+
+class DetHorizontalFlipAug(DetAugmenter):
+    """Mirror image and boxes with probability p (reference
+    ``DetHorizontalFlipAug``†)."""
+
+    def __init__(self, p=0.5, rng=None):
+        self.p = p
+        self._rng = rng or np.random
+
+    def __call__(self, img, label):
+        if self._rng.rand() < self.p:
+            img = img[:, ::-1]
+            valid = label[:, 0] >= 0
+            x1 = label[:, 1].copy()
+            label[valid, 1] = 1.0 - label[valid, 3]
+            label[valid, 3] = 1.0 - x1[valid]
+        return img, label
+
+
+class DetRandomCropAug(DetAugmenter):
+    """IoU-constrained random crop (reference ``DetRandomCropAug``†,
+    SSD-style sampling): sample a sub-window that covers at least
+    ``min_object_covered`` of some box; boxes re-expressed in crop
+    coordinates, objects whose center falls outside are dropped
+    (marked -1)."""
+
+    def __init__(self, min_object_covered=0.3, aspect_ratio_range=(0.75,
+                 1.33), area_range=(0.3, 1.0), max_attempts=25,
+                 rng=None):
+        self.min_object_covered = min_object_covered
+        self.aspect_ratio_range = aspect_ratio_range
+        self.area_range = area_range
+        self.max_attempts = max_attempts
+        self._rng = rng or np.random
+
+    def _try_crop(self, label):
+        r = self._rng
+        for _ in range(self.max_attempts):
+            area = r.uniform(*self.area_range)
+            ar = r.uniform(*self.aspect_ratio_range)
+            cw = min(np.sqrt(area * ar), 1.0)
+            ch = min(np.sqrt(area / ar), 1.0)
+            cx = r.uniform(0, 1 - cw)
+            cy = r.uniform(0, 1 - ch)
+            valid = label[label[:, 0] >= 0]
+            if len(valid) == 0:
+                return cx, cy, cw, ch
+            ix1 = np.maximum(valid[:, 1], cx)
+            iy1 = np.maximum(valid[:, 2], cy)
+            ix2 = np.minimum(valid[:, 3], cx + cw)
+            iy2 = np.minimum(valid[:, 4], cy + ch)
+            inter = np.maximum(ix2 - ix1, 0) * np.maximum(iy2 - iy1, 0)
+            barea = (valid[:, 3] - valid[:, 1]) * \
+                (valid[:, 4] - valid[:, 2])
+            cover = inter / np.maximum(barea, 1e-12)
+            if cover.max() >= self.min_object_covered:
+                return cx, cy, cw, ch
+        return None
+
+    def __call__(self, img, label):
+        crop = self._try_crop(label)
+        if crop is None:
+            return img, label
+        cx, cy, cw, ch = crop
+        h, w = img.shape[:2]
+        x0 = int(cx * w)
+        y0 = int(cy * h)
+        x1 = max(x0 + 1, int((cx + cw) * w))
+        y1 = max(y0 + 1, int((cy + ch) * h))
+        img = img[y0:y1, x0:x1]
+        out = label.copy()
+        for i in range(len(out)):
+            if out[i, 0] < 0:
+                continue
+            bx = (out[i, 1] + out[i, 3]) / 2
+            by = (out[i, 2] + out[i, 4]) / 2
+            if not (cx <= bx <= cx + cw and cy <= by <= cy + ch):
+                out[i] = -1.0
+                continue
+            out[i, 1] = np.clip((out[i, 1] - cx) / cw, 0, 1)
+            out[i, 3] = np.clip((out[i, 3] - cx) / cw, 0, 1)
+            out[i, 2] = np.clip((out[i, 2] - cy) / ch, 0, 1)
+            out[i, 4] = np.clip((out[i, 4] - cy) / ch, 0, 1)
+        return img, out
+
+
+def CreateDetAugmenter(data_shape, rand_crop=0.0, rand_mirror=False,  # noqa: N802
+                       min_object_covered=0.3, aspect_ratio_range=(0.75,
+                       1.33), area_range=(0.3, 1.0), max_attempts=25,
+                       rng=None):
+    """Standard detection augmentation list (reference
+    ``CreateDetAugmenter``† subset used by the SSD recipe)."""
+    augs: List[DetAugmenter] = []
+    if rand_crop > 0:
+        augs.append(DetRandomCropAug(min_object_covered,
+                                     aspect_ratio_range, area_range,
+                                     max_attempts, rng=rng))
+    if rand_mirror:
+        augs.append(DetHorizontalFlipAug(0.5, rng=rng))
+    return augs
+
+
+class ImageDetIter:
+    """Detection-record iterator (reference ``ImageDetIter``†).
+
+    Label wire format (what ``tools/im2rec.py --pack-label`` and
+    ``pack_det_label`` write): ``[head_w, obj_w, <extra header...>,
+    obj1, obj2, ...]`` with ``obj = [cls, x1, y1, x2, y2]`` normalized.
+    Batches pad the object dim with -1 rows to ``max_objs`` so shapes
+    stay static."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size=1,
+                 path_imgidx=None, shuffle=False, max_objs=None,
+                 rand_crop=0.0, rand_mirror=False, mean_pixels=None,
+                 std_pixels=None, scale=1.0, aug_list=None,
+                 last_batch_handle="pad", seed=0,
+                 preprocess_threads=4, **kwargs):
+        from . import recordio as rio
+        from .io import DataDesc
+        self.data_shape = tuple(data_shape)
+        self.batch_size = batch_size
+        self.scale = scale
+        self.mean = np.asarray(
+            mean_pixels if mean_pixels is not None else (0, 0, 0),
+            np.float32)
+        self.std = np.asarray(
+            std_pixels if std_pixels is not None else (1, 1, 1),
+            np.float32)
+        self._rng = np.random.RandomState(seed)
+        # user-supplied augmenters run shared and on one thread (their
+        # rng would race across threads); otherwise augmenters are
+        # built per sample from _aug_args with per-sample seeds —
+        # _aug_args is the one switch next() and _decode_one read
+        self.auglist = aug_list
+        self._aug_args = None if aug_list is not None else \
+            dict(rand_crop=rand_crop, rand_mirror=rand_mirror)
+        self._threads = max(1, int(preprocess_threads))
+        self._pool = None
+        self.shuffle = shuffle
+        self.last_batch_handle = last_batch_handle
+        if path_imgidx and os.path.exists(path_imgidx):
+            self._rec = rio.MXIndexedRecordIO(path_imgidx, path_imgrec,
+                                              "r")
+            self._keys = list(self._rec.keys)
+        else:
+            self._rec = rio.MXRecordIO(path_imgrec, "r")
+            self._keys = None
+            if shuffle:
+                raise MXNetError("shuffle requires path_imgidx")
+        if max_objs is None:
+            max_objs = self._scan_max_objs(path_imgrec)
+        self.max_objs = max_objs
+        self._DataDesc = DataDesc
+        self.reset()
+
+    def _scan_max_objs(self, path):
+        from . import recordio as rio
+        rec = rio.MXRecordIO(path, "r")
+        mx_objs = 1
+        while True:
+            raw = rec.read()
+            if raw is None:
+                break
+            header, _ = rio.unpack(raw)
+            lab = np.asarray(header.label).ravel()
+            head_w = int(lab[0])
+            obj_w = int(lab[1])
+            mx_objs = max(mx_objs, (lab.size - head_w) // obj_w)
+        rec.close()
+        return mx_objs
+
+    @property
+    def provide_data(self):
+        return [self._DataDesc(
+            "data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        return [self._DataDesc(
+            "label", (self.batch_size, self.max_objs, 5))]
+
+    def reset(self):
+        if self._keys is not None:
+            self._order = list(self._keys)
+            if self.shuffle:
+                self._rng.shuffle(self._order)
+            self._pos = 0
+        else:
+            self._rec.reset()
+        self._exhausted = False
+
+    def _read_raw(self):
+        if self._keys is not None:
+            if self._pos >= len(self._order):
+                return None
+            raw = self._rec.read_idx(self._order[self._pos])
+            self._pos += 1
+            return raw
+        return self._rec.read()
+
+    def _parse_label(self, lab):
+        lab = np.asarray(lab, np.float32).ravel()
+        head_w = int(lab[0])
+        obj_w = int(lab[1])
+        objs = lab[head_w:].reshape(-1, obj_w)[:, :5]
+        out = -np.ones((self.max_objs, 5), np.float32)
+        n = min(len(objs), self.max_objs)
+        out[:n] = objs[:n]
+        return out
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+        rec = getattr(self, "_rec", None)
+        if rec is not None and hasattr(rec, "close"):
+            rec.close()
+            self._rec = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _decode_one(self, raw, aug_seed=None):
+        """``aug_seed``: the sample's augmentation seed, drawn in order
+        on the consumer (the same at any pool size); None = the shared
+        (possibly user-supplied) augmenter list."""
+        import cv2
+
+        from . import recordio as rio
+        header, img = rio.unpack_img(raw, iscolor=1)
+        label = self._parse_label(header.label)
+        img = img[:, :, ::-1]  # BGR→RGB
+        if aug_seed is None:
+            augs = self.auglist or ()
+        else:
+            augs = CreateDetAugmenter(
+                self.data_shape,
+                rng=np.random.RandomState(aug_seed),
+                **self._aug_args)
+        for aug in augs:
+            img, label = aug(img, label)
+        c, h, w = self.data_shape
+        if img.shape[:2] != (h, w):
+            img = cv2.resize(img, (w, h))
+        img = (img.astype(np.float32) - self.mean) * self.scale / \
+            self.std
+        return img.transpose(2, 0, 1), label
+
+    def next(self):
+        from .io import DataBatch
+        if self._exhausted:
+            raise StopIteration
+        c, h, w = self.data_shape
+        data = np.zeros((self.batch_size, c, h, w), np.float32)
+        labels = -np.ones((self.batch_size, self.max_objs, 5),
+                          np.float32)
+        raws = []
+        while len(raws) < self.batch_size:
+            raw = self._read_raw()
+            if raw is None:
+                break
+            raws.append(raw)
+        n = len(raws)
+        if n and self._aug_args is not None:
+            # per-sample seeds drawn in order: the augmentation stream
+            # is the same whatever the decode pool's size
+            seeds = self._rng.randint(0, 2 ** 31 - 1, size=n,
+                                      dtype=np.int64)
+            if self._threads > 1:
+                if self._pool is None:
+                    from concurrent.futures import ThreadPoolExecutor
+                    self._pool = ThreadPoolExecutor(self._threads)
+                decoded = list(self._pool.map(self._decode_one, raws,
+                                              seeds))
+            else:
+                decoded = [self._decode_one(r, s)
+                           for r, s in zip(raws, seeds)]
+        else:
+            decoded = [self._decode_one(r) for r in raws]
+        for i, (img, label) in enumerate(decoded):
+            data[i] = img
+            labels[i] = label
+        if n == 0:
+            self._exhausted = True
+            raise StopIteration
+        pad = self.batch_size - n
+        if pad:
+            self._exhausted = True
+            if self.last_batch_handle == "discard":
+                raise StopIteration
+            for i in range(n, self.batch_size):
+                data[i] = data[i - n]
+                labels[i] = labels[i - n]
+        return DataBatch(data=[array(data, ctx=cpu())],
+                         label=[array(labels, ctx=cpu())],
+                         pad=pad, provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    def __iter__(self):
+        return self
+
+    __next__ = next
+
+
+def pack_det_label(objects, extra_header=()):
+    """The det-record label vector from ``[cls, x1, y1, x2, y2]`` rows
+    (normalized), the layout ``ImageDetIter`` and the reference's
+    ``im2rec --pack-label`` expect."""
+    objs = np.asarray(objects, np.float32).reshape(-1, 5)
+    head = [2 + len(extra_header), 5] + list(extra_header)
+    return np.concatenate([np.asarray(head, np.float32),
+                           objs.ravel()])

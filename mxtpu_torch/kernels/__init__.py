@@ -14,7 +14,9 @@ The public functions (``flash_attention``, ``layer_norm``,
 ``fused_residual_layer_norm``, ``fused_bn_act``) run through
 ``torch.autograd.Function``s whose backward is the backward kernel.
 ``conv_nhwc`` has no backward (nor has the TPU kernel it ports) and
-refuses inputs that require grad on every device.
+refuses inputs that require grad on every device.  ``nms.nms_keep``
+(the detection ops' greedy suppression, which ports no TPU kernel)
+returns a bool mask and has no gradient.
 The raw wrappers (``flash_forward``, ``layer_norm_fwd``,
 ``fused_residual_ln_fwd``, ``bn_fwd``, ``bn_bwd`` and the like) keep
 no graph, so on the card they refuse inputs that require grad
@@ -126,6 +128,7 @@ def _modules():
     ln = importlib.import_module(__name__ + ".layer_norm")
     bn = importlib.import_module(__name__ + ".batch_norm")
     conv = importlib.import_module(__name__ + ".conv")
+    nms = importlib.import_module(__name__ + ".nms")
     return {"flash_attention_fwd": (fa, "LAUNCHES"),
             "flash_attention_bwd_dq": (fa, "DQ_LAUNCHES"),
             "flash_attention_bwd_dkv": (fa, "DKV_LAUNCHES"),
@@ -137,7 +140,8 @@ def _modules():
             "batch_norm_bwd": (bn, "BWD_LAUNCHES"),
             "batch_norm_fwd_cm": (bn, "FWD_CM_LAUNCHES"),
             "batch_norm_bwd_cm": (bn, "BWD_CM_LAUNCHES"),
-            "conv_nhwc": (conv, "CONV_LAUNCHES")}
+            "conv_nhwc": (conv, "CONV_LAUNCHES"),
+            "nms": (nms, "LAUNCHES")}
 
 
 def launch_counts() -> Dict[str, int]:

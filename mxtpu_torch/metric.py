@@ -1,6 +1,7 @@
 """Evaluation metrics (the counterpart of ``mxtpu/metric.py``):
 ``create``, ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy`` and ``CustomMetric``.
+``TopKAccuracy``, ``CrossEntropy``, ``CustomMetric`` and the detection
+mAPs ``VOC07MApMetric`` (``voc07_map``) and ``MApMetric`` (``det_map``).
 
 Metrics update on the host from (label, pred) NDArray lists: each
 ``update`` copies its arrays to numpy, a sync with the card per batch,
@@ -9,7 +10,7 @@ MSE, RMSE, Perplexity, ...) wait.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as _np
 
@@ -17,8 +18,8 @@ from .base import MXNetError, Registry, _as_list
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "CustomMetric", "create", "register",
-           "check_label_shapes"]
+           "CrossEntropy", "CustomMetric", "VOC07MApMetric", "MApMetric",
+           "create", "register", "check_label_shapes"]
 
 _REGISTRY: Registry = Registry("metric")
 
@@ -242,3 +243,147 @@ class CustomMetric(EvalMetric):
             else:
                 self.sum_metric += reval
                 self.num_inst += 1
+
+
+@register(aliases=("voc07_map",))
+class VOC07MApMetric(EvalMetric):
+    """Mean average precision with VOC07's 11-point interpolation
+    (reference ``example/ssd/evaluate/eval_metric.py``† MApMetric /
+    VOC07MApMetric).
+
+    update(labels, preds):
+      * ``preds``: (B, N, 6) detector output rows
+        ``[cls_id, score, x1, y1, x2, y2]``; rows with cls_id < 0 are
+        padding (the MultiBoxDetection / SSD contract).
+      * ``labels``: (B, M, 5+) ground truth rows
+        ``[cls_id, x1, y1, x2, y2, (difficult)]``; rows with
+        cls_id < 0 are padding.
+    """
+
+    def __init__(self, iou_thresh=0.5, class_names=None,
+                 name="mAP", pred_idx=0):
+        self.iou_thresh = iou_thresh
+        self.class_names = class_names
+        self._pred_idx = int(pred_idx)
+        super().__init__(name)
+
+    def reset(self):
+        super().reset()
+        # per class: a list of (score, tp) and the gt count
+        self._records: Dict[int, List] = {}
+        self._gt_counts: Dict[int, int] = {}
+
+    @staticmethod
+    def _iou(box, gts):
+        ix1 = _np.maximum(box[0], gts[:, 0])
+        iy1 = _np.maximum(box[1], gts[:, 1])
+        ix2 = _np.minimum(box[2], gts[:, 2])
+        iy2 = _np.minimum(box[3], gts[:, 3])
+        iw = _np.maximum(ix2 - ix1, 0)
+        ih = _np.maximum(iy2 - iy1, 0)
+        inter = iw * ih
+        a = (box[2] - box[0]) * (box[3] - box[1])
+        b = (gts[:, 2] - gts[:, 0]) * (gts[:, 3] - gts[:, 1])
+        return inter / _np.maximum(a + b - inter, 1e-12)
+
+    def update(self, labels, preds):
+        labels = _as_list(labels)
+        preds = _as_list(preds)
+        pred = _as_numpy(preds[self._pred_idx])
+        label = _as_numpy(labels[0])
+        if pred.ndim == 2:
+            pred = pred[None]
+        if label.ndim == 2:
+            label = label[None]
+        for b in range(pred.shape[0]):
+            gts = label[b]
+            gts = gts[gts[:, 0] >= 0]
+            # VOC protocol: difficult ground truths (column 5, when
+            # present) are excluded from npos, and detections matching
+            # them are neutral — neither tp nor fp
+            difficult = gts[:, 5] > 0 if gts.shape[1] > 5 else \
+                _np.zeros(len(gts), bool)
+            for c in set(gts[:, 0].astype(int).tolist()):
+                self._gt_counts[c] = self._gt_counts.get(c, 0) + int(
+                    ((gts[:, 0] == c) & ~difficult).sum())
+            dets = pred[b]
+            dets = dets[dets[:, 0] >= 0]
+            order = _np.argsort(-dets[:, 1])
+            matched = _np.zeros(len(gts), bool)
+            for i in order:
+                c = int(dets[i, 0])
+                rec = self._records.setdefault(c, [])
+                cls_mask = gts[:, 0] == c
+                if not cls_mask.any():
+                    rec.append((float(dets[i, 1]), 0))
+                    continue
+                ious = self._iou(dets[i, 2:6], gts[:, 1:5])
+                ious = _np.where(cls_mask, ious, -1.0)
+                j = int(_np.argmax(ious))
+                if ious[j] >= self.iou_thresh:
+                    if difficult[j]:
+                        continue  # neutral: matched a difficult gt
+                    if not matched[j]:
+                        matched[j] = True
+                        rec.append((float(dets[i, 1]), 1))
+                    else:
+                        rec.append((float(dets[i, 1]), 0))
+                else:
+                    rec.append((float(dets[i, 1]), 0))
+        self.num_inst = 1  # aggregate metric; get() computes live
+
+    def _class_ap(self, c):
+        npos = self._gt_counts.get(c, 0)
+        rec = self._records.get(c, [])
+        if npos == 0:
+            return None
+        if not rec:
+            return 0.0
+        arr = _np.asarray(sorted(rec, key=lambda t: -t[0]), _np.float64)
+        tp = _np.cumsum(arr[:, 1])
+        fp = _np.cumsum(1 - arr[:, 1])
+        recall = tp / npos
+        precision = tp / _np.maximum(tp + fp, 1e-12)
+        # VOC07 11-point interpolation
+        ap = 0.0
+        for t in _np.arange(0.0, 1.01, 0.1):
+            p = precision[recall >= t].max() if (recall >= t).any() \
+                else 0.0
+            ap += p / 11.0
+        return float(ap)
+
+    def get(self):
+        classes = sorted(set(self._gt_counts) | set(self._records))
+        aps = [ap for ap in (self._class_ap(c) for c in classes)
+               if ap is not None]
+        if not aps:
+            return (self.name, float("nan"))
+        return (self.name, float(_np.mean(aps)))
+
+
+@register(aliases=("det_map",))
+class MApMetric(VOC07MApMetric):
+    """Area-under-PR-curve mAP (reference ``MApMetric``†): the same
+    matching, with exact AP integration instead of 11-point."""
+
+    def __init__(self, iou_thresh=0.5, class_names=None, name="mAP",
+                 pred_idx=0):
+        super().__init__(iou_thresh, class_names, name, pred_idx)
+
+    def _class_ap(self, c):
+        npos = self._gt_counts.get(c, 0)
+        rec = self._records.get(c, [])
+        if npos == 0:
+            return None
+        if not rec:
+            return 0.0
+        arr = _np.asarray(sorted(rec, key=lambda t: -t[0]), _np.float64)
+        tp = _np.cumsum(arr[:, 1])
+        fp = _np.cumsum(1 - arr[:, 1])
+        recall = _np.concatenate([[0.0], tp / npos])
+        precision = _np.concatenate(
+            [[1.0], tp / _np.maximum(tp + fp, 1e-12)])
+        # monotone precision envelope, then integrate
+        for i in range(len(precision) - 2, -1, -1):
+            precision[i] = max(precision[i], precision[i + 1])
+        return float(_np.sum(_np.diff(recall) * precision[1:]))

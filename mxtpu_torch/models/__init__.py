@@ -1,7 +1,12 @@
 """Model builders (``mxtpu.models`` counterpart): the Transformer and
-BERT families, and
+BERT families, the detectors (``ssd``: ``SSD``, ``SSDLoss``,
+``toy_ssd``, ``ssd_300``; ``rcnn``: ``FasterRCNN``, ``RPN``,
+``faster_rcnn_small``, ``rpn_anchors``), and
 ``lenet``, ``mlp`` and ``resnet50`` as the JAX package builds them."""
 from ..gluon import nn
+from . import rcnn, ssd  # noqa: F401  (the detector families)
+from .rcnn import RPN, FasterRCNN, faster_rcnn_small, rpn_anchors  # noqa: F401
+from .ssd import SSD, SSDLoss, ssd_300, toy_ssd  # noqa: F401
 from .transformer import (BERTModel, MultiHeadAttention,  # noqa: F401
                           PositionwiseFFN, TransformerDecoder,
                           TransformerDecoderCell, TransformerEncoder,

@@ -25,12 +25,14 @@ from ..ops import interpose as _interpose
 from ..ops.registry import OP_REGISTRY, get_op
 from . import legacy_format
 from . import ops_impl  # noqa: F401  (populates the registry)
+from . import detection_impl  # noqa: F401  (MultiBox/Proposal/ROI ops)
+from . import nn_extra  # noqa: F401  (ROIAlign)
 from .ndarray import (NDArray, _device, arange, array, concat, empty,
                       full, load, ones, save, stack, waitall, zeros)
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concat", "stack", "save", "load", "waitall", "loads",
-           "load_params", "legacy_format"]
+           "load_params", "legacy_format", "contrib"]
 
 _SAVE_MAGIC = b"MXTPU01\n"
 
@@ -179,3 +181,8 @@ def FusedResidualLayerNorm(data, bias, residual, gamma, beta, p=0.1,  # noqa: N8
 
 
 dropout = Dropout
+
+# the contrib namespace (box_iou / box_nms / bipartite_matching), after
+# the generated functions as in mxtpu: its ops resolve as nd.contrib.*
+# and sym.*, not as nd._contrib_*
+from . import contrib  # noqa: E402

@@ -278,6 +278,18 @@ for _name, (_fn, _diff, _aliases) in _SCALAR.items():
                 differentiable=_diff, aliases=_aliases)(
         (lambda f: lambda x, scalar=0.0: f(x, scalar))(_fn))
 
+
+def _smooth_l1(x, scalar=1.0):
+    """0.5 (scalar x)^2 where |x| < 1/scalar^2, else |x| - 0.5/scalar^2
+    (``mxtpu/ndarray/ops_impl.py:173``); torch autograd gives jnp.where's
+    gradient, the taken branch's."""
+    ax = torch.abs(x)
+    return torch.where(ax < 1.0 / (scalar ** 2), 0.5 * (scalar * x) ** 2,
+                       ax - 0.5 / (scalar ** 2))
+
+
+register_op("smooth_l1", params=[Param("scalar", float, 1.0)])(_smooth_l1)
+
 # ----------------------------------------------------------------------
 # reductions
 # ----------------------------------------------------------------------

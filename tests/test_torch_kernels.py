@@ -214,7 +214,8 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
                                   "batch_norm_bwd": 0,
                                   "batch_norm_fwd_cm": 0,
                                   "batch_norm_bwd_cm": 0,
-                                  "conv_nhwc": 0}
+                                  "conv_nhwc": 0,
+                                  "nms": 0}
 
 
 def test_dispatch_refuses_devices_it_has_no_path_for():

@@ -13,9 +13,10 @@ kernel, bench_flash, probe_bn_fusion, microbench), and train, check,
 rematerialize and decode Transformer-big with the
 ``bench_transformer`` recipe (adam, b16 x (64 + 64)), train ResNet-50
 fed from the input pipeline (``bench_resnet50_pipeline``'s recipe),
-step every ResNet of the model zoo, and serve BERT-Large from a fleet
+step every ResNet of the model zoo, serve BERT-Large from a fleet
 of workers through a kill, a warm replacement, scripted faults and the
-autoscaler.
+autoscaler, run detection, and warm serving processes and fleet
+replicas from the persistent compile cache.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -222,7 +223,8 @@ Phases, each fatal on failure:
      prompt_buckets=(32, 128))`` (8 lanes + scratch, a 0.91 GB KV table)
      and ``warmup(kv=table)`` (one CUDA graph captured an entry, on
      the table the first gates run on; peak memory beside the eager
-     plan's; ``donate=False`` refused on the card).  Gates: (1) one lane, a 100-token prompt
+     plan's; ``donate=False`` runs on the card since phase 24 (e)
+     gates it).  Gates: (1) one lane, a 100-token prompt
      prefilled, then 16 decode steps, each step's logits against the
      full causal forward's (flash #1) at the same position, the greedy
      tokens where the top-2 gap exceeds the tolerance; (2) one prefill
@@ -429,6 +431,33 @@ Phases, each fatal on failure:
      counted cell by cell before any timing loop: 2 in (d) (the card's
      MultiBoxDetection, one ``detect``), 16 in (e) (the forward, 12 RPN
      steps, ``detect``'s 1 + 2), 1 in (f).
+ 24. the persistent compile cache (``cache_phase``): bench_serving_
+     coldstart's row in this process (bench's small BERT, its ladder
+     warmed against an empty root and by a fresh runner on the
+     populated root, every bucket a hit, the first request of a fresh
+     runner in each mode, the ratio of the ladders' seconds), then
+     fresh ``python3`` processes of this script (``--cache-child``),
+     each with its own MXTPU_CACHE_DIR, on BERT-Large f32 served from
+     its export at the fleet's ladder (b <= 8 x T128): (a) cold on an
+     empty root: nvcc's seconds for the 10 sources, each bucket's and
+     the ladder's seconds, the time from the spawn to the first served
+     request, a forward's launch record and counts 24/1/48 of #1
+     f32/#4/#6; (b) a fresh process on (a)'s root: no nvcc, every
+     bucket "disk", no cold build, (a)'s launch record, the 16 seeded
+     rows and the b8 batch bit-equal to (a)'s, the same seconds; (c) a
+     copy of the root with one kernel entry and one bucket entry
+     corrupted and another bucket entry truncated: each quarantined
+     (never opened), the kernel rebuilt by nvcc, the two buckets cold,
+     the rows bit-equal to (a)'s; (d) a threaded fleet on (a)'s root:
+     w0 killed with no handoff, the autoscaler's floor repair and a
+     replacement attached by hand both "disk_cache" with no cold
+     build, every row served through it within the canary's tolerance
+     of (a)'s; (e) causal BERT-Large (8 lanes + scratch, L 512, prompt
+     bucket 32) served by a donating ``GenerateRunner`` and by one with
+     ``donate=False``: 17 greedy tokens a lane equal, the logits bit for
+     bit, every caller's table unchanged bit for bit, the launch
+     records and a decode's counts (1/48 of #4/#6) alike, the decode
+     step's ms of each and the two table copies' device ms.
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -5237,11 +5266,9 @@ def gen_entry_gate(checks, runner):
     for bit (or within the tolerance, printed).  Then a decode on a
     second table: captured anew on it, the first table untouched, the
     same logits; the first table keeps its graphs (4 more steps on it
-    build nothing and return it); and ``donate=False`` is refused on
-    the card."""
+    build nothing and return it).  (``donate=False``, refused on the
+    card until phase 24, is gated there.)"""
     import torch
-    from mxtpu_torch import MXNetError
-    from mxtpu_torch.serving import GenerateRunner
     from mxtpu_torch.serving.entry import tensor_key
     g = torch.Generator(device=CARD).manual_seed(SEED + 26)
     base = torch.randn(runner._kv_shape, generator=g, device=CARD)
@@ -5291,14 +5318,8 @@ def gen_entry_gate(checks, runner):
                    and all(b is kv_c for b in backs)
                    and runner.num_compiled() == n_built
                    and runner.compile_seconds == secs)
-    try:
-        GenerateRunner(runner._symbol, {}, runner.kv_spec,
-                       prompt_buckets=runner.prompt_buckets, donate=False)
-        refused = False
-    except MXNetError as e:
-        refused = "donate=False" in str(e)
     ok = worst_rel <= SERVE_TOL and anew and untouched and same \
-        and out is other and kept_graphs and refused
+        and out is other and kept_graphs
     print(f"check generate: each of {len(runner.buckets())} captured "
           f"entries vs the eager plan on the card (logits and table): "
           f"{len(runner.buckets()) - len(set(apart))} bit for bit" +
@@ -5308,8 +5329,7 @@ def gen_entry_gate(checks, runner):
           f"; a decode on another table captured anew {anew}, the first "
           f"table untouched {untouched}, the same logits and table "
           f"{same}; 4 more steps on the first table built nothing "
-          f"{kept_graphs}; donate=False refused {refused} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{kept_graphs} {'ok' if ok else 'FAIL'}", flush=True)
     checks.rows.append({"check": "generate entries captured vs eager",
                         "apart": sorted(set(apart)),
                         "max_abs_err": worst_abs, "max_rel_err": worst_rel,
@@ -5317,12 +5337,12 @@ def gen_entry_gate(checks, runner):
                         "first_table_untouched": untouched,
                         "same_result": same,
                         "first_table_kept_graphs": kept_graphs,
-                        "donate_off_refused": refused, "ok": ok})
+                        "ok": ok})
     if not ok:
         checks.failed.append("generate: a captured entry differs from the "
                              "eager plan, wrote a table it was not "
-                             "passed, was built again on its own table, "
-                             "or donate=False was not refused")
+                             "passed, or was built again on its own "
+                             "table")
 
 
 def gen_alone(runner, prompt, kw):
@@ -8988,6 +9008,540 @@ def detection_phase(checks, gen):
         "rcnn_counts": rcnn_counts, "proposal": prop}
 
 
+# ----------------------------------------------------------------------
+# phase 24: the persistent compile cache (kernel entries and bucket
+# recipes), disk-warmed processes and fleet replicas, and
+# GenerateRunner(donate=False) on the card
+# ----------------------------------------------------------------------
+
+CACHE_CHILD = "--cache-child"   # this script's own subprocess mode
+CACHE_ROWS = 16                 # seeded requests a serving process answers
+# what (c) poisons in a copy of (a)'s root
+CACHE_POISON = (("kernel", "layer_norm", "corrupt"),
+                ("bucket", (1, FLEET_T), "corrupt"),
+                ("bucket", (2, FLEET_T), "truncate"))
+# one served forward of BERT-Large: #1 f32, #4, #6
+CACHE_LAUNCHES = {"flash_attention_fwd": LAYERS, "layer_norm_fwd": 1,
+                  "fused_residual_ln_fwd": 2 * LAYERS}
+CACHE_GEN_BUCKET, CACHE_GEN_PROMPT = 32, 20
+CACHE_GEN_STEPS, CACHE_GEN_TIMED = 16, 20
+CACHE_CHILD_TIMEOUT_S = 600
+# bench_serving_coldstart's model and ladder (bench.py:1204-1218)
+COLD_V, COLD_U, COLD_FFN, COLD_L, COLD_H = 8192, 128, 512, 2, 2
+COLD_T, COLD_B, COLD_REPEATS = 64, 8, 2
+
+
+def cache_rows():
+    """The seeded requests every serving process of phase 24 answers:
+    CACHE_ROWS token rows of 64-128 tokens."""
+    rng = np.random.RandomState(SEED + 40)
+    return [rng.randint(0, VOCAB, n).astype(np.float32)
+            for n in rng.randint(FLEET_T // 2, FLEET_T + 1, CACHE_ROWS)]
+
+
+def cache_runner(symbol, weights, **kw):
+    """A fleet-phase runner (b <= 8 x T128) over the export, with the
+    knob-configured cache (MXTPU_CACHE_DIR)."""
+    from mxtpu_torch.serving import ModelRunner
+    return ModelRunner(symbol, weights, {"data": (None,)},
+                       seq_buckets=[FLEET_T], max_batch_size=FLEET_B,
+                       device=CARD, **kw)
+
+
+def row_digest(a):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def cache_serve(files, spawn, out):
+    """(a)-(c) in a child: the ladder warmed through the cache, the
+    time from the process's spawn to its first served request, then
+    every seeded row alone and the first 8 as one batch; digests of the
+    rows (and, for (a), the rows themselves beside ``out``)."""
+    from mxtpu_torch import kernels
+    from mxtpu_torch import symbol as sym_mod
+    from mxtpu_torch.cache import default_cache
+    from mxtpu_torch.ndarray import load_params
+    t0 = time.perf_counter()
+    runner = cache_runner(sym_mod.load(files[0]), load_params(files[1]))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    secs = runner.warmup()
+    ladder_s = time.perf_counter() - t0
+    rows = cache_rows()
+
+    def alone(r):       # a row's logits, trimmed to its length
+        return runner.infer({"data": r[None]})[0][0, :len(r)]
+
+    served = [alone(rows[0])]
+    first_s = time.time() - spawn
+    kernels.reset_launch_counts()
+    served.append(alone(rows[1]))
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    served += [alone(r) for r in rows[2:]]
+    bucket = (FLEET_B, FLEET_T)
+    batch = runner.run_raw(runner._pad_stack(
+        [{"data": r} for r in rows[:FLEET_B]], bucket), bucket)[0]
+    batch = batch.cpu().numpy()
+    if out.name.startswith("a."):
+        np.savez(out.with_suffix(".npz"), *served, batch=batch)
+    cache = default_cache()
+    return {
+        "load_s": load_s, "ladder_s": ladder_s, "first_request_s": first_s,
+        "bucket_s": {str(b): v for b, v in secs.items()},
+        "sources": {str(b): v
+                    for b, v in runner.compile_sources().items()},
+        "cold_compiles": runner.cold_compiles(),
+        "record": fleet_counts(runner._entries[(1, FLEET_T)]),
+        "counts": counts,
+        "bucket_keys": {str(b): runner._cache_key(b).digest
+                        for b in runner.buckets()},
+        "stats": cache.stats(),
+        "rows": [row_digest(r) for r in served],
+        "batch": row_digest(batch)}
+
+
+def cache_fleet(files, ref):
+    """(d) in a child: a threaded fleet over the export with an
+    autoscaler (floor 1); w0 is killed with no handoff anywhere, the
+    floor repair's replica and a replacement attached by hand warm
+    from the root; every seeded row served through the fleet against
+    (a)'s row at the canary's tolerance."""
+    from mxtpu_torch import symbol as sym_mod
+    from mxtpu_torch.ndarray import load_params
+    from mxtpu_torch.serving import Autoscaler, FleetRouter
+    symbol, weights = sym_mod.load(files[0]), load_params(files[1])
+    made = []
+
+    def make(name):
+        w = fleet_worker(cache_runner(symbol, weights), name)
+        made.append(w)
+        return w
+
+    router = FleetRouter(threaded=True, canary=None, tick_s=0.002)
+    out = {}
+    with router:
+        out["w0"] = router.add_worker(make("w0"))
+        scaler = Autoscaler(router, make, min_workers=1, max_workers=2,
+                            up_depth=1e9, down_depth=0.0, breach_ticks=1,
+                            cooldown_s=0.0)
+        router.add_controller(scaler.tick)
+        t0 = time.perf_counter()
+        router.kill("w0")
+        ok = fleet_wait(lambda: any(e["kind"] == "scale_up" for e in
+                                    scaler.recorder.events()), 300.0)
+        out["scale_up_s"] = time.perf_counter() - t0
+        ups = [e for e in scaler.recorder.events()
+               if e["kind"] == "scale_up"]
+        out["scale_up"] = ups[0]["donor"] if ok and ups else None
+        t0 = time.perf_counter()
+        wr = fleet_worker(cache_runner(symbol, weights), "wR")
+        out["wR"] = router.add_worker(wr)
+        out["wR_warm_s"] = time.perf_counter() - t0
+        rows = cache_rows()
+        reqs = [router.submit({"data": r}, seq_len=len(r),
+                              timeout_s=FLEET_TIMEOUT_S) for r in rows]
+        got = [r.result(timeout=FLEET_TIMEOUT_S + 5.0)[0] for r in reqs]
+    want = np.load(ref)
+    worst = 0.0
+    for i, g in enumerate(got):
+        w = want[f"arr_{i}"].astype(np.float64)
+        lim = FLEET_ATOL + FLEET_RTOL * np.abs(w)
+        worst = max(worst, float((np.abs(g - w) / lim).max())
+                    if g.shape == w.shape else np.inf)
+    out.update(
+        tol_ratio=worst, served=len(got),
+        cold=[w.runner.cold_compiles() for w in made[1:]] +
+        [wr.runner.cold_compiles()],
+        sources=sorted({s for w in made[1:] + [wr]
+                        for s in w.runner.compile_sources().values()}),
+        record=fleet_counts(wr.runner._entries[(1, FLEET_T)]),
+        workers=[w.name for w in made] + ["wR"])
+    return out
+
+
+def cache_gen(files):
+    """(e) in a child: causal BERT-Large served by a donating
+    GenerateRunner and by one that does not donate (its entries bound
+    to a table it owns, the caller's table copied in before a call
+    and out after): greedy streams token for token, the logits bit for
+    bit, each caller's table unchanged bit for bit, the launch records
+    alike; decode step ms of both and the two copies' device ms."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.serving import GenerateRunner
+    spec = (LAYERS, 2, GEN_LANES, HEADS, MAXLEN, UNITS // HEADS)
+    kw = dict(prompt_buckets=(CACHE_GEN_BUCKET,), device=CARD)
+    runners = {"donate": GenerateRunner.from_export(*files, spec,
+                                                    donate=True, **kw),
+               "copy": GenerateRunner.from_export(*files, spec,
+                                                  donate=False, **kw)}
+    rng = np.random.RandomState(SEED + 41)
+    n, p = GEN_LANES, CACHE_GEN_PROMPT
+    toks = np.zeros((n, CACHE_GEN_BUCKET), np.float32)
+    toks[:, :p] = rng.randint(0, VOCAB, (n, p))
+    out = {}
+
+    def decode_args(last, i):
+        t = np.zeros((n + 1, 1), np.float32)
+        t[:n, 0] = last
+        st = np.zeros(n + 1, np.float32)
+        st[:n] = p + i
+        return t, st
+
+    for tag, r in runners.items():
+        kv = r.new_cache()
+        kept, intact = kv.clone(), True
+        logits, new = r.prefill(toks, np.zeros(n, np.float32),
+                                np.arange(n, dtype=np.float32), kv)
+        intact &= tag == "donate" or (torch.equal(kv, kept)
+                                      and new is not kv)
+        last = logits[:, p - 1].argmax(-1)
+        streams, rows = [last.tolist()], [logits[:, p - 1]]
+        kv = new
+        for i in range(CACHE_GEN_STEPS):
+            kept = kv.clone() if tag == "copy" else None
+            lg, new = r.decode(*decode_args(last, i), kv)
+            if tag == "copy":
+                intact &= torch.equal(kv, kept) and new is not kv
+            kv = new
+            last = lg[:n, 0].argmax(-1)
+            streams.append(last.tolist())
+            rows.append(lg[:n, 0])
+        del kept
+        kernels.reset_launch_counts()
+        r.decode(*decode_args(last, CACHE_GEN_STEPS), kv)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        (ladder,) = r._tables.values()
+        out[tag] = {"streams": streams, "rows": row_digest(np.stack(rows)),
+                    "intact": bool(intact), "counts": counts,
+                    "records": {str(b): fleet_counts(e)
+                                for b, e in sorted(ladder.items())},
+                    "kv": kv}
+    # decode step ms a call (host clock: the copies, the replay and the
+    # logits' read), the two runners in turns
+    ms = {"donate": [], "copy": []}
+    for tag in ("donate", "copy", "copy", "donate"):
+        r, kv = runners[tag], out[tag]["kv"]
+        args = decode_args(np.zeros(n), CACHE_GEN_STEPS)
+        r.decode(*args, kv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CACHE_GEN_TIMED):
+            r.decode(*args, kv)
+        ms[tag].append((time.perf_counter() - t0) * 1e3 / CACHE_GEN_TIMED)
+    own, kv = runners["copy"]._own, out["copy"]["kv"]
+    copy_in = time_ms(lambda: own.copy_(kv), iters=20)
+    copy_out = time_ms(lambda: own.clone(), iters=20)
+    table = own.numel() * own.element_size()
+    for tag in ms:
+        del out[tag]["kv"]
+    # each copy reads the table once and writes it once
+    return {**out, "decode_ms": ms, "copy_in_ms": copy_in,
+            "copy_out_ms": copy_out, "table_gb": table / 1e9,
+            "copy_bound_ms": 4 * table / PEAK_BYTES * 1e3}
+
+
+def cache_child(argv):
+    """One process of phase 24: ``python3 chip_smoke.py --cache-child
+    MODE SPAWN_TIME OUT FILE FILE [REF]``, its root in MXTPU_CACHE_DIR.
+    It builds every kernel source through the root first (timed, with
+    each library's provenance), then runs MODE ("serve": (a)-(c),
+    "fleet": (d), "gen": (e)) and writes its record to OUT as JSON."""
+    from mxtpu_torch.cache import default_cache
+    from mxtpu_torch.context import strict_f32
+    from mxtpu_torch.kernels import _build
+    strict_f32()
+    mode, spawn, out = argv[0], float(argv[1]), Path(argv[2])
+    files = argv[3:5]
+    # the seconds of each committed store (its fsyncs included), as
+    # they fall in the kernel build and in the rest
+    cache, stores = default_cache(), []
+    store = cache.store
+
+    def timed_store(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return store(*args, **kw)
+        finally:
+            stores.append(time.perf_counter() - t0)
+
+    cache.store = timed_store
+    t0 = time.perf_counter()
+    per_src = _build.build_all()
+    rec = {"mode": mode, "build_s": time.perf_counter() - t0,
+           "build_src_s": per_src, "build_source": dict(_build.build_source),
+           "kernel_entries": _build.kernel_entries(),
+           "build_store_s": sum(stores)}
+    del stores[:]
+    rec["nvcc_builds"] = sum(v == "nvcc"
+                             for v in rec["build_source"].values())
+    if mode == "serve":
+        rec.update(cache_serve(files, spawn, out))
+    elif mode == "fleet":
+        rec.update(cache_fleet(files, argv[5]))
+    else:
+        rec.update(cache_gen(files))
+    rec["store_s"] = stores
+    out.write_text(json.dumps(rec))
+
+
+def run_cache_child(mode, root, out, *args):
+    """A fresh ``python3`` on this script's child mode with
+    MXTPU_CACHE_DIR=root; returns its record, or None (its error
+    printed) when it failed."""
+    env = dict(os.environ, MXTPU_CACHE_DIR=str(root))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), CACHE_CHILD, mode,
+         repr(time.time()), str(out), *map(str, args)], env=env,
+        capture_output=True, text=True, timeout=CACHE_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not Path(out).exists():
+        print(f"cache child {mode} on {Path(root).name} exit "
+              f"{proc.returncode}:\n{proc.stderr[-3000:]}", flush=True)
+        return None
+    rec = json.loads(Path(out).read_text())
+    rec["wall_s"] = wall
+    return rec
+
+
+def cache_gate(checks, name, ok, detail):
+    print(f"check cache {name}: {detail} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    checks.rows.append({"check": f"cache {name}", "detail": detail,
+                        "ok": bool(ok)})
+    if not ok:
+        checks.failed.append(f"cache: {name}: {detail}")
+
+
+def cache_poison(root, a):
+    """Poison (c)'s copy of (a)'s root as CACHE_POISON says."""
+    from mxtpu_torch.cache import poison_corrupt, poison_truncate
+    for kind, what, how in CACHE_POISON:
+        digest = a["kernel_entries"][what] if kind == "kernel" \
+            else a["bucket_keys"][str(what)]
+        (poison_corrupt if how == "corrupt" else poison_truncate)(
+            Path(root) / f"{digest}.mxc")
+
+
+def coldstart_row(checks, tmp):
+    """bench_serving_coldstart's row in this process: bench's small
+    BERT exported, its full ladder warmed against an empty root (cold:
+    every bucket built and its recipe stored) and by a fresh runner on
+    the populated root (disk: every bucket a verified hit), and the
+    first served request of a fresh runner in each mode; best ratio of
+    COLD_REPEATS.  The kernels are this process's (no nvcc here)."""
+    from mxtpu_torch import nd
+    from mxtpu_torch import random as trandom
+    from mxtpu_torch.cache import ExecutableCache
+    from mxtpu_torch.models import BERTModel
+    from mxtpu_torch.serving import ModelRunner
+    trandom.seed(SEED)
+    net = fresh_names(lambda: BERTModel(
+        COLD_V, COLD_U, COLD_FFN, COLD_L, COLD_H, max_length=COLD_T,
+        dropout=0.0))
+    net.initialize(ctx=CARD)
+    rng = np.random.RandomState(0)
+    net(nd.array(rng.randint(0, COLD_V, (1, COLD_T)).astype(np.float32),
+                 ctx=CARD))
+    files = net.export(os.path.join(tmp, "coldbert"))
+    del net
+    req = [{"data": rng.randint(0, COLD_V, (COLD_T,)).astype(np.float32)}]
+
+    def make(root):
+        return ModelRunner.from_export(
+            *files, input_specs={"data": (None,)}, seq_buckets=[COLD_T],
+            max_batch_size=COLD_B, device=CARD,
+            cache=ExecutableCache(root))
+
+    def first_s(r):
+        bucket = r.bucket_for(1, COLD_T)
+        vals = r._pad_stack(req, bucket)
+        t0 = time.perf_counter()
+        r.run_raw(vals, bucket)[0].cpu()
+        return time.perf_counter() - t0
+
+    runs = []
+    for i in range(COLD_REPEATS):
+        root = os.path.join(tmp, f"cold{i}")
+        cold = make(root)
+        t0 = time.perf_counter()
+        cold.warmup()
+        cold_s = time.perf_counter() - t0
+        warm = make(root)
+        t0 = time.perf_counter()
+        warm.warmup()
+        warm_s = time.perf_counter() - t0
+        hits = warm._cache.stats()["hit"]
+        runs.append({"cold_warmup_s": cold_s, "warm_warmup_s": warm_s,
+                     "cold_first_req_s": first_s(make(os.path.join(
+                         tmp, f"coldf{i}"))),
+                     "warm_first_req_s": first_s(make(root)),
+                     "buckets": len(cold.buckets()), "hits": hits,
+                     "ratio": cold_s / warm_s})
+    ok = all(r["hits"] == r["buckets"] for r in runs)
+    best = max(runs, key=lambda r: r["ratio"])
+    cache_gate(checks, "serving_coldstart", ok,
+               f"bench's small BERT ({COLD_L} layers, {COLD_U} units, "
+               f"V {COLD_V}), ladder b<={COLD_B} x T{COLD_T}: cold "
+               f"{best['cold_warmup_s']:.4f} s, disk "
+               f"{best['warm_warmup_s']:.4f} s, ratio "
+               f"{best['ratio']:.3f} (best of {COLD_REPEATS}: " +
+               ", ".join(f"{r['ratio']:.3f}" for r in runs) +
+               f"); first request {best['cold_first_req_s']:.4f} s cold, "
+               f"{best['warm_first_req_s']:.4f} s disk; every disk "
+               f"bucket a hit")
+    return {"runs": runs, "best": best}
+
+
+def cache_phase(checks, params):
+    """Phase 24 (see the module's docstring): returns its numbers."""
+    import shutil
+    import tempfile
+    import torch
+    from mxtpu_torch.kernels import _build
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ROOT / "mxtpu_torch" / "_build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "mxtpu_torch" / "_build",
+                                prefix="cache_"))
+    out = {}
+    try:
+        files = serve_export(params, str(tmp / "bert"))
+        gnet, gen_files = gen_export(str(tmp / "genbert"))
+        del gnet
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["coldstart"] = coldstart_row(checks, str(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        root_a, root_c = tmp / "root_a", tmp / "root_c"
+        a = run_cache_child("serve", root_a, tmp / "a.json", *files)
+        b = run_cache_child("serve", root_a, tmp / "b.json", *files) \
+            if a else None
+        c = None
+        if a:
+            shutil.copytree(root_a, root_c,
+                            ignore=shutil.ignore_patterns("quarantine"))
+            cache_poison(root_c, a)
+            c = run_cache_child("serve", root_c, tmp / "c.json", *files)
+        d = run_cache_child("fleet", root_a, tmp / "d.json", *files,
+                            tmp / "a.npz") if a else None
+        e = run_cache_child("gen", root_a, tmp / "e.json", *gen_files)
+        quarantined = sorted(q.name.split(".")[2] for q in
+                             (root_c / "quarantine").glob("*")) \
+            if c else []
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(a=a, b=b, c=c, d=d, e=e)
+    for tag, rec in (("a", a), ("b", b), ("c", c), ("d", d), ("e", e)):
+        cache_gate(checks, f"({tag}) child", rec is not None,
+                   f"process {tag} ran to its end")
+    n_src = len(_build.SOURCES)
+    if a:
+        cache_gate(checks, "(a) cold", a["nvcc_builds"] == n_src and
+                   set(a["sources"].values()) == {"cold"} and
+                   a["record"] == a["counts"] == CACHE_LAUNCHES,
+                   f"nvcc {a['nvcc_builds']} of {n_src} sources in "
+                   f"{a['build_s']:.2f} s (" + ", ".join(
+                       f"{k} {v:.2f}" for k, v in a["build_src_s"].items())
+                   + f"); ladder {a['ladder_s']:.3f} s (" + ", ".join(
+                       f"{k} {v:.3f}" for k, v in a["bucket_s"].items()) +
+                   f"), all cold, their recipes' stores "
+                   f"{sum(a['store_s']):.3f} s (the libraries' "
+                   f"{a['build_store_s']:.3f} s); first request "
+                   f"{a['first_request_s']:.2f} s after the spawn (load "
+                   f"{a['load_s']:.2f} s); a forward's record "
+                   f"{a['record']}, counts {a['counts']}")
+    if a and b:
+        cache_gate(checks, "(b) disk-warmed", b["nvcc_builds"] == 0 and
+                   set(b["build_source"].values()) == {"disk"} and
+                   set(b["sources"].values()) == {"disk"} and
+                   b["cold_compiles"] == 0 and b["record"] == a["record"]
+                   and b["counts"] == a["counts"] and
+                   b["rows"] == a["rows"] and b["batch"] == a["batch"],
+                   f"nvcc {b['nvcc_builds']}, kernels from disk in "
+                   f"{b['build_s']:.3f} s; ladder {b['ladder_s']:.3f} s ("
+                   + ", ".join(f"{k} {v:.3f}" for k, v in
+                               b["bucket_s"].items()) +
+                   f"), sources {sorted(set(b['sources'].values()))}, "
+                   f"{b['cold_compiles']} cold; first request "
+                   f"{b['first_request_s']:.2f} s after the spawn; record "
+                   f"{b['record']}; {CACHE_ROWS} rows and the b{FLEET_B} "
+                   f"batch {'bit-equal' if b['rows'] == a['rows'] and b['batch'] == a['batch'] else 'DIFFERENT'} to (a)'s")
+        out["ratio"] = {"build": a["build_s"] / b["build_s"],
+                        "ladder": a["ladder_s"] / b["ladder_s"],
+                        "first_request": a["first_request_s"] /
+                        b["first_request_s"]}
+        print(f"serving_coldstart (processes, BERT-Large f32, ladder b<="
+              f"{FLEET_B} x T{FLEET_T}): cold build {a['build_s']:.2f} s "
+              f"+ ladder {a['ladder_s']:.3f} s, first request "
+              f"{a['first_request_s']:.2f} s; disk build "
+              f"{b['build_s']:.3f} s + ladder {b['ladder_s']:.3f} s, "
+              f"first request {b['first_request_s']:.2f} s; ratios "
+              f"build {out['ratio']['build']:.1f}, ladder "
+              f"{out['ratio']['ladder']:.3f}, first request "
+              f"{out['ratio']['first_request']:.2f}", flush=True)
+    if a and c:
+        want_src = {str(w): "cold" for k, w, _ in CACHE_POISON
+                    if k == "bucket"}
+        kern = {w for k, w, _ in CACHE_POISON if k == "kernel"}
+        ok = (quarantined == ["checksum", "checksum", "truncated"] and
+              {k for k, v in c["build_source"].items() if v == "nvcc"}
+              == kern and c["nvcc_builds"] == len(kern) and
+              all(c["sources"][k] == want_src.get(k, "disk")
+                  for k in c["sources"]) and
+              c["cold_compiles"] == len(want_src) and
+              c["stats"]["quarantined"] == len(CACHE_POISON) and
+              c["rows"] == a["rows"] and c["batch"] == a["batch"])
+        cache_gate(checks, "(c) poisoned", ok,
+                   f"quarantined {quarantined}; nvcc rebuilt "
+                   f"{sorted(k for k, v in c['build_source'].items() if v == 'nvcc')}"
+                   f"; buckets {c['sources']}; {c['cold_compiles']} cold; "
+                   f"rows {'bit-equal' if c['rows'] == a['rows'] else 'DIFFERENT'}"
+                   f" to (a)'s")
+    if d:
+        cache_gate(checks, "(d) fleet", d["w0"] == "disk_cache" and
+                   d["scale_up"] == "disk_cache" and d["wR"] ==
+                   "disk_cache" and d["cold"] == [0, 0] and
+                   d["sources"] == ["disk"] and
+                   d["record"] == CACHE_LAUNCHES and
+                   d["served"] == CACHE_ROWS and d["tol_ratio"] <= 1.0,
+                   f"w0 {d['w0']}, the autoscaler's floor repair "
+                   f"{d['scale_up']} in {d['scale_up_s']:.2f} s, wR "
+                   f"{d['wR']} in {d['wR_warm_s']:.2f} s; cold builds "
+                   f"{d['cold']}; record {d['record']}; {d['served']} "
+                   f"rows at {d['tol_ratio']:.4f} of the canary's "
+                   f"tolerance of (a)'s")
+    if e:
+        on, cp = e["donate"], e["copy"]
+        ok = (on["streams"] == cp["streams"] and on["rows"] == cp["rows"]
+              and cp["intact"] and on["records"] == cp["records"] and
+              on["counts"] == cp["counts"] == GEN_LAUNCHES)
+        ms_on, ms_cp = (float(np.median(e["decode_ms"][t]))
+                        for t in ("donate", "copy"))
+        cache_gate(checks, "(e) donate=False", ok,
+                   f"{GEN_LANES} greedy streams of {CACHE_GEN_STEPS + 1} "
+                   f"tokens {'equal' if on['streams'] == cp['streams'] else 'DIFFERENT'}"
+                   f", logits {'bit-equal' if on['rows'] == cp['rows'] else 'DIFFERENT'}"
+                   f", caller's tables {'unchanged' if cp['intact'] else 'WRITTEN'}"
+                   f"; a decode {cp['counts']} (donating {on['counts']}); "
+                   f"decode step {ms_on:.3f} ms donating, {ms_cp:.3f} ms "
+                   f"not (windows {e['decode_ms']}); copies of the "
+                   f"{e['table_gb']:.3f} GB table {e['copy_in_ms']:.4f} "
+                   f"in + {e['copy_out_ms']:.4f} out ms (bound "
+                   f"{e['copy_bound_ms']:.4f})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"cache: phase {out['phase_s']:.1f} s (children " + ", ".join(
+        f"{t} {r['wall_s']:.1f}" for t, r in (("a", a), ("b", b),
+                                              ("c", c), ("d", d),
+                                              ("e", e)) if r) + ")",
+          flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -9000,6 +9554,9 @@ def main():
         fail(f"no mxtpu_torch package beside {Path(__file__).name}: run "
              f"it from the root of a checkout")
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == [CACHE_CHILD]:
+        cache_child(sys.argv[2:])
+        return
     from mxtpu_torch.context import strict_f32
     from mxtpu_torch.kernels import _build
     strict_f32()
@@ -9099,8 +9656,9 @@ def main():
     pipe_counts, zoo_counts, zoo_rows, pipeline = pipeline_phase(checks,
                                                                  gen)
     fleet_counts_run, fleet_one, fleet = fleet_phase(checks, params)
-    del params
     det_counts, det_nms, det_rows, detection = detection_phase(checks, gen)
+    cache = cache_phase(checks, params)
+    del params
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values()) +
@@ -9368,7 +9926,7 @@ def main():
               "resnet50": resnet, "bulked": bulked, "gluon": gluon,
               "serving": serving, "generation": generation,
               "transformer": transformer, "pipeline": pipeline,
-              "fleet": fleet, "detection": detection,
+              "fleet": fleet, "detection": detection, "cache": cache,
               "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

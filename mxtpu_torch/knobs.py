@@ -263,3 +263,18 @@ register("MXTPU_FLEET_CLASSES", "", "str",
          "(e.g. `gold:8,bulk:1:64`): weight sets the weighted-round-"
          "robin dispatch share, quota bounds in-system requests per "
          "class.  Unset = one `default` class.", "controlplane")
+
+# -- persistent compile cache (mxtpu/knobs.py:395-408) -----------------
+register("MXTPU_CACHE", True, "bool",
+         "Master switch for the persistent AOT executable cache: "
+         "`0` = always compile, never touch disk.  The disk layer is "
+         "also inert while MXTPU_CACHE_DIR is unset.", "cache")
+register("MXTPU_CACHE_DIR", "", "str",
+         "Root directory of the on-disk compiled-executable cache "
+         "(crash-safe writes, checksum-verified loads).  ModelRunner "
+         "buckets and AOT TrainStep programs load-or-compile through "
+         "it; unset disables persistence.", "cache")
+register("MXTPU_CACHE_SALT", "", "str",
+         "Extra cache-key component: bump it to invalidate every "
+         "cached executable (rollout epoch, config generation).",
+         "cache")

@@ -20,6 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import profiler as _prof
 from ..base import MXNetError
 from ..ops import interpose as _interpose
 from ..ops.registry import OP_REGISTRY, get_op
@@ -92,7 +93,18 @@ def _invoke_resolved(op, resolved, inputs, ctx=None, name=None):
     """:func:`_invoke_op` after the op's lookup and the resolution of
     its params (what a graph plan does once per node).  ``name`` is the
     op's name as called (an alias keys an int8 scale as mxtpu's
-    dispatch does); default the op's own."""
+    dispatch does); default the op's own.  While the profiler runs,
+    each call is one "operator" span of that name
+    (``mxtpu/ndarray/__init__.py:55-63``)."""
+    if _prof._ACTIVE:
+        t0 = _prof._now_us()
+        out = _dispatch(op, resolved, inputs, ctx, name)
+        _prof.record_op(name or op.name, t0, _prof._now_us() - t0)
+        return out
+    return _dispatch(op, resolved, inputs, ctx, name)
+
+
+def _dispatch(op, resolved, inputs, ctx, name):
     from .. import autograd
     if op.num_inputs == 0:
         return NDArray(op.fn(**resolved, device=_device(ctx)))

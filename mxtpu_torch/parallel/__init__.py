@@ -142,7 +142,13 @@ class TrainStep:
         if zero:
             _refuse("ZeRO-1 (zero)")
         if cache is not None:
-            _refuse("the persistent executable cache (cache)")
+            # the step runs eagerly: there is no compiled program of the
+            # step to store until the step is captured as one graph
+            raise NotImplementedError(
+                "TrainStep: the persistent executable cache (cache) is "
+                "not ported yet: the port's step is eager, so it has no "
+                "compiled program to store until the captured step "
+                "(ROADMAP 2b (a)) exists")
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         self.loss_fn = loss_fn

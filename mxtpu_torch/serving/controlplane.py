@@ -27,8 +27,7 @@ latency histograms.  This module closes the loop:
   recently drained worker is kept, so a scale-up with no live donor
   (burst after scale-to-floor) still warms from the last retiree;
   with no donor AND no cached handoff the replica warms from the
-  persistent compile cache when it holds ladder entries (none yet in
-  this package: the cache is not ported) — the ``scale_up``
+  persistent compile cache when it holds ladder entries — the ``scale_up``
   flight-recorder event's
   ``donor`` field says which path fired (a worker name,
   ``"last_handoff"``, ``"disk_cache"``, or ``None`` for cold).

@@ -29,13 +29,21 @@ There is no eager fallback on the card: a capture that fails raises
 with the graph node it failed in.  A replay launches no wrapper, so
 the kernels' launch counts come from the capture's record
 (``kernels.recording``), added once a replay.
+
+What the persistent cache keeps of an entry is its :meth:`Entry.recipe`:
+the static input and output shapes and types, the launch record and
+the kernel entries' keys.  A captured graph has no serialized form, so
+a disk hit still runs the warm-up and the capture; :func:`recipe_mismatch`
+then holds the new entry against the stored recipe.  An uncaptured
+entry built with ``probe`` runs once on its example inputs (and zeroed
+stand-ins of the bound tensors) to learn what a recipe records.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,7 +51,7 @@ from ..base import MXNetError
 from .. import guards
 from .. import kernels
 
-__all__ = ["Entry", "GraphPool", "tensor_key"]
+__all__ = ["Entry", "GraphPool", "tensor_key", "recipe_mismatch"]
 
 # eager runs on the side stream before a capture
 WARMUP_ITERS = 2
@@ -56,6 +64,38 @@ def tensor_key(t: torch.Tensor) -> Tuple:
     """What a captured graph knows of a tensor it was bound to: where
     its memory starts and how it is laid out."""
     return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+
+
+def _sigs(tensors: Sequence[torch.Tensor]) -> List[List]:
+    return [[list(t.shape), str(t.dtype).replace("torch.", "")]
+            for t in tensors]
+
+
+def _named(record: Dict[Tuple[object, str], int]) -> Dict[str, int]:
+    """A launch record by kernel name (``kernels.launch_counts``'s)."""
+    names = {v: k for k, v in kernels._modules().items()}
+    return {names[k]: n for k, n in sorted(
+        record.items(), key=lambda kv: names.get(kv[0], ""))
+        if k in names and n}
+
+
+def recipe_mismatch(recipe: Dict, entry: "Entry") -> str:
+    """Why ``entry`` (built on a disk hit) is not what ``recipe`` (the
+    cold build's) describes — "" when it is: the same static inputs
+    and outputs, the same launches by kernel, and the kernel libraries
+    both name from the same kernel entries."""
+    mine = entry.recipe()
+    for part in ("inputs", "outputs", "launches"):
+        if recipe.get(part) != mine[part]:
+            return (f"{entry.label}: {part} {mine[part]} != the "
+                    f"recipe's {recipe.get(part)}")
+    theirs = recipe.get("kernels", {})
+    for name, digest in mine["kernels"].items():
+        if name in theirs and theirs[name] != digest:
+            return (f"{entry.label}: kernel {name} from entry "
+                    f"{digest[:12]}, the recipe's from "
+                    f"{theirs[name][:12]}")
+    return ""
 
 
 class GraphPool:
@@ -92,12 +132,15 @@ class Entry:
     tensors are read and written where they lie (the KV table): a
     captured entry only runs on the same tensors (:attr:`bound_key`).
     ``capture`` False gives the eager plan on the card (what
-    ``chip_smoke.py`` holds the graph against)."""
+    ``chip_smoke.py`` holds the graph against).  ``probe`` runs an
+    uncaptured entry once, so that its :meth:`recipe` has outputs and
+    launches (a captured entry always has them)."""
 
     def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]],
                  inputs: Sequence[torch.Tensor], pool: GraphPool,
                  bound: Sequence[torch.Tensor] = (), label: str = "",
-                 capture: bool = True, guard: bool = False):
+                 capture: bool = True, guard: bool = False,
+                 probe: bool = False):
         self._fn = fn
         self._device = pool.device
         self.lock = _NO_LOCK
@@ -106,7 +149,14 @@ class Entry:
         self.launches: Dict[Tuple[object, str], int] = {}
         self.capture_seconds = 0.0
         self.bound_key = tuple(tensor_key(t) for t in bound)
+        self._in_sigs = _sigs(inputs)
+        self._out_sigs: Optional[List[List]] = None
         if pool.device.type != "cuda" or not capture:
+            if probe:
+                stand_ins = tuple(torch.zeros_like(t) for t in bound)
+                with kernels.recording() as record:
+                    self._out_sigs = _sigs(fn(*inputs, *stand_ins))
+                self.launches = record
             return
         self.lock = pool.lock
         self._guard = guard
@@ -139,6 +189,17 @@ class Entry:
         self.graph = graph
         self.launches = record
         self._static_out = tuple(outs)
+        self._out_sigs = _sigs(self._static_out)
+
+    def recipe(self) -> Dict:
+        """What the persistent cache stores of this entry: the static
+        inputs' and outputs' shapes and types, the launches of its
+        capture (or probe) by kernel name, and the kernel entries the
+        process's libraries came from."""
+        from ..kernels import _build
+        return {"inputs": self._in_sigs, "outputs": self._out_sigs,
+                "launches": _named(self.launches),
+                "kernels": _build.kernel_entries()}
 
     def run(self, inputs: Sequence[torch.Tensor],
             bound: Sequence[torch.Tensor] = ()) -> Tuple[torch.Tensor, ...]:

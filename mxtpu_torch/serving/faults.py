@@ -24,20 +24,20 @@ tier-1 tests instead of only showing up in a soak:
   pulling from its queue while still accepting submissions.  Detected
   by the queued-request liveness age.
 
-The cache faults of mxtpu's persistent compile cache are kept as
-classes with mxtpu's names and arguments, keyed on the cache's own
-store counter ``k`` (the k-th entry that cache ever committed).  The
-cache itself, and the write seams that consult them, are not ported
-yet (ROADMAP queue 1 item 3), so nothing in this package fires them:
+The cache faults of mxtpu's persistent compile cache keep mxtpu's
+names and arguments, keyed on the cache's own store counter ``k`` (the
+k-th entry that cache ever committed); ``ExecutableCache``
+(:mod:`mxtpu_torch.cache`) consults them at its write seams
+(``before_cache_write`` before it writes, ``entry_written`` after the
+rename), on kernel entries and bucket recipes alike:
 
 * :class:`CorruptEntry` — flip a payload byte of stored entry ``k``
   (bit-rot / bad DMA).
 * :class:`TruncateEntry` — cut stored entry ``k`` in half (crash
   mid-copy).
 * :class:`StaleKey` — rewrite a key component of stored entry ``k``
-  keeping the checksum valid (an entry from an old torch or old
-  contracts); needs the cache's entry format, so it raises until the
-  cache is ported.
+  in the port's header, keeping the checksum valid (an entry from an
+  old torch or old contracts).
 * :class:`ReadOnlyDir` — stores from ``k`` on fail with
   ``PermissionError`` (read-only cache root).
 """
@@ -227,10 +227,9 @@ class StaleKey(Fault):
     def on_entry_written(self, k: int, path) -> bool:
         if k != self.at_store:
             return False
-        raise MXNetError(
-            "serving: StaleKey rewrites a persistent-cache entry's "
-            "header, and the cache is not ported yet (ROADMAP queue 1 "
-            "item 3)")
+        from ..cache import poison_stale
+        poison_stale(path, self.component, self.value)
+        return True
 
 
 class ReadOnlyDir(Fault):

@@ -20,10 +20,11 @@ Three pieces, with mxtpu's names and signatures:
   eagerly.  AMP and int8 run as in :class:`.ModelRunner` (``amp=``,
   ``quant=`` with the ``quant_scales`` a ``ModelRunner.calibrate``
   gave).  A draining worker hands its ladder to a replacement
-  (``ladder_metadata``/``warm_from``).  mxtpu's persistent executable
-  cache is not ported (``cache`` raises ``TypeError``; ``cached_buckets``
-  and ``warm_from_disk`` return nothing), nor is its introspection of
-  compiled programs.
+  (``ladder_metadata``/``warm_from``); with a persistent cache
+  (:mod:`mxtpu_torch.cache`) every entry is load-or-build as in
+  :class:`.ModelRunner`, the KV table's geometry in the fingerprint, and
+  a replacement with no donor warms from disk (``warm_from_disk``).
+  mxtpu's introspection of compiled programs is not ported.
 
 - :class:`GenerateRequest` is the streaming future: tokens fire through
   ``on_token`` as they are sampled, ``result()`` returns the full
@@ -64,9 +65,9 @@ from ..context import resolve_device, strict_f32
 from .batcher import (InferenceRequest, RequestTimeout, ServerBusy,
                       WorkerLost, _lost_for)
 from .entry import Entry, GraphPool, tensor_key
-from .runner import (COMPILE_SECONDS, COMPILE_SECONDS_HELP,
-                     COMPILE_TOTAL, COMPILE_TOTAL_HELP, _NOT_PORTED,
-                     batch_ladder, entry_values, scopes, stage_weights)
+from .runner import (EntryBuilds, batch_ladder, canonical_graph,
+                     entry_values, fingerprint, load_or_build, param_sigs,
+                     resolve_cache, scopes, stage_weights)
 
 __all__ = ["GenerateRequest", "GenerateRunner", "GenerateBatcher",
            "sample_token"]
@@ -184,10 +185,13 @@ class GenerateRunner:
         On, ``prefill``/``decode`` update the table passed in, in place,
         and return it (on the card the decode graph writes the new
         cache into the table it was captured on: that is donation);
-        off, they return a new table and leave the old one intact.  Off
-        is refused on the card, where a captured step would copy the
-        table out of its static output every step (ROADMAP queue 1
-        item 3).
+        off, they return a new table and leave the old one intact, as
+        mxtpu's non-donating executable does.  Off, every entry is
+        bound to a table the runner owns: a call first copies the
+        caller's table into it (on the device), runs, and hands back a
+        copy of it — two copies of the table a call.
+    cache : "auto", None or an :class:`~mxtpu_torch.cache.ExecutableCache`,
+        as :class:`.ModelRunner` takes it.
     amp : policy AMP, as :class:`.ModelRunner` has it (bf16 weights,
         upcast at the entry; the KV table stays f32).
     quant, quant_scales : int8, as :class:`.ModelRunner` has it, with
@@ -209,19 +213,11 @@ class GenerateRunner:
                  input_names: Sequence[str] = ("data0", "data1",
                                                "data2"),
                  device=None, donate: Optional[bool] = None,
-                 amp=None, quant=None,
-                 quant_scales: Optional[Dict[str, float]] = None,
-                 **kwargs):
+                 cache: Any = "auto", amp=None, quant=None,
+                 quant_scales: Optional[Dict[str, float]] = None):
         from .. import amp as _amp
         from .. import quant as _quant
-        for name in kwargs:
-            if name in _NOT_PORTED:
-                raise TypeError(
-                    f"GenerateRunner: {name}= is not ported yet: "
-                    f"{_NOT_PORTED[name]}")
-        if kwargs:
-            raise TypeError(f"GenerateRunner: unexpected arguments "
-                            f"{sorted(kwargs)}")
+        cache = resolve_cache("GenerateRunner", cache)
         self._amp = _amp.resolve(amp)
         self._quant = _quant.resolve(quant)
         self._quant_scales = dict(quant_scales) if quant_scales else None
@@ -262,11 +258,10 @@ class GenerateRunner:
         self._donate = bool(knobs.get("MXTPU_SERVING_DONATE")
                             if donate is None else donate)
         self._captured = self._device.type == "cuda"
-        if self._captured and not self._donate:
-            raise MXNetError(
-                "GenerateRunner: donate=False is not ported to the card: "
-                "a captured step writes the table it was captured on "
-                "(ROADMAP queue 1 item 3)")
+        # not donating: the table every entry is bound to, and the lock
+        # each call's copy in, run and copy out hold
+        self._own = None if self._donate else self._zeros()
+        self._own_lock = threading.Lock()
         if self._captured:
             strict_f32()
 
@@ -299,23 +294,18 @@ class GenerateRunner:
         self._tables: "OrderedDict[Any, Dict[Tuple, Entry]]" = \
             OrderedDict()  # guarded-by: _lock
         self.compile_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
-        # source per built entry, as ModelRunner records it: "cold" or
-        # "donor" (built by warm_from from a donor's handoff)
+        # source per built entry, as ModelRunner records it: "cold",
+        # "donor" (built by warm_from from a donor's handoff) or "disk"
         self._compile_sources: Dict[Tuple, str] = {}  # guarded-by: _lock
         self._guards = guards.enabled()
         # a ladder for each table kept (+ slack for extra buckets)
         self._entry_label = f"GenerateRunner[{type(symbol).__name__}]"
         self._churn = guards.ChurnDetector(
             self._entry_label, limit=MAX_TABLES * len(self.buckets()) + 4)
-        self._obs = obs.enabled()
-        self._m_compile = obs.counter(
-            COMPILE_TOTAL, COMPILE_TOTAL_HELP,
-            labels=("entry",)).labels(entry=self._entry_label)
-        _h = obs.histogram(COMPILE_SECONDS, COMPILE_SECONDS_HELP,
-                           labels=("entry", "source"))
-        self._m_compile_s = {
-            src: _h.labels(entry=self._entry_label, source=src)
-            for src in ("cold", "donor")}
+        self._builds = EntryBuilds(self._entry_label)
+        self._cache = cache
+        self._fingerprint = self._model_fingerprint() \
+            if cache is not None else ""
 
     @classmethod
     def from_export(cls, symbol_file: str, params_file: str,
@@ -358,11 +348,12 @@ class GenerateRunner:
                kv: Optional[torch.Tensor] = None,
                _source: str = "cold") -> Dict[Tuple, float]:
         """Build each bucket's entry (the whole ladder by default), so
-        no token pays a capture.  On the card an entry is captured on
-        the table it runs on: pass that table as ``kv``
-        (:meth:`GenerateBatcher.warmup` passes its own); the CPU needs
-        none.  Returns per-entry build seconds."""
-        if kv is None and self._captured:
+        no token pays a capture.  On the card a donating runner's entry
+        is captured on the table it runs on: pass that table as ``kv``
+        (:meth:`GenerateBatcher.warmup` passes its own); the CPU, and a
+        runner that does not donate (its entries are bound to its own
+        table), need none.  Returns per-entry build seconds."""
+        if kv is None and self._captured and self._donate:
             raise MXNetError(
                 "GenerateRunner.warmup: on the card an entry is captured "
                 "on the table it runs on; pass kv= (or call "
@@ -384,20 +375,54 @@ class GenerateRunner:
         return ("prefill", (self.batch_buckets[-1],
                             self.prompt_buckets[-1]))
 
-    # -- the persistent cache (not ported) --------------------------------
-    def cached_buckets(self) -> List[Tuple]:
-        """The ladder's buckets in the persistent cache: none until
-        ``cache.py`` is ported."""
-        return []
+    # -- the persistent cache ---------------------------------------------
+    def _model_fingerprint(self) -> str:
+        """sha256 over everything that shapes the entries except the
+        bucket (``mxtpu/serving/generate.py:363-390``): the canonical
+        graph, the input names, the KV table's geometry, parameter
+        signatures, donation, and AMP and the int8 thresholds when
+        on."""
+        return fingerprint({
+            "symbol": canonical_graph(self._symbol),
+            "gen_inputs": list(self._input_names),
+            "kv_shape": list(self._kv_shape),
+            "params": param_sigs(self._param_names, self._param_vals),
+            "donate": self._donate,
+        }, self._amp, self._quant, self._quant_scales)
 
-    def warm_from_disk(self) -> Dict[Tuple, float]:
-        """Warm what the persistent cache holds: nothing until
-        ``cache.py`` is ported."""
-        return {}
+    def _cache_key(self, bucket: Tuple):
+        """The persistent-cache key of one entry: fingerprint x
+        ``gen:<kind>:<shape>`` x one device; ``quant="int8"`` keys int8
+        entries apart from the float path's."""
+        kind, shp = bucket
+        extra = {"quant": "int8"} if self._quant else {}
+        return self._cache.key(
+            model=self._fingerprint, shape=f"gen:{kind}:{tuple(shp)}",
+            mesh="1dev", device=self._device, **extra)
+
+    def cached_buckets(self) -> List[Tuple]:
+        """The ladder's entries present in the persistent cache now (an
+        existence probe; loads verify later)."""
+        if self._cache is None:
+            return []
+        return [b for b in self.buckets()
+                if self._cache.contains(self._cache_key(b))]
+
+    def warm_from_disk(self, kv: Optional[torch.Tensor] = None
+                       ) -> Dict[Tuple, float]:
+        """Warm every ladder entry the persistent cache holds, on
+        ``kv`` as :meth:`warmup` takes it (:meth:`GenerateBatcher.
+        warm_from_disk` passes its own table).  Returns per-entry build
+        seconds; empty with no cache or no entries."""
+        hits = self.cached_buckets()
+        if not hits:
+            return {}
+        return self.warmup(hits, kv)
 
     def compile_sources(self) -> Dict[Tuple, str]:
-        """Per built bucket: "cold" (built with no donor's list) or
-        "donor" (built by :meth:`warm_from`), as of its latest build."""
+        """Per built bucket: "cold" (built with no donor's list),
+        "donor" (built by :meth:`warm_from`) or "disk" (built on a
+        verified persistent-cache entry), as of its latest build."""
         with self._lock:
             return dict(self._compile_sources)
 
@@ -436,13 +461,10 @@ class GenerateRunner:
     def _prefill_fn(self, tokens, step, lane_idx, kv):
         """Gather-extend-scatter over the slot table: each row's lane
         is pulled from ``kv``, extended by its s tokens at its own step
-        offset, and (donating) written back; not donating, the new
-        lanes come back for the caller to scatter into a copy."""
+        offset, and written back."""
         idx = lane_idx.to(torch.int64)
         logits, new_small = self._eval_incremental(tokens, step,
                                                    kv[:, :, idx])
-        if not self._donate:
-            return logits, new_small
         with torch.no_grad():
             # the padding rows all write the scratch slot: whichever
             # lands is garbage by design
@@ -450,20 +472,23 @@ class GenerateRunner:
         return (logits,)
 
     def _decode_fn(self, tokens, step, kv):
-        """THE decode step over every slot; donating, the new table is
-        written into ``kv``."""
+        """THE decode step over every slot; the new table is written
+        into ``kv``."""
         logits, new = self._eval_incremental(tokens, step, kv)
-        if not self._donate:
-            return logits, new
         with torch.no_grad():
             kv.copy_(new)
         return (logits,)
 
     def _entry(self, bucket: Tuple, kv: Optional[torch.Tensor],
                source: str = "cold") -> Entry:
-        """The bucket's entry for table ``kv``, built once (under
-        ``_lock``); on the card each table has its own.  ``source`` is
-        what :meth:`compile_sources` records for a new entry."""
+        """The bucket's entry for table ``kv`` (the runner's own when it
+        does not donate), built once (under ``_lock``), load-or-build
+        through the persistent cache when there is one; on the card
+        each table has its own.  ``source`` is what
+        :meth:`compile_sources` records for a new entry that no
+        verified disk entry matched ("disk" where one did)."""
+        if not self._donate:
+            kv = self._own
         table = tensor_key(kv) if self._captured else None
         with self._lock:
             ladder = self._tables.get(table)
@@ -486,24 +511,29 @@ class GenerateRunner:
             fn = self._prefill_fn if bucket[0] == "prefill" \
                 else self._decode_fn
             t0 = time.perf_counter()
+
+            def build(probe: bool) -> Entry:
+                # an uncaptured entry's probe runs on a stand-in table
+                bound = (kv,) if self._captured else \
+                    (self._zeros(),) if probe else ()
+                return Entry(fn, example, self._pool, bound=bound,
+                             label=f"GenerateRunner {bucket[0]} "
+                                   f"{bucket[1]}",
+                             guard=self._guards, probe=probe)
+
             with profiler.Task(f"generate:compile:{bucket[0]}"
                                f"{bucket[1]}"):
-                entry = Entry(fn, example, self._pool,
-                              bound=(kv,) if self._captured else (),
-                              label=f"GenerateRunner {bucket[0]} "
-                                    f"{bucket[1]}",
-                              guard=self._guards)
+                entry, hit = load_or_build(
+                    self._cache,
+                    self._cache_key(bucket) if self._cache else None,
+                    build)
+            if hit:
+                source = "disk"
             self.compile_seconds[bucket] = time.perf_counter() - t0
             self._compile_sources[bucket] = source
             ladder[bucket] = entry
-            if self._obs:
-                self._m_compile.inc()
-                self._m_compile_s[source].observe(
-                    self.compile_seconds[bucket])
-                obs.flight("compile").record(
-                    "compile_miss", entry=self._entry_label,
-                    bucket=str(bucket), source=source,
-                    seconds=round(self.compile_seconds[bucket], 4))
+            self._builds.built(bucket, source,
+                               self.compile_seconds[bucket])
             return entry
 
     def _entry_inputs(self, bucket: Tuple) -> Tuple[torch.Tensor, ...]:
@@ -576,35 +606,37 @@ class GenerateRunner:
         calls at advancing offsets; padding rows target the scratch
         slot.  Returns (host logits (b, s, V), the table)."""
         b, s = tokens.shape
-        entry = self._entry(("prefill", (b, s)), kv)
         vals = (self._upload(tokens), self._upload(step),
                 self._upload(lane_idx))
-        if self._guards:
-            self._churn.note_call()
-        with entry.lock:
-            outs = entry.run(vals, (kv,))
-            logits = outs[0].cpu().numpy()
-            if not self._donate:
-                with torch.no_grad():
-                    kv = kv.clone()
-                    kv[:, :, vals[2].to(torch.int64)] = \
-                        outs[1].to(kv.dtype)
-        return logits, kv
+        return self._call(("prefill", (b, s)), vals, kv)
 
     def decode(self, tokens: np.ndarray, step: np.ndarray,
                kv: torch.Tensor) -> Tuple[np.ndarray, torch.Tensor]:
         """THE decode step: ``tokens (slots, 1)`` / ``step (slots,)``
         advance every slot one position.  Returns (host logits (slots,
         1, V), the table)."""
-        entry = self._entry(("decode", (self._slots,)), kv)
         vals = (self._upload(tokens), self._upload(step))
+        return self._call(("decode", (self._slots,)), vals, kv)
+
+    def _call(self, bucket: Tuple, vals: Tuple[torch.Tensor, ...],
+              kv: torch.Tensor) -> Tuple[np.ndarray, torch.Tensor]:
+        """One entry run on ``kv``, or, not donating, on the runner's
+        own table with ``kv`` copied in first and a copy handed back
+        (the caller's table left as it was)."""
         if self._guards:
             self._churn.note_call()
-        with entry.lock:
-            outs = entry.run(vals, (kv,))
-            logits = outs[0].cpu().numpy()
-        if not self._donate:  # the CPU only: the step's new table
-            kv = outs[1]
+        if self._donate:
+            entry = self._entry(bucket, kv)
+            with entry.lock:
+                logits = entry.run(vals, (kv,))[0].cpu().numpy()
+            return logits, kv
+        with self._own_lock:
+            entry = self._entry(bucket, None)
+            with entry.lock, torch.no_grad():
+                self._own.copy_(kv)
+                outs = entry.run(vals, (self._own,))
+                kv = self._own.clone()
+                logits = outs[0].cpu().numpy()
         return logits, kv
 
     # -- introspection ----------------------------------------------------
@@ -704,6 +736,16 @@ class GenerateBatcher:
             if self._kv is None:
                 self._kv = self.runner.new_cache()
             return self.runner.warm_from(metadata, kv=self._kv)
+
+    def warm_from_disk(self) -> Dict[Tuple, float]:
+        """:meth:`GenerateRunner.warm_from_disk` on this batcher's slot
+        table (taken now if it has none): what the fleet router calls to
+        warm a donor-less replacement's decode plane from the persistent
+        cache."""
+        with self._step_lock:
+            if self._kv is None:
+                self._kv = self.runner.new_cache()
+            return self.runner.warm_from_disk(kv=self._kv)
 
     # -- submit side ------------------------------------------------------
     def submit(self, prompt: Sequence[int], *,

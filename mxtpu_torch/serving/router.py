@@ -793,11 +793,13 @@ class FleetRouter:
                 warmed = "donor"
         if warmed is None:
             # one ladder probe per plane: warm_from_disk() returns the
-            # buckets it warmed (empty when no cache / no entries)
+            # buckets it warmed (empty when no cache / no entries); the
+            # decode plane's through its batcher, whose KV table the
+            # entries are captured on
             hit = worker.runner is not None and \
                 bool(worker.runner.warm_from_disk())
             if worker.generator is not None and \
-                    worker.generator.runner.warm_from_disk():
+                    worker.generator.warm_from_disk():
                 hit = True
             warmed = "disk_cache" if hit else None
         with self._lock:

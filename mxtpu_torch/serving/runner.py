@@ -15,13 +15,22 @@ Pad-to-bucket contract (unchanged from mxtpu): batch padding repeats
 row 0, sequence padding uses ``pad_value``, and attention also covers
 the pad positions, so a served result equals the graph's output on the
 same padded batch.
+
+With a persistent cache (:mod:`mxtpu_torch.cache`), each bucket's entry
+is load-or-build: a verified disk entry is the bucket's recipe, and the
+entry built from it (on the card the warm-up and the capture, which no
+disk entry can skip; on the CPU the eager plan) is held against it.
+What a hit skips is the kernels' ``nvcc`` builds, whose libraries the
+same root holds.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import json
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,25 +42,119 @@ from .. import obs
 from .. import profiler
 from ..context import resolve_device, strict_f32
 from .batcher import InferenceRequest
-from .entry import Entry, GraphPool
+from .entry import Entry, GraphPool, recipe_mismatch
 
 __all__ = ["ModelRunner", "batch_ladder"]
-
-# mxtpu's runner arguments this port refuses when set: the ROADMAP item
-# that brings each
-_NOT_PORTED = {"cache": "the persistent executable cache (ROADMAP "
-                        "queue 1 item 3)"}
 
 
 # the entry-build instruments ModelRunner and GenerateRunner share
 # (mxtpu's metric names)
 COMPILE_TOTAL = "mxtpu_serving_compile_total"
-COMPILE_TOTAL_HELP = ("Bucket entries built (on the card, a CUDA graph "
-                      "captured; on the CPU, the graph plan bound).")
+COMPILE_TOTAL_HELP = ("Bucket entries built with no verified disk entry "
+                      "(on the card, a CUDA graph captured; on the CPU, "
+                      "the graph plan bound); disk-cache hits count in "
+                      "mxtpu_compile_cache_hit_total instead.")
 COMPILE_SECONDS = "mxtpu_serving_compile_seconds"
 COMPILE_SECONDS_HELP = ("Per-bucket entry build wall time (source=cold: "
                         "built with no donor; source=donor: built by "
-                        "warm_from from a donor's handoff).")
+                        "warm_from from a donor's handoff; source=disk: "
+                        "built on a verified persistent-cache entry, "
+                        "whose recipe the build matched).")
+CACHE_HIT = "mxtpu_compile_cache_hit_total"
+CACHE_HIT_HELP = ("In-process compile-cache misses served from the "
+                  "persistent disk cache instead of a cold build.")
+SOURCES = ("cold", "donor", "disk")
+
+
+class EntryBuilds:
+    """The entry-build instruments of one runner (no-op singletons when
+    ``MXTPU_OBS=0``): builds feed the registry and the "compile" flight
+    recorder, so a postmortem shows every build with its time."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.on = obs.enabled()
+        self._compile = obs.counter(
+            COMPILE_TOTAL, COMPILE_TOTAL_HELP,
+            labels=("entry",)).labels(entry=label)
+        h = obs.histogram(COMPILE_SECONDS, COMPILE_SECONDS_HELP,
+                          labels=("entry", "source"))
+        self._seconds = {src: h.labels(entry=label, source=src)
+                         for src in SOURCES}
+        self._hit = obs.counter(CACHE_HIT, CACHE_HIT_HELP,
+                                labels=("entry",)).labels(entry=label)
+
+    def built(self, bucket, source: str, seconds: float) -> None:
+        if not self.on:
+            return
+        (self._hit if source == "disk" else self._compile).inc()
+        self._seconds[source].observe(seconds)
+        obs.flight("compile").record(
+            "compile_miss", entry=self.label, bucket=str(bucket),
+            source=source, seconds=round(seconds, 4))
+
+
+def resolve_cache(who: str, cache: Any):
+    """A runner's ``cache=``: "auto" is the knob-configured
+    :func:`~mxtpu_torch.cache.default_cache` (None while
+    ``MXTPU_CACHE_DIR`` is unset), None none, else an
+    :class:`~mxtpu_torch.cache.ExecutableCache`."""
+    from ..cache import ExecutableCache, default_cache
+    if cache == "auto":
+        return default_cache()
+    if cache is None or isinstance(cache, ExecutableCache):
+        return cache
+    raise TypeError(f"{who}: cache= takes \"auto\", None or an "
+                    f"ExecutableCache, not {type(cache).__name__}")
+
+
+def canonical_graph(symbol) -> Dict[str, Any]:
+    """The graph's JSON with its op nodes named ``_op{i}``: gensym'd op
+    names come from a process-wide counter, edges and heads are
+    index-based, so two copies of one graph fingerprint alike; input
+    ("null") nodes keep their names, which are semantics."""
+    graph = json.loads(symbol.tojson())
+    for i, node in enumerate(graph.get("nodes", ())):
+        if node.get("op") not in (None, "null"):
+            node["name"] = f"_op{i}"
+    return graph
+
+
+def fingerprint(fp: Dict[str, Any], amp: bool, quant: bool,
+                scales: Optional[Dict[str, float]]) -> str:
+    """sha256 of a runner's fingerprint dict, with ``amp`` and the int8
+    thresholds keyed only when on (mxtpu's rule: the off paths keep
+    their fingerprints)."""
+    if amp:
+        fp["amp"] = True
+    if quant:
+        fp["quant"] = sorted((scales or {}).items()) or True
+    blob = json.dumps(fp, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:24]
+
+
+def param_sigs(names, vals) -> List[List]:
+    """Parameter signatures (never values: one entry serves every
+    checkpoint of an architecture), in mxtpu's dtype names."""
+    return [[n, list(v.shape), str(v.dtype).replace("torch.", "")]
+            for n, v in zip(names, vals)]
+
+
+def load_or_build(cache, key, build: "Callable[[bool], Entry]"):
+    """One bucket through the persistent cache: ``(entry, hit)``.  A
+    stored recipe that the new entry does not match is quarantined as
+    "stale_key" and stored anew, and the build counts as cold."""
+    if cache is None:
+        return build(False), False
+    recipe = cache.load(key)
+    entry = build(True)
+    if recipe is not None:
+        why = recipe_mismatch(recipe, entry)
+        if not why:
+            return entry, True
+        cache.quarantine(key, "stale_key", why)
+    cache.store(key, entry.recipe())
+    return entry, False
 
 
 def batch_ladder(max_batch_size: int) -> Tuple[int, ...]:
@@ -66,14 +169,6 @@ def batch_ladder(max_batch_size: int) -> Tuple[int, ...]:
         b *= 2
     rungs.append(max_batch_size)
     return tuple(rungs)
-
-
-def refuse_not_ported(who: str, cache: Any) -> None:
-    """``TypeError`` for an mxtpu runner option the port has not got:
-    an explicit cache object."""
-    if cache not in (None, "auto"):
-        raise TypeError(f"{who}: cache= is not ported yet: "
-                        f"{_NOT_PORTED['cache']}")
 
 
 def stage_weights(names, params, device, amp_on: bool
@@ -148,10 +243,13 @@ class ModelRunner:
     device : None (``cuda:0``; raises without CUDA) or a device such as
         ``"cpu"``.  One runner binds one device.
     pad_value : scalar used for sequence padding (default 0).
-    donate : accepted for mxtpu's signature; a bucket's entry always
-        reuses its own input buffers.
-    cache : "auto" or None (both inert until ``cache.py`` is ported);
-        an explicit cache object raises ``TypeError``.
+    donate : bool, optional (env MXTPU_SERVING_DONATE, on): keyed into
+        the fingerprint as mxtpu's is; a bucket's entry always reuses
+        its own input buffers.
+    cache : "auto" (the knob-configured default cache; none while
+        ``MXTPU_CACHE_DIR`` is unset), None, or an
+        :class:`~mxtpu_torch.cache.ExecutableCache`: each bucket's
+        entry is load-or-build through it (see the module docstring).
     amp : policy AMP (:mod:`mxtpu_torch.amp`): the weights are uploaded
         in bf16 (aux-named ones f32), upcast to f32 at the graph's entry,
         and the policy's contractions run on bf16 with f32 outputs.
@@ -170,7 +268,7 @@ class ModelRunner:
                  device=None, pad_value: float = 0,
                  donate: Optional[bool] = None, cache: Any = "auto",
                  amp=None, quant=None):
-        refuse_not_ported("ModelRunner", cache)
+        cache = resolve_cache("ModelRunner", cache)
         from .. import amp as _amp
         from .. import quant as _quant
         from ..symbol import _GraphPlan
@@ -202,6 +300,8 @@ class ModelRunner:
                 "serving: input_specs contain a variable (None) axis — "
                 "pass seq_buckets")
         self._pad_value = pad_value
+        self._donate = bool(knobs.get("MXTPU_SERVING_DONATE")
+                            if donate is None else donate)
 
         # -- one weight upload, shared by every bucket's entry ---------
         known = set(symbol.list_inputs())
@@ -222,9 +322,9 @@ class ModelRunner:
         self._lock = threading.Lock()
         self._entries: Dict[Tuple, Entry] = {}  # guarded-by: _lock
         self.compile_seconds: Dict[Tuple, float] = {}  # guarded-by: _lock
-        # per built entry: "cold" (captured with no donor's list) or
-        # "donor" (captured by warm_from from a donor's handoff); a
-        # "disk" source comes with the persistent cache
+        # per built entry: "cold" (captured with no donor's list),
+        # "donor" (captured by warm_from from a donor's handoff) or
+        # "disk" (built on a verified persistent-cache entry)
         self._compile_sources: Dict[Tuple, str] = {}  # guarded-by: _lock
         self._guards = guards.enabled()
         # one build per ladder rung is the design; anything past the
@@ -232,23 +332,13 @@ class ModelRunner:
         self._entry_label = f"ModelRunner[{type(symbol).__name__}]"
         self._churn = guards.ChurnDetector(
             self._entry_label, limit=len(self.buckets()) + 4)
-        self._obs_wiring()
-
-    def _obs_wiring(self) -> None:
-        """mxtpu_torch.obs instruments (cached bool; no-op singletons
-        when ``MXTPU_OBS=0``): entry builds feed the registry AND the
-        "compile" flight recorder, so a postmortem shows every build
-        with its time.  In this package a "compile" is the build (on
-        the card, the capture) of a bucket's entry."""
-        self._obs = obs.enabled()
-        self._m_compile = obs.counter(
-            COMPILE_TOTAL, COMPILE_TOTAL_HELP,
-            labels=("entry",)).labels(entry=self._entry_label)
-        _h = obs.histogram(COMPILE_SECONDS, COMPILE_SECONDS_HELP,
-                           labels=("entry", "source"))
-        self._m_compile_s = {
-            src: _h.labels(entry=self._entry_label, source=src)
-            for src in ("cold", "donor")}
+        # in this package a "compile" is the build (on the card, the
+        # capture) of a bucket's entry
+        self._builds = EntryBuilds(self._entry_label)
+        # the persistent cache and this runner's model fingerprint
+        self._cache = cache
+        self._fingerprint = self._model_fingerprint() \
+            if cache is not None else ""
 
     # -- deployment-artifact constructors -------------------------------
     @classmethod
@@ -308,16 +398,52 @@ class ModelRunner:
         return (batch,) + tuple(seq if d is None else int(d)
                                 for d in self._input_specs[name])
 
-    # -- the persistent cache (not ported) --------------------------------
+    # -- the persistent cache ---------------------------------------------
+    def _model_fingerprint(self) -> str:
+        """sha256 over everything that shapes a bucket's entry except
+        the bucket (``mxtpu/serving/runner.py:299-336``): the canonical
+        graph, input specs and types, parameter signatures, donation,
+        pad value, and AMP and the int8 thresholds when on."""
+        return fingerprint({
+            "symbol": canonical_graph(self._symbol),
+            "inputs": {n: [list(self._input_specs[n]),
+                           str(self._input_dtypes[n])]
+                       for n in self._input_names},
+            "params": param_sigs(self._param_names, self._param_vals),
+            "donate": self._donate, "pad_value": self._pad_value,
+        }, self._amp, self._quant, self._quant_scales)
+
+    def _cache_key(self, bucket: Tuple):
+        """The persistent-cache key of one bucket: fingerprint x the
+        bucket's concrete shapes x one device (+ the environment the
+        cache adds); ``quant="int8"`` keys a quantized runner's entries
+        apart from its float twin's."""
+        batch, seq = bucket
+        shapes = {n: list(self._concrete_shape(n, batch, seq))
+                  for n in self._input_names}
+        extra = {"quant": "int8"} if self._quant else {}
+        return self._cache.key(
+            model=self._fingerprint, shape=str(sorted(shapes.items())),
+            mesh="1dev", device=self._device, **extra)
+
     def cached_buckets(self) -> List[Tuple]:
-        """The ladder's buckets in the persistent cache: none until
-        ``cache.py`` is ported."""
-        return []
+        """The ladder's buckets present in the persistent cache now
+        (an existence probe; loads verify later) — what the fleet asks
+        before warming a donor-less replacement from disk."""
+        if self._cache is None:
+            return []
+        return [b for b in self.buckets()
+                if self._cache.contains(self._cache_key(b))]
 
     def warm_from_disk(self) -> Dict[Tuple, float]:
-        """Warm what the persistent cache holds: nothing until
-        ``cache.py`` is ported."""
-        return {}
+        """Warm every ladder bucket the persistent cache holds (a
+        poisoned or stale entry quarantines and builds cold inside
+        ``_entry``, still before the first request).  Returns per-bucket
+        build seconds; empty with no cache or no entries."""
+        hits = self.cached_buckets()
+        if not hits:
+            return {}
+        return self.warmup(hits)
 
     # -- int8 calibration -------------------------------------------------
     def calibrate(self, batches: Sequence[Dict[str, Any]],
@@ -374,6 +500,9 @@ class ModelRunner:
                 "— the graph has no FullyConnected/Convolution on f32 "
                 "inputs")
         self._quant_scales = scales
+        if self._cache is not None:
+            # the thresholds are part of what each bucket computes
+            self._fingerprint = self._model_fingerprint()
         return dict(scales)
 
     def quant_scales(self) -> Optional[Dict[str, float]]:
@@ -411,11 +540,13 @@ class ModelRunner:
             for n in self._input_names)
 
     def _entry(self, bucket: Tuple, source: str = "cold") -> Entry:
-        """Build (once) and return the bucket's entry.  Holding
+        """Build (once) and return the bucket's entry, load-or-build
+        through the persistent cache when there is one.  Holding
         ``_lock`` across the build trades warmup parallelism for the
         exactly-once contract: two worker threads hitting the same cold
         bucket would otherwise both capture it.  ``source`` is what
-        :meth:`compile_sources` records for a new entry."""
+        :meth:`compile_sources` records for a new entry that no verified
+        disk entry matched ("disk" where one did)."""
         with self._lock:
             entry = self._entries.get(bucket)
             if entry is not None:
@@ -428,23 +559,26 @@ class ModelRunner:
                     "run calibrate(batches) before building buckets")
             batch, seq = bucket
             t0 = time.perf_counter()
+
+            def build(probe: bool) -> Entry:
+                return Entry(self._forward, self._example(bucket),
+                             self._pool,
+                             label=f"ModelRunner bucket {bucket}",
+                             guard=self._guards, probe=probe)
+
             with profiler.Task(f"serving:compile:b{batch}"
                                f"{'' if seq is None else f's{seq}'}"):
-                entry = Entry(self._forward, self._example(bucket),
-                              self._pool,
-                              label=f"ModelRunner bucket {bucket}",
-                              guard=self._guards)
+                entry, hit = load_or_build(
+                    self._cache,
+                    self._cache_key(bucket) if self._cache else None,
+                    build)
+            if hit:
+                source = "disk"
             self.compile_seconds[bucket] = time.perf_counter() - t0
             self._entries[bucket] = entry
             self._compile_sources[bucket] = source
-            if self._obs:
-                self._m_compile.inc()
-                self._m_compile_s[source].observe(
-                    self.compile_seconds[bucket])
-                obs.flight("compile").record(
-                    "compile_miss", entry=self._entry_label,
-                    bucket=str(bucket), source=source,
-                    seconds=round(self.compile_seconds[bucket], 4))
+            self._builds.built(bucket, source,
+                               self.compile_seconds[bucket])
             return entry
 
     def _eager_entry(self, bucket: Tuple, source: str = "cold") -> Entry:
@@ -469,14 +603,15 @@ class ModelRunner:
 
     def compile_sources(self) -> Dict[Tuple, str]:
         """Per built entry: "cold" (built with no donor's list: by
-        :meth:`warmup` or by a call) or "donor" (built by
-        :meth:`warm_from` from a donor's handoff)."""
+        :meth:`warmup` or by a call), "donor" (built by
+        :meth:`warm_from` from a donor's handoff) or "disk" (built on a
+        verified persistent-cache entry)."""
         with self._lock:
             return dict(self._compile_sources)
 
     def cold_compiles(self) -> int:
         """Entries built cold — zero on a replacement warmed from a
-        donor that then serves only the donor's buckets."""
+        donor or from disk that then serves only the buckets warmed."""
         with self._lock:
             return sum(1 for s in self._compile_sources.values()
                        if s == "cold")

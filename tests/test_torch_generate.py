@@ -350,9 +350,15 @@ def test_runner_rejects_bad_kv_spec(export):
 
 @pytest.mark.parametrize("name, value", [("cache", None),
                                          ("cache", "auto")])
-def test_runner_refuses_options_not_ported(export, name, value):
-    with pytest.raises(TypeError, match="item 3"):
-        _runner(export, **{name: value})
+def test_runner_refuses_options_not_ported(export, name, value,
+                                           monkeypatch):
+    """``cache=`` is ported: None and "auto" (with no MXTPU_CACHE_DIR)
+    give a runner with no cache; what is not an ExecutableCache is
+    refused."""
+    monkeypatch.delenv("MXTPU_CACHE_DIR", raising=False)
+    assert _runner(export, **{name: value})._cache is None
+    with pytest.raises(TypeError, match="ExecutableCache"):
+        _runner(export, **{name: object()})
 
 
 def test_runner_takes_amp(export, runner):

@@ -186,6 +186,41 @@ def test_span_records_match():
     _both(run)
 
 
+def test_eager_dispatch_records_op_spans_as_mxtpu():
+    """mxtpu's per-op profiler spans of the eager dispatcher: while the
+    profiler runs, each op called through ``nd`` (the operators of
+    NDArray included; not the creation functions, which dispatch no
+    op) is one "operator" span named as called; none after it
+    stops."""
+    import mxtpu
+    import mxtpu.ndarray as jnd
+    import mxtpu_torch
+    import mxtpu_torch.ndarray as tnd
+    mods = {"mxtpu": (jnd, mxtpu.cpu()),
+            "port": (tnd, mxtpu_torch.cpu())}
+
+    def run(P):
+        nd, ctx = mods["port" if P is PKGS["port"] else "mxtpu"]
+        P.profiler.set_state("run")
+        a = nd.array(np.arange(6, dtype=np.float32).reshape(2, 3),
+                     ctx=ctx)
+        b = nd.relu(a * 2 - 1)
+        nd.sum(b, axis=1)
+        nd.softmax(a)
+        nd.FullyConnected(a, nd.ones((4, 3), ctx=ctx), num_hidden=4,
+                          no_bias=True)
+        P.profiler.set_state("stop")
+        nd.exp(a)                                      # not kept
+        ev = json.loads(P.profiler.dumps())["traceEvents"]
+        return [(e["name"], e["ph"]) for e in ev
+                if e.get("cat") == "operator"]
+
+    spans = _both(run)
+    assert [n for n, _ in spans] == [
+        "broadcast_mul", "broadcast_sub", "relu", "sum", "softmax",
+        "FullyConnected"]
+
+
 def test_fleet_kill_trace_timeline_matches():
     """A request whose first worker dies mid-flight leaves the same
     span timeline in both packages: submit, the doomed attempt's queue

@@ -239,7 +239,9 @@ def test_ladder_metadata_warms_the_intersection():
 
 @pytest.mark.parametrize("name, value", [("cache", object())])
 def test_options_not_ported_raise(name, value):
-    with pytest.raises(TypeError, match=r"item 3"):
+    """``cache=`` is ported; what is not "auto", None or an
+    ExecutableCache is refused."""
+    with pytest.raises(TypeError, match=r"ExecutableCache"):
         ModelRunner(tsym.var("data") * 1.0, {}, {"data": (3,)},
                     device="cpu", **{name: value})
 
@@ -622,21 +624,43 @@ def test_generate_ladder_per_table(gen_export):
     assert r.num_compiled() == 2
 
 
-def test_generate_donate_off_is_refused_on_the_card(gen_export,
-                                                     monkeypatch):
-    """A captured step writes the table it was captured on, so donate
-    off (a new table each step) is refused on the card; the CPU keeps
-    it."""
-    from mxtpu_torch.serving import generate as gen_mod
+def test_generate_donate_off_is_refused_on_the_card(gen_export):
+    """donate=False is no longer refused on the card: a captured step
+    writes the table it was captured on, so a runner that does not
+    donate binds every entry to a table of its own, copies the caller's
+    table into it before a call and hands back a copy after.  Here a
+    CPU runner keys its entries by table as the card does: one ladder,
+    on its own table, whatever table the caller passes, and each
+    caller's table left as it was."""
+    from mxtpu_torch.serving.entry import tensor_key
     net, files = gen_export
-    kw = dict(prompt_buckets=(4,), donate=False)
-    r = GenerateRunner.from_export(*files, net.kv_cache_spec(1, 16),
-                                   device="cpu", **kw)
-    assert r._donate is False
-    monkeypatch.setattr(gen_mod, "resolve_device",
-                        lambda d: torch.device("cuda", 0))
-    with pytest.raises(MXNetError, match="item 3"):
-        GenerateRunner.from_export(*files, net.kv_cache_spec(1, 16), **kw)
+    spec = net.kv_cache_spec(1, 16)
+    off = GenerateRunner.from_export(*files, spec, device="cpu",
+                                     prompt_buckets=(4,), donate=False)
+    on = GenerateRunner.from_export(*files, spec, device="cpu",
+                                    prompt_buckets=(4,), donate=True)
+    off._captured = True
+    off.warmup()                    # no kv: the runner's own table
+    assert list(off._tables) == [tensor_key(off._own)]
+    args = (np.array([[1, 2, 3, 4]], np.float32),
+            np.zeros(1, np.float32), np.zeros(1, np.float32))
+    for _ in range(2):
+        kv, kv_on = off.new_cache(), on.new_cache()
+        logits, out = off.prefill(*args, kv)
+        want, out_on = on.prefill(*args, kv_on)
+        assert not kv.any() and out is not kv and out is not off._own
+        np.testing.assert_array_equal(logits, want)
+        assert torch.equal(out, out_on)
+        kept = out.clone()
+        toks = np.array([[5], [0]], np.float32)
+        step = np.array([4, 0], np.float32)
+        dl, dout = off.decode(toks, step, out)
+        dwant, _ = on.decode(toks, step, out_on)
+        assert torch.equal(out, kept)
+        np.testing.assert_array_equal(dl, dwant)
+        assert torch.equal(dout, out_on)
+    assert list(off._tables) == [tensor_key(off._own)]
+    assert off.num_compiled() == len(off.buckets())
 
 
 @pytest.mark.parametrize("mode", ["1", "2"])

@@ -15,8 +15,10 @@ rematerialize and decode Transformer-big with the
 fed from the input pipeline (``bench_resnet50_pipeline``'s recipe),
 step every ResNet of the model zoo, serve BERT-Large from a fleet
 of workers through a kill, a warm replacement, scripted faults and the
-autoscaler, run detection, and warm serving processes and fleet
-replicas from the persistent compile cache.
+autoscaler, run detection, warm serving processes and fleet
+replicas from the persistent compile cache, and train an LSTM language
+model at the width of Zaremba et al.'s large PTB model on the cell
+kernel, with BucketingModule beside it.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -439,7 +441,7 @@ Phases, each fatal on failure:
      fresh ``python3`` processes of this script (``--cache-child``),
      each with its own MXTPU_CACHE_DIR, on BERT-Large f32 served from
      its export at the fleet's ladder (b <= 8 x T128): (a) cold on an
-     empty root: nvcc's seconds for the 10 sources, each bucket's and
+     empty root: nvcc's seconds for every source, each bucket's and
      the ladder's seconds, the time from the spawn to the first served
      request, a forward's launch record and counts 24/1/48 of #1
      f32/#4/#6; (b) a fresh process on (a)'s root: no nvcc, every
@@ -457,7 +459,36 @@ Phases, each fatal on failure:
      ``donate=False``: 17 greedy tokens a lane equal, the logits bit for
      bit, every caller's table unchanged bit for bit, the launch
      records and a decode's counts (1/48 of #4/#6) alike, the decode
-     step's ms of each and the two table copies' device ms.
+     step's ms of each and the two table copies' device ms;
+ 25. recurrent networks (``rnn_phase``, ~1-2 min): (a) the cell kernels
+     of ``csrc/rnn_cell.cu`` (LSTM and GRU, forward and backward, f32
+     and bf16) against their plain versions at the LM's step shape (N
+     20, H 1500) and at N 7, H 1003, one launch a call, each timed at
+     the LM's shape beside its plain version, PyTorch's fused cell
+     (``torch._thnn_fused_lstm_cell`` and the like, a yardstick) and
+     its bytes bound; one LSTM layer (T 35, N 20, 1500 -> 1500, f32)
+     through the port's RNN op against cuDNN's ``torch.nn.LSTM`` from
+     the same weights, forward + backward timed on each (a comparison
+     only); (b) the LSTM language model of Zaremba, Sutskever and
+     Vinyals 2014's "large" PTB configuration (vocab 10 000, embed 1500,
+     2 x LSTM 1500, dropout 0.65, T 35, batch 20, SGD lr 1,
+     ``clip_global_norm`` 10 a token) as ``examples/char_rnn.py``'s
+     Gluon loop with the states carried across batches by
+     ``detach()``, on a seeded Zipfian token stream: 3 warm-up steps,
+     3 windows of 10 (median ms/step, tokens/s), launches exactly 70
+     LSTM cell forward and 70 backward a step, the loss finite and
+     falling, one profiled step (device ms, idle share), peak memory,
+     ``metric.Perplexity`` of one batch after; (c) the same net through
+     ``build_train_step(..., compute_dtype="bfloat16")`` (the LSTM's
+     output bf16, 70/70 a step), and a GRU at the same width for one
+     window (70/70 GRU launches a step); (d) ``BucketSentenceIter``
+     into buckets 10-60 through ``BucketingModule.fit`` over mxtpu's
+     mean-pooled embedding ``sym_gen``: every bucket seen, one array a
+     parameter across buckets, the cross entropy falling.  To rehearse
+     on the CPU set ``CARD="cpu"``, shrink the ``LM_*``, ``RNN_RAGGED``
+     and ``BUCKET_*`` constants and stub ``device_ms``, ``time_ms``,
+     ``reset_peak``, ``profiled_step`` and the ``torch.cuda`` calls:
+     the launch gates fail there.
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -485,7 +516,10 @@ exact arithmetic: each side on its own within n * 2^-24 * sum |dL/dz|
 per channel (the rounding bound of an n-term f32 sum, n = N*H*W, z the
 convolution's output); the loss 1e-5 and the three step
 losses 1e-4 relative (ResNet's of max(|p|, 0.01)), ResNet's running
-statistics 1e-5.
+statistics 1e-5; the cell kernels against their plain versions 1e-5 x
+max(1, |p|) in f32 (expf and tanhf against torch's) and 2^-7 x max(1,
+|p|) in bf16 (one bf16 ulp at 1), the port's LSTM layer against
+cuDNN's 1e-4 relative (35 steps of f32 GEMMs in another order).
 
 Kernel times are device time per call (torch.profiler: the sum of the
 kernels a call launches), for the kernel, its plain version and the
@@ -507,7 +541,9 @@ the fed windows' launches, #8-#11 with ``"path": "zoo"`` at
 with ``"path": "fleet"``, timed at the serving shapes, with the fleet
 recovery run's launches; #8/#9 with ``"path": "detection"`` at
 8 x 32 x 300² with SSD-300's eager steps' launches, and the NMS kernel at
-SSD's detection shape with the main path's NMS launches of (d)-(f)),
+SSD's detection shape with the main path's NMS launches of (d)-(f);
+the cell kernels with ``"path": "rnn"`` at the LM's step shape, f32
+with the LM's and the GRU window's launches, bf16 with TrainStep's),
 and last the line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without CUDA or outside a checkout.  A full report goes to
@@ -9542,6 +9578,556 @@ def cache_phase(checks, params):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 25: recurrent networks — the cell kernel (csrc/rnn_cell.cu), an
+# LSTM language model at the width of Zaremba, Sutskever and Vinyals
+# 2014's "large" PTB model, TrainStep in bf16, a GRU window, and
+# BucketSentenceIter -> BucketingModule.fit
+# ----------------------------------------------------------------------
+LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 10000, 1500, 1500, 2
+LM_STEPS, LM_BATCH, LM_DROPOUT = 35, 20, 0.65
+LM_LR, LM_CLIP, LM_INIT = 1.0, 10.0, 0.04
+LM_WARMUP, LM_WINDOW, LM_WINDOWS = 3, 10, 3
+ZIPF_S = 1.0                  # the synthetic stream's unigram law, p ~ 1/k^s
+RNN_RAGGED = (7, 1003)        # a ragged (N, H) beside the LM's
+RNN_TOL_F32 = 1e-5            # x max(1, |plain|): expf/tanhf vs torch's
+RNN_TOL_BF16 = 2.0 ** -7      # one bf16 ulp at 1, x max(1, |plain|)
+RNN_LAYER_TOL = 1e-4          # the port's LSTM layer vs cuDNN's, f32
+RNN_SRC = "mxtpu_torch/csrc/rnn_cell.cu"
+RNN_REPLACES = ("mxtpu/ndarray/rnn_impl.py:77 (_scan_dir: XLA fuses the "
+                "lax.scan body, no TPU kernel)")
+BUCKETS = (10, 20, 30, 40, 50, 60)
+BUCKET_SENTENCES, BUCKET_BATCH = 3000, 32
+BUCKET_VOCAB, BUCKET_EMBED, BUCKET_EPOCHS = 1000, 64, 3
+KERNEL_NAMES.update({"lstm_cell_fwd": ("lstm_fwd_kernel",),
+                     "lstm_cell_bwd": ("lstm_bwd_kernel",),
+                     "gru_cell_fwd": ("gru_fwd_kernel",),
+                     "gru_cell_bwd": ("gru_bwd_kernel",)})
+
+
+def aten_op(name):
+    """``torch.ops.aten.<name>`` where this build registers it, else
+    None."""
+    import torch
+    return getattr(torch.ops.aten, name) if hasattr(torch.ops.aten, name) \
+        else None
+
+
+def rnn_cell_case(kind, direction, n, H, dt, seed):
+    """A cell kernel's call at (n, H): the wrapper's and the plain
+    version's functions, the library call computing the same function
+    (PyTorch's fused cell, where this build has it) and the bytes the
+    call must move.  A backward's saved state comes from the plain
+    forward on the same draws."""
+    import torch
+    from mxtpu_torch.kernels import rnn_cell as rc
+    g = torch.Generator(device=CARD).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=CARD).to(dt)
+    es = torch.empty(0, dtype=dt).element_size()
+    G = 4 if kind == "lstm" else 3
+    pre, hh, prev = r(n, G * H), r(n, G * H), r(n, H)
+    lib = None
+    if kind == "lstm":
+        h, c, gates = rc.lstm_fwd_reference(pre, hh, prev)
+        lfwd = aten_op("_thnn_fused_lstm_cell")
+        lbwd = aten_op("_thnn_fused_lstm_cell_backward_impl")
+        if direction == "fwd":
+            args = (pre, hh, prev)
+            fn, plain = rc.lstm_fwd, rc.lstm_fwd_reference
+            nbytes = (2 * G * n * H + n * H) * es + 2 * n * H * es + \
+                4 * n * H * 4
+            if lfwd is not None:
+                def lib():
+                    return lfwd(pre, hh, prev)
+        else:
+            dh, dc = r(n, H), r(n, H)
+            args = (dh, dc, gates, prev, c)
+            fn, plain = rc.lstm_bwd, rc.lstm_bwd_reference
+            nbytes = 4 * n * H * es + 4 * n * H * 4 + 5 * n * H * es
+            if lfwd is not None and lbwd is not None:
+                _, cy, ws = lfwd(pre, hh, prev)
+
+                def lib():
+                    return lbwd(dh, dc, prev, cy, ws, False)
+    else:
+        b_rn = r(H)
+        h, saved = rc.gru_fwd_reference(pre, hh, b_rn, prev)
+        lfwd = aten_op("_thnn_fused_gru_cell")
+        lbwd = aten_op("_thnn_fused_gru_cell_backward")
+        hb = torch.cat([torch.zeros(2 * H, dtype=dt, device=CARD), b_rn])
+        ib = torch.zeros(G * H, dtype=dt, device=CARD)
+        if direction == "fwd":
+            args = (pre, hh, b_rn, prev)
+            fn, plain = rc.gru_fwd, rc.gru_fwd_reference
+            nbytes = (2 * G * n * H + H + n * H) * es + n * H * es + \
+                4 * n * H * 4
+            if lfwd is not None:
+                def lib():
+                    return lfwd(pre, hh, prev, ib, hb)
+        else:
+            dh = r(n, H)
+            args = (dh, saved, prev)
+            fn, plain = rc.gru_bwd, rc.gru_bwd_reference
+            nbytes = 2 * n * H * es + 4 * n * H * 4 + 7 * n * H * es
+            if lfwd is not None and lbwd is not None:
+                _, ws = lfwd(pre, hh, prev, ib, hb)
+
+                def lib():
+                    return lbwd(dh, ws, True)
+    return (lambda: fn(*args)), (lambda: plain(*args)), lib, nbytes
+
+
+def rnn_kernel_cell(checks):
+    """(a): each cell kernel, forward and backward, f32 and bf16, at the
+    LM's (N 20, H 1500) and at ``RNN_RAGGED``, against its plain version
+    on the same inputs (f32 to ``RNN_TOL_F32``, bf16 to ``RNN_TOL_BF16``,
+    both x max(1, |plain|)), one launch a call; at the LM's shape the
+    kernel's, the plain version's and PyTorch's fused cell's device ms
+    and the bytes bound."""
+    import torch
+    from mxtpu_torch import kernels
+    rows = {}
+    for k, (kind, direction) in enumerate((("lstm", "fwd"), ("lstm", "bwd"),
+                                           ("gru", "fwd"), ("gru", "bwd"))):
+        counter = f"{kind}_cell_{direction}"
+        for dtn in ("float32", "bfloat16"):
+            dt = getattr(torch, dtn)
+            tol = RNN_TOL_F32 if dtn == "float32" else RNN_TOL_BF16
+            for n, H in ((LM_BATCH, LM_HIDDEN), RNN_RAGGED):
+                kern, plain, lib, nbytes = rnn_cell_case(
+                    kind, direction, n, H, dt, SEED + 250 + k)
+                kernels.reset_launch_counts()
+                got = kern()
+                one = kernels.launch_counts()[counter]
+                want = plain()
+                torch.cuda.synchronize()
+                rel, err = 0.0, 0.0
+                for a, b in zip(got, want):
+                    r_, e_ = rel_err(a.float(), b.float())
+                    rel, err = max(rel, r_), max(err, e_)
+                ok = rel <= tol and one == 1
+                tag = f"{counter} [{dtn}] N{n} H{H}"
+                print(f"check {tag}: kernel vs plain max_abs_err={err:.3e} "
+                      f"max_rel_err={rel:.3e} (tol {tol:.3e} x max(1, "
+                      f"|plain|)), {one} launch a call "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                checks.rows.append({"check": tag, "dtype": dtn,
+                                    "max_rel_err": rel, "max_abs_err": err,
+                                    "tol": tol, "ok": ok})
+                if not ok:
+                    checks.failed.append(f"{tag}: rel {rel:.3e}, launches "
+                                         f"{one}")
+                if (n, H) != (LM_BATCH, LM_HIDDEN):
+                    continue
+                ms = device_ms(kern, iters=50)
+                plain_ms = device_ms(plain, iters=50)
+                lib_ms = None if lib is None else device_ms(lib, iters=50)
+                wall = time_ms(kern, iters=50)
+                b_ms, b_by = bound(nbytes, 0, dtn)
+                print(f"time {counter} [{dtn}] N{n} H{H} (device ms per "
+                      f"call): kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                      f"library_ms="
+                      f"{'null' if lib_ms is None else f'{lib_ms:.5f}'} "
+                      f"(PyTorch's fused cell) bound_ms={b_ms:.6f} "
+                      f"({b_by}, {nbytes} bytes); kernel wall_ms={wall:.5f}",
+                      flush=True)
+                rows[(counter, dtn)] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "wall_ms": wall, "bytes": nbytes}
+    return rows
+
+
+def rnn_layer_vs_cudnn(checks):
+    """(a): one LSTM layer at the LM's width (T 35, N 20, 1500 -> 1500,
+    f32), the port's RNN op (the cell kernel a step, torch GEMMs)
+    against cuDNN's ``torch.nn.LSTM`` from the same weights: output,
+    final states and the input's gradient within ``RNN_LAYER_TOL``, and
+    each one's forward + backward ms (events, host launches included,
+    and device ms).  A comparison only: the port never calls cuDNN's
+    RNN."""
+    import torch
+    from mxtpu_torch.ndarray.rnn_impl import _rnn_op
+    T, N, H = LM_STEPS, LM_BATCH, LM_HIDDEN
+    g = torch.Generator(device=CARD).manual_seed(SEED + 260)
+    lstm = torch.nn.LSTM(H, H).to(CARD)
+    with torch.no_grad():
+        for p in lstm.parameters():
+            p.uniform_(-LM_INIT, LM_INIT, generator=g)
+    flat = torch.cat([lstm.weight_ih_l0.reshape(-1),
+                      lstm.weight_hh_l0.reshape(-1), lstm.bias_ih_l0,
+                      lstm.bias_hh_l0]).detach().requires_grad_(True)
+    x = torch.randn(T, N, H, generator=g, device=CARD).requires_grad_(True)
+    h0 = torch.randn(1, N, H, generator=g, device=CARD)
+    c0 = torch.randn(1, N, H, generator=g, device=CARD)
+    gy = torch.randn(T, N, H, generator=g, device=CARD)
+
+    def port():
+        out, hn, cn = _rnn_op(x, flat, h0, c0, state_size=H, num_layers=1,
+                              mode="lstm", state_outputs=True)
+        (gx,) = torch.autograd.grad(out, x, gy)
+        return out, hn, cn, gx
+
+    def cudnn():
+        out, (hn, cn) = lstm(x, (h0, c0))
+        (gx,) = torch.autograd.grad(out, x, gy)
+        return out, hn, cn, gx
+    worst = 0.0
+    for a, b in zip(port(), cudnn()):
+        worst = max(worst, rel_err(a.detach(), b.detach())[0])
+    ok = worst <= RNN_LAYER_TOL
+    print(f"check LSTM layer T{T} N{N} H{H} f32, the port's RNN op vs "
+          f"cuDNN's nn.LSTM (output, h_T, c_T, dx): max_rel_err="
+          f"{worst:.3e} (tol {RNN_LAYER_TOL}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        checks.failed.append(f"LSTM layer vs cuDNN: {worst:.3e}")
+    out = {"max_rel_err": worst}
+    for name, fn in (("port", port), ("cudnn", cudnn)):
+        out[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
+        out[f"{name}_device_ms"] = device_ms(fn, iters=5, warmup=1)
+    print(f"time LSTM layer fwd+bwd T{T} N{N} H{H} f32: port "
+          f"{out['port_ms']:.3f} ms (device {out['port_device_ms']:.3f}), "
+          f"cuDNN {out['cudnn_ms']:.3f} ms (device "
+          f"{out['cudnn_device_ms']:.3f}); port / cuDNN "
+          f"{out['port_ms'] / out['cudnn_ms']:.2f}x", flush=True)
+    return out
+
+
+def lm_stream(n_steps, seed):
+    """(LM_BATCH, n_steps * LM_STEPS + 1) token ids from a Zipfian
+    unigram law (p ~ 1/k^ZIPF_S over the vocabulary), each row one
+    continuous stream cut into windows as truncated BPTT cuts a corpus,
+    on the card as f32 (the port's Embedding takes float ids)."""
+    import torch
+    p = 1.0 / np.arange(1, LM_VOCAB + 1) ** ZIPF_S
+    rng = np.random.RandomState(seed)
+    ids = rng.choice(LM_VOCAB, (LM_BATCH, n_steps * LM_STEPS + 1),
+                     p=p / p.sum()).astype(np.float32)
+    return torch.from_numpy(ids).to(CARD)
+
+
+def lm_window(stream, i):
+    from mxtpu_torch.ndarray.ndarray import NDArray
+    s = i * LM_STEPS
+    return (NDArray(stream[:, s:s + LM_STEPS]),
+            NDArray(stream[:, s + 1:s + LM_STEPS + 1]))
+
+
+def lm_net(mode="lstm"):
+    """``examples/char_rnn.py``'s net at the LM's width: Embedding ->
+    ``gluon.rnn.LSTM`` (or GRU) in NTC -> Dense(flatten=False); called
+    with states it returns them, without (TrainStep) only the logits.
+    Weights uniform in +-LM_INIT (Zaremba et al.), biases zero."""
+    from mxtpu_torch import gluon, initializer
+
+    class LM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = gluon.nn.Embedding(LM_VOCAB, LM_EMBED)
+            cls = gluon.rnn.LSTM if mode == "lstm" else gluon.rnn.GRU
+            self.rnn = cls(LM_HIDDEN, num_layers=LM_LAYERS, layout="NTC",
+                           dropout=LM_DROPOUT, input_size=LM_EMBED)
+            self.out = gluon.nn.Dense(LM_VOCAB, flatten=False,
+                                      in_units=LM_HIDDEN)
+
+        def forward(self, x, states=None):
+            if states is None:
+                return self.out(self.rnn(self.embed(x)))
+            y, states = self.rnn(self.embed(x), states)
+            return self.out(y), states
+    from mxtpu_torch import random as trandom
+    trandom.seed(SEED)
+    net = fresh_names(LM)
+    net.initialize(init=initializer.Uniform(LM_INIT), ctx=CARD)
+    return net
+
+
+def lm_gluon_step(net):
+    """The LM's Gluon step: the carried states detached,
+    ``autograd.record()``, a loss a token, ``backward()``,
+    ``clip_global_norm`` at LM_CLIP x N x T of the summed gradients and
+    ``trainer.step(N x T)`` (SGD, lr LM_LR): the per-token mean's
+    gradient clipped at LM_CLIP, the scale ``TrainStep``'s mean loss
+    has.  (Zaremba et al. sum the window's steps, T x this gradient; on
+    this synthetic stream every step's gradient points one way, and
+    that sum diverges within 5 steps at lr 1, on the card and on the
+    CPU.)  The forward and backward run in a ``forward_backward``
+    profiler range, the clip and the update in ``update``."""
+    import torch
+    from mxtpu_torch import autograd, gluon
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": LM_LR})
+    L = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = list(net.collect_params().values())
+    box = [net.rnn.begin_state(batch_size=LM_BATCH, ctx=CARD)]
+
+    def step(x, y):
+        with torch.profiler.record_function("forward_backward"):
+            states = [s.detach() for s in box[0]]
+            with autograd.record():
+                out, states = net(x, states)
+                loss = L(out.reshape((-1, LM_VOCAB)), y.reshape((-1,)))
+            loss.backward()
+        with torch.profiler.record_function("update"):
+            gluon.utils.clip_global_norm([p.grad() for p in params],
+                                         LM_CLIP * LM_BATCH * LM_STEPS)
+            trainer.step(LM_BATCH * LM_STEPS)
+        box[0] = states
+        return loss
+    step.states = box
+    return step
+
+
+def lm_windows(step, stream, first, n_windows, n_steps):
+    """``n_windows`` timed windows of ``n_steps`` steps over consecutive
+    stream windows from ``first``: (ms a step of each window, losses)."""
+    import torch
+    ms, losses = [], []
+    i = first
+    for _ in range(n_windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            losses.append(step(*lm_window(stream, i)))
+            i += 1
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) / n_steps * 1e3)
+    return ms, [as_mean(v) for v in losses]
+
+
+def lm_cell(checks, mode, n_windows):
+    """(b) (mode "lstm") and the GRU window: warm-up steps, then
+    ``n_windows`` windows of LM_WINDOW steps, launches exactly T * L of
+    the mode's cell kernel forward and backward a step (every other
+    counter 0), losses finite and falling, one profiled step, peak
+    memory, and ``metric.Perplexity`` of one predict-mode batch after."""
+    import torch
+    from mxtpu_torch import kernels, metric, nd
+    tag = f"LM {mode} f32 gluon"
+    t0 = time.perf_counter()
+    net = lm_net(mode)
+    step = lm_gluon_step(net)
+    n_total = LM_WARMUP + n_windows * LM_WINDOW + 2
+    stream = lm_stream(n_total, SEED + 270)
+    reset_peak()
+    warm = [as_mean(step(*lm_window(stream, i))) for i in range(LM_WARMUP)]
+    setup_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    window_ms, losses = lm_windows(step, stream, LM_WARMUP, n_windows,
+                                   LM_WINDOW)
+    counts = kernels.launch_counts()
+    n = n_windows * LM_WINDOW
+    per = {f"{mode}_cell_fwd": LM_STEPS * LM_LAYERS,
+           f"{mode}_cell_bwd": LM_STEPS * LM_LAYERS}
+    check_launches(checks, tag, counts, per, n)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = warm + losses
+    if not np.isfinite(losses).all():
+        checks.failed.append(f"{tag}: losses not finite")
+    if not np.mean(losses[-LM_WINDOW:]) < losses[0]:
+        checks.failed.append(f"{tag}: loss did not fall: {losses}")
+    x, y = lm_window(stream, LM_WARMUP + n)
+    bd = profiled_step(checks, tag, step, x, y)
+    ppl = metric.Perplexity()
+    with torch.no_grad():
+        out, _ = net(*lm_window(stream, LM_WARMUP + n + 1)[:1],
+                     [s.detach() for s in step.states[0]])
+    ppl.update([lm_window(stream, LM_WARMUP + n + 1)[1]],
+               [nd.softmax(out)])
+    ms = float(np.median(window_ms))
+    toks = LM_BATCH * LM_STEPS / (ms / 1e3)
+    print(f"{tag}: {ms:.3f} ms/step (median of {n_windows} windows of "
+          f"{LM_WINDOW}: {[round(v, 3) for v in window_ms]}), {toks:.0f} "
+          f"tokens/s, device {bd['device_busy_ms']:.3f} ms a step, idle "
+          f"share {bd['device_idle_share'] or 0:.4f}, peak "
+          f"{peak_gb:.3f} GB; losses {[round(v, 4) for v in losses]}; "
+          f"perplexity after {ppl.get()[1]:.1f} (uniform: {LM_VOCAB}); "
+          f"launches in {n} steps {json.dumps(counts)}; set-up and "
+          f"warm-up {setup_s:.1f} s", flush=True)
+    return counts, {"ms_per_step": ms, "window_ms": window_ms,
+                    "tokens_per_s": toks, "device_ms": bd["device_busy_ms"],
+                    "idle_share": bd["device_idle_share"],
+                    "peak_gb": peak_gb, "losses": losses,
+                    "perplexity": ppl.get()[1], "breakdown": bd}
+
+
+def lm_loss(pred, y):
+    """The LM's loss in TrainStep: softmax cross entropy a token, which
+    TrainStep averages (it has no global-norm clip)."""
+    from mxtpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return SoftmaxCrossEntropyLoss()(pred.reshape(-1, LM_VOCAB),
+                                     y.reshape(-1))
+
+
+def lm_train_step_cell(checks):
+    """(c): the same net through ``build_train_step(...,
+    compute_dtype="bfloat16")``, states from zeros each step (a TrainStep
+    step takes (x, y)): the LSTM's output bf16 (a forward hook reads
+    it), launches exactly T * L forward and backward a step, losses
+    finite, ms/step and one profiled step."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.parallel import build_train_step
+    tag = "LM lstm bf16 TrainStep"
+    net = lm_net("lstm")
+    seen = set()
+    hook = net.rnn.register_forward_hook(
+        lambda m, i, o: seen.add(str(o.dtype)))
+    step = build_train_step(net, lm_loss, "sgd", {"learning_rate": LM_LR},
+                            compute_dtype="bfloat16", cast_batch=False,
+                            device=CARD)
+    stream = lm_stream(LM_WARMUP + LM_WINDOWS * LM_WINDOW + 1, SEED + 280)
+
+    def tstep(x, y):
+        return step(x._data, y._data)
+    reset_peak()
+    warm = [as_mean(tstep(*lm_window(stream, i))) for i in range(LM_WARMUP)]
+    kernels.reset_launch_counts()
+    window_ms, losses = lm_windows(tstep, stream, LM_WARMUP, LM_WINDOWS,
+                                   LM_WINDOW)
+    counts = kernels.launch_counts()
+    n = LM_WINDOWS * LM_WINDOW
+    check_launches(checks, tag, counts,
+                   {"lstm_cell_fwd": LM_STEPS * LM_LAYERS,
+                    "lstm_cell_bwd": LM_STEPS * LM_LAYERS}, n)
+    hook.remove()
+    if seen != {"torch.bfloat16"}:
+        checks.failed.append(f"{tag}: the LSTM ran in {seen}, not bf16")
+    losses = warm + losses
+    if not np.isfinite(losses).all():
+        checks.failed.append(f"{tag}: losses not finite: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    x, y = lm_window(stream, LM_WARMUP + n)
+    bd = profiled_step(checks, tag, tstep, x, y)
+    ms = float(np.median(window_ms))
+    print(f"{tag}: {ms:.3f} ms/step (windows "
+          f"{[round(v, 3) for v in window_ms]}), "
+          f"{LM_BATCH * LM_STEPS / (ms / 1e3):.0f} tokens/s, device "
+          f"{bd['device_busy_ms']:.3f} ms, idle share "
+          f"{bd['device_idle_share'] or 0:.4f}, peak {peak_gb:.3f} GB, "
+          f"LSTM output {sorted(seen)}; losses "
+          f"{[round(v, 4) for v in losses]}; launches {json.dumps(counts)}",
+          flush=True)
+    return counts, {"ms_per_step": ms, "window_ms": window_ms,
+                    "device_ms": bd["device_busy_ms"],
+                    "idle_share": bd["device_idle_share"],
+                    "peak_gb": peak_gb, "losses": losses}
+
+
+def bucket_sym_gen(seq_len):
+    """mxtpu's bucketing symbol (``tests/test_compat_modules.py:145``):
+    the embedding mean-pooled over time, so the parameters do not depend
+    on the bucket's length."""
+    import mxtpu_torch as tmx
+    data = tmx.sym.var("data")
+    emb = tmx.sym.Embedding(data, input_dim=BUCKET_VOCAB,
+                            output_dim=BUCKET_EMBED, name="embed")
+    fc = tmx.sym.FullyConnected(tmx.sym.mean(emb, axis=1),
+                                num_hidden=BUCKET_VOCAB, name="fc")
+    return tmx.sym.SoftmaxOutput(fc, name="softmax"), ("data",), \
+        ("softmax_label",)
+
+
+def bucketing_cell(checks):
+    """(d): ``BucketSentenceIter`` over seeded sentences of 3-60 tokens
+    into buckets ``BUCKETS``, each batch's label its first token (the
+    reference test's classification-shaped use), through
+    ``BucketingModule.fit`` on the card: every bucket seen, one array
+    object a parameter across buckets, the epoch's cross entropy
+    falling."""
+    import logging
+    import mxtpu_torch as tmx
+    from mxtpu_torch.io import DataDesc
+    from mxtpu_torch.rnn import BucketSentenceIter
+    rng = np.random.RandomState(SEED + 290)
+    sents = [list(rng.randint(1, BUCKET_VOCAB, rng.randint(3, 61)))
+             for _ in range(BUCKET_SENTENCES)]
+    np.random.seed(SEED + 291)
+    it = BucketSentenceIter(sents, batch_size=BUCKET_BATCH,
+                            buckets=list(BUCKETS))
+    label = [DataDesc("softmax_label", (BUCKET_BATCH,))]
+
+    class FirstToken:
+        provide_data, provide_label = it.provide_data, label
+
+        def reset(self):
+            it.reset()
+
+        def __iter__(self):
+            for b in it:
+                b.label = [b.data[0][:, 0]]
+                b.provide_label = label
+                yield b
+    mod = tmx.mod.BucketingModule(bucket_sym_gen,
+                                  default_bucket_key=it.default_bucket_key,
+                                  context=CARD)
+    per_epoch, keys = [], set()
+
+    def epoch_end(epoch, sym, arg, aux):
+        per_epoch.append(metric.get()[1])
+    metric = tmx.metric.create("ce")
+    logging.getLogger().setLevel(logging.WARNING)
+    t0 = time.perf_counter()
+    mod.fit(FirstToken(), eval_metric=metric, num_epoch=BUCKET_EPOCHS,
+            optimizer_params={"learning_rate": 0.5},
+            initializer=tmx.init.Xavier(),
+            epoch_end_callback=epoch_end,
+            batch_end_callback=lambda p: keys.add(mod._curr_key))
+    fit_s = time.perf_counter() - t0
+    shared = all(m._exec.arg_dict[k] is
+                 mod._buckets[it.default_bucket_key]._exec.arg_dict[k]
+                 for m in mod._buckets.values()
+                 for k in ("embed_weight", "fc_weight", "fc_bias"))
+    ok = (keys == set(BUCKETS) and shared and np.isfinite(per_epoch).all()
+          and per_epoch[-1] < per_epoch[0])
+    print(f"check (d) BucketSentenceIter -> BucketingModule.fit: "
+          f"{len(sents)} sentences, buckets seen {sorted(keys)}, "
+          f"parameters one array across {len(mod._buckets)} buckets "
+          f"{shared}, cross entropy a epoch "
+          f"{[round(v, 4) for v in per_epoch]}, fit {fit_s:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        checks.failed.append(f"(d) bucketing: keys {sorted(keys)}, shared "
+                             f"{shared}, ce {per_epoch}")
+    return {"buckets_seen": sorted(keys), "shared": shared,
+            "ce_per_epoch": per_epoch, "fit_s": fit_s}
+
+
+def rnn_phase(checks):
+    """Phase 25 (see the module's docstring): returns the main path's
+    cell launches by dtype ({"float32": counts, "bfloat16": counts}),
+    the kernels line's rows and the numbers."""
+    import torch
+    t0 = time.perf_counter()
+    rows = rnn_kernel_cell(checks)
+    layer = rnn_layer_vs_cudnn(checks)
+    torch.cuda.empty_cache()
+    lstm_counts, lstm = lm_cell(checks, "lstm", LM_WINDOWS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_counts, bf16 = lm_train_step_cell(checks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gru_counts, gru = lm_cell(checks, "gru", 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bucketing = bucketing_cell(checks)
+    phase_s = time.perf_counter() - t0
+    print(f"rnn phase: {phase_s:.1f} s", flush=True)
+    counts = {"float32": {k: lstm_counts[k] + gru_counts[k]
+                          for k in lstm_counts},
+              "bfloat16": bf16_counts}
+    return counts, rows, {"kernels": {f"{n}[{d}]": r
+                                      for (n, d), r in rows.items()},
+                          "layer_vs_cudnn": layer, "lm_lstm_f32": lstm,
+                          "lm_lstm_bf16_train_step": bf16,
+                          "lm_gru_f32": gru, "bucketing": bucketing,
+                          "phase_s": phase_s}
+
+
 def main():
     try:
         import torch
@@ -9659,6 +10245,7 @@ def main():
     det_counts, det_nms, det_rows, detection = detection_phase(checks, gen)
     cache = cache_phase(checks, params)
     del params
+    rnn_counts, rnn_rows, rnn = rnn_phase(checks)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values()) +
@@ -9890,6 +10477,27 @@ def main():
            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms")}})
 
+    # phase 25: the cell kernels (no TPU kernel: XLA fuses mxtpu's scan
+    # body) at the LM's step shape (N 20, H 1500), with the launches of
+    # the LM's f32 Gluon windows and the GRU window (f32) and of the
+    # TrainStep bf16 windows (bf16)
+    for dt in ("float32", "bfloat16"):
+        for name in ("lstm_cell_fwd", "lstm_cell_bwd", "gru_cell_fwd",
+                     "gru_cell_bwd"):
+            launches = rnn_counts[dt].get(name, 0)
+            if dt == "bfloat16" and name.startswith("gru"):
+                continue
+            if launches == 0:
+                checks.failed.append(f"kernel {name} [{dt}] never launched "
+                                     f"on the rnn path")
+            line["kernels"].append({
+                "name": name, "route": "cuda", "source": RNN_SRC,
+                "replaces": RNN_REPLACES, "dtype": dt, "path": "rnn",
+                "launches": launches,
+                **{k: rnn_rows[(name, dt)][k]
+                   for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -9915,6 +10523,10 @@ def main():
                            "serving fleet (one forward)": fleet_one,
                            "ssd_300 bf16 eager": det_counts,
                            "detection nms": det_nms,
+                           "rnn f32 (LM lstm + gru windows)":
+                               rnn_counts["float32"],
+                           "rnn bf16 (LM lstm TrainStep)":
+                               rnn_counts["bfloat16"],
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,
                            **{f"tool {k}": c
@@ -9927,6 +10539,7 @@ def main():
               "serving": serving, "generation": generation,
               "transformer": transformer, "pipeline": pipeline,
               "fleet": fleet, "detection": detection, "cache": cache,
+              "rnn": rnn,
               "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

@@ -3,7 +3,8 @@
 The package mirrors ``mxtpu``'s layout and names (``nd``, ``autograd``,
 ``sym``, ``mod``, ``serving``, ``models``, ``gluon``, ``optimizer``,
 ``lr_scheduler``, ``parallel``, ``random``, ``rtc``, ``kernels``,
-``io``, ``recordio``, ``image``, ``profiler``, ``obs``) on
+``io``, ``recordio``, ``image``, ``profiler``, ``obs``; ``rnn`` and
+``monitor`` on first use) on
 torch tensors, so ``import mxtpu_torch as mx`` runs MXNet-1.x-style
 code.  Each Pallas kernel of a ported path becomes a kernel written by
 hand for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
@@ -29,3 +30,13 @@ lr_scheduler = optimizer.lr_scheduler
 init = initializer
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # mxtpu's lazy submodules (``mxtpu/__init__.py:64``)
+    import importlib
+    if name in ("rnn", "monitor"):
+        mod = importlib.import_module("." + name, __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'mxtpu_torch' has no attribute {name!r}")

@@ -12,6 +12,9 @@ leaves that stand for the arguments whose ``grad_req`` is not
 ``jax.jit`` (``executor.py:154-268``); the port has no compiled path
 yet (CUDA graphs are later work), and so no fallback from one.
 
+A monitor callback (``set_monitor_callback``, what ``Monitor.install``
+sets) is handed each output by name after every ``forward``.
+
 As in the JAX package, ``forward`` never writes the auxiliary states:
 ``BatchNorm`` returns its batch statistics and leaves ``moving_mean``
 and ``moving_var`` as bound.
@@ -85,6 +88,7 @@ class Executor:
         self._heads = [(id(n), i) for n, i in symbol._heads]
 
         self._outputs: Optional[List[NDArray]] = None
+        self._monitor_callback = None
         self._graph_outs: Optional[List[torch.Tensor]] = None
         self._leaves: Dict[str, torch.Tensor] = {}
 
@@ -126,6 +130,10 @@ class Executor:
     def aux_arrays(self) -> List[NDArray]:
         return [self.aux_dict[n] for n in self._aux_names]
 
+    def set_monitor_callback(self, callback, monitor_all=False) -> None:
+        """``callback(name, NDArray)`` for each output after a forward."""
+        self._monitor_callback = callback
+
     # -- execution ---------------------------------------------------------
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the graph; ``kwargs`` rebind arguments (or aux states) by
@@ -160,6 +168,10 @@ class Executor:
         outs = [values[k] for k in self._heads]
         self._graph_outs = outs if self._leaves else None
         self._outputs = [NDArray(o.detach()) for o in outs]
+        if self._monitor_callback is not None:
+            for name, out in zip(self._symbol.list_outputs(),
+                                 self._outputs):
+                self._monitor_callback(name, out)
         return self._outputs
 
     def backward(self, out_grads=None) -> None:

@@ -16,7 +16,10 @@ The public functions (``flash_attention``, ``layer_norm``,
 ``conv_nhwc`` has no backward (nor has the TPU kernel it ports) and
 refuses inputs that require grad on every device.  ``nms.nms_keep``
 (the detection ops' greedy suppression, which ports no TPU kernel)
-returns a bool mask and has no gradient.
+returns a bool mask and has no gradient.  ``rnn_cell.lstm_cell`` and
+``rnn_cell.gru_cell`` (the fused RNN op's step, which ports no TPU
+kernel either) run through autograd Functions whose backward is the
+backward kernel.
 The raw wrappers (``flash_forward``, ``layer_norm_fwd``,
 ``fused_residual_ln_fwd``, ``bn_fwd``, ``bn_bwd`` and the like) keep
 no graph, so on the card they refuse inputs that require grad
@@ -129,6 +132,7 @@ def _modules():
     bn = importlib.import_module(__name__ + ".batch_norm")
     conv = importlib.import_module(__name__ + ".conv")
     nms = importlib.import_module(__name__ + ".nms")
+    rnn = importlib.import_module(__name__ + ".rnn_cell")
     return {"flash_attention_fwd": (fa, "LAUNCHES"),
             "flash_attention_bwd_dq": (fa, "DQ_LAUNCHES"),
             "flash_attention_bwd_dkv": (fa, "DKV_LAUNCHES"),
@@ -141,7 +145,11 @@ def _modules():
             "batch_norm_fwd_cm": (bn, "FWD_CM_LAUNCHES"),
             "batch_norm_bwd_cm": (bn, "BWD_CM_LAUNCHES"),
             "conv_nhwc": (conv, "CONV_LAUNCHES"),
-            "nms": (nms, "LAUNCHES")}
+            "nms": (nms, "LAUNCHES"),
+            "lstm_cell_fwd": (rnn, "LSTM_FWD_LAUNCHES"),
+            "lstm_cell_bwd": (rnn, "LSTM_BWD_LAUNCHES"),
+            "gru_cell_fwd": (rnn, "GRU_FWD_LAUNCHES"),
+            "gru_cell_bwd": (rnn, "GRU_BWD_LAUNCHES")}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,15 +1,17 @@
 """Evaluation metrics (the counterpart of ``mxtpu/metric.py``):
 ``create``, ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy``, ``CustomMetric`` and the detection
-mAPs ``VOC07MApMetric`` (``voc07_map``) and ``MApMetric`` (``det_map``).
+``TopKAccuracy``, ``CrossEntropy``, ``Perplexity``, ``CustomMetric``
+and the detection mAPs ``VOC07MApMetric`` (``voc07_map``) and
+``MApMetric`` (``det_map``).
 
 Metrics update on the host from (label, pred) NDArray lists: each
 ``update`` copies its arrays to numpy, a sync with the card per batch,
 as in the reference.  The other metrics of the JAX package (F1, MAE,
-MSE, RMSE, Perplexity, ...) wait.
+MSE, RMSE, ...) wait.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List
 
 import numpy as _np
@@ -18,7 +20,7 @@ from .base import MXNetError, Registry, _as_list
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "CustomMetric", "VOC07MApMetric", "MApMetric",
+           "CrossEntropy", "Perplexity", "CustomMetric", "VOC07MApMetric", "MApMetric",
            "create", "register", "check_label_shapes"]
 
 _REGISTRY: Registry = Registry("metric")
@@ -214,6 +216,44 @@ class CrossEntropy(EvalMetric):
             prob = pred[_np.arange(label.shape[0]), label.astype("int64")]
             self.sum_metric += float((-_np.log(prob + self.eps)).sum())
             self.num_inst += label.shape[0]
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp(mean negative log-likelihood) of the labels' probabilities,
+    those of ``ignore_label`` left out (reference
+    ``metric.Perplexity``†)."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names,
+                         ignore_label=ignore_label)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            pred = _as_numpy(pred)
+            label = _as_numpy(label).reshape(-1).astype("int64")
+            pred = pred.reshape(-1, pred.shape[-1])
+            probs = pred[_np.arange(label.shape[0]), label]
+            if self.ignore_label is not None:
+                ignore = label == self.ignore_label
+                probs = _np.where(ignore, 1.0, probs)
+                num -= int(ignore.sum())
+            loss -= float(_np.sum(_np.log(_np.maximum(1e-10, probs))))
+            num += label.shape[0]
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
 
 
 class CustomMetric(EvalMetric):

@@ -120,7 +120,7 @@ class BaseModule:
             eval_end_callback=None, initializer="uniform",
             arg_params=None, aux_params=None, allow_missing=False,
             force_rebind=False, force_init=False, begin_epoch=0,
-            num_epoch=None, validation_metric=None):
+            num_epoch=None, validation_metric=None, monitor=None):
         """The canonical training loop (reference ``fit``†; call stack
         SURVEY §3.3)."""
         assert num_epoch is not None, "num_epoch required"
@@ -128,6 +128,8 @@ class BaseModule:
             self.bind(data_shapes=train_data.provide_data,
                       label_shapes=train_data.provide_label,
                       for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params,
                          allow_missing=allow_missing,
@@ -143,9 +145,13 @@ class BaseModule:
             eval_metric.reset()
             train_data.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     cbs = batch_end_callback if isinstance(
                         batch_end_callback, (list, tuple)) \
@@ -170,6 +176,9 @@ class BaseModule:
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f",
                                      epoch, name, val)
+
+    def install_monitor(self, monitor):
+        raise NotImplementedError
 
     def get_input_grads(self):
         raise NotImplementedError

@@ -6,8 +6,7 @@ One executor on one device (``context=``, default the card) evaluates
 the graph; batches from the host are copied onto it.  ``kvstore`` is
 accepted as ``"local"`` (or ``"device"``) and changes nothing, as in
 the JAX package: the update runs in this process through an
-:class:`~mxtpu_torch.optimizer.Updater`.  ``BucketingModule`` and
-``SequentialModule`` wait.
+:class:`~mxtpu_torch.optimizer.Updater`.
 """
 from __future__ import annotations
 
@@ -219,6 +218,9 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
+
+    def install_monitor(self, monitor):
+        monitor.install(self._exec)
 
     # -- persistence ------------------------------------------------------
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):

@@ -886,6 +886,77 @@ register_op("pick", num_inputs=2,
 register_op("where", num_inputs=3)(
     lambda cond, x, y: torch.where(cond.bool(), x, y))
 
+
+# ----------------------------------------------------------------------
+# sequence ops (``ops_impl.py:451-500``): time on ``axis`` (0 or 1), the
+# batch on the other; ``sequence_length`` truncated to integers
+# ----------------------------------------------------------------------
+def _steps_of(data, seq_len, axis):
+    """(T, N) or (N, T) positions and lengths, broadcast to ``data``'s
+    trailing axes."""
+    T = data.shape[axis]
+    pos = torch.arange(T, device=data.device)
+    sl = seq_len.to(torch.int32).to(torch.int64)
+    pos, sl = (pos[:, None], sl[None, :]) if axis == 0 else \
+        (pos[None, :], sl[:, None])
+    tail = (1,) * (data.ndim - 2)
+    return pos.reshape(pos.shape + tail), sl.reshape(sl.shape + tail)
+
+
+def _sequence_mask(data, *seq, use_sequence_length=False, value=0.0,
+                   axis=0):
+    """``value`` where the step is at or past the row's length."""
+    if not (use_sequence_length and seq):
+        return data
+    pos, sl = _steps_of(data, seq[0], axis)
+    return torch.where(pos < sl, data,
+                       torch.tensor(value, dtype=data.dtype,
+                                    device=data.device))
+
+
+def _take_fill(data, axis, idx):
+    """``jnp.take_along_axis``'s rule: an index below 0 counts from the
+    end, one still outside [0, T) reads NaN."""
+    T = data.shape[axis]
+    idx = torch.where(idx < 0, idx + T, idx)
+    ok = (idx >= 0) & (idx < T)
+    out = data.gather(axis, idx.clamp(0, T - 1).expand(
+        *[s if d == axis else data.shape[d]
+          for d, s in enumerate(idx.shape)]))
+    return torch.where(ok, out, torch.tensor(float("nan"), dtype=data.dtype,
+                                             device=data.device))
+
+
+def _sequence_last(data, *seq, use_sequence_length=False, axis=0):
+    """The step at each row's length - 1 (the last step without
+    lengths)."""
+    if not (use_sequence_length and seq):
+        return data.select(axis, data.shape[axis] - 1)
+    idx = seq[0].to(torch.int32).to(torch.int64) - 1
+    shape = ((1, -1) if axis == 0 else (-1, 1)) + (1,) * (data.ndim - 2)
+    return _take_fill(data, axis, idx.reshape(shape)).squeeze(axis)
+
+
+def _sequence_reverse(data, *seq, use_sequence_length=False, axis=0):
+    """Each row's first ``length`` steps reversed, the rest in place (all
+    steps without lengths)."""
+    if not (use_sequence_length and seq):
+        return data.flip(axis)
+    pos, sl = _steps_of(data, seq[0], axis)
+    return _take_fill(data, axis, torch.where(pos < sl, sl - 1 - pos, pos))
+
+
+register_op("SequenceMask", num_inputs=-1,
+            params=[Param("use_sequence_length", bool, False),
+                    Param("value", float, 0.0),
+                    Param("axis", int, 0)])(_sequence_mask)
+register_op("SequenceLast", num_inputs=-1,
+            params=[Param("use_sequence_length", bool, False),
+                    Param("axis", int, 0)])(_sequence_last)
+register_op("SequenceReverse", num_inputs=-1,
+            params=[Param("use_sequence_length", bool, False),
+                    Param("axis", int, 0)])(_sequence_reverse)
+
 _SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
 
 

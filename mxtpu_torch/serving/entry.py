@@ -41,6 +41,7 @@ stand-ins of the bound tensors) to learn what a recipe records.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -123,6 +124,35 @@ def _failing_node(err: BaseException) -> str:
     return "no graph node (outside the plan)"
 
 
+_GC_LOCK = threading.Lock()
+# captures running with the collector off, and its state before them
+_GC_HOLDS = 0   # guarded-by: _GC_LOCK
+_GC_WAS_ON = False   # guarded-by: _GC_LOCK
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """The cyclic garbage collector off while any thread captures: a
+    collection inside a capture that frees another entry's graph
+    destroys it (``cudaGraphExecDestroy``) on the capturing thread, a
+    call the capture forbids, and the capture is invalidated.  Counted,
+    so that concurrent captures turn it back on only when the last one
+    ends, as it was before the first."""
+    global _GC_HOLDS, _GC_WAS_ON
+    with _GC_LOCK:
+        if _GC_HOLDS == 0:
+            _GC_WAS_ON = gc.isenabled()
+            gc.disable()
+        _GC_HOLDS += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_HOLDS -= 1
+            if _GC_HOLDS == 0 and _GC_WAS_ON:
+                gc.enable()
+
+
 class Entry:
     """``fn(*inputs, *bound)`` for one bucket's shapes.
 
@@ -176,7 +206,7 @@ class Entry:
         del stand_ins
         graph = torch.cuda.CUDAGraph()
         try:
-            with kernels.recording() as record:
+            with kernels.recording() as record, _no_collection():
                 with torch.cuda.graph(graph, pool=pool.handle,
                                       capture_error_mode="thread_local"):
                     with guards.no_implicit_transfers(guard, device):

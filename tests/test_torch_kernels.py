@@ -201,6 +201,13 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
                     residual=xb)[0].sum().backward()
     tk.fused_bn_act(x, torch.ones(16), torch.zeros(16))[0].sum().backward()
     tk.conv_nhwc(torch.randn(1, 3, 3, 8), torch.randn(3, 3, 8, 8))
+    rc = importlib.import_module("mxtpu_torch.kernels.rnn_cell")
+    pre = torch.randn(2, 12, requires_grad=True)
+    sum(rc.lstm_cell(pre, torch.randn(2, 12), torch.randn(2, 3))) \
+        .sum().backward()
+    rc.gru_cell(pre[:, :9], torch.randn(2, 9), torch.randn(3),
+                torch.randn(2, 3)).sum().backward()
+    assert pre.grad is not None
     assert x.grad is not None and qkv[0].grad is not None
     assert xb.grad is not None
     assert tk.launch_counts() == {"flash_attention_fwd": 0,
@@ -215,7 +222,11 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
                                   "batch_norm_fwd_cm": 0,
                                   "batch_norm_bwd_cm": 0,
                                   "conv_nhwc": 0,
-                                  "nms": 0}
+                                  "nms": 0,
+                                  "lstm_cell_fwd": 0,
+                                  "lstm_cell_bwd": 0,
+                                  "gru_cell_fwd": 0,
+                                  "gru_cell_bwd": 0}
 
 
 def test_dispatch_refuses_devices_it_has_no_path_for():

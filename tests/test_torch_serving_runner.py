@@ -696,3 +696,38 @@ def test_guard_knobs_match_mxtpu(monkeypatch):
         assert (t.default, t.kind) == (j.default, j.kind)
     monkeypatch.setenv("MXNET_GUARDS_CHURN_LIMIT", "3")
     assert guards.ChurnDetector("k").limit == 3
+
+
+def test_capture_holds_the_collector_off_counted():
+    """A capture runs with the cyclic garbage collector off (a
+    collection that frees another entry's graph would destroy it inside
+    the capture); nested and concurrent holds turn it back on only when
+    the last ends, and leave it off where it was off."""
+    import gc
+    import threading
+    from mxtpu_torch.serving import entry
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        with entry._no_collection():
+            assert not gc.isenabled()
+            done = threading.Event()
+            release = threading.Event()
+
+            def other():
+                with entry._no_collection():
+                    done.set()
+                    release.wait(10)
+            t = threading.Thread(target=other)
+            t.start()
+            assert done.wait(10)
+        assert not gc.isenabled()        # the other capture still holds
+        release.set()
+        t.join(10)
+        assert not t.is_alive() and gc.isenabled()
+        gc.disable()
+        with entry._no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -16,9 +16,11 @@ fed from the input pipeline (``bench_resnet50_pipeline``'s recipe),
 step every ResNet of the model zoo, serve BERT-Large from a fleet
 of workers through a kill, a warm replacement, scripted faults and the
 autoscaler, run detection, warm serving processes and fleet
-replicas from the persistent compile cache, and train an LSTM language
+replicas from the persistent compile cache, train an LSTM language
 model at the width of Zaremba et al.'s large PTB model on the cell
-kernel, with BucketingModule beside it.
+kernel, with BucketingModule beside it, and run bench.py's moe_ffn row
+on the route, dispatch and combine kernels, MoEDense under 2-bit
+gradient compression and plan_zero_buckets on BERT-Large.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -489,6 +491,47 @@ Phases, each fatal on failure:
      and ``BUCKET_*`` constants and stub ``device_ms``, ``time_ms``,
      ``reset_peak``, ``profiled_step`` and the ``torch.cuda`` calls:
      the launch gates fail there.
+ 26. MoE and the one-card stores (``moe_phase``, ~5-10 s): (a) the route,
+     dispatch and combine kernels of ``csrc/moe.cu`` (through
+     ``parallel.moe.ffn_kernels``) against mxtpu's dense one-hot form
+     (``ffn_dense``, TF32 off) on the same inputs at bench.py's
+     ``moe_ffn`` shape (T 8192, E 8, D 1024, H 4096, capacity 1280,
+     bf16) and in f32 at T 2048 with a skewed router (tokens dropped,
+     slots left empty; there also ``switch_router``'s dense maps
+     against the dense router's, bit for bit): routing equal (a token
+     routed
+     otherwise must be a near tie, top-2 probabilities within 1e-6),
+     ``expert_in`` and y bit-equal, aux and the gradients of sum(y * c)
+     + 0.01 aux in x and the five parameters at TOL, one launch of each
+     of the five kernels (route, dispatch, combine, and the dispatch's
+     and combine's backwards) a forward + backward; (b) bench's numbers:
+     ``MoEFFN.apply`` forward + backward (the gradient of sum(y) * 1e-3
+     in x, as bench's chain) through the kernels, the main path, its
+     launches exactly one of each a step, beside the plain dense form,
+     the dense FFN of the same D -> H -> D and the experts alone on
+     pre-dispatched inputs (CUDA events, median of 3 windows of 8 after
+     2), tokens/s,
+     the ratio to the dense FFN, the router+dispatch share, peak
+     memory, one step profiled by kernel family; (c) each kernel at bench's shape against its plain version
+     (integer maps equal, floats bit-equal but the route's
+     probabilities (1e-6 relative), mean_p and d_gate_p (f32 TOL)),
+     device ms beside its plain version, a library yardstick
+     (``index_select`` for the gathers, ``embedding_bag`` with
+     per-sample weights for the combine, none for the route and the
+     combine's backward) and the bytes bound, each timed with its
+     inputs cold past the L2 as the bound reads them (the L2-warm
+     times beside them); (d) ``MoEDense`` at
+     bench's widths in f32 for 3 SGD steps of mxtpu's Gluon loop under
+     ``Trainer(compression_params={'type': '2bit'})``: every pulled
+     gradient on {-0.5, 0, +0.5}, residual + sent equal to gradient +
+     previous residual bit for bit, one launch of each kernel a step;
+     (e) BERT-Large (T 128) built on the host: its replicated adam
+     state bytes against ``plan_zero_buckets``' dp = 8 per-device
+     footprint, within replicated / 8 x 1.15 (``bench_bert_zero``).
+     To rehearse on the CPU set ``CARD="cpu"``, shrink the ``MOE_*``
+     constants, patch ``mxtpu_torch.models.bert_large`` to a tiny BERT
+     and stub ``device_ms``, ``time_ms``, ``reset_peak``, ``peak_gb``
+     and ``torch.cuda.synchronize``: the launch gates fail there.
 
 Tolerances: a kernel's result r passes against the plain p when
 |r - p| <= tol * max(1, |p|), tol = 1e-4 in f32 (another summation
@@ -543,7 +586,9 @@ recovery run's launches; #8/#9 with ``"path": "detection"`` at
 8 x 32 x 300² with SSD-300's eager steps' launches, and the NMS kernel at
 SSD's detection shape with the main path's NMS launches of (d)-(f);
 the cell kernels with ``"path": "rnn"`` at the LM's step shape, f32
-with the LM's and the GRU window's launches, bf16 with TrainStep's),
+with the LM's and the GRU window's launches, bf16 with TrainStep's; the
+five MoE kernels with ``"path": "moe"`` at bench's moe_ffn shape, bf16,
+with the launches of the bench loop through ``MoEFFN.apply``),
 and last the line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without CUDA or outside a checkout.  A full report goes to
@@ -10128,6 +10173,568 @@ def rnn_phase(checks):
                           "phase_s": phase_s}
 
 
+# ----------------------------------------------------------------------
+# phase 26: MoE and the one-card stores — the route, dispatch and
+# combine kernels (csrc/moe.cu) on bench.py's moe_ffn row, MoEDense's
+# Gluon loop under 2-bit gradient compression, plan_zero_buckets
+# ----------------------------------------------------------------------
+MOE_T, MOE_E, MOE_D, MOE_H, MOE_CF = 8192, 8, 1024, 4096, 1.25
+MOE_F32_T = 2048                # the f32 run of the kernel-vs-plain gate
+MOE_ITERS, MOE_WARMUP = 8, 2    # bench_moe_ffn's iters and warm-up
+MOE_WINDOWS = 3                 # timed windows of MOE_ITERS steps
+MOE_ALPHA = 0.01                # the aux loss's weight in the gates
+MOE_GLUON_T, MOE_GLUON_STEPS, MOE_GLUON_LR = 2048, 3, 1e-4
+MOE_THRESHOLD = 0.5             # 2-bit compression's default threshold
+MOE_NEAR_TIE = 1e-6             # top-2 router probabilities this close
+MOE_SKEW = 1.0                  # expert 0's mean logit raise in the f32 gate
+MOE_FLUSH_MB = 128              # past the 50 MB L2: the kernels' cold reads
+MOE_SRC = "mxtpu_torch/csrc/moe.cu"
+MOE_REPLACES = {
+    "moe_route": "mxtpu/parallel/moe.py:37 (switch_router: softmax, "
+                 "argmax, cumsum slots; no TPU kernel)",
+    "moe_dispatch": "mxtpu/parallel/moe.py:94 (einsum td,tec->ecd; no "
+                    "TPU kernel)",
+    "moe_dispatch_bwd": "mxtpu/parallel/moe.py:94 (the einsum's "
+                        "transpose; no TPU kernel)",
+    "moe_combine": "mxtpu/parallel/moe.py:118 (einsum ecd,tec->td; no "
+                   "TPU kernel)",
+    "moe_combine_bwd": "mxtpu/parallel/moe.py:118 (the einsum's "
+                       "transpose; no TPU kernel)"}
+MOE_KERNELS = tuple(MOE_REPLACES)
+MOE_PER_STEP = {k: 1 for k in MOE_KERNELS}
+KERNEL_NAMES.update({k: (f"{k}_kernel",) for k in MOE_KERNELS})
+
+
+def moe_inputs(T, dtype, seed):
+    """bench_moe_ffn's layer (MoEFFN(D, H, E, 1.25): f32 weights) and a
+    (T, D) batch in ``dtype``, on the card."""
+    import torch
+    from mxtpu_torch.parallel import moe
+    layer = moe.MoEFFN(MOE_D, MOE_H, MOE_E, capacity_factor=MOE_CF,
+                       seed=seed, device=CARD)
+    g = torch.Generator(device=CARD).manual_seed(seed + 1)
+    x = torch.randn(T, MOE_D, generator=g, device=CARD).to(dtype)
+    return layer, x
+
+
+def moe_near_ties(x, gate_w):
+    """Tokens whose two largest router probabilities (f64) lie within
+    MOE_NEAR_TIE relative of each other."""
+    import torch
+    p = torch.softmax(x.double() @ gate_w.double(), -1)
+    top = p.topk(2, -1).values
+    return (top[:, 0] - top[:, 1] <= MOE_NEAR_TIE * top[:, 0])
+
+
+def moe_run(form, layer, x, c):
+    """One forward + backward of ``form`` (parallel.moe.ffn_kernels or
+    ffn_dense) on the loss sum(y * c) + MOE_ALPHA * aux: its y, aux and
+    the gradients of x and the five parameters."""
+    import torch
+    ts = [t.detach().clone().requires_grad_(True)
+          for t in (x,) + layer.params()]
+    cap = max(int(np.ceil(x.shape[0] / MOE_E * MOE_CF)), 1)
+    y, aux = form(*ts, cap, torch.relu)
+    ((y.float() * c).sum() + MOE_ALPHA * aux).backward()
+    torch.cuda.synchronize()
+    return y.detach(), aux.detach(), [t.grad for t in ts]
+
+
+def moe_maps(layer, x):
+    """Each form's slot_of_token and expert_in from the same logits:
+    the route and dispatch kernels', and the dense router's one-hot
+    einsum (ffn_dense's)."""
+    import torch
+    from mxtpu_torch.kernels import moe as km
+    from mxtpu_torch.parallel import moe
+    cap = moe.capacity_of(x.shape[0], MOE_E, MOE_CF)
+    with torch.no_grad():
+        logits = moe._logits(x, layer.gate_w, None, 0.0)
+        _, _, sot, tos, _ = km.route_tokens(logits, cap)
+        kernel = {"slot_of_token": sot,
+                  "expert_in": km.dispatch_tokens(x, tos, sot)}
+        dispatch = moe._dense_route(logits, cap)[0]
+        flat = dispatch.reshape(dispatch.shape[0], -1)
+        dense = {"slot_of_token": torch.where(
+                     flat.sum(-1) > 0, flat.argmax(-1), -1).to(torch.int32),
+                 "expert_in": torch.einsum(
+                     "td,tec->ecd", x.float(), dispatch).to(x.dtype)
+                 .reshape(-1, x.shape[1])}
+    torch.cuda.synchronize()
+    return kernel, dense
+
+
+def moe_gate(checks, tag, T, dtn, skew=0.0):
+    """The kernel path against the plain dense path on the same inputs:
+    routing equal (but for near ties), expert_in and y bit-equal, aux
+    and every gradient within TOL (bf16: 2e-2 of max(min(1, rms),
+    |p|)); one launch of each kernel in the forward + backward.  With
+    ``skew`` the data is offset by 0.5 and expert 0's logit raised by
+    ``skew`` on average, so its queue overflows (dropped tokens) and the
+    other experts' slots are left partly empty; there switch_router's
+    dense maps (scattered from the route kernel's) are held bit for bit
+    against the dense router's."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.parallel import moe
+    dt = getattr(torch, dtn)
+    layer, x = moe_inputs(T, dt, SEED + 300)
+    if skew:
+        x = (x.float() + 0.5).to(dt)
+        layer.gate_w[:, 0] += skew / (0.5 * MOE_D)
+    g = torch.Generator(device=CARD).manual_seed(SEED + 302)
+    c = torch.randn(T, MOE_D, generator=g, device=CARD) / MOE_D ** 0.5
+    kernels.reset_launch_counts()
+    ky, ka, kg = moe_run(moe.ffn_kernels, layer, x, c)
+    counts = kernels.launch_counts()
+    check_launches(checks, f"moe {tag}", counts, MOE_PER_STEP, 1)
+    py, pa, pg = moe_run(moe.ffn_dense, layer, x, c)
+    kt, pt = moe_maps(layer, x)
+    ties = moe_near_ties(x, layer.gate_w)
+    differ = kt["slot_of_token"] != pt["slot_of_token"]
+    routing_ok = bool((~differ | ties).all())
+    exact = not bool(differ.any())
+    ein_eq = exact and torch.equal(kt["expert_in"], pt["expert_in"])
+    y_eq = exact and torch.equal(ky, py)
+    print(f"check moe {tag} [{dtn}] T{T}: routing "
+          f"{'equal' if exact else 'DIFFERENT'} ({int(differ.sum())} "
+          f"tokens differ, {int(ties.sum())} near ties, "
+          f"{int((kt['slot_of_token'] < 0).sum())} dropped), expert_in "
+          f"{'bit-equal' if ein_eq else 'DIFFERENT'}, y "
+          f"{'bit-equal' if y_eq else 'DIFFERENT'}; one forward + "
+          f"backward launched {json.dumps({k: counts[k] for k in MOE_KERNELS})}",
+          flush=True)
+    dropped = int((kt["slot_of_token"] < 0).sum())
+    checks.rows.append({"check": f"moe {tag}", "dtype": dtn,
+                        "routing_equal": exact, "near_ties":
+                        int(ties.sum()), "dropped": dropped,
+                        "expert_in_bit_equal": ein_eq,
+                        "y_bit_equal": y_eq,
+                        "ok": routing_ok and (ein_eq and y_eq or
+                                              not exact)})
+    if skew and not dropped:
+        checks.failed.append(f"moe {tag}: the skewed routing dropped no "
+                             f"token")
+    if skew:
+        # switch_router's dense return scattered from the route kernel's
+        # maps against mxtpu's dense router on the same logits
+        cap = moe.capacity_of(T, MOE_E, MOE_CF)
+        with torch.no_grad():
+            kd, kc, kaux = moe.switch_router(x, layer.gate_w, cap)
+            pd, pc, paux = moe._dense_route(
+                x.float() @ layer.gate_w.float(), cap)
+        same = torch.equal(kd, pd) and torch.equal(kc, pc)
+        print(f"check moe switch_router [{dtn}] T{T}: dispatch and combine "
+              f"{'bit-equal' if same else 'DIFFERENT'} to the dense "
+              f"router's", flush=True)
+        if not same:
+            checks.failed.append(f"moe {tag}: switch_router's dense maps "
+                                 f"differ from the dense router's")
+        checks.close(f"moe {tag} switch_router aux", kaux.reshape(1),
+                     paux.reshape(1), "float32")
+    if not routing_ok:
+        checks.failed.append(f"moe {tag}: {int(differ.sum())} tokens "
+                             f"routed otherwise, not all near ties")
+    elif exact and not (ein_eq and y_eq):
+        checks.failed.append(f"moe {tag}: expert_in or y not bit-equal to "
+                             f"the plain dense path")
+    checks.close(f"moe {tag} aux", ka.reshape(1), pa.reshape(1), "float32")
+    for name, a, b in zip(("x", "gate_w", "w1", "b1", "w2", "b2"), kg, pg):
+        checks.close(f"moe {tag} d{name}", a.float(), b.float(), dtn,
+                     floor=scale_floor(b.float(), dtn))
+    return counts
+
+
+def moe_fwd_bwd(fn, x):
+    """bench_moe_ffn's step: y = fn(x), then the gradient of
+    sum(f32(y)) * 1e-3 with respect to x (bench's _chain)."""
+    xx = x.detach().requires_grad_(True)
+    y = fn(xx)
+    (y.float().sum() * 1e-3).backward()
+    return xx.grad
+
+
+def moe_bench(checks):
+    """bench.py's moe_ffn row on the card (T 8192, E 8, D 1024, H 4096,
+    bf16, forward + backward): through MoEFFN.apply (the kernels; the
+    main path, counted), the plain dense form, the dense FFN of the same
+    D -> H -> D, the experts alone on pre-dispatched inputs; each the
+    median of MOE_WINDOWS windows of MOE_ITERS steps between CUDA events
+    after MOE_WARMUP; peak memory of the kernel path and the dense FFN;
+    one profiled step of the kernel path by kernel family."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.parallel import moe
+    layer, x = moe_inputs(MOE_T, torch.bfloat16, SEED + 310)
+    params = layer.params()
+    C = moe.capacity_of(MOE_T, MOE_E, MOE_CF)
+
+    def moe_out(xx):
+        return layer.apply(params, xx)[0]
+
+    def plain_out(xx):
+        return moe.ffn_dense(xx, *params, C, torch.relu)[0]
+    g = torch.Generator(device=CARD).manual_seed(SEED + 311)
+    w1 = (torch.randn(MOE_D, MOE_H, generator=g, device=CARD) /
+          MOE_D ** 0.5).to(torch.bfloat16)
+    w2 = (torch.randn(MOE_H, MOE_D, generator=g, device=CARD) /
+          MOE_H ** 0.5).to(torch.bfloat16)
+
+    def dense_out(xx):
+        return torch.relu(xx @ w1) @ w2
+    w1e, b1e, w2e, b2e = (p.to(torch.bfloat16) for p in params[1:])
+    xe = torch.randn(MOE_E, C, MOE_D, generator=g,
+                     device=CARD).to(torch.bfloat16)
+
+    def experts_out(v):
+        return moe._experts(v, w1e, b1e, w2e, b2e, torch.relu)
+
+    def steps(fn, xin, n):
+        for _ in range(n):
+            moe_fwd_bwd(fn, xin)
+    out, windows = {}, {}
+    for name, fn, xin in (("moe", moe_out, x), ("plain", plain_out, x),
+                          ("dense_ffn", dense_out, x),
+                          ("experts", experts_out, xe)):
+        steps(fn, xin, MOE_WARMUP)
+        if name == "moe":
+            # the main path: counts from 0 just before, read just after
+            kernels.reset_launch_counts()
+        reset_peak()
+        windows[name] = [time_ms(lambda: moe_fwd_bwd(fn, xin),
+                                 iters=MOE_ITERS, warmup=0)
+                         for _ in range(MOE_WINDOWS)]
+        out[name] = float(np.median(windows[name]))
+        if name == "moe":
+            counts = kernels.launch_counts()
+            out["moe_peak_gb"] = peak_gb()
+        elif name == "dense_ffn":
+            out["dense_peak_gb"] = peak_gb()
+    check_launches(checks, "moe bench (MoEFFN.apply fwd+bwd)", counts,
+                   MOE_PER_STEP, MOE_ITERS * MOE_WINDOWS)
+    # where a step's time goes: device kernels by family, one step
+    # profiled (its launches past the main path's count)
+    prof = kernels_of(lambda: moe_fwd_bwd(moe_out, x))
+    fams = {}
+    for key, ms in prof:
+        fam = family_of(key)
+        fams[fam] = fams.get(fam, 0.0) + ms
+    busy = sum(fams.values())
+    toks = MOE_T / (out["moe"] / 1e3)
+    res = {"shape": {"T": MOE_T, "E": MOE_E, "D": MOE_D, "H": MOE_H,
+                     "capacity": C, "dtype": "bfloat16"},
+           "moe_ms": out["moe"], "plain_dense_ms": out["plain"],
+           "dense_ffn_ms": out["dense_ffn"], "experts_ms": out["experts"],
+           "tokens_per_s": toks,
+           "dense_ffn_tokens_per_s": MOE_T / (out["dense_ffn"] / 1e3),
+           "vs_dense_ffn": out["dense_ffn"] / out["moe"],
+           "vs_plain_dense": out["plain"] / out["moe"],
+           "router_dispatch_share": max(0.0, out["moe"] - out["experts"])
+           / out["moe"],
+           "peak_gb": out["moe_peak_gb"],
+           "dense_ffn_peak_gb": out["dense_peak_gb"],
+           "windows_ms": windows, "launches": counts, "device_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / out["moe"]),
+           "device_by_family": fams, "top_kernels": prof[:12]}
+    print(f"moe bench (bench.py moe_ffn: T{MOE_T} E{MOE_E} D{MOE_D} "
+          f"H{MOE_H} C{C} bf16, fwd+bwd, CUDA events, median of "
+          f"{MOE_WINDOWS} windows of {MOE_ITERS}): kernels {out['moe']:.4f} "
+          f"ms = {toks:.1f} "
+          f"tokens/s; plain dense form {out['plain']:.4f} ms "
+          f"({res['vs_plain_dense']:.2f}x the kernels); dense FFN "
+          f"{out['dense_ffn']:.4f} ms ({res['dense_ffn_tokens_per_s']:.1f} "
+          f"tokens/s, vs_dense_ffn {res['vs_dense_ffn']:.4f}); experts "
+          f"alone {out['experts']:.4f} ms, router+dispatch share "
+          f"{res['router_dispatch_share']:.4f}; peak "
+          f"{out['moe_peak_gb']:.3f} GB (dense FFN "
+          f"{out['dense_peak_gb']:.3f} GB); windows "
+          f"{json.dumps({k: [round(v, 4) for v in w] for k, w in windows.items()})}"
+          f"; launches in {MOE_ITERS * MOE_WINDOWS} steps "
+          f"{json.dumps({k: counts[k] for k in MOE_KERNELS})}; one step "
+          f"profiled: device {busy:.4f} ms, idle share "
+          f"{res['idle_share']:.4f}, by family "
+          f"{json.dumps({k: round(v, 5) for k, v in fams.items()})}; top "
+          f"kernels {json.dumps([[k[:70], round(v, 5)] for k, v in prof[:8]])}",
+          flush=True)
+    return counts, res
+
+
+def moe_kernel_rows(checks):
+    """Each kernel at bench's shape (bf16, routed by the layer's own
+    router) against its plain version on the same inputs (integer maps
+    equal, floats bit-equal but the route's probabilities, 1e-6
+    relative, and mean_p and d_gate_p, summed in another order, at the
+    f32 TOL), then device ms of the kernel, its plain version and a
+    library yardstick (index_select for the gathers, embedding_bag with
+    per-sample weights for the combine) beside the bytes bound.  Each is
+    timed cold, its inputs flushed past the L2 by a write of
+    MOE_FLUSH_MB before every call, as the bound reads them at the HBM
+    rate: the kernel by its own name, the others as the time with the
+    flush less the flush's own.  The L2-warm times of repeated calls
+    are kept beside them (``warm_ms``)."""
+    import torch
+    from mxtpu_torch.kernels import moe as km
+    from mxtpu_torch.parallel import moe
+    layer, x = moe_inputs(MOE_T, torch.bfloat16, SEED + 320)
+    C = moe.capacity_of(MOE_T, MOE_E, MOE_CF)
+    logits = x.float() @ layer.gate_w.float()
+    probs, expert, gate_p, sot, tos, frac, mean_p = km.route(logits, C)
+    g = torch.Generator(device=CARD).manual_seed(SEED + 321)
+    eo = torch.randn(MOE_E * C, MOE_D, generator=g,
+                     device=CARD).to(torch.bfloat16)
+    dy = torch.randn(MOE_T, MOE_D, generator=g,
+                     device=CARD).to(torch.bfloat16)
+    d_ein = torch.randn(MOE_E * C, MOE_D, generator=g,
+                        device=CARD).to(torch.bfloat16)
+    es = 2
+    kept = int((sot >= 0).sum())
+    filled = int((tos >= 0).sum())
+    tos_l, sot_l = tos.long().clamp_min(0), sot.long().clamp_min(0)
+    kept_slots = sot[sot >= 0].long()
+    offsets = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.long,
+                                                  device=CARD),
+                                      (sot >= 0).long()]), 0)[:-1]
+    w_kept = gate_p[sot >= 0]
+    flush = torch.empty(MOE_FLUSH_MB << 18, dtype=torch.float32,
+                        device=CARD)
+
+    def bag():
+        return torch.nn.functional.embedding_bag(
+            kept_slots, eo, offsets, mode="sum",
+            per_sample_weights=w_kept.to(eo.dtype))
+    cases = {
+        "moe_route": (lambda: km.route(logits, C),
+                      lambda: km.route_reference(logits, C), None,
+                      MOE_T * MOE_E * 4 * 2 + MOE_T * 4 * 3 +
+                      MOE_E * C * 4 + 2 * MOE_E * 4),
+        "moe_dispatch": (lambda: km.dispatch(x, tos),
+                         lambda: km.dispatch_reference(x, tos),
+                         lambda: x.index_select(0, tos_l),
+                         filled * MOE_D * es + MOE_E * C * 4 +
+                         MOE_E * C * MOE_D * es),
+        "moe_dispatch_bwd": (lambda: km.dispatch_bwd(d_ein, sot),
+                             lambda: km.dispatch_reference(d_ein, sot),
+                             lambda: d_ein.index_select(0, sot_l),
+                             kept * MOE_D * es + MOE_T * 4 +
+                             MOE_T * MOE_D * es),
+        "moe_combine": (lambda: km.combine(eo, sot, gate_p),
+                        lambda: km.combine_reference(eo, sot, gate_p), bag,
+                        kept * MOE_D * es + MOE_T * 8 + MOE_T * MOE_D * es),
+        "moe_combine_bwd": (lambda: km.combine_bwd(dy, eo, tos, gate_p),
+                            lambda: km.combine_bwd_reference(dy, eo, tos,
+                                                             gate_p), None,
+                            filled * MOE_D * es * 2 + MOE_E * C * 4 +
+                            MOE_T * 4 + MOE_E * C * MOE_D * es +
+                            MOE_T * 4)}
+    flush_ms = device_ms(flush.zero_)
+
+    def cold_ms(fn):
+        return device_ms(lambda: (flush.zero_(), fn())) - flush_ms
+    rows = {}
+    for name, (kern, plain, lib, nbytes) in cases.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err, ok = 0.0, True
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not a.is_floating_point():
+                ok = ok and torch.equal(a, b)
+                continue
+            r_, e_ = rel_err(a.float(), b.float())
+            err = max(err, e_)
+            loose = (name == "moe_route" and i == 6) or \
+                (name == "moe_combine_bwd" and i == 1)
+            if name == "moe_route" and i in (0, 2):
+                ok = ok and r_ <= 1e-6
+            elif loose:
+                ok = ok and r_ <= TOL["float32"]
+            else:
+                ok = ok and torch.equal(a, b)
+        lib_ms = lib_warm = None
+        if lib is not None:
+            try:
+                lib_warm, lib_ms = device_ms(lib), cold_ms(lib)
+            except RuntimeError as e:  # a yardstick this build lacks
+                print(f"time {name}: library call failed ({e}); "
+                      f"library_ms null", flush=True)
+        warm, plain_warm = device_ms(kern), device_ms(plain)
+        # the kernel's own launches after the flush, by name
+        ms = sum(device_ms(lambda: (flush.zero_(), kern()),
+                           by_name=list(KERNEL_NAMES[name])).values())
+        plain_ms = cold_ms(plain)
+        b_ms, b_by = bound(nbytes, 0, "bfloat16")
+
+        def f5(v):
+            return "null" if v is None else f"{v:.5f}"
+        print(f"check {name} [bfloat16] T{MOE_T} E{MOE_E} C{C} D{MOE_D}: "
+              f"kernel vs plain max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'FAIL'}; device ms, inputs cold past the "
+              f"L2: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={f5(lib_ms)} bound_ms={b_ms:.6f} ({b_by}, "
+              f"{nbytes} bytes; {kept} tokens kept, {filled} slots "
+              f"filled); L2 warm: kernel {warm:.5f} plain "
+              f"{plain_warm:.5f} library {f5(lib_warm)} (flush "
+              f"{flush_ms:.5f})", flush=True)
+        checks.rows.append({"check": name, "dtype": "bfloat16",
+                            "max_abs_err": err, "ok": ok})
+        if not ok:
+            checks.failed.append(f"{name}: the kernel differs from its "
+                                 f"plain version")
+        rows[name] = {"max_abs_err": err, "ms": ms, "warm_ms": warm,
+                      "plain_ms": plain_ms, "plain_warm_ms": plain_warm,
+                      "library_ms": lib_ms, "library_warm_ms": lib_warm,
+                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    return rows
+
+
+def moe_gluon_cell(checks):
+    """MoEDense (bench's widths) in mxtpu's Gluon loop for
+    MOE_GLUON_STEPS SGD steps under Trainer(compression_params={'type':
+    '2bit'}), f32, on a summed squared error: every pulled gradient on
+    {-t, 0, +t}, each of the three values seen, each
+    residual + sent equal to the gradient + the previous residual bit
+    for bit, one launch of each kernel a step, the losses finite."""
+    import torch
+    from mxtpu_torch import autograd, gluon, kernels, nd
+    from mxtpu_torch.gluon.contrib.nn import MoEDense
+    net = MoEDense(units=MOE_D, hidden=MOE_H, num_experts=MOE_E,
+                   capacity_factor=MOE_CF)
+    net.initialize(init="xavier", ctx=CARD)
+    g = torch.Generator(device=CARD).manual_seed(SEED + 330)
+    x = nd.NDArray(torch.randn(MOE_GLUON_T, MOE_D, generator=g,
+                               device=CARD))
+    target = nd.NDArray(torch.randn(MOE_GLUON_T, MOE_D, generator=g,
+                                    device=CARD))
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": MOE_GLUON_LR},
+                       compression_params={"type": "2bit"})
+    params = list(net.collect_params().values())
+    t = MOE_THRESHOLD
+    losses, on_grid, identity = [], True, True
+    grid = {"-t": 0, "0": 0, "+t": 0}
+    kernels.reset_launch_counts()
+    for step in range(MOE_GLUON_STEPS):
+        with autograd.record():
+            y, aux = net(x)
+            # a summed loss: gradients past the threshold, so the
+            # pulled values fill the grid
+            loss = nd.sum(nd.square(y - target)) + 0.01 * aux
+        loss.backward()
+        raw = [p.grad()._data.clone() for p in params]
+        kv = tr._kvstore
+        prev = [kv._residuals.get((i, 0)) if kv is not None else None
+                for i in range(len(params))]
+        tr.step(1)
+        kv = tr._kvstore
+        for i, p in enumerate(params):
+            sent = p.grad()._data
+            on_grid = on_grid and bool(((sent == t) | (sent == -t) |
+                                        (sent == 0)).all())
+            for k, v in (("-t", -t), ("0", 0.0), ("+t", t)):
+                grid[k] += int((sent == v).sum())
+            acc = raw[i] + (prev[i] if prev[i] is not None
+                            else torch.zeros_like(raw[i]))
+            identity = identity and torch.equal(kv._residuals[(i, 0)] +
+                                                sent, acc)
+        losses.append(float(loss.asscalar()))
+    counts = kernels.launch_counts()
+    # the data takes no gradient: no dispatch backward
+    check_launches(checks, "moe gluon (MoEDense, 2bit Trainer)", counts,
+                   {**MOE_PER_STEP, "moe_dispatch_bwd": 0}, MOE_GLUON_STEPS)
+    ok = on_grid and identity and np.isfinite(losses).all() and \
+        tr._kvstore is not None and min(grid.values()) > 0
+    print(f"check moe gluon: MoEDense({MOE_E} experts, {MOE_D} -> "
+          f"{MOE_H}) f32 T{MOE_GLUON_T}, {MOE_GLUON_STEPS} SGD steps under "
+          f"2-bit compression (t {t}): pulled gradients "
+          f"{'on {-t, 0, +t}' if on_grid else 'OFF THE GRID'}, residual + "
+          f"sent {'== accumulated bit for bit' if identity else 'DIFFERS'}"
+          f" (pulled values over the steps {json.dumps(grid)}); "
+          f"losses {[round(v, 6) for v in losses]}; launches "
+          f"{json.dumps({k: counts[k] for k in MOE_KERNELS})} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "moe gluon 2bit", "on_grid": on_grid,
+                        "identity": identity, "grid": grid,
+                        "losses": losses, "ok": ok})
+    if not ok:
+        checks.failed.append(f"moe gluon: grid {on_grid} {grid}, identity "
+                             f"{identity}, losses {losses}")
+    return {"losses": losses, "grid": grid, "launches": counts}
+
+
+def zero_plan_cell(checks):
+    """bench_bert_zero's accounting: BERT-Large (T 128), its adam state
+    replicated (m and v in f32 a parameter) against plan_zero_buckets'
+    dp = 8 per-device footprint, which must stay within replicated / 8
+    x 1.15.  The plan is host arithmetic on the parameters' shapes and
+    types, so the model is built on the host (zeros, one 8-token
+    forward to fix the deferred shapes)."""
+    import torch
+    from mxtpu_torch import parallel
+    from mxtpu_torch.models import bert_large
+    net = bert_large(vocab_size=VOCAB, max_length=128, dropout=0.1)
+    net.initialize(init="zeros", ctx="cpu")
+    with torch.no_grad():
+        net(torch.zeros(1, 8, dtype=torch.int64))
+    sigs = [(tuple(p.shape), str(p.data().dtype).replace("torch.", ""))
+            for p in net.collect_params().values() if p.grad_req != "null"]
+    replicated = sum(2 * 4 * int(np.prod(s)) for s, _ in sigs)
+    plan = parallel.plan_zero_buckets(sigs, 8)
+    planned = sum(2 * b["padded_bytes"] // 8 for b in plan)
+    ok = planned <= replicated / 8 * 1.15
+    print(f"check zero plan: BERT-Large {len(sigs)} trainable parameters, "
+          f"adam state replicated {replicated} bytes; plan_zero_buckets "
+          f"dp=8 per device {planned} bytes = "
+          f"{planned / (replicated / 8):.4f} x replicated/8 (limit 1.15), "
+          f"{len(plan)} buckets {'ok' if ok else 'FAIL'}", flush=True)
+    checks.rows.append({"check": "zero plan", "replicated": replicated,
+                        "planned": planned, "ok": ok})
+    if not ok:
+        checks.failed.append(f"zero plan: {planned} > replicated/8 x 1.15")
+    del net
+    return {"params": len(sigs), "replicated_adam_bytes": replicated,
+            "dp8_planned_bytes_per_device": planned, "buckets": len(plan)}
+
+
+def moe_phase(checks):
+    """Phase 26 (see the module's docstring): returns the main path's
+    launches (the bench loop through MoEFFN.apply), the kernels line's
+    rows and the numbers."""
+    import torch
+    t0 = time.perf_counter()
+    t_part = {}
+    gate_bf16 = moe_gate(checks, "kernels vs plain", MOE_T, "bfloat16")
+    gate_f32 = moe_gate(checks, "kernels vs plain skewed", MOE_F32_T,
+                        "float32", skew=MOE_SKEW)
+    t_part["gates"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, bench_row = moe_bench(checks)
+    t_part["bench"] = time.perf_counter() - t0 - sum(t_part.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = moe_kernel_rows(checks)
+    t_part["kernels"] = time.perf_counter() - t0 - sum(t_part.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    gluon_row = moe_gluon_cell(checks)
+    t_part["gluon"] = time.perf_counter() - t0 - sum(t_part.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = zero_plan_cell(checks)
+    t_part["zero"] = time.perf_counter() - t0 - sum(t_part.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    print(f"moe phase: {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in t_part.items()) + ")", flush=True)
+    return counts, rows, {"bench": bench_row, "kernels": rows,
+                          "gate_launches": {"bfloat16": gate_bf16,
+                                            "float32": gate_f32},
+                          "gluon_2bit": gluon_row, "zero_plan": zero,
+                          "phase_s": phase_s}
+
+
 def main():
     try:
         import torch
@@ -10246,6 +10853,7 @@ def main():
     cache = cache_phase(checks, params)
     del params
     rnn_counts, rnn_rows, rnn = rnn_phase(checks)
+    moe_counts, moe_rows, moe_info = moe_phase(checks)
     counts = {k: train_counts[k] + f32_counts[k] + serve_counts[k] +
               sym_counts[k] + sum(c[k] for c in rn_counts.values()) +
               sum(c[k] for c in gluon_counts.values()) +
@@ -10498,6 +11106,21 @@ def main():
                    for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms")}})
 
+    # phase 26: the MoE kernels (no TPU kernel: mxtpu routes with dense
+    # one-hot einsums) at bench's moe_ffn shape (bf16), with the launches
+    # of the bench loop through MoEFFN.apply
+    for name in MOE_KERNELS:
+        if moe_counts.get(name, 0) == 0:
+            checks.failed.append(f"kernel {name} never launched on the moe "
+                                 f"path")
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": MOE_SRC,
+            "replaces": MOE_REPLACES[name], "dtype": "bfloat16",
+            "path": "moe", "launches": moe_counts.get(name, 0),
+            **{k: moe_rows[name][k]
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "warm_ms")}})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": per_src,
               "build_log": dict(_build.build_log), "checks": checks.rows,
@@ -10527,6 +11150,7 @@ def main():
                                rnn_counts["float32"],
                            "rnn bf16 (LM lstm TrainStep)":
                                rnn_counts["bfloat16"],
+                           "moe bench (MoEFFN.apply)": moe_counts,
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,
                            **{f"tool {k}": c
@@ -10539,7 +11163,7 @@ def main():
               "serving": serving, "generation": generation,
               "transformer": transformer, "pipeline": pipeline,
               "fleet": fleet, "detection": detection, "cache": cache,
-              "rnn": rnn,
+              "rnn": rnn, "moe": moe_info,
               "symbolic": symbolic,
               "rtc": {**rtc_info, "timings": {
                   f"{n} {t}": r for (n, t), r in rtc_timings.items()}},

@@ -3,8 +3,8 @@
 The package mirrors ``mxtpu``'s layout and names (``nd``, ``autograd``,
 ``sym``, ``mod``, ``serving``, ``models``, ``gluon``, ``optimizer``,
 ``lr_scheduler``, ``parallel``, ``random``, ``rtc``, ``kernels``,
-``io``, ``recordio``, ``image``, ``profiler``, ``obs``; ``rnn`` and
-``monitor`` on first use) on
+``io``, ``recordio``, ``image``, ``profiler``, ``obs``; ``rnn``,
+``monitor`` and ``kvstore`` (also ``kv``) on first use) on
 torch tensors, so ``import mxtpu_torch as mx`` runs MXNet-1.x-style
 code.  Each Pallas kernel of a ported path becomes a kernel written by
 hand for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
@@ -35,8 +35,9 @@ __version__ = "0.1.0"
 def __getattr__(name):
     # mxtpu's lazy submodules (``mxtpu/__init__.py:64``)
     import importlib
-    if name in ("rnn", "monitor"):
-        mod = importlib.import_module("." + name, __name__)
+    if name in ("rnn", "monitor", "kvstore", "kv"):
+        mod = importlib.import_module(
+            "." + ("kvstore" if name == "kv" else name), __name__)
         globals()[name] = mod
         return mod
     raise AttributeError(f"module 'mxtpu_torch' has no attribute {name!r}")

@@ -15,6 +15,11 @@ parameters, then its buffers, module by module in registration order.
 ``Dense`` weights are (out, in) on both sides and convolution weights
 keep the reference's layout, so nothing is transposed.
 
+mxtpu's functional ``MoEFFN.params()`` is a 5-tuple ``(gate_w, w1, b1,
+w2, b2)`` of arrays; :func:`moe_params_from_numpy` makes the port's
+tensors of it.  ``gluon.contrib.nn.MoEDense`` is a Block and crosses by
+name like the others.
+
 Symbolic models name their arrays in the graph, the same names in both
 packages, so :func:`symbol_params_from_mxtpu` and
 :func:`symbol_params_to_mxtpu` carry ``Module.get_params()`` dicts by
@@ -37,7 +42,8 @@ from torch import nn
 from .base import MXNetError
 
 __all__ = ["params_from_mxtpu", "params_to_mxtpu", "named_tensors",
-           "symbol_params_from_mxtpu", "symbol_params_to_mxtpu"]
+           "symbol_params_from_mxtpu", "symbol_params_to_mxtpu",
+           "moe_params_from_numpy"]
 
 
 def _block_params(model):
@@ -159,3 +165,32 @@ def symbol_params_to_mxtpu(arg_params: Dict, aux_params: Dict
     ``Module.set_params`` takes after ``mxtpu.nd.array``."""
     return ({k: v.asnumpy() for k, v in arg_params.items()},
             {k: v.asnumpy() for k, v in aux_params.items()})
+
+
+def moe_params_from_numpy(params: Sequence, device=None, dtype=None
+                          ) -> Tuple[torch.Tensor, ...]:
+    """mxtpu's ``MoEFFN.params()`` 5-tuple ``(gate_w (D, E), w1 (E, D,
+    H), b1 (E, H), w2 (E, H, D), b2 (E, D))``, as numpy arrays (or
+    anything ``np.asarray`` takes), as tensors on ``device`` (default
+    the card) in ``dtype`` (default each array's own)."""
+    from .context import resolve_device
+    if len(params) != 5:
+        raise MXNetError(f"moe_params_from_numpy: 5 arrays (gate_w, w1, "
+                         f"b1, w2, b2), got {len(params)}")
+    arrs = [np.asarray(a) for a in params]
+    D, E = arrs[0].shape
+    H = arrs[1].shape[-1]
+    want = [(D, E), (E, D, H), (E, H), (E, H, D), (E, D)]
+    for name, a, w in zip(("gate_w", "w1", "b1", "w2", "b2"), arrs, want):
+        if tuple(a.shape) != w:
+            raise MXNetError(f"moe_params_from_numpy: {name} has shape "
+                             f"{tuple(a.shape)}, expected {w}")
+    dev = resolve_device(device)
+
+    def tensor(a):
+        # numpy has no bfloat16 of its own: jax's arrays come through f32
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.astype(np.float32), device=dev).to(
+                dtype or torch.bfloat16)
+        return torch.tensor(a, dtype=dtype, device=dev)
+    return tuple(tensor(a) for a in arrs)

@@ -12,12 +12,12 @@ from . import nn, loss, utils, model_zoo, data  # noqa: F401
 __all__ = ["Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Block", "HybridBlock",
            "SymbolBlock", "Trainer", "nn", "loss", "utils", "model_zoo",
-           "data", "rnn"]
+           "data", "rnn", "contrib"]
 
 
 def __getattr__(name):
     import importlib
-    if name == "rnn":
+    if name in ("rnn", "contrib"):
         mod = importlib.import_module("." + name, __name__)
         globals()[name] = mod
         return mod

@@ -2,9 +2,8 @@
 an optimizer applied to a list of Parameters.
 
 ``step(batch_size)`` sets ``rescale_grad = rescale / batch_size``,
-reduces the gradients (nothing to reduce on one device: the port has no
-key-value store, so ``kvstore`` makes none and ``compression_params``
-raises, as mxtpu's Trainer does when no store carries them) and updates
+reduces the gradients through a key-value store where there is one and
+updates
 every parameter with a gradient, one at a time, through the port's
 ``Updater`` and its multi-precision pair (an f32 master for a bf16 or
 f16 weight unless ``multi_precision=False``).  The optimizer gets
@@ -13,6 +12,16 @@ f16 weight unless ``multi_precision=False``).  The optimizer gets
 ``torch.profiler.record_function("update")`` range, as ``TrainStep``'s
 does, so a profile of a step splits it without reaching into the
 class.
+
+The store follows ``mxtpu/gluon/trainer.py:63-95`` and ``:133-140``:
+created at the first step, none for ``kvstore`` None or ``"nccl"`` and
+none on one device (a process trains on one, whatever cards its host
+holds); with ``compression_params`` a ``local`` store is
+created even on one device (its error-feedback quantization changes the
+update) and every gradient is pushed through it and pulled back in
+place.  ``compression_params`` with no store to carry them raises, and
+so do invalid ones.  ``update_on_kvstore`` is kept and not acted on, as
+in mxtpu.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ class Trainer:
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore_type = kvstore
+        self._kvstore = None
         self._kv_initialized = False
         self._update_on_kvstore = update_on_kvstore
 
@@ -69,12 +79,33 @@ class Trainer:
         self._updaters = [opt_mod.get_updater(self._optimizer)]
 
     def _init_kvstore(self):
-        """One device: no store to reduce through."""
+        """Create the store at the first step, as mxtpu's Trainer does
+        (see the module's docstring)."""
+        if self._kvstore_type in (None, "nccl") or self._kv_initialized:
+            if not self._kv_initialized and self._compression_params:
+                raise MXNetError(
+                    f"compression_params given but kvstore="
+                    f"{self._kvstore_type!r} creates no store to carry "
+                    f"the compressed gradients")
+            self._kv_initialized = True
+            return
+        from .. import kvstore as kv_mod
+        try:
+            self._kvstore = kv_mod.create(self._kvstore_type)
+            if self._kvstore.num_devices <= 1 and \
+                    not self._compression_params:
+                # one device: nothing to reduce, unless compression's
+                # quantization is asked for
+                self._kvstore = None
+        except MXNetError:
+            self._kvstore = None
         if self._compression_params:
-            raise MXNetError(
-                f"compression_params given but kvstore="
-                f"{self._kvstore_type!r} creates no store to carry the "
-                f"compressed gradients (one device)")
+            if self._kvstore is None:
+                raise MXNetError(
+                    "compression_params given but no kvstore is "
+                    f"available (type={self._kvstore_type!r})")
+            self._kvstore.set_gradient_compression(
+                self._compression_params)
         self._kv_initialized = True
 
     # ------------------------------------------------------------------
@@ -96,11 +127,26 @@ class Trainer:
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
         if not self._kv_initialized:
             self._init_kvstore()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        """Push every gradient through the store and pull it back in
+        place (no store: nothing to do)."""
+        if self._kvstore is None:
+            return
+        for i, param in enumerate(self._params):
+            t = param._tensor()
+            if param.grad_req != "null" and t is not None and \
+                    t.grad is not None:
+                grad = param.grad()
+                self._kvstore.push(i, grad, priority=-i)
+                self._kvstore.pull(i, grad, priority=-i)
 
     def update(self, batch_size, ignore_stale_grad=False):
         if not self._kv_initialized:

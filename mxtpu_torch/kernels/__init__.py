@@ -19,7 +19,11 @@ refuses inputs that require grad on every device.  ``nms.nms_keep``
 returns a bool mask and has no gradient.  ``rnn_cell.lstm_cell`` and
 ``rnn_cell.gru_cell`` (the fused RNN op's step, which ports no TPU
 kernel either) run through autograd Functions whose backward is the
-backward kernel.
+backward kernel.  ``moe.route_tokens``, ``moe.dispatch_tokens`` and
+``moe.combine_tokens`` (Switch-MoE routing, which ports no TPU kernel:
+mxtpu routes with dense one-hot einsums) run through autograd Functions
+whose dispatch and combine backwards are kernels and whose router
+backward is torch ops.
 The raw wrappers (``flash_forward``, ``layer_norm_fwd``,
 ``fused_residual_ln_fwd``, ``bn_fwd``, ``bn_bwd`` and the like) keep
 no graph, so on the card they refuse inputs that require grad
@@ -133,6 +137,7 @@ def _modules():
     conv = importlib.import_module(__name__ + ".conv")
     nms = importlib.import_module(__name__ + ".nms")
     rnn = importlib.import_module(__name__ + ".rnn_cell")
+    moe = importlib.import_module(__name__ + ".moe")
     return {"flash_attention_fwd": (fa, "LAUNCHES"),
             "flash_attention_bwd_dq": (fa, "DQ_LAUNCHES"),
             "flash_attention_bwd_dkv": (fa, "DKV_LAUNCHES"),
@@ -149,7 +154,12 @@ def _modules():
             "lstm_cell_fwd": (rnn, "LSTM_FWD_LAUNCHES"),
             "lstm_cell_bwd": (rnn, "LSTM_BWD_LAUNCHES"),
             "gru_cell_fwd": (rnn, "GRU_FWD_LAUNCHES"),
-            "gru_cell_bwd": (rnn, "GRU_BWD_LAUNCHES")}
+            "gru_cell_bwd": (rnn, "GRU_BWD_LAUNCHES"),
+            "moe_route": (moe, "ROUTE_LAUNCHES"),
+            "moe_dispatch": (moe, "DISPATCH_LAUNCHES"),
+            "moe_dispatch_bwd": (moe, "DISPATCH_BWD_LAUNCHES"),
+            "moe_combine": (moe, "COMBINE_LAUNCHES"),
+            "moe_combine_bwd": (moe, "COMBINE_BWD_LAUNCHES")}
 
 
 def launch_counts() -> Dict[str, int]:

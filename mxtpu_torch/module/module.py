@@ -4,9 +4,9 @@ module.py``†).
 
 One executor on one device (``context=``, default the card) evaluates
 the graph; batches from the host are copied onto it.  ``kvstore`` is
-accepted as ``"local"`` (or ``"device"``) and changes nothing, as in
-the JAX package: the update runs in this process through an
-:class:`~mxtpu_torch.optimizer.Updater`.
+accepted, whatever its value, and changes nothing, as in the JAX
+package, which creates no store there: the update runs in this process
+through an :class:`~mxtpu_torch.optimizer.Updater`.
 """
 from __future__ import annotations
 
@@ -167,9 +167,6 @@ class Module(BaseModule):
             raise MXNetError("bind and init_params before init_optimizer")
         if self.optimizer_initialized and not force_init:
             return
-        if kvstore not in (None, "local", "device"):
-            raise MXNetError(f"kvstore {kvstore!r} is not ported; the "
-                             f"Module updates locally ('local')")
         if not isinstance(optimizer, opt_mod.Optimizer):
             optimizer = opt_mod.create(optimizer,
                                        **dict(optimizer_params or {}))

@@ -1,10 +1,15 @@
 """``_contrib_ROIAlign`` (alias ``ROIAlign``), the detection op of
 ``mxtpu/ndarray/nn_extra.py`` (``:290-338``, its bilinear gather
-``:96``); the module's other ops (deformable convolution, PSROIPooling,
-the quantized tier, ...) wait.
+``:96``), and ``_contrib_MoEFFN`` (alias ``MoEFFN``, ``:716-734``), the
+Switch-MoE feed-forward over :func:`mxtpu_torch.parallel.moe.moe_ffn`;
+the module's other ops (deformable convolution, PSROIPooling, the
+quantized tier, ...) wait.
 
-Differentiable by torch autograd through the gather, in the data and
-in the roi coordinates, as jax differentiates mxtpu's.
+ROIAlign is differentiable by torch autograd through the gather, in the
+data and in the roi coordinates, as jax differentiates mxtpu's.
+MoEFFN's two outputs are ``(y, aux)``: y in the data's shape, aux a
+scalar (also under shape inference, where the rule sees ``meta``
+tensors); ``gelu`` is jax.nn.gelu's default, the tanh form.
 """
 from __future__ import annotations
 
@@ -80,3 +85,27 @@ register_op("_contrib_ROIAlign", num_inputs=2,
                     Param("sample_ratio", int, 2),
                     Param("position_sensitive", bool, False)],
             aliases=("ROIAlign",))(_roi_align)
+
+
+# ---------------------------------------------------------------------------
+# Switch-MoE feed-forward (mxtpu_torch/parallel/moe.py is the core)
+# ---------------------------------------------------------------------------
+def _contrib_moe_ffn(data, gate_w, w1, b1, w2, b2, capacity_factor=1.25,
+                     activation="relu"):
+    # lazy: gluon and parallel import ndarray
+    from ..gluon.nn.basic_layers import gelu
+    from ..parallel.moe import moe_ffn
+    act = {"relu": torch.relu, "gelu": gelu,
+           "tanh": torch.tanh}.get(activation)
+    if act is None:
+        raise MXNetError(f"MoEFFN activation {activation!r} not in "
+                         f"relu/gelu/tanh")
+    return moe_ffn(data, gate_w, w1, b1, w2, b2,
+                   capacity_factor=float(capacity_factor), activation=act)
+
+
+register_op("_contrib_MoEFFN", num_inputs=6, num_outputs=2,
+            params=[Param("capacity_factor", float, 1.25),
+                    Param("activation", str, "relu",
+                          enum=("relu", "gelu", "tanh"))],
+            aliases=("MoEFFN",))(_contrib_moe_ffn)

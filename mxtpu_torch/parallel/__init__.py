@@ -83,6 +83,10 @@ Not ported, and refused with ``NotImplementedError`` rather than
 ignored: a device mesh (``mesh``), tensor parallelism
 (``param_spec_fn``), ZeRO-1 (``zero``) and the persistent executable
 cache (``cache``).
+
+:func:`plan_zero_buckets` (mxtpu's ZeRO-1 bucket geometry, pure
+arithmetic over ``(shape, dtype)`` signatures) and :mod:`.moe` (the
+Switch-MoE feed-forward) are exported as mxtpu exports them.
 """
 from __future__ import annotations
 
@@ -103,12 +107,68 @@ from ..optimizer import optimizer as opt_mod
 from ..optimizer.functional import (_needs_master, adam_bias_correction,
                                     opt_rule)
 
-__all__ = ["TrainStep", "build_train_step"]
+__all__ = ["TrainStep", "build_train_step", "plan_zero_buckets", "moe"]
 
 
 def _refuse(what: str) -> None:
     raise NotImplementedError(f"TrainStep: {what} is not ported yet "
                               f"(the port trains on one device)")
+
+
+def _itemsize(dt) -> int:
+    """Bytes an element of the dtype named ``dt`` (``"bfloat16"``, which
+    numpy does not know, included)."""
+    name = str(dt).replace("torch.", "")
+    got = getattr(torch, name, None)
+    if isinstance(got, torch.dtype):
+        return got.itemsize
+    return np.dtype(name).itemsize
+
+
+def plan_zero_buckets(sigs, dp: int, stack_axis_only: bool = False):
+    """The ZeRO-1 bucket layout of one optimizer step, as mxtpu plans it
+    (``mxtpu/parallel/__init__.py:202``): pure geometry, no arrays.
+
+    ``sigs`` lists ``(shape, dtype_str)`` per trainable parameter in
+    step order.  Parameters bucket by (shape, dtype) in first-seen
+    order; each bucket shards ONE axis of its stacked ``(n,) + shape``
+    array over ``dp``, the axis with the least relative zero-padding
+    (ties to the lower axis, the stack axis first), or the stack axis
+    alone with ``stack_axis_only`` (LAMB).  Each bucket is a dict:
+    ``jidx``, ``shape``, ``dtype``, ``stacked_shape``, ``axis``,
+    ``pad``, ``padded_shape``, ``rows`` (extent a device),
+    ``param_bytes`` and ``padded_bytes``."""
+    if dp < 1:
+        raise MXNetError(f"plan_zero_buckets needs dp >= 1, got {dp}")
+    by_sig: Dict[Tuple, List[int]] = {}
+    for j, (shape, dt) in enumerate(sigs):
+        by_sig.setdefault((tuple(shape), str(dt)), []).append(j)
+    buckets = []
+    for (shape, dt), js in by_sig.items():
+        stacked_shape = (len(js),) + shape
+        best = None
+        cands = [0] if stack_axis_only else range(len(stacked_shape))
+        for ax in cands:
+            size = stacked_shape[ax]
+            pad = (-size) % dp
+            key = (pad / size, ax)
+            if best is None or key < best[0]:
+                best = (key, ax, pad)
+        _, axis, pad = best
+        padded = list(stacked_shape)
+        padded[axis] += pad
+        itemsize = _itemsize(dt)
+        buckets.append({
+            "jidx": js, "shape": shape, "dtype": dt,
+            "stacked_shape": stacked_shape, "axis": axis, "pad": pad,
+            "padded_shape": tuple(padded),
+            "rows": padded[axis] // dp,
+            "param_bytes": int(np.prod(stacked_shape, dtype=np.int64))
+            * itemsize,
+            "padded_bytes": int(np.prod(padded, dtype=np.int64))
+            * itemsize,
+        })
+    return buckets
 
 
 def _as_dtype(dtype) -> Optional[torch.dtype]:
@@ -588,3 +648,6 @@ def build_train_step(net, loss_fn, optimizer="sgd", optimizer_params=None,
                      param_spec_fn=param_spec_fn, compute_dtype=compute_dtype,
                      cast_batch=cast_batch, zero=zero, cache=cache, amp=amp,
                      device=device)
+
+
+from . import moe  # noqa: E402,F401  (the Switch-MoE feed-forward)

@@ -564,7 +564,7 @@ def test_trainer_api(tmp_path):
     for n, p in net.collect_params().items():
         np.testing.assert_array_equal(p.data().asnumpy(), after[n])
     with pytest.raises(MXNetError, match="compression_params"):
-        gluon.Trainer(net.collect_params(), "sgd",
+        gluon.Trainer(net.collect_params(), "sgd", kvstore=None,
                       compression_params={"type": "2bit"}).step(1)
     with pytest.raises(MXNetError, match="must be None"):
         gluon.Trainer(net.collect_params(), tmx.optimizer.SGD(),

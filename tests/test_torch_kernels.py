@@ -208,6 +208,14 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
     rc.gru_cell(pre[:, :9], torch.randn(2, 9), torch.randn(3),
                 torch.randn(2, 3)).sum().backward()
     assert pre.grad is not None
+    moe = importlib.import_module("mxtpu_torch.kernels.moe")
+    logits = torch.randn(6, 3, requires_grad=True)
+    xm = torch.randn(6, 4, requires_grad=True)
+    gate_p, mean_p, sot, tos, _ = moe.route_tokens(logits, 2)
+    ein = moe.dispatch_tokens(xm, tos, sot)
+    (moe.combine_tokens(ein * 2.0, sot, tos, gate_p).sum() +
+     mean_p.sum()).backward()
+    assert logits.grad is not None and xm.grad is not None
     assert x.grad is not None and qkv[0].grad is not None
     assert xb.grad is not None
     assert tk.launch_counts() == {"flash_attention_fwd": 0,
@@ -226,7 +234,12 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
                                   "lstm_cell_fwd": 0,
                                   "lstm_cell_bwd": 0,
                                   "gru_cell_fwd": 0,
-                                  "gru_cell_bwd": 0}
+                                  "gru_cell_bwd": 0,
+                                  "moe_route": 0,
+                                  "moe_dispatch": 0,
+                                  "moe_dispatch_bwd": 0,
+                                  "moe_combine": 0,
+                                  "moe_combine_bwd": 0}
 
 
 def test_dispatch_refuses_devices_it_has_no_path_for():

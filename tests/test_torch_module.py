@@ -407,9 +407,11 @@ def test_module_defaults_to_the_card_and_refuses_other_kvstores(
     m = tmx.mod.Module(ts, context=CPU)
     m.bind([("data", (4, 20))], [("softmax_label", (4,))])
     m.init_params()
-    with pytest.raises(MXNetError, match="kvstore"):
-        m.init_optimizer(kvstore="dist_sync")
-    m.init_optimizer(kvstore="local")
+    # mxtpu's Module.init_optimizer accepts any kvstore and creates no
+    # store there; so does the port
+    m.init_optimizer(kvstore="dist_sync")
+    assert m.optimizer_initialized
+    m.init_optimizer(kvstore="local", force_init=True)
     assert m.output_shapes is None
 
 

@@ -400,9 +400,12 @@ Phases, each fatal on failure:
      sweep is a ``lax.fori_loop``) against its plain loop at n 256 (b2,
      faster_rcnn_small's pre_n), 1704 (b8, ssd_300's anchors, 400
      sweeping rows) and 6000 (b2, Proposal's default pre_n), class-aware
-     and force_suppress, and at n 256 with NaN corners: keep masks bit
-     for bit, one launch a call, ms (the sum of the call's two CUDA
-     kernels) and CUDA kernels a call of each; #8/#9 against their plain
+     and force_suppress, at n 256 with NaN corners, and at b1 with n
+     just past ``nms.PREFETCH_MAX_BOXES`` (1000 sweeping rows: the wide
+     sweep, its plain loop on the 1000 rows' IoU): keep masks bit for
+     bit, one launch a call, ms (the sum of the call's two CUDA kernels,
+     mask and sweep, each printed) and CUDA kernels a call of each;
+     #8/#9 against their plain
      versions at SSD-300's seven BatchNorm shapes (N 8, bf16), timed at
      8 x 32 x 300² over 3 copies of the inputs in turn (one copy fits
      in L2); (b) bench_ssd's recipe (``ssd_300(20)``, xavier, b8 x 3 x
@@ -514,7 +517,10 @@ Phases, each fatal on failure:
      the ratio to the dense FFN, the router+dispatch share, peak
      memory, one step profiled by kernel family; (c) each kernel at bench's shape against its plain version
      (integer maps equal, floats bit-equal but the route's
-     probabilities (1e-6 relative), mean_p and d_gate_p (f32 TOL)),
+     probabilities (1e-6 relative), mean_p and d_gate_p (f32 TOL)), two
+     route calls on the same logits bit-equal (mean_p included), the
+     route at E 128 over three rounds of its cluster against its plain
+     version,
      device ms beside its plain version, a library yardstick
      (``index_select`` for the gathers, ``embedding_bag`` with
      per-sample weights for the combine, none for the route and the
@@ -646,7 +652,8 @@ KERNEL_NAMES = {"flash_attention_fwd": ("fa_fwd_f32_wgmma_kernel",
                               "conv_nhwc_f32_wgmma_kernel",
                               "conv_split_f32_kernel",
                               "conv_nhwc_f32_kernel"),
-                "nms": ("nms_mask_kernel", "nms_sweep_kernel")}
+                "nms": ("nms_mask_kernel", "nms_sweep_kernel",
+                        "nms_sweep_wide_kernel")}
 # the kernels that must run on the tensor cores with TMA loads (bf16,
 # and f32 split into bf16 parts): the library each is built into, and
 # the instructions its SASS must hold; the f32 ones (named "_f32_")
@@ -8219,6 +8226,7 @@ NMS_CASES = ((2, 256, 256, True, "faster_rcnn_small's pre_n"),
              (8, 1704, 400, False, "ssd_300's anchors, nms_topk 400"),
              (2, 6000, 6000, True, "Proposal's rpn_pre_nms_top_n"))
 NMS_LINE_CASE = 1     # the kernels line's NMS row: SSD's detection
+NMS_WIDE_EXTRA, NMS_WIDE_ITER = 37, 1000  # the case past the prefetch limit
 RCNN_B, RCNN_HW, RCNN_STEPS, RCNN_OBJ = 2, 600, 12, 32
 RCNN_LAUNCHES = {"batch_norm_fwd": 3, "batch_norm_bwd": 3}
 RCNN_HEAD_TOL = 1e-4
@@ -8372,27 +8380,48 @@ def nms_inputs(b, n, pixel, seed):
     return boxes, ids, keep0
 
 
+def nms_plain(nms, boxes, keep0, thr, n_iter, ids, pixel):
+    """The plain loop's keep mask: ``nms_keep_reference``, or past the
+    prefetch limit the same sweep on the IoU of the ``n_iter`` sweeping
+    rows only (the full n x n matrix of 28 000 boxes would take GBs)."""
+    import torch
+    if boxes.shape[1] <= nms.PREFETCH_MAX_BOXES:
+        return nms.nms_keep_reference(boxes, keep0, thr, n_iter, ids=ids,
+                                      pixel=pixel)
+    iou = nms.corner_iou(boxes[:, :n_iter], boxes, pixel)
+    if ids is not None:
+        iou = torch.where(ids[:, :n_iter, None] == ids[:, None, :], iou,
+                          0.0)
+    return nms.greedy_nms_keep(iou, keep0, thr, n_iter)
+
+
 def nms_cell(checks):
     """(a): the NMS kernel against its plain loop at ``NMS_CASES``,
     class-aware and force_suppress: keep masks bit-equal, one launch a
     call; class-aware, ms a call of each and the CUDA kernels each
     launches (the plain loop, thousands of launches a call, timed over
     one call), and the bound (the IoU pairs' operations against the
-    boxes' bytes)."""
+    boxes' bytes); then the same at b1 with n just past the prefetch
+    limit, where the call takes the wide sweep."""
     import importlib
     from mxtpu_torch import kernels
     nms = importlib.import_module("mxtpu_torch.kernels.nms")
     rows = []
-    for k, (b, n, n_iter, pixel, what) in enumerate(NMS_CASES):
+    wide = (1, nms.PREFETCH_MAX_BOXES + NMS_WIDE_EXTRA, NMS_WIDE_ITER,
+            False, "past the prefetch limit: the wide sweep")
+    for k, (b, n, n_iter, pixel, what) in enumerate(NMS_CASES + (wide,)):
         boxes, ids, keep0 = nms_inputs(b, n, pixel, SEED + 230 + k)
+        # the call's two kernels: the mask, and the sweep this n takes
+        names = ["nms_mask_kernel",
+                 "nms_sweep_wide_kernel" if n > nms.PREFETCH_MAX_BOXES
+                 else "nms_sweep_kernel"]
         for mode, cls in (("class-aware", ids), ("force_suppress", None)):
             thr = 0.7 if pixel else 0.5
             kernels.reset_launch_counts()
             got = nms.nms_keep(boxes, keep0, thr, n_iter, ids=cls,
                                pixel=pixel)
             one = kernels.launch_counts()["nms"]
-            want = nms.nms_keep_reference(boxes, keep0, thr, n_iter,
-                                          ids=cls, pixel=pixel)
+            want = nms_plain(nms, boxes, keep0, thr, n_iter, cls, pixel)
             same = bool((got == want).all())
             ok = same and one == 1
             tag = f"nms b{b} n{n} n_iter{n_iter} {mode}"
@@ -8410,12 +8439,11 @@ def nms_cell(checks):
                                     pixel=pixel)
 
             def plain():
-                return nms.nms_keep_reference(boxes, keep0, thr, n_iter,
-                                              ids=cls, pixel=pixel)
+                return nms_plain(nms, boxes, keep0, thr, n_iter, cls, pixel)
             # one call is two kernels: each one's mean over its
             # recorded launches, so a window that drops some still
             # reads whole calls
-            parts = device_ms(kern, by_name=list(KERNEL_NAMES["nms"]))
+            parts = device_ms(kern, by_name=names)
             ms = sum(parts.values())
             plain_ms = device_ms(plain, iters=1, warmup=0)
             wall = time_ms(kern, iters=20, warmup=3)
@@ -10188,6 +10216,7 @@ MOE_THRESHOLD = 0.5             # 2-bit compression's default threshold
 MOE_NEAR_TIE = 1e-6             # top-2 router probabilities this close
 MOE_SKEW = 1.0                  # expert 0's mean logit raise in the f32 gate
 MOE_FLUSH_MB = 128              # past the 50 MB L2: the kernels' cold reads
+MOE_WIDE_T, MOE_WIDE_E = 3 * 8192 + 5, 128  # the route's generic path
 MOE_SRC = "mxtpu_torch/csrc/moe.cu"
 MOE_REPLACES = {
     "moe_route": "mxtpu/parallel/moe.py:37 (switch_router: softmax, "
@@ -10471,7 +10500,9 @@ def moe_kernel_rows(checks):
     MOE_FLUSH_MB before every call, as the bound reads them at the HBM
     rate: the kernel by its own name, the others as the time with the
     flush less the flush's own.  The L2-warm times of repeated calls
-    are kept beside them (``warm_ms``)."""
+    are kept beside them (``warm_ms``).  Two route calls on the same
+    logits must give the same bits, mean_p included (its sums are taken
+    in one fixed order across the cluster's CTAs)."""
     import torch
     from mxtpu_torch.kernels import moe as km
     from mxtpu_torch.parallel import moe
@@ -10479,6 +10510,42 @@ def moe_kernel_rows(checks):
     C = moe.capacity_of(MOE_T, MOE_E, MOE_CF)
     logits = x.float() @ layer.gate_w.float()
     probs, expert, gate_p, sot, tos, frac, mean_p = km.route(logits, C)
+    again = km.route(logits, C)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        (probs, expert, gate_p, sot, tos, frac, mean_p), again))
+    print(f"check moe_route twice on the same logits: the seven outputs "
+          f"bit-equal, mean_p included {same} {'ok' if same else 'FAIL'}",
+          flush=True)
+    if not same:
+        checks.failed.append("moe_route: two calls on the same logits "
+                             "differ")
+    # the route past ROUTE_EREG experts (its exps wait in probs), three
+    # rounds of the cluster, tokens dropped: against its plain version
+    g = torch.Generator(device=CARD).manual_seed(SEED + 322)
+    wide = torch.randn(MOE_WIDE_T, MOE_WIDE_E, generator=g, device=CARD)
+    wide[:, 0] += 1.0
+    cw = max(1, MOE_WIDE_T // MOE_WIDE_E)
+    got, want = km.route(wide, cw), km.route_reference(wide, cw)
+    torch.cuda.synchronize()
+    # frac must be count / T rounded once: the plain version's CUDA
+    # division by the int T multiplies by a rounded 1 / T, an ulp away
+    # where T is no power of two, so it is held to the quotient in f64
+    counts = torch.bincount(got[1].long(), minlength=MOE_WIDE_E)
+    exact = (counts.double() / MOE_WIDE_T).float()
+    ints = all(torch.equal(got[i], want[i]) for i in (1, 3, 4)) and \
+        torch.equal(got[5], exact)
+    rels = [rel_err(got[i], want[i])[0] for i in (0, 2, 6)]
+    ok = ints and rels[0] <= 1e-6 and rels[1] <= 1e-6 and \
+        rels[2] <= TOL["float32"]
+    print(f"check moe_route T{MOE_WIDE_T} E{MOE_WIDE_E} C{cw} "
+          f"({int((got[3] < 0).sum())} dropped): integer maps equal, "
+          f"frac = count / T rounded once {ints}, probs/gate_p/mean_p "
+          f"rel {rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        checks.failed.append(f"moe_route at E {MOE_WIDE_E}: the kernel "
+                             f"differs from its plain version")
     g = torch.Generator(device=CARD).manual_seed(SEED + 321)
     eo = torch.randn(MOE_E * C, MOE_D, generator=g,
                      device=CARD).to(torch.bfloat16)

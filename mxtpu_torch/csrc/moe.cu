@@ -20,12 +20,25 @@
 //     token is its ORDERED rank among the tokens routed to its expert
 //     before it (mxtpu's cumsum over T): an atomic counter would hand out
 //     ranks in race order and drop other tokens than the reference does.
-//     So one CTA walks T in chunks of 1024 tokens with a carried total per
-//     expert: a token's rank in its warp from __match_any_sync, the warps'
-//     counts scanned in warp order per expert, the chunk's totals carried
-//     to the next.  The softmax, its argmax (first maximum wins, as
-//     jnp.argmax) and the per-expert sums of the load-balancing loss
-//     (frac, mean_p) are taken in the same pass, in a fixed order.
+//     So one thread block cluster of ROUTE_CLUSTER CTAs takes T in rounds
+//     of ROUTE_CLUSTER x ROUTE_THREADS tokens, a CTA a contiguous chunk
+//     of ROUTE_THREADS in rank order (bench's T 8192 is one round on 8
+//     SMs).  A thread takes a token: its softmax (each exp computed once
+//     and kept in registers up to ROUTE_EREG experts, in probs past it
+//     until the sum divides it), the argmax (first maximum wins, as
+//     jnp.argmax), its rank in its warp from __match_any_sync.
+//     A warp an expert scans the 32 warps' counts with shuffles and sums
+//     their probabilities; the CTA publishes its counts and sums in its
+//     shared memory, and after cluster.sync() each CTA reads those of the
+//     CTAs ranked before it through distributed shared memory
+//     (map_shared_rank): its exclusive base per expert, the round's
+//     totals, carried into the next round.  No atomic decides a rank.
+//     The load-balancing sums are taken in one fixed order (a warp's
+//     lanes and then a CTA's warps by xor butterflies, the CTAs in rank
+//     order, the rounds in order), so two calls give the same bits.  Once
+//     the totals are known, the CTA owning expert e (e % ROUTE_CLUSTER)
+//     writes -1 into its empty slots [count_e, C): token_of_slot is
+//     written once, with no zeroing pass.
 //   moe_dispatch_kernel / moe_dispatch_bwd_kernel: bytes.  One warp a row
 //     copies it with 16-byte accesses where the row and the pointers
 //     allow: expert_in[s] = x[token_of_slot[s]] (0 for an empty slot), and
@@ -36,22 +49,38 @@
 //   moe_combine_bwd_kernel: bytes.  One warp a slot: d_expert_out[s] =
 //     cast(gate_p[t] * f32(dy[t])) (0 for an empty slot) and d_gate_p[t] =
 //     the f32 dot of expert_out[s] and dy[t], reduced across the warp.
-// Making them fast (one fused pass with the expert GEMMs' prologue and
-// epilogue, a multi-CTA route) is later work.
+// Fusing the gathers into the expert GEMMs' prologue and epilogue is
+// later work.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int ROUTE_THREADS = 1024;                // one CTA, T in chunks
+constexpr int ROUTE_THREADS = 1024;  // tokens a CTA takes a round
 constexpr int ROUTE_WARPS = ROUTE_THREADS / 32;
-constexpr int MAX_EXPERTS = 128;                   // shared memory < 48 KB
+constexpr int ROUTE_CLUSTER = 8;     // CTAs of the one cluster (portable)
+constexpr int MAX_EXPERTS = 128;     // shared memory < 48 KB
+constexpr int ROUTE_EREG = 8;        // up to this E, exps in registers
 constexpr int ROW_THREADS = 256;                   // row kernels: a warp a row
 constexpr int ROW_WARPS = ROW_THREADS / 32;
+static_assert(ROUTE_WARPS == 32, "a warp's lanes scan the CTA's warps");
 
-__global__ void __launch_bounds__(ROUTE_THREADS)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// EREG: with E <= EREG a token's exps stay in registers, with 0 they
+// wait in probs until their sum divides them
+template <int EREG>
+__global__ void __cluster_dims__(ROUTE_CLUSTER, 1, 1)
+    __launch_bounds__(ROUTE_THREADS)
 moe_route_kernel(const float* __restrict__ logits, int T, int E, int C,
                  float* __restrict__ probs, int* __restrict__ expert,
                  float* __restrict__ gate_p, int* __restrict__ slot_of_token,
@@ -60,88 +89,145 @@ moe_route_kernel(const float* __restrict__ logits, int T, int E, int C,
   extern __shared__ int smem[];
   int* warp_cnt = smem;                                    // [warps][E]
   float* warp_psum = (float*)(warp_cnt + ROUTE_WARPS * E);  // [warps][E]
-  int* carry_cnt = (int*)(warp_psum + ROUTE_WARPS * E);     // [E]
+  int* pub_cnt = (int*)(warp_psum + ROUTE_WARPS * E);  // [2][E], read by
+  float* pub_psum = (float*)(pub_cnt + 2 * E);         // the cluster
+  int* base = (int*)(pub_psum + 2 * E);                     // [E]
+  int* carry_cnt = base + E;                                // [E]
   float* carry_psum = (float*)(carry_cnt + E);              // [E]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
-  const int64_t slots = (int64_t)E * C;
-  for (int64_t s = tid; s < slots; s += ROUTE_THREADS) token_of_slot[s] = -1;
   for (int e = tid; e < E; e += ROUTE_THREADS) {
     carry_cnt[e] = 0;
     carry_psum[e] = 0.0f;
   }
-  __syncthreads();
-  for (int t0 = 0; t0 < T; t0 += ROUTE_THREADS) {
-    const int t = t0 + tid;
+  const int64_t per_round = (int64_t)ROUTE_CLUSTER * ROUTE_THREADS;
+  int par = 0;  // which half of pub_* this round publishes in
+  for (int64_t t0 = 0; t0 < T; t0 += per_round, par ^= 1) {
+    const int64_t t = t0 + (int64_t)rank * ROUTE_THREADS + tid;
     const bool valid = t < T;
-    const float* row = logits + (int64_t)(valid ? t : 0) * E;
+    const float* row = logits + (valid ? t : 0) * E;
+    float* prow = probs + (valid ? t : 0) * E;
     // softmax as jax.nn.softmax: exp(x - max) / sum, the sum in expert
-    // order; argmax of the probabilities, the first maximum winning
-    float m = 0.0f, s = 0.0f, bp = 0.0f;
+    // order, each exp computed once
+    float m = 0.0f, s = 0.0f, bp = 0.0f, ex[EREG > 0 ? EREG : 1];
     int best = -1;
     if (valid) {
       m = row[0];
-      for (int e = 1; e < E; ++e) m = fmaxf(m, row[e]);
-      for (int e = 0; e < E; ++e) s += expf(row[e] - m);
-      for (int e = 0; e < E; ++e) {
-        const float p = expf(row[e] - m) / s;
-        probs[(int64_t)t * E + e] = p;
+      if constexpr (EREG > 0) {
+#pragma unroll
+        for (int e = 1; e < EREG; ++e)
+          if (e < E) m = fmaxf(m, row[e]);
+#pragma unroll
+        for (int e = 0; e < EREG; ++e)
+          if (e < E) {
+            ex[e] = expf(row[e] - m);
+            s += ex[e];
+          }
+      } else {
+        for (int e = 1; e < E; ++e) m = fmaxf(m, row[e]);
+        for (int e = 0; e < E; ++e) {
+          const float x = expf(row[e] - m);
+          s += x;
+          prow[e] = x;
+        }
+      }
+    }
+    // this warp's row of counts: zeroed by the warp
+    for (int e = lane; e < E; e += 32) warp_cnt[w * E + e] = 0;
+    // the probabilities, the argmax (the first maximum wins) and the
+    // warp's sum of each expert's probability
+    auto prob = [&](int e, float x) {
+      float p = 0.0f;
+      if (valid) {
+        p = x / s;
+        prow[e] = p;
         if (best < 0 || p > bp) {
           best = e;
           bp = p;
         }
       }
+      p = warp_sum(p);
+      if (lane == 0) warp_psum[w * E + e] = p;
+    };
+    if constexpr (EREG > 0) {
+#pragma unroll
+      for (int e = 0; e < EREG; ++e)
+        if (e < E) prob(e, ex[e]);
+    } else {
+      for (int e = 0; e < E; ++e) prob(e, valid ? prow[e] : 0.0f);
+    }
+    if (valid) {
       expert[t] = best;
       gate_p[t] = bp;
     }
-    // this warp's row of counts: zeroed by the warp, then each group of
-    // lanes sharing an expert writes its size from its lowest lane
-    for (int e = lane; e < E; e += 32) warp_cnt[w * E + e] = 0;
-    __syncwarp();
+    // each group of lanes sharing an expert writes its size from its
+    // lowest lane
     const unsigned same = __match_any_sync(0xffffffffu, best);
-    const int rank = __popc(same & below);
-    if (valid && rank == 0) warp_cnt[w * E + best] = __popc(same);
-    // the warp's sum of each expert's probability (recomputed: the same
-    // instructions give the same bits as the stored ones)
-    for (int e = 0; e < E; ++e) {
-      float v = valid ? expf(row[e] - m) / s : 0.0f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) warp_psum[w * E + e] = v;
-    }
+    const int rank_w = __popc(same & below);
+    __syncwarp();
+    if (valid && rank_w == 0) warp_cnt[w * E + best] = __popc(same);
     __syncthreads();
-    // per expert, in warp order: each warp's count becomes the number of
-    // earlier tokens routed to the expert, the chunk's total is carried
-    for (int e = tid; e < E; e += ROUTE_THREADS) {
-      int run = carry_cnt[e];
-      float ps = carry_psum[e];
-      for (int k = 0; k < ROUTE_WARPS; ++k) {
-        const int c = warp_cnt[k * E + e];
-        warp_cnt[k * E + e] = run;
-        run += c;
-        ps += warp_psum[k * E + e];
+    // a warp an expert: each warp's count becomes the number of earlier
+    // tokens of the CTA routed to the expert (a shuffle scan over the
+    // warps); the CTA's total and probability sum are published
+    for (int e = w; e < E; e += ROUTE_WARPS) {
+      const int c = warp_cnt[lane * E + e];
+      int incl = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
       }
-      carry_cnt[e] = run;
-      carry_psum[e] = ps;
+      warp_cnt[lane * E + e] = incl - c;
+      if (lane == 31) pub_cnt[par * E + e] = incl;
+      const float ps = warp_sum(warp_psum[lane * E + e]);
+      if (lane == 0) pub_psum[par * E + e] = ps;
+    }
+    cluster.sync();
+    // the counts of the CTAs ranked before this one give its base; the
+    // round's totals (probability sums in rank order) are carried
+    for (int e = tid; e < E; e += ROUTE_THREADS) {
+      int before = 0, total = 0;
+      float ps = 0.0f;
+#pragma unroll
+      for (int r = 0; r < ROUTE_CLUSTER; ++r) {
+        const int v =
+            cluster.map_shared_rank(pub_cnt, (unsigned)r)[par * E + e];
+        before += r < rank ? v : 0;
+        total += v;
+        ps +=
+            cluster.map_shared_rank(pub_psum, (unsigned)r)[par * E + e];
+      }
+      base[e] = carry_cnt[e] + before;
+      carry_cnt[e] += total;
+      carry_psum[e] += ps;
     }
     __syncthreads();
     if (valid) {
-      const int pos = warp_cnt[w * E + best] + rank;
+      const int pos = base[best] + warp_cnt[w * E + best] + rank_w;
       int slot = -1;
       if (pos < C) {
         slot = best * C + pos;
-        token_of_slot[slot] = t;
+        token_of_slot[slot] = (int)t;
       }
       slot_of_token[t] = slot;
     }
     __syncwarp();  // the warp's reads of its row before the next zeroing
   }
-  __syncthreads();
-  for (int e = tid; e < E; e += ROUTE_THREADS) {
-    frac[e] = (float)carry_cnt[e] / (float)T;
-    mean_p[e] = carry_psum[e] / (float)T;
+  // the empty slots of the experts this CTA owns
+  for (int e = rank; e < E; e += ROUTE_CLUSTER) {
+    const int filled = min(carry_cnt[e], C);
+    for (int s = filled + tid; s < C; s += ROUTE_THREADS)
+      token_of_slot[(int64_t)e * C + s] = -1;
   }
+  if (rank == 0)
+    for (int e = tid; e < E; e += ROUTE_THREADS) {
+      frac[e] = (float)carry_cnt[e] / (float)T;
+      mean_p[e] = carry_psum[e] / (float)T;
+    }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
 // out[r] = src[idx[r]] (a row of `units` words), 0 where idx[r] < 0
@@ -352,8 +438,10 @@ extern "C" int mxt_moe_route(const void* logits, int T, int E, int C,
   if (T <= 0 || E <= 0 || E > MAX_EXPERTS || C <= 0 ||
       (int64_t)E * C > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * ROUTE_WARPS * E + 2 * E) * sizeof(int);
-  moe_route_kernel<<<1, ROUTE_THREADS, smem, (cudaStream_t)stream>>>(
+  const size_t smem = (size_t)(2 * ROUTE_WARPS * E + 7 * E) * sizeof(int);
+  auto kernel = E <= ROUTE_EREG ? moe_route_kernel<ROUTE_EREG>
+                                : moe_route_kernel<0>;
+  kernel<<<ROUTE_CLUSTER, ROUTE_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)logits, T, E, C, (float*)probs, (int*)expert,
       (float*)gate_p, (int*)slot_of_token, (int*)token_of_slot, (float*)frac,
       (float*)mean_p);

@@ -9,6 +9,9 @@ combine, forward and backward: ``csrc/moe.cu``.
   tokens routed to expert e before it (-1 past C), the inverse map
   ``token_of_slot`` (E * C, -1 for an empty slot), the gate probability,
   and the load-balancing loss's per-expert fraction and mean probability.
+  The kernel is one thread block cluster that takes T in rounds, its
+  CTAs' counts scanned in rank order through distributed shared memory;
+  its sums run in one fixed order, so two calls give the same bits.
 * :func:`dispatch` — ``expert_in[s] = x[token_of_slot[s]]`` (0 for an
   empty slot); :func:`dispatch_bwd` is the inverse gather ``dx[t] =
   d_expert_in[slot_of_token[t]]`` (0 for a dropped token).

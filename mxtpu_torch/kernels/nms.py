@@ -2,10 +2,14 @@
 suppression sweep of the detection ops (``MultiBoxDetection``,
 ``Proposal`` and ``_contrib_box_nms``).
 
-* ``nms_keep`` — CUDA ``csrc/nms.cu``: a grid kernel writes the
-  "IoU > threshold, later row" relation of every sweeping row as bits
-  into scratch this wrapper allocates, then one CTA an image sweeps the
-  keep bits in shared memory, 32 rows at a time.  One call is the two
+* ``nms_keep`` — CUDA ``csrc/nms.cu``: a grid of the tiles on or above
+  the diagonal writes the "IoU > threshold, later row" relation of every
+  sweeping row that ``keep0`` keeps as bits into scratch this wrapper
+  allocates (rows of :func:`mask_words` words, whole 16-byte chunks),
+  then one CTA an image sweeps the keep bits in shared memory, 32 rows
+  at a time, the mask rows of the coming blocks prefetched into shared
+  memory by TMA bulk copies (up to ``PREFETCH_MAX_BOXES``; past it the
+  wide sweep reads them from global memory).  One call is the two
   kernels and counts one launch in ``LAUNCHES``, whatever n.
 * :func:`nms_keep_reference` — the plain version: :func:`pair_iou`,
   the class mask, then :func:`greedy_nms_keep`, the port of mxtpu's
@@ -42,10 +46,11 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from . import _build, bump, on_card
+from . import _build, aligned16, bump, on_card
 
 __all__ = ["nms_keep", "nms_keep_reference", "greedy_nms_keep",
-           "corner_iou", "pair_iou", "LAUNCHES"]
+           "corner_iou", "pair_iou", "mask_words", "MAX_BOXES",
+           "PREFETCH_MAX_BOXES", "LAUNCHES"]
 
 # calls of the kernel pair (kernels.launch_counts reads it)
 LAUNCHES = 0
@@ -53,9 +58,20 @@ _SELF = sys.modules[__name__]
 
 # the sweep keeps an image's keep bits in shared memory: 48 KB of words
 MAX_BOXES = 48 * 1024 * 8
+# past this many boxes two prefetch stages and the keep bits no longer
+# fit a CTA's 227 KB: the wide sweep reads the mask from global memory
+PREFETCH_MAX_BOXES = 28000
+MASK_TILE = 128          # rows and columns of a mask tile
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # boxes, ids, keep0, keep, mask; batch, n, n_iter; thr; pixel; stream
 _ARGS = [_P] * 5 + [_I] * 3 + [ctypes.c_float, _I, _P]
+
+
+def mask_words(n: int) -> int:
+    """32-bit words of a mask row of ``n`` columns: whole 16-byte chunks
+    (a TMA bulk copy moves multiples of 16 bytes from 16-byte
+    boundaries)."""
+    return -(-n // MASK_TILE) * (MASK_TILE // 32)
 
 
 def _f32(v: float) -> float:
@@ -162,12 +178,13 @@ def nms_keep(boxes: torch.Tensor, keep0: torch.Tensor, threshold: float,
     if B * n == 0:
         return keep0.clone()
     boxes = boxes.float().contiguous()
+    if not aligned16(boxes):             # read a box as one float4
+        boxes = boxes.clone()
     keep0 = keep0.contiguous()
     if ids is not None:
         ids = ids.float().contiguous()   # exact from bf16 and f16
-    words = 2 * ((n + 63) // 64)
-    mask = torch.empty(max(1, B * n_iter * words), dtype=torch.int32,
-                       device=boxes.device)
+    mask = torch.empty(max(1, B * n_iter * mask_words(n)),
+                       dtype=torch.int32, device=boxes.device)
     keep = torch.empty(B, n, dtype=torch.bool, device=boxes.device)
     fn = _build.bind("nms", "mxt_nms", _ARGS)
     with torch.cuda.device(boxes.device):

@@ -5,7 +5,9 @@ package's ``tools/microbench.py``, ``tools/probe_conv_strategies.py``,
 Each runs on the card by default (``python -m mxtpu_torch.tools.<name>``)
 and on the CPU only when asked (``--device cpu``), where the kernels'
 plain versions stand in and no time means anything about the card.
-``step_times`` has no JAX counterpart: it times ``TrainStep`` steps for
-the ``mxtpu_torch`` of any source tree and runs by its path
-(``python3 mxtpu_torch/tools/step_times.py --tree DIR``).
+``step_times`` and ``kernel_times`` have no JAX counterpart: they time
+``TrainStep`` steps, and the NMS call and the MoE route kernel, for the
+``mxtpu_torch`` of any source tree and run by their paths (``python3
+mxtpu_torch/tools/step_times.py --tree DIR``), so that a commit and its
+parent are timed in one session.
 """

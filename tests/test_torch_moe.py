@@ -144,32 +144,84 @@ def test_route_plain_version_gives_the_dense_maps(T, E, C):
     assert sot.dtype == tos.dtype == expert.dtype == torch.int32
 
 
-def _emulated_scan(expert, E, C, threads):
-    """The route kernel's slot assignment as the card runs it: chunks of
-    ``threads`` tokens, a token's rank among its warp's lanes of the
-    same expert (``__match_any_sync``), the warps' counts scanned in
-    warp order per expert, the chunk's totals carried to the next."""
+def _butterfly(v):
+    """The xor-shuffle sum of 32 f32 lanes (lane 0's value; every lane
+    ends with the same bits)."""
+    v = np.asarray(v, np.float32).copy()
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[lanes ^ o]).astype(np.float32)
+    return v[0]
+
+
+def _emulated_scan(expert, E, C, probs=None):
+    """The route kernel's slot assignment as the card runs it, with the
+    CTA size and cluster size read from ``moe.cu``: rounds of
+    ``cluster x threads`` tokens, a CTA a contiguous chunk in rank order;
+    a token's rank among its warp's lanes of the same expert
+    (``__match_any_sync``), the warps' counts scanned per expert, each
+    CTA's base the carried total plus the counts of the CTAs ranked
+    before it.  Returns (slot_of_token, token_of_slot, counts) and, given
+    ``probs``, mean_p summed as the kernel sums it: a warp's lanes and a
+    CTA's 32 warps by xor butterflies (zeros past T), the CTAs in rank
+    order, the rounds in order.  token_of_slot starts as garbage, takes
+    the kept tokens, then the -1 that each expert's owning CTA writes
+    into its empty slots."""
+    threads = _source_constant("ROUTE_THREADS")
+    cluster = _source_constant("ROUTE_CLUSTER")
+    warps = threads // 32
     T = len(expert)
     carry = np.zeros(E, np.int64)
+    carry_ps = np.zeros(E, np.float32)
     slot = np.full(T, -1, np.int64)
-    for t0 in range(0, T, threads):
-        chunk = expert[t0:t0 + threads]
-        warps = [chunk[w:w + 32] for w in range(0, len(chunk), 32)]
-        counts = np.array([[int((wv == e).sum()) for e in range(E)]
-                           for wv in warps])
-        base = np.zeros_like(counts)
-        run = carry.copy()
-        for k in range(len(warps)):
-            base[k] = run
-            run = run + counts[k]
-        carry = run
-        for k, wv in enumerate(warps):
-            for lane, e in enumerate(wv):
-                rank = int((wv[:lane] == e).sum())
-                pos = base[k, e] + rank
-                if pos < C:
-                    slot[t0 + 32 * k + lane] = e * C + pos
-    return slot, carry
+    token_of_slot = np.full(E * C, -7, np.int64)   # torch.empty's garbage
+    for r0 in range(0, T, threads * cluster):
+        cta_counts, cta_ps, cta_excl = [], [], []
+        for c in range(cluster):
+            lo = r0 + c * threads
+            ex = np.full(threads, -1, np.int64)
+            chunk = expert[lo:lo + threads]
+            ex[:len(chunk)] = chunk
+            onehot = (ex[:, None] == np.arange(E)[None, :]).reshape(
+                warps, 32, E)
+            counts = onehot.sum(1)                     # (warps, E)
+            excl = np.cumsum(counts, 0) - counts
+            cta_counts.append(counts.sum(0))
+            cta_excl.append((onehot, excl))
+            if probs is not None:
+                p = np.zeros((threads, E), np.float32)
+                rows = probs[lo:lo + threads]
+                p[:len(rows)] = rows
+                p = p.reshape(warps, 32, E)
+                wsum = np.array([[_butterfly(p[w, :, e]) for e in range(E)]
+                                 for w in range(warps)], np.float32)
+                cta_ps.append(np.array([_butterfly(wsum[:, e])
+                                        for e in range(E)], np.float32))
+        for c in range(cluster):
+            base = carry + sum(cta_counts[:c], np.zeros(E, np.int64))
+            onehot, excl = cta_excl[c]
+            for w in range(warps):
+                for lane in range(32):
+                    t = r0 + c * threads + 32 * w + lane
+                    if t >= T:
+                        continue
+                    e = expert[t]
+                    rank = int(onehot[w, :lane, e].sum())
+                    pos = base[e] + excl[w, e] + rank
+                    if pos < C:
+                        slot[t] = e * C + pos
+                        token_of_slot[e * C + pos] = t
+        carry = carry + sum(cta_counts, np.zeros(E, np.int64))
+        if probs is not None:
+            ps = np.zeros(E, np.float32)
+            for c in range(cluster):
+                ps = (ps + cta_ps[c]).astype(np.float32)
+            carry_ps = (carry_ps + ps).astype(np.float32)
+    for e in range(E):
+        token_of_slot[e * C + min(int(carry[e]), C):(e + 1) * C] = -1
+    mean_p = None if probs is None else \
+        (carry_ps / np.float32(T)).astype(np.float32)
+    return slot, token_of_slot, carry, mean_p
 
 
 def _source_constant(name):
@@ -177,23 +229,63 @@ def _source_constant(name):
     return int(re.search(rf"{name} = (\d+);", src).group(1))
 
 
-@pytest.mark.parametrize("T,E,skew", [(1, 1, 0.0), (31, 3, 0.0),
-                                      (1024, 8, 0.0), (1025, 8, 2.0),
-                                      (3000, 5, 1.0), (2100, 2, 3.0)])
+def _round():
+    return _source_constant("ROUTE_THREADS") * \
+        _source_constant("ROUTE_CLUSTER")
+
+
+@pytest.mark.parametrize("T,E,skew", [
+    (1, 1, 0.0), (31, 3, 0.0), (1024, 8, 0.0), (1025, 8, 2.0),
+    (3000, 5, 1.0), (2100, 2, 3.0),
+    # below one CTA, one round, one past it, three rounds, E 1 and 128,
+    # and a skewed router that drops tokens
+    (700, 4, 0.0), ("round", 8, 0.0), ("round+1", 8, 1.0),
+    ("3 rounds", 8, 0.5), (9000, 1, 0.0), ("round+1", 128, 0.0),
+    (5000, 8, 4.0)])
 def test_route_scan_emulation_matches_cumsum(T, E, skew):
-    # the chunk of tokens the kernel's scan carries a total across
+    if isinstance(T, str):
+        T = {"round": _round(), "round+1": _round() + 1,
+             "3 rounds": 3 * _round()}[T]
     threads = _source_constant("ROUTE_THREADS")
-    assert threads % 32 == 0
+    assert threads % 32 == 0 and _source_constant("ROUTE_CLUSTER") >= 1
     rng = np.random.RandomState(T)
     logits = rng.randn(T, E) + skew * np.arange(E)[None, :] / max(E, 1)
     expert = logits.argmax(-1)
     C = max(1, int(np.ceil(T / E * 1.1)))
-    slot, counts = _emulated_scan(expert, E, C, threads)
-    _, _, _, sot, _, frac, _ = kmoe.route_reference(
+    slot, tos, counts, _ = _emulated_scan(expert, E, C)
+    _, _, _, sot, ref_tos, frac, _ = kmoe.route_reference(
         torch.from_numpy(logits.astype(np.float32)), C)
     np.testing.assert_array_equal(slot, sot.numpy())
+    np.testing.assert_array_equal(tos, ref_tos.numpy())
     np.testing.assert_array_equal((counts / T).astype(np.float32),
                                   frac.numpy())
+    if skew >= 4.0:
+        assert (slot < 0).any()         # the skewed router drops tokens
+
+
+@pytest.mark.parametrize("T,E,seed", [(300, 4, 0), ("round+1", 8, 1),
+                                      (2500, 128, 2)])
+def test_route_emulated_mean_p_and_empty_slots_match_mxtpu(T, E, seed):
+    """mean_p summed in the kernel's fixed order against mxtpu's
+    ``mean(probs, 0)`` and its aux loss, and every empty slot -1."""
+    if isinstance(T, str):
+        T = _round() + 1
+    x, gw = _arrays(seed, T, 8, 4, E)[:2]
+    C = max(1, int(np.ceil(T / E * 0.9)))
+    logits = torch.from_numpy(x) @ torch.from_numpy(gw)
+    probs = kmoe.softmax_ordered(logits).numpy()
+    expert = probs.argmax(-1)
+    slot, tos, counts, mean_p = _emulated_scan(expert, E, C, probs)
+    jl = jnp.asarray(x) @ jnp.asarray(gw)
+    _close(mean_p, np.asarray(jnp.mean(jax.nn.softmax(jl, -1), 0)),
+           TOL_F32, "mean_p")
+    _, _, ja = jmoe.switch_router(jnp.asarray(x), jnp.asarray(gw), C)
+    frac = (counts / T).astype(np.float32)
+    _close(float(E * (frac * mean_p).sum()), float(ja), TOL_F32, "aux")
+    empty = np.ones(E * C, bool)
+    empty[slot[slot >= 0]] = False
+    assert (tos[empty] == -1).all() and (tos[~empty] >= 0).all()
+    assert empty.any()
 
 
 def test_route_kernel_source_limits_match_the_wrapper():

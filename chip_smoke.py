@@ -468,11 +468,27 @@ Phases, each fatal on failure:
  25. recurrent networks (``rnn_phase``, ~1-2 min): (a) the cell kernels
      of ``csrc/rnn_cell.cu`` (LSTM and GRU, forward and backward, f32
      and bf16) against their plain versions at the LM's step shape (N
-     20, H 1500) and at N 7, H 1003, one launch a call, each timed at
-     the LM's shape beside its plain version, PyTorch's fused cell
-     (``torch._thnn_fused_lstm_cell`` and the like, a yardstick) and
-     its bytes bound; one LSTM layer (T 35, N 20, 1500 -> 1500, f32)
-     through the port's RNN op against cuDNN's ``torch.nn.LSTM`` from
+     20, H 1500), at N 7, H 1003 and at the step shape of the run past
+     the scan's limits, one launch a call, each timed at that last
+     shape (where the main path runs it) beside its plain version,
+     PyTorch's fused cell (``torch._thnn_fused_lstm_cell`` and the
+     like, a yardstick) and its bytes bound; the persistent scan kernels
+     of ``csrc/rnn_scan.cu`` (a layer and direction a launch, LSTM and
+     GRU, forward and backward, f32 and bf16) against their plain scans
+     at the LM's (T 35, N 20, H 1500), at T 7, N 7, H 1003 and at T 5,
+     N 72, H 1003 (3 batch chunks; both directions at these two):
+     outputs, the backward's outputs and every gradient through the
+     autograd Function, one launch each way a call, two calls
+     bit-equal, each timed at the LM's shape beside its plain scan,
+     cuDNN's ``nn.LSTM``/``nn.GRU`` forward and backward (a yardstick)
+     and its bound, f32 also with every weight column streamed; a
+     step's cost; the bf16 witness (the scans' distance from the f32
+     plain scan at most 2x the plain bf16 scan's, 3 seeds); the RNN op
+     past the scan's limits (bf16 H 2048) on the cell kernels, T
+     launches each way, against the CPU in f32 and at most 2x as far as
+     the CPU's per-step plain path in bf16; one LSTM
+     layer (T 35, N 20, 1500 -> 1500, f32) through the port's RNN op
+     (one scan launch each way) against cuDNN's ``torch.nn.LSTM`` from
      the same weights, forward + backward timed on each (a comparison
      only); (b) the LSTM language model of Zaremba, Sutskever and
      Vinyals 2014's "large" PTB configuration (vocab 10 000, embed 1500,
@@ -480,13 +496,14 @@ Phases, each fatal on failure:
      ``clip_global_norm`` 10 a token) as ``examples/char_rnn.py``'s
      Gluon loop with the states carried across batches by
      ``detach()``, on a seeded Zipfian token stream: 3 warm-up steps,
-     3 windows of 10 (median ms/step, tokens/s), launches exactly 70
-     LSTM cell forward and 70 backward a step, the loss finite and
+     3 windows of 10 (median ms/step, tokens/s), launches exactly 2
+     LSTM scans forward and 2 backward a step (one a layer; no cell
+     launch), the loss finite and
      falling, one profiled step (device ms, idle share), peak memory,
      ``metric.Perplexity`` of one batch after; (c) the same net through
      ``build_train_step(..., compute_dtype="bfloat16")`` (the LSTM's
-     output bf16, 70/70 a step), and a GRU at the same width for one
-     window (70/70 GRU launches a step); (d) ``BucketSentenceIter``
+     output bf16, 2/2 scans a step), and a GRU at the same width for
+     one window (2/2 GRU scans a step); (d) ``BucketSentenceIter``
      into buckets 10-60 through ``BucketingModule.fit`` over mxtpu's
      mean-pooled embedding ``sym_gen``: every bucket seen, one array a
      parameter across buckets, the cross entropy falling.  To rehearse
@@ -568,7 +585,14 @@ losses 1e-4 relative (ResNet's of max(|p|, 0.01)), ResNet's running
 statistics 1e-5; the cell kernels against their plain versions 1e-5 x
 max(1, |p|) in f32 (expf and tanhf against torch's) and 2^-7 x max(1,
 |p|) in bf16 (one bf16 ulp at 1), the port's LSTM layer against
-cuDNN's 1e-4 relative (35 steps of f32 GEMMs in another order).
+cuDNN's 1e-4 relative (35 steps of f32 GEMMs in another order); the
+scan kernels against their plain scans 1e-4 x max(1, |p|) in f32 and
+2^-5 in bf16 (2^-3 for the gradients, bf16 sums over T N rows), and in
+bf16 at most 2x as far from the f32 plain scan as the plain bf16 scan,
+the RNN op past the scan's limits against the CPU's f32 1e-4 x max(1,
+|p|) in f32 and 2^-4 x max(1, rms, |p|) in bf16, there too at most 2x
+as far as the per-step plain path in bf16 (``RNN_SCAN_TOL`` and its
+neighbours state why).
 
 Kernel times are device time per call (torch.profiler: the sum of the
 kernels a call launches), for the kernel, its plain version and the
@@ -591,8 +615,10 @@ with ``"path": "fleet"``, timed at the serving shapes, with the fleet
 recovery run's launches; #8/#9 with ``"path": "detection"`` at
 8 x 32 x 300² with SSD-300's eager steps' launches, and the NMS kernel at
 SSD's detection shape with the main path's NMS launches of (d)-(f);
-the cell kernels with ``"path": "rnn"`` at the LM's step shape, f32
-with the LM's and the GRU window's launches, bf16 with TrainStep's; the
+the scan kernels with ``"path": "rnn"`` at the LM's shape, f32 with
+the LM's and the GRU window's launches, bf16 with TrainStep's, and the
+cell kernels in bf16 at the step shape of the RNN op's run past the
+scan's limits, with that run's launches; the
 five MoE kernels with ``"path": "moe"`` at bench's moe_ffn shape, bf16,
 with the launches of the bench loop through ``MoEFFN.apply``),
 and last the line
@@ -786,7 +812,7 @@ def _device_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, iters=20, warmup=3, by_name=None):
+def device_ms(fn, iters=20, warmup=3, by_name=None, expect=None):
     """Device time of one call of ``fn``: the sum of every kernel it
     launches, from torch.profiler over ``iters`` calls.  Unlike
     :func:`time_ms` it leaves out the host's launch cost, which for a
@@ -794,7 +820,10 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
     With ``by_name`` (a list of kernel names) it returns the device ms
     per call of each named kernel instead.  Where the profiler records
     no device time at all, the call's time (without ``by_name``) is
-    read with CUDA events."""
+    read with CUDA events.  With ``expect`` ({kernel name: launches a
+    call}) a window must hold each named kernel's launches of every
+    call; where three windows running fall short the call's device ms is
+    None ("not measured")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -816,14 +845,24 @@ def device_ms(fn, iters=20, warmup=3, by_name=None):
         evts = prof.key_averages()
         total = sum(_device_us(e) for e in evts)
         n_dev = sum(e.count for e in evts if _device_us(e) > 0)
+        whole = all(sum(e.count for e in evts
+                        if re.search(rf"\b{k}\b", e.key)) >= v * iters
+                    for k, v in (expect or {}).items())
+        if expect and whole:
+            return total / iters / 1e3
         if best is None or n_dev > best[2]:
             best = (evts, total, n_dev)
-        if total and n_dev >= iters:
+        if total and n_dev >= iters and not expect:
             break
         print(f"torch.profiler recorded {n_dev} device events for {iters} "
               f"calls (window {attempt + 1} of 3)", file=sys.stderr,
               flush=True)
     evts, total, n_dev = best
+    if expect:
+        print(f"torch.profiler recorded fewer launches of {expect} than "
+              f"{iters} calls in 3 windows: not measured", file=sys.stderr,
+              flush=True)
+        return None
     if not total and by_name is None:
         # CUPTI now and then records nothing in three windows running:
         # CUDA events over the same calls instead, the host's launch
@@ -2506,7 +2545,7 @@ def train_check_phase(checks):
 RANGES = ("forward_backward", "update", "run_steps")
 
 
-def step_breakdown(step, x, y):
+def step_breakdown(step, x, y, host=True):
     """One training step, ``step(x, y)`` (or one ``run_steps`` call
     through a callable of the same form), under torch.profiler: device
     ms by family (each ported kernel, cuDNN convolutions, GEMMs, the
@@ -2514,12 +2553,13 @@ def step_breakdown(step, x, y):
     ``record_function`` ranges, summed over their occurrences, and the
     device's idle share of the call's wall time.  The optimizer's
     device time is what the ``update`` ranges launched; it leaves
-    "other"."""
+    "other".  ``host=False`` profiles the device alone (no ranges, the
+    optimizer in "other")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host +
+                 [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(x, y)
         torch.cuda.synchronize()
@@ -2528,7 +2568,7 @@ def step_breakdown(step, x, y):
                            "other")}
     ranges = {r: {"host_ms": 0.0, "device_ms": 0.0} for r in RANGES}
     n = 0
-    per_name = {}
+    per_name, launched = {}, {}
     for evt in prof.events():
         on_device = "CPU" not in str(evt.device_type)
         if evt.name in RANGES:
@@ -2539,8 +2579,10 @@ def step_breakdown(step, x, y):
             continue
         if on_device:
             ms = evt.device_time_total / 1e3
-            by[family_of(evt.name)] += ms
+            fam = family_of(evt.name)
+            by[fam] += ms
             per_name[evt.name] = per_name.get(evt.name, 0.0) + ms
+            launched[fam] = launched.get(fam, 0) + 1
             n += 1
     by["optimizer"] = ranges["update"]["device_ms"]
     by["other"] = max(0.0, by["other"] - by["optimizer"])
@@ -2552,7 +2594,7 @@ def step_breakdown(step, x, y):
             fam.append([name[:120], ms])
     return {"device_ms_by_family": by, "device_busy_ms": busy,
             "profiled_wall_ms": wall_ms, "ranges": ranges, "kernels": n,
-            "top_kernels": top,
+            "top_kernels": top, "events_by_family": launched,
             "device_idle_share": 1.0 - busy / wall_ms if busy else None}
 
 
@@ -2568,17 +2610,45 @@ def breakdown_line(tag, bd):
                       for k, r in bd["ranges"].items() if r["host_ms"]))
 
 
-def profiled_step(checks, tag, step, x, y):
+def profiled_step(checks, tag, step, x, y, expect=None):
     """:func:`step_breakdown`, with up to two more steps when the
-    profiler recorded no device time or none under ``update``."""
+    profiler recorded no device time or none under ``update``, or
+    (``expect``: {kernel family: launches a step}) fewer device events
+    of a family than the step launched; then one step profiled on the
+    device alone.  A step whose profiles stay short of them has its
+    device ms and idle share set to None ("not measured"): a window
+    missing a kernel reads a busy time too low."""
+    def short(bd):
+        got = bd.get("events_by_family", {})
+        return {f: got.get(f, 0) for f, k in (expect or {}).items()
+                if got.get(f, 0) < k}
     for _ in range(3):
         bd = step_breakdown(step, x, y)
         if bd["device_idle_share"] is not None and \
-                bd["ranges"]["update"]["device_ms"]:
+                bd["ranges"]["update"]["device_ms"] and not short(bd):
             break
+    missing = short(bd)
+    if missing and bd["device_idle_share"] is not None:
+        # a profile with the host's activity has lost the forward scans'
+        # launches in whole runs of the script: the device side from one
+        # more step profiled on the device alone, the ranges' host ms
+        # from the step before
+        dev = step_breakdown(step, x, y, host=False)
+        print(f"{tag} step breakdown: torch.profiler recorded "
+              f"{missing} of {expect} launches with the host's activity "
+              f"in 3 steps; {short(dev) or 'every launch'} short on the "
+              f"device alone", flush=True)
+        if dev["device_idle_share"] is not None and not short(dev):
+            bd = {**dev, "ranges": bd["ranges"], "device_alone": True}
+            missing = {}
     if bd["device_idle_share"] is None:
         checks.failed.append(f"torch.profiler recorded no device time in "
                              f"the {tag} step")
+    elif missing:
+        print(f"{tag} step breakdown: not measured (torch.profiler "
+              f"recorded {missing} of {expect} launches)", flush=True)
+        bd.update(device_busy_ms=None, device_idle_share=None,
+                  short_of=missing)
     else:
         print(breakdown_line(tag, bd), flush=True)
     return bd
@@ -9667,6 +9737,30 @@ RNN_TOL_F32 = 1e-5            # x max(1, |plain|): expf/tanhf vs torch's
 RNN_TOL_BF16 = 2.0 ** -7      # one bf16 ulp at 1, x max(1, |plain|)
 RNN_LAYER_TOL = 1e-4          # the port's LSTM layer vs cuDNN's, f32
 RNN_SRC = "mxtpu_torch/csrc/rnn_cell.cu"
+RNN_SCAN_SRC = "mxtpu_torch/csrc/rnn_scan.cu"
+# the persistent scan against its plain scan, x max(1, |plain|): f32 the
+# products' sums in another order (1500 and 6000 terms), carried through
+# 35 steps and summed again over T N rows in dW, as RNN_LAYER_TOL;
+# bf16 a product's rounding that flips by one ulp (2^-8 relative) moves
+# h by about one ulp, and that difference is carried through 35 steps
+# (outputs: RNN_SCAN_TOL); the gradients of the parameters are bf16 sums
+# over the T N = 700 rows of such dhh_t h_{t-1} products, rounded at
+# their own magnitude: 8 ulps of dW's bf16 output (2^-3 relative; the
+# GRU at the LM's shape read 2^-4.4 on an H100)
+RNN_SCAN_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+RNN_SCAN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -3}
+RNN_SCAN_RAGGED = (7, 7, 1003)  # (T, N, H) beside the LM's (35, 20, 1500)
+RNN_SCAN_CHUNKED = (5, 72, 1003)  # a batch in 3 chunks of 24, one launch
+# the bf16 witness: on the same inputs, the kernel path's distance from
+# the f32 plain version at most RNN_WITNESS_RATIO x the plain bf16
+# version's (max rel err x max(1, |f32|)), over RNN_WITNESS_SEEDS seeds
+RNN_WITNESS_RATIO, RNN_WITNESS_SEEDS = 2.0, 3
+# shapes past the scan's limits, (T, N, H, input): bf16 a W slice over a
+# CTA's shared memory (the f32 scan reaches past H 40 000, where no model
+# of the repo goes, so the f32 cell kernels are on no main path)
+RNN_PAST = {("lstm", "bfloat16"): (3, 20, 2048, 2048),
+            ("gru", "bfloat16"): (3, 20, 2048, 2048)}
+RNN_PAST_BF16_TOL = 2.0 ** -4  # bf16 cell path vs f32, of max(1, rms, |ref|)
 RNN_REPLACES = ("mxtpu/ndarray/rnn_impl.py:77 (_scan_dir: XLA fuses the "
                 "lax.scan body, no TPU kernel)")
 BUCKETS = (10, 20, 30, 40, 50, 60)
@@ -9675,7 +9769,9 @@ BUCKET_VOCAB, BUCKET_EMBED, BUCKET_EPOCHS = 1000, 64, 3
 KERNEL_NAMES.update({"lstm_cell_fwd": ("lstm_fwd_kernel",),
                      "lstm_cell_bwd": ("lstm_bwd_kernel",),
                      "gru_cell_fwd": ("gru_fwd_kernel",),
-                     "gru_cell_bwd": ("gru_bwd_kernel",)})
+                     "gru_cell_bwd": ("gru_bwd_kernel",),
+                     **{f"{m}_scan_{d}": (f"{m}_scan_{d}_kernel",)
+                        for m in ("lstm", "gru") for d in ("fwd", "bwd")}})
 
 
 def aten_op(name):
@@ -9754,9 +9850,11 @@ def rnn_cell_case(kind, direction, n, H, dt, seed):
 
 def rnn_kernel_cell(checks):
     """(a): each cell kernel, forward and backward, f32 and bf16, at the
-    LM's (N 20, H 1500) and at ``RNN_RAGGED``, against its plain version
-    on the same inputs (f32 to ``RNN_TOL_F32``, bf16 to ``RNN_TOL_BF16``,
-    both x max(1, |plain|)), one launch a call; at the LM's shape the
+    LM's step shape (N 20, H 1500), at ``RNN_RAGGED`` and (bf16) at the
+    step shape of the RNN op's run past the scan's limits (``RNN_PAST``,
+    where the main path launches it), against its plain version on the
+    same inputs (f32 to ``RNN_TOL_F32``, bf16 to ``RNN_TOL_BF16``, both x
+    max(1, |plain|)), one launch a call; at the past-limits shape the
     kernel's, the plain version's and PyTorch's fused cell's device ms
     and the bytes bound."""
     import torch
@@ -9768,7 +9866,10 @@ def rnn_kernel_cell(checks):
         for dtn in ("float32", "bfloat16"):
             dt = getattr(torch, dtn)
             tol = RNN_TOL_F32 if dtn == "float32" else RNN_TOL_BF16
-            for n, H in ((LM_BATCH, LM_HIDDEN), RNN_RAGGED):
+            past = RNN_PAST.get((kind, dtn), (0, 0, 0))[1:3]
+            for n, H in ((LM_BATCH, LM_HIDDEN), RNN_RAGGED, past):
+                if not n:
+                    continue
                 kern, plain, lib, nbytes = rnn_cell_case(
                     kind, direction, n, H, dt, SEED + 250 + k)
                 kernels.reset_launch_counts()
@@ -9792,7 +9893,7 @@ def rnn_kernel_cell(checks):
                 if not ok:
                     checks.failed.append(f"{tag}: rel {rel:.3e}, launches "
                                          f"{one}")
-                if (n, H) != (LM_BATCH, LM_HIDDEN):
+                if (n, H) != past:
                     continue
                 ms = device_ms(kern, iters=50)
                 plain_ms = device_ms(plain, iters=50)
@@ -9800,8 +9901,8 @@ def rnn_kernel_cell(checks):
                 wall = time_ms(kern, iters=50)
                 b_ms, b_by = bound(nbytes, 0, dtn)
                 print(f"time {counter} [{dtn}] N{n} H{H} (device ms per "
-                      f"call): kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-                      f"library_ms="
+                      f"call, the past-limits run's step): kernel_ms="
+                      f"{ms:.5f} plain_ms={plain_ms:.5f} library_ms="
                       f"{'null' if lib_ms is None else f'{lib_ms:.5f}'} "
                       f"(PyTorch's fused cell) bound_ms={b_ms:.6f} "
                       f"({b_by}, {nbytes} bytes); kernel wall_ms={wall:.5f}",
@@ -9809,15 +9910,20 @@ def rnn_kernel_cell(checks):
                 rows[(counter, dtn)] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "wall_ms": wall, "bytes": nbytes}
+                    "bound_by": b_by, "wall_ms": wall, "bytes": nbytes,
+                    "shape": [n, H]}
+                del kern, plain, lib
+                torch.cuda.empty_cache()
     return rows
 
 
 def rnn_layer_vs_cudnn(checks):
     """(a): one LSTM layer at the LM's width (T 35, N 20, 1500 -> 1500,
-    f32), the port's RNN op (the cell kernel a step, torch GEMMs)
-    against cuDNN's ``torch.nn.LSTM`` from the same weights: output,
-    final states and the input's gradient within ``RNN_LAYER_TOL``, and
+    f32), the port's RNN op (the i2h GEMM, one persistent scan launch
+    each way, the dW GEMM; exactly one lstm_scan_fwd and one
+    lstm_scan_bwd a call) against cuDNN's ``torch.nn.LSTM`` from the
+    same weights: output, final states and the input's gradient within
+    ``RNN_LAYER_TOL``, and
     each one's forward + backward ms (events, host launches included,
     and device ms).  A comparison only: the port never calls cuDNN's
     RNN."""
@@ -9847,8 +9953,14 @@ def rnn_layer_vs_cudnn(checks):
         out, (hn, cn) = lstm(x, (h0, c0))
         (gx,) = torch.autograd.grad(out, x, gy)
         return out, hn, cn, gx
+    from mxtpu_torch import kernels
+    kernels.reset_launch_counts()
+    got = port()
+    check_launches(checks, "LSTM layer (the RNN op, one call)",
+                   kernels.launch_counts(),
+                   {"lstm_scan_fwd": 1, "lstm_scan_bwd": 1}, 1)
     worst = 0.0
-    for a, b in zip(port(), cudnn()):
+    for a, b in zip(got, cudnn()):
         worst = max(worst, rel_err(a.detach(), b.detach())[0])
     ok = worst <= RNN_LAYER_TOL
     print(f"check LSTM layer T{T} N{N} H{H} f32, the port's RNN op vs "
@@ -9858,15 +9970,463 @@ def rnn_layer_vs_cudnn(checks):
     if not ok:
         checks.failed.append(f"LSTM layer vs cuDNN: {worst:.3e}")
     out = {"max_rel_err": worst}
+    # the port's device ms only from windows holding both scans of every
+    # call (a window that drops one reads ~1 ms short)
+    scans = {"lstm_scan_fwd_kernel": 1, "lstm_scan_bwd_kernel": 1}
     for name, fn in (("port", port), ("cudnn", cudnn)):
         out[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
-        out[f"{name}_device_ms"] = device_ms(fn, iters=5, warmup=1)
+        out[f"{name}_device_ms"] = device_ms(
+            fn, iters=5, warmup=1, expect=scans if name == "port" else None)
+
+    def dev(v):
+        return "not measured" if v is None else f"{v:.3f}"
     print(f"time LSTM layer fwd+bwd T{T} N{N} H{H} f32: port "
-          f"{out['port_ms']:.3f} ms (device {out['port_device_ms']:.3f}), "
+          f"{out['port_ms']:.3f} ms (device {dev(out['port_device_ms'])}), "
           f"cuDNN {out['cudnn_ms']:.3f} ms (device "
-          f"{out['cudnn_device_ms']:.3f}); port / cuDNN "
+          f"{dev(out['cudnn_device_ms'])}); port / cuDNN "
           f"{out['port_ms'] / out['cudnn_ms']:.2f}x", flush=True)
     return out
+
+
+def rnn_scan_inputs(mode, dt, T, N, H, seed):
+    """A direction's inputs at (T, N, H): pre and the states N(0, 1),
+    W_h2h uniform in +-LM_INIT as the LM draws it (and b_rn), and the
+    cotangents dy, dh_T, dc_T; all on the card in ``dt``."""
+    import torch
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    G = 4 if mode == "lstm" else 3
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=CARD).to(dt)
+    w = (torch.rand(G * H, H, generator=g, device=CARD) * 2 - 1) * LM_INIT
+    return {"pre": r(T, N, G * H), "h0": r(N, H), "c0": r(N, H),
+            "w": w.to(dt), "b_rn": r(H), "dy": r(T, N, H), "dhT": r(N, H),
+            "dcT": r(N, H)}
+
+
+def rnn_scan_calls(mode, x, reverse=False):
+    """(kernel forward, plain forward, kernel backward, plain backward,
+    kernel grads, plain grads) of one direction: the backward's saved
+    state is the plain forward's on the same inputs; the grads are every
+    input's gradient (pre, h0, c0 or b_rn, W_h2h) through the autograd
+    Function on the card, and through the plain scan's two halves and
+    the same dW GEMM."""
+    import torch
+    from mxtpu_torch.kernels import rnn_scan as rs
+    lstm = mode == "lstm"
+    if lstm:
+        args = (x["pre"], x["h0"], x["c0"], x["w"])
+        ys, hT, cT, sv, cs = rs.lstm_scan_fwd_reference(*args, reverse)
+        bargs = (x["dy"], x["dhT"], x["dcT"], sv, cs, x["c0"], x["w"])
+
+        def kf():
+            return rs.lstm_scan_fwd(*args, reverse)
+
+        def pf():
+            return rs.lstm_scan_fwd_reference(*args, reverse)
+
+        def kb():
+            return rs.lstm_scan_bwd(*bargs, reverse)
+
+        def pb():
+            return rs.lstm_scan_bwd_reference(*bargs, reverse)
+    else:
+        args = (x["pre"], x["h0"], x["w"], x["b_rn"])
+        ys, hT, sv = rs.gru_scan_fwd_reference(*args, reverse)
+        bargs = (x["dy"], x["dhT"], sv, ys, x["h0"], x["w"])
+
+        def kf():
+            return rs.gru_scan_fwd(*args, reverse)
+
+        def pf():
+            return rs.gru_scan_fwd_reference(*args, reverse)
+
+        def kb():
+            return rs.gru_scan_bwd(*bargs, reverse)
+
+        def pb():
+            return rs.gru_scan_bwd_reference(*bargs, reverse)
+
+    def kgrads():
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        fn = rs.lstm_scan if lstm else rs.gru_scan
+        outs = fn(*leaves, reverse=reverse)
+        cot = (x["dy"], x["dhT"], x["dcT"])[:len(outs)]
+        return torch.autograd.grad(outs, leaves, cot)
+
+    def pgrads():
+        if lstm:
+            ys_, _, _, gs, cs_ = rs.lstm_scan_fwd_reference(*args, reverse)
+            dpre, dh0, dc0 = rs.lstm_scan_bwd_reference(
+                x["dy"], x["dhT"], x["dcT"], gs, cs_, x["c0"], x["w"],
+                reverse)
+            return (dpre, dh0, dc0, rs._dw(dpre, ys_, x["h0"], reverse))
+        ys_, _, sv_ = rs.gru_scan_fwd_reference(*args, reverse)
+        dpre, dhh, dh0 = rs.gru_scan_bwd_reference(
+            x["dy"], x["dhT"], sv_, ys_, x["h0"], x["w"], reverse)
+        H = ys_.shape[-1]
+        return (dpre, dh0, rs._dw(dhh, ys_, x["h0"], reverse),
+                dhh[..., 2 * H:].float().sum((0, 1)).to(x["b_rn"].dtype))
+    return kf, pf, kb, pb, kgrads, pgrads
+
+
+def rnn_scan_bytes(mode, T, N, H, es, fwd):
+    """The bytes a scan launch must move: each input read once, each
+    output written once (the saved gates f32)."""
+    G = 4 if mode == "lstm" else 3
+    lstm = mode == "lstm"
+    w = G * H * H * es
+    if fwd:
+        return (w + T * N * G * H * es + T * N * 4 * H * 4 + T * N * H * es
+                + (T * N * H * es if lstm else H * es)
+                + (4 if lstm else 2) * N * H * es)
+    return (w + T * N * H * es + T * N * 4 * H * 4 + T * N * H * es
+            + (1 if lstm else 2) * T * N * G * H * es
+            + (5 if lstm else 3) * N * H * es)
+
+
+def cudnn_yardstick(mode, x, reverse=False):
+    """cuDNN's ``nn.LSTM`` / ``nn.GRU`` (H -> H) on the same pre-shaped
+    batch: (forward, backward alone) callables, a yardstick the port
+    never calls (it also runs the i2h product the scan leaves out)."""
+    import torch
+    H = x["h0"].shape[-1]
+    net = (torch.nn.LSTM if mode == "lstm" else torch.nn.GRU)(H, H).to(
+        CARD, x["pre"].dtype)
+    xin = x["pre"][..., :H].contiguous().requires_grad_(True)
+    state = (x["h0"][None], x["c0"][None]) if mode == "lstm" \
+        else x["h0"][None]
+
+    def fwd():
+        with torch.no_grad():
+            return net(xin, state)
+    try:
+        out = net(xin, state)[0]
+    except RuntimeError as e:   # a type this build's cuDNN RNN lacks
+        print(f"cuDNN nn.{mode.upper()} in {x['pre'].dtype}: {e}",
+              flush=True)
+        return None, None
+
+    def bwd():
+        return torch.autograd.grad(out, xin, x["dy"], retain_graph=True)
+    return fwd, bwd
+
+
+def rnn_scan_cell(checks):
+    """The four persistent scan kernels (``csrc/rnn_scan.cu``), forward
+    and backward, f32 and bf16, at the LM's (T 35, N 20, H 1500), at
+    ``RNN_SCAN_RAGGED`` and at ``RNN_SCAN_CHUNKED`` (a batch past 32 rows,
+    in chunks within one launch; both directions at these two) against
+    their plain scans on the same inputs: every output, the backward's
+    outputs on the plain forward's saved state, and every input's
+    gradient through the autograd Function, to ``RNN_SCAN_TOL`` (the
+    gradients ``RNN_SCAN_GRAD_TOL``) x max(1, |plain|); one launch each
+    way a call; two calls bit-equal.  At the LM's shape the device ms of
+    the scan kernel (by name), the plain scan and cuDNN's layer (a
+    yardstick), the bound, and the call's wall ms (CUDA events, the
+    wrapper's packing included); in f32 also the kernel with every
+    weight column streamed from device memory (``kw=0``) beside the
+    plan's share staged in shared memory."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.kernels import rnn_scan as rs
+    rows = {}
+    for k, mode in enumerate(("lstm", "gru")):
+        for dtn in ("float32", "bfloat16"):
+            dt = getattr(torch, dtn)
+            for (T, N, H) in ((LM_STEPS, LM_BATCH, LM_HIDDEN),
+                              RNN_SCAN_RAGGED, RNN_SCAN_CHUNKED):
+                lm = (T, N, H) == (LM_STEPS, LM_BATCH, LM_HIDDEN)
+                x = rnn_scan_inputs(mode, dt, T, N, H, SEED + 300 + k)
+                for reverse in ((False,) if lm else (False, True)):
+                    kf, pf, kb, pb, kg, pg = rnn_scan_calls(mode, x,
+                                                            reverse)
+                    tag = (f"{mode}_scan [{dtn}] T{T} N{N} H{H}"
+                           f"{' reverse' if reverse else ''}")
+                    res = {}
+                    for d, kern, plain in (("fwd", kf, pf), ("bwd", kb, pb),
+                                           ("grads", kg, pg)):
+                        kernels.reset_launch_counts()
+                        got = kern()
+                        counts = kernels.launch_counts()
+                        want = plain()
+                        again = kern()
+                        torch.cuda.synchronize()
+                        rel, err = 0.0, 0.0
+                        for a, b in zip(got, want):
+                            r_, e_ = rel_err(a.float(), b.float())
+                            rel, err = max(rel, r_), max(err, e_)
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, again))
+                        tol = (RNN_SCAN_GRAD_TOL if d == "grads"
+                               else RNN_SCAN_TOL)[dtn]
+                        want_n = {f"{mode}_scan_fwd": d != "bwd",
+                                  f"{mode}_scan_bwd": d != "fwd"}
+                        launched = all(counts[c] == int(v)
+                                       for c, v in want_n.items()) and \
+                            sum(counts.values()) == sum(want_n.values())
+                        ok = rel <= tol and same and launched
+                        print(f"check {tag} {d}: kernel vs plain "
+                              f"max_abs_err={err:.3e} max_rel_err={rel:.3e}"
+                              f" (tol {tol:.3e} x max(1, |plain|)), "
+                              f"launches {counts[f'{mode}_scan_fwd']}/"
+                              f"{counts[f'{mode}_scan_bwd']}, two calls "
+                              f"bit-equal {same} {'ok' if ok else 'FAIL'}",
+                              flush=True)
+                        checks.rows.append({"check": f"{tag} {d}",
+                                            "dtype": dtn,
+                                            "max_rel_err": rel,
+                                            "max_abs_err": err, "tol": tol,
+                                            "ok": ok})
+                        if not ok:
+                            checks.failed.append(
+                                f"{tag} {d}: rel {rel:.3e}, bit-equal "
+                                f"{same}, launches "
+                                f"{ {c: v for c, v in counts.items() if v} }")
+                        res[d] = err
+                    if not lm:
+                        continue
+                    rows.update(rnn_scan_times(mode, dtn, x, kf, pf, kb, pb,
+                                               res))
+                del x
+                torch.cuda.empty_cache()
+    return rows
+
+
+def rnn_scan_times(mode, dtn, x, kf, pf, kb, pb, errs):
+    """The kernels line's rows of one mode and type at the LM's shape:
+    each way the scan kernel's device ms (its mean over its recorded
+    launches), the plain scan's, cuDNN's layer's, the bound; f32 also
+    with every weight column streamed (``kw=0``, ``streamed_ms``)."""
+    import torch
+    from mxtpu_torch.kernels import rnn_scan as rs
+    T, N, H = LM_STEPS, LM_BATCH, LM_HIDDEN
+    dt = getattr(torch, dtn)
+    lstm = mode == "lstm"
+    es = torch.empty(0, dtype=dt).element_size()
+    ops = 2 * T * N * (4 if lstm else 3) * H * H
+    cf, cb = cudnn_yardstick(mode, x)
+    if lstm:
+        _, _, _, sv, cs_ = rs.lstm_scan_fwd_reference(
+            x["pre"], x["h0"], x["c0"], x["w"], False)
+    else:
+        ys, _, sv = rs.gru_scan_fwd_reference(x["pre"], x["h0"], x["w"],
+                                              x["b_rn"], False)
+
+    def streamed(d):
+        if d == "fwd":
+            return lambda: rs._fwd(mode, x["pre"], x["h0"],
+                                   x["c0"] if lstm else None, x["w"],
+                                   None if lstm else x["b_rn"], False, kw=0)
+        if lstm:
+            return lambda: rs._bwd(mode, x["dy"], x["dhT"], x["dcT"], sv,
+                                   cs_, x["c0"], cs_, None, x["w"], False,
+                                   kw=0)
+        return lambda: rs._bwd(mode, x["dy"], x["dhT"], None, sv, None, None,
+                               ys, x["h0"], x["w"], False, kw=0)
+    rows = {}
+    for d, kern, plain, lib in (("fwd", kf, pf, cf), ("bwd", kb, pb, cb)):
+        nbytes = rnn_scan_bytes(mode, T, N, H, es, d == "fwd")
+        # the scan kernel's mean over its recorded launches (a window
+        # that drops events still reads whole launches); wall_ms holds
+        # the call with the wrapper's packing and zero-fills
+        kname = f"{mode}_scan_{d}_kernel"
+        ms = device_ms(kern, iters=10, warmup=2, by_name=[kname])[kname]
+        st_ms = None if dtn != "float32" else device_ms(
+            streamed(d), iters=10, warmup=2, by_name=[kname])[kname]
+        # the plain scan launches ~10 kernels a step: a window that drops
+        # some reads low, never high, so the largest of three is read
+        plain_ms = max(device_ms(plain, iters=3, warmup=1)
+                       for _ in range(3))
+        lib_ms = None if lib is None else device_ms(lib, iters=10, warmup=2)
+        wall = time_ms(kern, iters=10, warmup=2)
+        b_ms, b_by = bound(nbytes, ops, dtn)
+        name = f"{mode}_scan_{d}"
+        lib_s = "null" if lib_ms is None else f"{lib_ms:.5f}"
+        st_s = "" if st_ms is None else \
+            f" streamed_ms={st_ms:.5f} (every W column from device memory)"
+        print(f"time {name} [{dtn}] T{T} N{N} H{H} (device ms per call; "
+              f"the kernel's by name): kernel_ms={ms:.5f}{st_s} plain_ms="
+              f"{plain_ms:.5f} library_ms={lib_s} (cuDNN nn."
+              f"{mode.upper()} {'forward' if d == 'fwd' else 'backward'}, "
+              f"a yardstick) bound_ms={b_ms:.6f} ({b_by}, {nbytes} bytes, "
+              f"{ops} ops); kernel wall_ms={wall:.5f}", flush=True)
+        rows[(name, dtn)] = {
+            "max_abs_err": errs[d], "ms": ms, "streamed_ms": st_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "wall_ms": wall, "bytes": nbytes, "ops": ops}
+    return rows
+
+
+def rnn_scan_witness(checks):
+    """bf16 against f32 on the same inputs (bf16 values, the f32 run on
+    their f32 copies), ``RNN_WITNESS_SEEDS`` seeds, LSTM and GRU, the
+    LM's and the ragged shape: the scan kernels' outputs and gradients
+    (``rnn_scan_calls``) against the f32 plain scan, and the plain bf16
+    scan's the same way; the kernels' distance at most
+    ``RNN_WITNESS_RATIO`` x the plain version's, each way (outputs of
+    the forward, every gradient).  What RNN_SCAN_TOL's bf16 limits
+    allow, a second witness holds to what bf16 itself costs."""
+    import torch
+    out = []
+    for k, mode in enumerate(("lstm", "gru")):
+        for (T, N, H) in ((LM_STEPS, LM_BATCH, LM_HIDDEN), RNN_SCAN_RAGGED):
+            for seed in range(RNN_WITNESS_SEEDS):
+                x = rnn_scan_inputs(mode, torch.bfloat16, T, N, H,
+                                    SEED + 340 + 10 * k + seed)
+                x32 = {n: v.float() for n, v in x.items()}
+                kf, pf, _, _, kg, pg = rnn_scan_calls(mode, x)
+                _, f32f, _, _, _, f32g = rnn_scan_calls(mode, x32)
+                for d, kern, plain, ref in (("fwd", kf, pf, f32f),
+                                            ("grads", kg, pg, f32g)):
+                    r = ref()
+                    ek = max(rel_err(a.float(), b)[0]
+                             for a, b in zip(kern(), r))
+                    ep = max(rel_err(a.float(), b)[0]
+                             for a, b in zip(plain(), r))
+                    ok = ek <= RNN_WITNESS_RATIO * ep
+                    tag = (f"{mode}_scan [bfloat16] T{T} N{N} H{H} seed "
+                           f"{seed} {d}")
+                    print(f"check {tag} vs f32: kernel {ek:.4e}, plain "
+                          f"bf16 {ep:.4e} (ratio {ek / ep:.3f}, limit "
+                          f"{RNN_WITNESS_RATIO}) {'ok' if ok else 'FAIL'}",
+                          flush=True)
+                    checks.rows.append({"check": f"witness {tag}",
+                                        "kernel_vs_f32": ek,
+                                        "plain_bf16_vs_f32": ep, "ok": ok})
+                    out.append([mode, T, N, H, seed, d, ek, ep])
+                    if not ok:
+                        checks.failed.append(f"witness {tag}: kernel "
+                                             f"{ek:.3e} vs plain {ep:.3e}")
+                del x, x32
+    return out
+
+
+def rnn_scan_step_costs():
+    """What a step of the LSTM scan forward costs at H 1500, f32 and
+    bf16, N 1 (few products) and N 20: the kernel's device ms added
+    from T 35 to T 70, over 35; and the wrapper's weight packing
+    (``rnn_scan._pack``, part of every call's ms) forward and backward.
+    Printed, and returned."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.kernels import rnn_scan as rs
+    H = LM_HIDDEN
+    P = min(kernels.sm_count(torch.device(CARD)), H)
+    out = {}
+    for dtn in ("float32", "bfloat16"):
+        dt = getattr(torch, dtn)
+        per = {}
+        for N in (1, LM_BATCH):
+            ms = {}
+            for T in (LM_STEPS, 2 * LM_STEPS):
+                x = rnn_scan_inputs("lstm", dt, T, N, H, SEED + 310)
+                # the kernel by name: a window that drops a launch still
+                # reads whole launches
+                ms[T] = device_ms(
+                    lambda: rs.lstm_scan_fwd(x["pre"], x["h0"], x["c0"],
+                                             x["w"]),
+                    iters=10, warmup=2,
+                    by_name=["lstm_scan_fwd_kernel"])["lstm_scan_fwd_kernel"]
+            per[N] = (ms[2 * LM_STEPS] - ms[LM_STEPS]) / LM_STEPS * 1e3
+        pack = [device_ms(lambda: rs._pack(x["w"], 4, fwd, H, P), iters=5,
+                          warmup=1) for fwd in (True, False)]
+        print(f"time lstm_scan_fwd [{dtn}] H{H}: a step adds "
+              f"{per[1]:.2f} us at N 1 and {per[LM_BATCH]:.2f} us at N "
+              f"{LM_BATCH} (T {LM_STEPS} -> {2 * LM_STEPS}); weight packing "
+              f"{pack[0]:.4f} ms forward, {pack[1]:.4f} ms backward",
+              flush=True)
+        out[dtn] = {"us_a_step": per, "pack_ms": pack}
+    return out
+
+
+def rnn_past_limits_cell(checks):
+    """Shapes past the persistent kernel's limits (``RNN_PAST``: bf16 a
+    W slice over a CTA's shared memory) through the RNN op, LSTM and
+    GRU, ``RNN_WITNESS_SEEDS`` seeds: the per-step path, exactly T
+    launches of the mode's cell kernel forward and backward a call and
+    no scan launch; the output, final states and the gradients of the
+    data, parameters and states against the same op on CPU copies of the
+    same values in f32 (the plain scan), to ``RNN_PAST_BF16_TOL`` x
+    max(1, rms(ref), |ref|), as the parameters' gradients are sums of T
+    N rows that cancel to near 0 where their terms' roundings stay, and
+    at most ``RNN_WITNESS_RATIO`` x as far from it as the per-step
+    path's plain version in bf16 (the op on the CPU with its path held
+    to the per-step loop: autograd adds a bf16 dW_h2h a step, where the
+    scan takes one GEMM).  Returns the launches of the first seed by
+    dtype (the kernels line's cell rows) and the witness readings."""
+    import torch
+    from mxtpu_torch import kernels
+    from mxtpu_torch.ndarray import rnn_impl
+    from mxtpu_torch.ndarray.rnn_impl import _rnn_op, rnn_param_size
+    out = {"float32": {}, "bfloat16": {}}
+    witness = []
+    for (mode, dtn), (T, N, H, I) in RNN_PAST.items():
+        k = ("lstm", "gru").index(mode)
+        dt = getattr(torch, dtn)
+        for seed in range(RNN_WITNESS_SEEDS):
+            g = torch.Generator().manual_seed(SEED + 320 + k + 10 * seed)
+            P = rnn_param_size(1, I, H, False, mode)
+            host = [torch.randn(T, N, I, generator=g),
+                    (torch.rand(P, generator=g) * 2 - 1) * LM_INIT,
+                    torch.randn(1, N, H, generator=g)]
+            if mode == "lstm":
+                host.append(torch.randn(1, N, H, generator=g))
+            host = [a.to(dt) for a in host]
+            cot = None
+
+            def run(dev, as_type):
+                nonlocal cot
+                leaves = [a.to(dev, as_type).requires_grad_(True)
+                          for a in host]
+                outs = _rnn_op(*leaves, state_size=H, num_layers=1,
+                               mode=mode, state_outputs=True)
+                if cot is None:
+                    gg = torch.Generator().manual_seed(SEED + 330 + k)
+                    cot = [torch.randn(o.shape, generator=gg).to(dt)
+                           for o in outs]
+                grads = torch.autograd.grad(
+                    outs, leaves, [c.to(dev, as_type) for c in cot])
+                return [o.detach().float().cpu() for o in (*outs, *grads)]
+            kernels.reset_launch_counts()
+            got = run(CARD, dt)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            want = run("cpu", torch.float32)
+            # the per-step path's plain version: the op on the CPU in bf16
+            # with its path held to the per-step loop
+            keep = rnn_impl._scan.scan_path
+            rnn_impl._scan.scan_path = lambda *a: "cell"
+            try:
+                plain = run("cpu", dt)
+            finally:
+                rnn_impl._scan.scan_path = keep
+
+            def far(xs):
+                return max(rel_err(a, b, max(1.0, float(
+                    b.double().pow(2).mean().sqrt())))[0]
+                    for a, b in zip(xs, want))
+            rel, rel_p = far(got), far(plain)
+            tag = f"RNN op {mode} [{dtn}] T{T} N{N} H{H} (past the scan) " \
+                f"seed {seed}"
+            check_launches(checks, tag, counts,
+                           {f"{mode}_cell_fwd": T, f"{mode}_cell_bwd": T}, 1)
+            ok = rel <= RNN_PAST_BF16_TOL and rel <= RNN_WITNESS_RATIO * rel_p
+            witness.append([mode, seed, rel, rel_p])
+            print(f"check {tag}: card (cell kernels) vs CPU f32 (plain "
+                  f"scan) max_rel_err={rel:.3e} (tol {RNN_PAST_BF16_TOL:.3e} "
+                  f"of max(1, rms, |ref|)); the per-step plain path in bf16 "
+                  f"{rel_p:.3e} (ratio {rel / rel_p:.3f}, limit "
+                  f"{RNN_WITNESS_RATIO}), launches "
+                  f"{json.dumps({c: v for c, v in counts.items() if v})} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                checks.failed.append(f"{tag}: rel {rel:.3e}, the plain "
+                                     f"per-step path {rel_p:.3e}")
+            if seed == 0:
+                for c, v in counts.items():
+                    out[dtn][c] = out[dtn].get(c, 0) + v
+    return out, witness
 
 
 def lm_stream(n_steps, seed):
@@ -9973,9 +10533,10 @@ def lm_windows(step, stream, first, n_windows, n_steps):
 
 def lm_cell(checks, mode, n_windows):
     """(b) (mode "lstm") and the GRU window: warm-up steps, then
-    ``n_windows`` windows of LM_WINDOW steps, launches exactly T * L of
-    the mode's cell kernel forward and backward a step (every other
-    counter 0), losses finite and falling, one profiled step, peak
+    ``n_windows`` windows of LM_WINDOW steps, launches exactly L of the
+    mode's scan kernel forward and backward a step (one a layer; every
+    other counter 0, the cell kernels' too), losses finite and falling,
+    one profiled step, peak
     memory, and ``metric.Perplexity`` of one predict-mode batch after."""
     import torch
     from mxtpu_torch import kernels, metric, nd
@@ -9993,8 +10554,8 @@ def lm_cell(checks, mode, n_windows):
                                    LM_WINDOW)
     counts = kernels.launch_counts()
     n = n_windows * LM_WINDOW
-    per = {f"{mode}_cell_fwd": LM_STEPS * LM_LAYERS,
-           f"{mode}_cell_bwd": LM_STEPS * LM_LAYERS}
+    # one persistent scan a layer (one direction) each way, no cell launch
+    per = {f"{mode}_scan_fwd": LM_LAYERS, f"{mode}_scan_bwd": LM_LAYERS}
     check_launches(checks, tag, counts, per, n)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = warm + losses
@@ -10003,7 +10564,7 @@ def lm_cell(checks, mode, n_windows):
     if not np.mean(losses[-LM_WINDOW:]) < losses[0]:
         checks.failed.append(f"{tag}: loss did not fall: {losses}")
     x, y = lm_window(stream, LM_WARMUP + n)
-    bd = profiled_step(checks, tag, step, x, y)
+    bd = profiled_step(checks, tag, step, x, y, expect=per)
     ppl = metric.Perplexity()
     with torch.no_grad():
         out, _ = net(*lm_window(stream, LM_WARMUP + n + 1)[:1],
@@ -10014,8 +10575,7 @@ def lm_cell(checks, mode, n_windows):
     toks = LM_BATCH * LM_STEPS / (ms / 1e3)
     print(f"{tag}: {ms:.3f} ms/step (median of {n_windows} windows of "
           f"{LM_WINDOW}: {[round(v, 3) for v in window_ms]}), {toks:.0f} "
-          f"tokens/s, device {bd['device_busy_ms']:.3f} ms a step, idle "
-          f"share {bd['device_idle_share'] or 0:.4f}, peak "
+          f"tokens/s, device {busy_line(bd)}, peak "
           f"{peak_gb:.3f} GB; losses {[round(v, 4) for v in losses]}; "
           f"perplexity after {ppl.get()[1]:.1f} (uniform: {LM_VOCAB}); "
           f"launches in {n} steps {json.dumps(counts)}; set-up and "
@@ -10025,6 +10585,15 @@ def lm_cell(checks, mode, n_windows):
                     "idle_share": bd["device_idle_share"],
                     "peak_gb": peak_gb, "losses": losses,
                     "perplexity": ppl.get()[1], "breakdown": bd}
+
+
+def busy_line(bd):
+    """A profiled step's device ms and idle share, or "not measured"
+    where its profile missed a scan launch."""
+    if bd["device_busy_ms"] is None:
+        return f"ms a step and idle share not measured ({bd['short_of']})"
+    return (f"{bd['device_busy_ms']:.3f} ms a step, idle share "
+            f"{bd['device_idle_share']:.4f}")
 
 
 def lm_loss(pred, y):
@@ -10039,8 +10608,8 @@ def lm_train_step_cell(checks):
     """(c): the same net through ``build_train_step(...,
     compute_dtype="bfloat16")``, states from zeros each step (a TrainStep
     step takes (x, y)): the LSTM's output bf16 (a forward hook reads
-    it), launches exactly T * L forward and backward a step, losses
-    finite, ms/step and one profiled step."""
+    it), launches exactly L scan forward and backward a step (no cell
+    launch), losses finite, ms/step and one profiled step."""
     import torch
     from mxtpu_torch import kernels
     from mxtpu_torch.parallel import build_train_step
@@ -10064,8 +10633,8 @@ def lm_train_step_cell(checks):
     counts = kernels.launch_counts()
     n = LM_WINDOWS * LM_WINDOW
     check_launches(checks, tag, counts,
-                   {"lstm_cell_fwd": LM_STEPS * LM_LAYERS,
-                    "lstm_cell_bwd": LM_STEPS * LM_LAYERS}, n)
+                   {"lstm_scan_fwd": LM_LAYERS, "lstm_scan_bwd": LM_LAYERS},
+                   n)
     hook.remove()
     if seen != {"torch.bfloat16"}:
         checks.failed.append(f"{tag}: the LSTM ran in {seen}, not bf16")
@@ -10074,13 +10643,14 @@ def lm_train_step_cell(checks):
         checks.failed.append(f"{tag}: losses not finite: {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     x, y = lm_window(stream, LM_WARMUP + n)
-    bd = profiled_step(checks, tag, tstep, x, y)
+    bd = profiled_step(checks, tag, tstep, x, y,
+                       expect={"lstm_scan_fwd": LM_LAYERS,
+                               "lstm_scan_bwd": LM_LAYERS})
     ms = float(np.median(window_ms))
     print(f"{tag}: {ms:.3f} ms/step (windows "
           f"{[round(v, 3) for v in window_ms]}), "
           f"{LM_BATCH * LM_STEPS / (ms / 1e3):.0f} tokens/s, device "
-          f"{bd['device_busy_ms']:.3f} ms, idle share "
-          f"{bd['device_idle_share'] or 0:.4f}, peak {peak_gb:.3f} GB, "
+          f"{busy_line(bd)}, peak {peak_gb:.3f} GB, "
           f"LSTM output {sorted(seen)}; losses "
           f"{[round(v, 4) for v in losses]}; launches {json.dumps(counts)}",
           flush=True)
@@ -10171,11 +10741,18 @@ def bucketing_cell(checks):
 
 def rnn_phase(checks):
     """Phase 25 (see the module's docstring): returns the main path's
-    cell launches by dtype ({"float32": counts, "bfloat16": counts}),
-    the kernels line's rows and the numbers."""
+    launches by dtype ({"float32": the LM's f32 windows, "bfloat16":
+    TrainStep's, "past": {dtype: counts} of the shape past the scan's
+    limits}), the kernels line's rows and the numbers."""
     import torch
     t0 = time.perf_counter()
     rows = rnn_kernel_cell(checks)
+    scan_rows = rnn_scan_cell(checks)
+    steps = rnn_scan_step_costs()
+    witness = rnn_scan_witness(checks)
+    past_counts, past_witness = rnn_past_limits_cell(checks)
+    gc.collect()
+    torch.cuda.empty_cache()
     layer = rnn_layer_vs_cudnn(checks)
     torch.cuda.empty_cache()
     lstm_counts, lstm = lm_cell(checks, "lstm", LM_WINDOWS)
@@ -10192,9 +10769,13 @@ def rnn_phase(checks):
     print(f"rnn phase: {phase_s:.1f} s", flush=True)
     counts = {"float32": {k: lstm_counts[k] + gru_counts[k]
                           for k in lstm_counts},
-              "bfloat16": bf16_counts}
+              "bfloat16": bf16_counts, "past": past_counts}
+    rows.update(scan_rows)
     return counts, rows, {"kernels": {f"{n}[{d}]": r
                                       for (n, d), r in rows.items()},
+                          "scan_step_costs": steps,
+                          "bf16_witness": {"scans": witness,
+                                           "past_limits": past_witness},
                           "layer_vs_cudnn": layer, "lm_lstm_f32": lstm,
                           "lm_lstm_bf16_train_step": bf16,
                           "lm_gru_f32": gru, "bucketing": bucketing,
@@ -11152,15 +11733,32 @@ def main():
            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms")}})
 
-    # phase 25: the cell kernels (no TPU kernel: XLA fuses mxtpu's scan
-    # body) at the LM's step shape (N 20, H 1500), with the launches of
-    # the LM's f32 Gluon windows and the GRU window (f32) and of the
-    # TrainStep bf16 windows (bf16)
+    # phase 25: the scan kernels (no TPU kernel: mxtpu's recurrence is a
+    # lax.scan) at the LM's shape (T 35, N 20, H 1500), with the launches
+    # of the LM's f32 Gluon windows and the GRU window (f32) and of the
+    # TrainStep bf16 windows (bf16); the cell kernels in bf16 (the f32
+    # ones are on no main path) at the step shape of the RNN op's run
+    # past the scan's limits (RNN_PAST), with that run's launches
     for dt in ("float32", "bfloat16"):
-        for name in ("lstm_cell_fwd", "lstm_cell_bwd", "gru_cell_fwd",
-                     "gru_cell_bwd"):
+        for name in ("lstm_scan_fwd", "lstm_scan_bwd", "gru_scan_fwd",
+                     "gru_scan_bwd"):
             launches = rnn_counts[dt].get(name, 0)
             if dt == "bfloat16" and name.startswith("gru"):
+                continue
+            if launches == 0:
+                checks.failed.append(f"kernel {name} [{dt}] never launched "
+                                     f"on the rnn path")
+            line["kernels"].append({
+                "name": name, "route": "cuda", "source": RNN_SCAN_SRC,
+                "replaces": RNN_REPLACES, "dtype": dt, "path": "rnn",
+                "launches": launches,
+                **{k: rnn_rows[(name, dt)][k]
+                   for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}})
+        for name in ("lstm_cell_fwd", "lstm_cell_bwd", "gru_cell_fwd",
+                     "gru_cell_bwd"):
+            launches = rnn_counts["past"][dt].get(name, 0)
+            if (name[:name.index("_")], dt) not in RNN_PAST:
                 continue
             if launches == 0:
                 checks.failed.append(f"kernel {name} [{dt}] never launched "
@@ -11217,6 +11815,8 @@ def main():
                                rnn_counts["float32"],
                            "rnn bf16 (LM lstm TrainStep)":
                                rnn_counts["bfloat16"],
+                           **{f"rnn {d} (RNN op past the scan's limits)": c
+                              for d, c in rnn_counts["past"].items()},
                            "moe bench (MoEFFN.apply)": moe_counts,
                            "resnet20 fit": sym_counts,
                            "resnet20 rtc head": sym_rtc,

@@ -16,8 +16,11 @@
 // threads on neighbouring addresses in each), all arithmetic in f32
 // (expf / tanhf), inputs and outputs f32 or bf16.  The activated gates
 // are saved in f32 whatever the type, so the bf16 backward rounds only
-// its inputs and outputs.  A persistent kernel that keeps W_h2h and the
-// state on chip across steps is later work.
+// its inputs and outputs.  The RNN op now runs the whole recurrence of a
+// layer and direction as one persistent launch that keeps W_h2h and the
+// state on chip across steps (csrc/rnn_scan.cu) wherever that kernel's
+// limits allow; these per-step kernels serve the shapes past them (a
+// bf16 weight slice over a CTA's shared memory).
 //
 // Layouts (row-major, contiguous, checked by the wrapper):
 //   LSTM forward:  pre, hh (N, 4H) gates [i, f, g, o]; c_prev (N, H) ->

@@ -7,8 +7,9 @@ Parameters are stored per layer and direction (``l0_i2h_weight``,
 ``r0_h2h_bias``, ...), so ``save_parameters`` writes mxtpu's structural
 names, and ``hybrid_forward`` concatenates them into the op's flat
 vector in mxtpu's order: weights by (layer, direction), then biases.
-The op runs the cell kernel a step on the card
-(:mod:`mxtpu_torch.ndarray.rnn_impl`).
+On the card the op runs each LSTM or GRU layer and direction as one
+persistent scan launch each way (per-step cell kernels past that
+kernel's limits; :mod:`mxtpu_torch.ndarray.rnn_impl`).
 
 Without states the eager call starts from zeros on the input's device,
 in its type.  On a Symbol the zero states become graph inputs named

@@ -19,11 +19,13 @@ refuses inputs that require grad on every device.  ``nms.nms_keep``
 returns a bool mask and has no gradient.  ``rnn_cell.lstm_cell`` and
 ``rnn_cell.gru_cell`` (the fused RNN op's step, which ports no TPU
 kernel either) run through autograd Functions whose backward is the
-backward kernel.  ``moe.route_tokens``, ``moe.dispatch_tokens`` and
-``moe.combine_tokens`` (Switch-MoE routing, which ports no TPU kernel:
-mxtpu routes with dense one-hot einsums) run through autograd Functions
-whose dispatch and combine backwards are kernels and whose router
-backward is torch ops.
+backward kernel; ``rnn_scan.lstm_scan`` and ``rnn_scan.gru_scan`` (the
+op's whole recurrence of a layer and direction, one persistent launch
+forward and one backward) likewise.  ``moe.route_tokens``,
+``moe.dispatch_tokens`` and ``moe.combine_tokens`` (Switch-MoE routing,
+which ports no TPU kernel: mxtpu routes with dense one-hot einsums) run
+through autograd Functions whose dispatch and combine backwards are
+kernels and whose router backward is torch ops.
 The raw wrappers (``flash_forward``, ``layer_norm_fwd``,
 ``fused_residual_ln_fwd``, ``bn_fwd``, ``bn_bwd`` and the like) keep
 no graph, so on the card they refuse inputs that require grad
@@ -137,6 +139,7 @@ def _modules():
     conv = importlib.import_module(__name__ + ".conv")
     nms = importlib.import_module(__name__ + ".nms")
     rnn = importlib.import_module(__name__ + ".rnn_cell")
+    scan = importlib.import_module(__name__ + ".rnn_scan")
     moe = importlib.import_module(__name__ + ".moe")
     return {"flash_attention_fwd": (fa, "LAUNCHES"),
             "flash_attention_bwd_dq": (fa, "DQ_LAUNCHES"),
@@ -155,6 +158,10 @@ def _modules():
             "lstm_cell_bwd": (rnn, "LSTM_BWD_LAUNCHES"),
             "gru_cell_fwd": (rnn, "GRU_FWD_LAUNCHES"),
             "gru_cell_bwd": (rnn, "GRU_BWD_LAUNCHES"),
+            "lstm_scan_fwd": (scan, "LSTM_SCAN_FWD_LAUNCHES"),
+            "lstm_scan_bwd": (scan, "LSTM_SCAN_BWD_LAUNCHES"),
+            "gru_scan_fwd": (scan, "GRU_SCAN_FWD_LAUNCHES"),
+            "gru_scan_bwd": (scan, "GRU_SCAN_BWD_LAUNCHES"),
             "moe_route": (moe, "ROUTE_LAUNCHES"),
             "moe_dispatch": (moe, "DISPATCH_LAUNCHES"),
             "moe_dispatch_bwd": (moe, "DISPATCH_BWD_LAUNCHES"),

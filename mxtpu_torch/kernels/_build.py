@@ -48,7 +48,7 @@ BUILD_DIR = PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "layer_norm",
            "layer_norm_bwd", "fused_residual_ln", "fused_residual_ln_bwd",
            "batch_norm", "batch_norm_bwd", "conv_nhwc", "nms", "rnn_cell",
-           "moe")
+           "moe", "rnn_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

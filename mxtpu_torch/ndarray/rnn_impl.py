@@ -5,13 +5,20 @@
 bidirectional, over cuDNN's flat parameter vector (weights by (layer,
 direction), then biases; ``rnn_param_size``, ``_slice_params``).  The
 i2h product of every step is hoisted into one GEMM a layer and
-direction, as ``_rnn_impl`` does; ``lax.scan`` becomes a Python loop
-over T whose step is a GEMM (``h . W_h2h^T``) and, for LSTM and GRU,
-one launch of the cell kernel (``kernels/rnn_cell.py``) on a CUDA
-tensor, its plain version on the CPU.  The two products are plain
-matrix products outside any Pallas kernel in mxtpu, so they are torch
-calls here.  The Elman modes' step is an add and an activation in
-torch.  Inter-layer dropout draws its mask from
+direction, as ``_rnn_impl`` does.  For LSTM and GRU ``lax.scan``
+becomes one autograd Function over the direction
+(``kernels/rnn_scan.py``): on a CUDA tensor one persistent launch runs
+every step forward (W_h2h's slice, or in f32 the share of it that
+fits, kept on chip, the state exchanged between CTAs through a
+grid-wide barrier a step, a batch past 32 rows in chunks) and one every
+step backward, then dW_h2h is one GEMM; on the CPU its plain version,
+the per-step loop.  A CUDA shape past the persistent kernel's limits (a
+bf16 W slice over a CTA's shared memory) takes a Python loop
+over T whose step is a GEMM (``h . W_h2h^T``) and one launch of the
+cell kernel (``kernels/rnn_cell.py``).  The i2h and dW products are
+plain matrix products outside any Pallas kernel in mxtpu, so they are
+torch calls here.  The Elman modes' step is a GEMM, an add and an
+activation in torch.  Inter-layer dropout draws its mask from
 ``mxtpu_torch.random``'s generator of the data's device, as ``Dropout``
 does; the trailing key input keeps mxtpu's signature and its words are
 not read.
@@ -32,8 +39,10 @@ import torch
 
 from .. import random as _random
 from ..base import MXNetError
+from .. import kernels as _kernels
 from ..kernels import flash_attention as _flash
 from ..kernels import rnn_cell as _cell
+from ..kernels import rnn_scan as _scan
 from ..ops.registry import Param, register_op
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
@@ -81,7 +90,21 @@ def _slice_params(params, num_layers, input_size, state_size, dirs, gates):
 def _scan_dir(pre, h0, c0, w_h2h, b_rn, mode, reverse):
     """One direction of one layer.  ``pre``: (T, N, G*H), the hoisted
     i2h product with its biases; returns (outputs (T, N, H), h_T,
-    c_T)."""
+    c_T).  LSTM and GRU run as one ``kernels/rnn_scan.py`` Function
+    over the direction (the persistent kernels on a CUDA tensor within
+    their limits, the plain scan on the CPU) unless
+    ``rnn_scan.scan_path`` sends a CUDA shape past those limits to the
+    per-step loop below, a GEMM and a cell kernel a step."""
+    T, N, GH = pre.shape
+    if mode in ("lstm", "gru"):
+        H = GH // _GATES[mode]
+        sms = _kernels.sm_count(pre.device) if pre.is_cuda else 0
+        if _scan.scan_path(pre.device.type, pre.dtype, N, H, mode,
+                           sms) != "cell":
+            if mode == "lstm":
+                return _scan.lstm_scan(pre, h0, c0, w_h2h, reverse)
+            ys, h = _scan.gru_scan(pre, h0, w_h2h, b_rn, reverse)
+            return ys, h, None
     steps = pre.unbind(0)
     order = range(len(steps) - 1, -1, -1) if reverse else range(len(steps))
     h, c = h0, c0

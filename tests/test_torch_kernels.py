@@ -235,6 +235,10 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
                                   "lstm_cell_bwd": 0,
                                   "gru_cell_fwd": 0,
                                   "gru_cell_bwd": 0,
+                                  "lstm_scan_fwd": 0,
+                                  "lstm_scan_bwd": 0,
+                                  "gru_scan_fwd": 0,
+                                  "gru_scan_bwd": 0,
                                   "moe_route": 0,
                                   "moe_dispatch": 0,
                                   "moe_dispatch_bwd": 0,
